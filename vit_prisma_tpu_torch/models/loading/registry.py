@@ -1,0 +1,40 @@
+"""Model registry (PyTorch port of
+``vit_prisma_tpu/models/loading/registry.py``).
+
+Only the slice's model is registered so far: OpenAI CLIP ViT-B/32's vision
+tower, its values copied from the JAX registry.  The other entries, and
+loading real weights, wait for ROADMAP queue A, item 4.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+from vit_prisma_tpu_torch.configs.vit_config import ViTConfig
+
+MODEL_CONFIGS: Dict[str, Dict[str, Any]] = {
+    # eps 1e-6 matches the reference registry entry, which overrides the HF
+    # default.
+    "openai/clip-vit-base-patch32": dict(
+        d_model=768, n_layers=12, n_heads=12, d_head=64, d_mlp=3072,
+        patch_size=32, image_size=224, n_classes=512,
+        activation_name="quick_gelu", layer_norm_pre=True,
+        normalization_type="LN", eps=1e-6, return_type="class_logits",
+        normalize_output=False),
+}
+
+
+def get_model_config(model_name: str, model_type: str = "vision",
+                     **overrides) -> ViTConfig:
+    """Resolve a config for ``model_name``, offline."""
+    if model_type == "text":
+        raise NotImplementedError(
+            "text-tower configs are not ported yet (ROADMAP queue A, item 12)")
+    if model_name not in MODEL_CONFIGS:
+        raise NotImplementedError(
+            f"{model_name!r} is not in the port's registry yet (ROADMAP queue "
+            "A, item 4)")
+    base = dict(MODEL_CONFIGS[model_name])
+    base.setdefault("model_name", model_name)
+    base.update(overrides)
+    return ViTConfig(**base)

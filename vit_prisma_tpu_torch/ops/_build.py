@@ -1,0 +1,102 @@
+"""Build and load the package's CUDA kernels.
+
+Every ``*.cu`` file under ``vit_prisma_tpu_torch/csrc`` is compiled by
+``nvcc`` into one shared library with a plain C interface, which the kernel
+wrappers call through ``ctypes``.  The library is built at first use into
+``csrc/build/<hash of the sources and flags>/``, so an edited source builds
+anew, and an ``fcntl`` lock keeps concurrent processes from building the same
+library twice.  Nothing is compiled when the package is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = CSRC / "build"
+LIB_NAME = "libvpt_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        candidate = os.path.join(cuda_home, "bin", "nvcc")
+        if not os.path.exists(candidate):
+            raise RuntimeError(
+                "nvcc not found on PATH or under CUDA_HOME "
+                f"({cuda_home}); the CUDA kernels cannot be built")
+        nvcc = candidate
+    return nvcc
+
+
+def build_dir() -> Path:
+    """The directory the current sources build into."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the library if the current sources have not been built yet;
+    return its path.  The compiler's output (``-Xptxas -v``: registers,
+    shared memory and spills per kernel) is kept in ``nvcc.log`` beside it.
+    Raises ``RuntimeError`` with nvcc's stderr when the build fails."""
+    out_dir = build_dir()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if lib.exists():  # built by another process while we waited
+                return lib
+            tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   *map(str, _sources())]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            (out_dir / "nvcc.log").write_text(proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                    f"{proc.stderr}")
+            os.replace(tmp, lib)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return lib
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build if needed, load, and declare the C signatures."""
+    lib = ctypes.CDLL(str(build()))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.attention_mix_tnh_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.attention_mix_tnh_fwd.restype = i
+    lib.vpt_cuda_error_string.argtypes = [i]
+    lib.vpt_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a launcher returned a CUDA error code."""
+    if rc != 0:
+        msg = lib.vpt_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
