@@ -1,9 +1,11 @@
 """Model registry (PyTorch port of
 ``vit_prisma_tpu/models/loading/registry.py``).
 
-Only the slice's model is registered so far: OpenAI CLIP ViT-B/32's vision
-tower, its values copied from the JAX registry.  The other entries, and
-loading real weights, wait for ROADMAP queue A, item 4.
+Only the port's slices' models are registered so far, their values copied
+from the configs the JAX registry resolves: OpenAI CLIP ViT-B/32's vision
+tower, and the DataComp.XL ViT-B/32 that ``SAERunnerConfig`` trains on by
+default.  The other entries, and loading real weights, wait for ROADMAP
+queue A, item 4.
 """
 
 from __future__ import annotations
@@ -21,6 +23,14 @@ MODEL_CONFIGS: Dict[str, Dict[str, Any]] = {
         activation_name="quick_gelu", layer_norm_pre=True,
         normalization_type="LN", eps=1e-6, return_type="class_logits",
         normalize_output=False),
+    # open_clip's ViT-B-32 vision tower: exact GELU, LN eps 1e-5, and a
+    # unit-normalized image embedding.
+    "open-clip:laion/CLIP-ViT-B-32-DataComp.XL-s13B-b90K": dict(
+        d_model=768, n_layers=12, n_heads=12, d_head=64, d_mlp=3072,
+        patch_size=32, image_size=224, n_classes=512,
+        activation_name="gelu", layer_norm_pre=True,
+        normalization_type="LN", eps=1e-5, return_type="class_logits",
+        normalize_output=True),
 }
 
 

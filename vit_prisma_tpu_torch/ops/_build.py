@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
-Every ``*.cu`` file under ``vit_prisma_tpu_torch/csrc`` is compiled by
-``nvcc`` into one shared library with a plain C interface, which the kernel
-wrappers call through ``ctypes``.  The library is built at first use into
+Every ``*.cu`` file under ``vit_prisma_tpu_torch/csrc`` is compiled by its
+own ``nvcc`` process, all started together, and the objects are linked into
+one shared library with a plain C interface, which the kernel wrappers call
+through ``ctypes``.  The library is built at first use into
 ``csrc/build/<hash of the sources and flags>/``, so an edited source builds
 anew, and an ``fcntl`` lock keeps concurrent processes from building the same
 library twice.  Nothing is compiled when the package is imported.
@@ -23,7 +24,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = CSRC / "build"
 LIB_NAME = "libvpt_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _sources():
@@ -52,11 +53,20 @@ def build_dir() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
+def _run_all(cmds):
+    """Start every command at once; wait for all.  Returns (returncode,
+    stdout + stderr) per command, in order."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    return [(p.returncode, out) for p, out in zip(procs, outs)]
+
+
 def build() -> Path:
     """Compile the library if the current sources have not been built yet;
-    return its path.  The compiler's output (``-Xptxas -v``: registers,
+    return its path.  The compilers' output (``-Xptxas -v``: registers,
     shared memory and spills per kernel) is kept in ``nvcc.log`` beside it.
-    Raises ``RuntimeError`` with nvcc's stderr when the build fails."""
+    Raises ``RuntimeError`` with nvcc's output when a build step fails."""
     out_dir = build_dir()
     lib = out_dir / LIB_NAME
     if lib.exists():
@@ -67,16 +77,24 @@ def build() -> Path:
         try:
             if lib.exists():  # built by another process while we waited
                 return lib
+            nvcc = _nvcc()
+            objs = [out_dir / f"{src.stem}.{os.getpid()}.o" for src in _sources()]
+            cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                    for src, o in zip(_sources(), objs)]
             tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *map(str, _sources())]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            (out_dir / "nvcc.log").write_text(proc.stdout + proc.stderr)
-            if proc.returncode != 0:
+            link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+            results = _run_all(cmds)
+            if all(rc == 0 for rc, _ in results):
+                results += _run_all([link])
+            log = "".join(f"$ {' '.join(c)}\n{out}" for c, (_, out)
+                          in zip(cmds + [link], results))
+            (out_dir / "nvcc.log").write_text(log)
+            for o in objs:
+                o.unlink(missing_ok=True)
+            failed = [(c, rc) for c, (rc, _) in zip(cmds + [link], results) if rc]
+            if failed or len(results) != len(cmds) + 1:
                 tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                    f"{proc.stderr}")
+                raise RuntimeError(f"nvcc failed ({failed}):\n{log}")
             os.replace(tmp, lib)
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
@@ -87,9 +105,14 @@ def build() -> Path:
 def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare the C signatures."""
     lib = ctypes.CDLL(str(build()))
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.attention_mix_tnh_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
     lib.attention_mix_tnh_fwd.restype = i
+    lib.take_rows.argtypes = [p, p, p, ll, ll, i, i, i, p]
+    lib.take_rows.restype = i
+    lib.adam_update.argtypes = [p, p, p, p, p, p, p, p, i, ll, ll,
+                                f, f, f, f, f, i, i, i, p]
+    lib.adam_update.restype = i
     lib.vpt_cuda_error_string.argtypes = [i]
     lib.vpt_cuda_error_string.restype = ctypes.c_char_p
     return lib
