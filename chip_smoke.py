@@ -29,7 +29,22 @@ Phases, each printing JSON lines with the card's name and power limit:
    per second and peak device memory are printed;
 6. step check: from the trained state, three steps on three batches on the
    card and on the CPU in float32; grads, params, moments and counters are
-   compared.
+   compared;
+7. SAE kernels: B4 (``sae_fused_forward``), B5 (``sae_fused_backward``) and
+   B6 (``sae_fused_backward_stored``) against their plain versions at the
+   all-layer sweep's shape in bfloat16 (24 SAEs, batch 4096, 1024 -> 8192)
+   and at two layers in float32, with times and TFLOP/s; then B4+B6 against
+   B4+B5 through ``sae_fused_apply`` at the sweep's shape in both dtypes,
+   times and peak memory, the measurement behind always keeping hc;
+8. sweep: the third main path, the CLIP ViT-L/14 24-SAE sweep of the JAX
+   package's benchmark (bf16 model with random weights, 96 random float32
+   images on the card): ``HookedViT`` -> sweep ``VisionActivationsStore`` ->
+   ``SAESweepTrainer.run(max_steps=18)`` -> ``train_cycles(2)``, then one
+   cycle with ``fused_store_acts=False`` (the remat backward, B5).  Launch
+   counts exact; SAE-tokens per second and peak memory;
+9. sweep step check: three fused steps against three steps of the generic
+   per-layer path from one state, in bfloat16 at 24 layers and in float32
+   at two.
 
 It imports no JAX, catches no failure, and exits non-zero when there is no
 CUDA card or any check fails.  The last line is
@@ -51,6 +66,11 @@ TAKE_ROWS_SOURCE = "vit_prisma_tpu_torch/csrc/take_rows.cu"
 TAKE_ROWS_REPLACES = "vit_prisma_tpu/ops/shuffle.py:63"
 ADAM_SOURCE = "vit_prisma_tpu_torch/csrc/adam_update.cu"
 ADAM_REPLACES = "vit_prisma_tpu/ops/opt_step.py:85"
+SAE_FWD_SOURCE = "vit_prisma_tpu_torch/csrc/sae_fused_fwd.cu"
+SAE_BWD_SOURCE = "vit_prisma_tpu_torch/csrc/sae_fused_bwd.cu"
+SAE_REPLACES = {"sae_fused_forward": "vit_prisma_tpu/ops/sae_step.py:148",
+                "sae_fused_backward": "vit_prisma_tpu/ops/sae_step.py:250",
+                "sae_fused_backward_stored": "vit_prisma_tpu/ops/sae_step.py:389"}
 # Kernel against plain, elementwise max abs error (inputs ~N(0,1)): float32
 # differs only in summation order; bfloat16 may round p or z one ulp apart.
 KERNEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
@@ -120,6 +140,60 @@ STEP_SWITCHED_MOMENT_REL = 2e-2
 # where such a switch was its one activation.
 STEP_EXACT = ("adam_count", "schedule_count", "step", "n_training_tokens",
               "n_frac_active_tokens")
+# B4-B6 against their plain versions: name, L, B, d_in, d_sae, dtype.
+SAE_STEP_SHAPES = [("sweep_bf16", 24, 4096, 1024, 8192, torch.bfloat16),
+                   ("two_layers_f32", 2, 4096, 1024, 8192, torch.float32)]
+# Kept hc (B6) against recomputed hc (B5), timed through sae_fused_apply in
+# bfloat16 and float32 at the sweep's shape: L, B, d_in, d_sae.
+SAVE_ACTS_SHAPE = (24, 4096, 1024, 8192)
+# Kernel and plain version multiply the same c-typed operands with float32
+# accumulation, in other summation orders.  So:
+# * a pre-activation within float32 rounding of 0 may switch its ReLU: such
+#   entries are counted; nact must equal the kernel's own mask count
+#   exactly, and the plain nact within the switches of each feature;
+# * bfloat16 hc and y may round one ulp apart: within 2^-7 of the tensor's
+#   absmax (two ulps); float32 within 1e-5 of it (reordered sums of up to
+#   8,192 terms); l1 within 1e-5 relative;
+# * the grads, relative to each tensor's absmax, outside the features with a
+#   switched ReLU: 2e-3 in bfloat16 (dh rounds to bf16 one ulp apart where
+#   its float32 value moved), 1e-5 in float32; inside them B5's grads differ
+#   by the switched rows' terms, held within 5e-2.
+SAE_REL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
+SAE_GRAD_REL = {torch.bfloat16: 2e-3, torch.float32: 1e-5}
+SAE_SWITCHED_GRAD_REL = 5e-2
+SAE_L1_REL = 1e-5
+# The sweep: the JAX package's BASELINE config 5 (bench.py:189-214) with the
+# port's L/14 registry entry in bfloat16 (random weights, seed 0) and 96
+# random float32 images on the card instead of the uint8 wire (queue A, item
+# 6), and its metrics read every 3 steps.  K = 6 steps per dispatch span one
+# half-buffer.
+SWEEP_MODEL = "openai/clip-vit-large-patch14"
+SWEEP_IMAGES = 96
+SWEEP_STEPS = 18
+SWEEP_CYCLES = 2
+SWEEP_CHECK_LAYERS = {torch.bfloat16: 24, torch.float32: 2}
+# Every layer must fire at the first read, and every layer but these at
+# every read.  On these random weights layers 3-7 stop firing within 30
+# steps: from one initial state on the same rows, the fused bf16 step, the
+# generic per-layer bf16 step and the fused float32 step lose these same
+# layers, with L0 per layer within 1.2% of each other over the first 9
+# steps and within 16% (0.12 where below 1) up to step 48 (PERF.md).  In
+# this phase's 30 steps the others stay above 0, lowest layer 2 at 0.015 by
+# step 30, and repeated runs read the same values bit for bit.
+SWEEP_L0_EXEMPT = (3, 4, 5, 6, 7)
+# Fused against generic sweep steps (the JAX package's
+# test_fused_step_matches_generic, here on the card at full width).
+# float32: the two paths differ by summation order only; params within that
+# test's 2e-5, step-1 metrics within 2e-4 relative.  bfloat16: the generic
+# path rounds hpre, h and y to bf16 where the kernels keep float32, so the
+# step-1 metrics (one bf16 rounding of each term, 2^-8 relative) agree
+# within 5e-3 relative.  A gradient whose sign differs moves a weight 2 lr
+# (2e-3) the other way per step, so after 3 steps a weight is at most 6 lr
+# off; such flips are rare, and 99.9% of each tensor's weights stay within
+# 5% of lr (5e-5).
+SWEEP_CHECK_TOL = {
+    torch.float32: {"param_max": 2e-5, "param_p999": 2e-5, "step1_metric_rel": 2e-4},
+    torch.bfloat16: {"param_max": 6e-3, "param_p999": 5e-5, "step1_metric_rel": 5e-3}}
 
 
 def RESID_POST(name: str) -> bool:
@@ -409,10 +483,10 @@ def _time_refills(store):
     """Wall time of each refill (harvest + mix), synchronized."""
     times, inner = [], store._refill_half
 
-    def refill():
+    def refill(*args, **kwargs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        inner()
+        inner(*args, **kwargs)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     store._refill_half = refill
@@ -577,6 +651,385 @@ def check_steps(grad_errs, errs, scales, flips, switched, got, want):
                              f"ReLU switches; {fired} fired counters differ")
 
 
+def _sae_inputs(g, L, B, D, S, dtype):
+    """Inputs shaped like a sweep step's: unit-scale activations, weights of
+    the SAE init's scale (rows of norm about 1), a loss gradient dy."""
+    r = lambda *shape, sc=1.0: (torch.randn(*shape, generator=g, device="cuda") * sc).to(dtype)
+    return (r(L, B, D), r(L, D, S, sc=D ** -0.5), r(L, S, sc=0.01), r(L, S, D, sc=D ** -0.5),
+            r(L, D, sc=0.1), r(L, B, D, sc=1e-3),
+            torch.rand(L, generator=g, device="cuda") * 1e-3)
+
+
+def _grad_errs(name, got, want, switched, dtype):
+    """Max abs errors of (dW_enc, dW_dec, db_enc) outside and inside the
+    features whose ReLU switched; raises past the bounds."""
+    errs = {}
+    for k, a, b in zip(("dW_enc", "dW_dec", "db_enc"), got, want):
+        d = (a - b).abs()
+        scale = b.abs().max().item()
+        # the feature axis: last for dW_enc [L, D, S] and db_enc [L, S], the
+        # middle for dW_dec [L, S, D]
+        sw = switched[:, None, :] if k == "dW_enc" else (
+            switched[:, :, None] if k == "dW_dec" else switched)
+        sw = sw.expand_as(d)
+        clean = d[~sw].max().item() if (~sw).any() else 0.0
+        dirty = d[sw].max().item() if sw.any() else 0.0
+        errs[k] = {"unswitched": clean, "switched": dirty, "absmax": scale}
+        if not (clean <= SAE_GRAD_REL[dtype] * scale and dirty <= SAE_SWITCHED_GRAD_REL * scale):
+            raise AssertionError(f"{name} {k}: {errs[k]}")
+    return errs
+
+
+def phase_sae_step_kernels(info):
+    """B4, B5 and B6 against their plain versions at the sweep's shapes."""
+    from vit_prisma_tpu_torch.ops import sae_step as S
+    g = torch.Generator(device="cuda").manual_seed(4)
+    results = {}
+    for name, L, B, D, Sd, dtype in SAE_STEP_SHAPES:
+        x, We, be, Wd, bd, dy, dl1 = _sae_inputs(g, L, B, D, Sd, dtype)
+        y, l1, nact, hc = S.sae_fused_forward(x, We, be, Wd, bd, save_h=True)
+        torch.cuda.synchronize()
+        yr, l1r, nactr, hcr = S.sae_fused_forward_reference(x, We, be, Wd, bd, save_h=True)
+        mask = hc.float() > 0
+        mask_plain = (S._mm(x - bd[:, None], We) + be.float()[:, None]) > 0
+        flip = mask != mask_plain
+        switched = flip.any(dim=1)  # [L, S]
+        per_feature = flip.sum(dim=1, dtype=torch.float32)
+        own_count = mask.sum(dim=1, dtype=torch.float32)
+        fwd = {"y": check_close(f"{name} y", y, yr, rel_atol(SAE_REL[dtype], yr)),
+               "hc": check_close(f"{name} hc", hc, hcr, rel_atol(SAE_REL[dtype], hcr)),
+               "l1_rel": ((l1 - l1r).abs() / l1r.abs()).max().item(),
+               "relu_switches": int(flip.sum()),
+               "nact_minus_own_mask": (nact - own_count).abs().max().item(),
+               "nact_abs_diff_sum": (nact - nactr).abs().sum().item()}
+        if not (fwd["l1_rel"] <= SAE_L1_REL and fwd["nact_minus_own_mask"] == 0
+                and bool(((nact - nactr).abs() <= per_feature).all())):
+            raise AssertionError(f"{name} forward: {fwd}")
+        del yr, hcr, mask, mask_plain, flip
+        bwd = {
+            "sae_fused_backward_stored": _grad_errs(
+                f"{name} B6", S.sae_fused_backward_stored(x, hc, Wd, bd, dy, dl1),
+                S.sae_fused_backward_stored_reference(x, hc, Wd, bd, dy, dl1),
+                torch.zeros_like(switched), dtype),
+            "sae_fused_backward": _grad_errs(
+                f"{name} B5", S.sae_fused_backward(x, We, be, Wd, bd, dy, dl1),
+                S.sae_fused_backward_reference(x, We, be, Wd, bd, dy, dl1), switched, dtype)}
+        flop = 2 * L * B * D * Sd
+        ms = lambda fn, it: cuda_us(fn, iters=it, warmup=1) / 1000.0
+        calls = {
+            "sae_fused_forward": (lambda: S.sae_fused_forward(x, We, be, Wd, bd, save_h=True),
+                                  lambda: S.sae_fused_forward_reference(x, We, be, Wd, bd, True),
+                                  2 * flop),
+            "sae_fused_backward_stored": (
+                lambda: S.sae_fused_backward_stored(x, hc, Wd, bd, dy, dl1),
+                lambda: S.sae_fused_backward_stored_reference(x, hc, Wd, bd, dy, dl1), 3 * flop),
+            "sae_fused_backward": (
+                lambda: S.sae_fused_backward(x, We, be, Wd, bd, dy, dl1),
+                lambda: S.sae_fused_backward_reference(x, We, be, Wd, bd, dy, dl1), 4 * flop)}
+        for kernel, (fn, plain, n_flop) in calls.items():
+            t, plain_t = ms(fn, 5), ms(plain, 2)
+            err = (fwd["y"] if kernel == "sae_fused_forward" else
+                   max(e["unswitched"] for e in bwd[kernel].values()))
+            rec = {"phase": "kernel", **info, "kernel": kernel, "shape": name,
+                   "L": L, "B": B, "d_in": D, "d_sae": Sd, "dtype": str(dtype).split(".")[1],
+                   "max_abs_err": err, "ms": t, "plain_ms": plain_t,
+                   "TFLOP": n_flop / 1e12, "TFLOP_per_s": n_flop / t / 1e9,
+                   "plain_TFLOP_per_s": n_flop / plain_t / 1e9}
+            if kernel == "sae_fused_forward":
+                rec["forward"] = fwd
+            else:
+                rec["grad_errs"] = bwd[kernel]
+            results[(kernel, name)] = rec
+            emit(rec)
+        del x, We, be, Wd, bd, dy, y, hc
+        torch.cuda.empty_cache()
+    for dtype in (torch.bfloat16, torch.float32):
+        emit({"phase": "save_acts", **info, **_stored_against_remat(g, S, dtype)})
+    return results
+
+
+def _stored_against_remat(g, S, dtype):
+    """``sae_fused_apply``'s forward and backward at the sweep shape with
+    hc kept (B4 + B6) and recomputed (B4 + B5): CUDA-event time and peak
+    memory above the inputs.  The measurement behind storing always."""
+    L, B, D, Sd = SAVE_ACTS_SHAPE
+    x, We, be, Wd, bd, dy, dl1 = _sae_inputs(g, L, B, D, Sd, dtype)
+    params = [p.requires_grad_(True) for p in (We, be, Wd, bd)]
+
+    def step(save_acts):
+        y, l1, _ = S.sae_fused_apply(x, *params, save_acts=save_acts)
+        return torch.autograd.grad((y, l1), params, (dy, dl1))
+    out = {"L": L, "B": B, "d_in": D, "d_sae": Sd, "dtype": str(dtype).split(".")[1],
+           "hc_GB": L * B * Sd * x.element_size() / 1e9}
+    for save_acts, key in ((True, "B4_plus_B6"), (False, "B4_plus_B5")):
+        step(save_acts)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step(save_acts)
+        out[f"{key}_peak_GB_above_inputs"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        out[f"{key}_ms"] = cuda_us(lambda: step(save_acts), iters=3, warmup=0) / 1000.0
+    out["stored_faster"] = out["B4_plus_B6_ms"] < out["B4_plus_B5_ms"]
+    del x, We, be, Wd, bd, dy, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def sweep_config():
+    from vit_prisma_tpu_torch.sae import SAERunnerConfig
+    return SAERunnerConfig(
+        model_name=SWEEP_MODEL, d_in=1024, expansion_factor=8, context_size=257,
+        sweep_layers=tuple(range(24)), layer_subtype="hook_resid_post",
+        store_batch_size=48, n_batches_in_buffer=2, train_batch_size=4096,
+        steps_per_dispatch=6, compute_dtype="bfloat16", lr=1e-3,
+        lr_scheduler_name="constant", b_dec_init_method="zeros",
+        log_to_wandb=False, buffer_tokens_override=49_152, wandb_log_frequency=3)
+
+
+def _sae_counters():
+    from vit_prisma_tpu_torch.ops.attention import attention_mix_tnh
+    from vit_prisma_tpu_torch.ops.opt_step import adam_update
+    from vit_prisma_tpu_torch.ops.sae_step import (sae_fused_backward,
+                                                   sae_fused_backward_stored,
+                                                   sae_fused_forward)
+    from vit_prisma_tpu_torch.ops.shuffle import take_rows
+    return {f.__name__: f for f in (attention_mix_tnh, take_rows, sae_fused_forward,
+                                    sae_fused_backward, sae_fused_backward_stored,
+                                    adam_update)}
+
+
+def _zero_counts(counters):
+    for f in counters.values():
+        f.launches = 0
+
+
+def _check_sweep_metrics(metrics_list, layers):
+    """Finite loss, L0 and EV for every layer, and L0 > 0 at every read for
+    every layer outside ``SWEEP_L0_EXEMPT``."""
+    for vals in metrics_list:
+        for k in ("loss", "l0", "explained_variance"):
+            if len(vals[k]) != len(layers) or not all(math.isfinite(v) for v in vals[k]):
+                raise AssertionError(f"{k}: {vals[k]}")
+        if not all(v > 0 for l, v in zip(layers, vals["l0"]) if l not in SWEEP_L0_EXEMPT):
+            raise AssertionError(f"L0 {vals['l0']} (layers {SWEEP_L0_EXEMPT} exempt)")
+
+
+def phase_sweep(info):
+    """The slice's main path: the L/14 24-SAE sweep on the card."""
+    from vit_prisma_tpu_torch import HookedViT, get_model_config
+    from vit_prisma_tpu_torch.sae import SAESweepTrainer, VisionActivationsStore
+    cfg = sweep_config()
+    L = len(cfg.sweep_layers)
+    model = HookedViT(get_model_config(SWEEP_MODEL, dtype="bfloat16"), device="cuda",
+                      generator=torch.Generator().manual_seed(0))
+    images = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (SWEEP_IMAGES, 3, cfg.image_size, cfg.image_size), dtype=np.float32)).to("cuda")
+    counters = _sae_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # The main path, with every count set to 0 just before it.
+    _zero_counts(counters)
+    t0 = time.perf_counter()
+    store = VisionActivationsStore(cfg, model, images)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    trainer = SAESweepTrainer(cfg, model, store)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0 - fill_s
+    refills = _time_refills(store)
+    log = _record_logs(trainer)
+    t1 = time.perf_counter()
+    saes = trainer.run(max_steps=SWEEP_STEPS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    run_refills = len(refills)
+    t2 = time.perf_counter()
+    cycle_metrics = trainer.train_cycles(SWEEP_CYCLES)
+    torch.cuda.synchronize()
+    cycles_s = time.perf_counter() - t2
+    launches = {k: f.launches for k, f in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    refills = list(refills)  # the main path's; later refills are not its
+
+    K = cfg.steps_per_dispatch
+    steps = SWEEP_STEPS + SWEEP_CYCLES * K
+    per_batch = store.tokens_per_store_batch
+    harvests = -(-cfg.tokens_per_buffer // per_batch) + \
+        len(refills) * -(-(cfg.tokens_per_buffer // 2) // per_batch)
+    backward = ("sae_fused_backward" if cfg.fused_store_acts is False
+                else "sae_fused_backward_stored")
+    expected = {"attention_mix_tnh": (max(cfg.sweep_layers) + 1) * harvests,
+                "take_rows": 1 + len(refills),
+                "sae_fused_forward": steps, "sae_fused_backward": 0,
+                "sae_fused_backward_stored": 0, "adam_update": 4 * steps}
+    expected[backward] = steps
+    formulas = {"attention_mix_tnh": "(last sweep layer + 1) x harvest batches",
+                "take_rows": "1 + refills", "sae_fused_forward": "steps",
+                backward: "steps (fused_store_acts picks the backward)",
+                "adam_update": "4 tensors x steps"}
+    # run() serves the fill's first half, then refills every K steps; each
+    # cycle refills once
+    if len(refills) != SWEEP_STEPS // K - 1 + SWEEP_CYCLES or launches != expected:
+        raise AssertionError(f"sweep launches {launches}, expected {expected}, "
+                             f"{len(refills)} refills")
+    host = [trainer.log_metrics(type(cycle_metrics)(*(f[j] for f in cycle_metrics)))
+            for j in range(K)]
+    per_layer = lambda vals, k: [vals[f"layer_{l}/{k}"] for l in cfg.sweep_layers]
+    _check_sweep_metrics([{k: per_layer(v, k) for k in ("loss", "l0", "explained_variance")}
+                          for v in log + host], cfg.sweep_layers)
+    if not all(v > 0 for v in per_layer(log[0], "l0")):  # every layer fires at first
+        raise AssertionError(f"L0 at the first read {per_layer(log[0], 'l0')}")
+    if int(trainer.state.step[0]) != steps or len(saes) != L:
+        raise AssertionError(f"step {trainer.state.step.tolist()}, {len(saes)} SAEs")
+    if not all(torch.isfinite(v).all() for v in trainer.state.params.values()):
+        raise AssertionError("non-finite SAE parameters")
+
+    # The remat backward (B5) through the same entry points: one cycle with
+    # fused_store_acts=False, counts set to 0 just before it.
+    remat = SAESweepTrainer(cfg.replace(fused_store_acts=False), model, store)
+    remat.load_state(trainer.state)
+    _zero_counts(counters)
+    t3 = time.perf_counter()
+    remat_metrics = remat.train_cycles(1)
+    torch.cuda.synchronize()
+    remat_s = time.perf_counter() - t3
+    remat_launches = {k: f.launches for k, f in counters.items()}
+    if (remat_launches["sae_fused_backward"] != K or remat_launches["sae_fused_forward"] != K
+            or remat_launches["sae_fused_backward_stored"] != 0):
+        raise AssertionError(f"remat cycle launches {remat_launches}")
+    remat_host = trainer.log_metrics(type(remat_metrics)(*(f[-1] for f in remat_metrics)))
+    _check_sweep_metrics([{k: per_layer(remat_host, k)
+                           for k in ("loss", "l0", "explained_variance")}], cfg.sweep_layers)
+
+    # the multi-step loop's [K, B, L, d] -> [K, L, B, d] transpose, alone
+    block = store.next_batches(K)
+    transpose_ms = cuda_us(lambda: block.transpose(1, 2).contiguous(), iters=5) / 1000.0
+    sae_tokens = steps * cfg.train_batch_size * L
+    train_s = run_s + cycles_s
+    emit({"phase": "sweep", **info, "model": SWEEP_MODEL,
+          "weights": "random, seed 0, bfloat16 (pretrained weights are not in the repository)",
+          "dataset": f"{SWEEP_IMAGES} random float32 {cfg.image_size}px images, numpy seed 5, "
+                     "on the card",
+          "changed_from_bench_py_189_214": {
+              "model": "the port's openai/clip-vit-large-patch14 registry entry in bf16",
+              "images": "float32 on the card, not the uint8 wire with device_norm "
+                        "(ROADMAP queue A, item 6)",
+              "prefetch": "none in the port (the harvest runs at refill time)",
+              "wandb_log_frequency": "3, not 10: per-layer metrics read every 3 steps"},
+          "layers": L, "d_in": cfg.d_in, "d_sae": cfg.d_sae,
+          "train_batch_size": cfg.train_batch_size, "compute_dtype": cfg.compute_dtype,
+          "buffer_rows": cfg.tokens_per_buffer, "steps": steps,
+          "run_steps": SWEEP_STEPS, "cycles": SWEEP_CYCLES, "backward": backward,
+          "launches": launches, "expected_launches": expected, "formulas": formulas,
+          "harvest_batches": harvests, "refills_in_run": run_refills,
+          "store_fill_s": fill_s, "trainer_init_s": init_s, "run_s": run_s,
+          "cycles_s": cycles_s, "refill_s": refills,
+          "sae_tokens_per_s": sae_tokens / train_s,
+          "sae_tokens_per_s_with_fill_and_init": sae_tokens / (fill_s + init_s + train_s),
+          "sae_tokens_per_s_without_refill": sae_tokens / (train_s - sum(refills)),
+          "step_ms_without_refill": 1000 * (train_s - sum(refills)) / steps,
+          "peak_memory_GB": peak_gb, "transpose_ms": transpose_ms,
+          "remat_cycle": {"launches": remat_launches, "seconds": remat_s,
+                          "mean_loss_last_step": remat_host["loss"]},
+          "metrics_logged": [{k: v[k] for k in ("loss", "l0", "explained_variance")}
+                             for v in log],
+          "l0_per_layer_logged": [per_layer(v, "l0") for v in log],
+          "l0_checked_above_0_except_layers": list(SWEEP_L0_EXEMPT),
+          "ev_per_layer_logged": [per_layer(v, "explained_variance") for v in log],
+          "metrics_last": {k: host[-1][k] for k in ("loss", "l0", "explained_variance")}})
+    return trainer, store, cfg, launches, remat_launches
+
+
+def _layer_slice(state, layers):
+    from vit_prisma_tpu_torch.sae.train import _map_state
+    return _map_state(lambda a: a[:layers].clone(), state)
+
+
+def _path_masks(state, x, cfg, fused):
+    """The active-set mask [L, B, S] that a step from ``state`` counts:
+    kernel B4's (float32 pre-activations) on the fused path, the bf16 or
+    float32 ``encode`` of each layer on the generic path."""
+    from vit_prisma_tpu_torch.ops.sae_step import sae_fused_forward
+    from vit_prisma_tpu_torch.sae.sae import encode, set_decoder_norm_to_unit_norm
+    dt = cfg.compute_torch_dtype or cfg.torch_dtype
+    p = {k: v.to(dt) for k, v in set_decoder_norm_to_unit_norm(state.params).items()}
+    if fused:
+        hc = sae_fused_forward(x.to(dt), p["W_enc"], p["b_enc"], p["W_dec"], p["b_dec"],
+                               save_h=True)[3]
+        return hc.float() > 0
+    return torch.stack([encode({k: v[l] for k, v in p.items()}, cfg, x[l])[1] > 0
+                        for l in range(x.shape[0])])
+
+
+def phase_sweep_step_check(info, trainer, store, cfg):
+    """Three fused sweep steps against three generic ones from one state."""
+    from vit_prisma_tpu_torch.sae.convert import train_state_to_numpy
+    from vit_prisma_tpu_torch.sae.train import sae_sweep_train_step
+    batches = torch.stack([store.next_batch() for _ in range(3)])
+    out = {}
+    for dtype, layers in SWEEP_CHECK_LAYERS.items():
+        c = cfg.replace(sweep_layers=tuple(range(layers)),
+                        compute_dtype="bfloat16" if dtype == torch.bfloat16 else None)
+        xs = batches[:, :, :layers].float() if dtype == torch.float32 else batches[:, :, :layers]
+        states = {True: _layer_slice(trainer.state, layers),
+                  False: _layer_slice(trainer.state, layers)}
+        switches = torch.zeros(layers, cfg.d_sae, device="cuda")
+        metrics = {True: [], False: []}
+        for b in xs:
+            x = b.transpose(0, 1).contiguous()
+            switches += (_path_masks(states[True], x, c, True)
+                         != _path_masks(states[False], x, c, False)).sum(dim=1)
+            for fused in (True, False):
+                states[fused], m = sae_sweep_train_step(states[fused], b,
+                                                        c.replace(fused_sae_step=fused))
+                metrics[fused].append(m)
+        got, want = train_state_to_numpy(states[True]), train_state_to_numpy(states[False])
+        sw = switches.cpu().numpy()
+        errs = {}
+        for k in want:
+            if k.startswith(("params/", "mu/", "nu/")):
+                d = np.abs(got[k].astype(np.float64) - want[k])
+                errs[k] = {"max": float(d.max()), "p999": float(np.quantile(d, 0.999)),
+                           "median": float(np.median(d)), "absmax": float(np.abs(want[k]).max())}
+        act = np.abs(got["act_freq_scores"] - want["act_freq_scores"])
+        fired = got["n_forward_passes_since_fired"] != want["n_forward_passes_since_fired"]
+        metric_errs = {}
+        for f in ("loss", "mse_loss", "l1_loss", "l0", "explained_variance"):
+            a = torch.stack([getattr(m, f) for m in metrics[True]]).float()
+            b = torch.stack([getattr(m, f) for m in metrics[False]]).float()
+            # relative, except EV, whose value may lie near 0: against max(1, |EV|)
+            floor = 1.0 if f == "explained_variance" else 1e-6
+            metric_errs[f] = ((a - b).abs() / b.abs().clamp(min=floor)).max(dim=1).values.tolist()
+        rec = {"phase": "sweep_step_check", **info, "dtype": str(dtype).split(".")[1],
+               "layers": layers, "steps": 3, "relu_switches": float(sw.sum()),
+               "act_freq_within_switches": bool((act <= sw).all()),
+               "fired_differ_only_where_switched": bool((~fired | (sw > 0)).all()),
+               "exact": {k: bool(np.array_equal(got[k], want[k])) for k in (
+                   "adam_count", "schedule_count", "step", "n_training_tokens",
+                   "n_frac_active_tokens")},
+               "state_abs_err": errs, "metric_rel_err_per_step": metric_errs}
+        emit(rec)
+        out[dtype] = rec
+        del states
+    return out
+
+
+def check_sweep_steps(recs):
+    for dtype, rec in recs.items():
+        if not (rec["act_freq_within_switches"] and rec["fired_differ_only_where_switched"]
+                and all(rec["exact"].values())):
+            raise AssertionError(f"sweep step check {dtype}: counters {rec}")
+        bounds = SWEEP_CHECK_TOL[dtype]
+        for k, e in rec["state_abs_err"].items():
+            if k.startswith("params/") and not (e["max"] <= bounds["param_max"]
+                                                and e["p999"] <= bounds["param_p999"]):
+                raise AssertionError(f"sweep step check {dtype} {k}: {e} vs {bounds}")
+        for f, errs in rec["metric_rel_err_per_step"].items():
+            if not errs[0] <= bounds["step1_metric_rel"]:
+                raise AssertionError(f"sweep step check {dtype} {f}: {errs}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; none is available")
@@ -593,6 +1046,11 @@ def main():
     del fused, plain
     trainer, store, cfg, train_launches = phase_train(info)
     check_steps(*phase_step_check(info, trainer, store, cfg))
+    del trainer, store
+    torch.cuda.empty_cache()
+    sae_step_kernels = phase_sae_step_kernels(info)
+    sweep, sweep_store, sweep_cfg, sweep_launches, remat_launches = phase_sweep(info)
+    check_sweep_steps(phase_sweep_step_check(info, sweep, sweep_store, sweep_cfg))
 
     main_shape = kernels[("b32", torch.bfloat16)]
     gather = sae_kernels[("take_rows", "store_f32")]
@@ -612,7 +1070,16 @@ def main():
         "replaces": ADAM_REPLACES, "launches": train_launches["adam_update"],
         "max_abs_err": max(max(r["max_abs_err"].values()) for r in adam),
         "ms": sum(r["us"] for r in adam) / 1000.0,
-        "plain_ms": sum(r["plain_us"] for r in adam) / 1000.0}]})
+        "plain_ms": sum(r["plain_us"] for r in adam) / 1000.0}] + [{
+        # at the sweep's bf16 shape; launches from the sweep's main path (B5:
+        # from its remat cycle)
+        "name": k, "route": "cuda",
+        "source": SAE_FWD_SOURCE if k == "sae_fused_forward" else SAE_BWD_SOURCE,
+        "replaces": SAE_REPLACES[k],
+        "launches": (remat_launches if k == "sae_fused_backward" else sweep_launches)[k],
+        "max_abs_err": sae_step_kernels[(k, "sweep_bf16")]["max_abs_err"],
+        "ms": sae_step_kernels[(k, "sweep_bf16")]["ms"],
+        "plain_ms": sae_step_kernels[(k, "sweep_bf16")]["plain_ms"]} for k in SAE_REPLACES]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -11,5 +11,5 @@ setup(
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "optax", "einops", "torch"],
     package_data={"": ["*.md"], "vit_prisma_tpu.dataloaders": ["data/*.json"],
-                  "vit_prisma_tpu_torch": ["csrc/*.cu"]},
+                  "vit_prisma_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
 )

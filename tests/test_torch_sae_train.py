@@ -222,13 +222,14 @@ def test_trainer_options_not_ported_raise(fields, kwargs, item):
     _, pc = _cfgs(**fields)
     with pytest.raises(NotImplementedError, match=item):
         port_sae.VisionSAETrainer(pc, **kwargs)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        port_sae.SAESweepTrainer(pc)
+    with pytest.raises(NotImplementedError, match=item):
+        port_sae.SAESweepTrainer(pc.replace(sweep_layers=(0, 1)), **kwargs)
 
 
 def test_import_loads_no_jax_including_sae():
     code = ("import sys, vit_prisma_tpu_torch, vit_prisma_tpu_torch.sae, "
-            "vit_prisma_tpu_torch.ops.shuffle, vit_prisma_tpu_torch.ops.opt_step; "
+            "vit_prisma_tpu_torch.ops.shuffle, vit_prisma_tpu_torch.ops.opt_step, "
+            "vit_prisma_tpu_torch.ops.sae_step; "
             "bad = sorted(m for m in sys.modules "
             "if m.startswith('jax') or m.startswith('vit_prisma_tpu.') "
             "or m in ('vit_prisma_tpu', 'optax')); "

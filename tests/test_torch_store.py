@@ -155,8 +155,8 @@ def test_store_options_not_ported_raise(kwargs, match):
     cfg = port_sae.SAERunnerConfig(**STORE)
     with pytest.raises(NotImplementedError, match=match):
         port_sae.VisionActivationsStore(cfg, model, seeded(9, (64, 3, 16, 16)), **kwargs)
-    with pytest.raises(NotImplementedError, match="items 9 and 10"):
-        port_sae.VisionActivationsStore(cfg.replace(sweep_layers=(0, 1)), model,
+    with pytest.raises(NotImplementedError, match="item 10"):
+        port_sae.VisionActivationsStore(cfg.replace(is_transcoder=True), model,
                                         seeded(9, (64, 3, 16, 16)))
     with pytest.raises(NotImplementedError, match="uint8"):
         port_sae.VisionActivationsStore(cfg, model, np.zeros((64, 3, 16, 16), np.uint8))

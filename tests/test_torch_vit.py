@@ -129,7 +129,7 @@ def test_registry_config_matches_jax():
     port_cfg = vit_prisma_tpu_torch.get_model_config(name)
     assert port_cfg.to_dict() == jax_get_config(name).to_dict()
     with pytest.raises(NotImplementedError, match="item 4"):
-        vit_prisma_tpu_torch.get_model_config("openai/clip-vit-large-patch14")
+        vit_prisma_tpu_torch.get_model_config("openai/clip-vit-base-patch16")
 
 
 def test_full_cache_golden_through_jax_converter():

@@ -1,0 +1,221 @@
+// Fused standard-ReLU SAE backward over L stacked SAEs: the remat VJP
+// (kernel B5) and the stored-activations VJP (kernel B6).
+//
+// Replaces the Pallas TPU kernels `_bwd_kernel` (launched by
+// `_fused_backward`) and `_bwd_kernel_stored` (launched by
+// `_fused_backward_stored`) in vit_prisma_tpu/ops/sae_step.py.  From x,
+// the weights, dy [L, B, d_in] (in the compute type c) and dl1 [L]:
+//     xc     = x - b_dec                                  (in c)
+//     B5:    hpre = xc W_enc + b_enc (float32); mask = hpre > 0;
+//            hc = relu(hpre) rounded to c
+//     B6:    hc is the forward's stored activation; mask = float(hc) > 0
+//     dh     = mask ? dy W_dec^T + dl1[l] : 0             (float32)
+//     dhc    = dh rounded to c
+//     dW_enc = xc^T dhc,  dW_dec = hc^T dy                (float32)
+//     db_enc = sum over rows of the float32 dh
+// the cast points of the TPU kernels and of the plain versions
+// `sae_fused_backward_reference` and `sae_fused_backward_stored_reference`
+// (vit_prisma_tpu_torch/ops/sae_step.py).  db_dec = sum(dy) - W_enc db_enc
+// and the casts to the parameters' dtypes stay in PyTorch, as the JAX
+// package leaves them to XLA.
+//
+// Design.  The TPU kernels carry their dW accumulators in VMEM across a
+// sequential sweep over row blocks.  Hopper blocks run in parallel, so the
+// backward is split into launches of the tile GEMM of sae_gemm.cuh, each
+// batched over L in the grid:
+//   1. center: xc = x - b_dec;
+//   2. dh: one block per (row tile, feature tile).  B5 first runs the
+//      encoder product of its tile (the recompute), keeps the mask as bits
+//      in registers and writes hc; both then run dy W_dec^T, apply the mask
+//      and dl1, write dhc and a per-tile partial column sum of dh (the
+//      wrapper sums the partials: fixed order, no atomics);
+//   3. dW_enc = xc^T dhc and 4. dW_dec = hc^T dy: tile GEMMs that reduce
+//      over the B rows inside the block, so no partial sums are needed.
+// dhc (and, for B5, hc) go through device memory: 1.6 GB each in bf16 at
+// the sweep shape, held only until the weight-gradient products have read
+// them.
+//
+// What bounds it on an H100.  At the bf16 sweep shape (24 x 4096 rows,
+// 1024 -> 8192) B6 is three products, 4.9 TFLOP, and B5 four, 6.6 TFLOP,
+// against a few GB of traffic: several hundred flops per byte, above the
+// ~295 of the bf16 ridge point, so both are bound by tensor-core issue.
+// Measured on an NVIDIA H100 80GB HBM3 (700 W): B6 20.30 ms, 244 TFLOP/s,
+// and B5 27.97 ms, 236 TFLOP/s, about a quarter of the 989 TFLOP/s dense
+// bf16 peak (the plain versions: 112.5 and 149.3 ms); in float32 the FFMA
+// tiles run at 36-39 TFLOP/s.  B5 pays one more product than B6 and, as it
+// writes hc in its own backward, saves no peak memory: `sae_fused_apply`
+// keeps hc (B6) unless it is asked to recompute it (B5).
+
+#include "sae_gemm.cuh"
+
+namespace {
+
+using namespace sae;
+
+// dh tile, B6 (stored hc) or B5 (REMAT: recompute hpre, write hc).
+// Grid (S/BN, B/BM, L).
+template <typename T, bool REMAT>
+__global__ void __launch_bounds__(kThreads)
+dh_kernel(const T* __restrict__ xc, const T* __restrict__ We, const T* __restrict__ be,
+          const T* __restrict__ Wd, const T* __restrict__ dy, const float* __restrict__ dl1,
+          T* __restrict__ hc, T* __restrict__ dhc, float* __restrict__ dbe_part, int B, int D,
+          int S) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int l = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const long long BD = static_cast<long long>(B) * D, DS = static_cast<long long>(D) * S;
+  const long long BS = static_cast<long long>(B) * S;
+  T* hc_l = hc + l * BS;
+  Acc acc;
+  // mask bit (mi, ni, e) at bit 4 * (NI * mi + ni) + e of mask[(...) / 32]
+  uint32_t mask[(MI * NI * 4 + 31) / 32] = {};
+  if (REMAT) {
+    zero(acc);
+    mainloop<T, true, false>(acc, xc + l * BD, D, We + l * DS, S, D, m0, n0, smem);
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
+      const int c = n0 + acc_col(ni, 0);
+      const float b0 = to_f(be[static_cast<long long>(l) * S + c]);
+      const float b1 = to_f(be[static_cast<long long>(l) * S + c + 1]);
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float p0 = acc[mi][ni][2 * h] + b0, p1 = acc[mi][ni][2 * h + 1] + b1;
+          const int bit = 4 * (NI * mi + ni) + 2 * h;
+          if (p0 > 0.f) mask[bit / 32] |= 1u << (bit % 32);
+          if (p1 > 0.f) mask[bit / 32] |= 1u << ((bit + 1) % 32);
+          store2(hc_l + static_cast<long long>(m0 + acc_row(mi, 2 * h)) * S + c,
+                 p0 > 0.f ? p0 : 0.f, p1 > 0.f ? p1 : 0.f);
+        }
+    }
+  }
+  zero(acc);
+  // dy W_dec^T: B(k = d, n = s) = W_dec[s, d], K contiguous
+  mainloop<T, true, true>(acc, dy + l * BD, D, Wd + l * DS, D, D, m0, n0, smem);
+
+  const float g1 = dl1[l];
+  float colsum[NI][2];
+  T* dhc_l = dhc + l * BS;
+#pragma unroll
+  for (int ni = 0; ni < NI; ++ni) {
+    const int c = n0 + acc_col(ni, 0);
+    colsum[ni][0] = colsum[ni][1] = 0.f;
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long off = static_cast<long long>(m0 + acc_row(mi, 2 * h)) * S + c;
+        bool on0, on1;
+        if (REMAT) {
+          const int bit = 4 * (NI * mi + ni) + 2 * h;
+          on0 = (mask[bit / 32] >> (bit % 32)) & 1u;
+          on1 = (mask[bit / 32] >> ((bit + 1) % 32)) & 1u;
+        } else {
+          on0 = to_f(hc_l[off]) > 0.f;
+          on1 = to_f(hc_l[off + 1]) > 0.f;
+        }
+        const float d0 = on0 ? acc[mi][ni][2 * h] + g1 : 0.f;
+        const float d1 = on1 ? acc[mi][ni][2 * h + 1] + g1 : 0.f;
+        colsum[ni][0] += d0;
+        colsum[ni][1] += d1;
+        store2(dhc_l + off, d0, d1);
+      }
+  }
+  float* red = reinterpret_cast<float*>(smem_raw);
+  block_col_sums(colsum, red,
+                 dbe_part + (static_cast<long long>(l) * gridDim.y + blockIdx.y) * S + n0);
+}
+
+// C[l] = A[l]^T Bm[l] in float32, A [K, M] and Bm [K, N] row-major (M and N
+// contiguous), reduced over K = the B rows.  Grid (N/BN, M/BM, L).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+wgrad_kernel(const T* __restrict__ A, const T* __restrict__ Bm, float* __restrict__ C, int M,
+             int N, int K) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int l = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const long long KM = static_cast<long long>(K) * M, KN = static_cast<long long>(K) * N;
+  const long long MN = static_cast<long long>(M) * N;
+  Acc acc;
+  zero(acc);
+  mainloop<T, false, false>(acc, A + l * KM, M, Bm + l * KN, N, K, m0, n0, smem);
+  float* out = C + l * MN;
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        store2(out + static_cast<long long>(m0 + acc_row(mi, 2 * h)) * N + n0 + acc_col(ni, 0),
+               acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+}
+
+template <typename T>
+cudaError_t backward(const void* x, const void* We, const void* be, const void* Wd,
+                     const void* bd, const void* dy, const void* dl1, void* hc, void* xc,
+                     void* dhc, void* dWe, void* dWd, void* dbe_part, int L, int B, int D,
+                     int S, int remat, cudaStream_t s) {
+  const T *tx = static_cast<const T*>(x), *tWe = static_cast<const T*>(We);
+  const T *tbe = static_cast<const T*>(be), *tWd = static_cast<const T*>(Wd);
+  const T *tbd = static_cast<const T*>(bd), *tdy = static_cast<const T*>(dy);
+  T *thc = static_cast<T*>(hc), *txc = static_cast<T*>(xc), *tdhc = static_cast<T*>(dhc);
+  const float* tdl1 = static_cast<const float*>(dl1);
+  cudaError_t err = center<T>(tx, tbd, txc, L, B, D, s);
+  if (err != cudaSuccess) return err;
+
+  const dim3 grid_dh(S / BN, B / BM, L);
+  if (remat) {
+    // the recompute's operands and dy W_dec^T's share the ring; size it for both
+    constexpr int a = Smem<T, true, false>::bytes, b = Smem<T, true, true>::bytes;
+    constexpr int smem = a > b ? a : b;
+    if ((err = allow_smem(dh_kernel<T, true>, smem)) != cudaSuccess) return err;
+    dh_kernel<T, true><<<grid_dh, kThreads, smem, s>>>(txc, tWe, tbe, tWd, tdy, tdl1, thc,
+                                                        tdhc, static_cast<float*>(dbe_part),
+                                                        B, D, S);
+  } else {
+    constexpr int smem = Smem<T, true, true>::bytes;
+    if ((err = allow_smem(dh_kernel<T, false>, smem)) != cudaSuccess) return err;
+    dh_kernel<T, false><<<grid_dh, kThreads, smem, s>>>(txc, tWe, tbe, tWd, tdy, tdl1, thc,
+                                                         tdhc, static_cast<float*>(dbe_part),
+                                                         B, D, S);
+  }
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  constexpr int smem_w = Smem<T, false, false>::bytes;
+  if ((err = allow_smem(wgrad_kernel<T>, smem_w)) != cudaSuccess) return err;
+  // dW_enc [D, S] = xc^T dhc
+  wgrad_kernel<T><<<dim3(S / BN, D / BM, L), kThreads, smem_w, s>>>(
+      txc, tdhc, static_cast<float*>(dWe), D, S, B);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // dW_dec [S, D] = hc^T dy
+  wgrad_kernel<T><<<dim3(D / BN, S / BM, L), kThreads, smem_w, s>>>(
+      thc, tdy, static_cast<float*>(dWd), S, D, B);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16; remat: 1 = B5 (hc is written), 0 = B6
+// (hc is the forward's stored activation, read).  x, the weights, dy, hc,
+// xc (scratch) and dhc (scratch) are in the compute type; dl1 [L],
+// dWe [L, D, S], dWd [L, S, D] and dbe_part [L, B/128, S] are float32.
+// Returns the launches' cudaError_t.
+extern "C" int sae_fused_bwd(const void* x, const void* We, const void* be, const void* Wd,
+                             const void* bd, const void* dy, const void* dl1, void* hc,
+                             void* xc, void* dhc, void* dWe, void* dWd, void* dbe_part, int L,
+                             int B, int D, int S, int dtype, int remat, int device,
+                             void* stream) {
+  if (!sae::shapes_ok(L, B, D, S)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return backward<float>(x, We, be, Wd, bd, dy, dl1, hc, xc, dhc, dWe, dWd, dbe_part, L, B,
+                           D, S, remat, s);
+  if (dtype == 1)
+    return backward<__nv_bfloat16>(x, We, be, Wd, bd, dy, dl1, hc, xc, dhc, dWe, dWd,
+                                   dbe_part, L, B, D, S, remat, s);
+  return cudaErrorInvalidValue;
+}

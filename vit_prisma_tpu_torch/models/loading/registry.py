@@ -3,8 +3,9 @@
 
 Only the port's slices' models are registered so far, their values copied
 from the configs the JAX registry resolves: OpenAI CLIP ViT-B/32's vision
-tower, and the DataComp.XL ViT-B/32 that ``SAERunnerConfig`` trains on by
-default.  The other entries, and loading real weights, wait for ROADMAP
+tower, the DataComp.XL ViT-B/32 that ``SAERunnerConfig`` trains on by
+default, and OpenAI CLIP ViT-L/14's vision tower, which the all-layer sweep
+trains on.  The other entries, and loading real weights, wait for ROADMAP
 queue A, item 4.
 """
 
@@ -29,6 +30,13 @@ MODEL_CONFIGS: Dict[str, Dict[str, Any]] = {
         d_model=768, n_layers=12, n_heads=12, d_head=64, d_mlp=3072,
         patch_size=32, image_size=224, n_classes=512,
         activation_name="gelu", layer_norm_pre=True,
+        normalization_type="LN", eps=1e-5, return_type="class_logits",
+        normalize_output=True),
+    # 24 layers, 1024 wide, 16 heads of 64, MLP 4096, patch 14 (T = 257).
+    "openai/clip-vit-large-patch14": dict(
+        d_model=1024, n_layers=24, n_heads=16, d_head=64, d_mlp=4096,
+        patch_size=14, image_size=224, n_classes=768,
+        activation_name="quick_gelu", layer_norm_pre=True,
         normalization_type="LN", eps=1e-5, return_type="class_logits",
         normalize_output=True),
 }

@@ -1,12 +1,13 @@
 """Build and load the package's CUDA kernels.
 
 Every ``*.cu`` file under ``vit_prisma_tpu_torch/csrc`` is compiled by its
-own ``nvcc`` process, all started together, and the objects are linked into
-one shared library with a plain C interface, which the kernel wrappers call
-through ``ctypes``.  The library is built at first use into
-``csrc/build/<hash of the sources and flags>/``, so an edited source builds
-anew, and an ``fcntl`` lock keeps concurrent processes from building the same
-library twice.  Nothing is compiled when the package is imported.
+own ``nvcc`` process, all started together, with ``csrc`` on the include
+path, and the objects are linked into one shared library with a plain C
+interface, which the kernel wrappers call through ``ctypes``.  The library is
+built at first use into ``csrc/build/<hash of the sources, headers and
+flags>/``, so an edited source or shared header (``*.cuh``) builds anew, and
+an ``fcntl`` lock keeps concurrent processes from building the same library
+twice.  Nothing is compiled when the package is imported.
 """
 
 from __future__ import annotations
@@ -31,6 +32,10 @@ def _sources():
     return sorted(CSRC.glob("*.cu"))
 
 
+def _headers():
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def _nvcc() -> str:
     nvcc = shutil.which("nvcc")
     if nvcc is None:
@@ -47,7 +52,7 @@ def _nvcc() -> str:
 def build_dir() -> Path:
     """The directory the current sources build into."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
@@ -79,7 +84,7 @@ def build() -> Path:
                 return lib
             nvcc = _nvcc()
             objs = [out_dir / f"{src.stem}.{os.getpid()}.o" for src in _sources()]
-            cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+            cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(o), str(src)]
                     for src, o in zip(_sources(), objs)]
             tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
             link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
@@ -113,6 +118,10 @@ def load_library() -> ctypes.CDLL:
     lib.adam_update.argtypes = [p, p, p, p, p, p, p, p, i, ll, ll,
                                 f, f, f, f, f, i, i, i, p]
     lib.adam_update.restype = i
+    lib.sae_fused_fwd.argtypes = [p] * 10 + [i] * 6 + [p]
+    lib.sae_fused_fwd.restype = i
+    lib.sae_fused_bwd.argtypes = [p] * 13 + [i] * 7 + [p]
+    lib.sae_fused_bwd.restype = i
     lib.vpt_cuda_error_string.argtypes = [i]
     lib.vpt_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,5 +1,6 @@
 """Sparse-autoencoder training (PyTorch port of ``vit_prisma_tpu.sae``):
-the standard SAE, its activation store, train step and trainer."""
+the standard SAE, its activation store, train step and trainer, for one SAE
+or the all-layer sweep."""
 
 from vit_prisma_tpu_torch.sae.config import SAERunnerConfig
 from vit_prisma_tpu_torch.sae.convert import (
@@ -14,4 +15,5 @@ from vit_prisma_tpu_torch.sae.train import (
     VisionSAETrainer, SAETrainState, StepMetrics, sae_train_step,
     sae_train_multistep, init_train_state, initialize_b_dec,
     reset_sparsity_counters, make_fused_cycle, SAESweepTrainer,
+    sae_sweep_train_step, sae_sweep_train_multistep, init_sweep_state,
 )

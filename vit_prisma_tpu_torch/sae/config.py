@@ -4,7 +4,8 @@
 properties, so one config dict describes the same run in both packages.
 Fields that choose a JAX or TPU code path keep their names here:
 ``fused_sae_step`` and ``fused_store_acts`` (the fused SAE kernels B4-B6 run
-only on the all-layer sweep, which is not ported yet), ``fused_opt_kernel``
+on the all-layer sweep; ``fused_store_acts=False`` picks the remat backward
+B5, ``True`` or ``None`` the stored-acts backward B6), ``fused_opt_kernel``
 (the port's fused optimizer pass always runs kernel B7 on the card), and
 ``store_wire_dtype`` (see ``sae/store.py``).  ``dtype`` and ``compute_dtype``
 are string names, mapped to torch dtypes by :attr:`torch_dtype` and

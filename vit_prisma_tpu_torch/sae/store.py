@@ -1,10 +1,14 @@
 """Activation store (PyTorch port of ``vit_prisma_tpu/sae/store.py``): a
 shuffled token buffer on the model's device, fed by hooked forwards.
 
-The harvest is ``run_with_cache`` on the one requested hook point with
+The harvest is ``run_with_cache`` on the requested hook point with
 ``stop_at_layer`` just past it, then the CLS-only, patches-only or
-head-index slicing.  The buffer is filled, then shuffled by a row
-permutation through kernel B3 (:func:`~vit_prisma_tpu_torch.ops.shuffle.take_rows`).
+head-index slicing.  A sweep store (``cfg.sweep_layers``) caches
+``blocks.{l}.{layer_subtype}`` for every listed layer in the same forward
+and stacks the rows to ``[tokens, L, d]``; its buffer is 3-D and every
+operation below moves whole ``[L, d]`` rows.  The buffer is filled, then
+shuffled by a row permutation through kernel B3
+(:func:`~vit_prisma_tpu_torch.ops.shuffle.take_rows`).
 When half of it has been served, the unserved half is kept, a fresh half is
 harvested, and the two are shuffled together.
 
@@ -24,10 +28,14 @@ served:
   :func:`_index_iterator`, the JAX package's numpy stream, so both packages
   read the same images.
 
+* The fused cycle (``train_cycles``) refills from the image indices that
+  :meth:`VisionActivationsStore.next_cycle_indices` draws from the same
+  stream, so it reads the same images.
+
 Not ported yet, and raising ``NotImplementedError``: ``mesh`` (ROADMAP queue
 A, item 15), ``augment``, the uint8 wire with ``device_norm``,
-:class:`CachedActivationsStore`, and transcoder or sweep hooks (item 6's
-remainder, item 9, item 10).  The fused harvest-mix-train cycle is item 9.
+:class:`CachedActivationsStore` (item 6's remainder), and transcoder hooks
+(item 10).
 """
 
 from __future__ import annotations
@@ -115,10 +123,10 @@ class VisionActivationsStore:
             raise NotImplementedError(
                 "the uint8 image wire with on-device normalization is not ported "
                 "yet (ROADMAP queue A, item 6); pass float images")
-        if cfg.sweep_layers or cfg.is_transcoder:
+        if cfg.is_transcoder:
             raise NotImplementedError(
-                "sweep and transcoder stores harvest several hooks; not ported "
-                "yet (ROADMAP queue A, items 9 and 10)")
+                "transcoder stores (two hooks, targets) are not ported yet "
+                "(ROADMAP queue A, item 10)")
         self.cfg = cfg
         self.model = model
         self.dataset = dataset
@@ -157,8 +165,12 @@ class VisionActivationsStore:
             self.image_iter = _image_iterator(dataset, cfg.store_batch_size,
                                               seed=cfg.seed)
 
-        self._hook_names = [cfg.hook_point]
-        self._stop_at = cfg.hook_point_layer + 1
+        if cfg.sweep_layers:
+            self._hook_names = [f"blocks.{l}.{cfg.layer_subtype}" for l in cfg.sweep_layers]
+            self._stop_at = max(cfg.sweep_layers) + 1
+        else:
+            self._hook_names = [cfg.hook_point]
+            self._stop_at = cfg.hook_point_layer + 1
         self.tokens_per_store_batch = cfg.store_batch_size * cfg.tokens_per_image
         self.buffer_tokens = cfg.tokens_per_buffer
 
@@ -168,30 +180,35 @@ class VisionActivationsStore:
 
     # -- harvesting ------------------------------------------------------
     def get_activations(self, images) -> torch.Tensor:
-        """One harvested batch of token rows ``[tokens, d]``."""
+        """One harvested batch of token rows: ``[tokens, d]``, or ``[tokens,
+        L, d]`` for a sweep."""
         images = torch.as_tensor(images).to(self.device)
         if self._wire_dtype is not None:
             images = images.to(self._wire_dtype)
         images = images.to(self._model_dtype)
         _, cache = self.model.run_with_cache(
             images, names_filter=self._hook_names, stop_at_layer=self._stop_at)
-        act = cache[self.cfg.hook_point]  # [B, ctx, d] (or [B, ctx, heads, d_head])
-        if self.cfg.hook_point_head_index is not None:
-            act = act[:, :, self.cfg.hook_point_head_index]
-        if self.cfg.cls_token_only:
-            act = act[:, :1]
-        elif self.cfg.use_patches_only:
-            act = act[:, 1:]
-        return act.reshape(-1, act.shape[-1])
+        outs = []
+        for name in self._hook_names:
+            act = cache[name]  # [B, ctx, d] (or [B, ctx, heads, d_head])
+            if self.cfg.hook_point_head_index is not None:
+                act = act[:, :, self.cfg.hook_point_head_index]
+            if self.cfg.cls_token_only:
+                act = act[:, :1]
+            elif self.cfg.use_patches_only:
+                act = act[:, 1:]
+            outs.append(act.reshape(-1, act.shape[-1]))
+        return outs[0] if len(outs) == 1 else torch.stack(outs, dim=1)
 
-    def _image_batches(self, n_batches: int):
+    def _image_batches(self, n_batches: int, indices=None):
         """The next ``n_batches`` store batches of images, in the order of
-        :func:`_index_iterator`."""
+        :func:`_index_iterator`, or the rows ``indices`` ``[n_batches,
+        store_batch_size]`` of a device-resident dataset."""
         sb = self.cfg.store_batch_size
-        for _ in range(n_batches):
+        for i in range(n_batches):
             if self._dev_images is not None:
-                idx = torch.as_tensor(next(self._idx_iter), device=self.device)
-                yield self._dev_images[idx]
+                idx = next(self._idx_iter) if indices is None else indices[i]
+                yield self._dev_images[torch.as_tensor(idx, device=self.device)]
                 continue
             batch = next(self.image_iter)
             if batch.shape[0] != sb:
@@ -200,17 +217,17 @@ class VisionActivationsStore:
                     f"the store requires exactly store_batch_size={sb}")
             yield batch
 
-    def _fill(self, n_tokens: int, out: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Harvest ``n_tokens`` rows into ``out[:n_tokens]`` (a new
-        ``[n_tokens, d]`` tensor when None) and return ``out``.  Whole store
-        batches are harvested and the rows past ``n_tokens`` dropped, as in
-        the JAX store."""
+    def _fill(self, n_tokens: int, out: Optional[torch.Tensor] = None,
+              indices=None) -> torch.Tensor:
+        """Harvest ``n_tokens`` rows into ``out[:n_tokens]`` (a new tensor
+        when None) and return ``out``.  Whole store batches are harvested and
+        the rows past ``n_tokens`` dropped, as in the JAX store."""
         n_batches = -(-n_tokens // self.tokens_per_store_batch)
         row = 0
-        for images in self._image_batches(n_batches):
+        for images in self._image_batches(n_batches, indices):
             rows = self.get_activations(images)
             if out is None:
-                out = torch.empty((n_tokens, rows.shape[1]), dtype=rows.dtype,
+                out = torch.empty((n_tokens,) + tuple(rows.shape[1:]), dtype=rows.dtype,
                                   device=self.device)
             take = min(rows.shape[0], n_tokens - row)
             out[row:row + take].copy_(rows[:take])
@@ -225,7 +242,8 @@ class VisionActivationsStore:
 
     # -- buffer protocol -------------------------------------------------
     def next_batch(self) -> torch.Tensor:
-        """[train_batch_size, d_in] token rows (a copy)."""
+        """[train_batch_size, d_in] token rows (a copy; ``[B, L, d_in]`` for
+        a sweep)."""
         bs = self.cfg.train_batch_size
         half = self.buffer.shape[0] // 2
         if bs > half:
@@ -263,8 +281,10 @@ class VisionActivationsStore:
         self.ptr += k * bs
         return out.reshape((k, bs) + tuple(self.buffer.shape[1:]))
 
-    def _refill_half(self):
-        """Keep the unserved half, harvest a fresh half, re-permute.
+    def _refill_half(self, indices=None):
+        """Keep the unserved half, harvest a fresh half, re-permute.  The
+        fresh half's images are the next of the image stream, or the
+        device-resident dataset's rows ``indices`` (the fused cycle's).
 
         The JAX store permutes ``concat([buffer[n//2:], fresh])``.  Here the
         fresh rows are written over the served rows ``buffer[:n//2]`` and
@@ -272,19 +292,33 @@ class VisionActivationsStore:
         (kernel B3) reads the buffer once and writes the new one."""
         n = self.buffer.shape[0]
         n_fresh, n_kept = n // 2, n - n // 2
-        self._fill(n_fresh, out=self.buffer)
+        self._fill(n_fresh, out=self.buffer, indices=indices)
         perm = self._perm(n)
         src = torch.where(perm < n_kept, perm + n_fresh, perm - n_kept)
         self.buffer = take_rows(self.buffer, src)
         self.ptr = 0
 
+    # -- fused cycle -------------------------------------------------------
+    @property
+    def fused_cycle_available(self) -> bool:
+        """The fused cycle gathers its own images: it needs a device-resident
+        dataset."""
+        return self._dev_images is not None
+
+    def next_cycle_indices(self) -> np.ndarray:
+        """Image indices ``[n_batches, store_batch_size]`` for one fresh
+        half-buffer, drawn from the same stream as a refill's."""
+        n_fresh = self.buffer.shape[0] // 2
+        n_batches = -(-n_fresh // self.tokens_per_store_batch)
+        return np.stack([next(self._idx_iter) for _ in range(n_batches)])
+
     def peek_tokens(self, n: int, layer_slot: Optional[int] = None) -> torch.Tensor:
-        """A copy of the first n rows (for the b_dec init)."""
-        if layer_slot is not None:
-            raise NotImplementedError(
-                "stacked sweep/transcoder buffers are not ported yet (ROADMAP "
-                "queue A, items 9 and 10)")
-        return self.buffer[:n].clone()
+        """A copy of the first n rows (for the b_dec init); ``layer_slot``
+        picks a layer of a sweep buffer (the first when None)."""
+        rows = self.buffer[:n]
+        if rows.ndim == 3:
+            rows = rows[:, layer_slot if layer_slot is not None else 0]
+        return rows.clone()
 
     # -- not ported yet --------------------------------------------------
     def generate_cached_activations(self, path: str, n_tokens: int,

@@ -10,18 +10,27 @@ optax's layout (``opt_state = (ScaleByAdamState, ScaleByScheduleState)``),
 and nothing in the step reads a device value on the host: the scheduled
 learning rate goes to the kernel as a device tensor.
 
-The standard-ReLU single SAE takes this step in the JAX package too (its
-fused SAE kernels B4-B6 serve only the all-layer sweep, not ported yet).
+The standard-ReLU single SAE takes this step in the JAX package too: its
+fused SAE kernels serve only the all-layer sweep.  The sweep
+(:func:`sae_sweep_train_step`, :class:`SAESweepTrainer`) trains L SAEs at
+once from ``[B, L, d_in]`` batches.  Where :func:`_fused_step_ok` admits it
+(standard ReLU, L >= 2, tile-aligned shapes) the step runs the stacked
+forward through kernel B4 and its backward through B6 or B5
+(``ops/sae_step.py``), then B7 over the ``[L, ...]`` stacks; else it runs
+the generic step layer by layer.  :func:`make_fused_cycle` (``train_cycles``)
+is, in eager PyTorch, a refill from the cycle's image indices followed by K
+steps, serving the same rows as ``train_steps(store.next_batches(K))``.
 
-Not ported yet, and raising ``NotImplementedError``: validation and wandb
-(ROADMAP queue A, item 8), checkpoints and ``mesh`` (item 15), the sweep
-trainer and the fused cycle (item 9), transcoder targets (item 10).
+Not ported yet, and raising ``NotImplementedError``: validation, evaluation
+and wandb (ROADMAP queue A, item 8), checkpoints and ``mesh`` (item 15),
+TopK, gated and transcoder SAEs (item 10).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, NamedTuple, Optional, Tuple
+import warnings
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -31,6 +40,7 @@ from vit_prisma_tpu_torch.ops.opt_step import (
     ScaleByScheduleState,
     fused_clip_project_adam,
 )
+from vit_prisma_tpu_torch.ops.sae_step import fused_step_eligible, sae_fused_apply
 from vit_prisma_tpu_torch.sae.config import SAERunnerConfig
 from vit_prisma_tpu_torch.sae.geometric_median import compute_geometric_median
 from vit_prisma_tpu_torch.sae.sae import (
@@ -205,12 +215,14 @@ def _apply_window_reset(state: SAETrainState,
                         cfg: SAERunnerConfig) -> SAETrainState:
     """Zero the act-freq counters when the post-step count hits a
     ``feature_sampling_window`` multiple, on the device (the multi-step
-    path's form of :func:`reset_sparsity_counters`)."""
+    path's form of :func:`reset_sparsity_counters`).  ``state.step`` may be
+    a scalar or, for the sweep, ``[L]``."""
     w = cfg.feature_sampling_window
     if not w:
         return state
     keep = 1.0 - ((state.step % w) == 0).float()
-    return state._replace(act_freq_scores=state.act_freq_scores * keep,
+    af_keep = keep.reshape(keep.shape + (1,) * (state.act_freq_scores.ndim - keep.ndim))
+    return state._replace(act_freq_scores=state.act_freq_scores * af_keep,
                           n_frac_active_tokens=state.n_frac_active_tokens * keep)
 
 
@@ -251,6 +263,237 @@ def initialize_b_dec(cfg: SAERunnerConfig, params: Params,
     return out
 
 
+# ---------------------------------------------------------------------------
+# The all-layer sweep: L SAEs trained at once, state leaves stacked [L, ...]
+# ---------------------------------------------------------------------------
+
+_COUNTERS = ("act_freq_scores", "n_forward_passes_since_fired",
+             "n_frac_active_tokens", "step", "n_training_tokens")
+
+
+def _map_state(fn: Callable, *states: SAETrainState) -> SAETrainState:
+    """``fn`` applied leaf by leaf across train states of one structure."""
+    first = states[0]
+    leaf = lambda get: fn(*(get(s) for s in states))
+    tree = lambda get: {k: fn(*(get(s)[k] for s in states)) for k in get(first)}
+    return SAETrainState(
+        params=tree(lambda s: s.params),
+        opt_state=(ScaleByAdamState(count=leaf(lambda s: s.opt_state[0].count),
+                                    mu=tree(lambda s: s.opt_state[0].mu),
+                                    nu=tree(lambda s: s.opt_state[0].nu)),
+                   ScaleByScheduleState(count=leaf(lambda s: s.opt_state[1].count))),
+        **{f: leaf(lambda s, f=f: getattr(s, f)) for f in _COUNTERS})
+
+
+def _stack_metrics(per_step) -> StepMetrics:
+    return StepMetrics(*(torch.stack(f) for f in zip(*per_step)))
+
+
+def init_sweep_state(cfg: SAERunnerConfig, n_layers: int,
+                     generator: Optional[torch.Generator] = None,
+                     device=None) -> SAETrainState:
+    """Stacked train state for ``n_layers`` independent SAEs, drawn one
+    after another from ``generator`` (seeded with ``cfg.seed`` when None)."""
+    g = generator if generator is not None else torch.Generator().manual_seed(cfg.seed)
+    states = [init_train_state(cfg, generator=g, device=device) for _ in range(n_layers)]
+    return _map_state(lambda *xs: torch.stack(xs), *states)
+
+
+def _fused_step_ok(cfg: SAERunnerConfig, n_rows: int, n_layers: int = 1,
+                   allow_single_layer: bool = False) -> bool:
+    """Config and shape gate of the fused step (kernels B4-B6), as the JAX
+    package's: the standard ReLU with the L1 penalty, at L >= 2 (the JAX
+    package measured the generic step faster at L = 1), on tile-aligned
+    shapes.  Configs that the JAX gate sends to the TopK or gated kernels
+    raise: those kernels are not ported yet."""
+    if n_layers < 2 and not allow_single_layer:
+        return False
+    if not (cfg.fused_sae_step
+            and cfg.architecture in ("standard", "gated")
+            and cfg.activation_fn_str in ("relu", "topk")
+            and cfg.normalize_activations == "none"
+            and not cfg.use_ghost_grads
+            and not cfg.is_transcoder):
+        return False
+    if cfg.architecture == "gated" or cfg.activation_fn_str == "topk":
+        raise NotImplementedError(
+            "the fused TopK and gated steps (kernels B8-B12) are not ported yet "
+            "(ROADMAP queue A, item 10)")
+    if cfg.lp_norm != 1.0:
+        return False
+    itemsize = (cfg.compute_torch_dtype or cfg.torch_dtype).itemsize
+    return fused_step_eligible(n_rows, cfg.d_in, cfg.d_sae, itemsize)
+
+
+def _fused_single_ok(cfg: SAERunnerConfig, n_rows: int) -> bool:
+    """The single-SAE (L = 1) fused gate: only TopK and gated take it in the
+    JAX package, and their kernels are not ported yet."""
+    if cfg.activation_fn_str == "topk" or cfg.architecture == "gated":
+        return _fused_step_ok(cfg, n_rows, 1, allow_single_layer=True)
+    return False
+
+
+@torch.no_grad()
+def _sae_train_step_fused(state: SAETrainState, x: torch.Tensor,
+                          cfg: SAERunnerConfig) -> Tuple[SAETrainState, StepMetrics]:
+    """Stacked step on the fused kernels, for a layer-major batch ``x``
+    ``[L, B, d_in]``; the JAX package's ``_sae_train_step_fused`` with
+    ``data_axis=None``.  The per-layer losses are summed for one backward
+    (the layers' params are disjoint, so each layer gets its own grads)."""
+    check_ported(cfg)
+    schedule = make_schedule(cfg)
+    B = x.shape[1]
+    params = set_decoder_norm_to_unit_norm(state.params)
+    ghost_mask = state.n_forward_passes_since_fired > cfg.dead_feature_window
+    compute_dt = cfg.compute_torch_dtype
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    with torch.enable_grad():
+        p = leaves if compute_dt is None else {k: v.to(compute_dt) for k, v in leaves.items()}
+        xt = x.to(p["W_enc"].dtype)
+        y, l1_sums, nact = sae_fused_apply(xt, p["W_enc"], p["b_enc"], p["W_dec"],
+                                           p["b_dec"], save_acts=cfg.fused_store_acts)
+        cent = xt - xt.mean(dim=1, keepdim=True)
+        norm = torch.sqrt(torch.square(cent).sum(
+            dim=-1, keepdim=True, dtype=torch.float32)).to(xt.dtype)
+        mse_l = (torch.square(y - xt) / norm).mean(dim=(1, 2), dtype=torch.float32)
+        l1_l = cfg.l1_coefficient * l1_sums / B
+        loss_l = mse_l + l1_l
+        grads = dict(zip(leaves, torch.autograd.grad(loss_l.sum(), list(leaves.values()))))
+
+    # clip -> W_dec projection -> Adam per layer, kernel B7 over the stacks
+    adam_st, sched_st = state.opt_state
+    new_params, new_opt = fused_clip_project_adam(
+        params, grads, state.opt_state, lr=cfg.lr * schedule(sched_st.count),
+        b1=cfg.adam_b1, b2=cfg.adam_b2, max_grad_norm=cfg.max_grad_norm)
+
+    # nact is the per-feature count of active rows: the counters and L0
+    fired_counter = torch.where(nact > 0, 0.0, state.n_forward_passes_since_fired + 1.0)
+    act_freq = state.act_freq_scores + nact
+    l0 = nact.sum(dim=-1) / B
+    x32 = x.to(cfg.torch_dtype)
+    y = y.detach()
+    resid_var = torch.square(x32 - y.to(x32.dtype)).sum(-1)
+    total_var = torch.square(x32 - x32.mean(dim=1, keepdim=True)).sum(-1)
+    explained_variance = (1 - resid_var / total_var).mean(dim=-1)
+
+    zeros_l = torch.zeros_like(mse_l)
+    new_state = SAETrainState(
+        params=new_params, opt_state=new_opt,
+        act_freq_scores=act_freq, n_forward_passes_since_fired=fired_counter,
+        n_frac_active_tokens=state.n_frac_active_tokens + B,
+        step=state.step + 1, n_training_tokens=state.n_training_tokens + B)
+    metrics = StepMetrics(
+        loss=loss_l.detach(), mse_loss=mse_l.detach(), l1_loss=l1_l.detach(),
+        ghost_grad_loss=zeros_l, aux_reconstruction_loss=zeros_l,
+        l0=l0, explained_variance=explained_variance,
+        n_dead_features=ghost_mask.sum(dim=-1).float(), lr_multiplier=schedule(state.step))
+    return new_state, metrics
+
+
+def _sweep_generic_step(state: SAETrainState, x: torch.Tensor,
+                        cfg: SAERunnerConfig) -> Tuple[SAETrainState, StepMetrics]:
+    """The generic step once per layer of a layer-major batch ``[L, B, d]``
+    (the JAX package vmaps it), results stacked on the layer axis."""
+    outs = [_sae_train_step_impl(_map_state(lambda a, l=l: a[l], state), x[l], cfg)
+            for l in range(x.shape[0])]
+    return (_map_state(lambda *xs: torch.stack(xs), *(s for s, _ in outs)),
+            _stack_metrics(m for _, m in outs))
+
+
+def sae_sweep_train_step(state: SAETrainState, batch: torch.Tensor,
+                         cfg: SAERunnerConfig) -> Tuple[SAETrainState, StepMetrics]:
+    """All-layer sweep step: ``state`` leaves are ``[L, ...]``, ``batch`` is
+    ``[B, L, d_in]`` (one row per layer from one harvest).  The fused
+    kernels when :func:`_fused_step_ok` admits the config, else the generic
+    step per layer.  Metrics are ``[L]``."""
+    x = batch.transpose(0, 1)
+    if _fused_step_ok(cfg, batch.shape[0], batch.shape[1]):
+        return _sae_train_step_fused(state, x.contiguous(), cfg)
+    return _sweep_generic_step(state, x, cfg)
+
+
+def sae_sweep_train_multistep(state: SAETrainState, batches: torch.Tensor,
+                              cfg: SAERunnerConfig) -> Tuple[SAETrainState, StepMetrics]:
+    """K sweep steps over ``batches`` ``[K, B, L, d_in]`` with the window
+    resets after each; metrics stacked ``[K, L]``.  On the fused path the
+    ``[K, B, L, d] -> [K, L, B, d]`` transpose is made once for the K
+    steps, as the JAX package hoists it out of its scan."""
+    fused = _fused_step_ok(cfg, batches.shape[1], batches.shape[2])
+    xs = batches.transpose(1, 2)
+    if fused:
+        xs = xs.contiguous()
+    per_step = []
+    for x in xs:
+        state, m = (_sae_train_step_fused if fused else _sweep_generic_step)(state, x, cfg)
+        state = _apply_window_reset(state, cfg)
+        per_step.append(m)
+    return state, _stack_metrics(per_step)
+
+
+# ---------------------------------------------------------------------------
+# The fused cycle: refill + the half-buffer's K steps
+# ---------------------------------------------------------------------------
+
+def _warn_unserved_half(ptr: int, half: int) -> None:
+    """``train_cycles`` expects the buffer's first half to be served; rows
+    left unserved are dropped by the first cycle's mix."""
+    if ptr != half:
+        warnings.warn(
+            f"train_cycles entered with store.ptr={ptr} != half={half}: "
+            f"{half - ptr} already-harvested rows will be dropped unserved "
+            "by the first cycle's mix. Serve them first (next_batches / "
+            "train_steps) to keep the documented stream equivalence.",
+            stacklevel=3)
+
+
+def make_fused_cycle(cfg: SAERunnerConfig, store):
+    """The steady-state cycle: images from the cycle's indices -> harvest of
+    the fresh (floor) half -> the B3 mix -> K train steps.  The JAX package
+    makes this one XLA program; PyTorch runs it eagerly, in the same order,
+    so it serves the same rows as ``train_steps(store.next_batches(K))``
+    with K batches spanning the half-buffer.
+
+    Needs ``store.fused_cycle_available`` (a device-resident dataset) and
+    ``K * train_batch_size`` equal to half the buffer.  Returns
+    ``cycle(state, idx) -> (state, metrics)``, where ``idx`` is
+    ``store.next_cycle_indices()``."""
+    if not store.fused_cycle_available:
+        raise ValueError("the fused cycle needs a device-resident dataset (a tensor, a "
+                         "small ndarray, or device_dataset=True)")
+    bs = cfg.train_batch_size
+    half = store.buffer.shape[0] // 2
+    K = half // bs
+    if K * bs != half:
+        raise ValueError(f"train_batch_size({bs}) must divide the half-buffer ({half})")
+    multistep = sae_sweep_train_multistep if cfg.sweep_layers else sae_train_multistep
+
+    def cycle(state: SAETrainState, idx) -> Tuple[SAETrainState, StepMetrics]:
+        store._refill_half(indices=idx)
+        batches = store.buffer[:K * bs].reshape((K, bs) + tuple(store.buffer.shape[1:]))
+        return multistep(state, batches, cfg)
+
+    return cycle
+
+
+# ---------------------------------------------------------------------------
+# Trainers
+# ---------------------------------------------------------------------------
+
+def _not_ported_options(cfg, mesh, eval_dataset, class_embeddings):
+    if mesh is not None:
+        raise NotImplementedError(
+            "a sharded trainer (mesh=) is not ported yet (ROADMAP queue A, item 15)")
+    if cfg.n_validation_runs or eval_dataset is not None or class_embeddings is not None:
+        raise NotImplementedError(
+            "in-training validation is not ported yet (ROADMAP queue A, item 8)")
+    if cfg.n_checkpoints:
+        raise NotImplementedError(
+            "checkpoints are not ported yet (ROADMAP queue A, item 15)")
+    if cfg.log_to_wandb:
+        raise NotImplementedError(
+            "wandb logging is not ported yet (ROADMAP queue A, item 8)")
+
+
 class VisionSAETrainer:
     """Streams token rows from an activation store into the train step,
     with the JAX trainer's log cadence, sparsity-window resets and bad-run
@@ -258,43 +501,43 @@ class VisionSAETrainer:
     ``cfg.seed`` when None) and live on ``device`` (the store's when
     None)."""
 
+    _step = staticmethod(sae_train_step)
+    _multistep = staticmethod(sae_train_multistep)
+
     def __init__(self, cfg: SAERunnerConfig, model=None, store=None,
                  generator: Optional[torch.Generator] = None, device=None,
                  eval_dataset=None, class_embeddings=None, mesh=None):
         check_ported(cfg)
-        if mesh is not None:
-            raise NotImplementedError(
-                "a sharded trainer (mesh=) is not ported yet (ROADMAP queue A, item 15)")
-        if cfg.n_validation_runs or eval_dataset is not None or class_embeddings is not None:
-            raise NotImplementedError(
-                "in-training validation is not ported yet (ROADMAP queue A, item 8)")
-        if cfg.n_checkpoints:
-            raise NotImplementedError(
-                "checkpoints are not ported yet (ROADMAP queue A, item 15)")
-        if cfg.log_to_wandb:
-            raise NotImplementedError(
-                "wandb logging is not ported yet (ROADMAP queue A, item 8)")
+        _not_ported_options(cfg, mesh, eval_dataset, class_embeddings)
         self.cfg = cfg
         self.model = model
         self.store = store
+        self._cycle = None
         if device is None:
             device = store.device if store is not None else "cpu"
-        params = init_sae_params(cfg, generator, device)
-        if store is not None and cfg.b_dec_init_method != "zeros":
-            sample = store.peek_tokens(min(4096 * 8, cfg.tokens_per_buffer))
-            params = initialize_b_dec(cfg, params, sample.to(device))
-        self.state = init_train_state(cfg, params=params)
+        self.state = self._init_state(generator, device)
         # Host mirror of the device step counter: the cadence checks read it
         # instead of the device value, so the loop never waits for the
         # device except to log.  load_state() keeps it in sync.
         self._host_step = 0
+
+    def _init_state(self, generator, device) -> SAETrainState:
+        cfg, store = self.cfg, self.store
+        params = init_sae_params(cfg, generator, device)
+        if store is not None and cfg.b_dec_init_method != "zeros":
+            sample = store.peek_tokens(min(4096 * 8, cfg.tokens_per_buffer))
+            params = initialize_b_dec(cfg, params, sample.to(device))
+        return init_train_state(cfg, params=params)
 
     @property
     def sae(self) -> SparseAutoencoder:
         return SparseAutoencoder(self.cfg, params=self.state.params)
 
     def train_step(self, batch, target=None) -> StepMetrics:
-        self.state, metrics = sae_train_step(self.state, batch, self.cfg, target)
+        if target is not None:
+            self.state, metrics = self._step(self.state, batch, self.cfg, target)
+        else:
+            self.state, metrics = self._step(self.state, batch, self.cfg)
         self._host_step += 1
         w = self.cfg.feature_sampling_window
         if w and (self._host_step % w) == 0:
@@ -302,17 +545,39 @@ class VisionSAETrainer:
         return metrics
 
     def train_steps(self, batches, targets=None) -> StepMetrics:
-        """K steps over ``batches`` [K, B, d_in] (pair with
-        ``store.next_batches(K)``); metrics stacked on the leading axis."""
-        self.state, metrics = sae_train_multistep(self.state, batches, self.cfg,
-                                                  targets)
+        """K steps over ``batches`` (pair with ``store.next_batches(K)``);
+        metrics stacked on the leading axis."""
+        if targets is not None:
+            self.state, metrics = self._multistep(self.state, batches, self.cfg, targets)
+        else:
+            self.state, metrics = self._multistep(self.state, batches, self.cfg)
         self._host_step += batches.shape[0]
+        return metrics
+
+    def train_cycles(self, n_cycles: int) -> StepMetrics:
+        """``n_cycles`` steady-state cycles (:func:`make_fused_cycle`): each
+        refills the buffer's half and trains on it, serving the same rows
+        as ``train_steps(store.next_batches(K))``.  Returns the last cycle's
+        stacked per-step metrics."""
+        if n_cycles < 1:
+            raise ValueError(f"train_cycles requires n_cycles >= 1 (got {n_cycles})")
+        store = self.store
+        if self._cycle is None:
+            self._cycle = make_fused_cycle(self.cfg, store)
+        half = store.buffer.shape[0] // 2
+        _warn_unserved_half(store.ptr, half)
+        K = half // self.cfg.train_batch_size
+        metrics = None
+        for _ in range(n_cycles):
+            self.state, metrics = self._cycle(self.state, store.next_cycle_indices())
+            self._host_step += K
+        store.ptr = half  # the cycle served exactly the refilled half
         return metrics
 
     def load_state(self, state: SAETrainState) -> "VisionSAETrainer":
         """Swap in a (resumed) train state and re-sync the host step mirror."""
         self.state = state
-        self._host_step = int(state.step)
+        self._host_step = int(state.step.reshape(-1)[0])
         return self
 
     def log_metrics(self, metrics: StepMetrics, step: Optional[int] = None):
@@ -329,7 +594,20 @@ class VisionSAETrainer:
             return True
         return False
 
-    def run(self, max_steps: Optional[int] = None) -> SparseAutoencoder:
+    def _abort_message(self, metrics: StepMetrics, vals) -> Optional[str]:
+        if self.check_run_tolerance(metrics):
+            return f"SAE training below quality tolerance (metrics={vals}); aborting run"
+        return None
+
+    def _progress(self, step: int, n_tokens: int, vals, seconds: float) -> str:
+        return (f"step {step} tokens {n_tokens} loss {vals['loss']:.4f} "
+                f"L0 {vals['l0']:.1f} ev {vals['explained_variance']:.3f} "
+                f"({n_tokens / seconds:.0f} tok/s)")
+
+    def _result(self):
+        return self.sae
+
+    def run(self, max_steps: Optional[int] = None):
         """Train until ``cfg.total_training_tokens`` (or ``max_steps``),
         reading the metrics every ``cfg.wandb_log_frequency`` steps."""
         if self.store is None:
@@ -340,9 +618,9 @@ class VisionSAETrainer:
         freq = self.cfg.wandb_log_frequency
         step = 0
         # one sync here, then host accounting only
-        self._host_step = int(self.state.step)
+        self._host_step = int(self.state.step.reshape(-1)[0])
         start_step = self._host_step
-        n_tokens = int(self.state.n_training_tokens)
+        n_tokens = int(self.state.n_training_tokens.reshape(-1)[0])
         t0 = time.time()
         while n_tokens < total:
             if max_steps is not None and step >= max_steps:
@@ -360,26 +638,112 @@ class VisionSAETrainer:
                 m = metrics if chunk == 1 else StepMetrics(*(f[j] for f in metrics))
                 vals = self.log_metrics(m, step=start_step + step)
                 if self.cfg.verbose:
-                    print(f"step {start_step + step} tokens {n_tokens} "
-                          f"loss {vals['loss']:.4f} L0 {vals['l0']:.1f} "
-                          f"ev {vals['explained_variance']:.3f} "
-                          f"({n_tokens / (time.time() - t0):.0f} tok/s)")
-                if self.check_run_tolerance(m):
-                    raise RuntimeError(
-                        "SAE training below quality tolerance "
-                        f"(metrics={vals}); aborting run")
-        return self.sae
+                    print(self._progress(start_step + step, n_tokens, vals, time.time() - t0))
+                msg = self._abort_message(m, vals)
+                if msg is not None:
+                    raise RuntimeError(msg)
+        return self._result()
 
 
-class SAESweepTrainer:
-    """The all-layer sweep trainer; not ported yet."""
+class SAESweepTrainer(VisionSAETrainer):
+    """The all-layer sweep: one shared harvest feeds L SAEs trained at once
+    (``cfg.sweep_layers``), with the single trainer's cadence, window resets
+    and per-layer bad-run abort.  ``run`` returns one SAE per layer."""
 
-    def __init__(self, *args, **kwargs):
+    _step = staticmethod(sae_sweep_train_step)
+    _multistep = staticmethod(sae_sweep_train_multistep)
+
+    def __init__(self, cfg: SAERunnerConfig, model=None, store=None,
+                 generator: Optional[torch.Generator] = None, device=None,
+                 mesh=None, eval_dataset=None, class_embeddings=None):
+        if not cfg.sweep_layers:
+            raise ValueError("cfg.sweep_layers must list the layers")
+        self.layers = list(cfg.sweep_layers)
+        super().__init__(cfg, model, store, generator, device, eval_dataset,
+                         class_embeddings, mesh)
+        self._host_step = int(self.state.step[0])
+
+    def _init_state(self, generator, device) -> SAETrainState:
+        cfg, store = self.cfg, self.store
+        state = init_sweep_state(cfg, len(self.layers), generator, device)
+        if store is not None and cfg.b_dec_init_method != "zeros":
+            n = min(4096 * 8, cfg.tokens_per_buffer)
+            b_decs = [initialize_b_dec(cfg, {}, store.peek_tokens(n, layer_slot=slot)
+                                       .to(device))["b_dec"]
+                      for slot in range(len(self.layers))]
+            state = state._replace(params={**state.params, "b_dec": torch.stack(b_decs)})
+        return state
+
+    def train_step(self, batch, target=None) -> StepMetrics:
+        """``batch``: ``[B, L, d_in]`` from a sweep store."""
+        if target is not None:
+            raise NotImplementedError(
+                "transcoder targets are not ported yet (ROADMAP queue A, item 10)")
+        return super().train_step(batch)
+
+    def train_steps(self, batches, targets=None) -> StepMetrics:
+        """K sweep steps over ``batches`` ``[K, B, L, d_in]``; metrics
+        ``[K, L]``."""
+        if targets is not None:
+            raise NotImplementedError(
+                "transcoder targets are not ported yet (ROADMAP queue A, item 10)")
+        return super().train_steps(batches)
+
+    @property
+    def sae(self):
+        raise AttributeError("a sweep trains one SAE per layer: use sae_for_layer(i)")
+
+    def sae_for_layer(self, i: int) -> SparseAutoencoder:
+        layer_cfg = self.cfg.replace(sweep_layers=None, hook_point_layer=self.layers[i])
+        return SparseAutoencoder(layer_cfg,
+                                 params={k: v[i] for k, v in self.state.params.items()})
+
+    def log_metrics(self, metrics: StepMetrics, step: Optional[int] = None) -> Dict[str, Any]:
+        """Per-layer (``layer_{l}/{name}``) and mean metrics, fetched in one
+        transfer."""
+        host = torch.stack([getattr(metrics, k).float() for k in metrics._fields]).cpu()
+        vals: Dict[str, Any] = {}
+        for k, row in zip(metrics._fields, host):
+            vals[k] = float(row.mean())
+            for layer, v in zip(self.layers, row.tolist()):
+                vals[f"layer_{layer}/{k}"] = v
+        return vals
+
+    def check_run_tolerance(self, metrics: StepMetrics) -> Optional[int]:
+        """Index of the first layer below the bad-run tolerances, or None."""
+        l0 = metrics.l0.tolist()
+        ev = metrics.explained_variance.tolist()
+        for i in range(len(self.layers)):
+            if self.cfg.min_l0 is not None and l0[i] < self.cfg.min_l0:
+                return i
+            if (self.cfg.min_explained_variance is not None
+                    and ev[i] < self.cfg.min_explained_variance):
+                return i
+        return None
+
+    def _abort_message(self, metrics: StepMetrics, vals) -> Optional[str]:
+        bad = self.check_run_tolerance(metrics)
+        if bad is None:
+            return None
+        return (f"SAE sweep layer {self.layers[bad]} below quality tolerance "
+                f"(metrics={vals}); aborting run")
+
+    def _progress(self, step: int, n_tokens: int, vals, seconds: float) -> str:
+        return (f"sweep step {step} tokens/layer {n_tokens} mean loss {vals['loss']:.4f} "
+                f"mean L0 {vals['l0']:.1f} mean ev {vals['explained_variance']:.3f} "
+                f"({n_tokens * len(self.layers) / seconds:.0f} SAE-tok/s)")
+
+    def _result(self) -> List[SparseAutoencoder]:
+        return [self.sae_for_layer(i) for i in range(len(self.layers))]
+
+    def save_checkpoints(self, out_dir: str):
         raise NotImplementedError(
-            "the all-layer sweep is not ported yet (ROADMAP queue A, item 9)")
+            "checkpoints are not ported yet (ROADMAP queue A, item 15)")
 
+    def validate(self):
+        raise NotImplementedError(
+            "in-training validation is not ported yet (ROADMAP queue A, item 8)")
 
-def make_fused_cycle(*args, **kwargs):
-    """The fused harvest-mix-train cycle; not ported yet."""
-    raise NotImplementedError(
-        "make_fused_cycle is not ported yet (ROADMAP queue A, item 9)")
+    def evaluate(self, data_iter, class_embeddings=None, eval_cfg=None):
+        raise NotImplementedError(
+            "sweep evaluation is not ported yet (ROADMAP queue A, item 8)")
