@@ -10,10 +10,16 @@ Phases, each printing JSON lines with the card's name and power limit:
 1. build: compile the CUDA kernels from ``vit_prisma_tpu_torch/csrc``, one
    nvcc process per source, all started together;
 2. kernel: every kernel against its plain PyTorch version on the card, at
-   the shapes its path gives it, with both times from CUDA events: B1
-   (``attention_mix_tnh``) at the ViT shapes, B3 (``take_rows``) at the
-   activation store's shape, B7 (``adam_update``) at the default SAE's
-   four tensors with float32 and bfloat16 moments;
+   the shapes its path gives it, with both times from CUDA events, the
+   time of one library call computing the same function where there is one
+   (never used by the port) and the kernel's bound (bytes over the memory
+   rate or operations over their peak rate): B1 (``attention_mix_tnh``) at
+   the ViT shapes beside ``scaled_dot_product_attention``, B3
+   (``take_rows``) at the activation store's shape beside
+   ``index_select``, B7 (``adam_update``) at the default SAE's four tensors
+   with float32 and bfloat16 moments, B10 (``kth_value``) at the generic
+   TopK step's [4096, 12288] and at d_sae 65,536 in both dtypes, bitwise,
+   beside ``torch.kthvalue``;
 3. slice: the CLIP ViT-B/32 resid_post cached forward (12 layers, 768 wide,
    random weights from seed 0) on the card against the same weights on the
    CPU in float32, and in bfloat16 against the einsum attention path;
@@ -24,9 +30,9 @@ Phases, each printing JSON lines with the card's name and power limit:
 5. train: the second main path, SAE training at ``SAERunnerConfig``'s
    defaults (B/32 layer-9 resid_post, 768 -> 12,288, batch 4096, float32)
    with a 4-batch buffer: ``HookedViT`` -> ``VisionActivationsStore`` ->
-   ``VisionSAETrainer.run(max_steps=120)``, which crosses one refill.  The
-   B1, B3 and B7 launches are counted and must be exact; training tokens
-   per second and peak device memory are printed;
+   ``VisionSAETrainer.run(max_steps=120)``, which crosses one refill.  Every
+   kernel's launches are counted and must be exact; training tokens per
+   second and peak device memory are printed;
 6. step check: from the trained state, three steps on three batches on the
    card and on the CPU in float32; grads, params, moments and counters are
    compared;
@@ -36,18 +42,37 @@ Phases, each printing JSON lines with the card's name and power limit:
    and at two layers in float32, with times and TFLOP/s; then B4+B6 against
    B4+B5 through ``sae_fused_apply`` at the sweep's shape in both dtypes,
    times and peak memory, the measurement behind always keeping hc;
-8. sweep: the third main path, the CLIP ViT-L/14 24-SAE sweep of the JAX
-   package's benchmark (bf16 model with random weights, 96 random float32
-   images on the card): ``HookedViT`` -> sweep ``VisionActivationsStore`` ->
-   ``SAESweepTrainer.run(max_steps=18)`` -> ``train_cycles(2)``, then one
-   cycle with ``fused_store_acts=False`` (the remat backward, B5).  Launch
-   counts exact; SAE-tokens per second and peak memory;
-9. sweep step check: three fused steps against three steps of the generic
-   per-layer path from one state, in bfloat16 at 24 layers and in float32
-   at two.
+8. TopK kernels: B8 (``sae_fused_forward_topk``), B9
+   (``sae_fused_backward_topk``) and B6 on B8's masked h against their plain
+   versions at the TopK slice's shape (1 x 4096, 768 -> 12,288, k = 64) in
+   both dtypes and at the sweep's shape in bfloat16; masks that differ from
+   the plain version's are counted and bounded, and the kernels' own
+   invariants are exact; then B8+B6 against B8+B9 through
+   ``sae_fused_apply_topk``;
+9. TopK train: the fourth main path, phase 5's set-up with bench.py's
+   bfloat16 TopK row (k = 64, bf16 compute, float32 masters):
+   ``run(max_steps=120)`` through B8 and B6 on every step, exact launches;
+   then a few steps with ``fused_store_acts=False`` through B9, and where
+   the time goes: fused and generic steps timed with CUDA events on
+   buffered batches, and ``torch.profiler``'s device time by kernel over
+   three steps of each and over one refill, with the device's idle share;
+10. TopK step check: three fused steps against three generic steps (B10)
+    from the trained state in float32, and ``SparseAutoencoder.encode``
+    (B10) against B8's masked h;
+11. sweep: the third main path, the CLIP ViT-L/14 24-SAE sweep of the JAX
+    package's benchmark (bf16 model with random weights, 96 random float32
+    images on the card): ``HookedViT`` -> sweep ``VisionActivationsStore`` ->
+    ``SAESweepTrainer.run(max_steps=18)`` -> ``train_cycles(2)``, then one
+    cycle with ``fused_store_acts=False`` (the remat backward, B5).  Launch
+    counts exact; SAE-tokens per second and peak memory;
+12. sweep step check: three fused steps against three steps of the generic
+    per-layer path from one state, in bfloat16 at 24 layers and in float32
+    at two.
 
-It imports no JAX, catches no failure, and exits non-zero when there is no
-CUDA card or any check fails.  The last line is
+The line before the last lists every kernel with its launches on its main
+path, its error, times, bound and library time.  It imports no JAX,
+catches no failure, and exits non-zero when there is no CUDA card or any
+check fails.  The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -71,6 +96,17 @@ SAE_BWD_SOURCE = "vit_prisma_tpu_torch/csrc/sae_fused_bwd.cu"
 SAE_REPLACES = {"sae_fused_forward": "vit_prisma_tpu/ops/sae_step.py:148",
                 "sae_fused_backward": "vit_prisma_tpu/ops/sae_step.py:250",
                 "sae_fused_backward_stored": "vit_prisma_tpu/ops/sae_step.py:389"}
+KTH_SOURCE = "vit_prisma_tpu_torch/csrc/kth_value.cu"
+KTH_REPLACES = "vit_prisma_tpu/ops/topk.py:78"
+TOPK_FWD_SOURCE = "vit_prisma_tpu_torch/csrc/sae_fused_fwd_topk.cu"
+TOPK_REPLACES = {"sae_fused_forward_topk": "vit_prisma_tpu/ops/sae_step.py:656",
+                 "sae_fused_backward_topk": "vit_prisma_tpu/ops/sae_step.py:763"}
+# Peak rates of one H100 SXM (NVIDIA's data sheet, dense, 700 W) for the
+# bound of each kernel: the larger of its bytes over the memory rate and its
+# operations over the peak rate of their type (bf16 products on the tensor
+# cores; float32 products, compares and elementwise work on the CUDA cores,
+# since TF32 would round float32 inputs).
+PEAK_OPS = {"bf16_tensor": 989e12, "fp32": 67e12}
 # Kernel against plain, elementwise max abs error (inputs ~N(0,1)): float32
 # differs only in summation order; bfloat16 may round p or z one ulp apart.
 KERNEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
@@ -110,6 +146,17 @@ ADAM_UPDATE_TOL = 1e-5
 ADAM_TOL = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -7}
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+# B10 against its plain version (the same bitwise search in torch ops): t
+# bitwise equal, so x >= t too.  At the shapes the TopK path gives it (the
+# generic step's [4096, 12288] pre-activations) and at the widest d_sae the
+# repo's configs reach (1024 x 64 = 65,536: rows beyond shared memory in
+# float32), with every fourth row shifted negative and, in float32, every
+# other row quantized to quarters so that the k-th value is tied.
+KTH_SHAPES = [("slice_f32", 4096, 12288, torch.float32),
+              ("slice_bf16", 4096, 12288, torch.bfloat16),
+              ("wide_f32", 256, 65536, torch.float32),
+              ("wide_bf16", 256, 65536, torch.bfloat16)]
+TOPK_K = 64
 # The train phase: SAERunnerConfig's defaults except a 4-batch buffer (the
 # 20-batch default is a 16.4M-row, 50 GB buffer whose fill does not fit a
 # smoke run), on 1,024 random images cycled by the store's index iterator.
@@ -162,6 +209,49 @@ SAE_REL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
 SAE_GRAD_REL = {torch.bfloat16: 2e-3, torch.float32: 1e-5}
 SAE_SWITCHED_GRAD_REL = 5e-2
 SAE_L1_REL = 1e-5
+# B8, B9 and B6 on B8's h against their plain versions: name, L, B, d_in,
+# d_sae, dtype.  The TopK slice (bench.py:164-171, k = 64) in both dtypes
+# and the all-layer sweep's shape in bfloat16.
+TOPK_SHAPES = [("slice_bf16", 1, 4096, 768, 12288, torch.bfloat16),
+               ("slice_f32", 1, 4096, 768, 12288, torch.float32),
+               ("sweep_bf16", 24, 4096, 1024, 8192, torch.bfloat16)]
+# The kernel and the plain version round hp to c after float32 sums taken in
+# other orders, so an hp within a rounding of the row's k-th value or of 0
+# may fall on the other side of the mask in one of them.  Such entries are
+# counted; at most TOPK_FLIP_FRAC of all entries may flip, and at most
+# TOPK_FLIP_ROW_FRAC of the rows may hold one, so that y is checked on most
+# rows.  Outside the rows with a flip, y is held to SAE_REL; l1 within the
+# flipped entries' values plus SAE_L1_REL; nact within each feature's flips;
+# the grads within
+# SAE_GRAD_REL outside the features with a flip and TOPK_SWITCHED_GRAD_REL
+# in them.  The kernel's own invariants are exact: nact equals its own mask
+# count, t is the k-th largest of its own h, and B9 from t gives B6's grads
+# from h bit for bit (the same active set and the same products).
+TOPK_FLIP_FRAC = 1e-4
+TOPK_FLIP_ROW_FRAC = 1e-2
+# A TopK feature is active in about k B / d_sae rows (21 at the slice shape,
+# 32 at the sweep's), not in half of them as a ReLU feature, so one row in or
+# out of a switched feature moves its gradient column by a few tenths of the
+# largest column's: within 0.25 of the absmax there.
+TOPK_SWITCHED_GRAD_REL = 0.25
+# B8+B6 against B8+B9 through sae_fused_apply_topk at the TopK slice shape.
+TOPK_SAVE_ACTS_SHAPE = (1, 4096, 768, 12288)
+# The TopK train phase: phase 5's set-up with the TopK config of bench.py's
+# bf16 row; then REMAT_STEPS steps with fused_store_acts=False (B9).
+TOPK_REMAT_STEPS = 4
+# Where a TopK step's time goes, after the train phase: TOPK_PROFILE_STEPS
+# steps timed back to back on batches already in the buffer, fused and
+# generic, then torch.profiler over three steps of each and over one refill;
+# the TOPK_PROFILE_TOP kernels by device time are printed.
+TOPK_PROFILE_STEPS = 20
+TOPK_PROFILE_TOP = 10
+# TopK step check: fused (B8, B6) against generic (B10) steps from the
+# trained state in float32.  Both paths mask float32 pre-activations summed
+# in other orders, so an entry within rounding of its row's k-th value may
+# switch; those features are counted and held to the switched bounds of
+# phase 6 (STEP_SWITCHED_*), every other feature to its unswitched bounds.
+# encode's activations against B8's masked h: the same, entry by entry.
+TOPK_ENCODE_REL = 1e-5
 # The sweep: the JAX package's BASELINE config 5 (bench.py:189-214) with the
 # port's L/14 registry entry in bfloat16 (random weights, seed 0) and 96
 # random float32 images on the card instead of the uint8 wire (queue A, item
@@ -236,6 +326,16 @@ def rel_atol(rel, want) -> float:
     return rel * max(1.0, want.float().abs().max().item())
 
 
+def bound(nbytes, ops=()) -> dict:
+    """The least time the card could take for a call: its bytes (each input
+    read once, each output written once) over the memory rate, or its
+    operations over the peak rates of their types, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = sum(n / PEAK_OPS[kind] for kind, n in ops)
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def phase_build(info):
     from vit_prisma_tpu_torch.ops import _build
     cached = (_build.build_dir() / _build.LIB_NAME).exists()
@@ -268,14 +368,21 @@ def phase_kernels(info):
             err = check_close(f"{name} {dtype}", z, want, KERNEL_TOL[dtype])
             us = cuda_us(lambda: attention_mix_tnh(q, k, v, N, causal))
             plain_us = cuda_us(lambda: attention_mix_tnh_reference(q, k, v, N, causal))
+            # the library call on head-major copies made beforehand (untimed)
+            qh, kh, vh = (a.reshape(B, T, N, H).transpose(1, 2).contiguous() for a in (q, k, v))
+            library_us = cuda_us(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=causal, scale=1.0))
+            gemm = "bf16_tensor" if dtype == torch.bfloat16 else "fp32"
             rec = {"phase": "kernel", **info, "kernel": "attention_mix_tnh",
                    "shape": name, "B": B, "T": T, "N": N, "H": H,
                    "causal": causal, "dtype": str(dtype).split(".")[1],
                    "max_abs_err": err, "tol": KERNEL_TOL[dtype],
-                   "us": us, "plain_us": plain_us}
+                   "us": us, "plain_us": plain_us, "library_us": library_us,
+                   **bound(4 * q.numel() * q.element_size(),
+                           [(gemm, 4 * B * N * T * T * H), ("fp32", 5 * B * N * T * T)])}
             results[(name, dtype)] = rec
             emit(rec)
-            del q, k, v, z, want
+            del q, k, v, z, want, qh, kh, vh
     return results
 
 
@@ -297,13 +404,16 @@ def phase_sae_kernels(info):
                                  f"not bitwise equal (max abs err {err})")
         us = cuda_us(lambda: take_rows(x, idx))
         plain_us = cuda_us(lambda: take_rows_reference(x, idx))
+        library_us = cuda_us(lambda: torch.index_select(x, 0, idx))
         moved = 2 * x.numel() * x.element_size()
         rec = {"phase": "kernel", **info, "kernel": "take_rows", "shape": name,
                "rows": n, "row_bytes": d * x.element_size(),
                "dtype": str(dtype).split(".")[1], "max_abs_err": err, "tol": 0.0,
-               "us": us, "plain_us": plain_us, "GB_moved": moved / 1e9,
+               "us": us, "plain_us": plain_us, "library_us": library_us,
+               "GB_moved": moved / 1e9,
                "hbm_share": moved / (us * 1e-6) / HBM_BYTES_PER_S,
-               "plain_hbm_share": moved / (plain_us * 1e-6) / HBM_BYTES_PER_S}
+               "plain_hbm_share": moved / (plain_us * 1e-6) / HBM_BYTES_PER_S,
+               **bound(moved + idx.numel() * idx.element_size())}
         results[("take_rows", name)] = rec
         emit(rec)
         del x, idx, out, want
@@ -347,7 +457,10 @@ def phase_sae_kernels(info):
                    "max_update": scales[0],
                    "rel_tol": {"p_vs_update": ADAM_UPDATE_TOL, "moments": ADAM_TOL[mdt]},
                    "us": us, "plain_us": plain_us, "MB_moved": moved / 1e6,
-                   "hbm_share": moved / (us * 1e-6) / HBM_BYTES_PER_S}
+                   "hbm_share": moved / (us * 1e-6) / HBM_BYTES_PER_S,
+                   # clip scale, projection dot, two moments, bias
+                   # corrections, sqrt, divide, update: ~15 per element
+                   **bound(moved, [("fp32", 15 * p.numel())])}
             results[("adam_update", name, mdt)] = rec
             emit(rec)
             del p, grad, mu, nu, got, want
@@ -493,15 +606,14 @@ def _time_refills(store):
     return times
 
 
-def phase_train(info):
-    """The slice's main path: harvest -> store -> trainer.run on the card."""
+def phase_train(info, cfg=None, phase="train"):
+    """A training main path: harvest -> store -> trainer.run on the card;
+    the default SAE (phase 5) or, with ``cfg``, the TopK slice."""
     from vit_prisma_tpu_torch import HookedViT, get_model_config
-    from vit_prisma_tpu_torch.ops.attention import attention_mix_tnh
-    from vit_prisma_tpu_torch.ops.opt_step import adam_update
-    from vit_prisma_tpu_torch.ops.shuffle import take_rows
     from vit_prisma_tpu_torch.sae import (SAERunnerConfig, VisionActivationsStore,
                                           VisionSAETrainer)
-    cfg = SAERunnerConfig(n_batches_in_buffer=TRAIN_BUFFER_BATCHES)
+    cfg = cfg or SAERunnerConfig(n_batches_in_buffer=TRAIN_BUFFER_BATCHES)
+    counters = _sae_counters()
     model = HookedViT(get_model_config(cfg.model_name), device="cuda",
                       generator=torch.Generator().manual_seed(0))
     images = torch.from_numpy(np.random.default_rng(3).standard_normal(
@@ -510,7 +622,7 @@ def phase_train(info):
     torch.cuda.reset_peak_memory_stats()
 
     # The main path, with every count set to 0 just before it.
-    attention_mix_tnh.launches = take_rows.launches = adam_update.launches = 0
+    _zero_counts(counters)
     t0 = time.perf_counter()
     store = VisionActivationsStore(cfg, model, images)
     torch.cuda.synchronize()
@@ -524,14 +636,18 @@ def phase_train(info):
     sae = trainer.run(max_steps=TRAIN_STEPS)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t1
-    launches = {"attention_mix_tnh": attention_mix_tnh.launches,
-                "take_rows": take_rows.launches, "adam_update": adam_update.launches}
+    launches = {k: f.launches for k, f in counters.items()}
 
     per_batch = store.tokens_per_store_batch
     harvests = -(-cfg.tokens_per_buffer // per_batch) + \
         len(refills) * -(-(cfg.tokens_per_buffer // 2) // per_batch)
-    expected = {"attention_mix_tnh": (cfg.hook_point_layer + 1) * harvests,
-                "take_rows": 1 + len(refills), "adam_update": 4 * TRAIN_STEPS}
+    expected = dict.fromkeys(counters, 0)
+    expected.update({"attention_mix_tnh": (cfg.hook_point_layer + 1) * harvests,
+                     "take_rows": 1 + len(refills), "adam_update": 4 * TRAIN_STEPS})
+    if cfg.activation_fn_str == "topk":  # the fused step at L = 1: B8, then B6 or B9
+        expected["sae_fused_forward_topk"] = TRAIN_STEPS
+        expected["sae_fused_backward_topk" if cfg.fused_store_acts is False
+                 else "sae_fused_backward_stored"] = TRAIN_STEPS
     if len(refills) != 1 or launches != expected:
         raise AssertionError(f"train launches {launches}, expected {expected}, "
                              f"{len(refills)} refills")
@@ -548,12 +664,17 @@ def phase_train(info):
     if not all(torch.isfinite(v).all() for v in sae.params.values()):
         raise AssertionError("non-finite SAE parameters")
     tokens = TRAIN_STEPS * cfg.train_batch_size
-    emit({"phase": "train", **info, "model": cfg.model_name,
+    changed = {"n_batches_in_buffer": [20, TRAIN_BUFFER_BATCHES]}
+    if cfg.activation_fn_str == "topk":
+        changed.update(activation_fn_str=["relu", "topk"], k=TOPK_K,
+                       compute_dtype=[None, cfg.compute_dtype])
+    emit({"phase": phase, **info, "model": cfg.model_name,
           "weights": "random, seed 0 (pretrained weights are not in the repository)",
           "dataset": f"{TRAIN_IMAGES} random float32 {cfg.image_size}px images, numpy seed 3, on the card",
-          "changed_from_defaults": {"n_batches_in_buffer": [20, TRAIN_BUFFER_BATCHES]},
+          "changed_from_defaults": changed,
           "hook_point": cfg.hook_point, "d_in": cfg.d_in, "d_sae": cfg.d_sae,
           "train_batch_size": cfg.train_batch_size, "dtype": cfg.dtype,
+          "compute_dtype": cfg.compute_dtype,
           "buffer_rows": cfg.tokens_per_buffer, "steps": TRAIN_STEPS,
           "launches": launches, "expected_launches": expected,
           "harvest_batches": harvests, "store_fill_s": fill_s, "trainer_init_s": init_s,
@@ -660,7 +781,7 @@ def _sae_inputs(g, L, B, D, S, dtype):
             torch.rand(L, generator=g, device="cuda") * 1e-3)
 
 
-def _grad_errs(name, got, want, switched, dtype):
+def _grad_errs(name, got, want, switched, dtype, switched_rel=SAE_SWITCHED_GRAD_REL):
     """Max abs errors of (dW_enc, dW_dec, db_enc) outside and inside the
     features whose ReLU switched; raises past the bounds."""
     errs = {}
@@ -675,7 +796,7 @@ def _grad_errs(name, got, want, switched, dtype):
         clean = d[~sw].max().item() if (~sw).any() else 0.0
         dirty = d[sw].max().item() if sw.any() else 0.0
         errs[k] = {"unswitched": clean, "switched": dirty, "absmax": scale}
-        if not (clean <= SAE_GRAD_REL[dtype] * scale and dirty <= SAE_SWITCHED_GRAD_REL * scale):
+        if not (clean <= SAE_GRAD_REL[dtype] * scale and dirty <= switched_rel * scale):
             raise AssertionError(f"{name} {k}: {errs[k]}")
     return errs
 
@@ -726,6 +847,15 @@ def phase_sae_step_kernels(info):
             "sae_fused_backward": (
                 lambda: S.sae_fused_backward(x, We, be, Wd, bd, dy, dl1),
                 lambda: S.sae_fused_backward_reference(x, We, be, Wd, bd, dy, dl1), 4 * flop)}
+        eb = x.element_size()
+        w_bytes = (2 * L * D * Sd + L * Sd + L * D) * eb  # W_enc, W_dec, b_enc, b_dec
+        g_bytes = (2 * L * D * Sd + L * Sd) * 4           # float32 dW_enc, dW_dec, db_enc
+        nbytes = {"sae_fused_forward": 2 * L * B * D * eb + w_bytes + L * B * Sd * eb
+                  + L * Sd * 4 + L * 4,
+                  "sae_fused_backward_stored": (2 * L * B * D + L * B * Sd + L * Sd * D + L * D)
+                  * eb + L * 4 + g_bytes,
+                  "sae_fused_backward": 2 * L * B * D * eb + w_bytes + L * 4 + g_bytes}
+        gemm = "bf16_tensor" if dtype == torch.bfloat16 else "fp32"
         for kernel, (fn, plain, n_flop) in calls.items():
             t, plain_t = ms(fn, 5), ms(plain, 2)
             err = (fwd["y"] if kernel == "sae_fused_forward" else
@@ -734,7 +864,8 @@ def phase_sae_step_kernels(info):
                    "L": L, "B": B, "d_in": D, "d_sae": Sd, "dtype": str(dtype).split(".")[1],
                    "max_abs_err": err, "ms": t, "plain_ms": plain_t,
                    "TFLOP": n_flop / 1e12, "TFLOP_per_s": n_flop / t / 1e9,
-                   "plain_TFLOP_per_s": n_flop / plain_t / 1e9}
+                   "plain_TFLOP_per_s": n_flop / plain_t / 1e9,
+                   **bound(nbytes[kernel], [(gemm, n_flop)])}
             if kernel == "sae_fused_forward":
                 rec["forward"] = fwd
             else:
@@ -744,24 +875,27 @@ def phase_sae_step_kernels(info):
         del x, We, be, Wd, bd, dy, y, hc
         torch.cuda.empty_cache()
     for dtype in (torch.bfloat16, torch.float32):
-        emit({"phase": "save_acts", **info, **_stored_against_remat(g, S, dtype)})
+        emit({"phase": "save_acts", **info, **_stored_against_remat(
+            g, S.sae_fused_apply, SAVE_ACTS_SHAPE, dtype, ("B4_plus_B6", "B4_plus_B5"))})
     return results
 
 
-def _stored_against_remat(g, S, dtype):
-    """``sae_fused_apply``'s forward and backward at the sweep shape with
-    hc kept (B4 + B6) and recomputed (B4 + B5): CUDA-event time and peak
-    memory above the inputs.  The measurement behind storing always."""
-    L, B, D, Sd = SAVE_ACTS_SHAPE
+def _stored_against_remat(g, apply, shape, dtype, keys):
+    """``apply``'s (``sae_fused_apply`` or ``sae_fused_apply_topk``) forward
+    and backward at ``shape`` with the activations kept (``save_acts=True``,
+    B6 backward) and recomputed (B5 or B9): CUDA-event time, TFLOP/s and
+    peak memory above the inputs.  The measurement behind keeping them."""
+    L, B, D, Sd = shape
     x, We, be, Wd, bd, dy, dl1 = _sae_inputs(g, L, B, D, Sd, dtype)
     params = [p.requires_grad_(True) for p in (We, be, Wd, bd)]
 
     def step(save_acts):
-        y, l1, _ = S.sae_fused_apply(x, *params, save_acts=save_acts)
+        y, l1, _ = apply(x, *params, save_acts=save_acts)
         return torch.autograd.grad((y, l1), params, (dy, dl1))
     out = {"L": L, "B": B, "d_in": D, "d_sae": Sd, "dtype": str(dtype).split(".")[1],
            "hc_GB": L * B * Sd * x.element_size() / 1e9}
-    for save_acts, key in ((True, "B4_plus_B6"), (False, "B4_plus_B5")):
+    flop = 2 * L * B * D * Sd
+    for save_acts, key, n_flop in ((True, keys[0], 5 * flop), (False, keys[1], 6 * flop)):
         step(save_acts)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
@@ -769,10 +903,345 @@ def _stored_against_remat(g, S, dtype):
         step(save_acts)
         out[f"{key}_peak_GB_above_inputs"] = (torch.cuda.max_memory_allocated() - base) / 1e9
         out[f"{key}_ms"] = cuda_us(lambda: step(save_acts), iters=3, warmup=0) / 1000.0
-    out["stored_faster"] = out["B4_plus_B6_ms"] < out["B4_plus_B5_ms"]
+        out[f"{key}_TFLOP_per_s"] = n_flop / out[f"{key}_ms"] / 1e9
+    out["stored_faster"] = out[f"{keys[0]}_ms"] < out[f"{keys[1]}_ms"]
     del x, We, be, Wd, bd, dy, params
     torch.cuda.empty_cache()
     return out
+
+
+def phase_kth_value(info):
+    """B10 against its plain version, bitwise, with torch.kthvalue's time
+    beside it."""
+    from vit_prisma_tpu_torch.ops.topk import kth_value, kth_value_reference
+    g = torch.Generator(device="cuda").manual_seed(6)
+    results = {}
+    for name, R, D, dtype in KTH_SHAPES:
+        x = torch.randn(R, D, generator=g, device="cuda")
+        x[::4] -= 10.0  # rows whose k-th value is negative
+        if dtype == torch.float32:
+            x[1::2] = torch.round(x[1::2] * 4) / 4  # rows whose k-th value is tied
+        x = x.to(dtype)
+        t = kth_value(x, TOPK_K)
+        want = kth_value_reference(x, TOPK_K)
+        torch.cuda.synchronize()
+        if (tuple(t.shape) != (R, 1) or t.dtype != torch.float32
+                or not torch.equal(t.view(torch.int32), want.view(torch.int32))):
+            raise AssertionError(f"kth_value {name}: {t.dtype} {tuple(t.shape)}, "
+                                 f"{int((t != want).sum())} rows differ from plain")
+        kept = (x >= t).sum(dim=1)
+        # the k-th value itself where the search is exact (every float32 row,
+        # bfloat16 rows with a non-negative k-th value), else a separator
+        values = torch.kthvalue(x, D - TOPK_K + 1, dim=1).values.float()
+        exact = values >= 0 if dtype == torch.bfloat16 else torch.ones_like(values, dtype=bool)
+        if not (bool((kept >= TOPK_K).all()) and torch.equal(t[:, 0][exact], values[exact])
+                and bool(((x.float() >= values[:, None]) == (x >= t)).all())):
+            raise AssertionError(f"kth_value {name}: the mask x >= t is not the top k")
+        ms = lambda fn: cuda_us(fn, iters=10, warmup=2) / 1000.0
+        n_bits = 16 if dtype == torch.bfloat16 else 32
+        rec = {"phase": "kernel", **info, "kernel": "kth_value", "shape": name,
+               "rows": R, "D": D, "k": TOPK_K, "dtype": str(dtype).split(".")[1],
+               "max_abs_err": 0.0, "tol": "bitwise", "staged_in_shared_memory":
+                   D * x.element_size() <= 96 * 1024,
+               "rows_with_ties_kept": int((kept > TOPK_K).sum()),
+               "ms": ms(lambda: kth_value(x, TOPK_K)),
+               "plain_ms": ms(lambda: kth_value_reference(x, TOPK_K)),
+               "library_ms": ms(lambda: torch.kthvalue(x, D - TOPK_K + 1, dim=1)),
+               **bound(x.numel() * x.element_size() + R * 4, [("fp32", n_bits * x.numel())])}
+        results[name] = rec
+        emit(rec)
+        del x, t, want, values
+    return results
+
+
+def phase_topk_kernels(info):
+    """B8, B9 and B6 on B8's h against their plain versions at the TopK
+    slice's and the sweep's shapes; then B8+B6 against B8+B9."""
+    from functools import partial
+    from vit_prisma_tpu_torch.ops import sae_step as S
+    g = torch.Generator(device="cuda").manual_seed(7)
+    results = {}
+    for name, L, B, D, Sd, dtype in TOPK_SHAPES:
+        x, We, be, Wd, bd, dy, dl1 = _sae_inputs(g, L, B, D, Sd, dtype)
+        y, l1, nact, t, h = S.sae_fused_forward_topk(x, We, be, Wd, bd, TOPK_K, save_h=True)
+        torch.cuda.synchronize()
+        yr, l1r, nactr, tr, hr = S.sae_fused_forward_topk_reference(x, We, be, Wd, bd, TOPK_K,
+                                                                     save_h=True)
+        mask = h.float() > 0
+        flip = mask != (hr.float() > 0)
+        flip_rows = flip.any(dim=-1)
+        per_feature = flip.sum(dim=1, dtype=torch.float32)
+        own_count = mask.sum(dim=1, dtype=torch.float32)
+        y_err = (y.float() - yr.float()).abs()[~flip_rows]
+        l1_bound = (flip.sum(dim=(1, 2)).float() * hr.float().abs().amax(dim=(1, 2))
+                    + SAE_L1_REL * l1r.abs())
+        fwd = {"y_unflipped_rows": y_err.max().item() if y_err.numel() else math.inf,
+               "y_tol": rel_atol(SAE_REL[dtype], yr),
+               "mask_flips": int(flip.sum()), "flip_frac": flip.float().mean().item(),
+               "rows_with_flips": int(flip_rows.sum()),
+               "row_flip_frac": flip_rows.float().mean().item(),
+               "t_rows_differ": int((t != tr).sum()),
+               "nact_minus_own_mask": (nact - own_count).abs().max().item(),
+               "nact_abs_diff_sum": (nact - nactr).abs().sum().item(),
+               "t_is_k_th_of_own_h": bool(torch.equal(t, S._row_threshold(h, TOPK_K))),
+               "rows_keeping_more_than_k": int((mask.sum(dim=-1) > TOPK_K).sum()),
+               "rows_keeping_fewer_than_k": int((mask.sum(dim=-1) < TOPK_K).sum()),
+               "l1_abs_err": (l1 - l1r).abs().max().item(),
+               "l1_tol": l1_bound.max().item()}
+        if not (fwd["y_unflipped_rows"] <= fwd["y_tol"] and fwd["flip_frac"] <= TOPK_FLIP_FRAC
+                and fwd["row_flip_frac"] <= TOPK_FLIP_ROW_FRAC
+                and fwd["nact_minus_own_mask"] == 0 and fwd["t_is_k_th_of_own_h"]
+                and bool(((l1 - l1r).abs() <= l1_bound).all())
+                and bool(((nact - nactr).abs() <= per_feature).all())):
+            raise AssertionError(f"{name} TopK forward: {fwd}")
+        del yr, hr, flip, flip_rows
+        # B9 recomputes hp and masks it with B8's t; the plain B9 does the same
+        # with its own products, so a mask may differ where hp rounds apart
+        _, hp_plain = S._hp(x, We, be, bd)
+        switched9 = (S._topk_mask(hp_plain, t)[0] != mask).any(dim=1)
+        del hp_plain
+        dWs = S.sae_fused_backward_stored(x, h, Wd, bd, dy, dl1)
+        dW9 = S.sae_fused_backward_topk(x, We, be, Wd, bd, dy, dl1, t)
+        torch.cuda.synchronize()
+        b9_is_b6 = all(torch.equal(a, b) for a, b in zip(dWs, dW9))
+        if not b9_is_b6:
+            raise AssertionError(f"{name}: B9 from t does not give B6's grads from h")
+        bwd = {"sae_fused_backward_stored": _grad_errs(
+                   f"{name} B6", dWs, S.sae_fused_backward_stored_reference(x, h, Wd, bd, dy, dl1),
+                   torch.zeros_like(switched9), dtype),
+               "sae_fused_backward_topk": _grad_errs(
+                   f"{name} B9", dW9,
+                   S.sae_fused_backward_topk_reference(x, We, be, Wd, bd, dy, dl1, t),
+                   switched9, dtype, TOPK_SWITCHED_GRAD_REL)}
+        del dWs, dW9
+        flop = 2 * L * B * D * Sd
+        eb = x.element_size()
+        n_bits = 16 if dtype == torch.bfloat16 else 32
+        gemm = "bf16_tensor" if dtype == torch.bfloat16 else "fp32"
+        w_bytes = (2 * L * D * Sd + L * Sd + L * D) * eb
+        g_bytes = (2 * L * D * Sd + L * Sd) * 4
+        ms = lambda fn, it: cuda_us(fn, iters=it, warmup=1) / 1000.0
+        calls = {
+            "sae_fused_forward_topk": (
+                lambda: S.sae_fused_forward_topk(x, We, be, Wd, bd, TOPK_K, save_h=True),
+                lambda: S.sae_fused_forward_topk_reference(x, We, be, Wd, bd, TOPK_K, True),
+                2 * L * B * D * eb + w_bytes + L * B * Sd * eb + L * B * 4 + L * Sd * 4 + L * 4,
+                [(gemm, 2 * flop), ("fp32", (n_bits - 1) * L * B * Sd)]),
+            "sae_fused_backward_topk": (
+                lambda: S.sae_fused_backward_topk(x, We, be, Wd, bd, dy, dl1, t),
+                lambda: S.sae_fused_backward_topk_reference(x, We, be, Wd, bd, dy, dl1, t),
+                2 * L * B * D * eb + w_bytes + L * B * 4 + L * 4 + g_bytes, [(gemm, 4 * flop)]),
+            "sae_fused_backward_stored": (
+                lambda: S.sae_fused_backward_stored(x, h, Wd, bd, dy, dl1),
+                lambda: S.sae_fused_backward_stored_reference(x, h, Wd, bd, dy, dl1),
+                (2 * L * B * D + L * B * Sd + L * Sd * D + L * D) * eb + L * 4 + g_bytes,
+                [(gemm, 3 * flop)])}
+        for kernel, (fn, plain, nbytes, ops) in calls.items():
+            k_ms, plain_ms = ms(fn, 5), ms(plain, 2)
+            n_flop = ops[0][1]  # the products
+            rec = {"phase": "kernel", **info, "kernel": kernel, "shape": name, "path": "topk",
+                   "L": L, "B": B, "d_in": D, "d_sae": Sd, "k": TOPK_K,
+                   "dtype": str(dtype).split(".")[1],
+                   "max_abs_err": (fwd["y_unflipped_rows"] if kernel == "sae_fused_forward_topk"
+                                   else max(e["unswitched"] for e in bwd[kernel].values())),
+                   "ms": k_ms, "plain_ms": plain_ms, "TFLOP": n_flop / 1e12,
+                   "TFLOP_per_s": n_flop / k_ms / 1e9, **bound(nbytes, ops)}
+            if kernel == "sae_fused_forward_topk":
+                rec["forward"] = fwd
+            else:
+                rec["grad_errs"] = bwd[kernel]
+                rec["B9_equals_B6_on_h"] = b9_is_b6
+            results[(kernel, name)] = rec
+            emit(rec)
+        del x, We, be, Wd, bd, dy, y, h, t, mask
+        torch.cuda.empty_cache()
+    apply = partial(S.sae_fused_apply_topk, k=TOPK_K)
+    for dtype in (torch.bfloat16, torch.float32):
+        emit({"phase": "save_acts_topk", **info, "k": TOPK_K, **_stored_against_remat(
+            g, apply, TOPK_SAVE_ACTS_SHAPE, dtype, ("B8_plus_B6", "B8_plus_B9"))})
+    return results
+
+
+def topk_config():
+    """The TopK slice: bench.py's exact-bf16 TopK row (k = 64, bf16 compute,
+    float32 masters) at SAERunnerConfig's default widths, with phase 5's
+    4-batch buffer."""
+    from vit_prisma_tpu_torch.sae import SAERunnerConfig
+    return SAERunnerConfig(activation_fn_str="topk", activation_fn_kwargs=(("k", TOPK_K),),
+                           compute_dtype="bfloat16", n_batches_in_buffer=TRAIN_BUFFER_BATCHES)
+
+
+def phase_topk_remat(info, trainer, store, cfg):
+    """TOPK_REMAT_STEPS steps through the same entry point with
+    ``fused_store_acts=False``: B8 and B9 once a step, B6 never."""
+    from vit_prisma_tpu_torch.sae import VisionSAETrainer
+    counters = _sae_counters()
+    remat = VisionSAETrainer(cfg.replace(fused_store_acts=False), trainer.model, store)
+    remat.load_state(trainer.state)
+    _zero_counts(counters)
+    t0 = time.perf_counter()
+    remat.run(max_steps=TOPK_REMAT_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counters.items()}
+    expected = {"sae_fused_forward_topk": TOPK_REMAT_STEPS,
+                "sae_fused_backward_topk": TOPK_REMAT_STEPS, "sae_fused_backward_stored": 0,
+                "sae_fused_forward": 0, "sae_fused_backward": 0, "kth_value": 0,
+                "adam_update": 4 * TOPK_REMAT_STEPS}
+    if any(launches[k] != v for k, v in expected.items()):
+        raise AssertionError(f"TopK remat steps launched {launches}, expected {expected}")
+    if not all(torch.isfinite(v).all() for v in remat.state.params.values()):
+        raise AssertionError("non-finite SAE parameters after the remat steps")
+    emit({"phase": "topk_remat", **info, "steps": TOPK_REMAT_STEPS, "launches": launches,
+          "expected_launches": expected, "seconds": seconds})
+    return launches
+
+
+def _profile(fn):
+    """Device time by kernel over one call of ``fn`` (synchronized), the
+    device's busy total and the wall time, in milliseconds."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1000.0 * (time.perf_counter() - t0)
+    # the device's own events (kernels, copies, sets), not the host ops that
+    # launched them, whose device totals would count them twice
+    rows = sorted(((e.key, e.device_time_total / 1000.0, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.device_time_total > 0), key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": max(0.0, 1.0 - busy / wall_ms), "kernels_total": len(rows),
+            "kernels": [{"name": k[:90], "ms": ms, "calls": n}
+                        for k, ms, n in rows[:TOPK_PROFILE_TOP]]}
+
+
+def phase_topk_profile(info, trainer, store, cfg):
+    """Where a TopK train step's time goes, from the trained state on batches
+    already in the buffer: the fused step (B8, B6) and the generic step
+    (B10), each timed over TOPK_PROFILE_STEPS steps with CUDA events and
+    profiled over three; then one refill (harvest + mix) profiled."""
+    from vit_prisma_tpu_torch.sae.train import sae_train_step
+    bs = cfg.train_batch_size
+    batches = [store.buffer[i * bs:(i + 1) * bs] for i in range(store.buffer.shape[0] // bs)]
+    shape = {"d_in": cfg.d_in, "d_sae": cfg.d_sae, "k": cfg.topk_k,
+             "compute_dtype": cfg.compute_dtype, "train_batch_size": bs}
+
+    def steps(c, n):
+        state = trainer.state
+        for j in range(n):
+            state, _ = sae_train_step(state, batches[j % len(batches)], c)
+
+    for name, c in (("fused", cfg), ("generic", cfg.replace(fused_sae_step=False))):
+        steps(c, 2)  # warm-up
+        step_ms = cuda_us(lambda: steps(c, TOPK_PROFILE_STEPS), iters=1, warmup=0) \
+            / 1000.0 / TOPK_PROFILE_STEPS
+        prof = _profile(lambda: steps(c, 3))
+        # the profiler slows the host, so its wall time overstates idling:
+        # the share that counts is of the steps timed without it
+        emit({"phase": "topk_profile", **info, **shape, "what": f"{name} train step",
+              "steps_timed": TOPK_PROFILE_STEPS, "ms_per_step": step_ms,
+              "tokens_per_s": bs / step_ms * 1000.0,
+              "device_busy_ms_per_step": prof["device_busy_ms"] / 3,
+              "idle_share_of_timed_steps": max(0.0, 1.0 - prof["device_busy_ms"] / 3 / step_ms),
+              "profile_of_3_steps": prof})
+    emit({"phase": "topk_profile", **info, **shape, "what": "one refill (harvest + mix)",
+          "profile": _profile(store._refill_half)})
+
+
+def _topk_masks(state, x, cfg, fused):
+    """The active set [B, d_sae] that a step from ``state`` counts: kernel
+    B8's masked h on the fused path, ``encode`` (B10) on the generic path."""
+    from vit_prisma_tpu_torch.ops.sae_step import sae_fused_forward_topk
+    from vit_prisma_tpu_torch.sae.sae import encode, set_decoder_norm_to_unit_norm
+    p = set_decoder_norm_to_unit_norm(state.params)
+    if fused:
+        lift = {k: v[None] for k, v in p.items()}
+        return sae_fused_forward_topk(x[None], lift["W_enc"], lift["b_enc"], lift["W_dec"],
+                                      lift["b_dec"], cfg.topk_k, save_h=True)[4][0] > 0
+    return encode(p, cfg, x)[1] > 0
+
+
+def phase_topk_step_check(info, trainer, store, cfg):
+    """From the trained TopK state, three fused steps (B8, B6) against three
+    generic steps (B10) in float32; then ``SparseAutoencoder.encode`` (B10)
+    against B8's masked h."""
+    from vit_prisma_tpu_torch.ops.sae_step import sae_fused_forward_topk
+    from vit_prisma_tpu_torch.sae.convert import train_state_to_numpy
+    from vit_prisma_tpu_torch.sae.train import sae_train_step
+    c = cfg.replace(compute_dtype=None)
+    batches = [store.next_batch() for _ in range(STEP_CHECK_STEPS)]
+    counters = _sae_counters()
+    states = {True: [trainer.state], False: [trainer.state]}
+    launches = {}
+    for fused in (False, True):  # the generic path's launches are counted alone
+        _zero_counts(counters)
+        for b in batches:
+            states[fused].append(sae_train_step(states[fused][-1], b,
+                                                c.replace(fused_sae_step=fused))[0])
+        torch.cuda.synchronize()
+        launches[fused] = {k: f.launches for k, f in counters.items()}
+    if (launches[False]["kth_value"] != STEP_CHECK_STEPS
+            or launches[False]["sae_fused_forward_topk"] != 0
+            or launches[True]["sae_fused_forward_topk"] != STEP_CHECK_STEPS
+            or launches[True]["kth_value"] != 0):
+        raise AssertionError(f"TopK step check launches: generic {launches[False]}, "
+                             f"fused {launches[True]}")
+    flips, switched = 0, torch.zeros(cfg.d_sae, dtype=torch.bool, device="cuda")
+    for j, b in enumerate(batches):
+        flip = _topk_masks(states[True][j], b, c, True) != _topk_masks(states[False][j], b, c,
+                                                                     False)
+        flips += int(flip.sum())
+        switched |= flip.any(dim=0)
+    got, want = train_state_to_numpy(states[True][-1]), train_state_to_numpy(states[False][-1])
+    mask = switched.cpu().numpy()
+    errs, scales = {}, {}
+    for k in want:
+        d = np.abs(got[k].astype(np.float64) - want[k])
+        scales[k] = float(np.abs(want[k]).max())
+        if k.endswith(("/W_enc", "/b_enc", "/W_dec")):
+            sw = mask[:, None] if k.endswith("/W_dec") else mask
+            sw = np.broadcast_to(sw, d.shape)
+            errs[k] = {"unswitched": float(d[~sw].max()) if (~sw).any() else 0.0,
+                       "switched": float(d[sw].max()) if sw.any() else 0.0}
+        else:
+            errs[k] = {"unswitched": float(d.max()), "switched": 0.0}
+
+    # encode of the trained SAE (B10) against B8's masked h, both float32
+    sae = trainer.sae
+    x = batches[0]
+    _zero_counts(counters)
+    feats = sae.encode(x)
+    torch.cuda.synchronize()
+    encode_launches = counters["kth_value"].launches
+    p = {k: v.detach()[None] for k, v in sae.params.items()}
+    h8 = sae_fused_forward_topk(x[None], p["W_enc"], p["b_enc"], p["W_dec"], p["b_dec"],
+                                cfg.topk_k, save_h=True)[4][0]
+    enc_flip = (feats > 0) != (h8 > 0)
+    ok_rows = ~enc_flip.any(dim=-1)
+    enc_err = (feats - h8).abs()[ok_rows].max().item() if ok_rows.any() else math.inf
+    enc = {"launches": encode_launches, "mask_flips": int(enc_flip.sum()),
+           "rows_with_flips": int((~ok_rows).sum()), "max_abs_err_unflipped_rows": enc_err,
+           "tol": rel_atol(TOPK_ENCODE_REL, h8), "l0": (feats > 0).float().sum(-1).mean().item()}
+    if not (encode_launches == 1 and enc_err <= enc["tol"]
+            and enc["mask_flips"] <= TOPK_FLIP_FRAC * feats.numel()
+            and enc["rows_with_flips"] <= TOPK_FLIP_ROW_FRAC * x.shape[0]):
+        raise AssertionError(f"encode against B8: {enc}")
+    rec = {"phase": "topk_step_check", **info, "steps": STEP_CHECK_STEPS, "dtype": "float32",
+           "start_step": int(trainer.state.step), "threshold_switches": flips,
+           "switched_features": int(switched.sum()), "launches_generic": launches[False],
+           "launches_fused": launches[True], "state_max_abs_err": errs,
+           "state_absmax": scales,
+           "act_freq_abs_diff_sum": float(np.abs(got["act_freq_scores"]
+                                                 - want["act_freq_scores"]).sum()),
+           "encode_vs_B8": enc}
+    emit(rec)
+    check_steps([{}], errs, scales, flips, int(switched.sum()), got, want)
+    return launches[False]["kth_value"] + encode_launches
 
 
 def sweep_config():
@@ -787,15 +1256,16 @@ def sweep_config():
 
 
 def _sae_counters():
+    """Every kernel wrapper of the port, by name, for its launch count."""
     from vit_prisma_tpu_torch.ops.attention import attention_mix_tnh
     from vit_prisma_tpu_torch.ops.opt_step import adam_update
-    from vit_prisma_tpu_torch.ops.sae_step import (sae_fused_backward,
-                                                   sae_fused_backward_stored,
-                                                   sae_fused_forward)
+    from vit_prisma_tpu_torch.ops import sae_step as S
     from vit_prisma_tpu_torch.ops.shuffle import take_rows
-    return {f.__name__: f for f in (attention_mix_tnh, take_rows, sae_fused_forward,
-                                    sae_fused_backward, sae_fused_backward_stored,
-                                    adam_update)}
+    from vit_prisma_tpu_torch.ops.topk import kth_value
+    return {f.__name__: f for f in (
+        attention_mix_tnh, take_rows, S.sae_fused_forward, S.sae_fused_backward,
+        S.sae_fused_backward_stored, adam_update, S.sae_fused_forward_topk,
+        S.sae_fused_backward_topk, kth_value)}
 
 
 def _zero_counts(counters):
@@ -859,10 +1329,10 @@ def phase_sweep(info):
         len(refills) * -(-(cfg.tokens_per_buffer // 2) // per_batch)
     backward = ("sae_fused_backward" if cfg.fused_store_acts is False
                 else "sae_fused_backward_stored")
-    expected = {"attention_mix_tnh": (max(cfg.sweep_layers) + 1) * harvests,
-                "take_rows": 1 + len(refills),
-                "sae_fused_forward": steps, "sae_fused_backward": 0,
-                "sae_fused_backward_stored": 0, "adam_update": 4 * steps}
+    expected = dict.fromkeys(counters, 0)
+    expected.update({"attention_mix_tnh": (max(cfg.sweep_layers) + 1) * harvests,
+                     "take_rows": 1 + len(refills), "sae_fused_forward": steps,
+                     "adam_update": 4 * steps})
     expected[backward] = steps
     formulas = {"attention_mix_tnh": "(last sweep layer + 1) x harvest batches",
                 "take_rows": "1 + refills", "sae_fused_forward": "steps",
@@ -1041,6 +1511,7 @@ def main():
     phase_build(info)
     kernels = phase_kernels(info)
     sae_kernels = phase_sae_kernels(info)
+    kth = phase_kth_value(info)
     fused, plain = phase_slice(info)
     launches = phase_serve(info, fused, plain)
     del fused, plain
@@ -1049,37 +1520,69 @@ def main():
     del trainer, store
     torch.cuda.empty_cache()
     sae_step_kernels = phase_sae_step_kernels(info)
+    topk_kernels = phase_topk_kernels(info)
+    trainer, store, cfg, topk_launches = phase_train(info, topk_config(), "topk_train")
+    topk_remat_launches = phase_topk_remat(info, trainer, store, cfg)
+    kth_launches = phase_topk_step_check(info, trainer, store, cfg)
+    phase_topk_profile(info, trainer, store, cfg)
+    del trainer, store
+    torch.cuda.empty_cache()
     sweep, sweep_store, sweep_cfg, sweep_launches, remat_launches = phase_sweep(info)
     check_sweep_steps(phase_sweep_step_check(info, sweep, sweep_store, sweep_cfg))
 
-    main_shape = kernels[("b32", torch.bfloat16)]
-    gather = sae_kernels[("take_rows", "store_f32")]
+    def entry(name, source, replaces, launches, rec, ms_key="ms", scale=1.0):
+        """One kernel's line: launches from its main path, the rest measured
+        at the shape that path gives it."""
+        lib = rec.get("library_" + ms_key)
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": rec["max_abs_err"],
+                "ms": rec[ms_key] * scale, "plain_ms": rec["plain_" + ms_key] * scale,
+                "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                "library_ms": None if lib is None else lib * scale}
+
     adam = [sae_kernels[("adam_update", name, torch.float32)] for name, _, _ in ADAM_SHAPES]
-    print(name_power)
-    emit({"kernels": [{
-        "name": "attention_mix_tnh", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": main_shape["max_abs_err"],
-        "ms": main_shape["us"] / 1000.0, "plain_ms": main_shape["plain_us"] / 1000.0}, {
-        "name": "take_rows", "route": "cuda", "source": TAKE_ROWS_SOURCE,
-        "replaces": TAKE_ROWS_REPLACES, "launches": train_launches["take_rows"],
-        "max_abs_err": gather["max_abs_err"],
-        "ms": gather["us"] / 1000.0, "plain_ms": gather["plain_us"] / 1000.0}, {
+    adam_bytes = sum(r["MB_moved"] for r in adam) * 1e6
+    adam_ops = sum(15 * math.prod(r["dims"]) for r in adam)
+    adam_rec = {"max_abs_err": max(max(r["max_abs_err"].values()) for r in adam),
+                "us": sum(r["us"] for r in adam), "plain_us": sum(r["plain_us"] for r in adam),
+                **bound(adam_bytes, [("fp32", adam_ops)])}
+    sweep_rec = lambda k: sae_step_kernels[(k, "sweep_bf16")]
+    topk_rec = lambda k: topk_kernels[(k, "slice_bf16")]
+    line = [
+        entry("attention_mix_tnh", KERNEL_SOURCE, KERNEL_REPLACES, launches,
+              kernels[("b32", torch.bfloat16)], "us", 1e-3),
+        entry("take_rows", TAKE_ROWS_SOURCE, TAKE_ROWS_REPLACES, train_launches["take_rows"],
+              sae_kernels[("take_rows", "store_f32")], "us", 1e-3),
         # one train step's four tensors, float32 moments
-        "name": "adam_update", "route": "cuda", "source": ADAM_SOURCE,
-        "replaces": ADAM_REPLACES, "launches": train_launches["adam_update"],
-        "max_abs_err": max(max(r["max_abs_err"].values()) for r in adam),
-        "ms": sum(r["us"] for r in adam) / 1000.0,
-        "plain_ms": sum(r["plain_us"] for r in adam) / 1000.0}] + [{
+        entry("adam_update", ADAM_SOURCE, ADAM_REPLACES, train_launches["adam_update"],
+              adam_rec, "us", 1e-3),
         # at the sweep's bf16 shape; launches from the sweep's main path (B5:
-        # from its remat cycle)
-        "name": k, "route": "cuda",
-        "source": SAE_FWD_SOURCE if k == "sae_fused_forward" else SAE_BWD_SOURCE,
-        "replaces": SAE_REPLACES[k],
-        "launches": (remat_launches if k == "sae_fused_backward" else sweep_launches)[k],
-        "max_abs_err": sae_step_kernels[(k, "sweep_bf16")]["max_abs_err"],
-        "ms": sae_step_kernels[(k, "sweep_bf16")]["ms"],
-        "plain_ms": sae_step_kernels[(k, "sweep_bf16")]["plain_ms"]} for k in SAE_REPLACES]})
+        # from its remat cycle; B6: the sweep's and the TopK slice's)
+        entry("sae_fused_forward", SAE_FWD_SOURCE, SAE_REPLACES["sae_fused_forward"],
+              sweep_launches["sae_fused_forward"], sweep_rec("sae_fused_forward")),
+        entry("sae_fused_backward", SAE_BWD_SOURCE, SAE_REPLACES["sae_fused_backward"],
+              remat_launches["sae_fused_backward"], sweep_rec("sae_fused_backward")),
+        entry("sae_fused_backward_stored", SAE_BWD_SOURCE,
+              SAE_REPLACES["sae_fused_backward_stored"],
+              sweep_launches["sae_fused_backward_stored"]
+              + topk_launches["sae_fused_backward_stored"],
+              sweep_rec("sae_fused_backward_stored")),
+        # at the TopK slice's bf16 shape; launches from its train path (B9:
+        # from its remat steps)
+        entry("sae_fused_forward_topk", TOPK_FWD_SOURCE, TOPK_REPLACES["sae_fused_forward_topk"],
+              topk_launches["sae_fused_forward_topk"], topk_rec("sae_fused_forward_topk")),
+        entry("sae_fused_backward_topk", SAE_BWD_SOURCE,
+              TOPK_REPLACES["sae_fused_backward_topk"],
+              topk_remat_launches["sae_fused_backward_topk"],
+              topk_rec("sae_fused_backward_topk")),
+        # the generic TopK step's float32 [4096, 12288]; launches from the
+        # generic steps and encode of the TopK step check
+        entry("kth_value", KTH_SOURCE, KTH_REPLACES, kth_launches, kth["slice_f32"])]
+    missing = [e["name"] for e in line if not e["launches"] > 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on their main paths: {missing}")
+    print(name_power)
+    emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -32,7 +32,7 @@ def jax_and_port(seed=0, **cfg_fields):
 def port_from_jax(jax_model):
     """The port's HookedViT with the JAX model's weights."""
     cfg = vit_prisma_tpu_torch.ViTConfig.from_dict(jax_model.cfg.to_dict())
-    port = vit_prisma_tpu_torch.HookedViT(cfg)
+    port = vit_prisma_tpu_torch.HookedViT(cfg, device="cpu")
     port.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jax_model.params)))
     return port
 

@@ -102,8 +102,8 @@ def test_fused_clip_project_adam_matches_jax_over_steps(L, adam_dtype):
     adam, sched = jstate
     pstate = (port_ops.ScaleByAdamState(
         count=torch.from_numpy(np.array(adam.count)),
-        mu=sae_params_from_jax(jax.tree.map(np.asarray, adam.mu)),
-        nu=sae_params_from_jax(jax.tree.map(np.asarray, adam.nu))),
+        mu=sae_params_from_jax(jax.tree.map(np.asarray, adam.mu), device="cpu"),
+        nu=sae_params_from_jax(jax.tree.map(np.asarray, adam.nu), device="cpu")),
         port_ops.ScaleByScheduleState(count=torch.from_numpy(np.array(sched.count))))
     pparams = {k: torch.from_numpy(v) for k, v in params.items()}
     lr = np.array([1e-3, 5e-4], np.float32)[:L]

@@ -129,7 +129,7 @@ def test_sae_forward_and_grads_match_jax(variant):
     jparams = _jax_params(jc)
     x = seeded(1, (96, jc.d_in), 2.0)
     want = jax_sae.sae_forward(jparams, jc, jnp.asarray(x))
-    pparams = sae_params_from_jax(jax.tree.map(np.asarray, jparams))
+    pparams = sae_params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
     leaves = {k: v.clone().requires_grad_(True) for k, v in pparams.items()}
     got = port_sae.sae_forward(leaves, pc, torch.from_numpy(x))
     # float32 GEMMs over 48 and 192 terms, summed in other orders
@@ -148,7 +148,7 @@ def test_constraints_match_jax():
     jc, _ = _cfgs(**SMALL)
     jparams = _jax_params(jc)
     jparams["W_dec"] = jparams["W_dec"] * 3.0
-    pparams = sae_params_from_jax(jax.tree.map(np.asarray, jparams))
+    pparams = sae_params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
     want = jax_sae.set_decoder_norm_to_unit_norm(jparams)
     got = port_sae.set_decoder_norm_to_unit_norm(pparams)
     assert_close(want["W_dec"], got["W_dec"], 1e-7, "unit-norm W_dec")
@@ -168,7 +168,7 @@ def test_sae_module_matches_jax():
     jc, pc = _cfgs(**SMALL)
     jparams = _jax_params(jc)
     sae = port_sae.SparseAutoencoder(pc, params=sae_params_from_jax(
-        jax.tree.map(np.asarray, jparams)))
+        jax.tree.map(np.asarray, jparams), device="cpu"))
     x = seeded(2, (16, jc.d_in))
     want = jax_sae.SparseAutoencoder(jc, params=jparams)
     assert_close(want.reconstruct(jnp.asarray(x)), sae.reconstruct(torch.from_numpy(x)),
@@ -183,8 +183,8 @@ def test_sae_module_matches_jax():
 
 def test_port_init_is_unit_norm_and_seeded():
     _, pc = _cfgs(**SMALL)
-    a = port_sae.init_sae_params(pc, torch.Generator().manual_seed(3))
-    b = port_sae.init_sae_params(pc, torch.Generator().manual_seed(3))
+    a = port_sae.init_sae_params(pc, torch.Generator().manual_seed(3), device="cpu")
+    b = port_sae.init_sae_params(pc, torch.Generator().manual_seed(3), device="cpu")
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert tuple(a["W_enc"].shape) == (48, 192) and tuple(a["W_dec"].shape) == (192, 48)
     torch.testing.assert_close(torch.linalg.norm(a["W_dec"], dim=-1), torch.ones(192))
@@ -200,6 +200,14 @@ def test_port_init_is_unit_norm_and_seeded():
 ])
 def test_unported_variants_raise_naming_their_item(fields, item):
     _, pc = _cfgs(**SMALL, **fields)
+    if pc.activation_fn_str == "topk":
+        # TopK is ported: the forward runs, without a sparsity loss; only
+        # the approximate TopK (an XLA op of the TPU) still raises
+        params = port_sae.init_sae_params(pc, device="cpu")
+        out = port_sae.sae_forward(params, pc, torch.from_numpy(seeded(3, (4, 48))))
+        assert out.l1_loss is None and torch.isfinite(out.loss) and out.loss == out.mse_loss
+        assert ((out.feature_acts > 0).sum(-1) <= pc.topk_k).all()
+        pc = pc.replace(topk_use_approx=True)
     with pytest.raises(NotImplementedError, match=item):
         port_sae.init_sae_params(pc)
     with pytest.raises(NotImplementedError, match=item):

@@ -22,6 +22,7 @@ import vit_prisma_tpu_torch.sae as port_sae
 from tests._torch_parity import assert_close, seeded
 from vit_prisma_tpu.ops.sae_step import sae_fused_apply as jax_apply
 from vit_prisma_tpu.ops.sae_step import sae_fused_reference as jax_reference
+from vit_prisma_tpu.sae.train import _fused_single_ok as jax_single_gate
 from vit_prisma_tpu.sae.train import _fused_step_ok as jax_gate
 from vit_prisma_tpu_torch.ops import sae_step
 from vit_prisma_tpu_torch.sae.train import _fused_single_ok, _fused_step_ok
@@ -199,8 +200,19 @@ def test_gate_matches_jax(case):
 @pytest.mark.parametrize("fields", [dict(architecture="gated"), TOPK],
                          ids=["gated", "topk"])
 def test_gate_raises_for_topk_and_gated(fields):
+    """Gated still raises (B11, B12); TopK is ported: the port's gate
+    equals the JAX package's at L = 2 and L = 1, and its fused step runs."""
     jc, pc = _gate_cfgs(**fields)
     assert jax_gate(jc, BS, 2)  # the JAX package takes their kernels
+    if pc.activation_fn_str == "topk":
+        assert _fused_step_ok(pc, BS, 2) == jax_gate(jc, BS, 2)
+        assert _fused_single_ok(pc, BS) == jax_single_gate(jc, BS)
+        sweep = pc.replace(sweep_layers=(0, 1))
+        state = port_sae.init_sweep_state(sweep, 2, device="cpu")
+        x = torch.from_numpy(seeded(4, (BS, 2, D_IN)))
+        _, m = port_sae.sae_sweep_train_step(state, x, sweep)
+        assert torch.isfinite(m.loss).all() and m.l0.tolist() == [32.0, 32.0]
+        return
     with pytest.raises(NotImplementedError, match="item 10"):
         _fused_step_ok(pc, BS, 2)
     with pytest.raises(NotImplementedError, match="item 10"):

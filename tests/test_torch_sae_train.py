@@ -51,7 +51,8 @@ def _jax_state(jc, seed=0):
 
 
 def _flat(jax_state):
-    return train_state_to_numpy(train_state_from_jax(jax.tree.map(np.asarray, jax_state)))
+    return train_state_to_numpy(train_state_from_jax(jax.tree.map(np.asarray, jax_state),
+                                                     device="cpu"))
 
 
 def _assert_states_close(want, got, atol, moment_atol=None, exact_counters=True):
@@ -75,7 +76,7 @@ def _batches(jc, n, seed=20):
 def test_train_step_matches_jax(variant):
     jc, pc = _cfgs(**STEP_VARIANTS[variant])
     jstate = _jax_state(jc)
-    pstate = train_state_from_jax(jax.tree.map(np.asarray, jstate))
+    pstate = train_state_from_jax(jax.tree.map(np.asarray, jstate), device="cpu")
     x = _batches(jc, 1)[0]
     W_enc_before = pstate.params["W_enc"].clone()
     jnew, jm = jax_step(jstate, jnp.asarray(x), jc)  # donates jstate
@@ -101,7 +102,7 @@ def test_train_step_matches_jax(variant):
 def test_multistep_with_window_resets_matches_jax():
     jc, pc = _cfgs(feature_sampling_window=2)
     jstate = _jax_state(jc, seed=3)
-    pstate = train_state_from_jax(jax.tree.map(np.asarray, jstate))
+    pstate = train_state_from_jax(jax.tree.map(np.asarray, jstate), device="cpu")
     xs = np.stack(_batches(jc, 5, seed=40))
     jnew, jm = jax_multistep(jstate, jnp.asarray(xs), jc)
     pnew, pm = port_sae.sae_train_multistep(pstate, torch.from_numpy(xs), pc)
@@ -149,7 +150,7 @@ def test_trainer_run_matches_jax():
     # the geometric-median b_dec init on the same sample (Weiszfeld sums in
     # another order)
     assert_close(jtr.state.params["b_dec"], ptr.state.params["b_dec"], 1e-5, "b_dec init")
-    ptr.load_state(train_state_from_jax(jax.tree.map(np.asarray, jtr.state)))
+    ptr.load_state(train_state_from_jax(jax.tree.map(np.asarray, jtr.state), device="cpu"))
     jlog, plog = [], []
     _recording(jtr, jlog)
     _recording(ptr, plog)
@@ -179,7 +180,7 @@ def test_slice_end_to_end_matches_jax():
                                              permutation=lambda n: next(perms))
     jtr = jax_sae.VisionSAETrainer(jc, jax_model, jstore)
     ptr = port_sae.VisionSAETrainer(pc, port_model, pstore)
-    ptr.load_state(train_state_from_jax(jax.tree.map(np.asarray, jtr.state)))
+    ptr.load_state(train_state_from_jax(jax.tree.map(np.asarray, jtr.state), device="cpu"))
     jtr.run(max_steps=12)
     ptr.run(max_steps=12)
     assert pstore.ptr == jstore.ptr == 40  # refilled at step 11
@@ -200,7 +201,7 @@ def test_train_state_from_jax_maps_every_leaf():
     jc, pc = _cfgs(adam_dtype="bfloat16")
     jstate, _ = jax_step(_jax_state(jc), jnp.asarray(_batches(jc, 1)[0]), jc)
     np_state = jax.tree.map(np.asarray, jstate)
-    port = train_state_from_jax(np_state)
+    port = train_state_from_jax(np_state, device="cpu")
     adam, sched = port.opt_state
     assert port.params["W_enc"].dtype == torch.float32
     assert adam.mu["W_dec"].dtype == torch.bfloat16 and adam.count.dtype == torch.int32

@@ -38,7 +38,7 @@ def test_compiled_forward_matches_jax(n, names_filter):
 
 def test_compiled_forward_casts_requests_to_parameter_dtype():
     port = vit_prisma_tpu_torch.HookedViT(
-        vit_prisma_tpu_torch.ViTConfig(**CFG, dtype="bfloat16"))
+        vit_prisma_tpu_torch.ViTConfig(**CFG, dtype="bfloat16"), device="cpu")
     out = vit_prisma_tpu_torch.CompiledForward(port, batch_size=4)(seeded(0, (5, 3, 16, 16)))
     assert out.dtype == torch.bfloat16 and tuple(out.shape) == (5, 7)
 

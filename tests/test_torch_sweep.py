@@ -69,7 +69,7 @@ def test_sweep_steps_match_jax(fused):
     jc, pc = _cfgs(fused_sae_step=fused)
     assert _fused_step_ok(pc, BS, L) == fused
     jstate = _jax_state(jc)
-    pstate = train_state_from_jax(jax.tree.map(np.asarray, jstate))
+    pstate = train_state_from_jax(jax.tree.map(np.asarray, jstate), device="cpu")
     assert pstate.params["W_enc"].shape == (L, D_IN, 4 * D_IN)
     assert pstate.step.shape == (L,) and pstate.act_freq_scores.shape == (L, 4 * D_IN)
     for b in _batches(3):
@@ -91,7 +91,7 @@ def test_sweep_fused_and_generic_agree():
     jc, pc = _cfgs()
     states = {}
     for fused in (True, False):
-        s = train_state_from_jax(jax.tree.map(np.asarray, _jax_state(jc)))
+        s = train_state_from_jax(jax.tree.map(np.asarray, _jax_state(jc)), device="cpu")
         for b in _batches(3, seed=30):
             s, _ = port_sae.sae_sweep_train_step(s, torch.from_numpy(b),
                                                  pc.replace(fused_sae_step=fused))
@@ -108,7 +108,8 @@ def test_sweep_multistep_with_window_resets_matches_singles_and_jax():
     jc, pc = _cfgs(feature_sampling_window=2)
     xs = np.stack(_batches(4, seed=40))
     jnew, jm = jax_multistep(_jax_state(jc, seed=3), jnp.asarray(xs), jc)
-    start = train_state_from_jax(jax.tree.map(np.asarray, _jax_state(jc, seed=3)))
+    start = train_state_from_jax(jax.tree.map(np.asarray, _jax_state(jc, seed=3)),
+                                 device="cpu")
     pnew, pm = port_sae.sae_sweep_train_multistep(start, torch.from_numpy(xs), pc)
     assert pm.loss.shape == (4, L)
     _assert_states_close(_flat(jnew), train_state_to_numpy(pnew), atol=1e-5)
@@ -131,7 +132,7 @@ def test_sweep_multistep_with_window_resets_matches_singles_and_jax():
 def test_sweep_step_bf16_compute_matches_jax(monkeypatch):
     jc, pc = _cfgs(compute_dtype="bfloat16")
     jstate = _jax_state(jc, seed=5)
-    pstate = train_state_from_jax(jax.tree.map(np.asarray, jstate))
+    pstate = train_state_from_jax(jax.tree.map(np.asarray, jstate), device="cpu")
     b = _batches(1, seed=50)[0]
     # the grads each step hands to its clip/project/Adam pass (the JAX step
     # imports its optimizer at call time, unjitted here so the grads are
@@ -279,7 +280,8 @@ def test_sweep_trainer_run_matches_jax():
     jtr = jax_sae.SAESweepTrainer(jc, store=_FixedStore(batches, jnp.asarray))
     ptr = port_sae.SAESweepTrainer(pc, store=_FixedStore(batches, torch.from_numpy))
     assert ptr.state.params["W_dec"].shape == (L, 4 * D_IN, D_IN)
-    ptr.load_state(train_state_from_jax(jax.tree.map(np.asarray, _jax_state(jc))))
+    ptr.load_state(train_state_from_jax(jax.tree.map(np.asarray, _jax_state(jc)),
+                                        device="cpu"))
     jtr.state = _jax_state(jc)
     jlog, plog = [], []
     _recording(jtr, jlog)
@@ -323,7 +325,7 @@ def test_sweep_slice_end_to_end_matches_jax():
     ptr = port_sae.SAESweepTrainer(pc, port_model, pstore)
     assert_close(jtr.state.params["b_dec"], ptr.state.params["b_dec"], HARVEST_ATOL,
                  "per-layer b_dec")
-    ptr.load_state(train_state_from_jax(jax.tree.map(np.asarray, jtr.state)))
+    ptr.load_state(train_state_from_jax(jax.tree.map(np.asarray, jtr.state), device="cpu"))
     jtr.run(max_steps=5)
     ptr.run(max_steps=5)
     assert pstore.ptr == jstore.ptr == 256  # refilled at step 3, one step served
@@ -382,7 +384,7 @@ def test_train_cycles_serve_the_rows_of_next_batches(sweep):
 
 def test_sweep_trainer_parts_not_ported_raise():
     _, pc = _cfgs()
-    tr = port_sae.SAESweepTrainer(pc)
+    tr = port_sae.SAESweepTrainer(pc, device="cpu")
     for call, item in ((lambda: tr.validate(), "item 8"),
                        (lambda: tr.evaluate(iter(())), "item 8"),
                        (lambda: tr.save_checkpoints("out"), "item 15")):

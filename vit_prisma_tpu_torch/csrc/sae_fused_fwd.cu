@@ -90,37 +90,6 @@ encoder_kernel(const T* __restrict__ xc, const T* __restrict__ We, const T* __re
     l1_part[(static_cast<long long>(l) * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] = s;
 }
 
-// y = b_dec + hc W_dec.  Grid (D/BN, B/BM, L).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-decoder_kernel(const T* __restrict__ hc, const T* __restrict__ Wd, const T* __restrict__ bd,
-               T* __restrict__ y, int B, int D, int S) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  const int l = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const long long BS = static_cast<long long>(B) * S, SD = static_cast<long long>(S) * D;
-  const long long BD = static_cast<long long>(B) * D;
-  Acc acc;
-#pragma unroll
-  for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float b = to_f(bd[static_cast<long long>(l) * D + n0 + acc_col(ni, e)]);
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi) acc[mi][ni][e] = b;
-    }
-  mainloop<T, true, false>(acc, hc + l * BS, S, Wd + l * SD, D, S, m0, n0, smem);
-  T* out = y + l * BD;
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        store2(out + static_cast<long long>(m0 + acc_row(mi, 2 * h)) * D + n0 + acc_col(ni, 0),
-               acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
-}
-
 template <typename T>
 cudaError_t forward(const void* x, const void* We, const void* be, const void* Wd,
                     const void* bd, void* xc, void* hc, void* y, void* nact_part,

@@ -1,5 +1,6 @@
-// One tile GEMM, shared by the fused SAE kernels B4, B5 and B6
-// (sae_fused_fwd.cu, sae_fused_bwd.cu).
+// One tile GEMM, shared by the fused SAE kernels B4-B6, B8 and B9
+// (sae_fused_fwd.cu, sae_fused_fwd_topk.cu, sae_fused_bwd.cu), and the
+// kernels that more than one of them launch (center, decoder).
 //
 // A block computes a BM x BN tile of C = A B for one layer of an [L, ...]
 // stack, accumulating in float32 registers over K in steps of BK, and then
@@ -344,6 +345,38 @@ cudaError_t center(const T* x, const T* bd, T* xc, int L, int B, int D, cudaStre
   center_kernel<T><<<static_cast<unsigned int>(blocks), 256, 0, s>>>(x, bd, xc, n, D,
                                                                       per_layer);
   return cudaGetLastError();
+}
+
+// y = b_dec + hc W_dec, the decoder of B4 and B8 (hc: the ReLU or TopK
+// activations in T).  Grid (D/BN, B/BM, L); Smem<T, true, false>::bytes.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+decoder_kernel(const T* __restrict__ hc, const T* __restrict__ Wd, const T* __restrict__ bd,
+               T* __restrict__ y, int B, int D, int S) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int l = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const long long BS = static_cast<long long>(B) * S, SD = static_cast<long long>(S) * D;
+  const long long BD = static_cast<long long>(B) * D;
+  Acc acc;
+#pragma unroll
+  for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float b = to_f(bd[static_cast<long long>(l) * D + n0 + acc_col(ni, e)]);
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) acc[mi][ni][e] = b;
+    }
+  mainloop<T, true, false>(acc, hc + l * BS, S, Wd + l * SD, D, S, m0, n0, smem);
+  T* out = y + l * BD;
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        store2(out + static_cast<long long>(m0 + acc_row(mi, 2 * h)) * D + n0 + acc_col(ni, 0),
+               acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
 }
 
 inline bool shapes_ok(int L, int B, int D, int S) {

@@ -30,6 +30,7 @@ from torch import nn
 from vit_prisma_tpu_torch.configs.vit_config import ViTConfig
 from vit_prisma_tpu_torch.ops.attention import attention_mix_tnh
 from vit_prisma_tpu_torch.prisma.hooks import NULL_HOOKS, HookRuntime
+from vit_prisma_tpu_torch.utils.device import resolve_device
 
 
 # ---------------------------------------------------------------------------
@@ -68,8 +69,9 @@ ACT_FNS = {
 # ---------------------------------------------------------------------------
 
 def new_param(shape, device, dtype):
-    # No gradients until the attention backward kernel (B2) is ported.
-    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
+    # On the card unless ``device`` names another; no gradients until the
+    # attention backward kernel (B2) is ported.
+    return nn.Parameter(torch.empty(shape, device=resolve_device(device), dtype=dtype),
                         requires_grad=False)
 
 

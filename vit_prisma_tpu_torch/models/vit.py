@@ -26,6 +26,7 @@ from vit_prisma_tpu_torch.prisma.hooks import (
     NamesFilter,
     resolve_names_filter,
 )
+from vit_prisma_tpu_torch.utils.device import resolve_device
 
 _NO_GRADIENTS = ("is not ported yet (ROADMAP queue A, item 11; gradients "
                  "need kernel B2, the attention backward)")
@@ -228,8 +229,8 @@ def vit_forward(params, cfg: ViTConfig, x, hooks: HookRuntime = NULL_HOOKS,
 class HookedViT(nn.Module):
     """Counterpart of the JAX package's ``HookedViT``: ``forward``,
     ``run_with_cache`` and ``run_with_hooks``, with parameters on
-    ``device`` in ``cfg.dtype``, initialized from ``generator`` (seed 0
-    when None)."""
+    ``device`` (the CUDA card when None) in ``cfg.dtype``, initialized from
+    ``generator`` (seed 0 when None)."""
 
     def __init__(self, cfg: ViTConfig, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -243,6 +244,7 @@ class HookedViT(nn.Module):
                 "use_fused_ln_gemm needs the ln->GEMM kernel, which is not "
                 "ported yet (ROADMAP queue B, B14)")
         self.cfg = cfg
+        device = resolve_device(device)
         dt = cfg.torch_dtype
         ln = cfg.normalization_type == "LN"
         self.embed = L.PatchEmbedding(cfg, device)

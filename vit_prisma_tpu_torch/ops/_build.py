@@ -120,8 +120,12 @@ def load_library() -> ctypes.CDLL:
     lib.adam_update.restype = i
     lib.sae_fused_fwd.argtypes = [p] * 10 + [i] * 6 + [p]
     lib.sae_fused_fwd.restype = i
-    lib.sae_fused_bwd.argtypes = [p] * 13 + [i] * 7 + [p]
+    lib.sae_fused_bwd.argtypes = [p] * 14 + [i] * 7 + [p]
     lib.sae_fused_bwd.restype = i
+    lib.sae_fused_fwd_topk.argtypes = [p] * 11 + [i] * 7 + [p]
+    lib.sae_fused_fwd_topk.restype = i
+    lib.kth_value.argtypes = [p, p, ll, i, i, i, i, p]
+    lib.kth_value.restype = i
     lib.vpt_cuda_error_string.argtypes = [i]
     lib.vpt_cuda_error_string.restype = ctypes.c_char_p
     return lib

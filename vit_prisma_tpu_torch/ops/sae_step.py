@@ -1,5 +1,6 @@
-"""Fused standard-ReLU SAE forward and backward over L stacked SAEs (PyTorch
-port of the ReLU part of ``vit_prisma_tpu/ops/sae_step.py``).
+"""Fused SAE forward and backward over L stacked SAEs, standard-ReLU and
+TopK (PyTorch port of the ReLU and TopK parts of
+``vit_prisma_tpu/ops/sae_step.py``).
 
 For ``x`` ``[L, B, d_in]``, ``W_enc`` ``[L, d_in, d_sae]``, ``b_enc``
 ``[L, d_sae]``, ``W_dec`` ``[L, d_sae, d_in]`` and ``b_dec`` ``[L, d_in]``,
@@ -27,6 +28,26 @@ returning ``(y, l1, nact)``.  Its gradient for ``x`` is zero (only the train
 step may use it), and the weight gradients are cast to the parameters'
 dtypes.  The products run in float32 (with float32 accumulation of the
 bfloat16 values) in the plain versions, as the TPU kernels accumulate.
+
+TopK (keep each row's k largest pre-activations) has three more::
+
+    hp     = ((x - b_dec) W_enc + b_enc) rounded to c   (round first: the
+             threshold and the mask read the rounded values)
+    t[l,b] = k-th largest of max(float(hp), 0) over the row
+    active = (float(hp) >= t) & (float(hp) > 0)      (ties keep >= k)
+    h      = active ? hp : 0;  y = h W_dec + b_dec;  l1 = sum(h);
+    nact   = active rows per feature
+
+* B8 :func:`sae_fused_forward_topk` (``csrc/sae_fused_fwd_topk.cu``)
+  returns ``(y, l1, nact, t)``, plus the masked ``h`` with ``save_h``;
+* B9 :func:`sae_fused_backward_topk` (``csrc/sae_fused_bwd.cu``, the TopK
+  mask mode) recomputes hp, rounds it to c and masks it against the stored
+  ``t``, so its active set is B8's bit for bit;
+* the stored-acts backward needs no kernel of its own: B8's masked h is
+  positive exactly on the active set, so B6 applies to it unchanged.
+
+:func:`sae_fused_apply_topk` wraps them as :func:`sae_fused_apply` wraps
+B4-B6.
 """
 
 from __future__ import annotations
@@ -97,6 +118,68 @@ def sae_fused_backward_stored_reference(x, hc, Wd, bd, dy, dl1):
     """Plain version of B6 (stored ``hc``).  Returns float32 ``(dW_enc,
     dW_dec, db_enc)``."""
     return _backward_from_mask(_center(x, bd), hc, hc.float() > 0, Wd, dy, dl1)
+
+
+def _hp(x, We, be, bd):
+    """TopK pre-activations rounded to the compute dtype, and the centered x."""
+    xc = _center(x, bd)
+    return xc, (_mm(xc, We) + be.float()[:, None, :]).to(x.dtype)
+
+
+def _row_threshold(hp: torch.Tensor, k: int) -> torch.Tensor:
+    """Per-row k-th largest of ``max(float(hp), 0)`` over the last axis, by
+    the kernels' bitwise search (float32 ``[..., 1]``).  Non-negative float
+    patterns are ordered as integers, so the sign bit is never searched:
+    31 passes for float32, 15 for bfloat16 (whose low 16 bits are 0)."""
+    hpf = hp.float()
+    key = torch.where(hpf > 0, hpf, 0.0).view(torch.int32)
+    low = 16 if hp.dtype == torch.bfloat16 else 0
+    acc = torch.zeros(hp.shape[:-1] + (1,), dtype=torch.int32, device=hp.device)
+    for b in range(30, low - 1, -1):
+        cand = acc | (1 << b)
+        acc = torch.where((key >= cand).sum(-1, keepdim=True) >= k, cand, acc)
+    return acc.view(torch.float32)
+
+
+def _topk_mask(hp, t):
+    hpf = hp.float()
+    active = (hpf >= t) & (hpf > 0)
+    return active, torch.where(active, hp, torch.zeros((), dtype=hp.dtype, device=hp.device))
+
+
+def sae_fused_forward_topk_reference(x, We, be, Wd, bd, k: int, save_h: bool = False):
+    """Plain version of B8.  Returns ``(y, l1, nact, t)``, plus the masked
+    ``h`` with ``save_h``."""
+    _, hp = _hp(x, We, be, bd)
+    t = _row_threshold(hp, k)
+    active, h = _topk_mask(hp, t)
+    y = (bd.float()[:, None, :] + _mm(h, Wd)).to(x.dtype)
+    out = (y, h.float().sum(dim=(1, 2)), active.sum(dim=1, dtype=torch.float32), t)
+    return out + (h,) if save_h else out
+
+
+def sae_fused_backward_topk_reference(x, We, be, Wd, bd, dy, dl1, t):
+    """Plain version of B9 (recompute, masked by the stored ``t``).
+    Returns float32 ``(dW_enc, dW_dec, db_enc)``."""
+    xc, hp = _hp(x, We, be, bd)
+    active, h = _topk_mask(hp, t)
+    return _backward_from_mask(xc, h, active, Wd, dy, dl1)
+
+
+def sae_fused_topk_reference(x, We, be, Wd, bd, k: int):
+    """Unfused equivalent of :func:`sae_fused_apply_topk` with autograd (the
+    JAX package's ``sae_fused_topk_reference``): the threshold from
+    ``torch.topk``'s values, the same mask semantics (ties keep >= k)."""
+    xc = x - bd[:, None, :]
+    hpre = (torch.einsum("lbd,lds->lbs", xc.float(), We.float())
+            + be.float()[:, None, :]).to(x.dtype)
+    hf = hpre.detach().float()
+    t = torch.topk(hf, k, dim=-1).values[..., -1:].clamp_min(0.0)
+    active = (hf >= t) & (hf > 0)
+    h = torch.where(active, hpre, torch.zeros((), dtype=hpre.dtype))
+    y = (torch.einsum("lbs,lsd->lbd", h.float(), Wd.float())
+         + bd.float()[:, None, :]).to(x.dtype)
+    return y, h.sum(dim=(1, 2), dtype=torch.float32), active.sum(dim=1, dtype=torch.float32)
 
 
 def sae_fused_reference(x, We, be, Wd, bd):
@@ -176,27 +259,32 @@ def sae_fused_forward(x, We, be, Wd, bd, save_h: bool = False):
 sae_fused_forward.launches = 0
 
 
-def _backward_launch(name, x, Wd, bd, dy, dl1, hc, We=None, be=None):
-    """Launch B5 (``We`` and ``be`` given; ``hc`` is written into scratch)
-    or B6 (``hc`` is the stored activation; W_enc and b_enc are not read)."""
+# sae_fused_bwd's mask modes: B6 (stored hc), B5 (ReLU remat), B9 (TopK remat)
+_STORED, _RELU_REMAT, _TOPK_REMAT = 0, 1, 2
+
+
+def _backward_launch(name, mode, x, Wd, bd, dy, dl1, hc=None, We=None, be=None, t=None):
+    """Launch B6 (``hc`` is the stored activation; W_enc and b_enc are not
+    read), B5 or B9 (``We`` and ``be`` given, hc is written into scratch;
+    B9 also reads the forward's thresholds ``t``)."""
     L, B, D = x.shape
     S = Wd.shape[1]
     _kernel_shapes_ok(name, B, D, S)
     new = lambda *shape, dtype=x.dtype: torch.empty(shape, dtype=dtype, device=x.device)
-    remat = hc is None
-    if remat:
-        hc = new(L, B, S)
-    else:
+    if mode == _STORED:
         We = be = hc
+    else:
+        hc = new(L, B, S)
     xc, dhc = new(L, B, D), new(L, B, S)
     dWe, dWd = new(L, D, S, dtype=torch.float32), new(L, S, D, dtype=torch.float32)
     dbe_part = new(L, B // _TILE, S, dtype=torch.float32)
     lib, stream = _lib_and_stream(x.device)
     rc = lib.sae_fused_bwd(x.data_ptr(), We.data_ptr(), be.data_ptr(), Wd.data_ptr(),
-                           bd.data_ptr(), dy.data_ptr(), dl1.data_ptr(), hc.data_ptr(),
+                           bd.data_ptr(), dy.data_ptr(), dl1.data_ptr(),
+                           0 if t is None else t.data_ptr(), hc.data_ptr(),
                            xc.data_ptr(), dhc.data_ptr(), dWe.data_ptr(), dWd.data_ptr(),
                            dbe_part.data_ptr(), L, B, D, S, _DTYPE_CODES[x.dtype],
-                           int(remat), x.device.index, stream)
+                           mode, x.device.index, stream)
     _build.check(lib, rc, name)
     return dWe, dWd, dbe_part.sum(dim=1)
 
@@ -212,7 +300,7 @@ def sae_fused_backward(x, We, be, Wd, bd, dy, dl1):
            b_dec=bd, dy=dy, dl1=dl1)
     if x.device.type == "cpu":
         return sae_fused_backward_reference(x, We, be, Wd, bd, dy, dl1)
-    out = _backward_launch("sae_fused_backward", x, Wd, bd, dy, dl1, None, We, be)
+    out = _backward_launch("sae_fused_backward", _RELU_REMAT, x, Wd, bd, dy, dl1, We=We, be=be)
     sae_fused_backward.launches += 1
     return out
 
@@ -235,12 +323,69 @@ def sae_fused_backward_stored(x, hc, Wd, bd, dy, dl1):
            dy=dy, dl1=dl1)
     if x.device.type == "cpu":
         return sae_fused_backward_stored_reference(x, hc, Wd, bd, dy, dl1)
-    out = _backward_launch("sae_fused_backward_stored", x, Wd, bd, dy, dl1, hc)
+    out = _backward_launch("sae_fused_backward_stored", _STORED, x, Wd, bd, dy, dl1, hc=hc)
     sae_fused_backward_stored.launches += 1
     return out
 
 
 sae_fused_backward_stored.launches = 0
+
+
+def sae_fused_forward_topk(x, We, be, Wd, bd, k: int, save_h: bool = False):
+    """Kernel B8: ``(y, l1, nact, t)`` (plus the masked ``h`` with
+    ``save_h``) for the stacked TopK SAEs; y and h in x's dtype, l1 ``[L]``,
+    nact ``[L, d_sae]`` and the per-row thresholds t ``[L, B, 1]`` float32.
+    CUDA tensors launch ``csrc/sae_fused_fwd_topk.cu`` and add one to
+    ``sae_fused_forward_topk.launches``; CPU tensors run the plain
+    version."""
+    L, B, D, S = _shapes(x, We, Wd)
+    _check("sae_fused_forward_topk", x.dtype, x.device, x=x, W_enc=We, b_enc=be, W_dec=Wd,
+           b_dec=bd)
+    if not 1 <= k <= S:
+        raise ValueError(f"sae_fused_forward_topk: k={k} outside [1, d_sae={S}]")
+    if x.device.type == "cpu":
+        return sae_fused_forward_topk_reference(x, We, be, Wd, bd, k, save_h)
+    _kernel_shapes_ok("sae_fused_forward_topk", B, D, S)
+    new = lambda *shape, dtype=x.dtype: torch.empty(shape, dtype=dtype, device=x.device)
+    xc, h, y = new(L, B, D), new(L, B, S), new(L, B, D)
+    t = new(L, B, 1, dtype=torch.float32)
+    nact_part = new(L, B // _TILE, S, dtype=torch.float32)
+    l1_part = new(L, B // _TILE, S // _TILE, dtype=torch.float32)
+    lib, stream = _lib_and_stream(x.device)
+    rc = lib.sae_fused_fwd_topk(x.data_ptr(), We.data_ptr(), be.data_ptr(), Wd.data_ptr(),
+                                bd.data_ptr(), xc.data_ptr(), h.data_ptr(), y.data_ptr(),
+                                t.data_ptr(), nact_part.data_ptr(), l1_part.data_ptr(),
+                                L, B, D, S, k, _DTYPE_CODES[x.dtype], x.device.index, stream)
+    _build.check(lib, rc, "sae_fused_forward_topk")
+    sae_fused_forward_topk.launches += 1
+    out = (y, l1_part.sum(dim=(1, 2)), nact_part.sum(dim=1), t)
+    return out + (h,) if save_h else out
+
+
+sae_fused_forward_topk.launches = 0
+
+
+def sae_fused_backward_topk(x, We, be, Wd, bd, dy, dl1, t):
+    """Kernel B9, the TopK remat VJP from B8's thresholds ``t`` ``[L, B, 1]``
+    float32: the same outputs as :func:`sae_fused_backward`.  CUDA tensors
+    launch ``csrc/sae_fused_bwd.cu`` (its TopK mask mode) and add one to
+    ``sae_fused_backward_topk.launches``; CPU tensors run the plain
+    version."""
+    L, B, _, _ = _shapes(x, We, Wd)
+    _check("sae_fused_backward_topk", x.dtype, x.device, x=x, W_enc=We, b_enc=be, W_dec=Wd,
+           b_dec=bd, dy=dy, dl1=dl1)
+    if tuple(t.shape) != (L, B, 1) or t.dtype != torch.float32 or t.device != x.device:
+        raise ValueError(f"sae_fused_backward_topk: t is {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}, expected float32 {(L, B, 1)} on {x.device}")
+    if x.device.type == "cpu":
+        return sae_fused_backward_topk_reference(x, We, be, Wd, bd, dy, dl1, t)
+    out = _backward_launch("sae_fused_backward_topk", _TOPK_REMAT, x, Wd, bd, dy, dl1,
+                           We=We, be=be, t=t.contiguous())
+    sae_fused_backward_topk.launches += 1
+    return out
+
+
+sae_fused_backward_topk.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -257,28 +402,37 @@ class SAEFusedApply(torch.autograd.Function):
             ctx.save_for_backward(x, We, be, Wd, bd, hc)
         else:
             y, l1, nact = sae_fused_forward(x, We, be, Wd, bd)
-            ctx.save_for_backward(x, We, be, Wd, bd)
+            ctx.save_for_backward(x, We, be, Wd, bd, None)
         ctx.save_acts = save_acts
         ctx.mark_non_differentiable(nact)
         return y, l1, nact
 
     @staticmethod
     def backward(ctx, dy, dl1, _):
-        x, We, be, Wd, bd = ctx.saved_tensors[:5]
-        L = x.shape[0]
-        dy = (torch.zeros_like(x) if dy is None else dy.to(x.dtype)).contiguous()
-        dl1 = (torch.zeros(L, dtype=torch.float32, device=x.device) if dl1 is None
-               else dl1.float().contiguous())
+        x, We, be, Wd, bd, saved = ctx.saved_tensors
+        dy, dl1 = _cotangents(x, dy, dl1)
         if ctx.save_acts:
-            dWe, dWd, dbe = sae_fused_backward_stored(x, ctx.saved_tensors[5], Wd, bd, dy, dl1)
+            dWe, dWd, dbe = sae_fused_backward_stored(x, saved, Wd, bd, dy, dl1)
         else:
             dWe, dWd, dbe = sae_fused_backward(x, We, be, Wd, bd, dy, dl1)
-        # b_dec enters twice: sae_in = x - b_dec (encode) and y = h W_dec +
-        # b_dec (decode), so db_dec = sum_B dy - W_enc db_enc.
-        dbd = dy.sum(dim=1, dtype=torch.float32) - torch.matmul(
-            We.float(), dbe.to(We.dtype).float()[..., None])[..., 0]
-        return (None, dWe.to(We.dtype), dbe.to(be.dtype), dWd.to(Wd.dtype),
-                dbd.to(bd.dtype), None)
+        return (None,) + _param_grads(We, be, Wd, bd, dy, dWe, dWd, dbe) + (None,)
+
+
+def _cotangents(x, dy, dl1):
+    """dy in x's dtype and dl1 float32, zeros where autograd passed None."""
+    dy = (torch.zeros_like(x) if dy is None else dy.to(x.dtype)).contiguous()
+    dl1 = (torch.zeros(x.shape[0], dtype=torch.float32, device=x.device) if dl1 is None
+           else dl1.float().contiguous())
+    return dy, dl1
+
+
+def _param_grads(We, be, Wd, bd, dy, dWe, dWd, dbe):
+    """The kernels' float32 grads and db_dec, cast to the params' dtypes.
+    b_dec enters twice: sae_in = x - b_dec (encode) and y = h W_dec + b_dec
+    (decode), so db_dec = sum_B dy - W_enc db_enc."""
+    dbd = dy.sum(dim=1, dtype=torch.float32) - torch.matmul(
+        We.float(), dbe.to(We.dtype).float()[..., None])[..., 0]
+    return dWe.to(We.dtype), dbe.to(be.dtype), dWd.to(Wd.dtype), dbd.to(bd.dtype)
 
 
 def sae_fused_apply(x, We, be, Wd, bd, *, save_acts=None):
@@ -305,3 +459,49 @@ def sae_fused_apply(x, We, be, Wd, bd, *, save_acts=None):
                          "train step only, and x must not require grad")
     return SAEFusedApply.apply(x.contiguous(), We.contiguous(), be.contiguous(),
                                Wd.contiguous(), bd.contiguous(), save_acts is not False)
+
+
+class SAEFusedApplyTopK(torch.autograd.Function):
+    """``(y, l1, nact)`` of the TopK SAEs with the fused VJP (JAX:
+    ``_make_topk_apply``): B6 on B8's masked h when it is kept, else B9
+    from B8's thresholds."""
+
+    @staticmethod
+    def forward(ctx, x, We, be, Wd, bd, k: int, save_acts: bool):
+        if save_acts:
+            y, l1, nact, _, h = sae_fused_forward_topk(x, We, be, Wd, bd, k, save_h=True)
+            ctx.save_for_backward(x, We, be, Wd, bd, h)
+        else:
+            y, l1, nact, t = sae_fused_forward_topk(x, We, be, Wd, bd, k)
+            ctx.save_for_backward(x, We, be, Wd, bd, t)
+        ctx.save_acts = save_acts
+        ctx.mark_non_differentiable(nact)
+        return y, l1, nact
+
+    @staticmethod
+    def backward(ctx, dy, dl1, _):
+        x, We, be, Wd, bd, saved = ctx.saved_tensors
+        dy, dl1 = _cotangents(x, dy, dl1)
+        if ctx.save_acts:
+            # B8's h is positive exactly on the active set: B6's mask
+            dWe, dWd, dbe = sae_fused_backward_stored(x, saved, Wd, bd, dy, dl1)
+        else:
+            dWe, dWd, dbe = sae_fused_backward_topk(x, We, be, Wd, bd, dy, dl1, saved)
+        return (None,) + _param_grads(We, be, Wd, bd, dy, dWe, dWd, dbe) + (None, None)
+
+
+def sae_fused_apply_topk(x, We, be, Wd, bd, *, k: int, save_acts=None):
+    """TopK SAE forward over ``L`` stacked SAEs through kernel B8 and B6 or
+    B9; the same contract as :func:`sae_fused_apply`, with ``l1`` the sum
+    of the kept (non-negative) activations.  ``save_acts``: ``False``
+    recomputes the masked h from the saved thresholds (B9); ``True`` and
+    ``None`` keep B8's masked h (B6).  The JAX package keeps h only under a
+    TPU byte cap; here B8 writes h to device memory whether it is kept or
+    not, and B9 writes it again, so keeping it costs no peak memory and
+    saves B9's encoder product (measured in ``PERF.md``)."""
+    if x.requires_grad:
+        raise ValueError("sae_fused_apply_topk returns a zero gradient for x; it serves "
+                         "the train step only, and x must not require grad")
+    return SAEFusedApplyTopK.apply(x.contiguous(), We.contiguous(), be.contiguous(),
+                                   Wd.contiguous(), bd.contiguous(), int(k),
+                                   save_acts is not False)

@@ -18,15 +18,20 @@ import torch
 from vit_prisma_tpu_torch.models.loading.state_dict import _tensor
 from vit_prisma_tpu_torch.ops.opt_step import ScaleByAdamState, ScaleByScheduleState
 from vit_prisma_tpu_torch.sae.train import SAETrainState
+from vit_prisma_tpu_torch.utils.device import resolve_device
 
 
 def sae_params_from_jax(np_params, device=None) -> Dict[str, torch.Tensor]:
-    """``{name: array}`` (numpy, ml_dtypes bfloat16 allowed) -> tensors."""
+    """``{name: array}`` (numpy, ml_dtypes bfloat16 allowed) -> tensors on
+    ``device`` (the CUDA card when None)."""
+    device = resolve_device(device)
     return {k: _tensor(v).to(device) for k, v in np_params.items()}
 
 
 def train_state_from_jax(np_state, device=None) -> SAETrainState:
-    """A JAX ``SAETrainState`` with numpy leaves -> the port's state."""
+    """A JAX ``SAETrainState`` with numpy leaves -> the port's state, on
+    ``device`` (the CUDA card when None)."""
+    device = resolve_device(device)
     adam, sched = np_state.opt_state[0], np_state.opt_state[1]
     t = lambda a, dtype=None: _tensor(a).to(device=device, dtype=dtype)
     return SAETrainState(

@@ -1,15 +1,22 @@
 """Sparse autoencoders (PyTorch port of ``vit_prisma_tpu/sae/sae.py``).
 
-The standard SAE with a ReLU (or tanh-ReLU) activation: ``encode``,
+The standard SAE with a ReLU, tanh-ReLU or TopK activation: ``encode``,
 ``decode`` and ``sae_forward`` with the normalized MSE and the Lp sparsity
-loss, the decoder unit-norm projection and the removal of the gradient
-parallel to the decoder rows, over a plain dict of tensors (``W_enc``
-``[d_in, d_sae]``, ``W_dec`` ``[d_sae, d_in]``, ``b_enc``, ``b_dec``), with
-the JAX package's layouts and cast points.  :class:`SparseAutoencoder` is an
-``nn.Module`` holding those four parameters.
+loss (none for TopK), the decoder unit-norm projection and the removal of
+the gradient parallel to the decoder rows, over a plain dict of tensors
+(``W_enc`` ``[d_in, d_sae]``, ``W_dec`` ``[d_sae, d_in]``, ``b_enc``,
+``b_dec``), with the JAX package's layouts and cast points.
+:class:`SparseAutoencoder` is an ``nn.Module`` holding those four
+parameters.
 
-Not ported yet, and raising ``NotImplementedError``: the gated, TopK and
-transcoder SAEs (ROADMAP queue A, item 10), ghost grads and the activation
+TopK keeps each row's k largest pre-activations (ReLU'd): with
+``cfg.fused_topk`` (the default) through the threshold mask of
+``ops/topk.py`` (kernel B10 on the card; ties at the k-th value keep every
+tied entry), else through :func:`topk_activation` (exactly k).
+
+Not ported yet, and raising ``NotImplementedError``: the gated and
+transcoder SAEs (ROADMAP queue A, item 10), the approximate TopK
+(``topk_use_approx``, item 10), ghost grads and the activation
 normalization modes (item 5).
 """
 
@@ -21,8 +28,10 @@ from typing import Dict, NamedTuple, Optional
 import torch
 from torch import nn
 
+from vit_prisma_tpu_torch.ops.topk import topk_mask_activation
 from vit_prisma_tpu_torch.prisma.hooks import NULL_HOOKS, HookRuntime
 from vit_prisma_tpu_torch.sae.config import SAERunnerConfig
+from vit_prisma_tpu_torch.utils.device import resolve_device
 
 Params = Dict[str, torch.Tensor]
 
@@ -44,9 +53,10 @@ def check_ported(cfg: SAERunnerConfig) -> None:
             f"architecture={cfg.architecture!r} (is_transcoder="
             f"{cfg.is_transcoder}) is not ported yet: gated SAEs and "
             "transcoders are ROADMAP queue A, item 10")
-    if cfg.activation_fn_str == "topk":
+    if cfg.activation_fn_str == "topk" and cfg.topk_use_approx:
         raise NotImplementedError(
-            "TopK SAEs are not ported yet (ROADMAP queue A, item 10)")
+            "topk_use_approx (the approximate TopK, an XLA op of the TPU) is not "
+            "ported yet (ROADMAP queue A, item 10)")
     if cfg.normalize_activations != "none":
         raise NotImplementedError(
             f"normalize_activations={cfg.normalize_activations!r} is not "
@@ -56,6 +66,13 @@ def check_ported(cfg: SAERunnerConfig) -> None:
             "ghost grads are not ported yet (ROADMAP queue A, item 5)")
 
 
+def topk_activation(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Keep the k largest entries of each row (ReLU'd), zero elsewhere:
+    exactly k, as the JAX package's ``lax.top_k`` + scatter."""
+    vals, idx = torch.topk(x, k, dim=-1)
+    return torch.zeros_like(x).scatter(-1, idx, torch.relu(vals))
+
+
 def get_activation_fn(cfg: SAERunnerConfig):
     name = cfg.activation_fn_str
     if name == "relu":
@@ -63,8 +80,14 @@ def get_activation_fn(cfg: SAERunnerConfig):
     if name == "tanh-relu":
         return lambda x: torch.tanh(torch.relu(x))
     if name == "topk":
-        raise NotImplementedError(
-            "TopK SAEs are not ported yet (ROADMAP queue A, item 10)")
+        k = cfg.topk_k
+        if cfg.topk_use_approx:
+            raise NotImplementedError(
+                "topk_use_approx (the approximate TopK, an XLA op of the TPU) is "
+                "not ported yet (ROADMAP queue A, item 10)")
+        if cfg.fused_topk:
+            return lambda x: topk_mask_activation(x, k)
+        return lambda x: topk_activation(x, k)
     raise ValueError(f"Unknown activation function: {name}")
 
 
@@ -88,8 +111,10 @@ def init_sae_params(cfg: SAERunnerConfig,
     """The standard SAE's init in the JAX package's scheme (unit-row
     Kaiming-uniform decoder, encoder independent or tied to the decoder's
     transpose, zero biases), drawn from ``generator`` on the CPU (seeded
-    with ``cfg.seed`` when None).  The numbers differ from the JAX init's."""
+    with ``cfg.seed`` when None) and moved to ``device`` (the CUDA card when
+    None).  The numbers differ from the JAX init's."""
     check_ported(cfg)
+    device = resolve_device(device)
     g = generator if generator is not None else torch.Generator().manual_seed(cfg.seed)
     dt = cfg.torch_dtype
     d_in, d_sae = cfg.d_in, cfg.d_sae
@@ -154,13 +179,16 @@ def sae_forward(params: Params, cfg: SAERunnerConfig, x: torch.Tensor,
                 dead_neuron_mask: Optional[torch.Tensor] = None,
                 hooks: HookRuntime = NULL_HOOKS,
                 training: bool = True, prefix: str = "") -> SAEOutput:
-    """The standard SAE's forward with its losses: ``loss = mse + l1``."""
+    """The standard SAE's forward with its losses: ``loss = mse + l1``;
+    TopK has no sparsity loss (``l1_loss`` is None, ``loss = mse``)."""
     check_ported(cfg)
     x = x.to(params["W_enc"].dtype)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     _, feature_acts, _, ctx = encode(params, cfg, x, hooks, prefix)
     sae_out = decode(params, cfg, feature_acts, ctx, hooks, prefix)
     mse_loss = _mse_loss(x, sae_out)
+    if cfg.activation_fn_str == "topk":
+        return SAEOutput(sae_out, feature_acts, mse_loss, mse_loss, None, zero, zero)
     if cfg.lp_norm == 1.0:
         sparsity = feature_acts.abs().sum(dim=1, dtype=torch.float32).mean()
     else:
@@ -200,8 +228,10 @@ def remove_gradient_parallel_to_decoder_directions(grads: Params,
 class SparseAutoencoder(nn.Module):
     """The four parameters as an ``nn.Module``, with the JAX class's
     surface: ``__call__`` (the forward with losses), ``encode``, ``decode``,
-    ``reconstruct`` and ``get_name``.  Saving and loading are ROADMAP
-    queue A, item 15."""
+    ``reconstruct`` and ``get_name``.  Drawn parameters go to ``device``
+    (the CUDA card when None); given ``params`` stay on their device unless
+    ``device`` names another.  Saving and loading are ROADMAP queue A,
+    item 15."""
 
     def __init__(self, cfg: SAERunnerConfig, params: Optional[Params] = None,
                  generator: Optional[torch.Generator] = None, device=None):
@@ -209,6 +239,7 @@ class SparseAutoencoder(nn.Module):
         check_ported(cfg)
         self.cfg = cfg
         if params is None:
+            device = resolve_device(device)
             params = init_sae_params(cfg, generator, device)
         for k, v in params.items():
             self.register_parameter(

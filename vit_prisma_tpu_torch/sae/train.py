@@ -11,19 +11,23 @@ and nothing in the step reads a device value on the host: the scheduled
 learning rate goes to the kernel as a device tensor.
 
 The standard-ReLU single SAE takes this step in the JAX package too: its
-fused SAE kernels serve only the all-layer sweep.  The sweep
+fused ReLU kernels serve only the all-layer sweep.  A TopK SAE takes the
+fused step at any layer count, as in the JAX package: a single SAE is lifted
+to a stack of one (:func:`_fused_single_ok`), and its forward runs through
+kernel B8 and its backward through B6 or B9.  The generic TopK step, for
+configs the fused gate refuses, masks through kernel B10.  The sweep
 (:func:`sae_sweep_train_step`, :class:`SAESweepTrainer`) trains L SAEs at
 once from ``[B, L, d_in]`` batches.  Where :func:`_fused_step_ok` admits it
-(standard ReLU, L >= 2, tile-aligned shapes) the step runs the stacked
-forward through kernel B4 and its backward through B6 or B5
-(``ops/sae_step.py``), then B7 over the ``[L, ...]`` stacks; else it runs
-the generic step layer by layer.  :func:`make_fused_cycle` (``train_cycles``)
+(standard ReLU at L >= 2 or TopK, tile-aligned shapes) the step runs the
+stacked forward through kernel B4 (TopK: B8) and its backward through B6 or
+B5 (TopK: B6 or B9) (``ops/sae_step.py``), then B7 over the ``[L, ...]``
+stacks; else it runs the generic step layer by layer.  :func:`make_fused_cycle` (``train_cycles``)
 is, in eager PyTorch, a refill from the cycle's image indices followed by K
 steps, serving the same rows as ``train_steps(store.next_batches(K))``.
 
 Not ported yet, and raising ``NotImplementedError``: validation, evaluation
 and wandb (ROADMAP queue A, item 8), checkpoints and ``mesh`` (item 15),
-TopK, gated and transcoder SAEs (item 10).
+gated and transcoder SAEs and the approximate TopK (item 10).
 """
 
 from __future__ import annotations
@@ -40,7 +44,11 @@ from vit_prisma_tpu_torch.ops.opt_step import (
     ScaleByScheduleState,
     fused_clip_project_adam,
 )
-from vit_prisma_tpu_torch.ops.sae_step import fused_step_eligible, sae_fused_apply
+from vit_prisma_tpu_torch.ops.sae_step import (
+    fused_step_eligible,
+    sae_fused_apply,
+    sae_fused_apply_topk,
+)
 from vit_prisma_tpu_torch.sae.config import SAERunnerConfig
 from vit_prisma_tpu_torch.sae.geometric_median import compute_geometric_median
 from vit_prisma_tpu_torch.sae.sae import (
@@ -52,6 +60,7 @@ from vit_prisma_tpu_torch.sae.sae import (
     set_decoder_norm_to_unit_norm,
 )
 from vit_prisma_tpu_torch.sae.schedulers import get_schedule
+from vit_prisma_tpu_torch.utils.device import resolve_device
 
 Params = Dict[str, torch.Tensor]
 
@@ -89,7 +98,8 @@ def init_train_state(cfg: SAERunnerConfig, params: Optional[Params] = None,
                      generator: Optional[torch.Generator] = None,
                      device=None) -> SAETrainState:
     """Zero moments in ``cfg.adam_dtype``, zero counters, on the params'
-    device (``device`` when the params are drawn here)."""
+    device (``device`` when the params are drawn here, the CUDA card when
+    None)."""
     if cfg.adam_dtype != "float32" and not cfg.fused_optimizer:
         raise ValueError("adam_dtype='bfloat16' requires fused_optimizer")
     if params is None:
@@ -170,8 +180,8 @@ def _sae_train_step_impl(state: SAETrainState, batch: torch.Tensor,
         lr=lr, b1=cfg.adam_b1, b2=cfg.adam_b2, max_grad_norm=cfg.max_grad_norm)
     new_adam = new_adam._replace(mu=_drop(new_adam.mu), nu=_drop(new_adam.nu))
 
-    # 6. fired/act-freq counters.  The activations are >= 0 (ReLU or
-    # tanh-ReLU), so the JAX package's |h| > 0 and h > 0 are one mask.
+    # 6. fired/act-freq counters.  The activations are >= 0 (ReLU,
+    # tanh-ReLU or TopK), so the JAX package's |h| > 0 and h > 0 are one mask.
     active = feature_acts > 0
     did_fire = active.any(dim=-2)
     fired_counter = torch.where(did_fire, 0.0, state.n_forward_passes_since_fired + 1.0)
@@ -184,6 +194,9 @@ def _sae_train_step_impl(state: SAETrainState, batch: torch.Tensor,
     resid_var = torch.square(tgt - sae_out).sum(-1)
     total_var = torch.square(tgt - tgt.mean(0)).sum(-1)
     explained_variance = (1 - resid_var / total_var).mean()
+    # TopK has no sparsity loss: the metric reads 0
+    l1_val = out.l1_loss if out.l1_loss is not None else torch.zeros(
+        (), dtype=torch.float32, device=batch.device)
 
     new_state = SAETrainState(
         params=_drop(new_p),
@@ -195,7 +208,7 @@ def _sae_train_step_impl(state: SAETrainState, batch: torch.Tensor,
         n_training_tokens=state.n_training_tokens + n_rows)
     metrics = StepMetrics(
         loss=out.loss, mse_loss=out.mse_loss,
-        l1_loss=out.l1_loss, ghost_grad_loss=out.ghost_grad_loss,
+        l1_loss=l1_val, ghost_grad_loss=out.ghost_grad_loss,
         aux_reconstruction_loss=out.aux_reconstruction_loss,
         l0=l0, explained_variance=explained_variance,
         n_dead_features=ghost_mask.sum(), lr_multiplier=schedule(state.step))
@@ -207,7 +220,13 @@ def sae_train_step(state: SAETrainState, batch: torch.Tensor,
                    target: Optional[torch.Tensor] = None
                    ) -> Tuple[SAETrainState, StepMetrics]:
     """One training step on ``batch`` [train_batch_size, d_in].  Returns a
-    new state; ``state`` is left as it was."""
+    new state; ``state`` is left as it was.  Configs that
+    :func:`_fused_single_ok` admits (TopK) run the fused step on a stack of
+    one, as the JAX package does."""
+    if target is None and _fused_single_ok(cfg, batch.shape[0]):
+        new1, m1 = _sae_train_step_fused(_map_state(lambda a: a[None], state),
+                                         batch[None], cfg)
+        return _map_state(lambda a: a[0], new1), StepMetrics(*(f[0] for f in m1))
     return _sae_train_step_impl(state, batch, cfg, target)
 
 
@@ -301,11 +320,13 @@ def init_sweep_state(cfg: SAERunnerConfig, n_layers: int,
 
 def _fused_step_ok(cfg: SAERunnerConfig, n_rows: int, n_layers: int = 1,
                    allow_single_layer: bool = False) -> bool:
-    """Config and shape gate of the fused step (kernels B4-B6), as the JAX
-    package's: the standard ReLU with the L1 penalty, at L >= 2 (the JAX
-    package measured the generic step faster at L = 1), on tile-aligned
-    shapes.  Configs that the JAX gate sends to the TopK or gated kernels
-    raise: those kernels are not ported yet."""
+    """Config and shape gate of the fused step, as the JAX package's: the
+    standard ReLU with the L1 penalty (kernels B4-B6) at L >= 2 (the JAX
+    package measured the generic step faster at L = 1), or TopK with an
+    exact k below d_sae (B8, B9, B6; at L = 1 through
+    :func:`_fused_single_ok`), on tile-aligned shapes.  Gated configs, which
+    the JAX gate sends to their kernels, raise: B11 and B12 are not ported
+    yet."""
     if n_layers < 2 and not allow_single_layer:
         return False
     if not (cfg.fused_sae_step
@@ -315,19 +336,25 @@ def _fused_step_ok(cfg: SAERunnerConfig, n_rows: int, n_layers: int = 1,
             and not cfg.use_ghost_grads
             and not cfg.is_transcoder):
         return False
-    if cfg.architecture == "gated" or cfg.activation_fn_str == "topk":
+    if cfg.architecture == "gated":
         raise NotImplementedError(
-            "the fused TopK and gated steps (kernels B8-B12) are not ported yet "
+            "the fused gated step (kernels B11 and B12) is not ported yet "
             "(ROADMAP queue A, item 10)")
-    if cfg.lp_norm != 1.0:
-        return False
     itemsize = (cfg.compute_torch_dtype or cfg.torch_dtype).itemsize
+    if cfg.activation_fn_str == "topk":
+        # the fused kernels are exact; an approx opt-in stays off them
+        if cfg.topk_use_approx or not cfg.topk_k or cfg.topk_k >= cfg.d_sae:
+            return False
+    elif cfg.lp_norm != 1.0:
+        return False
     return fused_step_eligible(n_rows, cfg.d_in, cfg.d_sae, itemsize)
 
 
 def _fused_single_ok(cfg: SAERunnerConfig, n_rows: int) -> bool:
-    """The single-SAE (L = 1) fused gate: only TopK and gated take it in the
-    JAX package, and their kernels are not ported yet."""
+    """The single-SAE (L = 1) fused gate: TopK and gated take it, as in the
+    JAX package (the unfused TopK step pays a full threshold pass over the
+    [B, d_sae] pre-activations); gated raises, its kernels not ported
+    yet."""
     if cfg.activation_fn_str == "topk" or cfg.architecture == "gated":
         return _fused_step_ok(cfg, n_rows, 1, allow_single_layer=True)
     return False
@@ -339,24 +366,30 @@ def _sae_train_step_fused(state: SAETrainState, x: torch.Tensor,
     """Stacked step on the fused kernels, for a layer-major batch ``x``
     ``[L, B, d_in]``; the JAX package's ``_sae_train_step_fused`` with
     ``data_axis=None``.  The per-layer losses are summed for one backward
-    (the layers' params are disjoint, so each layer gets its own grads)."""
+    (the layers' params are disjoint, so each layer gets its own grads).
+    TopK has no sparsity penalty: its l1 metric is 0."""
     check_ported(cfg)
     schedule = make_schedule(cfg)
     B = x.shape[1]
     params = set_decoder_norm_to_unit_norm(state.params)
     ghost_mask = state.n_forward_passes_since_fired > cfg.dead_feature_window
     compute_dt = cfg.compute_torch_dtype
+    is_topk = cfg.activation_fn_str == "topk"
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     with torch.enable_grad():
         p = leaves if compute_dt is None else {k: v.to(compute_dt) for k, v in leaves.items()}
         xt = x.to(p["W_enc"].dtype)
-        y, l1_sums, nact = sae_fused_apply(xt, p["W_enc"], p["b_enc"], p["W_dec"],
-                                           p["b_dec"], save_acts=cfg.fused_store_acts)
+        weights = (xt, p["W_enc"], p["b_enc"], p["W_dec"], p["b_dec"])
+        if is_topk:
+            y, l1_sums, nact = sae_fused_apply_topk(*weights, k=cfg.topk_k,
+                                                    save_acts=cfg.fused_store_acts)
+        else:
+            y, l1_sums, nact = sae_fused_apply(*weights, save_acts=cfg.fused_store_acts)
         cent = xt - xt.mean(dim=1, keepdim=True)
         norm = torch.sqrt(torch.square(cent).sum(
             dim=-1, keepdim=True, dtype=torch.float32)).to(xt.dtype)
         mse_l = (torch.square(y - xt) / norm).mean(dim=(1, 2), dtype=torch.float32)
-        l1_l = cfg.l1_coefficient * l1_sums / B
+        l1_l = torch.zeros_like(mse_l) if is_topk else cfg.l1_coefficient * l1_sums / B
         loss_l = mse_l + l1_l
         grads = dict(zip(leaves, torch.autograd.grad(loss_l.sum(), list(leaves.values()))))
 
@@ -498,8 +531,8 @@ class VisionSAETrainer:
     """Streams token rows from an activation store into the train step,
     with the JAX trainer's log cadence, sparsity-window resets and bad-run
     abort.  Parameters are drawn from ``generator`` (seeded with
-    ``cfg.seed`` when None) and live on ``device`` (the store's when
-    None)."""
+    ``cfg.seed`` when None) and live on ``device`` (when None: the store's,
+    or the CUDA card without a store)."""
 
     _step = staticmethod(sae_train_step)
     _multistep = staticmethod(sae_train_multistep)
@@ -514,7 +547,7 @@ class VisionSAETrainer:
         self.store = store
         self._cycle = None
         if device is None:
-            device = store.device if store is not None else "cpu"
+            device = store.device if store is not None else resolve_device()
         self.state = self._init_state(generator, device)
         # Host mirror of the device step counter: the cadence checks read it
         # instead of the device value, so the loop never waits for the
