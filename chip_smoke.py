@@ -67,7 +67,19 @@ Phases, each printing JSON lines with the card's name and power limit:
     counts exact; SAE-tokens per second and peak memory;
 12. sweep step check: three fused steps against three steps of the generic
     per-layer path from one state, in bfloat16 at 24 layers and in float32
-    at two.
+    at two;
+13. gated kernels: B11 (``sae_gated_fused_forward``) and B12
+    (``sae_gated_fused_backward``) against their plain versions at the
+    gated slice's shape (1 x 4096, 768 -> 12,288) in both dtypes and at two
+    layers of the sweep's widths (2 x 4096, 1024 -> 8192) in bfloat16;
+    gate and magnitude masks that differ from the plain version's are
+    counted and bounded, and nact equals the kernel's own mask count;
+14. gated train: the fifth main path, phase 5's set-up with bench.py's
+    gated row (bf16 compute, float32 masters): ``run(max_steps=120)``
+    through B11 and B12 on every step, exact launches, then where a gated
+    step's time goes (``torch.profiler``, as phase 9);
+15. gated step check: three fused steps against three generic steps from
+    the trained state in float32.
 
 The line before the last lists every kernel with its launches on its main
 path, its error, times, bound and library time.  It imports no JAX,
@@ -76,6 +88,7 @@ check fails.  The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import gc
 import json
 import math
 import subprocess
@@ -99,6 +112,10 @@ SAE_REPLACES = {"sae_fused_forward": "vit_prisma_tpu/ops/sae_step.py:148",
 KTH_SOURCE = "vit_prisma_tpu_torch/csrc/kth_value.cu"
 KTH_REPLACES = "vit_prisma_tpu/ops/topk.py:78"
 TOPK_FWD_SOURCE = "vit_prisma_tpu_torch/csrc/sae_fused_fwd_topk.cu"
+GATED_SOURCES = {"sae_gated_fused_forward": "vit_prisma_tpu_torch/csrc/sae_fused_fwd_gated.cu",
+                 "sae_gated_fused_backward": "vit_prisma_tpu_torch/csrc/sae_fused_bwd_gated.cu"}
+GATED_REPLACES = {"sae_gated_fused_forward": "vit_prisma_tpu/ops/sae_step.py:1001",
+                  "sae_gated_fused_backward": "vit_prisma_tpu/ops/sae_step.py:1116"}
 TOPK_REPLACES = {"sae_fused_forward_topk": "vit_prisma_tpu/ops/sae_step.py:656",
                  "sae_fused_backward_topk": "vit_prisma_tpu/ops/sae_step.py:763"}
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, 700 W) for the
@@ -284,6 +301,22 @@ SWEEP_L0_EXEMPT = (3, 4, 5, 6, 7)
 SWEEP_CHECK_TOL = {
     torch.float32: {"param_max": 2e-5, "param_p999": 2e-5, "step1_metric_rel": 2e-4},
     torch.bfloat16: {"param_max": 6e-3, "param_p999": 5e-5, "step1_metric_rel": 5e-3}}
+# B11 and B12 against their plain versions: name, L, B, d_in, d_sae, dtype.
+# The gated slice (bench.py:177-180) in both dtypes, and two layers at the
+# sweep's widths in bfloat16.
+GATED_SHAPES = [("slice_bf16", 1, 4096, 768, 12288, torch.bfloat16),
+                ("slice_f32", 1, 4096, 768, 12288, torch.float32),
+                ("sweep_bf16", 2, 4096, 1024, 8192, torch.bfloat16)]
+# Kernel and plain version round hg = g + b_gate and hm = g e + b_mag to c
+# after float32 sums taken in other orders, so an hg or hm within a rounding
+# of 0 may fall on the other side of the gate or magnitude mask in one of
+# them.  Such entries are counted: at most GATED_FLIP_FRAC of all entries,
+# on at most TOPK_FLIP_ROW_FRAC of the rows.  Outside the rows with a flip
+# y and via are held to SAE_REL; l1 within SAE_L1_REL plus the flipped gate
+# entries' values; nact within each feature's magnitude flips and equal to
+# the kernel's own mask count; the grads within SAE_GRAD_REL outside the
+# features with a flip and SAE_SWITCHED_GRAD_REL in them.
+GATED_FLIP_FRAC = 1e-4
 
 
 def RESID_POST(name: str) -> bool:
@@ -294,6 +327,14 @@ def card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def release() -> None:
+    """Free what earlier phases left before a phase measures its peak
+    memory: their trainers and stores sit in reference cycles (the wrapped
+    ``log_metrics`` and refill), which only the garbage collector breaks."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def emit(record: dict) -> None:
@@ -608,7 +649,7 @@ def _time_refills(store):
 
 def phase_train(info, cfg=None, phase="train"):
     """A training main path: harvest -> store -> trainer.run on the card;
-    the default SAE (phase 5) or, with ``cfg``, the TopK slice."""
+    the default SAE (phase 5) or, with ``cfg``, the TopK or gated slice."""
     from vit_prisma_tpu_torch import HookedViT, get_model_config
     from vit_prisma_tpu_torch.sae import (SAERunnerConfig, VisionActivationsStore,
                                           VisionSAETrainer)
@@ -619,6 +660,7 @@ def phase_train(info, cfg=None, phase="train"):
     images = torch.from_numpy(np.random.default_rng(3).standard_normal(
         (TRAIN_IMAGES, 3, cfg.image_size, cfg.image_size), dtype=np.float32)).cuda()
     torch.cuda.synchronize()
+    release()
     torch.cuda.reset_peak_memory_stats()
 
     # The main path, with every count set to 0 just before it.
@@ -643,8 +685,11 @@ def phase_train(info, cfg=None, phase="train"):
         len(refills) * -(-(cfg.tokens_per_buffer // 2) // per_batch)
     expected = dict.fromkeys(counters, 0)
     expected.update({"attention_mix_tnh": (cfg.hook_point_layer + 1) * harvests,
-                     "take_rows": 1 + len(refills), "adam_update": 4 * TRAIN_STEPS})
-    if cfg.activation_fn_str == "topk":  # the fused step at L = 1: B8, then B6 or B9
+                     "take_rows": 1 + len(refills),
+                     "adam_update": len(trainer.state.params) * TRAIN_STEPS})
+    if cfg.architecture == "gated":  # the fused step at L = 1: B11, then B12
+        expected["sae_gated_fused_forward"] = expected["sae_gated_fused_backward"] = TRAIN_STEPS
+    elif cfg.activation_fn_str == "topk":  # the fused step at L = 1: B8, then B6 or B9
         expected["sae_fused_forward_topk"] = TRAIN_STEPS
         expected["sae_fused_backward_topk" if cfg.fused_store_acts is False
                  else "sae_fused_backward_stored"] = TRAIN_STEPS
@@ -667,6 +712,9 @@ def phase_train(info, cfg=None, phase="train"):
     changed = {"n_batches_in_buffer": [20, TRAIN_BUFFER_BATCHES]}
     if cfg.activation_fn_str == "topk":
         changed.update(activation_fn_str=["relu", "topk"], k=TOPK_K,
+                       compute_dtype=[None, cfg.compute_dtype])
+    if cfg.architecture == "gated":
+        changed.update(architecture=["standard", "gated"],
                        compute_dtype=[None, cfg.compute_dtype])
     emit({"phase": phase, **info, "model": cfg.model_name,
           "weights": "random, seed 0 (pretrained weights are not in the repository)",
@@ -781,15 +829,17 @@ def _sae_inputs(g, L, B, D, S, dtype):
             torch.rand(L, generator=g, device="cuda") * 1e-3)
 
 
-def _grad_errs(name, got, want, switched, dtype, switched_rel=SAE_SWITCHED_GRAD_REL):
-    """Max abs errors of (dW_enc, dW_dec, db_enc) outside and inside the
-    features whose ReLU switched; raises past the bounds."""
+def _grad_errs(name, got, want, switched, dtype, switched_rel=SAE_SWITCHED_GRAD_REL,
+               keys=("dW_enc", "dW_dec", "db_enc")):
+    """Max abs errors of the grads ``keys`` (the ReLU and TopK backwards'
+    three, or B12's five) outside and inside the features whose mask
+    switched; raises past the bounds."""
     errs = {}
-    for k, a, b in zip(("dW_enc", "dW_dec", "db_enc"), got, want):
+    for k, a, b in zip(keys, got, want):
         d = (a - b).abs()
         scale = b.abs().max().item()
-        # the feature axis: last for dW_enc [L, D, S] and db_enc [L, S], the
-        # middle for dW_dec [L, S, D]
+        # the feature axis: last for dW_enc [L, D, S] and the [L, S] bias
+        # grads, the middle for dW_dec [L, S, D]
         sw = switched[:, None, :] if k == "dW_enc" else (
             switched[:, :, None] if k == "dW_dec" else switched)
         sw = sw.expand_as(d)
@@ -1120,16 +1170,20 @@ def _profile(fn):
                         for k, ms, n in rows[:TOPK_PROFILE_TOP]]}
 
 
-def phase_topk_profile(info, trainer, store, cfg):
-    """Where a TopK train step's time goes, from the trained state on batches
-    already in the buffer: the fused step (B8, B6) and the generic step
-    (B10), each timed over TOPK_PROFILE_STEPS steps with CUDA events and
-    profiled over three; then one refill (harvest + mix) profiled."""
+def phase_step_profile(info, trainer, store, cfg, phase):
+    """Where a TopK or gated train step's time goes, from the trained state
+    on batches already in the buffer: the fused step (TopK: B8, B6; gated:
+    B11, B12) and the generic step, each timed over TOPK_PROFILE_STEPS steps
+    with CUDA events and profiled over three; then one refill (harvest +
+    mix) profiled."""
     from vit_prisma_tpu_torch.sae.train import sae_train_step
     bs = cfg.train_batch_size
     batches = [store.buffer[i * bs:(i + 1) * bs] for i in range(store.buffer.shape[0] // bs)]
-    shape = {"d_in": cfg.d_in, "d_sae": cfg.d_sae, "k": cfg.topk_k,
-             "compute_dtype": cfg.compute_dtype, "train_batch_size": bs}
+    shape = {"architecture": cfg.architecture, "activation": cfg.activation_fn_str,
+             "d_in": cfg.d_in, "d_sae": cfg.d_sae, "compute_dtype": cfg.compute_dtype,
+             "train_batch_size": bs}
+    if cfg.activation_fn_str == "topk":
+        shape["k"] = cfg.topk_k
 
     def steps(c, n):
         state = trainer.state
@@ -1143,13 +1197,13 @@ def phase_topk_profile(info, trainer, store, cfg):
         prof = _profile(lambda: steps(c, 3))
         # the profiler slows the host, so its wall time overstates idling:
         # the share that counts is of the steps timed without it
-        emit({"phase": "topk_profile", **info, **shape, "what": f"{name} train step",
+        emit({"phase": phase, **info, **shape, "what": f"{name} train step",
               "steps_timed": TOPK_PROFILE_STEPS, "ms_per_step": step_ms,
               "tokens_per_s": bs / step_ms * 1000.0,
               "device_busy_ms_per_step": prof["device_busy_ms"] / 3,
               "idle_share_of_timed_steps": max(0.0, 1.0 - prof["device_busy_ms"] / 3 / step_ms),
               "profile_of_3_steps": prof})
-    emit({"phase": "topk_profile", **info, **shape, "what": "one refill (harvest + mix)",
+    emit({"phase": phase, **info, **shape, "what": "one refill (harvest + mix)",
           "profile": _profile(store._refill_half)})
 
 
@@ -1265,7 +1319,8 @@ def _sae_counters():
     return {f.__name__: f for f in (
         attention_mix_tnh, take_rows, S.sae_fused_forward, S.sae_fused_backward,
         S.sae_fused_backward_stored, adam_update, S.sae_fused_forward_topk,
-        S.sae_fused_backward_topk, kth_value)}
+        S.sae_fused_backward_topk, kth_value, S.sae_gated_fused_forward,
+        S.sae_gated_fused_backward)}
 
 
 def _zero_counts(counters):
@@ -1296,6 +1351,7 @@ def phase_sweep(info):
         (SWEEP_IMAGES, 3, cfg.image_size, cfg.image_size), dtype=np.float32)).to("cuda")
     counters = _sae_counters()
     torch.cuda.synchronize()
+    release()
     torch.cuda.reset_peak_memory_stats()
 
     # The main path, with every count set to 0 just before it.
@@ -1500,6 +1556,184 @@ def check_sweep_steps(recs):
                 raise AssertionError(f"sweep step check {dtype} {f}: {errs}")
 
 
+def _gated_masks_plain(x, We, bg, rmag, bm, bd):
+    """The plain version's gate and magnitude masks [L, B, S], from its own
+    products (B12's plain version recomputes the same)."""
+    from vit_prisma_tpu_torch.ops import sae_step as S
+    _, _, hg, hm = S._gated_pre(x, We, bg, torch.exp(rmag.float()), bm, bd)
+    return hg > 0, (hg > 0) & (hm > 0), hg
+
+
+def phase_gated_kernels(info):
+    """B11 and B12 against their plain versions at the gated slice's shape
+    and two layers of the sweep's widths."""
+    from vit_prisma_tpu_torch.ops import sae_step as S
+    g = torch.Generator(device="cuda").manual_seed(8)
+    results = {}
+    for name, L, B, D, Sd, dtype in GATED_SHAPES:
+        x, We, bg, Wd, bd, dy, dl1 = _sae_inputs(g, L, B, D, Sd, dtype)
+        r = lambda *shape, sc: (torch.randn(*shape, generator=g, device="cuda") * sc).to(dtype)
+        rmag, bm, dvia = r(L, Sd, sc=0.1), r(L, Sd, sc=0.01), r(L, B, D, sc=1e-3)
+        args = (x, We, bg, rmag, bm, Wd, bd)
+        y, via, l1, nact, hc, hgac = S.sae_gated_fused_forward(*args, save_h=True)
+        torch.cuda.synchronize()
+        yr, viar, l1r, nactr = S.sae_gated_fused_forward_reference(*args)
+        gate_k, mag_k = hgac.float() > 0, hc.float() > 0
+        gate_p, mag_p, hg_p = _gated_masks_plain(x, We, bg, rmag, bm, bd)
+        gflip, mflip = gate_k != gate_p, mag_k != mag_p
+        del gate_p, mag_p, hc, hgac
+        flip = gflip | mflip
+        flip_rows = flip.any(dim=-1)
+        switched = flip.any(dim=1)  # [L, S]
+        wdn = S._gated_hoisted(rmag, Wd)[1]
+        flipped_hg = (hg_p.abs() * gflip).amax(dim=(1, 2))
+        l1_bound = SAE_L1_REL * l1r.abs() + gflip.sum(dim=(1, 2)) * flipped_hg * wdn.amax(dim=1)
+        y_err = (y.float() - yr.float()).abs()[~flip_rows]
+        via_err = (via.float() - viar.float()).abs()[~flip_rows]
+        fwd = {"y_unflipped_rows": y_err.max().item() if y_err.numel() else math.inf,
+               "via_unflipped_rows": via_err.max().item() if via_err.numel() else math.inf,
+               "y_tol": rel_atol(SAE_REL[dtype], yr), "via_tol": rel_atol(SAE_REL[dtype], viar),
+               "gate_flips": int(gflip.sum()), "magnitude_flips": int(mflip.sum()),
+               "flip_frac": flip.float().mean().item(),
+               "rows_with_flips": int(flip_rows.sum()),
+               "row_flip_frac": flip_rows.float().mean().item(),
+               "nact_minus_own_mask": (nact - mag_k.sum(dim=1, dtype=torch.float32)
+                                       ).abs().max().item(),
+               "nact_abs_diff_sum": (nact - nactr).abs().sum().item(),
+               "active_frac": mag_k.float().mean().item(),
+               "gate_open_frac": gate_k.float().mean().item(),
+               "l1_abs_err": (l1 - l1r).abs().max().item(), "l1_tol": l1_bound.max().item()}
+        if not (fwd["y_unflipped_rows"] <= fwd["y_tol"]
+                and fwd["via_unflipped_rows"] <= fwd["via_tol"]
+                and fwd["flip_frac"] <= GATED_FLIP_FRAC
+                and fwd["row_flip_frac"] <= TOPK_FLIP_ROW_FRAC
+                and fwd["nact_minus_own_mask"] == 0
+                and bool(((l1 - l1r).abs() <= l1_bound).all())
+                and bool(((nact - nactr).abs() <= mflip.sum(dim=1)).all())):
+            raise AssertionError(f"{name} gated forward: {fwd}")
+        del yr, viar, gflip, mflip, flip, flip_rows, hg_p, gate_k, mag_k
+        grads = S.sae_gated_fused_backward(*args, dy, dvia, dl1)
+        torch.cuda.synchronize()
+        bwd = _grad_errs(f"{name} B12", grads,
+                         S.sae_gated_fused_backward_reference(*args, dy, dvia, dl1), switched,
+                         dtype, keys=("dW_enc", "dW_dec", "db_gate", "db_mag", "dr_mag"))
+        del grads
+        flop = 2 * L * B * D * Sd
+        eb = x.element_size()
+        gemm = "bf16_tensor" if dtype == torch.bfloat16 else "fp32"
+        w_bytes = (2 * L * D * Sd + 3 * L * Sd + L * D) * eb  # W_enc, W_dec, 3 biases, b_dec
+        ms = lambda fn, it: cuda_us(fn, iters=it, warmup=1) / 1000.0
+        calls = {
+            "sae_gated_fused_forward": (
+                lambda: S.sae_gated_fused_forward(*args),
+                lambda: S.sae_gated_fused_forward_reference(*args),
+                3 * L * B * D * eb + w_bytes + L * 4 + L * Sd * 4, 3 * flop),
+            "sae_gated_fused_backward": (
+                lambda: S.sae_gated_fused_backward(*args, dy, dvia, dl1),
+                lambda: S.sae_gated_fused_backward_reference(*args, dy, dvia, dl1),
+                3 * L * B * D * eb + w_bytes + L * 4 + (2 * L * D * Sd + 3 * L * Sd) * 4,
+                6 * flop)}
+        for kernel, (fn, plain, nbytes, n_flop) in calls.items():
+            k_ms, plain_ms = ms(fn, 5), ms(plain, 2)
+            rec = {"phase": "kernel", **info, "kernel": kernel, "shape": name, "path": "gated",
+                   "L": L, "B": B, "d_in": D, "d_sae": Sd, "dtype": str(dtype).split(".")[1],
+                   "max_abs_err": (max(fwd["y_unflipped_rows"], fwd["via_unflipped_rows"])
+                                   if kernel == "sae_gated_fused_forward"
+                                   else max(e["unswitched"] for e in bwd.values())),
+                   "ms": k_ms, "plain_ms": plain_ms, "TFLOP": n_flop / 1e12,
+                   "TFLOP_per_s": n_flop / k_ms / 1e9,
+                   "plain_TFLOP_per_s": n_flop / plain_ms / 1e9,
+                   **bound(nbytes, [(gemm, n_flop)])}
+            if kernel == "sae_gated_fused_forward":
+                rec["forward"] = fwd
+            else:
+                rec["grad_errs"] = bwd
+            results[(kernel, name)] = rec
+            emit(rec)
+        del x, We, bg, rmag, bm, Wd, bd, dy, dvia, y, via, args
+        torch.cuda.empty_cache()
+    return results
+
+
+def gated_config():
+    """The gated slice: bench.py's gated row (bf16 compute, float32 masters)
+    at SAERunnerConfig's default widths, with phase 5's 4-batch buffer."""
+    from vit_prisma_tpu_torch.sae import SAERunnerConfig
+    return SAERunnerConfig(architecture="gated", compute_dtype="bfloat16",
+                           n_batches_in_buffer=TRAIN_BUFFER_BATCHES)
+
+
+def _gated_step_masks(state, x, cfg, fused):
+    """The gate and magnitude masks [B, d_sae] that a step from ``state``
+    computes: kernel B11's on the fused path, ``encode``'s (the reference's
+    two products) on the generic path."""
+    from vit_prisma_tpu_torch.ops.sae_step import sae_gated_fused_forward
+    from vit_prisma_tpu_torch.sae.sae import encode, set_decoder_norm_to_unit_norm
+    p = set_decoder_norm_to_unit_norm(state.params)
+    if fused:
+        q = {k: v[None] for k, v in p.items()}
+        out = sae_gated_fused_forward(x[None], q["W_enc"], q["b_gate"], q["r_mag"], q["b_mag"],
+                                      q["W_dec"], q["b_dec"], save_h=True)
+        return out[5][0] > 0, out[4][0] > 0
+    _, feats, gate_pre, _ = encode(p, cfg, x)
+    return gate_pre > 0, feats > 0
+
+
+def phase_gated_step_check(info, trainer, store, cfg):
+    """From the trained gated state, three fused steps (B11, B12) against
+    three generic steps in float32."""
+    from vit_prisma_tpu_torch.sae.convert import train_state_to_numpy
+    from vit_prisma_tpu_torch.sae.train import sae_train_step
+    c = cfg.replace(compute_dtype=None)
+    batches = [store.next_batch() for _ in range(STEP_CHECK_STEPS)]
+    counters = _sae_counters()
+    states = {True: [trainer.state], False: [trainer.state]}
+    launches = {}
+    for fused in (False, True):
+        _zero_counts(counters)
+        for b in batches:
+            states[fused].append(sae_train_step(states[fused][-1], b,
+                                                c.replace(fused_sae_step=fused))[0])
+        torch.cuda.synchronize()
+        launches[fused] = {k: f.launches for k, f in counters.items()}
+    if (launches[False]["sae_gated_fused_forward"] != 0
+            or launches[True]["sae_gated_fused_forward"] != STEP_CHECK_STEPS
+            or launches[True]["sae_gated_fused_backward"] != STEP_CHECK_STEPS):
+        raise AssertionError(f"gated step check launches: generic {launches[False]}, "
+                             f"fused {launches[True]}")
+    flips, switched = 0, torch.zeros(cfg.d_sae, dtype=torch.bool, device="cuda")
+    for j, b in enumerate(batches):
+        for a, w in zip(_gated_step_masks(states[True][j], b, c, True),
+                        _gated_step_masks(states[False][j], b, c, False)):
+            flip = a != w
+            flips += int(flip.sum())
+            switched |= flip.any(dim=0)
+    got, want = train_state_to_numpy(states[True][-1]), train_state_to_numpy(states[False][-1])
+    mask = switched.cpu().numpy()
+    errs, scales = {}, {}
+    for k in want:
+        d = np.abs(got[k].astype(np.float64) - want[k])
+        scales[k] = float(np.abs(want[k]).max())
+        if k.endswith(("/W_enc", "/W_dec", "/b_gate", "/r_mag", "/b_mag")):
+            sw = np.broadcast_to(mask[:, None] if k.endswith("/W_dec") else mask, d.shape)
+            errs[k] = {"unswitched": float(d[~sw].max()) if (~sw).any() else 0.0,
+                       "switched": float(d[sw].max()) if sw.any() else 0.0}
+        else:
+            errs[k] = {"unswitched": float(d.max()), "switched": 0.0}
+    b_enc_zero = all(not np.any(a[k]) for a in (got, want)
+                     for k in ("params/b_enc", "mu/b_enc", "nu/b_enc"))
+    emit({"phase": "gated_step_check", **info, "steps": STEP_CHECK_STEPS, "dtype": "float32",
+          "start_step": int(trainer.state.step), "mask_switches": flips,
+          "switched_features": int(switched.sum()), "launches_generic": launches[False],
+          "launches_fused": launches[True], "state_max_abs_err": errs,
+          "state_absmax": scales, "b_enc_and_moments_zero": b_enc_zero,
+          "act_freq_abs_diff_sum": float(np.abs(got["act_freq_scores"]
+                                                - want["act_freq_scores"]).sum())})
+    if not b_enc_zero:
+        raise AssertionError("the gated b_enc or its moments left 0")
+    check_steps([{}], errs, scales, flips, int(switched.sum()), got, want)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; none is available")
@@ -1518,17 +1752,24 @@ def main():
     trainer, store, cfg, train_launches = phase_train(info)
     check_steps(*phase_step_check(info, trainer, store, cfg))
     del trainer, store
-    torch.cuda.empty_cache()
+    release()
     sae_step_kernels = phase_sae_step_kernels(info)
     topk_kernels = phase_topk_kernels(info)
     trainer, store, cfg, topk_launches = phase_train(info, topk_config(), "topk_train")
     topk_remat_launches = phase_topk_remat(info, trainer, store, cfg)
     kth_launches = phase_topk_step_check(info, trainer, store, cfg)
-    phase_topk_profile(info, trainer, store, cfg)
+    phase_step_profile(info, trainer, store, cfg, "topk_profile")
     del trainer, store
-    torch.cuda.empty_cache()
+    release()
     sweep, sweep_store, sweep_cfg, sweep_launches, remat_launches = phase_sweep(info)
     check_sweep_steps(phase_sweep_step_check(info, sweep, sweep_store, sweep_cfg))
+    del sweep, sweep_store
+    release()
+    gated_kernels = phase_gated_kernels(info)
+    trainer, store, cfg, gated_launches = phase_train(info, gated_config(), "gated_train")
+    phase_step_profile(info, trainer, store, cfg, "gated_profile")
+    phase_gated_step_check(info, trainer, store, cfg)
+    del trainer, store
 
     def entry(name, source, replaces, launches, rec, ms_key="ms", scale=1.0):
         """One kernel's line: launches from its main path, the rest measured
@@ -1578,6 +1819,9 @@ def main():
         # the generic TopK step's float32 [4096, 12288]; launches from the
         # generic steps and encode of the TopK step check
         entry("kth_value", KTH_SOURCE, KTH_REPLACES, kth_launches, kth["slice_f32"])]
+    # at the gated slice's bf16 shape; launches from its train path
+    line += [entry(k, GATED_SOURCES[k], GATED_REPLACES[k], gated_launches[k],
+                   gated_kernels[(k, "slice_bf16")]) for k in GATED_SOURCES]
     missing = [e["name"] for e in line if not e["launches"] > 0]
     if missing:
         raise AssertionError(f"kernels not launched on their main paths: {missing}")

@@ -200,6 +200,14 @@ def test_port_init_is_unit_norm_and_seeded():
 ])
 def test_unported_variants_raise_naming_their_item(fields, item):
     _, pc = _cfgs(**SMALL, **fields)
+    if pc.architecture == "gated":
+        # gated is ported: the forward runs with its gate L1 and aux loss
+        params = port_sae.init_sae_params(pc, device="cpu")
+        out = port_sae.sae_forward(params, pc, torch.from_numpy(seeded(3, (4, 48))))
+        assert torch.isfinite(out.loss) and float(out.aux_reconstruction_loss) > 0
+        torch.testing.assert_close(out.loss, out.mse_loss + out.l1_loss
+                                   + out.aux_reconstruction_loss)
+        return
     if pc.activation_fn_str == "topk":
         # TopK is ported: the forward runs, without a sparsity loss; only
         # the approximate TopK (an XLA op of the TPU) still raises

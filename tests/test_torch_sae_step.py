@@ -200,26 +200,22 @@ def test_gate_matches_jax(case):
 @pytest.mark.parametrize("fields", [dict(architecture="gated"), TOPK],
                          ids=["gated", "topk"])
 def test_gate_raises_for_topk_and_gated(fields):
-    """Gated still raises (B11, B12); TopK is ported: the port's gate
-    equals the JAX package's at L = 2 and L = 1, and its fused step runs."""
+    """TopK and gated are ported and no longer raise (the name is that of
+    the test before them): the port's gate equals the JAX package's at L = 2
+    and L = 1, and a 2-layer sweep step runs on their kernels."""
     jc, pc = _gate_cfgs(**fields)
     assert jax_gate(jc, BS, 2)  # the JAX package takes their kernels
+    assert _fused_step_ok(pc, BS, 2) == jax_gate(jc, BS, 2)
+    assert _fused_single_ok(pc, BS) == jax_single_gate(jc, BS)
+    sweep = pc.replace(sweep_layers=(0, 1))
+    state = port_sae.init_sweep_state(sweep, 2, device="cpu")
+    x = torch.from_numpy(seeded(4, (BS, 2, D_IN)))
+    _, m = port_sae.sae_sweep_train_step(state, x, sweep)
+    assert torch.isfinite(m.loss).all() and (m.l0 > 0).all()
     if pc.activation_fn_str == "topk":
-        assert _fused_step_ok(pc, BS, 2) == jax_gate(jc, BS, 2)
-        assert _fused_single_ok(pc, BS) == jax_single_gate(jc, BS)
-        sweep = pc.replace(sweep_layers=(0, 1))
-        state = port_sae.init_sweep_state(sweep, 2, device="cpu")
-        x = torch.from_numpy(seeded(4, (BS, 2, D_IN)))
-        _, m = port_sae.sae_sweep_train_step(state, x, sweep)
-        assert torch.isfinite(m.loss).all() and m.l0.tolist() == [32.0, 32.0]
-        return
-    with pytest.raises(NotImplementedError, match="item 10"):
-        _fused_step_ok(pc, BS, 2)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        _fused_single_ok(pc, BS)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        port_sae.sae_sweep_train_step(None, torch.zeros(BS, 2, D_IN),
-                                      pc.replace(sweep_layers=(0, 1)))
+        assert m.l0.tolist() == [32.0, 32.0]
+    else:
+        assert (m.aux_reconstruction_loss > 0).all() and (m.l1_loss > 0).all()
 
 
 # -- the kernel build ------------------------------------------------------------

@@ -149,31 +149,6 @@ dh_kernel(const T* __restrict__ xc, const T* __restrict__ We, const T* __restric
                  dbe_part + (static_cast<long long>(l) * gridDim.y + blockIdx.y) * S + n0);
 }
 
-// C[l] = A[l]^T Bm[l] in float32, A [K, M] and Bm [K, N] row-major (M and N
-// contiguous), reduced over K = the B rows.  Grid (N/BN, M/BM, L).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-wgrad_kernel(const T* __restrict__ A, const T* __restrict__ Bm, float* __restrict__ C, int M,
-             int N, int K) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  const int l = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const long long KM = static_cast<long long>(K) * M, KN = static_cast<long long>(K) * N;
-  const long long MN = static_cast<long long>(M) * N;
-  Acc acc;
-  zero(acc);
-  mainloop<T, false, false>(acc, A + l * KM, M, Bm + l * KN, N, K, m0, n0, smem);
-  float* out = C + l * MN;
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        store2(out + static_cast<long long>(m0 + acc_row(mi, 2 * h)) * N + n0 + acc_col(ni, 0),
-               acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
-}
-
 template <typename T>
 cudaError_t backward(const void* x, const void* We, const void* be, const void* Wd,
                      const void* bd, const void* dy, const void* dl1, const void* t, void* hc,

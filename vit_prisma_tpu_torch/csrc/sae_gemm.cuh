@@ -1,6 +1,7 @@
-// One tile GEMM, shared by the fused SAE kernels B4-B6, B8 and B9
-// (sae_fused_fwd.cu, sae_fused_fwd_topk.cu, sae_fused_bwd.cu), and the
-// kernels that more than one of them launch (center, decoder).
+// One tile GEMM, shared by the fused SAE kernels B4-B6, B8, B9, B11 and
+// B12 (sae_fused_fwd.cu, sae_fused_fwd_topk.cu, sae_fused_bwd.cu,
+// sae_fused_fwd_gated.cu, sae_fused_bwd_gated.cu), and the kernels that
+// more than one of them launch (center, decoder, wgrad).
 //
 // A block computes a BM x BN tile of C = A B for one layer of an [L, ...]
 // stack, accumulating in float32 registers over K in steps of BK, and then
@@ -347,8 +348,8 @@ cudaError_t center(const T* x, const T* bd, T* xc, int L, int B, int D, cudaStre
   return cudaGetLastError();
 }
 
-// y = b_dec + hc W_dec, the decoder of B4 and B8 (hc: the ReLU or TopK
-// activations in T).  Grid (D/BN, B/BM, L); Smem<T, true, false>::bytes.
+// y = b_dec + hc W_dec, the decoder of B4, B8 and B11 (hc: the ReLU, TopK
+// or gated activations in T).  Grid (D/BN, B/BM, L); Smem<T, true, false>::bytes.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 decoder_kernel(const T* __restrict__ hc, const T* __restrict__ Wd, const T* __restrict__ bd,
@@ -376,6 +377,32 @@ decoder_kernel(const T* __restrict__ hc, const T* __restrict__ Wd, const T* __re
 #pragma unroll
       for (int h = 0; h < 2; ++h)
         store2(out + static_cast<long long>(m0 + acc_row(mi, 2 * h)) * D + n0 + acc_col(ni, 0),
+               acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+}
+
+// C[l] = A[l]^T Bm[l] in float32, the weight-gradient product of the
+// backward kernels (B5, B6, B9, B12), A [K, M] and Bm [K, N] row-major (M and N
+// contiguous), reduced over K = the B rows.  Grid (N/BN, M/BM, L).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+wgrad_kernel(const T* __restrict__ A, const T* __restrict__ Bm, float* __restrict__ C, int M,
+             int N, int K) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int l = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const long long KM = static_cast<long long>(K) * M, KN = static_cast<long long>(K) * N;
+  const long long MN = static_cast<long long>(M) * N;
+  Acc acc;
+  zero(acc);
+  mainloop<T, false, false>(acc, A + l * KM, M, Bm + l * KN, N, K, m0, n0, smem);
+  float* out = C + l * MN;
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        store2(out + static_cast<long long>(m0 + acc_row(mi, 2 * h)) * N + n0 + acc_col(ni, 0),
                acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
 }
 

@@ -124,6 +124,10 @@ def load_library() -> ctypes.CDLL:
     lib.sae_fused_bwd.restype = i
     lib.sae_fused_fwd_topk.argtypes = [p] * 11 + [i] * 7 + [p]
     lib.sae_fused_fwd_topk.restype = i
+    lib.sae_fused_fwd_gated.argtypes = [p] * 13 + [i] * 6 + [p]
+    lib.sae_fused_fwd_gated.restype = i
+    lib.sae_fused_bwd_gated.argtypes = [p] * 19 + [i] * 6 + [p]
+    lib.sae_fused_bwd_gated.restype = i
     lib.kth_value.argtypes = [p, p, ll, i, i, i, i, p]
     lib.kth_value.restype = i
     lib.vpt_cuda_error_string.argtypes = [i]

@@ -1,6 +1,5 @@
-"""Fused SAE forward and backward over L stacked SAEs, standard-ReLU and
-TopK (PyTorch port of the ReLU and TopK parts of
-``vit_prisma_tpu/ops/sae_step.py``).
+"""Fused SAE forward and backward over L stacked SAEs, standard-ReLU, TopK
+and gated (PyTorch port of ``vit_prisma_tpu/ops/sae_step.py``).
 
 For ``x`` ``[L, B, d_in]``, ``W_enc`` ``[L, d_in, d_sae]``, ``b_enc``
 ``[L, d_sae]``, ``W_dec`` ``[L, d_sae, d_in]`` and ``b_dec`` ``[L, d_in]``,
@@ -48,6 +47,24 @@ TopK (keep each row's k largest pre-activations) has three more::
 
 :func:`sae_fused_apply_topk` wraps them as :func:`sae_fused_apply` wraps
 B4-B6.
+
+The gated SAE (``b_gate``, ``r_mag``, ``b_mag`` in place of ``b_enc``)
+shares one encoder product between its gate and magnitude paths, since
+``exp(r_mag)`` scales columns of ``W_enc``; with ``e = exp(r_mag)`` and the
+decoder row norms ``wdn`` (float32, plain torch, :func:`_gated_hoisted`)::
+
+    g   = (x - b_dec) W_enc                         (float32)
+    hg  = (g + b_gate) rounded to c;  hm = (g e + b_mag) rounded to c
+    h   = hg > 0 ? max(hm, 0) : 0;    hga = max(hg, 0)
+    y   = h W_dec + b_dec;  via = hga W_dec + b_dec;  l1 = sum(hga wdn)
+    nact = rows with h > 0 per feature
+
+* B11 :func:`sae_gated_fused_forward` (``csrc/sae_fused_fwd_gated.cu``);
+* B12 :func:`sae_gated_fused_backward` (``csrc/sae_fused_bwd_gated.cu``),
+  the remat VJP from the cotangents of y, via and l1.
+
+:func:`sae_gated_fused_apply` wraps them, returning ``(y, via, l1,
+nact)``.
 """
 
 from __future__ import annotations
@@ -69,6 +86,14 @@ def fused_step_eligible(B: int, d_in: int, d_sae: int, itemsize: int) -> bool:
     return (d_in % 128 == 0 and d_sae % 256 == 0 and B % 256 == 0
             and itemsize in (2, 4) and B // _TILE <= 65535
             and d_sae // _TILE <= 65535)
+
+
+def fused_gated_step_eligible(B: int, d_in: int, d_sae: int, itemsize: int) -> bool:
+    """Shape gate of the fused gated step: :func:`fused_step_eligible`'s
+    limits (B11 and B12 run on the same tile GEMM), and B11's decoder grid
+    over 2B rows (h and hga stacked).  The JAX package's VMEM block pickers
+    have no counterpart here."""
+    return fused_step_eligible(B, d_in, d_sae, itemsize) and 2 * B // _TILE <= 65535
 
 
 # ---------------------------------------------------------------------------
@@ -192,6 +217,74 @@ def sae_fused_reference(x, We, be, Wd, bd):
     l1 = h.sum(dim=(1, 2), dtype=torch.float32)
     nact = (hpre > 0).sum(dim=1, dtype=torch.float32)
     return y, l1, nact
+
+
+def _gated_hoisted(rmag, Wd):
+    """The gated kernels' per-feature invariants, float32 ``[L, d_sae]``:
+    e = exp(r_mag) and the decoder row norms (the JAX package computes them
+    in XLA outside its kernels)."""
+    return torch.exp(rmag.float()), torch.sqrt(torch.square(Wd.float()).sum(dim=-1))
+
+
+def _gated_pre(x, We, bg, e, bm, bd):
+    """The centered x, the float32 product g and the pre-activations hg and
+    hm rounded to c (B11's and B12's cast point, so both see one mask)."""
+    xc = _center(x, bd)
+    g = _mm(xc, We)
+    hg = (g + bg.float()[:, None, :]).to(x.dtype).float()
+    hm = (g * e[:, None, :] + bm.float()[:, None, :]).to(x.dtype).float()
+    return xc, g, hg, hm
+
+
+def sae_gated_fused_forward_reference(x, We, bg, rmag, bm, Wd, bd, save_h: bool = False):
+    """Plain version of B11.  Returns ``(y, via, l1, nact)``, plus ``hc``
+    and ``hgac`` (h and hga in c) with ``save_h``."""
+    e, wdn = _gated_hoisted(rmag, Wd)
+    _, _, hg, hm = _gated_pre(x, We, bg, e, bm, bd)
+    hc = torch.where((hg > 0) & (hm > 0), hm, 0.0).to(x.dtype)
+    hga = torch.relu(hg)
+    hgac = hga.to(x.dtype)
+    dec = lambda f: (bd.float()[:, None, :] + _mm(f, Wd)).to(x.dtype)
+    out = (dec(hc), dec(hgac), (hga * wdn[:, None, :]).sum(dim=(1, 2)),
+           (hc > 0).sum(dim=1, dtype=torch.float32))
+    return out + (hc, hgac) if save_h else out
+
+
+def sae_gated_fused_backward_reference(x, We, bg, rmag, bm, Wd, bd, dy, dvia, dl1):
+    """Plain version of B12 (recompute).  Returns float32 ``(dW_enc, dW_dec,
+    db_gate, db_mag, dr_mag)``."""
+    e, wdn = _gated_hoisted(rmag, Wd)
+    xc, g, hg, hm = _gated_pre(x, We, bg, e, bm, bd)
+    gate = hg > 0
+    mag = gate & (hm > 0)
+    WdT = Wd.transpose(-1, -2)
+    dhm = torch.where(mag, _mm(dy, WdT), 0.0)
+    dhg = torch.where(gate, _mm(dvia, WdT) + dl1.float()[:, None, None] * wdn[:, None, :], 0.0)
+    dgc = (dhg + dhm * e[:, None, :]).to(x.dtype)
+    hga = torch.relu(hg)
+    coef = dl1.float()[:, None] * hga.sum(dim=1) / wdn.clamp_min(1e-30)
+    dWd = (_mm(torch.where(mag, hm, 0.0).to(x.dtype).transpose(-1, -2), dy)
+           + _mm(hga.to(x.dtype).transpose(-1, -2), dvia) + coef[..., None] * Wd.float())
+    return (_mm(xc.transpose(-1, -2), dgc), dWd, dhg.sum(dim=1), dhm.sum(dim=1),
+            (dhm * g).sum(dim=1) * e)
+
+
+def sae_gated_fused_reference(x, We, bg, rmag, bm, Wd, bd):
+    """Unfused equivalent of :func:`sae_gated_fused_apply` with autograd
+    through einsums (the JAX package's ``sae_gated_fused_reference``: one
+    encoder product, float32 accumulation, one rounding to c at the
+    pre-activations)."""
+    xc = x - bd[:, None, :]
+    g = torch.einsum("lbd,lds->lbs", xc.float(), We.float())
+    hg = (g + bg.float()[:, None, :]).to(x.dtype).float()
+    hm = (g * torch.exp(rmag.float())[:, None, :] + bm.float()[:, None, :]).to(x.dtype).float()
+    h = torch.where(hg > 0, torch.relu(hm), 0.0).to(x.dtype)
+    hga = torch.relu(hg)
+    dec = lambda f: (torch.einsum("lbs,lsd->lbd", f.float(), Wd.float())
+                     + bd.float()[:, None, :]).to(x.dtype)
+    wdn = torch.sqrt(torch.square(Wd.float()).sum(dim=-1))
+    return (dec(h), dec(hga.to(x.dtype)), (hga * wdn[:, None, :]).sum(dim=(1, 2)),
+            (h > 0).sum(dim=1, dtype=torch.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -388,6 +481,84 @@ def sae_fused_backward_topk(x, We, be, Wd, bd, dy, dl1, t):
 sae_fused_backward_topk.launches = 0
 
 
+def _gated_check(name, x, We, bg, rmag, bm, Wd, bd, **more):
+    L, B, D, S = _shapes(x, We, Wd)
+    for k, v in (("b_gate", bg), ("r_mag", rmag), ("b_mag", bm)):
+        if tuple(v.shape) != (L, S):
+            raise ValueError(f"{name}: {k} is {tuple(v.shape)}, expected {(L, S)}")
+    _check(name, x.dtype, x.device, x=x, W_enc=We, b_gate=bg, r_mag=rmag, b_mag=bm,
+           W_dec=Wd, b_dec=bd, **more)
+    return L, B, D, S
+
+
+def sae_gated_fused_forward(x, We, bg, rmag, bm, Wd, bd, save_h: bool = False):
+    """Kernel B11: ``(y, via, l1, nact)`` for the stacked gated SAEs; y and
+    via ``[L, B, d_in]`` in x's dtype, l1 ``[L]`` and nact ``[L, d_sae]``
+    float32; with ``save_h`` also the activations h and hga in x's dtype
+    ``[L, B, d_sae]``, which hold the kernel's masks (for checks: the
+    backward recomputes them).  CUDA tensors launch
+    ``csrc/sae_fused_fwd_gated.cu`` and add one to
+    ``sae_gated_fused_forward.launches``; CPU tensors run the plain
+    version."""
+    L, B, D, S = _gated_check("sae_gated_fused_forward", x, We, bg, rmag, bm, Wd, bd)
+    if x.device.type == "cpu":
+        return sae_gated_fused_forward_reference(x, We, bg, rmag, bm, Wd, bd, save_h)
+    _kernel_shapes_ok("sae_gated_fused_forward", B, D, S)
+    e, wdn = _gated_hoisted(rmag, Wd)
+    new = lambda *shape, dtype=x.dtype: torch.empty(shape, dtype=dtype, device=x.device)
+    # each layer's h and hga rows stacked, so are y and via: one decoder launch
+    xc, h, y = new(L, B, D), new(L, 2 * B, S), new(L, 2 * B, D)
+    nact_part = new(L, B // _TILE, S, dtype=torch.float32)
+    l1_part = new(L, B // _TILE, S // _TILE, dtype=torch.float32)
+    lib, stream = _lib_and_stream(x.device)
+    rc = lib.sae_fused_fwd_gated(x.data_ptr(), We.data_ptr(), bg.data_ptr(), e.data_ptr(),
+                                 bm.data_ptr(), Wd.data_ptr(), bd.data_ptr(), wdn.data_ptr(),
+                                 xc.data_ptr(), h.data_ptr(), y.data_ptr(), nact_part.data_ptr(),
+                                 l1_part.data_ptr(), L, B, D, S, _DTYPE_CODES[x.dtype],
+                                 x.device.index, stream)
+    _build.check(lib, rc, "sae_gated_fused_forward")
+    sae_gated_fused_forward.launches += 1
+    out = (y[:, :B], y[:, B:], l1_part.sum(dim=(1, 2)), nact_part.sum(dim=1))
+    return out + (h[:, :B], h[:, B:]) if save_h else out
+
+
+sae_gated_fused_forward.launches = 0
+
+
+def sae_gated_fused_backward(x, We, bg, rmag, bm, Wd, bd, dy, dvia, dl1):
+    """Kernel B12, the gated remat VJP from ``dy`` and ``dvia`` (x's dtype)
+    and ``dl1`` (float32 ``[L]``): float32 ``(dW_enc [L, d_in, d_sae],
+    dW_dec [L, d_sae, d_in], db_gate, db_mag, dr_mag [L, d_sae])``.  CUDA
+    tensors launch ``csrc/sae_fused_bwd_gated.cu`` and add one to
+    ``sae_gated_fused_backward.launches``; CPU tensors run the plain
+    version."""
+    L, B, D, S = _gated_check("sae_gated_fused_backward", x, We, bg, rmag, bm, Wd, bd,
+                              dy=dy, dvia=dvia, dl1=dl1)
+    if x.device.type == "cpu":
+        return sae_gated_fused_backward_reference(x, We, bg, rmag, bm, Wd, bd, dy, dvia, dl1)
+    _kernel_shapes_ok("sae_gated_fused_backward", B, D, S)
+    e, wdn = _gated_hoisted(rmag, Wd)
+    new = lambda *shape, dtype=x.dtype: torch.empty(shape, dtype=dtype, device=x.device)
+    xc, hc, hgac, dgc = new(L, B, D), new(L, B, S), new(L, B, S), new(L, B, S)
+    part = new(4, L, B // _TILE, S, dtype=torch.float32)
+    sums = new(4, L, S, dtype=torch.float32)
+    dWe, dWd = new(L, D, S, dtype=torch.float32), new(L, S, D, dtype=torch.float32)
+    lib, stream = _lib_and_stream(x.device)
+    rc = lib.sae_fused_bwd_gated(x.data_ptr(), We.data_ptr(), bg.data_ptr(), e.data_ptr(),
+                                 bm.data_ptr(), Wd.data_ptr(), bd.data_ptr(), wdn.data_ptr(),
+                                 dy.data_ptr(), dvia.data_ptr(), dl1.data_ptr(), xc.data_ptr(),
+                                 hc.data_ptr(), hgac.data_ptr(), dgc.data_ptr(), part.data_ptr(),
+                                 sums.data_ptr(), dWe.data_ptr(), dWd.data_ptr(), L, B, D, S,
+                                 _DTYPE_CODES[x.dtype], x.device.index, stream)
+    _build.check(lib, rc, "sae_gated_fused_backward")
+    sae_gated_fused_backward.launches += 1
+    # sums: colsum(max(hg, 0)) (read by the kernel), db_gate, db_mag, sum(dhm g)
+    return dWe, dWd, sums[1], sums[2], sums[3] * e
+
+
+sae_gated_fused_backward.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # Autograd
 # ---------------------------------------------------------------------------
@@ -505,3 +676,49 @@ def sae_fused_apply_topk(x, We, be, Wd, bd, *, k: int, save_acts=None):
     return SAEFusedApplyTopK.apply(x.contiguous(), We.contiguous(), be.contiguous(),
                                    Wd.contiguous(), bd.contiguous(), int(k),
                                    save_acts is not False)
+
+
+class SAEGatedFusedApply(torch.autograd.Function):
+    """``(y, via, l1, nact)`` of the gated SAEs with the fused remat VJP
+    (JAX: ``sae_gated_fused_apply``'s ``custom_vjp``): B11 forward, B12
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, We, bg, rmag, bm, Wd, bd):
+        y, via, l1, nact = sae_gated_fused_forward(x, We, bg, rmag, bm, Wd, bd)
+        ctx.save_for_backward(x, We, bg, rmag, bm, Wd, bd)
+        ctx.mark_non_differentiable(nact)
+        return y, via, l1, nact
+
+    @staticmethod
+    def backward(ctx, dy, dvia, dl1, _):
+        x, We, bg, rmag, bm, Wd, bd = ctx.saved_tensors
+        dy, dl1 = _cotangents(x, dy, dl1)
+        dvia = _cotangents(x, dvia, dl1)[0]
+        dWe, dWd, dbg, dbm, drm = sae_gated_fused_backward(x, We, bg, rmag, bm, Wd, bd,
+                                                           dy, dvia, dl1)
+        # b_dec enters y and via additively and the encoder input x - b_dec:
+        # db_dec = sum dy + sum dvia - W_enc (sum over rows of dg), with
+        # sum dg = db_gate + e db_mag, cast to W_enc's dtype first
+        dsum_g = (dbg + torch.exp(rmag.float()) * dbm).to(We.dtype)
+        dbd = (dy.sum(dim=1, dtype=torch.float32) + dvia.sum(dim=1, dtype=torch.float32)
+               - torch.matmul(We.float(), dsum_g.float()[..., None])[..., 0])
+        return (None, dWe.to(We.dtype), dbg.to(bg.dtype), drm.to(rmag.dtype),
+                dbm.to(bm.dtype), dWd.to(Wd.dtype), dbd.to(bd.dtype))
+
+
+def sae_gated_fused_apply(x, We, bg, rmag, bm, Wd, bd):
+    """Gated-SAE forward over ``L`` stacked SAEs through kernels B11 and
+    B12.  Returns ``(y, via, l1, nact)``: the reconstruction and the
+    gate-path reconstruction ``max(hg, 0) W_dec + b_dec`` (for the aux loss)
+    ``[L, B, d_in]`` in x's dtype, the decoder-norm-weighted gate L1
+    ``sum(max(hg, 0) wdn)`` ``[L]`` float32 (differentiable, its W_dec-norm
+    term included) and the counts of rows with h > 0 ``[L, d_sae]`` float32
+    (not differentiable).  The gradient for ``x`` is zero, so ``x`` must not
+    require grad: the function serves only the train step.  The backward
+    recomputes the activations (the JAX package's gated VJP keeps nothing
+    either)."""
+    if x.requires_grad:
+        raise ValueError("sae_gated_fused_apply returns a zero gradient for x; it serves "
+                         "the train step only, and x must not require grad")
+    return SAEGatedFusedApply.apply(*(t.contiguous() for t in (x, We, bg, rmag, bm, Wd, bd)))

@@ -6,18 +6,23 @@ loss (none for TopK), the decoder unit-norm projection and the removal of
 the gradient parallel to the decoder rows, over a plain dict of tensors
 (``W_enc`` ``[d_in, d_sae]``, ``W_dec`` ``[d_sae, d_in]``, ``b_enc``,
 ``b_dec``), with the JAX package's layouts and cast points.
-:class:`SparseAutoencoder` is an ``nn.Module`` holding those four
-parameters.
+
+The gated SAE (``architecture="gated"``) adds ``b_gate``, ``r_mag`` and
+``b_mag`` (its ``b_enc`` is kept, as in the JAX package, and read by no
+loss): the gate ``sae_in W_enc + b_gate`` picks the active features, the
+magnitude ``sae_in (W_enc exp(r_mag)) + b_mag`` sets their values, and the
+loss adds the decoder-norm-weighted gate L1 and the aux reconstruction of
+the gate path to the MSE.  :class:`SparseAutoencoder` is an ``nn.Module``
+holding the parameters.
 
 TopK keeps each row's k largest pre-activations (ReLU'd): with
 ``cfg.fused_topk`` (the default) through the threshold mask of
 ``ops/topk.py`` (kernel B10 on the card; ties at the k-th value keep every
 tied entry), else through :func:`topk_activation` (exactly k).
 
-Not ported yet, and raising ``NotImplementedError``: the gated and
-transcoder SAEs (ROADMAP queue A, item 10), the approximate TopK
-(``topk_use_approx``, item 10), ghost grads and the activation
-normalization modes (item 5).
+Not ported yet, and raising ``NotImplementedError``: transcoders (ROADMAP
+queue A, item 10), the approximate TopK (``topk_use_approx``, item 10),
+ghost grads and the activation normalization modes (item 5).
 """
 
 from __future__ import annotations
@@ -48,11 +53,11 @@ class SAEOutput(NamedTuple):
 
 def check_ported(cfg: SAERunnerConfig) -> None:
     """Raise ``NotImplementedError`` for the SAE variants not ported yet."""
-    if cfg.architecture != "standard" or cfg.is_transcoder:
+    if cfg.architecture not in ("standard", "gated") or cfg.is_transcoder:
         raise NotImplementedError(
             f"architecture={cfg.architecture!r} (is_transcoder="
-            f"{cfg.is_transcoder}) is not ported yet: gated SAEs and "
-            "transcoders are ROADMAP queue A, item 10")
+            f"{cfg.is_transcoder}) is not ported yet: transcoders are "
+            "ROADMAP queue A, item 10")
     if cfg.activation_fn_str == "topk" and cfg.topk_use_approx:
         raise NotImplementedError(
             "topk_use_approx (the approximate TopK, an XLA op of the TPU) is not "
@@ -108,17 +113,25 @@ def _unit_rows(W: torch.Tensor) -> torch.Tensor:
 def init_sae_params(cfg: SAERunnerConfig,
                     generator: Optional[torch.Generator] = None,
                     device=None) -> Params:
-    """The standard SAE's init in the JAX package's scheme (unit-row
-    Kaiming-uniform decoder, encoder independent or tied to the decoder's
-    transpose, zero biases), drawn from ``generator`` on the CPU (seeded
-    with ``cfg.seed`` when None) and moved to ``device`` (the CUDA card when
-    None).  The numbers differ from the JAX init's."""
+    """The JAX package's init scheme, drawn from ``generator`` on the CPU
+    (seeded with ``cfg.seed`` when None) and moved to ``device`` (the CUDA
+    card when None); the numbers differ from the JAX init's.  Standard: a
+    unit-row Kaiming-uniform decoder, the encoder independent or tied to the
+    decoder's transpose, zero biases.  Gated: Kaiming-uniform ``W_enc`` and
+    ``W_dec`` without unit rows, zero ``b_gate``, ``r_mag``, ``b_mag``,
+    ``b_enc`` and ``b_dec``."""
     check_ported(cfg)
     device = resolve_device(device)
     g = generator if generator is not None else torch.Generator().manual_seed(cfg.seed)
     dt = cfg.torch_dtype
     d_in, d_sae = cfg.d_in, cfg.d_sae
     W_enc_draw = _kaiming_uniform(g, (d_in, d_sae), dt)
+    if cfg.architecture == "gated":
+        zeros = lambda n: torch.zeros(n, dtype=dt)
+        params = {"W_enc": W_enc_draw, "W_dec": _kaiming_uniform(g, (d_sae, d_in), dt),
+                  "b_gate": zeros(d_sae), "r_mag": zeros(d_sae), "b_mag": zeros(d_sae),
+                  "b_enc": zeros(d_sae), "b_dec": zeros(d_in)}
+        return {k: v.to(device) for k, v in params.items()}
     W_dec = _unit_rows(_kaiming_uniform(g, (d_sae, d_in), dt))
     if cfg.initialization_method == "encoder_transpose_decoder":
         W_enc = W_dec.T.contiguous()
@@ -155,11 +168,19 @@ def _mse_loss(x: torch.Tensor, sae_out: torch.Tensor) -> torch.Tensor:
 def encode(params: Params, cfg: SAERunnerConfig, x: torch.Tensor,
            hooks: HookRuntime = NULL_HOOKS, prefix: str = ""):
     """Returns (sae_in, feature_acts, hidden_pre, norm_ctx).  Compute
-    follows the parameters' dtype."""
+    follows the parameters' dtype.  Gated: two products, the gate's and the
+    magnitude's (as the reference computes them), ``hook_hidden_pre`` is not
+    fired, and the gate pre-activation takes ``hidden_pre``'s place."""
     check_ported(cfg)
     x = x.to(params["W_enc"].dtype)
     act_fn = get_activation_fn(cfg)
     sae_in = hooks(f"{prefix}hook_sae_in", x - params["b_dec"])
+    if cfg.architecture == "gated":
+        gate_pre = sae_in @ params["W_enc"] + params["b_gate"]
+        active = (gate_pre > 0).to(gate_pre.dtype)
+        mag_pre = sae_in @ (params["W_enc"] * torch.exp(params["r_mag"])) + params["b_mag"]
+        feature_acts = hooks(f"{prefix}hook_hidden_post", active * act_fn(mag_pre))
+        return sae_in, feature_acts, gate_pre, ("none", None)
     hidden_pre = hooks(f"{prefix}hook_hidden_pre",
                        sae_in @ params["W_enc"] + params["b_enc"])
     feature_acts = hooks(f"{prefix}hook_hidden_post", act_fn(hidden_pre))
@@ -179,14 +200,28 @@ def sae_forward(params: Params, cfg: SAERunnerConfig, x: torch.Tensor,
                 dead_neuron_mask: Optional[torch.Tensor] = None,
                 hooks: HookRuntime = NULL_HOOKS,
                 training: bool = True, prefix: str = "") -> SAEOutput:
-    """The standard SAE's forward with its losses: ``loss = mse + l1``;
-    TopK has no sparsity loss (``l1_loss`` is None, ``loss = mse``)."""
+    """The SAE's forward with its losses.  Standard: ``loss = mse + l1``;
+    TopK has no sparsity loss (``l1_loss`` is None, ``loss = mse``).  Gated:
+    ``loss = mse + l1 + aux``, with the gate path's activations (ReLU, or
+    the TopK activation) weighted by the decoder row norms in the L1 (0 for
+    TopK) and decoded against ``sae_in`` in the aux loss, as the reference
+    computes it (``aux_reconstruction_loss``)."""
     check_ported(cfg)
     x = x.to(params["W_enc"].dtype)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    _, feature_acts, _, ctx = encode(params, cfg, x, hooks, prefix)
+    sae_in, feature_acts, hidden_pre, ctx = encode(params, cfg, x, hooks, prefix)
     sae_out = decode(params, cfg, feature_acts, ctx, hooks, prefix)
     mse_loss = _mse_loss(x, sae_out)
+    if cfg.architecture == "gated":
+        topk = cfg.activation_fn_str == "topk"
+        pi_gate_act = get_activation_fn(cfg)(hidden_pre) if topk else torch.relu(hidden_pre)
+        l1_loss = zero if topk else cfg.l1_coefficient * (
+            pi_gate_act * torch.linalg.norm(params["W_dec"], dim=1)).sum(
+                dim=-1, dtype=torch.float32).mean()
+        via_gate = pi_gate_act @ params["W_dec"] + params["b_dec"]
+        aux_loss = torch.square(via_gate - sae_in).sum(dim=-1, dtype=torch.float32).mean()
+        return SAEOutput(sae_out, feature_acts, mse_loss + l1_loss + aux_loss, mse_loss,
+                         l1_loss, zero, aux_loss)
     if cfg.activation_fn_str == "topk":
         return SAEOutput(sae_out, feature_acts, mse_loss, mse_loss, None, zero, zero)
     if cfg.lp_norm == 1.0:
@@ -226,9 +261,9 @@ def remove_gradient_parallel_to_decoder_directions(grads: Params,
 # ---------------------------------------------------------------------------
 
 class SparseAutoencoder(nn.Module):
-    """The four parameters as an ``nn.Module``, with the JAX class's
-    surface: ``__call__`` (the forward with losses), ``encode``, ``decode``,
-    ``reconstruct`` and ``get_name``.  Drawn parameters go to ``device``
+    """The parameters (four; seven for gated) as an ``nn.Module``, with the
+    JAX class's surface: ``__call__`` (the forward with losses),
+    ``encode``, ``decode``, ``reconstruct`` and ``get_name``.  Drawn parameters go to ``device``
     (the CUDA card when None); given ``params`` stay on their device unless
     ``device`` names another.  Saving and loading are ROADMAP queue A,
     item 15."""

@@ -15,19 +15,22 @@ fused ReLU kernels serve only the all-layer sweep.  A TopK SAE takes the
 fused step at any layer count, as in the JAX package: a single SAE is lifted
 to a stack of one (:func:`_fused_single_ok`), and its forward runs through
 kernel B8 and its backward through B6 or B9.  The generic TopK step, for
-configs the fused gate refuses, masks through kernel B10.  The sweep
+configs the fused gate refuses, masks through kernel B10.  A gated SAE
+with the ReLU takes the fused step at any layer count too, through kernels
+B11 and B12 (gated + TopK takes the generic step).  The sweep
 (:func:`sae_sweep_train_step`, :class:`SAESweepTrainer`) trains L SAEs at
 once from ``[B, L, d_in]`` batches.  Where :func:`_fused_step_ok` admits it
-(standard ReLU at L >= 2 or TopK, tile-aligned shapes) the step runs the
-stacked forward through kernel B4 (TopK: B8) and its backward through B6 or
-B5 (TopK: B6 or B9) (``ops/sae_step.py``), then B7 over the ``[L, ...]``
-stacks; else it runs the generic step layer by layer.  :func:`make_fused_cycle` (``train_cycles``)
+(standard ReLU at L >= 2, TopK or gated ReLU, tile-aligned shapes) the step
+runs the stacked forward through kernel B4 (TopK: B8; gated: B11) and its
+backward through B6 or B5 (TopK: B6 or B9; gated: B12)
+(``ops/sae_step.py``), then B7 over the ``[L, ...]`` stacks; else it runs
+the generic step layer by layer.  :func:`make_fused_cycle` (``train_cycles``)
 is, in eager PyTorch, a refill from the cycle's image indices followed by K
 steps, serving the same rows as ``train_steps(store.next_batches(K))``.
 
 Not ported yet, and raising ``NotImplementedError``: validation, evaluation
 and wandb (ROADMAP queue A, item 8), checkpoints and ``mesh`` (item 15),
-gated and transcoder SAEs and the approximate TopK (item 10).
+transcoders and the approximate TopK (item 10).
 """
 
 from __future__ import annotations
@@ -45,9 +48,11 @@ from vit_prisma_tpu_torch.ops.opt_step import (
     fused_clip_project_adam,
 )
 from vit_prisma_tpu_torch.ops.sae_step import (
+    fused_gated_step_eligible,
     fused_step_eligible,
     sae_fused_apply,
     sae_fused_apply_topk,
+    sae_gated_fused_apply,
 )
 from vit_prisma_tpu_torch.sae.config import SAERunnerConfig
 from vit_prisma_tpu_torch.sae.geometric_median import compute_geometric_median
@@ -129,6 +134,14 @@ def _drop(d: Params) -> Params:
     return {k: v[0] for k, v in d.items()}
 
 
+def _grads(loss: torch.Tensor, leaves: Params) -> Params:
+    """d loss / d leaves, zero for a leaf the loss does not read (the gated
+    SAE's ``b_enc``), as ``jax.grad`` returns it; B7 then keeps such a
+    leaf and its moments at 0."""
+    return dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()),
+                                                allow_unused=True, materialize_grads=True)))
+
+
 def loss_and_grads(params: Params, batch: torch.Tensor, cfg: SAERunnerConfig,
                    dead_neuron_mask: Optional[torch.Tensor] = None
                    ) -> Tuple[Params, SAEOutput]:
@@ -144,8 +157,8 @@ def loss_and_grads(params: Params, batch: torch.Tensor, cfg: SAERunnerConfig,
             p = {k: v.to(compute_dt) for k, v in leaves.items()}
             b = batch.to(compute_dt)
         out = sae_forward(p, cfg, b, dead_neuron_mask=dead_neuron_mask, training=True)
-        grads = torch.autograd.grad(out.loss, list(leaves.values()))
-    return dict(zip(leaves, grads)), SAEOutput(*(
+        grads = _grads(out.loss, leaves)
+    return grads, SAEOutput(*(
         None if t is None else t.detach() for t in out))
 
 
@@ -324,9 +337,8 @@ def _fused_step_ok(cfg: SAERunnerConfig, n_rows: int, n_layers: int = 1,
     standard ReLU with the L1 penalty (kernels B4-B6) at L >= 2 (the JAX
     package measured the generic step faster at L = 1), or TopK with an
     exact k below d_sae (B8, B9, B6; at L = 1 through
-    :func:`_fused_single_ok`), on tile-aligned shapes.  Gated configs, which
-    the JAX gate sends to their kernels, raise: B11 and B12 are not ported
-    yet."""
+    :func:`_fused_single_ok`), or the gated SAE with the ReLU (B11, B12; at
+    L = 1 too), on tile-aligned shapes."""
     if n_layers < 2 and not allow_single_layer:
         return False
     if not (cfg.fused_sae_step
@@ -336,11 +348,11 @@ def _fused_step_ok(cfg: SAERunnerConfig, n_rows: int, n_layers: int = 1,
             and not cfg.use_ghost_grads
             and not cfg.is_transcoder):
         return False
-    if cfg.architecture == "gated":
-        raise NotImplementedError(
-            "the fused gated step (kernels B11 and B12) is not ported yet "
-            "(ROADMAP queue A, item 10)")
     itemsize = (cfg.compute_torch_dtype or cfg.torch_dtype).itemsize
+    if cfg.architecture == "gated":
+        # the gated kernels are ReLU only; gated + TopK takes the generic step
+        return (cfg.activation_fn_str == "relu"
+                and fused_gated_step_eligible(n_rows, cfg.d_in, cfg.d_sae, itemsize))
     if cfg.activation_fn_str == "topk":
         # the fused kernels are exact; an approx opt-in stays off them
         if cfg.topk_use_approx or not cfg.topk_k or cfg.topk_k >= cfg.d_sae:
@@ -353,8 +365,8 @@ def _fused_step_ok(cfg: SAERunnerConfig, n_rows: int, n_layers: int = 1,
 def _fused_single_ok(cfg: SAERunnerConfig, n_rows: int) -> bool:
     """The single-SAE (L = 1) fused gate: TopK and gated take it, as in the
     JAX package (the unfused TopK step pays a full threshold pass over the
-    [B, d_sae] pre-activations); gated raises, its kernels not ported
-    yet."""
+    [B, d_sae] pre-activations; the unfused gated step a second encoder
+    product)."""
     if cfg.activation_fn_str == "topk" or cfg.architecture == "gated":
         return _fused_step_ok(cfg, n_rows, 1, allow_single_layer=True)
     return False
@@ -367,7 +379,9 @@ def _sae_train_step_fused(state: SAETrainState, x: torch.Tensor,
     ``[L, B, d_in]``; the JAX package's ``_sae_train_step_fused`` with
     ``data_axis=None``.  The per-layer losses are summed for one backward
     (the layers' params are disjoint, so each layer gets its own grads).
-    TopK has no sparsity penalty: its l1 metric is 0."""
+    TopK has no sparsity penalty: its l1 metric is 0.  Gated adds the
+    decoder-norm-weighted gate L1 and the aux reconstruction of the gate
+    path against ``x - b_dec`` (b_dec's gradient flows through both)."""
     check_ported(cfg)
     schedule = make_schedule(cfg)
     B = x.shape[1]
@@ -375,12 +389,16 @@ def _sae_train_step_fused(state: SAETrainState, x: torch.Tensor,
     ghost_mask = state.n_forward_passes_since_fired > cfg.dead_feature_window
     compute_dt = cfg.compute_torch_dtype
     is_topk = cfg.activation_fn_str == "topk"
+    is_gated = cfg.architecture == "gated"
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     with torch.enable_grad():
         p = leaves if compute_dt is None else {k: v.to(compute_dt) for k, v in leaves.items()}
         xt = x.to(p["W_enc"].dtype)
         weights = (xt, p["W_enc"], p["b_enc"], p["W_dec"], p["b_dec"])
-        if is_topk:
+        if is_gated:
+            y, via, l1_sums, nact = sae_gated_fused_apply(
+                xt, p["W_enc"], p["b_gate"], p["r_mag"], p["b_mag"], p["W_dec"], p["b_dec"])
+        elif is_topk:
             y, l1_sums, nact = sae_fused_apply_topk(*weights, k=cfg.topk_k,
                                                     save_acts=cfg.fused_store_acts)
         else:
@@ -390,8 +408,12 @@ def _sae_train_step_fused(state: SAETrainState, x: torch.Tensor,
             dim=-1, keepdim=True, dtype=torch.float32)).to(xt.dtype)
         mse_l = (torch.square(y - xt) / norm).mean(dim=(1, 2), dtype=torch.float32)
         l1_l = torch.zeros_like(mse_l) if is_topk else cfg.l1_coefficient * l1_sums / B
-        loss_l = mse_l + l1_l
-        grads = dict(zip(leaves, torch.autograd.grad(loss_l.sum(), list(leaves.values()))))
+        aux_l = torch.zeros_like(mse_l)
+        if is_gated:
+            sae_in = xt - p["b_dec"][:, None, :]
+            aux_l = torch.square(via - sae_in).sum(dim=-1, dtype=torch.float32).mean(dim=-1)
+        loss_l = mse_l + l1_l + aux_l
+        grads = _grads(loss_l.sum(), leaves)
 
     # clip -> W_dec projection -> Adam per layer, kernel B7 over the stacks
     adam_st, sched_st = state.opt_state
@@ -417,7 +439,7 @@ def _sae_train_step_fused(state: SAETrainState, x: torch.Tensor,
         step=state.step + 1, n_training_tokens=state.n_training_tokens + B)
     metrics = StepMetrics(
         loss=loss_l.detach(), mse_loss=mse_l.detach(), l1_loss=l1_l.detach(),
-        ghost_grad_loss=zeros_l, aux_reconstruction_loss=zeros_l,
+        ghost_grad_loss=zeros_l, aux_reconstruction_loss=aux_l.detach(),
         l0=l0, explained_variance=explained_variance,
         n_dead_features=ghost_mask.sum(dim=-1).float(), lr_multiplier=schedule(state.step))
     return new_state, metrics
