@@ -79,7 +79,26 @@ Phases, each printing JSON lines with the card's name and power limit:
     through B11 and B12 on every step, exact launches, then where a gated
     step's time goes (``torch.profiler``, as phase 9);
 15. gated step check: three fused steps against three generic steps from
-    the trained state in float32.
+    the trained state in float32;
+16. grad kernels: B2 (``attention_mix_tnh_bwd``) against its plain version
+    at the B/32 grad paths' shape in both dtypes, at CLIP L/14's and the
+    causal text tower's in bfloat16 and at the last T of the gate, beside
+    the backward of ``scaled_dot_product_attention``; B2's gate against
+    B1's;
+17. attribution: the sixth main path, demo 06 at full width (bench.py's
+    grad-path config, bf16, batch 256): ``run_with_cache(incl_bwd=True)``
+    over the 12 resid_post hooks with exact launches, images per second and
+    peak memory, the zeroed-gradient intervention, the kernels against the
+    einsum path, and float32 gradients against the CPU;
+18. vit_train: the seventh main path, the supervised trainer at bench.py's
+    row (AdamW, bf16, batch 256): ``make_train_step`` with exact launches,
+    images per second, peak memory and ``torch.profiler``'s breakdown; then
+    ``train()`` end to end with a checkpoint and a resume from it;
+19. vit_train check: three float32 steps at batch 8 on the card and on the
+    CPU from one state: gradients, parameters and AdamW moments;
+20. sae_attribution: demo 07 at B/32 full width, an error-term ReLU SAE
+    spliced at layer 9: the clean forward kept, feature gradients against
+    the CPU, exact launches.
 
 The line before the last lists every kernel with its launches on its main
 path, its error, times, bound and library time.  It imports no JAX,
@@ -88,9 +107,11 @@ check fails.  The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -317,6 +338,77 @@ GATED_SHAPES = [("slice_bf16", 1, 4096, 768, 12288, torch.bfloat16),
 # the kernel's own mask count; the grads within SAE_GRAD_REL outside the
 # features with a flip and SAE_SWITCHED_GRAD_REL in them.
 GATED_FLIP_FRAC = 1e-4
+GRAD_SOURCE = "vit_prisma_tpu_torch/csrc/attention_mix_tnh_bwd.cu"
+GRAD_REPLACES = "vit_prisma_tpu/ops/attention.py:425"
+# B2 against its plain version: name, B, T, N, H, causal, dtypes.  The B/32
+# grad paths' shape, CLIP L/14's harvest shape, the CLIP text tower's
+# (causal), and the last T that B1's gate takes at H = 64, where both of B2's
+# passes run at 4 warps.
+GRAD_KERNEL_SHAPES = [
+    ("b32", 256, 50, 12, 64, False, (torch.bfloat16, torch.float32)),
+    ("l14", 48, 257, 16, 64, False, (torch.bfloat16,)),
+    ("text_causal", 256, 77, 8, 64, True, (torch.bfloat16,)),
+    ("gate_edge", 4, 411, 2, 64, False, (torch.bfloat16, torch.float32)),
+    ("gate_edge_causal", 4, 411, 2, 64, True, (torch.bfloat16,)),
+]
+# Each gradient within rel * max(1, its absmax) of the plain version's.
+# float32: the two differ in summation order only.  bfloat16: both round ds
+# to bfloat16 after float32 sums taken in other orders, so an entry may round
+# one ulp apart, and so may each output: 2^-8 relative each, well inside 2e-2.
+GRAD_KERNEL_REL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# The grad paths run the JAX package's grad-path benchmark config
+# (bench.py:56-61, :98-133): CLIP ViT-B/32 geometry, quick_gelu,
+# layer_norm_pre, 512 class logits, bf16, batch 256, random weights from
+# seed 0.  Attribution takes demo 06's metric (a logit difference) over the
+# 12 resid_post hooks.
+GRAD_BATCH = 256
+ATTRIB_CLASSES = (17, 42)
+GRAD_TIMED = 3
+# Card against CPU in float32 at batch 4: logits within rel * max(1,
+# absmax), as the slice's activations, and each gradient within rel of its
+# own absmax (GEMM summation order over 12 layers, here both ways).
+GRAD_F32_REL = 1e-3
+GRAD_F32_BATCH = 4
+# bf16 B1 and B2 against the bf16 einsum path, each gradient relative to its
+# absmax: that path rounds the scores, the softmax and their gradients to
+# bf16 where the kernels keep float32, so the two differ by bf16 rounding
+# carried through 12 layers down and back up: twice the forward's
+# SLICE_BF16_REL.
+GRAD_BF16_REL = 2 * SLICE_BF16_REL
+# vit_train: bench.py's row (optax.adamw(1e-4): a constant rate, weight
+# decay 1e-4), a warm-up step and GRAD_TRAIN_STEPS timed steps on one fixed
+# batch, then torch.profiler over 3 steps.
+GRAD_TRAIN_LR = 1e-4
+GRAD_TRAIN_STEPS = 20
+# train() end to end: FIT_IMAGES random 224-px images with labels from seed
+# 0 (a fifth held out), batch FIT_BATCH, FIT_STEPS steps with a checkpoint
+# at the last; then a resume from it for 2 more steps.
+FIT_IMAGES = 1024
+FIT_BATCH = 128
+FIT_STEPS = 8
+FIT_LR = 1e-3
+# vit_train_check: 3 steps at batch 8 in float32, card against CPU, from one
+# state.  Step 1's gradients within GRAD_F32_REL of each tensor's absmax.
+# AdamW divides each gradient by its own running scale, so an entry whose
+# gradient is small against the tensor's sees its float32 error grow to a
+# large share of its update: an update is about lr per step whatever the
+# gradient's size, so after 3 steps a parameter can be up to ~6 lr apart
+# (b_K, whose exact gradient is 0 since it shifts each row of scores by a
+# constant, is all such noise).  So every parameter within 6 lr, and all
+# but 1e-3 of all entries (b_K's 0.01% included) within 1e-2 lr; the first
+# moments, linear in the gradients, within GRAD_F32_REL of their absmax,
+# the second moments within twice that (b_K's excepted).
+TRAIN_CHECK_BATCH = 8
+TRAIN_CHECK_TOL = {"param_max_lr": 6.0, "param_close_lr": 1e-2, "param_far_share": 1e-3,
+                   "exp_avg_rel": GRAD_F32_REL, "exp_avg_sq_rel": 2 * GRAD_F32_REL}
+# sae_attribution: demo 07 at B/32 full width in float32: a ReLU SAE 768 ->
+# 12,288 at layer 9 resid_post (SAERunnerConfig's), error term on, batch
+# SAE_ATTRIB_BATCH.  The error-term forward equals the clean one within
+# float32 rounding of recon + (x - recon), carried through 3 layers: 1e-4 of
+# max(1, absmax).  hook_hidden_post_grad and hook_sae_out_grad on the card
+# against the CPU on the first GRAD_F32_BATCH images: GRAD_F32_REL.
+SAE_ATTRIB_BATCH = 16
+SPLICE_REL = 1e-4
 
 
 def RESID_POST(name: str) -> bool:
@@ -1311,13 +1403,14 @@ def sweep_config():
 
 def _sae_counters():
     """Every kernel wrapper of the port, by name, for its launch count."""
-    from vit_prisma_tpu_torch.ops.attention import attention_mix_tnh
+    from vit_prisma_tpu_torch.ops.attention import attention_mix_tnh, attention_mix_tnh_bwd
     from vit_prisma_tpu_torch.ops.opt_step import adam_update
     from vit_prisma_tpu_torch.ops import sae_step as S
     from vit_prisma_tpu_torch.ops.shuffle import take_rows
     from vit_prisma_tpu_torch.ops.topk import kth_value
     return {f.__name__: f for f in (
-        attention_mix_tnh, take_rows, S.sae_fused_forward, S.sae_fused_backward,
+        attention_mix_tnh, attention_mix_tnh_bwd, take_rows, S.sae_fused_forward,
+        S.sae_fused_backward,
         S.sae_fused_backward_stored, adam_update, S.sae_fused_forward_topk,
         S.sae_fused_backward_topk, kth_value, S.sae_gated_fused_forward,
         S.sae_gated_fused_backward)}
@@ -1734,6 +1827,422 @@ def phase_gated_step_check(info, trainer, store, cfg):
     check_steps([{}], errs, scales, flips, int(switched.sum()), got, want)
 
 
+def phase_grad_kernels(info):
+    """B2 against its plain version on the card, with both times, the bound
+    and the backward of ``scaled_dot_product_attention`` on a retained
+    graph at the same shapes; and B2's gate against B1's at H = 64."""
+    from vit_prisma_tpu_torch.ops.attention import (
+        attention_mix_tnh_bwd, attention_mix_tnh_bwd_reference,
+        mix_tnh_bwd_fits_smem, mix_tnh_fits_smem)
+    gate = [T for T in range(1, 1025) if mix_tnh_fits_smem(T, 64) != mix_tnh_bwd_fits_smem(T, 64)]
+    if gate or not mix_tnh_fits_smem(411, 64) or mix_tnh_fits_smem(412, 64):
+        raise AssertionError(f"B2's gate differs from B1's at H = 64, T = {gate}")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    results = {}
+    for name, B, T, N, H, causal, dtypes in GRAD_KERNEL_SHAPES:
+        for dtype in dtypes:
+            shape = (B, T, N * H)
+            q = (torch.randn(shape, generator=g, device="cuda") * H ** -0.5).to(dtype)
+            k, v, dz = (torch.randn(shape, generator=g, device="cuda").to(dtype) for _ in range(3))
+            got = attention_mix_tnh_bwd(q, k, v, dz, N, causal)
+            want = attention_mix_tnh_bwd_reference(q, k, v, dz, N, causal)
+            torch.cuda.synchronize()
+            errs = {}
+            for which, a, b in zip(("dq", "dk", "dv"), got, want):
+                if a.dtype != dtype or a.shape != q.shape:
+                    raise AssertionError(f"B2 {name} {dtype} {which}: {a.dtype} {tuple(a.shape)}")
+                errs[which] = check_close(f"B2 {name} {dtype} {which}", a, b,
+                                          rel_atol(GRAD_KERNEL_REL[dtype], b))
+            us = cuda_us(lambda: attention_mix_tnh_bwd(q, k, v, dz, N, causal))
+            plain_us = cuda_us(lambda: attention_mix_tnh_bwd_reference(q, k, v, dz, N, causal),
+                               iters=5)
+            # the library: SDPA's backward alone, on head-major copies made
+            # beforehand, through a graph kept for every call
+            qh, kh, vh, dzh = (a.reshape(B, T, N, H).transpose(1, 2).contiguous()
+                               for a in (q, k, v, dz))
+            leaves = [a.requires_grad_(True) for a in (qh, kh, vh)]
+            out = torch.nn.functional.scaled_dot_product_attention(
+                *leaves, is_causal=causal, scale=1.0)
+            library_us = cuda_us(lambda: torch.autograd.grad(out, leaves, dzh, retain_graph=True))
+            del out, leaves
+            pairs = T * (T + 1) // 2 if causal else T * T
+            gemm = "bf16_tensor" if dtype == torch.bfloat16 else "fp32"
+            rec = {"phase": "grad_kernel", **info, "kernel": "attention_mix_tnh_bwd",
+                   "shape": name, "B": B, "T": T, "N": N, "H": H, "causal": causal,
+                   "dtype": str(dtype).split(".")[1], "max_abs_err": max(errs.values()),
+                   "max_abs_err_by_grad": errs, "rel_tol": GRAD_KERNEL_REL[dtype],
+                   "us": us, "plain_us": plain_us, "library_us": library_us,
+                   # the Pallas kernel's cost estimate: 7 tensors moved once,
+                   # five products of 2 B N T^2 H flops (the pairs this mask keeps)
+                   **bound(7 * q.numel() * q.element_size(),
+                           [(gemm, 5 * 2 * B * N * pairs * H), ("fp32", 8 * B * N * pairs)])}
+            results[(name, dtype)] = rec
+            emit(rec)
+            del q, k, v, dz, got, want, qh, kh, vh, dzh
+    return results
+
+
+def grad_config(dtype="bfloat16"):
+    from vit_prisma_tpu_torch import ViTConfig
+    return ViTConfig(n_layers=12, d_model=768, d_head=64, n_heads=12, d_mlp=3072,
+                     patch_size=32, image_size=224, n_classes=512,
+                     activation_name="quick_gelu", layer_norm_pre=True,
+                     return_type="class_logits", dtype=dtype)
+
+
+def _grad_model(cfg, device="cuda", cls=None):
+    from vit_prisma_tpu_torch import HookedViT
+    return (cls or HookedViT)(cfg, device=device, generator=torch.Generator().manual_seed(0))
+
+
+def _images(n, seed, device="cuda", dtype=torch.float32):
+    x = np.random.default_rng(seed).standard_normal((n, 3, 224, 224), dtype=np.float32)
+    return torch.from_numpy(x).to(device=device, dtype=dtype)
+
+
+def _metric(out):
+    a, b = ATTRIB_CLASSES
+    return (out[:, a] - out[:, b]).float().sum()
+
+
+def _cache_grad_errs(got, want, rel):
+    """Max abs error of every ``*_grad`` entry against ``want``'s, raising
+    past rel times that gradient's absmax."""
+    return {k: check_close(k, got[k], want[k], rel * want[k].float().abs().max().item())
+            for k in want if k.endswith("_grad")}
+
+
+def phase_attribution(info):
+    """Demo 06 at full width: run_with_cache(incl_bwd=True) over the 12
+    resid_post hooks, bf16, batch 256, through B1 and B2."""
+    counters = _sae_counters()
+    cfg = grad_config()
+    model = _grad_model(cfg)
+    x = _images(GRAD_BATCH, 5, dtype=torch.bfloat16)
+    release()
+    torch.cuda.reset_peak_memory_stats()
+
+    # The main path, with every count set to 0 just before it.
+    _zero_counts(counters)
+    out, cache = model.run_with_cache(x, names_filter=RESID_POST, incl_bwd=True,
+                                      loss_fn=_metric)
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items()}
+    # Autograd runs only the backward that the cached gradients need: layer
+    # 0's attention lies upstream of every cached point, so B2 runs in
+    # layers 1-11 (XLA's dead-code elimination drops the same in JAX).
+    expected = dict.fromkeys(counters, 0)
+    expected.update(attention_mix_tnh=cfg.n_layers, attention_mix_tnh_bwd=cfg.n_layers - 1)
+    if launches != expected:
+        raise AssertionError(f"attribution launches {launches}, expected {expected}")
+    names = [f"blocks.{l}.hook_resid_post" for l in range(cfg.n_layers)]
+    if list(cache) != names + [n + "_grad" for n in reversed(names)]:
+        raise AssertionError(f"attribution keys {list(cache)}")
+    for k, v in cache.items():
+        if tuple(v.shape) != (GRAD_BATCH, cfg.n_tokens, cfg.d_model) or not torch.isfinite(v).all():
+            raise AssertionError(f"{k}: {tuple(v.shape)}, finite {bool(torch.isfinite(v).all())}")
+    if not all(cache[n + "_grad"].abs().max() > 0 for n in names):
+        raise AssertionError("a resid_post gradient is all zeros")
+    times = []
+    for _ in range(GRAD_TIMED + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.run_with_cache(x, names_filter=RESID_POST, incl_bwd=True, loss_fn=_metric)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    # Demo 06's backward intervention: zeroing the gradient at layer 6's
+    # resid_post leaves every layer below it without gradient.
+    _, cut = model.run_with_cache(
+        x, names_filter=RESID_POST, incl_bwd=True, loss_fn=_metric,
+        bwd_hooks=[("blocks.6.hook_resid_post", lambda g, hook: g * 0.0)])
+    up = cut["blocks.2.hook_resid_post_grad"].abs().max().item()
+    down = cut["blocks.9.hook_resid_post_grad"].abs().max().item()
+    if not (up == 0.0 and down > 0.0):
+        raise AssertionError(f"zeroed grad at layer 6: layer 2 {up}, layer 9 {down}")
+    if not all(torch.equal(cut[n], cache[n]) for n in names):
+        raise AssertionError("a backward editor changed the forward")
+
+    # bf16 kernels against the bf16 einsum path (no B1, no B2)
+    plain = _grad_model(cfg.replace(use_fused_attention=False))
+    plain.load_state_dict(model.state_dict())
+    _zero_counts(counters)
+    _, cache_p = plain.run_with_cache(x, names_filter=RESID_POST, incl_bwd=True,
+                                      loss_fn=_metric)
+    torch.cuda.synchronize()
+    if any(f.launches for f in counters.values()):
+        raise AssertionError("the einsum path launched a kernel")
+    bf16_errs = _cache_grad_errs(cache, cache_p, GRAD_BF16_REL)
+    del plain, cache_p, cut
+
+    # float32 on the card against the CPU, batch 4
+    f32 = cfg.replace(dtype="float32")
+    card_model, cpu_model = _grad_model(f32), _grad_model(f32, "cpu")
+    card_model.load_state_dict(model.state_dict())
+    cpu_model.load_state_dict(card_model.state_dict())
+    xs = _images(GRAD_F32_BATCH, 6, "cpu")
+    out_c, got = card_model.run_with_cache(xs.cuda(), names_filter=RESID_POST,
+                                           incl_bwd=True, loss_fn=_metric)
+    out_r, want = cpu_model.run_with_cache(xs, names_filter=RESID_POST, incl_bwd=True,
+                                           loss_fn=_metric)
+    f32_errs = {"logits": check_close("f32 logits", out_c, out_r, rel_atol(GRAD_F32_REL, out_r)),
+                **_cache_grad_errs(got, want, GRAD_F32_REL)}
+    emit({"phase": "attribution", **info, "config": "bench.py:56-61 (B/32 geometry, 512 classes)",
+          "dtype": "bfloat16", "batch": GRAD_BATCH, "hooks": len(names),
+          "metric": f"logit {ATTRIB_CLASSES[0]} - logit {ATTRIB_CLASSES[1]}, summed",
+          "launches": launches, "expected_launches": expected,
+          "seconds_per_call": times[1:], "img_per_s": [GRAD_BATCH / t for t in times[1:]],
+          "peak_memory_GB": peak, "zeroed_at_layer_6": {"layer_2_max": up, "layer_9_max": down},
+          "bf16_kernels_vs_einsum_max_abs_err": bf16_errs, "bf16_rel_tol": GRAD_BF16_REL,
+          "f32_card_vs_cpu_max_abs_err": f32_errs, "f32_rel_tol": GRAD_F32_REL,
+          "grad_absmax": {k: v.abs().max().item() for k, v in cache.items()
+                          if k.endswith("_grad")}})
+    return launches
+
+
+def _train_state(model, lr, weight_decay=1e-4):
+    """AdamW at a constant rate (a step schedule that never steps)."""
+    from vit_prisma_tpu_torch.training.trainer import (TrainerConfig, TrainState,
+                                                      _make_optimizer)
+    tcfg = TrainerConfig(lr=lr, weight_decay=weight_decay, warmup_steps=0,
+                         scheduler_step=10 ** 9)
+    return TrainState(model, *_make_optimizer(tcfg, 1, model.parameters()))
+
+
+class _StepLog:
+    """A trainer callback recording the steps and epochs it sees."""
+
+    def __init__(self):
+        self.steps, self.epochs = [], []
+
+    def on_step_end(self, step, model, metrics):
+        self.steps.append(step)
+
+    def on_epoch_end(self, epoch, model, metrics):
+        self.epochs.append(epoch)
+
+
+def phase_vit_train(info):
+    """The supervised trainer at bench.py's row: make_train_step on one
+    fixed batch (B1 and B2 in every step), where a step's time goes, then
+    train() end to end with a checkpoint and a resume."""
+    import tempfile
+    from vit_prisma_tpu_torch.training.trainer import (TrainerConfig, load_checkpoint,
+                                                      make_train_step, train)
+    counters = _sae_counters()
+    cfg = grad_config()
+    model = _grad_model(cfg)
+    x = _images(GRAD_BATCH, 7, dtype=torch.bfloat16)
+    labels = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.n_classes, GRAD_BATCH)).cuda()
+    state = _train_state(model, GRAD_TRAIN_LR)
+    step = make_train_step(cfg, "CrossEntropy")
+    release()
+    torch.cuda.reset_peak_memory_stats()
+
+    # The main path, with every count set to 0 just before it.
+    _zero_counts(counters)
+    state, loss0 = step(state, x, labels)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(GRAD_TRAIN_STEPS):
+        state, loss = step(state, x, labels)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counters.items()}
+    n_steps = GRAD_TRAIN_STEPS + 1
+    expected = dict.fromkeys(counters, 0)
+    expected.update(attention_mix_tnh=cfg.n_layers * n_steps,
+                    attention_mix_tnh_bwd=cfg.n_layers * n_steps)
+    if launches != expected:
+        raise AssertionError(f"vit_train launches {launches}, expected {expected}")
+    losses = [float(loss0)] + [float(l) for l in losses]
+    if not all(math.isfinite(l) for l in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses {losses}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = 1e3 * seconds / GRAD_TRAIN_STEPS
+
+    def steps(n):
+        nonlocal state
+        for _ in range(n):
+            state, _ = step(state, x, labels)
+    prof = _profile(lambda: steps(3))
+    emit({"phase": "vit_train", **info, "config": "bench.py:56-61, :120-133",
+          "dtype": "bfloat16", "batch": GRAD_BATCH, "optimizer": "AdamW",
+          "lr": GRAD_TRAIN_LR, "steps_timed": GRAD_TRAIN_STEPS, "launches": launches,
+          "expected_launches": expected, "loss_first": losses[0], "loss_last": losses[-1],
+          "ms_per_step": step_ms, "img_per_s": GRAD_BATCH / step_ms * 1e3,
+          "peak_memory_GB": peak,
+          "device_busy_ms_per_step": prof["device_busy_ms"] / 3,
+          # the profiler slows the host: the share that counts is of the
+          # steps timed without it
+          "idle_share_of_timed_steps": max(0.0, 1.0 - prof["device_busy_ms"] / 3 / step_ms),
+          "profile_of_3_steps": prof})
+    del model, state, x
+    release()
+
+    # train() end to end: a list of (image, label) pairs, one metrics pass,
+    # a checkpoint at the last step, then a resume from it.
+    rng = np.random.default_rng(0)
+    images = rng.standard_normal((FIT_IMAGES, 3, 224, 224), dtype=np.float32)
+    classes = rng.integers(0, cfg.n_classes, FIT_IMAGES)
+    data = [(images[i], int(classes[i])) for i in range(FIT_IMAGES)]
+    build = lambda c: _grad_model(c)
+    with tempfile.TemporaryDirectory() as tmp:
+        tcfg = TrainerConfig(lr=FIT_LR, batch_size=FIT_BATCH, num_epochs=3,
+                             max_steps=FIT_STEPS, save_checkpoints=True,
+                             save_cp_frequency=FIT_STEPS, parent_dir=tmp)
+        calls = _StepLog()
+        t0 = time.perf_counter()
+        fitted = train(build, cfg, data, tcfg=tcfg, callbacks=[calls])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        ckpts = sorted(os.listdir(os.path.join(tmp, tcfg.save_dir)))
+        path = os.path.join(tmp, tcfg.save_dir, ckpts[-1])
+        ckpt = load_checkpoint(path)
+        if calls.steps != list(range(1, FIT_STEPS + 1)) or ckpt["step"] != FIT_STEPS:
+            raise AssertionError(f"train steps {calls.steps}, checkpoint step {ckpt['step']}")
+        if not all(np.array_equal(ckpt["params"][k], v.float().cpu().numpy())
+                   for k, v in fitted.state_dict().items()):
+            raise AssertionError("the checkpoint's params are not the trained model's")
+        resumed_calls = _StepLog()
+        resumed = train(build, cfg, data, checkpoint_path=path, callbacks=[resumed_calls],
+                        tcfg=dataclasses.replace(tcfg, max_steps=FIT_STEPS + 2,
+                                                 save_checkpoints=False))
+        drift = lambda m: max((v.float().cpu() - torch.from_numpy(ckpt["params"][k])).abs().max().item()
+                              for k, v in m.state_dict().items())
+        from_ckpt, from_scratch = drift(resumed), drift(build(cfg))
+        if resumed_calls.steps != [FIT_STEPS + 1, FIT_STEPS + 2] or not from_ckpt < from_scratch:
+            raise AssertionError(f"resume: steps {resumed_calls.steps}, drift {from_ckpt} "
+                                 f"from the checkpoint, {from_scratch} from a fresh model")
+    emit({"phase": "vit_train_fit", **info, "images": FIT_IMAGES, "batch": FIT_BATCH,
+          "dataset": f"{FIT_IMAGES} random float32 224px images, labels of {cfg.n_classes} "
+                     "classes, numpy seed 0, a list of (image, label) pairs",
+          "steps": calls.steps, "seconds": fit_s, "checkpoints": ckpts,
+          "checkpoint_epoch": ckpt["epoch"], "resumed_steps": resumed_calls.steps,
+          "resumed_epochs": resumed_calls.epochs,
+          "resumed_max_drift_from_checkpoint": from_ckpt,
+          "fresh_max_drift_from_checkpoint": from_scratch})
+    return launches
+
+
+def phase_vit_train_check(info):
+    """Three float32 steps at batch 8 on the card and on the CPU from one
+    state: gradients, parameters and AdamW moments."""
+    from vit_prisma_tpu_torch.training.trainer import make_train_step
+    cfg = grad_config("float32")
+    card_model, cpu_model = _grad_model(cfg), _grad_model(cfg, "cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in card_model.state_dict().items()})
+    states = {"card": _train_state(card_model, GRAD_TRAIN_LR),
+              "cpu": _train_state(cpu_model, GRAD_TRAIN_LR)}
+    step = make_train_step(cfg, "CrossEntropy")
+    rng = np.random.default_rng(8)
+    grad_errs, losses = {}, []
+    for i in range(STEP_CHECK_STEPS):
+        xs = _images(TRAIN_CHECK_BATCH, 9 + i, "cpu")
+        ys = torch.from_numpy(rng.integers(0, cfg.n_classes, TRAIN_CHECK_BATCH))
+        _, lc = step(states["card"], xs.cuda(), ys.cuda())
+        _, lr_ = step(states["cpu"], xs, ys)
+        losses.append((float(lc), float(lr_)))
+        if i == 0:  # step 1's gradients, still on the parameters, relative
+            for (k, pc), pr in zip(card_model.named_parameters(), cpu_model.parameters()):
+                grad_errs[k] = ((pc.grad.cpu() - pr.grad).abs().max().item()
+                                / max(pr.grad.abs().max().item(), 1e-30))
+    lr, tol = GRAD_TRAIN_LR, TRAIN_CHECK_TOL
+    params, moments, far, total = {}, {}, 0, 0
+    for (k, pc), pr in zip(card_model.named_parameters(), cpu_model.parameters()):
+        d = (pc.detach().cpu() - pr.detach()).abs()
+        n_far = int((d > tol["param_close_lr"] * lr).sum())
+        far, total = far + n_far, total + d.numel()
+        params[k] = {"max_lr": d.max().item() / lr, "far": n_far}
+        if k.endswith("attn.b_K"):
+            continue  # its gradient is rounding noise (TRAIN_CHECK_TOL's note)
+        sc, sr = states["card"].optimizer.state[pc], states["cpu"].optimizer.state[pr]
+        moments[k] = {m: (sc[m].cpu() - sr[m]).abs().max().item()
+                      / max(sr[m].abs().max().item(), 1e-30) for m in ("exp_avg", "exp_avg_sq")}
+    emit({"phase": "vit_train_check", **info, "dtype": "float32", "batch": TRAIN_CHECK_BATCH,
+          "steps": STEP_CHECK_STEPS, "losses_card_cpu": losses,
+          "step1_grad_rel_err": grad_errs, "grad_rel_tol": GRAD_F32_REL,
+          "param_err": params, "far_share": far / total, "moment_rel_err": moments,
+          "tol": {**tol, "lr": lr}})
+    bad = [f"{k} grad" for k, e in grad_errs.items()
+           if not k.endswith("attn.b_K") and not e <= GRAD_F32_REL]
+    bad += [k for k, e in params.items() if not e["max_lr"] <= tol["param_max_lr"]]
+    bad += [f"{k} {m}" for k, e in moments.items() for m, v in e.items()
+            if not v <= tol[m + "_rel"]]
+    if bad or not far / total <= tol["param_far_share"]:
+        raise AssertionError(f"train check: {bad}, {far} of {total} entries beyond "
+                             f"{tol['param_close_lr']} lr")
+
+
+def phase_sae_attribution(info):
+    """Demo 07 at B/32 full width: an error-term ReLU SAE spliced at layer
+    9's resid_post, d metric / d feature through B1 and B2."""
+    from vit_prisma_tpu_torch import HookedSAEViT
+    from vit_prisma_tpu_torch.sae import SAERunnerConfig, SparseAutoencoder
+    counters = _sae_counters()
+    cfg = grad_config("float32")
+    scfg = SAERunnerConfig(d_in=cfg.d_model, expansion_factor=16, hook_point_layer=9,
+                           layer_subtype="hook_resid_post", b_dec_init_method="zeros",
+                           log_to_wandb=False)
+    hp = scfg.hook_point
+    model = _grad_model(cfg, cls=HookedSAEViT)
+    sae = SparseAutoencoder(scfg, generator=torch.Generator().manual_seed(1), device="cuda")
+    x = _images(SAE_ATTRIB_BATCH, 10)
+    clean = model(x)
+    names = lambda n: n.startswith(hp)
+    _zero_counts(counters)
+    with model.saes([sae], use_error_term=True):
+        out, cache = model.run_with_cache(x, names_filter=names, incl_bwd=True,
+                                          loss_fn=_metric)
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items()}
+    # The cached points are the SAE's, at layer 9: the backward reaches them
+    # through layers 10 and 11 only.
+    expected = dict.fromkeys(counters, 0)
+    expected.update(attention_mix_tnh=cfg.n_layers,
+                    attention_mix_tnh_bwd=cfg.n_layers - 1 - scfg.hook_point_layer)
+    if launches != expected:
+        raise AssertionError(f"sae_attribution launches {launches}, expected {expected}")
+    splice_err = check_close("error-term forward", out, clean, rel_atol(SPLICE_REL, clean))
+    feats, grads = cache[f"{hp}.hook_hidden_post"], cache[f"{hp}.hook_hidden_post_grad"]
+    if feats.shape != (SAE_ATTRIB_BATCH, cfg.n_tokens, scfg.d_sae) or grads.shape != feats.shape:
+        raise AssertionError(f"features {tuple(feats.shape)}, grads {tuple(grads.shape)}")
+    attribution = (feats * grads).abs().sum(dim=(0, 1))
+    top = attribution.topk(5)
+
+    cpu = _grad_model(cfg, "cpu", cls=HookedSAEViT)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu_sae = SparseAutoencoder(scfg, params={k: v.cpu() for k, v in sae.params.items()},
+                                device="cpu")
+    with cpu.saes([cpu_sae], use_error_term=True):
+        _, want = cpu.run_with_cache(x[:GRAD_F32_BATCH].cpu(), names_filter=names,
+                                     incl_bwd=True, loss_fn=_metric)
+    # The gradients at and after the features do not depend on which
+    # pre-activations the ReLU kept; those before them do, and a
+    # pre-activation within rounding of 0 may switch between the devices.
+    got = {k: v[:GRAD_F32_BATCH].cpu() for k, v in cache.items()}
+    after = [f"{hp}.hook_hidden_post_grad", f"{hp}.hook_sae_out_grad"]
+    errs = _cache_grad_errs({k: got[k] for k in after}, {k: want[k] for k in after},
+                            GRAD_F32_REL)
+    switches = int(((got[f"{hp}.hook_hidden_pre"] > 0)
+                    != (want[f"{hp}.hook_hidden_pre"] > 0)).sum())
+    before = {k: (got[k] - want[k]).abs().max().item() for k in want
+              if k.endswith("_grad") and k not in after}
+    emit({"phase": "sae_attribution", **info, "model": "bench.py:56-61 geometry, float32",
+          "sae": f"ReLU {scfg.d_in} -> {scfg.d_sae} at {hp}, error term",
+          "batch": SAE_ATTRIB_BATCH, "launches": launches, "expected_launches": expected,
+          "error_term_forward_max_abs_err": splice_err, "splice_rel_tol": SPLICE_REL,
+          "card_vs_cpu_grad_max_abs_err": errs, "grad_rel_tol": GRAD_F32_REL,
+          "relu_switches": switches, "upstream_grad_max_abs_err": before,
+          "l0_per_token": (feats > 0).float().sum(-1).mean().item(),
+          "top_features": top.indices.tolist(), "top_attribution": top.values.tolist()})
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; none is available")
@@ -1770,6 +2279,14 @@ def main():
     phase_step_profile(info, trainer, store, cfg, "gated_profile")
     phase_gated_step_check(info, trainer, store, cfg)
     del trainer, store
+    release()
+    grad_kernels = phase_grad_kernels(info)
+    phase_attribution(info)
+    release()
+    vit_train_launches = phase_vit_train(info)
+    release()
+    phase_vit_train_check(info)
+    phase_sae_attribution(info)
 
     def entry(name, source, replaces, launches, rec, ms_key="ms", scale=1.0):
         """One kernel's line: launches from its main path, the rest measured
@@ -1822,6 +2339,10 @@ def main():
     # at the gated slice's bf16 shape; launches from its train path
     line += [entry(k, GATED_SOURCES[k], GATED_REPLACES[k], gated_launches[k],
                    gated_kernels[(k, "slice_bf16")]) for k in GATED_SOURCES]
+    # at the B/32 grad paths' bf16 shape; launches from the vit_train path
+    line.append(entry("attention_mix_tnh_bwd", GRAD_SOURCE, GRAD_REPLACES,
+                      vit_train_launches["attention_mix_tnh_bwd"],
+                      grad_kernels[("b32", torch.bfloat16)], "us", 1e-3))
     missing = [e["name"] for e in line if not e["launches"] > 0]
     if missing:
         raise AssertionError(f"kernels not launched on their main paths: {missing}")

@@ -29,6 +29,8 @@ def _entry_points():
     return {
         "HookedViT": lambda **d: vit_prisma_tpu_torch.HookedViT(
             vit_prisma_tpu_torch.ViTConfig(**VIT), **d),
+        "HookedSAEViT": lambda **d: vit_prisma_tpu_torch.HookedSAEViT(
+            vit_prisma_tpu_torch.ViTConfig(**VIT), **d),
         "init_sae_params": lambda **d: port_sae.init_sae_params(cfg, **d),
         "SparseAutoencoder": lambda **d: port_sae.SparseAutoencoder(cfg, **d),
         "init_train_state": lambda **d: port_sae.init_train_state(cfg, **d),

@@ -7,7 +7,10 @@ describes the same model in both.  The config stays frozen and hashable;
 
 Fields that select a JAX compilation strategy keep their names and change
 nothing here: ``scan_blocks`` (the port always runs a Python loop over the
-blocks, with the same numbers) and ``remat_blocks`` (no backward yet).
+blocks, with the same numbers) and ``remat_blocks`` (the JAX package's
+per-block rematerialization in the backward; here every block keeps its
+activations, and ``torch.utils.checkpoint`` in its place is ROADMAP queue A,
+item 16).
 ``matmul_precision`` only gates the fused attention path, as in JAX: a
 float32 matmul in PyTorch runs in full float32 unless TF32 is switched on,
 which this package never does.
@@ -102,7 +105,8 @@ class ViTConfig:
     # keeps attention on the hooked einsum path, as in the JAX package.
     matmul_precision: str = "default"
 
-    # Train-mode dropout rates (dropout is not ported yet).
+    # Train-mode dropout rates, applied when the forward gets a dropout
+    # generator (the trainer's steps).
     attn_dropout_rate: float = 0.0
     mlp_dropout_rate: float = 0.0
 

@@ -1,0 +1,593 @@
+// Token-major attention mix, backward: dq, dk and dv of z = softmax(q k^T) v
+// per head.
+//
+// Replaces the Pallas TPU kernel `_mix_tnh_bwd_kernel`, launched by
+// `_mix_tnh_backward` in vit_prisma_tpu/ops/attention.py (kernel B2 of the
+// ROADMAP): the exact VJP of the forward kernel (attention_mix_tnh.cu, B1)
+// over the same [B, T, N*H] layout, q pre-scaled, causal optional.  Per head
+// and with the Pallas kernel's rounding points:
+//   p  = softmax(q k^T) in float32 (0 where masked), recomputed, not stored;
+//   dp = dz v^T, float32 sums of the input-dtype products;
+//   ds = p (dp - rowsum(dp p)) in float32, then rounded to q's dtype;
+//   dq = ds k,  dk = ds^T q,  dv = pc^T dz  with pc = p rounded to v's dtype;
+// float32 accumulation, each output stored in its input's dtype.
+//
+// What bounds it on an H100.  It reads q, k, v, dz and writes dq, dk, dv
+// once: 7 B T N H elements, against 5 products of 2 B N T^2 H flops.  At the
+// CLIP ViT-B/32 shape (T = 50, H = 64) that is some 70 flops per element
+// moved, below the ~295 flops per byte where the tensor cores, not memory,
+// would be the limit; so, as for B1, the aim is to cross device memory once
+// per element and to keep the T x T scores and their gradient on the SM.
+// This version runs its products on the CUDA cores out of shared memory, so
+// shared-memory loads and their latency bound it; each warp works on R rows
+// (or keys) at once, so that one load feeds R independent FMA chains.
+//
+// Design: two passes, each within B1's shared memory, so that every (T, H)
+// the forward accepts has a backward (a single block holding K, V and
+// float32 dK, dV accumulators for the whole T would not fit at the L/14
+// shape, T = 257).
+//  * rows pass, one block per (64 query rows, head, batch item): K (rows
+//    padded, as in B1) and V transposed in float32 shared memory; each warp
+//    owns R query rows at a time and each lane keys lane, lane+32, ...:
+//    scores, each row's max m and sum l (warp shuffles), p, dp and the row's
+//    D = sum(dp p); then ds per key, and dq with each lane owning columns
+//    lane, lane+32, ...  It writes dq and each row's m, l and D (float32).
+//  * columns pass, one block per (64 key columns, head, batch item): Q and dZ
+//    in float32 shared memory, with every row's m, l and D; each warp owns R
+//    keys at a time; lanes take 32 query rows at a time, recompute s with the
+//    same products in the same order as the rows pass, so p = exp(s - m) / l
+//    comes out bit for bit the same, form ds and pc, park them in a per-warp
+//    buffer, and then accumulate dk and dv with each lane owning columns.
+// Each pass takes the first of (8 warps, R = 4), (4, 4), then R = 1 at 8, 4,
+// 2 or 1 warps that its shared memory allows; at (4 warps, R = 1) the rows
+// pass takes exactly B1's bytes (R = 1), and the columns pass no more than
+// them at the T where that matters.  The Python wrapper
+// (vit_prisma_tpu_torch/ops/attention.py, mix_tnh_bwd_fits_smem) mirrors
+// both sizes.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kTile = 64;     // query rows (rows pass) or keys (columns pass) per block
+constexpr int kLoadRows = 4;  // rows a warp loads per staging step
+constexpr int kMaxHead = 256;
+constexpr int kMaxWarps = 8;
+constexpr size_t kMaxSmemBytes = 232448;  // 227 KB, the H100's per-block limit
+
+struct Shape {
+  int warps, rows;  // warps a block, rows (or keys) a warp works on at once
+};
+constexpr Shape kShapes[] = {{8, 4}, {4, 4}, {8, 1}, {4, 1}, {2, 1}, {1, 1}};
+
+__host__ __device__ inline int round_up4(int x) { return (x + 3) & ~3; }
+
+// Rows pass (floats): K [t][h4 + 4], V^T [h][t], and per warp R q rows and
+// R dz rows (h4 each) and R p and R dp rows (t each).
+__host__ __device__ inline size_t rows_smem_bytes(int t, int h, Shape s) {
+  const size_t h4 = round_up4(h);
+  return sizeof(float) * (size_t(t) * (h4 + 4) + size_t(t) * h +
+                          size_t(s.warps) * s.rows * (2 * h4 + 2 * size_t(t)));
+}
+
+// Columns pass: Q and dZ rows padded like K where H is a multiple of 4.
+__host__ __device__ inline int cols_stride(int h) {
+  return round_up4(h) + ((h & 3) ? 0 : 4);
+}
+
+// Columns pass (floats): Q and dZ [t][stride], m, l and D [t] each, and per
+// warp R k and R v rows (h4 each) and 32 R ds and 32 R pc values.
+__host__ __device__ inline size_t cols_smem_bytes(int t, int h, Shape s) {
+  return sizeof(float) * (2 * size_t(t) * cols_stride(h) + 3 * size_t(t) +
+                          size_t(s.warps) * s.rows * (2 * size_t(round_up4(h)) + 64));
+}
+
+// The first shape whose pass fits; warps = 0 where none does.
+Shape pick(size_t (*bytes)(int, int, Shape), int t, int h) {
+  for (const Shape& s : kShapes)
+    if (bytes(t, h, s) <= kMaxSmemBytes) return s;
+  return {0, 0};
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even, as torch casts
+}
+
+// x rounded to T and back: the kernel's cast points for ds and pc.
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// acc[r] += a[r] . b over n4 float4s, one fmaf per element in column order,
+// for R rows a (stride a_stride) against one row b.  Both passes form s (and
+// dp) through this one function with q (dz) as a and k (v) as b, so that
+// their p agree bit for bit whatever R each pass takes.
+template <int R>
+__device__ __forceinline__ void dots(float (&acc)[R], const float* a, int a_stride,
+                                     const float* b, int n4) {
+  const float4* b4 = reinterpret_cast<const float4*>(b);
+  for (int c = 0; c < n4; ++c) {
+    const float4 y = b4[c];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float4 x = reinterpret_cast<const float4*>(a + r * a_stride)[c];
+      acc[r] = fmaf(x.x, y.x, acc[r]);
+      acc[r] = fmaf(x.y, y.y, acc[r]);
+      acc[r] = fmaf(x.z, y.z, acc[r]);
+      acc[r] = fmaf(x.w, y.w, acc[r]);
+    }
+  }
+}
+
+// The same with one row a against R rows b: acc[r] += a . b[r].
+template <int R>
+__device__ __forceinline__ void dots_t(float (&acc)[R], const float* a, const float* b,
+                                       int b_stride, int n4) {
+  const float4* a4 = reinterpret_cast<const float4*>(a);
+  for (int c = 0; c < n4; ++c) {
+    const float4 x = a4[c];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float4 y = reinterpret_cast<const float4*>(b + r * b_stride)[c];
+      acc[r] = fmaf(x.x, y.x, acc[r]);
+      acc[r] = fmaf(x.y, y.y, acc[r]);
+      acc[r] = fmaf(x.z, y.z, acc[r]);
+      acc[r] = fmaf(x.w, y.w, acc[r]);
+    }
+  }
+}
+
+// Stage rows [first, end) of x (one head of [B, T, N*H]) into xs as float32
+// rows of `stride` floats, zero from d_head to h4, and y into ys: transposed,
+// [d_head][n_tok], with `y_transposed`, else as rows like x.  Each warp
+// issues the loads of kLoadRows rows before storing any, so that their
+// latencies overlap.
+template <typename T, int NC>
+__device__ void stage(const T* __restrict__ x, const T* __restrict__ y, float* xs,
+                      float* ys, bool y_transposed, int first, int end, int stride,
+                      int n_tok, int d_head, long long base, long long nh) {
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int h4 = round_up4(d_head);
+  for (int t0 = first + warp * kLoadRows; t0 < end; t0 += warps * kLoadRows) {
+    float xr[kLoadRows][NC], yr[kLoadRows][NC];
+#pragma unroll
+    for (int u = 0; u < kLoadRows; ++u)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int h = lane + 32 * c;
+        const bool in = t0 + u < end && h < d_head;
+        const long long off = base + (t0 + u) * nh + h;
+        xr[u][c] = in ? to_f32(x[off]) : 0.f;
+        yr[u][c] = in ? to_f32(y[off]) : 0.f;
+      }
+#pragma unroll
+    for (int u = 0; u < kLoadRows; ++u) {
+      if (t0 + u >= end) break;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int h = lane + 32 * c;
+        if (h < h4) xs[(t0 + u) * stride + h] = xr[u][c];  // zero padding
+        if (y_transposed) {
+          if (h < d_head) ys[h * n_tok + t0 + u] = yr[u][c];
+        } else if (h < h4) {
+          ys[(t0 + u) * stride + h] = yr[u][c];
+        }
+      }
+    }
+  }
+}
+
+// Load `n` rows of one head (from row `first`) into R float32 rows of h4
+// (zero past d_head and past the n rows).
+template <typename T, int NC, int R>
+__device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src, int first,
+                                          int n, int d_head, long long base,
+                                          long long nh, int lane) {
+  const int h4 = round_up4(d_head);
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int h = lane + 32 * c;
+      if (h < h4)
+        dst[r * h4 + h] = (r < n && h < d_head) ? to_f32(src[base + (first + r) * nh + h]) : 0.f;
+    }
+}
+
+template <typename T, int NC, int R>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+    mix_tnh_bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, const T* __restrict__ dz,
+                            T* __restrict__ dq, float* __restrict__ stats,
+                            int n_tok, int n_heads, int d_head, int causal) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int warps = blockDim.x >> 5;
+  const int h4 = round_up4(d_head);
+  const int k_stride = h4 + 4;
+  float* ks = smem;                         // [n_tok][k_stride]
+  float* rows = ks + n_tok * k_stride;      // per warp: q [R][h4], dz [R][h4]
+  float* vt = rows + warps * 2 * R * h4;    // [d_head][n_tok]
+  float* pbuf = vt + d_head * n_tok;        // per warp: p [R][n_tok], dp [R][n_tok]
+
+  const int n = blockIdx.y;
+  const int b = blockIdx.z;
+  const int row0 = blockIdx.x * kTile;
+  const int row_end = min(n_tok, row0 + kTile);
+  const long long nh = (long long)n_heads * d_head;
+  const long long base = (long long)b * n_tok * nh + (long long)n * d_head;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  // Causal rows of this tile see keys [0, row_end) only.
+  stage<T, NC>(k, v, ks, vt, true, 0, causal ? row_end : n_tok, k_stride, n_tok,
+               d_head, base, nh);
+  __syncthreads();
+
+  float* qw = rows + warp * 2 * R * h4;
+  float* dzw = qw + R * h4;
+  float* pw = pbuf + warp * 2 * R * n_tok;
+  float* dpw = pw + R * n_tok;
+  float* st = stats + ((long long)b * n_heads + n) * 3 * n_tok;  // m | l | D
+
+  // Rows first..first+R-1; rows past the tile compute on zero q and dz and
+  // are not stored.
+  for (int first = row0 + warp * R; first < row_end; first += warps * R) {
+    const int n_rows = min(R, row_end - first);
+    load_rows<T, NC, R>(qw, q, first, n_rows, d_head, base, nh, lane);
+    load_rows<T, NC, R>(dzw, dz, first, n_rows, d_head, base, nh, lane);
+    __syncwarp();
+
+    // Keys past the group's last row are masked for every row of it.
+    const int j_end = causal ? first + n_rows : n_tok;
+    float m[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) m[r] = -INFINITY;
+    for (int j = lane; j < j_end; j += 32) {
+      float s[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) s[r] = 0.f;
+      dots<R>(s, qw, h4, ks + j * k_stride, h4 / 4);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (causal && j > first + r) s[r] = -INFINITY;
+        pw[r * n_tok + j] = s[r];
+        m[r] = fmaxf(m[r], s[r]);
+      }
+    }
+    float l[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      m[r] = warp_max(m[r]);
+      l[r] = 0.f;
+    }
+    for (int j = lane; j < j_end; j += 32) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float e = expf(pw[r * n_tok + j] - m[r]);  // 0 where masked
+        pw[r * n_tok + j] = e;
+        l[r] += e;
+      }
+    }
+    float dsum[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      l[r] = warp_sum(l[r]);
+      dsum[r] = 0.f;
+    }
+    for (int j = lane; j < j_end; j += 32) {
+      float dp[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) dp[r] = 0.f;
+      for (int h = 0; h < d_head; ++h) {
+        const float vh = vt[h * n_tok + j];
+#pragma unroll
+        for (int r = 0; r < R; ++r) dp[r] = fmaf(dzw[r * h4 + h], vh, dp[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float p = pw[r * n_tok + j] / l[r];
+        pw[r * n_tok + j] = p;
+        dpw[r * n_tok + j] = dp[r];
+        dsum[r] = fmaf(dp[r], p, dsum[r]);
+      }
+    }
+    float D[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) D[r] = warp_sum(dsum[r]);
+    for (int j = lane; j < j_end; j += 32) {
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        pw[r * n_tok + j] = round_to<T>(pw[r * n_tok + j] * (dpw[r * n_tok + j] - D[r]));
+    }
+    __syncwarp();
+
+    float acc[R][NC];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
+    for (int j = 0; j < j_end; ++j) {
+      const float* kr = ks + j * k_stride;
+      float ds[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) ds[r] = pw[r * n_tok + j];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int h = lane + 32 * c;
+        const float kh = h < d_head ? kr[h] : 0.f;
+#pragma unroll
+        for (int r = 0; r < R; ++r) acc[r][c] = fmaf(ds[r], kh, acc[r][c]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r >= n_rows) break;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int h = lane + 32 * c;
+        if (h < d_head) dq[base + (first + r) * nh + h] = from_f32<T>(acc[r][c]);
+      }
+      if (lane == 0) {
+        st[first + r] = m[r];
+        st[n_tok + first + r] = l[r];
+        st[2 * n_tok + first + r] = D[r];
+      }
+    }
+    __syncwarp();  // the per-warp rows are rewritten for the next group
+  }
+}
+
+template <typename T, int NC, int R>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+    mix_tnh_bwd_cols_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, const T* __restrict__ dz,
+                            const float* __restrict__ stats, T* __restrict__ dk,
+                            T* __restrict__ dv, int n_tok, int n_heads, int d_head,
+                            int causal) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int warps = blockDim.x >> 5;
+  const int h4 = round_up4(d_head);
+  const int stride = cols_stride(d_head);
+  float* qs = smem;                       // [n_tok][stride]
+  float* dzs = qs + n_tok * stride;       // [n_tok][stride]
+  float* kv = dzs + n_tok * stride;       // per warp: k [R][h4], v [R][h4]
+  float* sts = kv + warps * 2 * R * h4;   // m [n_tok], l [n_tok], D [n_tok]
+  float* bufs = sts + 3 * n_tok;          // per warp: ds [32][R], pc [32][R]
+
+  const int n = blockIdx.y;
+  const int b = blockIdx.z;
+  const int col0 = blockIdx.x * kTile;
+  const int col_end = min(n_tok, col0 + kTile);
+  const long long nh = (long long)n_heads * d_head;
+  const long long base = (long long)b * n_tok * nh + (long long)n * d_head;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  // Causal keys of this tile are seen by rows [col0, n_tok) only.
+  const int row_first = causal ? col0 : 0;
+  stage<T, NC>(q, dz, qs, dzs, false, row_first, n_tok, stride, n_tok, d_head, base, nh);
+  const float* st = stats + ((long long)b * n_heads + n) * 3 * n_tok;
+  for (int t = row_first + threadIdx.x; t < n_tok; t += blockDim.x) {
+    sts[t] = st[t];
+    sts[n_tok + t] = st[n_tok + t];
+    sts[2 * n_tok + t] = st[2 * n_tok + t];
+  }
+  __syncthreads();
+
+  float* kw = kv + warp * 2 * R * h4;
+  float* vw = kw + R * h4;
+  float* dsb = bufs + warp * 64 * R;
+  float* pcb = dsb + 32 * R;
+
+  // Keys first..first+R-1; keys past the tile compute on zero k and v and
+  // are not stored.
+  for (int first = col0 + warp * R; first < col_end; first += warps * R) {
+    const int n_keys = min(R, col_end - first);
+    load_rows<T, NC, R>(kw, k, first, n_keys, d_head, base, nh, lane);
+    load_rows<T, NC, R>(vw, v, first, n_keys, d_head, base, nh, lane);
+    __syncwarp();
+
+    float ak[R][NC], av[R][NC];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) ak[r][c] = av[r][c] = 0.f;
+    // Rows below a key are masked when causal; start at the group's 32.
+    for (int r0 = causal ? (first & ~31) : 0; r0 < n_tok; r0 += 32) {
+      const int i = r0 + lane;
+      float ds[R], pc[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) ds[r] = pc[r] = 0.f;
+      if (i < n_tok) {
+        float s[R], dp[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) s[r] = dp[r] = 0.f;
+        dots_t<R>(s, qs + i * stride, kw, h4, h4 / 4);
+        dots_t<R>(dp, dzs + i * stride, vw, h4, h4 / 4);
+        const float m = sts[i], l = sts[n_tok + i], D = sts[2 * n_tok + i];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (r < n_keys && (!causal || i >= first + r)) {
+            const float p = expf(s[r] - m) / l;
+            ds[r] = round_to<T>(p * (dp[r] - D));
+            pc[r] = round_to<T>(p);
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        dsb[lane * R + r] = ds[r];
+        pcb[lane * R + r] = pc[r];
+      }
+      __syncwarp();
+      const int n_rows = min(32, n_tok - r0);
+      for (int u = 0; u < n_rows; ++u) {
+        float a[R], pp[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          a[r] = dsb[u * R + r];
+          pp[r] = pcb[u * R + r];
+        }
+        const float* qr = qs + (r0 + u) * stride;
+        const float* dr = dzs + (r0 + u) * stride;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const int h = lane + 32 * c;
+          const float qh = h < d_head ? qr[h] : 0.f;
+          const float dh = h < d_head ? dr[h] : 0.f;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            ak[r][c] = fmaf(a[r], qh, ak[r][c]);
+            av[r][c] = fmaf(pp[r], dh, av[r][c]);
+          }
+        }
+      }
+      __syncwarp();  // dsb and pcb are rewritten for the next rows
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r >= n_keys) break;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int h = lane + 32 * c;
+        if (h < d_head) {
+          dk[base + (first + r) * nh + h] = from_f32<T>(ak[r][c]);
+          dv[base + (first + r) * nh + h] = from_f32<T>(av[r][c]);
+        }
+      }
+    }
+    __syncwarp();  // kw and vw are rewritten for the next keys
+  }
+}
+
+template <typename T, int NC, int R>
+cudaError_t launch_rows(const T* q, const T* k, const T* v, const T* dz, T* dq,
+                        float* stats, dim3 grid, Shape s, int n_tok, int n_heads,
+                        int d_head, int causal, cudaStream_t stream) {
+  const size_t smem = rows_smem_bytes(n_tok, d_head, s);
+  auto kernel = mix_tnh_bwd_rows_kernel<T, NC, R>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, s.warps * 32, smem, stream>>>(q, k, v, dz, dq, stats, n_tok, n_heads,
+                                               d_head, causal);
+  return cudaGetLastError();
+}
+
+template <typename T, int NC, int R>
+cudaError_t launch_cols(const T* q, const T* k, const T* v, const T* dz, const float* stats,
+                        T* dk, T* dv, dim3 grid, Shape s, int n_tok, int n_heads,
+                        int d_head, int causal, cudaStream_t stream) {
+  const size_t smem = cols_smem_bytes(n_tok, d_head, s);
+  auto kernel = mix_tnh_bwd_cols_kernel<T, NC, R>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, s.warps * 32, smem, stream>>>(q, k, v, dz, stats, dk, dv, n_tok,
+                                               n_heads, d_head, causal);
+  return cudaGetLastError();
+}
+
+template <typename T, int NC>
+cudaError_t launch_nc(const void* q, const void* k, const void* v, const void* dz,
+                      void* dq, void* dk, void* dv, float* stats, int batch,
+                      int n_tok, int n_heads, int d_head, int causal,
+                      cudaStream_t stream) {
+  const dim3 grid((n_tok + kTile - 1) / kTile, n_heads, batch);
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* dzt = static_cast<const T*>(dz);
+  const Shape s1 = pick(rows_smem_bytes, n_tok, d_head);
+  cudaError_t err =
+      s1.rows == 4
+          ? launch_rows<T, NC, 4>(qt, kt, vt, dzt, static_cast<T*>(dq), stats, grid, s1,
+                                  n_tok, n_heads, d_head, causal, stream)
+          : launch_rows<T, NC, 1>(qt, kt, vt, dzt, static_cast<T*>(dq), stats, grid, s1,
+                                  n_tok, n_heads, d_head, causal, stream);
+  if (err != cudaSuccess) return err;
+  const Shape s2 = pick(cols_smem_bytes, n_tok, d_head);
+  return s2.rows == 4
+             ? launch_cols<T, NC, 4>(qt, kt, vt, dzt, stats, static_cast<T*>(dk),
+                                     static_cast<T*>(dv), grid, s2, n_tok, n_heads,
+                                     d_head, causal, stream)
+             : launch_cols<T, NC, 1>(qt, kt, vt, dzt, stats, static_cast<T*>(dk),
+                                     static_cast<T*>(dv), grid, s2, n_tok, n_heads,
+                                     d_head, causal, stream);
+}
+
+template <typename T>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* dz,
+                   void* dq, void* dk, void* dv, float* stats, int batch, int n_tok,
+                   int n_heads, int d_head, int causal, cudaStream_t stream) {
+  switch ((d_head + 31) / 32) {
+#define VPT_CASE(NC)                                                             \
+  case NC:                                                                       \
+    return launch_nc<T, NC>(q, k, v, dz, dq, dk, dv, stats, batch, n_tok, n_heads, \
+                            d_head, causal, stream);
+    VPT_CASE(1) VPT_CASE(2) VPT_CASE(3) VPT_CASE(4)
+    VPT_CASE(5) VPT_CASE(6) VPT_CASE(7) VPT_CASE(8)
+#undef VPT_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16.  stats: float32 scratch of 3 * batch *
+// n_heads * n_tok floats (each row's m, l and D, from the rows pass to the
+// columns pass).  Returns the launches' cudaError_t.
+extern "C" int attention_mix_tnh_bwd(const void* q, const void* k, const void* v,
+                                     const void* dz, void* dq, void* dk, void* dv,
+                                     void* stats, int batch, int n_tok, int n_heads,
+                                     int d_head, int causal, int dtype, int device,
+                                     void* stream) {
+  if (batch <= 0 || batch > 65535 || n_tok <= 0 || n_heads <= 0 ||
+      n_heads > 65535 || d_head <= 0 || d_head > kMaxHead ||
+      pick(rows_smem_bytes, n_tok, d_head).warps == 0 ||
+      pick(cols_smem_bytes, n_tok, d_head).warps == 0)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* st = static_cast<float*>(stats);
+  if (dtype == 0)
+    return launch<float>(q, k, v, dz, dq, dk, dv, st, batch, n_tok, n_heads, d_head,
+                         causal, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(q, k, v, dz, dq, dk, dv, st, batch, n_tok, n_heads,
+                                 d_head, causal, s);
+  return cudaErrorInvalidValue;
+}

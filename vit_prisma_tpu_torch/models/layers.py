@@ -69,10 +69,8 @@ ACT_FNS = {
 # ---------------------------------------------------------------------------
 
 def new_param(shape, device, dtype):
-    # On the card unless ``device`` names another; no gradients until the
-    # attention backward kernel (B2) is ported.
-    return nn.Parameter(torch.empty(shape, device=resolve_device(device), dtype=dtype),
-                        requires_grad=False)
+    # On the card unless ``device`` names another.
+    return nn.Parameter(torch.empty(shape, device=resolve_device(device), dtype=dtype))
 
 
 class LayerNorm(nn.Module):
@@ -144,9 +142,10 @@ class TransformerBlock(nn.Module):
             self.mlp = MLP(cfg, device)
 
     def forward(self, resid_pre, hooks: HookRuntime = NULL_HOOKS,
-                prefix: str = "blocks.0", attn_mask=None):
+                prefix: str = "blocks.0", attn_mask=None, dropout_key=None):
         block_fn = bert_block if self.cfg.use_bert_block else transformer_block
-        return block_fn(self, self.cfg, resid_pre, hooks, prefix, attn_mask)
+        return block_fn(self, self.cfg, resid_pre, hooks, prefix, attn_mask,
+                        dropout_key=dropout_key)
 
 
 # ---------------------------------------------------------------------------
@@ -350,6 +349,22 @@ def head(params, cfg: ViTConfig, x):
 
 
 # ---------------------------------------------------------------------------
+# Dropout (the reference's nn.Dropout on attn_out and mlp_out in the pre-LN
+# block; the BertBlock has none)
+# ---------------------------------------------------------------------------
+
+def dropout(x, rate: float, generator=None):
+    """Inverted dropout, drawing its mask from the ``torch.Generator``
+    ``generator`` (on x's device).  A no-op when ``generator`` is None (eval
+    mode) or ``rate == 0``.  The masks are not ``jax.random``'s."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                           device=x.device))
+
+
+# ---------------------------------------------------------------------------
 # Transformer blocks
 # ---------------------------------------------------------------------------
 
@@ -373,8 +388,9 @@ def _split_inputs(cfg, resid_pre, hooks, prefix):
 
 def transformer_block(params, cfg: ViTConfig, resid_pre,
                       hooks: HookRuntime = NULL_HOOKS, prefix: str = "blocks.0",
-                      attn_mask=None):
-    """Pre-LN block."""
+                      attn_mask=None, dropout_key=None):
+    """Pre-LN block.  ``dropout_key`` (a ``torch.Generator``) enables
+    train-mode dropout on attn_out and mlp_out, in that order."""
     resid_pre = hooks(f"{prefix}.hook_resid_pre", resid_pre)
     q_in, k_in, v_in = _split_inputs(cfg, resid_pre, hooks, prefix)
     if cfg.use_split_qkv_input:
@@ -385,6 +401,7 @@ def transformer_block(params, cfg: ViTConfig, resid_pre,
         ln_q = ln_k = ln_v = apply_norm(params.ln1, cfg, q_in, hooks, f"{prefix}.ln1")
     attn_out = attention(params.attn, cfg, ln_q, ln_k, ln_v, hooks,
                          f"{prefix}.attn", attn_mask)
+    attn_out = dropout(attn_out, cfg.attn_dropout_rate, dropout_key)
     attn_out = hooks(f"{prefix}.hook_attn_out", attn_out)
 
     if cfg.attn_only:
@@ -392,16 +409,18 @@ def transformer_block(params, cfg: ViTConfig, resid_pre,
     resid_mid = hooks(f"{prefix}.hook_resid_mid", resid_pre + attn_out)
     mlp_in = hooks(f"{prefix}.hook_mlp_in", resid_mid) if cfg.use_hook_mlp_in else resid_mid
     normalized = apply_norm(params.ln2, cfg, mlp_in, hooks, f"{prefix}.ln2")
+    mlp_out = mlp(params.mlp, cfg, normalized, hooks, f"{prefix}.mlp")
     mlp_out = hooks(f"{prefix}.hook_mlp_out",
-                    mlp(params.mlp, cfg, normalized, hooks, f"{prefix}.mlp"))
+                    dropout(mlp_out, cfg.mlp_dropout_rate, dropout_key))
     return hooks(f"{prefix}.hook_resid_post", resid_mid + mlp_out)
 
 
 def bert_block(params, cfg: ViTConfig, resid_pre,
                hooks: HookRuntime = NULL_HOOKS, prefix: str = "blocks.0",
-               attn_mask=None):
+               attn_mask=None, dropout_key=None):
     """Post-LN variant: LN after attention and after the MLP.  As in the
-    reference, ``hook_mlp_out`` fires before ln2."""
+    reference, ``hook_mlp_out`` fires before ln2, and there is no dropout
+    (``dropout_key`` is accepted and unused)."""
     resid_pre = hooks(f"{prefix}.hook_resid_pre", resid_pre)
     q_in, k_in, v_in = _split_inputs(cfg, resid_pre, hooks, prefix)
 

@@ -5,8 +5,11 @@ The model is an ``nn.Module`` with one module per block
 names (``blocks.{l}.attn.W_Q``).  The forward is :func:`vit_forward`, a
 function over the module that threads a :class:`HookRuntime` through the
 layers; ``run_with_cache`` and ``run_with_hooks`` build that runtime.
-Forwards run under ``torch.inference_mode()``: gradients wait for the
-attention backward kernel (ROADMAP queue B, B2).
+Forwards that need no gradient run under ``torch.inference_mode()``, so they
+record no autograd graph; ``run_with_cache(incl_bwd=True)`` and
+``bwd_hooks`` record one and take the gradients at the cached hook points
+(:func:`grad_cached_traced`), through the attention backward kernel (B2) on
+the fused path.
 """
 
 from __future__ import annotations
@@ -24,12 +27,10 @@ from vit_prisma_tpu_torch.prisma.hooks import (
     NULL_HOOKS,
     HookRuntime,
     NamesFilter,
+    grad_cached_traced,
     resolve_names_filter,
 )
 from vit_prisma_tpu_torch.utils.device import resolve_device
-
-_NO_GRADIENTS = ("is not ported yet (ROADMAP queue A, item 11; gradients "
-                 "need kernel B2, the attention backward)")
 
 
 # ---------------------------------------------------------------------------
@@ -168,6 +169,10 @@ def embed_tokens(params, cfg: ViTConfig, x, hooks: HookRuntime):
         cls = params.cls_token.to(embed.dtype).expand(B, 1, cfg.d_model)
         embed = torch.cat([cls, embed], dim=1)
     W_pos = params.pos_embed.W_pos
+    if not torch.is_grad_enabled():
+        # the expanded view is cached: without gradients, no view of a
+        # parameter may carry requires_grad out of the forward
+        W_pos = W_pos.detach()
     pos = hooks("hook_pos_embed", W_pos[None].expand(B, *W_pos.shape))
     residual = embed + pos
     # The reference discards this hook's return value: cached, not editable.
@@ -186,14 +191,13 @@ def vit_forward(params, cfg: ViTConfig, x, hooks: HookRuntime = NULL_HOOKS,
     ``stop_at_layer`` (exclusive, negative indices allowed) returns the
     residual stream entering that block.  ``start_at_layer`` treats ``x`` as
     the residual stream ``[B, T, d_model]`` entering that block and runs
-    only the rest."""
-    if dropout_key is not None:
-        raise NotImplementedError(
-            "train-mode dropout is not ported yet (ROADMAP queue A, item 13: "
-            "supervised trainer)")
+    only the rest.  ``dropout_key``, a ``torch.Generator`` on x's device,
+    enables train-mode dropout in every block (the JAX package's name for
+    its PRNG key); None runs the eval-mode forward."""
     residual = x if start_at_layer else embed_tokens(params, cfg, x, hooks)
     for l in range(cfg.n_layers)[start_at_layer:stop_at_layer]:
-        residual = params.blocks[l](residual, hooks, f"blocks.{l}")
+        residual = params.blocks[l](residual, hooks, f"blocks.{l}",
+                                    dropout_key=dropout_key)
     if stop_at_layer is not None:
         return residual
 
@@ -266,7 +270,6 @@ class HookedViT(nn.Module):
                            dropout_key=dropout_key)
 
     # -- cached forward --------------------------------------------------
-    @torch.inference_mode()
     def run_with_cache(self, x, names_filter: NamesFilter = None,
                        return_cache_object: bool = False,
                        stop_at_layer: Optional[int] = None,
@@ -278,20 +281,30 @@ class HookedViT(nn.Module):
         """Forward that also returns ``{hook name: activation}`` for the hook
         points ``names_filter`` selects, in firing order.
 
+        ``incl_bwd=True`` also caches, for every cached hook point that
+        fired, the gradient of the loss there under ``{name}_grad``, after
+        the activations and in reverse firing order; ``loss_fn(out) ->
+        scalar`` is the loss (default ``out.sum()``), and a point the loss
+        does not reach gets zeros.  ``bwd_hooks`` are gradient editors
+        ``(name_or_pred, f(grad, hook) -> grad)`` applied to the gradient
+        flowing upstream; a point's cached gradient is the unedited one.
+        Only these calls record an autograd graph; the rest run in inference
+        mode.  Parameter gradients are not computed.
+
         Unlike the JAX package, the default is a plain dict:
         ``return_cache_object=True`` (ActivationCache) waits for ROADMAP
-        queue A, item 11, as do ``incl_bwd``, ``bwd_hooks`` and
-        ``loss_fn``."""
-        if incl_bwd or bwd_hooks or loss_fn is not None:
-            raise NotImplementedError(f"incl_bwd/bwd_hooks/loss_fn {_NO_GRADIENTS}")
+        queue A, item 11."""
         if return_cache_object:
             raise NotImplementedError(
                 "ActivationCache is not ported yet (ROADMAP queue A, item 11); "
                 "pass return_cache_object=False for a dict")
         names = self._resolve_names(names_filter, stop_at_layer)
-        hooks = HookRuntime(names_filter=names, fwd_hooks=fwd_hooks)
-        out = vit_forward(self, self.cfg, x, hooks, stop_at_layer)
-        cache = dict(hooks.cache)
+        cfg = self.cfg
+        traced = grad_cached_traced(
+            lambda p, x, rt: vit_forward(p, cfg, x, rt, stop_at_layer), names,
+            fwd_hooks=fwd_hooks, bwd_hooks=bwd_hooks, loss_fn=loss_fn,
+            incl_bwd=incl_bwd)
+        out, cache = traced(self, x)
         if remove_batch_dim:
             batch = next(iter(cache.values())).shape[0] if cache else 1
             if batch != 1:

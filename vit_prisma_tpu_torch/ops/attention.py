@@ -1,14 +1,18 @@
 """Attention-mix kernels (PyTorch port of ``vit_prisma_tpu/ops/attention.py``).
 
-:func:`attention_mix_tnh` is the forward of kernel B1: per-head
-``softmax(q kᵀ) v`` over token-major ``[B, T, N·H]`` tensors with a
+:func:`attention_mix_tnh` is kernel B1 with kernel B2 as its backward: per
+head ``softmax(q kᵀ) v`` over token-major ``[B, T, N·H]`` tensors with a
 pre-scaled q, float32 scores and softmax, p rounded to the input dtype before
-the PV product, and an optional causal mask.  On a CUDA tensor it launches
-the hand-written kernel in ``csrc/attention_mix_tnh.cu``; on a CPU tensor it
-runs :func:`attention_mix_tnh_reference`, the plain PyTorch version.
+the PV product, and an optional causal mask.  It is a
+``torch.autograd.Function``: on CUDA tensors the forward launches
+``csrc/attention_mix_tnh.cu`` and the backward ``csrc/attention_mix_tnh_bwd.cu``
+(:func:`attention_mix_tnh_bwd`); on CPU tensors they run the plain versions
+:func:`attention_mix_tnh_reference` and
+:func:`attention_mix_tnh_bwd_reference`, so CPU gradients take the kernel's
+rounding points too.
 
-Not ported yet: the backward (B2), the tiled flash kernel for long token axes
-(B13), and the JAX package's two kernels without a caller on the main path,
+Not ported yet: the tiled flash kernel for long token axes (B13), and the
+JAX package's two kernels without a caller on the main path,
 ``attention_mix`` and ``fused_attention_block`` (ROADMAP queue B).
 """
 
@@ -38,6 +42,37 @@ def mix_tnh_fits_smem(T: int, H: int) -> bool:
     return H <= MAX_HEAD_DIM and mix_tnh_smem_bytes(T, H) <= _MAX_SMEM_BYTES
 
 
+# Must match rows_smem_bytes(), cols_smem_bytes() and kShapes in
+# csrc/attention_mix_tnh_bwd.cu.
+_BWD_SHAPES = ((8, 4), (4, 4), (8, 1), (4, 1), (2, 1), (1, 1))
+
+
+def mix_tnh_bwd_smem_bytes(T: int, H: int, warps: int, rows: int = 1):
+    """Shared memory of B2's two passes for one (batch, head) at T tokens,
+    ``warps`` warps a block and ``rows`` rows (or keys) a warp: the rows
+    pass holds float32 K (rows padded as in B1) and V transposed, plus per
+    warp ``rows`` q, dz, p and dp rows; the columns pass holds Q and dZ
+    (padded where H is a multiple of 4), every row's m, l and D, and per
+    warp ``rows`` k and v rows and 64 ``rows`` floats."""
+    h4 = -(-H // 4) * 4
+    rows_pass = 4 * (T * (h4 + 4) + T * H + warps * rows * (2 * h4 + 2 * T))
+    stride = h4 + (4 if H % 4 == 0 else 0)
+    cols_pass = 4 * (2 * T * stride + 3 * T + warps * rows * (2 * h4 + 64))
+    return rows_pass, cols_pass
+
+
+def mix_tnh_bwd_fits_smem(T: int, H: int) -> bool:
+    """Whether B2 takes a head of width H at T tokens: where B1 does, since
+    each pass then fits at one of its shapes (at 4 warps of one row the
+    rows pass takes B1's bytes exactly), so a forward that ran B1 always
+    has a backward; the tests hold the two gates equal at every H."""
+    if not mix_tnh_fits_smem(T, H):
+        return False
+    sizes = [mix_tnh_bwd_smem_bytes(T, H, w, r) for w, r in _BWD_SHAPES]
+    return (any(r <= _MAX_SMEM_BYTES for r, _ in sizes)
+            and any(c <= _MAX_SMEM_BYTES for _, c in sizes))
+
+
 def attention_mix_tnh_reference(q, k, v, n_heads: int, causal: bool = False):
     """Plain PyTorch version of the mix, with the kernel's float32 and cast
     points: the tests use it as the oracle, and the wrapper runs it for CPU
@@ -57,20 +92,55 @@ def attention_mix_tnh_reference(q, k, v, n_heads: int, causal: bool = False):
     return z.to(q.dtype).reshape(B, T, NH)
 
 
+def attention_mix_tnh_bwd_reference(q, k, v, dz, n_heads: int,
+                                    causal: bool = False):
+    """Plain PyTorch version of B2, the mix's VJP, with the Pallas kernel's
+    float32 and cast points (not those of the JAX einsum twin, float32
+    throughout): p recomputed in float32, ``ds = p (dp - rowsum(dp p))``
+    rounded to q's dtype, ``dv = pcᵀ dz`` with p rounded to v's dtype, each
+    gradient in its input's dtype.  Returns ``(dq, dk, dv)``."""
+    B, T, NH = q.shape
+    H = NH // n_heads
+    heads = lambda x: x.reshape(B, T, n_heads, H).float()
+    qf, kf, vf, dzf = heads(q), heads(k), heads(v), heads(dz)
+    s = torch.einsum("bqnh,bknh->bnqk", qf, kf)
+    if causal:
+        keep = torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~keep, float("-inf"))
+    s = s - s.amax(dim=-1, keepdim=True)
+    e = s.exp()
+    p = e / e.sum(dim=-1, keepdim=True)
+    dp = torch.einsum("bqnh,bknh->bnqk", dzf, vf)
+    ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True))).to(q.dtype).float()
+    pc = p.to(v.dtype).float()
+    dq = torch.einsum("bnqk,bknh->bqnh", ds, kf)
+    dk = torch.einsum("bnqk,bqnh->bknh", ds, qf)
+    dv = torch.einsum("bnqk,bqnh->bknh", pc, dzf)
+    flat = lambda x, ref: x.reshape(B, T, NH).to(ref.dtype)
+    return flat(dq, q), flat(dk, k), flat(dv, v)
+
+
+def _check_cuda(what, *xs):
+    """The kernels take contiguous float32 or bfloat16 tensors, all of one
+    dtype, on one CUDA device."""
+    q = xs[0]
+    if not (q.is_cuda and all(x.device == q.device for x in xs)):
+        raise ValueError(f"{what}: inputs must be on one CUDA device, got "
+                         f"{[str(x.device) for x in xs]}")
+    if any(x.dtype != q.dtype for x in xs) or q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{what}: inputs must all be float32 or all "
+                        f"bfloat16, got {[x.dtype for x in xs]}")
+    if not all(x.is_contiguous() for x in xs):
+        raise ValueError(f"{what}: inputs must be contiguous")
+    if q.shape[0] > 65535:
+        raise ValueError(f"{what}: batch {q.shape[0]} exceeds the grid limit "
+                         "of 65535")
+
+
 def _launch(q, k, v, n_heads: int, causal: bool):
     """Run the CUDA kernel on PyTorch's current stream."""
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError("attention_mix_tnh: q, k and v must be on one CUDA "
-                         f"device, got {q.device}, {k.device}, {v.device}")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODES:
-        raise TypeError("attention_mix_tnh: q, k and v must all be float32 or "
-                        f"all bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("attention_mix_tnh: q, k and v must be contiguous")
+    _check_cuda("attention_mix_tnh", q, k, v)
     B, T, NH = q.shape
-    if B > 65535:
-        raise ValueError(f"attention_mix_tnh: batch {B} exceeds the grid "
-                         "limit of 65535")
     lib = _build.load_library()
     z = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device)
@@ -83,43 +153,89 @@ def _launch(q, k, v, n_heads: int, causal: bool):
     return z
 
 
+def _launch_bwd(q, k, v, dz, n_heads: int, causal: bool):
+    """Run B2's two passes on PyTorch's current stream."""
+    _check_cuda("attention_mix_tnh_bwd", q, k, v, dz)
+    B, T, NH = q.shape
+    lib = _build.load_library()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    # each row's m, l and D, from the rows pass to the columns pass
+    stats = torch.empty(B, n_heads, 3, T, dtype=torch.float32, device=q.device)
+    rc = lib.attention_mix_tnh_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dz.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), B, T, n_heads,
+        NH // n_heads, int(causal), _DTYPE_CODES[q.dtype], q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, rc, "attention_mix_tnh_bwd")
+    attention_mix_tnh_bwd.launches += 1
+    return dq, dk, dv
+
+
+def _check_shapes(what, q, *others, n_heads: int):
+    if q.ndim != 3 or any(x.shape != q.shape for x in others):
+        raise ValueError(f"{what}: inputs must share one [B, T, N*H] shape, "
+                         f"got {[tuple(x.shape) for x in (q, *others)]}")
+    B, T, NH = q.shape
+    if NH % n_heads:
+        raise ValueError(f"{what}: N*H={NH} is not a multiple of "
+                         f"n_heads={n_heads}")
+    return T, NH // n_heads
+
+
+def attention_mix_tnh_bwd(q, k, v, dz, n_heads: int, causal: bool = False):
+    """Kernel B2, the mix's VJP: ``(dq, dk, dv)`` for the cotangent ``dz``
+    of ``attention_mix_tnh(q, k, v)``.  CUDA tensors launch the hand-written
+    kernel and add one to ``attention_mix_tnh_bwd.launches``; CPU tensors run
+    the plain version.  It takes every T and H that B1 takes; past them it
+    raises ``NotImplementedError``, naming the flash kernel (B13)."""
+    T, H = _check_shapes("attention_mix_tnh_bwd", q, k, v, dz, n_heads=n_heads)
+    if not mix_tnh_bwd_fits_smem(T, H):
+        raise NotImplementedError(
+            f"attention_mix_tnh_bwd: T={T}, H={H} does not fit the kernel's "
+            "shared memory; long token axes need the tiled flash kernel, "
+            "which is not ported yet (ROADMAP queue B, B13)")
+    if q.device.type == "cpu":
+        return attention_mix_tnh_bwd_reference(q, k, v, dz, n_heads, causal)
+    return _launch_bwd(q, k, v, dz, n_heads, causal)
+
+
+attention_mix_tnh_bwd.launches = 0
+
+
 class _MixTNH(torch.autograd.Function):
+    """B1 forward, B2 backward (the plain versions on CPU tensors)."""
+
     @staticmethod
     def forward(ctx, q, k, v, n_heads, causal):
+        ctx.save_for_backward(q, k, v)
+        ctx.n_heads, ctx.causal = n_heads, causal
+        if q.device.type == "cpu":
+            return attention_mix_tnh_reference(q, k, v, n_heads, causal)
         return _launch(q, k, v, n_heads, causal)
 
     @staticmethod
     def backward(ctx, dz):
-        raise NotImplementedError(
-            "the attention-mix backward kernel is not ported yet (ROADMAP "
-            "queue B, B2)")
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = attention_mix_tnh_bwd(q, k, v, dz.contiguous(), ctx.n_heads,
+                                           ctx.causal)
+        return dq, dk, dv, None, None
 
 
 def attention_mix_tnh(q, k, v, n_heads: int, causal: bool = False):
     """Fused attention mix over token-major ``[B, T, N·H]`` tensors
-    (pre-scaled q) -> z ``[B, T, N·H]`` in q's dtype.
+    (pre-scaled q) -> z ``[B, T, N·H]`` in q's dtype, differentiable.
 
     CUDA tensors launch the hand-written kernel and add one to
-    ``attention_mix_tnh.launches``; CPU tensors run the plain version.  A T
-    whose keys and values do not fit the kernel's shared memory raises
-    ``NotImplementedError`` on either device: long token axes need the tiled
-    flash kernel (B13)."""
-    if q.ndim != 3 or q.shape != k.shape or q.shape != v.shape:
-        raise ValueError("attention_mix_tnh: q, k and v must share one "
-                         f"[B, T, N*H] shape, got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
-    B, T, NH = q.shape
-    if NH % n_heads:
-        raise ValueError(f"attention_mix_tnh: N*H={NH} is not a multiple of "
-                         f"n_heads={n_heads}")
-    H = NH // n_heads
+    ``attention_mix_tnh.launches`` (the backward launches B2); CPU tensors
+    run the plain versions.  A T whose keys and values do not fit the
+    kernel's shared memory raises ``NotImplementedError`` on either device:
+    long token axes need the tiled flash kernel (B13)."""
+    T, H = _check_shapes("attention_mix_tnh", q, k, v, n_heads=n_heads)
     if not mix_tnh_fits_smem(T, H):
         raise NotImplementedError(
             f"attention_mix_tnh: T={T}, H={H} does not fit the kernel's "
             "shared memory; long token axes need the tiled flash kernel, "
             "which is not ported yet (ROADMAP queue B, B13)")
-    if q.device.type == "cpu":
-        return attention_mix_tnh_reference(q, k, v, n_heads, causal)
     return _MixTNH.apply(q, k, v, n_heads, causal)
 
 

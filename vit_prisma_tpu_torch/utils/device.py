@@ -1,6 +1,6 @@
 """The device the port's entry points build on.
 
-Every entry point that takes ``device=None`` (``HookedViT``,
+Every entry point that takes ``device=None`` (``HookedViT``, ``HookedSAEViT``,
 ``init_sae_params``, ``SparseAutoencoder``, ``init_train_state``,
 ``init_sweep_state``, the trainers without a store, ``sae_params_from_jax``,
 ``train_state_from_jax``) resolves it here: the CUDA card, or an error when
