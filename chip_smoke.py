@@ -98,7 +98,30 @@ Phases, each printing JSON lines with the card's name and power limit:
     CPU from one state: gradients, parameters and AdamW moments;
 20. sae_attribution: demo 07 at B/32 full width, an error-term ReLU SAE
     spliced at layer 9: the clean forward kept, feature gradients against
-    the CPU, exact launches.
+    the CPU, exact launches;
+21. ln_gemm kernels: B14 (``ln_matmul``) against its plain version at B/32
+    serving's QKV and MLP-in shapes in both dtypes and at CLIP L/14-336's
+    MLP-in and (unfolded, as LNPre passes it) QKV in bfloat16, beside the
+    unfused ``F.layer_norm`` and ``torch.matmul``;
+22. flash kernels: B13's forward and both backward passes
+    (``flash_attention_padded``, ``_bwd_dkv``, ``_bwd_dq``) against their
+    plain versions at CLIP L/14-336's serving and attribution shapes and
+    causal, beside ``scaled_dot_product_attention``'s forward and backward;
+23. serve_ln_fused: phase 4's server with ``use_fused_ln_gemm``, the eighth
+    main path: exact launches (B14 24, B1 12 a forward), the answers
+    against the unfused forward, served images per second of both in turns
+    and ``torch.profiler``'s breakdown of one forward each;
+24. serve_l14_336: CLIP ViT-L/14 at 336 pixels (T = 577), bf16, fused LN,
+    ``CompiledForward`` at batch 64, the ninth main path: exact launches
+    (B13 24, B14 24, B1 0 a forward), images per second (and, in turns,
+    without the LN fusion), peak memory, ``torch.profiler``'s breakdown of
+    one batch, the cache against the einsum path, and float32 against the
+    CPU through all 24 layers;
+25. attribution_l14_336: the tenth main path, ``run_with_cache(incl_bwd=
+    True)`` over its 24 resid_post hooks, bf16, batch 32: exact launches
+    (B13 forward 24, each backward pass 23, B14 24), images per second, peak
+    memory, gradients against the einsum path, and float32 gradients
+    against the CPU at 4 layers.
 
 The line before the last lists every kernel with its launches on its main
 path, its error, times, bound and library time.  It imports no JAX,
@@ -410,6 +433,59 @@ TRAIN_CHECK_TOL = {"param_max_lr": 6.0, "param_close_lr": 1e-2, "param_far_share
 SAE_ATTRIB_BATCH = 16
 SPLICE_REL = 1e-4
 
+LN_SOURCE = "vit_prisma_tpu_torch/csrc/ln_matmul.cu"
+LN_REPLACES = "vit_prisma_tpu/ops/ln_matmul.py:81"
+FLASH_SOURCES = {"flash_attention_padded": "vit_prisma_tpu_torch/csrc/flash_attention_fwd.cu",
+                 "flash_attention_padded_bwd_dkv": "vit_prisma_tpu_torch/csrc/flash_attention_bwd.cu",
+                 "flash_attention_padded_bwd_dq": "vit_prisma_tpu_torch/csrc/flash_attention_bwd.cu"}
+# The library's kernels, reached from these lines: the forward from
+# _flash_call, both backward passes from _flash_bwd_sharded (the VJP).
+FLASH_REPLACES = {"flash_attention_padded": "vit_prisma_tpu/ops/attention.py:546",
+                  "flash_attention_padded_bwd_dkv": "vit_prisma_tpu/ops/attention.py:631",
+                  "flash_attention_padded_bwd_dq": "vit_prisma_tpu/ops/attention.py:631"}
+# B14 against its plain version: name, R, S, D, C, dtypes.  B/32 at serving
+# batch 256 (R = 256 x 50), QKV and MLP-in; CLIP L/14-336 at batch 64 (R =
+# 64 x 577, ragged against the 128-row tile), MLP-in, and its QKV with W
+# unfolded as an LNPre model passes it.
+LN_SHAPES = [("b32_qkv", 12_800, 3, 768, 768, (torch.bfloat16, torch.float32)),
+             ("b32_mlp_in", 12_800, 1, 768, 3072, (torch.bfloat16, torch.float32)),
+             ("l14_336_mlp_in", 36_928, 1, 1024, 4096, (torch.bfloat16,)),
+             ("l14_336_qkv_lnpre", 36_928, 3, 1024, 1024, (torch.bfloat16,))]
+# Kernel against plain, relative to max(1, absmax): float32 differs by the
+# LayerNorm's and the GEMM's summation orders only; bfloat16 rounds xn and
+# the output after float32 sums taken in other orders, so an entry may land
+# one or two bf16 ulps apart (2^-8 relative each).
+LN_REL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
+# B13 against its plain versions: name, B, N, T, H, causal, dtypes.  CLIP
+# L/14-336 at serving batch 64 and at attribution batch 32 (T = 577, padded
+# to Tp = 640), and a causal stack of the same width.
+FLASH_SHAPES = [("l14_336_serve", 64, 16, 577, 64, False, (torch.bfloat16, torch.float32)),
+                ("l14_336_attrib", 32, 16, 577, 64, False, (torch.bfloat16,)),
+                ("causal", 8, 16, 577, 64, True, (torch.bfloat16, torch.float32))]
+# z and each gradient within rel of max(1, its absmax): float32 differs in
+# summation order (and the online softmax's rescaling) only; bfloat16 rounds
+# p (and ds) to bf16 after float32 sums taken in other orders, as B1 and B2.
+FLASH_REL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# serve_ln_fused: phase 4's server with use_fused_ln_gemm (B/32 bf16, batch
+# 256, the same three requests); logits and cache against the unfused
+# forward within SLICE_BF16_REL (the fold rounds ln_w W to bf16, and xn
+# rounds before the GEMM where the unfused LayerNorm rounds its affine
+# output).
+L336_MODEL = "openai/clip-vit-large-patch14-336"
+L336_BATCH = 64
+L336_REQUESTS = (64, 70)
+L336_TIMED = 3
+# CLIP L/14-336, bf16, against the einsum path (no flash, no LN fusion): as
+# SLICE_BF16_REL, carried through 24 layers instead of 12.
+L336_BF16_REL = 2 * SLICE_BF16_REL
+# Card against CPU in float32 at batch 1 through all 24 layers (GEMM and
+# attention summation order, both ways): SLICE_F32_REL.
+L336_ATTRIB_BATCH = 32
+L336_GRAD_F32_LAYERS = 4
+L336_GRAD_F32_BATCH = 2
+# bf16 gradients against the einsum path's: GRAD_BF16_REL over twice the
+# layers.
+L336_GRAD_BF16_REL = 2 * GRAD_BF16_REL
 
 def RESID_POST(name: str) -> bool:
     return "resid_post" in name
@@ -1403,17 +1479,19 @@ def sweep_config():
 
 def _sae_counters():
     """Every kernel wrapper of the port, by name, for its launch count."""
-    from vit_prisma_tpu_torch.ops.attention import attention_mix_tnh, attention_mix_tnh_bwd
+    from vit_prisma_tpu_torch.ops import attention as A
+    from vit_prisma_tpu_torch.ops.ln_matmul import ln_matmul
     from vit_prisma_tpu_torch.ops.opt_step import adam_update
     from vit_prisma_tpu_torch.ops import sae_step as S
     from vit_prisma_tpu_torch.ops.shuffle import take_rows
     from vit_prisma_tpu_torch.ops.topk import kth_value
     return {f.__name__: f for f in (
-        attention_mix_tnh, attention_mix_tnh_bwd, take_rows, S.sae_fused_forward,
+        A.attention_mix_tnh, A.attention_mix_tnh_bwd, take_rows, S.sae_fused_forward,
         S.sae_fused_backward,
         S.sae_fused_backward_stored, adam_update, S.sae_fused_forward_topk,
         S.sae_fused_backward_topk, kth_value, S.sae_gated_fused_forward,
-        S.sae_gated_fused_backward)}
+        S.sae_gated_fused_backward, ln_matmul, A.flash_attention_padded,
+        A.flash_attention_padded_bwd_dkv, A.flash_attention_padded_bwd_dq)}
 
 
 def _zero_counts(counters):
@@ -2243,6 +2321,399 @@ def phase_sae_attribution(info):
     return launches
 
 
+def phase_ln_gemm_kernels(info):
+    """B14 against its plain version on the card, with both times, the
+    bound, and the library's unfused pair (``F.layer_norm`` without affine,
+    then ``torch.matmul`` and the bias) on the same operands."""
+    import torch.nn.functional as F
+    from vit_prisma_tpu_torch.ops.ln_matmul import ln_matmul, ln_matmul_reference
+    g = torch.Generator(device="cuda").manual_seed(11)
+    results = {}
+    for name, R, S, D, C, dtypes in LN_SHAPES:
+        for dtype in dtypes:
+            x = (torch.randn(R, D, generator=g, device="cuda") * 2.0 + 0.5).to(dtype)
+            W = (torch.randn(S, D, C, generator=g, device="cuda") * D ** -0.5).to(dtype)
+            b = (torch.randn(S, C, generator=g, device="cuda") * 0.02).to(dtype)
+            got = ln_matmul(x, W, b)
+            want = ln_matmul_reference(x, W, b)
+            torch.cuda.synchronize()
+            if got.dtype != dtype or got.shape != (S, R, C):
+                raise AssertionError(f"ln_matmul {name}: {got.dtype} {tuple(got.shape)}")
+            err = check_close(f"ln_matmul {name} {dtype}", got, want, rel_atol(LN_REL[dtype], want))
+            us = cuda_us(lambda: ln_matmul(x, W, b))
+            plain_us = cuda_us(lambda: ln_matmul_reference(x, W, b), iters=5)
+            library_us = cuda_us(lambda: torch.matmul(F.layer_norm(x, (D,)), W) + b[:, None])
+            gemm = "bf16_tensor" if dtype == torch.bfloat16 else "fp32"
+            rec = {"phase": "ln_gemm_kernel", **info, "kernel": "ln_matmul", "shape": name,
+                   "R": R, "S": S, "D": D, "C": C, "dtype": str(dtype).split(".")[1],
+                   "max_abs_err": err, "rel_tol": LN_REL[dtype],
+                   "us": us, "plain_us": plain_us, "library_us": library_us,
+                   "TFLOP_s": 2 * S * R * D * C / (us * 1e-6) / 1e12,
+                   # x, W and b read once, the [S, R, C] output written once;
+                   # the GEMMs, and ~6 float32 operations an element of x
+                   # for the LayerNorm
+                   **bound((R * D + S * D * C + S * C + S * R * C) * x.element_size(),
+                           [(gemm, 2 * S * R * D * C), ("fp32", 6 * R * D)])}
+            results[(name, dtype)] = rec
+            emit(rec)
+            del x, W, b, got, want
+    return results
+
+
+def _flash_inputs(g, B, N, T, H, dtype):
+    """q (pre-scaled), k, v and a cotangent, [B, N, Tp, H] with zero padding
+    rows past T, and the segment ids (1 real, 2 padding)."""
+    Tp = -(-T // 128) * 128
+
+    def rnd(scale=1.0):
+        a = torch.zeros(B, N, Tp, H, device="cuda")
+        a[:, :, :T] = torch.randn(B, N, T, H, generator=g, device="cuda") * scale
+        return a.to(dtype)
+    q, k, v = rnd(H ** -0.5), rnd(), rnd()
+    dz = torch.randn(B, N, Tp, H, generator=g, device="cuda").to(dtype)
+    seg = torch.where(torch.arange(Tp, device="cuda") < T, 1, 2).to(torch.int32)
+    return q, k, v, dz, seg.expand(B, Tp).contiguous()
+
+
+def phase_flash_kernels(info):
+    """B13's forward and both backward passes against their plain versions
+    on the card, with times, bounds, and ``scaled_dot_product_attention``'s
+    forward and backward under the same mask."""
+    from vit_prisma_tpu_torch.ops import attention as A
+    g = torch.Generator(device="cuda").manual_seed(12)
+    results = {}
+    for name, B, N, T, H, causal, dtypes in FLASH_SHAPES:
+        for dtype in dtypes:
+            q, k, v, dz, seg = _flash_inputs(g, B, N, T, H, dtype)
+            Tp = q.shape[2]
+            z, lse = A._launch_flash(q, k, v, seg, causal)
+            want_z = A.flash_attention_padded_reference(q, k, v, seg, causal)
+            want_lse = A.flash_lse_reference(q, k, seg, causal)
+            dsum = A.flash_dsum(want_z, dz)
+            args = (q, k, v, seg, dz, want_lse, dsum, causal)
+            dk, dv = A._launch_flash_bwd(0, *args)
+            dq = A._launch_flash_bwd(1, *args)
+            want_dk, want_dv = A.flash_attention_padded_bwd_dkv_reference(*args)
+            want_dq = A.flash_attention_padded_bwd_dq_reference(*args)
+            torch.cuda.synchronize()
+            rel = FLASH_REL[dtype]
+            if not torch.isfinite(z).all():  # the padding rows too
+                raise AssertionError(f"flash {name} {dtype}: non-finite z")
+            errs = {"z": check_close(f"flash {name} {dtype} z", z, want_z, rel_atol(rel, want_z)),
+                    "lse": check_close(f"flash {name} {dtype} lse", lse, want_lse,
+                                       rel_atol(1e-5, want_lse))}
+            for which, a, w in (("dq", dq, want_dq), ("dk", dk, want_dk), ("dv", dv, want_dv)):
+                if a.dtype != dtype or a.shape != q.shape:
+                    raise AssertionError(f"flash {name} {which}: {a.dtype} {tuple(a.shape)}")
+                errs[which] = check_close(f"flash {name} {dtype} {which}", a, w, rel_atol(rel, w))
+            timed = {"fwd": (lambda: A._launch_flash(q, k, v, seg, causal),
+                             lambda: A.flash_attention_padded_reference(q, k, v, seg, causal)),
+                     "bwd_dkv": (lambda: A._launch_flash_bwd(0, *args),
+                                 lambda: A.flash_attention_padded_bwd_dkv_reference(*args)),
+                     "bwd_dq": (lambda: A._launch_flash_bwd(1, *args),
+                                lambda: A.flash_attention_padded_bwd_dq_reference(*args))}
+            us = {k_: cuda_us(f) for k_, (f, _) in timed.items()}
+            plain_us = {k_: cuda_us(p, iters=3, warmup=1) for k_, (_, p) in timed.items()}
+            # the library: SDPA under the same boolean mask, forward alone
+            # and its backward alone through a graph kept for every call
+            keep = seg[:, None, :, None] == seg[:, None, None, :]
+            if causal:
+                keep = keep & torch.ones(Tp, Tp, dtype=torch.bool, device="cuda").tril()
+            sdpa = lambda *a: torch.nn.functional.scaled_dot_product_attention(
+                *a, attn_mask=keep, scale=1.0)
+            library_fwd_us = cuda_us(lambda: sdpa(q, k, v))
+            leaves = [a.clone().requires_grad_(True) for a in (q, k, v)]
+            out = sdpa(*leaves)
+            library_bwd_us = cuda_us(lambda: torch.autograd.grad(out, leaves, dz, retain_graph=True))
+            del out, leaves, keep
+            # pairs each row attends: real rows the real keys, padding rows
+            # the padding keys (causal: those not after the row)
+            P = Tp - T
+            pairs = T * (T + 1) // 2 + P * (P + 1) // 2 if causal else T * T + P * P
+            gemm = "bf16_tensor" if dtype == torch.bfloat16 else "fp32"
+            el = q.numel() * q.element_size()
+            vec = B * N * Tp * 4
+            bounds = {"fwd": bound(4 * el + vec + B * Tp * 4,
+                                   [(gemm, 4 * B * N * pairs * H), ("fp32", 5 * B * N * pairs)]),
+                      # s, p^T dZ, dp^T, ds^T Q: four products; six tensors
+                      "bwd_dkv": bound(6 * el + 2 * vec + B * Tp * 4,
+                                       [(gemm, 8 * B * N * pairs * H), ("fp32", 6 * B * N * pairs)]),
+                      # s, dp, ds K: three products; five tensors
+                      "bwd_dq": bound(5 * el + 2 * vec + B * Tp * 4,
+                                      [(gemm, 6 * B * N * pairs * H), ("fp32", 5 * B * N * pairs)])}
+            rec = {"phase": "flash_kernel", **info, "kernel": "flash_attention_padded",
+                   "shape": name, "B": B, "N": N, "T": T, "Tp": Tp, "H": H, "causal": causal,
+                   "dtype": str(dtype).split(".")[1], "max_abs_err": errs, "rel_tol": rel,
+                   "us": us, "plain_us": plain_us, "library_us": {
+                       "fwd": library_fwd_us, "bwd": library_bwd_us},
+                   "bound": bounds,
+                   "TFLOP_s": {k_: (4 if k_ == "fwd" else 8 if k_ == "bwd_dkv" else 6)
+                               * B * N * pairs * H / (u * 1e-6) / 1e12 for k_, u in us.items()}}
+            results[(name, dtype)] = rec
+            emit(rec)
+            del q, k, v, dz, seg, z, lse, dq, dk, dv, want_z, want_dq, want_dk, want_dv
+    return results
+
+
+def phase_serve_ln_fused(info):
+    """Phase 4's server with use_fused_ln_gemm: B14 in every block's ln1 ->
+    QKV and ln2 -> W_in, B1 in every block; against the unfused forward, and
+    served images per second of both, in turns."""
+    from vit_prisma_tpu_torch import CompiledForward, HookedViT, get_model_config
+    counters = _sae_counters()
+    cfg = get_model_config("openai/clip-vit-base-patch32", dtype="bfloat16")
+    unfused = HookedViT(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    fused = HookedViT(cfg.replace(use_fused_ln_gemm=True), device="cuda")
+    fused.load_state_dict(unfused.state_dict())
+    servers = {"fused": CompiledForward(fused, batch_size=SERVE_BATCH, names_filter=RESID_POST),
+               "unfused": CompiledForward(unfused, batch_size=SERVE_BATCH,
+                                          names_filter=RESID_POST)}
+    g = torch.Generator().manual_seed(2)
+    requests = [torch.randn(n, 3, 224, 224, generator=g) for n in SERVE_REQUESTS]
+
+    # The main path, with every count set to 0 just before it.
+    _zero_counts(counters)
+    answers = [servers["fused"](r) for r in requests]
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items()}
+    n_batches = sum(-(-n // SERVE_BATCH) for n in SERVE_REQUESTS)
+    expected = dict.fromkeys(counters, 0)
+    expected.update(ln_matmul=2 * cfg.n_layers * n_batches,
+                    attention_mix_tnh=cfg.n_layers * n_batches)
+    if launches != expected:
+        raise AssertionError(f"serve_ln_fused launches {launches}, expected {expected}")
+    errs = {}
+    for i, (n, (out, cache)) in enumerate(zip(SERVE_REQUESTS, answers)):
+        want_out, want = servers["unfused"](requests[i])
+        if tuple(out.shape) != (n, cfg.n_classes) or list(cache) != list(want):
+            raise AssertionError(f"request {n}: out {tuple(out.shape)}, keys {list(cache)}")
+        errs[n] = {"logits": check_close(f"fused ln request {n} logits", out, want_out,
+                                         rel_atol(SLICE_BF16_REL, want_out)),
+                   "cache": max(check_close(f"fused ln request {n} {k}", cache[k], want[k],
+                                            rel_atol(SLICE_BF16_REL, want[k])) for k in want)}
+
+    batch = torch.randn(8 * SERVE_BATCH, 3, 224, 224, device="cuda", dtype=torch.bfloat16)
+    runs = {"fused": [], "unfused": []}
+    for which in ("fused", "unfused", "unfused", "fused"):
+        servers[which](batch)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            servers[which](batch)
+        torch.cuda.synchronize()
+        runs[which].append(3 * batch.shape[0] / (time.perf_counter() - t0))
+    one = batch[:SERVE_BATCH]
+    profiles = {which: _profile(lambda: servers[which](one)) for which in ("fused", "unfused")}
+    emit({"phase": "serve_ln_fused", **info, "model": cfg.model_name, "dtype": "bfloat16",
+          "batch_size": SERVE_BATCH, "requests": list(SERVE_REQUESTS), "launches": launches,
+          "launches_per_forward": {k: v / n_batches for k, v in launches.items()},
+          "vs_unfused_max_abs_err": errs, "rel_tol": SLICE_BF16_REL,
+          "img_per_s_fused": runs["fused"], "img_per_s_unfused": runs["unfused"],
+          "profile_of_one_forward": profiles})
+    del servers, fused, unfused
+    return launches
+
+
+def _l336_model(dtype="bfloat16", device="cuda", **overrides):
+    from vit_prisma_tpu_torch import HookedViT, get_model_config
+    cfg = get_model_config(L336_MODEL, dtype=dtype, use_fused_ln_gemm=True, **overrides)
+    return HookedViT(cfg, device=device, generator=torch.Generator().manual_seed(0))
+
+
+def _l336_images(n, seed, device="cuda", dtype=torch.float32):
+    x = np.random.default_rng(seed).standard_normal((n, 3, 336, 336), dtype=np.float32)
+    return torch.from_numpy(x).to(device=device, dtype=dtype)
+
+
+def phase_serve_l14_336(info):
+    """CLIP ViT-L/14 at 336 pixels (T = 577, past B1's gate), bf16, with
+    use_fused_ln_gemm: a CompiledForward at batch 64 through B13 in every
+    block's attention and B14 in every block's ln2 -> W_in; against the
+    einsum path in bf16 and the CPU in float32."""
+    from vit_prisma_tpu_torch import CompiledForward
+    counters = _sae_counters()
+    model = _l336_model()
+    cfg = model.cfg
+    server = CompiledForward(model, batch_size=L336_BATCH, names_filter=RESID_POST)
+    requests = [_l336_images(n, 20 + i, "cpu") for i, n in enumerate(L336_REQUESTS)]
+    release()
+    torch.cuda.reset_peak_memory_stats()
+
+    # The main path, with every count set to 0 just before it.
+    _zero_counts(counters)
+    answers = [server(r) for r in requests]
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items()}
+    n_batches = sum(-(-n // L336_BATCH) for n in L336_REQUESTS)
+    expected = dict.fromkeys(counters, 0)
+    expected.update(flash_attention_padded=cfg.n_layers * n_batches,
+                    ln_matmul=cfg.n_layers * n_batches)
+    if launches != expected:
+        raise AssertionError(f"serve_l14_336 launches {launches}, expected {expected}")
+    for n, (out, cache) in zip(L336_REQUESTS, answers):
+        if tuple(out.shape) != (n, cfg.n_classes) or len(cache) != cfg.n_layers:
+            raise AssertionError(f"request {n}: out {tuple(out.shape)}, {len(cache)} entries")
+        for k, a in cache.items():
+            if tuple(a.shape) != (n, cfg.n_tokens, cfg.d_model) or not torch.isfinite(a).all():
+                raise AssertionError(f"request {n}: {k} {tuple(a.shape)}")
+    times = []
+    batch = _l336_images(L336_BATCH, 30, dtype=torch.bfloat16)
+    for _ in range(L336_TIMED + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        server(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = _profile(lambda: server(batch))
+    # the same forward without the LN fusion (B13 still), in turns
+    servers = {"fused": server, "unfused": CompiledForward(
+        _with_weights(model, use_fused_ln_gemm=False), batch_size=L336_BATCH,
+        names_filter=RESID_POST)}
+    runs = {"fused": [], "unfused": []}
+    for which in ("fused", "unfused", "unfused", "fused"):
+        servers[which](batch)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(L336_TIMED):
+            servers[which](batch)
+        torch.cuda.synchronize()
+        runs[which].append(L336_TIMED * L336_BATCH / (time.perf_counter() - t0))
+    prof_unfused = _profile(lambda: servers["unfused"](batch))
+    del servers
+
+    # bf16 against the einsum path (neither B13 nor B14)
+    plain = _with_weights(model, use_fused_attention=False, use_fused_ln_gemm=False)
+    x = requests[1][:8].cuda().bfloat16()
+    out_k, cache_k = model.run_with_cache(x, names_filter=RESID_POST)
+    out_p, cache_p = plain.run_with_cache(x, names_filter=RESID_POST)
+    bf16_errs = {"logits": check_close("l14_336 bf16 logits", out_k, out_p,
+                                       rel_atol(L336_BF16_REL, out_p))}
+    for k in cache_p:
+        bf16_errs[k] = check_close(f"l14_336 bf16 {k}", cache_k[k], cache_p[k],
+                                   rel_atol(L336_BF16_REL, cache_p[k]))
+    del plain, cache_k, cache_p
+
+    # float32, card against CPU, batch 1 through all 24 layers
+    f32_card = _l336_model("float32")
+    f32_card.load_state_dict(model.state_dict())
+    f32_cpu = _l336_model("float32", "cpu")
+    f32_cpu.load_state_dict(f32_card.state_dict())
+    xs = requests[1][:1]
+    _zero_counts(counters)
+    out_c, got = f32_card.run_with_cache(xs.cuda(), names_filter=RESID_POST)
+    torch.cuda.synchronize()
+    f32_launches = {k: f.launches for k, f in counters.items() if f.launches}
+    out_r, want = f32_cpu.run_with_cache(xs, names_filter=RESID_POST)
+    f32_errs = {"logits": check_close("l14_336 f32 logits", out_c, out_r,
+                                      rel_atol(SLICE_F32_REL, out_r))}
+    for k in want:
+        f32_errs[k] = check_close(f"l14_336 f32 {k}", got[k], want[k],
+                                  rel_atol(SLICE_F32_REL, want[k]))
+    emit({"phase": "serve_l14_336", **info, "model": L336_MODEL, "dtype": "bfloat16",
+          "n_layers": cfg.n_layers, "T": cfg.n_tokens, "batch_size": L336_BATCH,
+          "requests": list(L336_REQUESTS), "launches": launches,
+          "launches_per_forward": {k: v / n_batches for k, v in launches.items()},
+          "seconds_per_batch": times[1:], "img_per_s": [L336_BATCH / t for t in times[1:]],
+          "img_per_s_fused": runs["fused"], "img_per_s_unfused": runs["unfused"],
+          "peak_memory_GB": peak, "profile_of_one_batch": prof,
+          "profile_of_one_unfused_batch": prof_unfused,
+          "bf16_vs_einsum_max_abs_err": bf16_errs, "bf16_rel_tol": L336_BF16_REL,
+          "f32_card_vs_cpu_max_abs_err": f32_errs,
+          "absmax": {k: v.float().abs().max().item() for k, v in want.items()},
+          "f32_launches": f32_launches, "f32_rel_tol": SLICE_F32_REL})
+    del model, server, f32_card, f32_cpu
+    return launches
+
+
+def phase_attribution_l14_336(info):
+    """run_with_cache(incl_bwd=True) over CLIP L/14-336's 24 resid_post
+    hooks, bf16, batch 32, use_fused_ln_gemm: B13 forward and both backward
+    passes, B14 forward (its backward and the fold's are plain autograd)."""
+    counters = _sae_counters()
+    model = _l336_model()
+    cfg = model.cfg
+    x = _l336_images(L336_ATTRIB_BATCH, 40, dtype=torch.bfloat16)
+    release()
+    torch.cuda.reset_peak_memory_stats()
+
+    # The main path, with every count set to 0 just before it.
+    _zero_counts(counters)
+    out, cache = model.run_with_cache(x, names_filter=RESID_POST, incl_bwd=True,
+                                      loss_fn=_metric)
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items()}
+    # layer 0's attention lies upstream of every cached point (phase 17)
+    expected = dict.fromkeys(counters, 0)
+    expected.update(flash_attention_padded=cfg.n_layers,
+                    flash_attention_padded_bwd_dkv=cfg.n_layers - 1,
+                    flash_attention_padded_bwd_dq=cfg.n_layers - 1, ln_matmul=cfg.n_layers)
+    if launches != expected:
+        raise AssertionError(f"attribution_l14_336 launches {launches}, expected {expected}")
+    names = [f"blocks.{l}.hook_resid_post" for l in range(cfg.n_layers)]
+    if list(cache) != names + [n + "_grad" for n in reversed(names)]:
+        raise AssertionError(f"attribution keys {list(cache)}")
+    for k, v in cache.items():
+        if tuple(v.shape) != (L336_ATTRIB_BATCH, cfg.n_tokens, cfg.d_model) \
+                or not torch.isfinite(v).all():
+            raise AssertionError(f"{k}: {tuple(v.shape)}")
+    if not all(cache[n + "_grad"].abs().max() > 0 for n in names):
+        raise AssertionError("a resid_post gradient is all zeros")
+    times = []
+    for _ in range(GRAD_TIMED + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.run_with_cache(x, names_filter=RESID_POST, incl_bwd=True, loss_fn=_metric)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = _profile(lambda: model.run_with_cache(x, names_filter=RESID_POST, incl_bwd=True,
+                                                 loss_fn=_metric))
+
+    # bf16 against the einsum path (neither B13 nor B14)
+    plain = _with_weights(model, use_fused_attention=False, use_fused_ln_gemm=False)
+    _, cache_p = plain.run_with_cache(x, names_filter=RESID_POST, incl_bwd=True,
+                                      loss_fn=_metric)
+    bf16_errs = _cache_grad_errs(cache, cache_p, L336_GRAD_BF16_REL)
+    del plain, cache_p
+
+    # float32 on the card against the CPU, 4 layers at full width
+    f32 = dict(n_layers=L336_GRAD_F32_LAYERS)
+    card_model = _l336_model("float32", **f32)
+    cpu_model = _l336_model("float32", "cpu", **f32)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in card_model.state_dict().items()})
+    xs = _l336_images(L336_GRAD_F32_BATCH, 41, "cpu")
+    out_c, got = card_model.run_with_cache(xs.cuda(), names_filter=RESID_POST, incl_bwd=True,
+                                           loss_fn=_metric)
+    out_r, want = cpu_model.run_with_cache(xs, names_filter=RESID_POST, incl_bwd=True,
+                                           loss_fn=_metric)
+    f32_errs = {"logits": check_close("l14_336 f32 logits", out_c, out_r,
+                                      rel_atol(GRAD_F32_REL, out_r)),
+                **_cache_grad_errs(got, want, GRAD_F32_REL)}
+    emit({"phase": "attribution_l14_336", **info, "model": L336_MODEL, "dtype": "bfloat16",
+          "batch": L336_ATTRIB_BATCH, "hooks": len(names),
+          "metric": f"logit {ATTRIB_CLASSES[0]} - logit {ATTRIB_CLASSES[1]}, summed",
+          "launches": launches, "expected_launches": expected,
+          "seconds_per_call": times[1:], "img_per_s": [L336_ATTRIB_BATCH / t for t in times[1:]],
+          "peak_memory_GB": peak, "profile_of_one_call": prof,
+          "bf16_vs_einsum_max_abs_err": bf16_errs, "bf16_rel_tol": L336_GRAD_BF16_REL,
+          "grad_absmax": {k: v.abs().max().item() for k, v in cache.items()
+                          if k.endswith("_grad")},
+          "f32_card_vs_cpu_max_abs_err": f32_errs, "f32_layers": L336_GRAD_F32_LAYERS,
+          "f32_rel_tol": GRAD_F32_REL})
+    del model, card_model, cpu_model
+    return launches
+
+
+def _with_weights(model, **overrides):
+    """A HookedViT on the card with ``model``'s weights and config fields
+    overridden."""
+    from vit_prisma_tpu_torch import HookedViT
+    other = HookedViT(model.cfg.replace(**overrides), device="cuda")
+    other.load_state_dict(model.state_dict())
+    return other
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; none is available")
@@ -2287,6 +2758,15 @@ def main():
     release()
     phase_vit_train_check(info)
     phase_sae_attribution(info)
+    release()
+    ln_kernels = phase_ln_gemm_kernels(info)
+    flash_kernels = phase_flash_kernels(info)
+    release()
+    ln_launches = phase_serve_ln_fused(info)
+    release()
+    l336_launches = phase_serve_l14_336(info)
+    release()
+    l336_attrib_launches = phase_attribution_l14_336(info)
 
     def entry(name, source, replaces, launches, rec, ms_key="ms", scale=1.0):
         """One kernel's line: launches from its main path, the rest measured
@@ -2343,6 +2823,27 @@ def main():
     line.append(entry("attention_mix_tnh_bwd", GRAD_SOURCE, GRAD_REPLACES,
                       vit_train_launches["attention_mix_tnh_bwd"],
                       grad_kernels[("b32", torch.bfloat16)], "us", 1e-3))
+    # B14 at B/32's bf16 QKV shape, launches from the fused-LN serve path;
+    # B13 at CLIP L/14-336's bf16 serving shape (forward, launches from its
+    # serve path) and attribution shape (backward passes, launches from the
+    # attribution path).  No single library call computes one backward pass:
+    # SDPA's whole backward is in the flash_kernel records.
+    line.append(entry("ln_matmul", LN_SOURCE, LN_REPLACES, ln_launches["ln_matmul"],
+                      ln_kernels[("b32_qkv", torch.bfloat16)], "us", 1e-3))
+    serve_rec = flash_kernels[("l14_336_serve", torch.bfloat16)]
+    attrib_rec = flash_kernels[("l14_336_attrib", torch.bfloat16)]
+    passes = [("flash_attention_padded", serve_rec, "fwd", ("z",), l336_launches),
+              ("flash_attention_padded_bwd_dkv", attrib_rec, "bwd_dkv", ("dk", "dv"),
+               l336_attrib_launches),
+              ("flash_attention_padded_bwd_dq", attrib_rec, "bwd_dq", ("dq",),
+               l336_attrib_launches)]
+    for name, rec, key, grads, launches in passes:
+        flat = {"max_abs_err": max(rec["max_abs_err"][k] for k in grads),
+                "us": rec["us"][key], "plain_us": rec["plain_us"][key],
+                "library_us": rec["library_us"]["fwd"] if key == "fwd" else None,
+                **rec["bound"][key]}
+        line.append(entry(name, FLASH_SOURCES[name], FLASH_REPLACES[name], launches[name],
+                          flat, "us", 1e-3))
     missing = [e["name"] for e in line if not e["launches"] > 0]
     if missing:
         raise AssertionError(f"kernels not launched on their main paths: {missing}")

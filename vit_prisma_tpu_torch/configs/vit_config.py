@@ -114,7 +114,8 @@ class ViTConfig:
     # attention-internal hook is requested (models/layers.py).
     use_fused_attention: bool = True
 
-    # The ln->GEMM fusion (kernel B14) is not ported yet; True raises.
+    # Fuse ln1 -> QKV and ln2 -> W_in into the LayerNorm-prologue GEMM
+    # (kernel B14) where no LayerNorm hook is requested (models/layers.py).
     use_fused_ln_gemm: bool = False
 
     scan_blocks: str = "auto"

@@ -13,10 +13,16 @@ Numerics notes:
    (``cfg.compute_in_fp32``) and fires ``hook_scale``.
  * The softmax NaN->0 guard and the cast of ``pattern`` to the model dtype
    before ``z`` are kept.
- * Attention takes the hand-written kernel (:func:`_fused_attention`) under
-   the JAX package's gate: no attention-internal hook requested, no mask or
-   the causal marker, no split inputs, no ``use_attn_result``, and
-   ``matmul_precision == 'default'``.
+ * Attention takes the hand-written kernels under the JAX package's gate:
+   no attention-internal hook requested, no mask or the causal marker, no
+   split inputs, no ``use_attn_result``, and ``matmul_precision ==
+   'default'``.  A T that fits B1's shared memory runs the whole-T mix
+   (:func:`_fused_attention`), a longer one the tiled flash kernel B13
+   (:func:`_flash_attention_long`).
+ * With ``cfg.use_fused_ln_gemm`` the pre-LN block runs ln1 -> QKV
+   (:func:`_fused_ln_attention`, where the whole-T mix would run) and ln2 ->
+   W_in (:func:`_fused_ln_mlp`) as the LayerNorm-prologue GEMM B14, unless a
+   hook inside that LayerNorm is requested.
 """
 
 from __future__ import annotations
@@ -28,7 +34,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from vit_prisma_tpu_torch.configs.vit_config import ViTConfig
-from vit_prisma_tpu_torch.ops.attention import attention_mix_tnh
+from vit_prisma_tpu_torch.ops.attention import (attention_mix_tnh, flash_attention_padded,
+                                                mix_tnh_fits_smem)
+from vit_prisma_tpu_torch.ops.ln_matmul import fold_ln_affine, ln_matmul, ln_matmul_fits
 from vit_prisma_tpu_torch.prisma.hooks import NULL_HOOKS, HookRuntime
 from vit_prisma_tpu_torch.utils.device import resolve_device
 
@@ -229,25 +237,111 @@ def _wants_attn_internals(hooks: HookRuntime, prefix: str) -> bool:
                 "hook_pattern", "hook_z", "hook_result"))
 
 
+def _wants_ln(hooks: HookRuntime, prefix: str) -> bool:
+    """True if the LayerNorm's internal hooks are cached or edited."""
+    return (hooks.wants(f"{prefix}.hook_scale")
+            or hooks.wants(f"{prefix}.hook_normalized"))
+
+
+def _qkv_weights(params, D: int, NH: int):
+    """Per-head W_Q, W_K, W_V as [D, N*H] and W_O as [N*H, D]."""
+    flat = lambda w: w.permute(1, 0, 2).reshape(D, NH)
+    return flat(params.W_Q), flat(params.W_K), flat(params.W_V), params.W_O.reshape(NH, D)
+
+
+def _fused_ln_attention(params, ln_params, cfg: ViTConfig, x, prefix: str,
+                        causal: bool = False):
+    """:func:`_fused_attention` with ln1's normalize fused into the QKV GEMM
+    (kernel B14, ops/ln_matmul.py): the LayerNorm's output never reaches
+    device memory, and q, k, v leave the kernel as contiguous [B*T, N*H]
+    slices for the mix.  An affine ln1 folds into W_Q, W_K, W_V on every
+    call, after W_Q and b_Q are divided by the scale (fold_ln_affine)."""
+    scale = math.sqrt(cfg.d_head) if cfg.use_attn_scale else 1.0
+    B, T, D = x.shape
+    NH = cfg.n_heads * cfg.d_head
+    Wq, Wk, Wv, Wo = _qkv_weights(params, D, NH)
+    W = torch.stack([Wq / scale, Wk, Wv])
+    b = torch.stack([params.b_Q.reshape(-1) / scale, params.b_K.reshape(-1),
+                     params.b_V.reshape(-1)])
+    if ln_params is not None:  # normalization_type == "LN"
+        W, b = fold_ln_affine(W, b, ln_params.w, ln_params.b)
+    qkv = ln_matmul(x.reshape(B * T, D), W, b, cfg.eps)  # [3, B*T, N*H]
+    z = attention_mix_tnh(qkv[0].reshape(B, T, NH), qkv[1].reshape(B, T, NH),
+                          qkv[2].reshape(B, T, NH), cfg.n_heads, causal)
+    return (z.reshape(B * T, NH) @ Wo).reshape(B, T, D) + params.b_O
+
+
+def _ln_gemm_fusable(cfg: ViTConfig, hooks: HookRuntime, prefix: str,
+                     attn_mask, x) -> bool:
+    """Gate for the ln1 -> QKV fusion: the conditions under which
+    :func:`attention` would take the whole-T mix (B1), plus no ln1 hook and
+    a shape the LayerNorm-prologue GEMM takes."""
+    if not (cfg.use_fused_ln_gemm and cfg.use_fused_attention
+            and cfg.normalization_type in ("LN", "LNPre")
+            and not (cfg.use_split_qkv_input or cfg.use_attn_in)
+            and not cfg.use_attn_result and cfg.matmul_precision == "default"):
+        return False
+    causal_marker = isinstance(attn_mask, str) and attn_mask == "causal"
+    if not (attn_mask is None or causal_marker):
+        return False
+    if (_wants_attn_internals(hooks, f"{prefix}.attn")
+            or _wants_ln(hooks, f"{prefix}.ln1")):
+        return False
+    B, T, D = x.shape
+    return (mix_tnh_fits_smem(T, cfg.d_head)
+            and ln_matmul_fits(B * T, 3, D, cfg.n_heads * cfg.d_head))
+
+
+def _project_qkv(params, cfg: ViTConfig, x):
+    """The kernel routes' projections: flat [B*T, d_model] GEMMs giving q
+    (divided by the attention scale), k and v as [B*T, N*H], and W_O as
+    [N*H, d_model]."""
+    scale = math.sqrt(cfg.d_head) if cfg.use_attn_scale else 1.0
+    B, T, D = x.shape
+    xf = x.reshape(B * T, D)
+    Wq, Wk, Wv, Wo = _qkv_weights(params, D, cfg.n_heads * cfg.d_head)
+    q = (xf @ Wq) / scale + params.b_Q.reshape(-1) / scale
+    k = xf @ Wk + params.b_K.reshape(-1)
+    v = xf @ Wv + params.b_V.reshape(-1)
+    return q, k, v, Wo
+
+
 def _fused_attention(params, cfg: ViTConfig, x, prefix: str,
                      causal: bool = False):
     """The speed path: the QKV projections run as flat [B*T, d_model] GEMMs
     whose row-major [B, T, N*H] output feeds the attention-mix kernel with
     no layout copy, and the scores, softmax and PV product stay inside the
     kernel (float32 softmax)."""
-    scale = math.sqrt(cfg.d_head) if cfg.use_attn_scale else 1.0
+    B, T, D = x.shape
+    NH = cfg.n_heads * cfg.d_head
+    q, k, v, Wo = _project_qkv(params, cfg, x)
+    z = attention_mix_tnh(q.reshape(B, T, NH), k.reshape(B, T, NH), v.reshape(B, T, NH),
+                          cfg.n_heads, causal)
+    return (z.reshape(B * T, NH) @ Wo).reshape(B, T, D) + params.b_O
+
+
+def _flash_attention_long(params, cfg: ViTConfig, x, prefix: str,
+                          causal: bool = False):
+    """Long token axes (T past B1's shared memory, e.g. CLIP L/14 at 336
+    pixels): the projections and epilogue of :func:`_fused_attention`, the
+    mix as the tiled flash kernel B13 (ops/attention.py
+    flash_attention_padded) over head-major [B, N, Tp, H].  The relayout,
+    the pad of T to a multiple of 128 and the segment ids (1 for real
+    tokens, 2 for padding, so neither sees the other) are plain torch ops,
+    and the padding rows are sliced away."""
     B, T, D = x.shape
     N, H = cfg.n_heads, cfg.d_head
-    xf = x.reshape(B * T, D)
-    Wq = params.W_Q.permute(1, 0, 2).reshape(D, N * H)
-    Wk = params.W_K.permute(1, 0, 2).reshape(D, N * H)
-    Wv = params.W_V.permute(1, 0, 2).reshape(D, N * H)
-    Wo = params.W_O.reshape(N * H, D)
-    q = ((xf @ Wq) / scale + params.b_Q.reshape(-1) / scale).reshape(B, T, N * H)
-    k = (xf @ Wk + params.b_K.reshape(-1)).reshape(B, T, N * H)
-    v = (xf @ Wv + params.b_V.reshape(-1)).reshape(B, T, N * H)
-    z = attention_mix_tnh(q, k, v, N, causal)
-    return (z.reshape(B * T, N * H) @ Wo).reshape(B, T, D) + params.b_O
+    q, k, v, Wo = _project_qkv(params, cfg, x)
+    Tp = -(-T // 128) * 128
+
+    def heads(t):  # [B*T, N*H] -> [B, N, Tp, H], padded with zeros
+        return F.pad(t.reshape(B, T, N, H).transpose(1, 2), (0, 0, 0, Tp - T)).contiguous()
+
+    seg = torch.where(torch.arange(Tp, device=x.device) < T, 1, 2).to(torch.int32)
+    z = flash_attention_padded(heads(q), heads(k), heads(v),
+                               seg.expand(B, Tp).contiguous(), causal)
+    z = z[:, :, :T].transpose(1, 2).reshape(B * T, N * H)
+    return (z @ Wo).reshape(B, T, D) + params.b_O
 
 
 def attention(params, cfg: ViTConfig, query_input, key_input, value_input,
@@ -262,9 +356,10 @@ def attention(params, cfg: ViTConfig, query_input, key_input, value_input,
     [B,pos,head,d_model] (gated by use_attn_result).
 
     ``attention_mask`` is None, the marker ``"causal"`` (fusable in the
-    kernel) or an additive tensor.  When the gate of the module docstring
-    holds, the mix runs as the kernel (:func:`_fused_attention`); a T too
-    long for it raises rather than falling back to this einsum path.
+    kernels) or an additive tensor.  When the gate of the module docstring
+    holds, the mix runs as B1 (:func:`_fused_attention`) where T fits its
+    shared memory, else as the flash kernel B13
+    (:func:`_flash_attention_long`), as the JAX package routes it.
     """
     split = cfg.use_split_qkv_input or cfg.use_attn_in
     causal_marker = isinstance(attention_mask, str) and attention_mask == "causal"
@@ -274,8 +369,11 @@ def attention(params, cfg: ViTConfig, query_input, key_input, value_input,
                and query_input is key_input is value_input
                and not _wants_attn_internals(hooks, prefix))
     if fusable:
-        return _fused_attention(params, cfg, query_input, prefix,
-                                causal=causal_marker)
+        if mix_tnh_fits_smem(query_input.shape[1], cfg.d_head):
+            return _fused_attention(params, cfg, query_input, prefix,
+                                    causal=causal_marker)
+        return _flash_attention_long(params, cfg, query_input, prefix,
+                                     causal=causal_marker)
 
     if not split and cfg.fused_qkv and query_input is key_input is value_input:
         Wqkv = torch.stack([params.W_Q, params.W_K, params.W_V])
@@ -326,6 +424,30 @@ def mlp(params, cfg: ViTConfig, x, hooks: HookRuntime = NULL_HOOKS,
         prefix: str = "mlp"):
     return _mlp_from_pre(params, cfg, x @ params.W_in + params.b_in, hooks,
                          prefix)
+
+
+def _fused_ln_mlp(params, ln_params, cfg: ViTConfig, x,
+                  hooks: HookRuntime = NULL_HOOKS, prefix: str = "mlp"):
+    """The MLP with ln2's normalize fused into the W_in GEMM (kernel B14);
+    ``hook_pre`` and everything after it are those of :func:`mlp`."""
+    B, T, D = x.shape
+    W, b = params.W_in[None], params.b_in[None]
+    if ln_params is not None:  # normalization_type == "LN"
+        W, b = fold_ln_affine(W, b, ln_params.w, ln_params.b)
+    pre = ln_matmul(x.reshape(B * T, D), W, b, cfg.eps)
+    return _mlp_from_pre(params, cfg, pre[0].reshape(B, T, -1), hooks, prefix)
+
+
+def _ln_mlp_fusable(cfg: ViTConfig, hooks: HookRuntime, prefix: str, x) -> bool:
+    """Gate for the ln2 -> W_in fusion: the flag, an LN or LNPre norm, the
+    default matmul precision, no ln2 hook, and a shape the kernel takes."""
+    if not (cfg.use_fused_ln_gemm and cfg.normalization_type in ("LN", "LNPre")
+            and cfg.matmul_precision == "default"):
+        return False
+    if _wants_ln(hooks, f"{prefix}.ln2"):
+        return False
+    B, T, D = x.shape
+    return ln_matmul_fits(B * T, 1, D, cfg.d_mlp)
 
 
 def _mlp_from_pre(params, cfg: ViTConfig, pre, hooks: HookRuntime,
@@ -393,14 +515,20 @@ def transformer_block(params, cfg: ViTConfig, resid_pre,
     train-mode dropout on attn_out and mlp_out, in that order."""
     resid_pre = hooks(f"{prefix}.hook_resid_pre", resid_pre)
     q_in, k_in, v_in = _split_inputs(cfg, resid_pre, hooks, prefix)
-    if cfg.use_split_qkv_input:
-        ln_q = apply_norm(params.ln1, cfg, q_in, hooks, f"{prefix}.ln1")
-        ln_k = apply_norm(params.ln1, cfg, k_in, hooks, f"{prefix}.ln1")
-        ln_v = apply_norm(params.ln1, cfg, v_in, hooks, f"{prefix}.ln1")
+    affine = cfg.normalization_type == "LN"
+    if _ln_gemm_fusable(cfg, hooks, prefix, attn_mask, q_in):
+        attn_out = _fused_ln_attention(
+            params.attn, params.ln1 if affine else None, cfg, q_in, f"{prefix}.attn",
+            causal=isinstance(attn_mask, str) and attn_mask == "causal")
     else:
-        ln_q = ln_k = ln_v = apply_norm(params.ln1, cfg, q_in, hooks, f"{prefix}.ln1")
-    attn_out = attention(params.attn, cfg, ln_q, ln_k, ln_v, hooks,
-                         f"{prefix}.attn", attn_mask)
+        if cfg.use_split_qkv_input:
+            ln_q = apply_norm(params.ln1, cfg, q_in, hooks, f"{prefix}.ln1")
+            ln_k = apply_norm(params.ln1, cfg, k_in, hooks, f"{prefix}.ln1")
+            ln_v = apply_norm(params.ln1, cfg, v_in, hooks, f"{prefix}.ln1")
+        else:
+            ln_q = ln_k = ln_v = apply_norm(params.ln1, cfg, q_in, hooks, f"{prefix}.ln1")
+        attn_out = attention(params.attn, cfg, ln_q, ln_k, ln_v, hooks,
+                             f"{prefix}.attn", attn_mask)
     attn_out = dropout(attn_out, cfg.attn_dropout_rate, dropout_key)
     attn_out = hooks(f"{prefix}.hook_attn_out", attn_out)
 
@@ -408,8 +536,12 @@ def transformer_block(params, cfg: ViTConfig, resid_pre,
         return hooks(f"{prefix}.hook_resid_post", resid_pre + attn_out)
     resid_mid = hooks(f"{prefix}.hook_resid_mid", resid_pre + attn_out)
     mlp_in = hooks(f"{prefix}.hook_mlp_in", resid_mid) if cfg.use_hook_mlp_in else resid_mid
-    normalized = apply_norm(params.ln2, cfg, mlp_in, hooks, f"{prefix}.ln2")
-    mlp_out = mlp(params.mlp, cfg, normalized, hooks, f"{prefix}.mlp")
+    if _ln_mlp_fusable(cfg, hooks, prefix, mlp_in):
+        mlp_out = _fused_ln_mlp(params.mlp, params.ln2 if affine else None, cfg, mlp_in,
+                                hooks, f"{prefix}.mlp")
+    else:
+        normalized = apply_norm(params.ln2, cfg, mlp_in, hooks, f"{prefix}.ln2")
+        mlp_out = mlp(params.mlp, cfg, normalized, hooks, f"{prefix}.mlp")
     mlp_out = hooks(f"{prefix}.hook_mlp_out",
                     dropout(mlp_out, cfg.mlp_dropout_rate, dropout_key))
     return hooks(f"{prefix}.hook_resid_post", resid_mid + mlp_out)

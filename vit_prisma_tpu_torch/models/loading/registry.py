@@ -4,9 +4,10 @@
 Only the port's slices' models are registered so far, their values copied
 from the configs the JAX registry resolves: OpenAI CLIP ViT-B/32's vision
 tower, the DataComp.XL ViT-B/32 that ``SAERunnerConfig`` trains on by
-default, and OpenAI CLIP ViT-L/14's vision tower, which the all-layer sweep
-trains on.  The other entries, and loading real weights, wait for ROADMAP
-queue A, item 4.
+default, OpenAI CLIP ViT-L/14's vision tower, which the all-layer sweep
+trains on, and its 336-pixel variant (T = 577), whose attention takes the
+tiled flash kernel.  The other entries, and loading real weights, wait for
+ROADMAP queue A, item 4.
 """
 
 from __future__ import annotations
@@ -36,6 +37,13 @@ MODEL_CONFIGS: Dict[str, Dict[str, Any]] = {
     "openai/clip-vit-large-patch14": dict(
         d_model=1024, n_layers=24, n_heads=16, d_head=64, d_mlp=4096,
         patch_size=14, image_size=224, n_classes=768,
+        activation_name="quick_gelu", layer_norm_pre=True,
+        normalization_type="LN", eps=1e-5, return_type="class_logits",
+        normalize_output=True),
+    # The same tower at 336 pixels: 24 x 24 patches and the class token, T = 577.
+    "openai/clip-vit-large-patch14-336": dict(
+        d_model=1024, n_layers=24, n_heads=16, d_head=64, d_mlp=4096,
+        patch_size=14, image_size=336, n_classes=768,
         activation_name="quick_gelu", layer_norm_pre=True,
         normalization_type="LN", eps=1e-5, return_type="class_logits",
         normalize_output=True),

@@ -243,10 +243,6 @@ class HookedViT(nn.Module):
             raise NotImplementedError(
                 "video transformers are not ported yet (ROADMAP queue A, "
                 "item 14)")
-        if cfg.use_fused_ln_gemm:
-            raise NotImplementedError(
-                "use_fused_ln_gemm needs the ln->GEMM kernel, which is not "
-                "ported yet (ROADMAP queue B, B14)")
         self.cfg = cfg
         device = resolve_device(device)
         dt = cfg.torch_dtype

@@ -11,9 +11,16 @@ the PV product, and an optional causal mask.  It is a
 :func:`attention_mix_tnh_bwd_reference`, so CPU gradients take the kernel's
 rounding points too.
 
-Not ported yet: the tiled flash kernel for long token axes (B13), and the
-JAX package's two kernels without a caller on the main path,
-``attention_mix`` and ``fused_attention_block`` (ROADMAP queue B).
+:func:`flash_attention_padded` is kernel B13, forward and backward: tiled
+flash attention over head-major ``[B, N, Tp, H]`` tensors for token axes too
+long for B1's shared memory, with segment ids masking the padding.  On CUDA
+tensors it launches ``csrc/flash_attention_fwd.cu`` and, for the gradient,
+the two passes of ``csrc/flash_attention_bwd.cu``
+(:func:`flash_attention_padded_bwd_dkv`, :func:`flash_attention_padded_bwd_dq`);
+on CPU tensors the plain versions.
+
+Not ported yet: the JAX package's two kernels without a caller on the main
+path, ``attention_mix`` and ``fused_attention_block`` (ROADMAP queue B).
 """
 
 from __future__ import annotations
@@ -187,13 +194,14 @@ def attention_mix_tnh_bwd(q, k, v, dz, n_heads: int, causal: bool = False):
     of ``attention_mix_tnh(q, k, v)``.  CUDA tensors launch the hand-written
     kernel and add one to ``attention_mix_tnh_bwd.launches``; CPU tensors run
     the plain version.  It takes every T and H that B1 takes; past them it
-    raises ``NotImplementedError``, naming the flash kernel (B13)."""
+    raises ``NotImplementedError``, naming the flash kernel (B13),
+    :func:`flash_attention_padded`."""
     T, H = _check_shapes("attention_mix_tnh_bwd", q, k, v, dz, n_heads=n_heads)
     if not mix_tnh_bwd_fits_smem(T, H):
         raise NotImplementedError(
             f"attention_mix_tnh_bwd: T={T}, H={H} does not fit the kernel's "
-            "shared memory; long token axes need the tiled flash kernel, "
-            "which is not ported yet (ROADMAP queue B, B13)")
+            "shared memory; long token axes take the tiled flash kernel "
+            "(B13), flash_attention_padded")
     if q.device.type == "cpu":
         return attention_mix_tnh_bwd_reference(q, k, v, dz, n_heads, causal)
     return _launch_bwd(q, k, v, dz, n_heads, causal)
@@ -229,23 +237,238 @@ def attention_mix_tnh(q, k, v, n_heads: int, causal: bool = False):
     ``attention_mix_tnh.launches`` (the backward launches B2); CPU tensors
     run the plain versions.  A T whose keys and values do not fit the
     kernel's shared memory raises ``NotImplementedError`` on either device:
-    long token axes need the tiled flash kernel (B13)."""
+    long token axes take :func:`flash_attention_padded` (B13)."""
     T, H = _check_shapes("attention_mix_tnh", q, k, v, n_heads=n_heads)
     if not mix_tnh_fits_smem(T, H):
         raise NotImplementedError(
             f"attention_mix_tnh: T={T}, H={H} does not fit the kernel's "
-            "shared memory; long token axes need the tiled flash kernel, "
-            "which is not ported yet (ROADMAP queue B, B13)")
+            "shared memory; long token axes take the tiled flash kernel "
+            "(B13), flash_attention_padded")
     return _MixTNH.apply(q, k, v, n_heads, causal)
 
 
 attention_mix_tnh.launches = 0
 
 
-def flash_attention_padded(q, k, v, segment_ids, causal: bool = False):
-    """Tiled flash attention for long token axes; not ported yet."""
-    raise NotImplementedError(
-        "flash_attention_padded is not ported yet (ROADMAP queue B, B13)")
+# ---------------------------------------------------------------------------
+# B13: tiled flash attention over head-major [B, N, Tp, H]
+# ---------------------------------------------------------------------------
+
+# Must match kTile in csrc/flash_tile.cuh and the head widths that
+# csrc/flash_attention_{fwd,bwd}.cu instantiate.
+FLASH_TILE = 64
+FLASH_MAX_HEAD_DIM = 128
+
+
+def flash_fits(Tp: int, H: int) -> bool:
+    """Whether the flash kernels take a padded token count Tp and head width
+    H: Tp a multiple of their 64-row tile, H a multiple of 16 up to 128."""
+    return Tp > 0 and Tp % FLASH_TILE == 0 and 0 < H <= FLASH_MAX_HEAD_DIM and H % 16 == 0
+
+
+def _flash_scores(q, k, seg, causal: bool):
+    """float32 scores with -inf where the segment ids (or the causal mask)
+    hide a key."""
+    s = torch.einsum("bnqh,bnkh->bnqk", q.float(), k.float())
+    keep = seg[:, None, :, None] == seg[:, None, None, :]
+    if causal:
+        Tp = q.shape[2]
+        keep = keep & torch.ones(Tp, Tp, dtype=torch.bool, device=q.device).tril()
+    return s.masked_fill(~keep, float("-inf"))
+
+
+def flash_attention_padded_reference(q, k, v, seg, causal: bool = False):
+    """Plain PyTorch version of B13's forward, with its float32 and cast
+    points (p rounded to v's dtype before PV, z in q's dtype); in float32 it
+    is the JAX package's CPU twin of the library kernel."""
+    p = torch.softmax(_flash_scores(q, k, seg, causal), dim=-1)
+    z = torch.einsum("bnqk,bnkh->bnqh", p.to(v.dtype).float(), v.float())
+    return z.to(q.dtype)
+
+
+def _flash_p(q, k, seg, lse, causal: bool):
+    """p = exp(s - lse) from the forward's log-sum-exp, 0 where masked."""
+    return torch.exp(_flash_scores(q, k, seg, causal) - lse[..., None])
+
+
+def flash_attention_padded_bwd_dkv_reference(q, k, v, seg, dz, lse, dsum,
+                                             causal: bool = False):
+    """Plain version of B13's dk/dv pass, with the library kernel's rounding
+    points: ``dv = pᵀ dz`` and ``dk = dsᵀ q`` with pᵀ and dsᵀ rounded to
+    dz's dtype, ``ds = (dz vᵀ - dsum) p``.  Returns ``(dk, dv)``."""
+    p = _flash_p(q, k, seg, lse, causal)
+    dzf = dz.float()
+    ds = (torch.einsum("bnqh,bnkh->bnqk", dzf, v.float()) - dsum[..., None]) * p
+    dv = torch.einsum("bnqk,bnqh->bnkh", p.to(dz.dtype).float(), dzf)
+    dk = torch.einsum("bnqk,bnqh->bnkh", ds.to(dz.dtype).float(), q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_padded_bwd_dq_reference(q, k, v, seg, dz, lse, dsum,
+                                            causal: bool = False):
+    """Plain version of B13's dq pass: ``dq = ds k`` with ds rounded to k's
+    dtype."""
+    p = _flash_p(q, k, seg, lse, causal)
+    ds = (torch.einsum("bnqh,bnkh->bnqk", dz.float(), v.float()) - dsum[..., None]) * p
+    dq = torch.einsum("bnqk,bnkh->bnqh", ds.to(k.dtype).float(), k.float())
+    return dq.to(q.dtype)
+
+
+def flash_lse_reference(q, k, seg, causal: bool = False):
+    """Each row's float32 log-sum-exp of its masked scores ``[B, N, Tp]``,
+    as B13's forward saves it for the backward."""
+    return torch.logsumexp(_flash_scores(q, k, seg, causal), dim=-1)
+
+
+def flash_dsum(z, dz):
+    """``rowsum(z dz)`` in float32 ``[B, N, Tp]``: the D of both backward
+    passes, from the forward's output (a plain op, as in the library)."""
+    return (z.float() * dz.float()).sum(dim=-1)
+
+
+def flash_attention_padded_bwd_reference(q, k, v, seg, dz, causal: bool = False):
+    """Plain version of B13's whole backward: ``(dq, dk, dv)`` for the
+    cotangent ``dz`` of ``flash_attention_padded(q, k, v, seg)``."""
+    lse = flash_lse_reference(q, k, seg, causal)
+    dsum = flash_dsum(flash_attention_padded_reference(q, k, v, seg, causal), dz)
+    dk, dv = flash_attention_padded_bwd_dkv_reference(q, k, v, seg, dz, lse, dsum, causal)
+    dq = flash_attention_padded_bwd_dq_reference(q, k, v, seg, dz, lse, dsum, causal)
+    return dq, dk, dv
+
+
+def _check_flash(what, q, k, v, seg, *others):
+    if q.ndim != 4 or any(x.shape != q.shape for x in (k, v, *others)):
+        raise ValueError(f"{what}: q, k, v must share one [B, N, Tp, H] shape, got "
+                         f"{[tuple(x.shape) for x in (q, k, v, *others)]}")
+    B, N, Tp, H = q.shape
+    if tuple(seg.shape) != (B, Tp) or seg.dtype != torch.int32:
+        raise ValueError(f"{what}: seg must be int32 [B, Tp] = [{B}, {Tp}], got "
+                         f"{seg.dtype} {tuple(seg.shape)}")
+    if not flash_fits(Tp, H):
+        raise ValueError(f"{what}: Tp={Tp}, H={H}: Tp must be a multiple of "
+                         f"{FLASH_TILE} and H a multiple of 16 up to {FLASH_MAX_HEAD_DIM}")
+    return B, N, Tp, H
+
+
+def _check_flash_cuda(what, tensors, stats):
+    _check_cuda(what, *tensors)
+    if any(x.data_ptr() % 16 for x in tensors):
+        raise ValueError(f"{what}: q, k, v (and dz) must be 16-byte aligned")
+    for x in stats:
+        if x.device != tensors[0].device or not x.is_contiguous():
+            raise ValueError(f"{what}: seg, lse and D must be contiguous on "
+                             f"{tensors[0].device}")
+
+
+def _launch_flash(q, k, v, seg, causal: bool):
+    """Run B13's forward on PyTorch's current stream: ``(z, lse)``."""
+    B, N, Tp, H = _check_flash("flash_attention_padded", q, k, v, seg)
+    _check_flash_cuda("flash_attention_padded", (q, k, v), (seg,))
+    lib = _build.load_library()
+    z = torch.empty_like(q)
+    lse = torch.empty(B, N, Tp, dtype=torch.float32, device=q.device)
+    rc = lib.flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), z.data_ptr(),
+        lse.data_ptr(), B, N, Tp, H, int(causal), _DTYPE_CODES[q.dtype], q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, rc, "flash_attention_padded")
+    flash_attention_padded.launches += 1
+    return z, lse
+
+
+def _launch_flash_bwd(which, q, k, v, seg, dz, lse, dsum, causal: bool):
+    """Run one of B13's backward passes (0: dk and dv, 1: dq)."""
+    what = ("flash_attention_padded_bwd_dkv", "flash_attention_padded_bwd_dq")[which]
+    B, N, Tp, H = _check_flash(what, q, k, v, seg, dz)
+    _check_flash_cuda(what, (q, k, v, dz), (seg, lse, dsum))
+    if lse.shape != (B, N, Tp) or dsum.shape != (B, N, Tp) \
+            or lse.dtype != torch.float32 or dsum.dtype != torch.float32:
+        raise ValueError(f"{what}: lse and D must be float32 [B, N, Tp]")
+    lib = _build.load_library()
+    dq = torch.empty_like(q) if which else None
+    dk, dv = (None, None) if which else (torch.empty_like(k), torch.empty_like(v))
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    rc = lib.flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dz.data_ptr(), seg.data_ptr(),
+        lse.data_ptr(), dsum.data_ptr(), ptr(dq), ptr(dk), ptr(dv), B, N, Tp, H,
+        int(causal), which, _DTYPE_CODES[q.dtype], q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, rc, what)
+    return dq if which else (dk, dv)
+
+
+def flash_attention_padded_bwd_dkv(q, k, v, seg, dz, lse, dsum, causal: bool = False):
+    """B13's dk/dv pass: ``(dk, dv)`` from the forward's ``lse`` and
+    ``dsum`` = :func:`flash_dsum`.  CUDA tensors launch the kernel and add
+    one to ``flash_attention_padded_bwd_dkv.launches``; CPU tensors run the
+    plain version."""
+    if q.device.type == "cpu":
+        _check_flash("flash_attention_padded_bwd_dkv", q, k, v, seg, dz)
+        return flash_attention_padded_bwd_dkv_reference(q, k, v, seg, dz, lse, dsum, causal)
+    out = _launch_flash_bwd(0, q, k, v, seg, dz, lse, dsum, causal)
+    flash_attention_padded_bwd_dkv.launches += 1
+    return out
+
+
+flash_attention_padded_bwd_dkv.launches = 0
+
+
+def flash_attention_padded_bwd_dq(q, k, v, seg, dz, lse, dsum, causal: bool = False):
+    """B13's dq pass; as :func:`flash_attention_padded_bwd_dkv`, counted in
+    ``flash_attention_padded_bwd_dq.launches``."""
+    if q.device.type == "cpu":
+        _check_flash("flash_attention_padded_bwd_dq", q, k, v, seg, dz)
+        return flash_attention_padded_bwd_dq_reference(q, k, v, seg, dz, lse, dsum, causal)
+    out = _launch_flash_bwd(1, q, k, v, seg, dz, lse, dsum, causal)
+    flash_attention_padded_bwd_dq.launches += 1
+    return out
+
+
+flash_attention_padded_bwd_dq.launches = 0
+
+
+class _FlashPadded(torch.autograd.Function):
+    """B13 forward and its two backward passes (the plain versions on CPU
+    tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seg, causal):
+        if q.device.type == "cpu":
+            z = flash_attention_padded_reference(q, k, v, seg, causal)
+            lse = flash_lse_reference(q, k, seg, causal)
+        else:
+            z, lse = _launch_flash(q, k, v, seg, causal)
+        ctx.save_for_backward(q, k, v, seg, z, lse)
+        ctx.causal = causal
+        return z
+
+    @staticmethod
+    def backward(ctx, dz):
+        q, k, v, seg, z, lse = ctx.saved_tensors
+        dz = dz.contiguous()
+        dsum = flash_dsum(z, dz)
+        dk, dv = flash_attention_padded_bwd_dkv(q, k, v, seg, dz, lse, dsum, ctx.causal)
+        dq = flash_attention_padded_bwd_dq(q, k, v, seg, dz, lse, dsum, ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_padded(q, k, v, seg, causal: bool = False):
+    """Tiled flash attention over head-major ``[B, N, Tp, H]`` tensors
+    (pre-scaled q) -> z ``[B, N, Tp, H]`` in q's dtype, differentiable.
+    ``seg`` is the ``[B, Tp]`` int32 segment-id vector: a query row sees a
+    key only where their ids are equal (and, when causal, the key is not
+    after it), so the caller marks padding rows with their own id.
+
+    CUDA tensors launch the hand-written kernel and add one to
+    ``flash_attention_padded.launches`` (the backward launches its two
+    passes); CPU tensors run the plain versions.  Tp must be a multiple of
+    64 and H a multiple of 16 up to 128 (:func:`flash_fits`); otherwise it
+    raises ``ValueError`` on either device."""
+    _check_flash("flash_attention_padded", q, k, v, seg)
+    return _FlashPadded.apply(q, k, v, seg, causal)
+
+
+flash_attention_padded.launches = 0
 
 
 def attention_mix(q, k, v):
