@@ -14,7 +14,16 @@ Phases, each printing JSON lines with the card's name and power limit:
    time of one library call computing the same function where there is one
    (never used by the port) and the kernel's bound (bytes over the memory
    rate or operations over their peak rate): B1 (``attention_mix_tnh``) at
-   the ViT shapes beside ``scaled_dot_product_attention``, B3
+   the ViT shapes beside ``scaled_dot_product_attention``; then
+   ``mix_kernels``, the path of B15 (``attention_mix``) and B16
+   (``fused_attention_block``), the JAX package's two kernels without a
+   caller: each entry point once at B/32 in bfloat16, forward and backward,
+   with exact launches, then B15 against its plain version at B/32 (both
+   dtypes, and equal to B1 on the same data transposed) and CLIP L/14, B16
+   against its kernel-rounding plain version at B/32 in both dtypes and
+   against the JAX reference's twin in float32, gradients through both
+   wrappers against the plain versions' autograd, beside SDPA and
+   ``F.linear`` + SDPA + ``F.linear``; B3
    (``take_rows``) at the activation store's shape beside
    ``index_select``, B7 (``adam_update``) at the default SAE's four tensors
    with float32 and bfloat16 moments, B10 (``kth_value``) at the generic
@@ -35,7 +44,12 @@ Phases, each printing JSON lines with the card's name and power limit:
    second and peak device memory are printed;
 6. step check: from the trained state, three steps on three batches on the
    card and on the CPU in float32; grads, params, moments and counters are
-   compared;
+   compared; then ``sae_eval``: that SAE's evals (``process_dataset`` over
+   2,048 random images at batch 256, ``trainer.validate()``, ``evaluate()``
+   into ``smoke_out/sae_eval`` with its top images, and a heatmap), exact
+   launches (B1 36 an eval batch, 10 a top-image batch), eval images per
+   second, CE recovered, L0, alive fraction, peak memory, and one batch of 8
+   against the CPU in float32 with its ReLU switches counted;
 7. SAE kernels: B4 (``sae_fused_forward``), B5 (``sae_fused_backward``) and
    B6 (``sae_fused_backward_stored``) against their plain versions at the
    all-layer sweep's shape in bfloat16 (24 SAEs, batch 4096, 1024 -> 8192)
@@ -67,7 +81,11 @@ Phases, each printing JSON lines with the card's name and power limit:
     counts exact; SAE-tokens per second and peak memory;
 12. sweep step check: three fused steps against three steps of the generic
     per-layer path from one state, in bfloat16 at 24 layers and in float32
-    at two;
+    at two; then ``sweep_eval``: the sweep trainer's ``validate()`` and
+    ``evaluate()`` over its 96 images at batch 32 (B1 exactly 300 a batch:
+    24 for the clean forward, 276 for the prefix-shared suffixes), per-layer
+    CE recovered and L0, and layers 0 and 12 against ``make_eval_step`` with
+    that layer's SAE alone;
 13. gated kernels: B11 (``sae_gated_fused_forward``) and B12
     (``sae_gated_fused_backward``) against their plain versions at the
     gated slice's shape (1 x 4096, 768 -> 12,288) in both dtypes and at two
@@ -486,6 +504,53 @@ L336_GRAD_F32_BATCH = 2
 # bf16 gradients against the einsum path's: GRAD_BF16_REL over twice the
 # layers.
 L336_GRAD_BF16_REL = 2 * GRAD_BF16_REL
+
+# B15 and B16, the JAX package's two kernels without a caller on any path:
+# their path is the op-level entry points at the geometry of the JAX
+# package's scripts/bench_fused_attn.py (CLIP ViT-B/32, batch 256).
+MIX_SOURCE = "vit_prisma_tpu_torch/csrc/attention_mix.cu"
+MIX_REPLACES = "vit_prisma_tpu/ops/attention.py:109"
+BLOCK_SOURCE = "vit_prisma_tpu_torch/csrc/attention_block.cu"
+BLOCK_REPLACES = "vit_prisma_tpu/ops/attention.py:726"
+# (name, B, N, T, H, dtypes): B/32 and CLIP L/14 head-major
+MIX_SHAPES = [("b32", 256, 12, 50, 64, (torch.bfloat16, torch.float32)),
+              ("l14", 64, 16, 257, 64, (torch.bfloat16,))]
+# (B, T, D, N) of B16's block at B/32; the scale 1/sqrt(64)
+BLOCK_GEOMETRY = (256, 50, 768, 12)
+BLOCK_INV_SCALE = 0.125
+# B16 against its kernel-rounding plain version: float32 relative to
+# max(1, |out|max) (sum orders of the three products); bfloat16 in ulps of
+# bfloat16 at |out|max (a sum order can flip a rounding of qkv or z, which
+# moves out by an ulp or so; the CPU twin agrees with JAX's within 2)
+BLOCK_F32_REL = 1e-5
+BLOCK_BF16_ULPS = 4
+# gradients through the wrappers against autograd of the plain versions,
+# relative to max(1, |grad|max): float32 (B16's weight grads sum 12,800
+# rows), bfloat16 as GRAD_KERNEL_REL
+MIX_GRAD_REL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+BLOCK_GRAD_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+# SAE evals and validation at full width.  B/32: the default SAE trained by
+# the train phase over 2,048 random images in batches of 256; L/14: the
+# sweep trainer over its 96 images at batch 32.  Class embeddings [1000,
+# d_out] and labels are random from seed 0 (the text tower is ROADMAP item
+# 10; no weights are in the repository).
+EVAL_IMAGES = 2048
+EVAL_BATCH = 256
+EVAL_CLASSES = 1000
+EVAL_OUT_DIR = "smoke_out/sae_eval"  # gitignored
+# card against CPU, one batch of 8 in float32: the losses as SLICE_F32_REL
+# (relative to max(1, |loss|)); ReLU switches (features firing on one side
+# only, each moving one act_count and one image's L0 by 1) at most this
+# share of the batch's token x feature pre-activations
+EVAL_CHECK_BATCH = 8
+EVAL_FLIP_FRAC = 1e-4
+SWEEP_EVAL_BATCH = 32
+SWEEP_EVAL_CHECK_LAYERS = (0, 12)
+# the sweep step's per-layer losses against make_eval_step with that
+# layer's SAE alone (bf16 model: the suffix runs at batch 2B, the single
+# step at B), relative to max(1, |loss|)
+SWEEP_EVAL_LOSS_REL = 2.0 ** -7
 
 def RESID_POST(name: str) -> bool:
     return "resid_post" in name
@@ -1491,7 +1556,8 @@ def _sae_counters():
         S.sae_fused_backward_stored, adam_update, S.sae_fused_forward_topk,
         S.sae_fused_backward_topk, kth_value, S.sae_gated_fused_forward,
         S.sae_gated_fused_backward, ln_matmul, A.flash_attention_padded,
-        A.flash_attention_padded_bwd_dkv, A.flash_attention_padded_bwd_dq)}
+        A.flash_attention_padded_bwd_dkv, A.flash_attention_padded_bwd_dq,
+        A.attention_mix, A.fused_attention_block)}
 
 
 def _zero_counts(counters):
@@ -2705,6 +2771,382 @@ def phase_attribution_l14_336(info):
     return launches
 
 
+def _eval_inputs(model, n, image_size, image_seed):
+    """n random images on the card, with labels and class embeddings [1000,
+    the model's output width] from seed 0."""
+    with torch.inference_mode():
+        d_out = model(torch.zeros(1, 3, image_size, image_size, device="cuda")).shape[-1]
+    rng = np.random.default_rng(0)
+    labels = torch.from_numpy(rng.integers(0, EVAL_CLASSES, size=n)).cuda()
+    class_emb = torch.from_numpy(rng.standard_normal((EVAL_CLASSES, d_out),
+                                                     dtype=np.float32)).cuda()
+    images = torch.from_numpy(np.random.default_rng(image_seed).standard_normal(
+        (n, 3, image_size, image_size), dtype=np.float32)).cuda()
+    return images, labels, class_emb, d_out
+
+
+def _draw_final_ln_bias(model, seed=0):
+    """Draw ``ln_final``'s bias from a seed.  The random init's biases are
+    all 0, so a zero-ablated residual stream stays exactly 0 through every
+    later block to the output, and CLIP's ``normalize_output`` then divides
+    0 by 0: the zero-ablated loss would be NaN, as in the JAX package
+    (pretrained weights have nonzero biases).  ``ln_final`` lies after
+    every hook point, so the SAEs' inputs do not change."""
+    b = model.ln_final.b
+    with torch.no_grad():
+        b.copy_((torch.randn(b.shape, generator=torch.Generator().manual_seed(seed)) * 0.1)
+                .to(b.dtype))
+
+
+def _eval_batches(images, labels, bs):
+    for i in range(0, images.shape[0], bs):
+        yield images[i:i + bs], labels[i:i + bs], torch.arange(i, i + bs)
+
+
+def phase_sae_eval(info, trainer, cfg):
+    """The SAE evals at B/32: ``process_dataset`` over 2,048 images,
+    ``validate()`` once and ``evaluate()`` into EVAL_OUT_DIR, with exact
+    launches (B1 36 an eval batch, 10 a top-image batch and 10 for the
+    heatmap, every other kernel 0); then one batch of 8 on the card against
+    the CPU in float32.  The model's ``ln_final`` bias is drawn first
+    (:func:`_draw_final_ln_bias`)."""
+    from vit_prisma_tpu_torch import HookedViT
+    from vit_prisma_tpu_torch.sae import SparseAutoencoder
+    from vit_prisma_tpu_torch.sae import evals as E
+    model, sae = trainer.model, trainer.sae
+    _draw_final_ln_bias(model)
+    counters = _sae_counters()
+    images, labels, class_emb, d_out = _eval_inputs(model, EVAL_IMAGES, cfg.image_size, 7)
+    trainer.eval_dataset = [(images[i], labels[i]) for i in range(EVAL_BATCH)]
+    trainer.class_embeddings = class_emb
+    n_batches = EVAL_IMAGES // EVAL_BATCH
+    ecfg = E.EvalConfig(batch_size=EVAL_BATCH, eval_max=EVAL_IMAGES, sae_path=EVAL_OUT_DIR)
+    torch.cuda.synchronize()
+    release()
+    torch.cuda.reset_peak_memory_stats()
+
+    # The eval path, with every count set to 0 just before each part.
+    parts = {}
+
+    def part(name, fn):
+        _zero_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        parts[name] = {"seconds": time.perf_counter() - t0,
+                       "launches": {k: f.launches for k, f in counters.items() if f.launches}}
+        return out
+
+    stats = part("process_dataset", lambda: E.process_dataset(
+        model, sae, ((a, b) for a, b, _ in _eval_batches(images, labels, EVAL_BATCH)),
+        class_emb, ecfg))
+    vals = part("validate", trainer.validate)
+    full = part("evaluate", lambda: E.evaluate(
+        ecfg, sae, model, lambda: _eval_batches(images, labels, EVAL_BATCH), class_emb))
+    feature = full["sampled_features"]["indices"][0]
+    heat = part("heatmap", lambda: E.image_patch_heatmap(
+        E.get_heatmap(images[0], model, sae, feature), model.cfg))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tops = full["top_images_per_feature"]
+    expected = {"process_dataset": 36 * n_batches, "validate": 36,
+                "evaluate": 36 * n_batches + (10 * n_batches if tops else 0), "heatmap": 10}
+    for name, n in expected.items():
+        if parts[name]["launches"] != {"attention_mix_tnh": n}:
+            raise AssertionError(f"sae_eval {name} launches {parts[name]['launches']}, "
+                                 f"expected attention_mix_tnh {n} and no other kernel")
+    for k in ("avg_loss", "avg_reconstruction_loss", "avg_zero_abl_loss", "ce_recovered",
+              "avg_l0", "avg_cos_sim", "alive_fraction"):
+        if not math.isfinite(stats[k]) or abs(stats[k] - full[k]) > 1e-6 * max(1, abs(stats[k])):
+            raise AssertionError(f"sae_eval {k}: {stats[k]} (evaluate: {full[k]})")
+    if not all(math.isfinite(v) for v in vals.values()):
+        raise AssertionError(f"validate: {vals}")
+    if not stats["avg_l0"] > 0 or stats["log_frequencies_per_token"].shape != (cfg.d_sae,):
+        raise AssertionError(f"sae_eval L0 {stats['avg_l0']}")
+    files = ["eval_stats.json", "sparsity_TOTAL.npz", "TOTAL_sparsity_dashboard.html"]
+    missing = [f for f in files if not os.path.exists(os.path.join(EVAL_OUT_DIR, f))]
+    if missing or heat.shape != (cfg.image_size, cfg.image_size) or not np.isfinite(heat).all():
+        raise AssertionError(f"sae_eval files missing {missing}, heatmap {heat.shape}")
+    if not all(len(v) == ecfg.max_images_per_feature and len(set(i)) == len(i)
+               for v, i in tops.values()):
+        raise AssertionError("top images: wrong count or repeated images")
+
+    # card against CPU: one batch of 8, float32, the same weights
+    cpu_model = HookedViT(model.cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu_sae = SparseAutoencoder(sae.cfg, params={k: v.cpu() for k, v in sae.params.items()})
+    x, y = images[:EVAL_CHECK_BATCH], labels[:EVAL_CHECK_BATCH]
+    card = E.make_eval_step(model, sae)(model, sae.params, x, y, class_emb)
+    cpu = E.make_eval_step(cpu_model, cpu_sae)(cpu_model, cpu_sae.params, x.cpu(), y.cpu(),
+                                               class_emb.cpu())
+    loss_errs = {k: check_close(f"sae_eval card vs cpu {k}", getattr(card, k),
+                                getattr(cpu, k), rel_atol(SLICE_F32_REL, getattr(cpu, k)))
+                 for k in ("loss", "recons_loss", "zero_abl_loss", "cos_sim")}
+    flips = (card.act_counts.cpu() - cpu.act_counts).abs().sum().item()
+    l0_moves = (card.l0_image.cpu() - cpu.l0_image).abs().sum().item()
+    pre = EVAL_CHECK_BATCH * model.cfg.n_tokens * sae.cfg.d_sae
+    if flips > EVAL_FLIP_FRAC * pre or l0_moves > flips:
+        raise AssertionError(f"sae_eval card vs cpu: {flips} ReLU switches, L0 moved {l0_moves}")
+    del cpu_model, cpu_sae
+    emit({"phase": "sae_eval", **info, "model": cfg.model_name, "hook_point": cfg.hook_point,
+          "d_in": cfg.d_in, "d_sae": cfg.d_sae, "dtype": cfg.dtype,
+          "sae": "the train phase's (120 steps from random weights, seed 0)",
+          "dataset": f"{EVAL_IMAGES} random float32 {cfg.image_size}px images, numpy seed 7, "
+                     f"labels and [{EVAL_CLASSES}, {d_out}] class embeddings from numpy seed 0",
+          "batch": EVAL_BATCH, "parts": parts, "expected_attention_mix_tnh": expected,
+          "eval_images_per_s": EVAL_IMAGES / parts["process_dataset"]["seconds"],
+          "evaluate_s": parts["evaluate"]["seconds"],
+          "ce_recovered": stats["ce_recovered"], "avg_loss": stats["avg_loss"],
+          "avg_reconstruction_loss": stats["avg_reconstruction_loss"],
+          "avg_zero_abl_loss": stats["avg_zero_abl_loss"], "avg_l0": stats["avg_l0"],
+          "avg_l0_cls": stats["avg_l0_cls"], "avg_l0_image": stats["avg_l0_image"],
+          "avg_cos_sim": stats["avg_cos_sim"], "alive_fraction": stats["alive_fraction"],
+          "validate": vals, "sampled_features": len(full["sampled_features"]["indices"]),
+          "peak_memory_GB": peak_gb,
+          "card_vs_cpu": {"batch": EVAL_CHECK_BATCH, "max_abs_err": loss_errs,
+                          "rel_tol": SLICE_F32_REL, "relu_switches": flips,
+                          "l0_moved": l0_moves, "switch_bound": EVAL_FLIP_FRAC * pre}})
+    return parts
+
+
+def phase_sweep_eval(info, trainer, cfg):
+    """The L/14 sweep's ``validate()`` and ``evaluate()`` over its 96 images
+    at batch 32: exact launches (B1 300 a batch: 24 for the clean forward,
+    276 for the prefix-shared suffixes), per-layer CE recovered and L0,
+    images per second, peak memory, and two layers held against
+    ``make_eval_step`` with that layer's SAE alone."""
+    from vit_prisma_tpu_torch.sae import evals as E
+    model = trainer.model
+    _draw_final_ln_bias(model)
+    L = len(trainer.layers)
+    counters = _sae_counters()
+    # the sweep's own images (numpy seed 5, as phase_sweep draws them)
+    images, labels, class_emb, _ = _eval_inputs(model, SWEEP_IMAGES, cfg.image_size, 5)
+    trainer.eval_dataset = [(images[i], labels[i]) for i in range(SWEEP_EVAL_BATCH)]
+    trainer.class_embeddings = class_emb
+    n_batches = SWEEP_IMAGES // SWEEP_EVAL_BATCH
+    per_batch = L + sum(L - 1 - l for l in range(L))
+    torch.cuda.synchronize()
+    release()
+    torch.cuda.reset_peak_memory_stats()
+
+    _zero_counts(counters)
+    t0 = time.perf_counter()
+    vals = trainer.validate()
+    torch.cuda.synchronize()
+    validate_s = time.perf_counter() - t0
+    validate_launches = {k: f.launches for k, f in counters.items() if f.launches}
+    _zero_counts(counters)
+    t1 = time.perf_counter()
+    results = trainer.evaluate(((a, b) for a, b, _ in _eval_batches(images, labels,
+                                                                    SWEEP_EVAL_BATCH)),
+                               eval_cfg=E.EvalConfig(batch_size=SWEEP_EVAL_BATCH))
+    torch.cuda.synchronize()
+    evaluate_s = time.perf_counter() - t1
+    evaluate_launches = {k: f.launches for k, f in counters.items() if f.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if validate_launches != {"attention_mix_tnh": per_batch} or \
+            evaluate_launches != {"attention_mix_tnh": per_batch * n_batches}:
+        raise AssertionError(f"sweep_eval launches {validate_launches}, {evaluate_launches}; "
+                             f"expected attention_mix_tnh {per_batch} a batch, nothing else")
+    if len(results) != L or not all(
+            math.isfinite(r[k]) for r in results
+            for k in ("avg_loss", "avg_reconstruction_loss", "avg_zero_abl_loss", "avg_l0")):
+        raise AssertionError("sweep_eval: non-finite per-layer results")
+
+    # the shared prefix is exact: two layers against their SAE alone
+    x, y = images[:SWEEP_EVAL_BATCH], labels[:SWEEP_EVAL_BATCH]
+    sweep_stats = trainer._val_step(model, trainer.state.params, x, y, class_emb)
+    check = {}
+    for l in SWEEP_EVAL_CHECK_LAYERS:
+        i = trainer.layers.index(l)
+        sae = trainer.sae_for_layer(i)
+        one = E.make_eval_step(model, sae)(model, sae.params, x, y, class_emb)
+        check[l] = {k: check_close(f"sweep_eval layer {l} {k}", getattr(sweep_stats, k)[i],
+                                   getattr(one, k),
+                                   rel_atol(SWEEP_EVAL_LOSS_REL, getattr(one, k)))
+                    for k in ("loss", "recons_loss", "zero_abl_loss")}
+        del sae, one
+    del sweep_stats
+    emit({"phase": "sweep_eval", **info, "model": SWEEP_MODEL, "layers": L,
+          "batch": SWEEP_EVAL_BATCH, "images": SWEEP_IMAGES,
+          "validate_s": validate_s, "evaluate_s": evaluate_s,
+          "eval_images_per_s": SWEEP_IMAGES / evaluate_s,
+          "batch_ms": 1000 * evaluate_s / n_batches,
+          "launches_validate": validate_launches, "launches_evaluate": evaluate_launches,
+          "expected_attention_mix_tnh_per_batch": per_batch,
+          "ce_recovered_per_layer": [r["ce_recovered"] for r in results],
+          "l0_per_layer": [r["avg_l0"] for r in results],
+          "cos_sim_per_layer": [r["avg_cos_sim"] for r in results],
+          "alive_fraction_per_layer": [r["alive_fraction"] for r in results],
+          "validate_mean_ce_recovered": vals["validation_metrics/substitution_score"],
+          "peak_memory_GB": peak_gb,
+          "prefix_check": {"layers": list(SWEEP_EVAL_CHECK_LAYERS), "max_abs_err": check,
+                           "rel_tol": SWEEP_EVAL_LOSS_REL}})
+    return evaluate_launches
+
+
+def _bf16_ulps(n, want) -> float:
+    """n bfloat16 ulps at the largest |value| of ``want``."""
+    return n * 2.0 ** (math.floor(math.log2(want.float().abs().max().item())) - 7)
+
+
+def _block_inputs(g, B, T, D, N, dtype):
+    """x and B16's weights, seeded on the card: x unit normal (a
+    LayerNorm'd stream), the weights scaled by 1/sqrt(fan-in)."""
+    NH = N * 64
+    rnd = lambda *shape, scale=1.0: (torch.randn(*shape, generator=g, device="cuda")
+                                     * scale).to(dtype)
+    return (rnd(B, T, D), rnd(D, 3 * NH, scale=D ** -0.5), rnd(3 * NH, scale=0.1),
+            rnd(NH, D, scale=NH ** -0.5))
+
+
+def _fwd_bwd(fn, inputs, cot=None):
+    """``fn(*inputs)`` and its gradients for the cotangent ``cot`` (ones
+    when None), from one forward."""
+    with torch.enable_grad():
+        leaves = [a.detach().clone().requires_grad_(True) for a in inputs]
+        out = fn(*leaves)
+        grads = torch.autograd.grad(out, leaves, torch.ones_like(out) if cot is None else cot)
+    return out.detach(), grads
+
+
+def phase_mix_kernels(info):
+    """B15 and B16, the op-level path of the JAX package's two kernels
+    without a caller: first the path itself (each entry point once at the
+    B/32 geometry in bfloat16, forward and backward, counts set to 0 just
+    before), then each kernel against its plain version at the stated
+    shapes, B15 against B1 on the same data transposed, B16 against the
+    JAX reference's twin, gradients through the wrappers against the plain
+    versions' autograd, and times beside SDPA (B15) and F.linear + SDPA +
+    F.linear (B16)."""
+    import torch.nn.functional as F
+    from vit_prisma_tpu_torch.ops import attention as A
+    g = torch.Generator(device="cuda").manual_seed(13)
+    counters = _sae_counters()
+    B, T, D, N = BLOCK_GEOMETRY
+    _, Nm, Tm, Hm = MIX_SHAPES[0][1:5]
+    qkv = [(torch.randn(B, Nm, Tm, Hm, generator=g, device="cuda") * s).to(torch.bfloat16)
+           for s in (Hm ** -0.5, 1.0, 1.0)]
+    block = _block_inputs(g, B, T, D, N, torch.bfloat16)
+    torch.cuda.synchronize()
+
+    # The path, with every count set to 0 just before it.
+    _zero_counts(counters)
+    z, dmix = _fwd_bwd(A.attention_mix, qkv)
+    out, dblock = _fwd_bwd(lambda *a: A.fused_attention_block(*a, N, BLOCK_INV_SCALE), block)
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items()}
+    expected = dict.fromkeys(counters, 0)
+    expected.update(attention_mix=1, fused_attention_block=1)  # plain backwards, as in JAX
+    if launches != expected:
+        raise AssertionError(f"mix path launches {launches}, expected {expected}")
+    for t in (z, out, *dmix, *dblock):
+        if not torch.isfinite(t).all():
+            raise AssertionError("mix path: non-finite output or gradient")
+    del z, out, dmix, dblock, qkv, block
+
+    results = {}
+    for name, Bm, Nm, Tm, Hm, dtypes in MIX_SHAPES:
+        for dtype in dtypes:
+            q, k, v = [(torch.randn(Bm, Nm, Tm, Hm, generator=g, device="cuda") * s).to(dtype)
+                       for s in (Hm ** -0.5, 1.0, 1.0)]
+            z = A._launch_mix(q, k, v)
+            want = A.attention_mix_reference(q, k, v)
+            torch.cuda.synchronize()
+            if z.dtype != dtype or z.shape != q.shape:
+                raise AssertionError(f"attention_mix {name}: {z.dtype} {tuple(z.shape)}")
+            err = check_close(f"attention_mix {name} {dtype}", z, want, KERNEL_TOL[dtype])
+            rec = {"phase": "mix_kernel", **info, "kernel": "attention_mix", "shape": name,
+                   "B": Bm, "N": Nm, "T": Tm, "H": Hm, "dtype": str(dtype).split(".")[1],
+                   "max_abs_err": err, "tol": KERNEL_TOL[dtype]}
+            if name == "b32":
+                # B1 on the same data token-major: the same device code, so
+                # equal to the bit
+                tnh = lambda a: a.transpose(1, 2).reshape(Bm, Tm, Nm * Hm).contiguous()
+                z1 = A._launch(tnh(q), tnh(k), tnh(v), Nm, False)
+                rec["equals_b1_transposed"] = bool(torch.equal(tnh(z), z1))
+                if not rec["equals_b1_transposed"]:
+                    raise AssertionError(f"attention_mix {name} {dtype}: differs from B1")
+                dz = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+                got_g = _fwd_bwd(A.attention_mix, (q, k, v), dz)[1]
+                want_g = _fwd_bwd(A.attention_mix_reference, (q, k, v), dz)[1]
+                rel = MIX_GRAD_REL[dtype]
+                rec["grad_max_abs_err"] = {
+                    n_: check_close(f"attention_mix {name} {dtype} d{n_}", a, w, rel_atol(rel, w))
+                    for n_, a, w in zip("qkv", got_g, want_g)}
+                rec["grad_rel_tol"] = rel
+                del z1, dz, got_g, want_g
+            rec["us"] = cuda_us(lambda: A._launch_mix(q, k, v))
+            rec["plain_us"] = cuda_us(lambda: A.attention_mix_reference(q, k, v), iters=5)
+            rec["library_us"] = cuda_us(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0))
+            gemm = "bf16_tensor" if dtype == torch.bfloat16 else "fp32"
+            rec.update(bound(4 * q.numel() * q.element_size(),
+                             [(gemm, 4 * Bm * Nm * Tm * Tm * Hm), ("fp32", 5 * Bm * Nm * Tm * Tm)]))
+            results[("attention_mix", name, dtype)] = rec
+            emit(rec)
+            del q, k, v, z, want
+
+    NH = N * 64
+    for dtype in (torch.bfloat16, torch.float32):
+        args = _block_inputs(g, B, T, D, N, dtype)
+        x, Wqkv, bqkv, Wo = args
+        out = A._launch_attn_block(*args, N, BLOCK_INV_SCALE)
+        want = A.fused_attention_block_plain(*args, N, BLOCK_INV_SCALE)
+        torch.cuda.synchronize()
+        if out.dtype != dtype or out.shape != x.shape:
+            raise AssertionError(f"fused_attention_block: {out.dtype} {tuple(out.shape)}")
+        tol = (rel_atol(BLOCK_F32_REL, want) if dtype == torch.float32
+               else _bf16_ulps(BLOCK_BF16_ULPS, want))
+        err = check_close(f"fused_attention_block {dtype}", out, want, tol)
+        rec = {"phase": "mix_kernel", **info, "kernel": "fused_attention_block", "shape": "b32",
+               "B": B, "T": T, "D": D, "N": N, "H": 64, "dtype": str(dtype).split(".")[1],
+               "max_abs_err": err, "tol": tol,
+               "tol_rule": (f"{BLOCK_F32_REL} x max(1, |out|max)" if dtype == torch.float32
+                            else f"{BLOCK_BF16_ULPS} bf16 ulps at |out|max")}
+        if dtype == torch.float32:
+            ref = A.attn_block_reference(*args, N, BLOCK_INV_SCALE)
+            rec["reference_max_abs_err"] = check_close(
+                "fused_attention_block vs attn_block_reference", out, ref,
+                rel_atol(BLOCK_F32_REL, ref))
+            del ref
+        cot = torch.randn(x.shape, generator=g, device="cuda").to(dtype)
+        fn = lambda *a: A.fused_attention_block(*a, N, BLOCK_INV_SCALE)
+        plain = lambda *a: A.fused_attention_block_plain(*a, N, BLOCK_INV_SCALE)
+        rel = BLOCK_GRAD_REL[dtype]
+        rec["grad_max_abs_err"] = {
+            n_: check_close(f"fused_attention_block {dtype} d{n_}", a, w, rel_atol(rel, w))
+            for n_, a, w in zip(("x", "Wqkv", "bqkv", "Wo"), _fwd_bwd(fn, args, cot)[1],
+                                _fwd_bwd(plain, args, cot)[1])}
+        rec["grad_rel_tol"] = rel
+        rec["us"] = cuda_us(lambda: A._launch_attn_block(*args, N, BLOCK_INV_SCALE))
+        rec["plain_us"] = cuda_us(lambda: plain(*args), iters=5)
+        WqkvT, WoT = Wqkv.t().contiguous(), Wo.t().contiguous()  # untimed, as weights would lie
+
+        def library():
+            qkv_l = F.linear(x, WqkvT, bqkv).view(B, T, 3, N, 64).permute(2, 0, 3, 1, 4)
+            zl = F.scaled_dot_product_attention(qkv_l[0], qkv_l[1], qkv_l[2],
+                                                scale=BLOCK_INV_SCALE)
+            return F.linear(zl.transpose(1, 2).reshape(B, T, NH), WoT)
+        rec["library_us"] = cuda_us(library)
+        rec["library_max_abs_err"] = (library().float() - want.float()).abs().max().item()
+        gemm = "bf16_tensor" if dtype == torch.bfloat16 else "fp32"
+        flops = {"qkv": 2 * B * T * D * 3 * NH, "out": 2 * B * T * NH * D,
+                 "mix": 4 * B * N * T * T * 64}
+        rec["GFLOP"] = {k_: v_ / 1e9 for k_, v_ in flops.items()}
+        rec["TFLOP_s"] = sum(flops.values()) / (rec["us"] * 1e-6) / 1e12
+        rec.update(bound((2 * x.numel() + Wqkv.numel() + bqkv.numel() + Wo.numel())
+                         * x.element_size(),
+                         [(gemm, sum(flops.values())), ("fp32", 5 * B * N * T * T)]))
+        results[("fused_attention_block", "b32", dtype)] = rec
+        emit(rec)
+        del args, x, Wqkv, bqkv, Wo, out, want, cot, WqkvT, WoT
+    emit({"phase": "mix_path", **info, "launches": launches, "expected_launches": expected,
+          "path": "attention_mix and fused_attention_block at B/32 bf16, forward and "
+                  "backward; neither has a caller on any path of either package"})
+    return results, launches
+
+
 def _with_weights(model, **overrides):
     """A HookedViT on the card with ``model``'s weights and config fields
     overridden."""
@@ -2724,6 +3166,8 @@ def main():
 
     phase_build(info)
     kernels = phase_kernels(info)
+    mix_kernels, mix_launches = phase_mix_kernels(info)
+    release()
     sae_kernels = phase_sae_kernels(info)
     kth = phase_kth_value(info)
     fused, plain = phase_slice(info)
@@ -2731,7 +3175,10 @@ def main():
     del fused, plain
     trainer, store, cfg, train_launches = phase_train(info)
     check_steps(*phase_step_check(info, trainer, store, cfg))
-    del trainer, store
+    del store
+    release()
+    phase_sae_eval(info, trainer, cfg)
+    del trainer
     release()
     sae_step_kernels = phase_sae_step_kernels(info)
     topk_kernels = phase_topk_kernels(info)
@@ -2743,7 +3190,10 @@ def main():
     release()
     sweep, sweep_store, sweep_cfg, sweep_launches, remat_launches = phase_sweep(info)
     check_sweep_steps(phase_sweep_step_check(info, sweep, sweep_store, sweep_cfg))
-    del sweep, sweep_store
+    del sweep_store
+    release()
+    phase_sweep_eval(info, sweep, sweep_cfg)
+    del sweep
     release()
     gated_kernels = phase_gated_kernels(info)
     trainer, store, cfg, gated_launches = phase_train(info, gated_config(), "gated_train")
@@ -2844,6 +3294,12 @@ def main():
                 **rec["bound"][key]}
         line.append(entry(name, FLASH_SOURCES[name], FLASH_REPLACES[name], launches[name],
                           flat, "us", 1e-3))
+    # B15 and B16 at B/32 bf16; launches from their op-level path (they have
+    # no caller on any path of either package)
+    line += [entry(k, src, rep_, mix_launches[k], mix_kernels[(k, "b32", torch.bfloat16)],
+                   "us", 1e-3)
+             for k, src, rep_ in (("attention_mix", MIX_SOURCE, MIX_REPLACES),
+                                  ("fused_attention_block", BLOCK_SOURCE, BLOCK_REPLACES))]
     missing = [e["name"] for e in line if not e["launches"] > 0]
     if missing:
         raise AssertionError(f"kernels not launched on their main paths: {missing}")

@@ -214,9 +214,7 @@ def test_train_state_from_jax_maps_every_leaf():
 
 
 @pytest.mark.parametrize("fields,kwargs,item", [
-    (dict(n_validation_runs=2), {}, "item 8"),
     (dict(n_checkpoints=2), {}, "item 15"),
-    (dict(log_to_wandb=True), {}, "item 8"),
     ({}, dict(mesh=object()), "item 15"),
 ])
 def test_trainer_options_not_ported_raise(fields, kwargs, item):
@@ -225,6 +223,23 @@ def test_trainer_options_not_ported_raise(fields, kwargs, item):
         port_sae.VisionSAETrainer(pc, **kwargs)
     with pytest.raises(NotImplementedError, match=item):
         port_sae.SAESweepTrainer(pc.replace(sweep_layers=(0, 1)), **kwargs)
+
+
+@pytest.mark.parametrize("fields", [dict(n_validation_runs=2), dict(log_to_wandb=True)],
+                         ids=["n_validation_runs", "log_to_wandb"])
+def test_trainer_validation_options_run(fields):
+    """Validation and wandb are ported: both trainers build with them, and
+    without a model and eval data ``validate()`` has nothing to do (wandb is
+    not installed here, so it is left off); ``test_torch_evals.py`` holds
+    them against the JAX trainers."""
+    jc, pc = _cfgs(**fields)
+    for cls, jcls, c, j in ((port_sae.VisionSAETrainer, jax_sae.VisionSAETrainer, pc, jc),
+                            (port_sae.SAESweepTrainer, jax_sae.SAESweepTrainer,
+                             pc.replace(sweep_layers=(0, 1)), jc.replace(sweep_layers=(0, 1)))):
+        tr, jtr = cls(c, device="cpu"), jcls(j)
+        assert tr.validation_thresholds == jtr.validation_thresholds
+        assert len(tr.validation_thresholds) == c.n_validation_runs - (c.n_validation_runs > 0)
+        assert tr._wandb is None and tr.validate() is None and jtr.validate() is None
 
 
 def test_import_loads_no_jax_including_sae():

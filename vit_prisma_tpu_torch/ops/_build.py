@@ -113,6 +113,10 @@ def load_library() -> ctypes.CDLL:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.attention_mix_tnh_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
     lib.attention_mix_tnh_fwd.restype = i
+    lib.attention_mix_fwd.argtypes = [p] * 4 + [i] * 6 + [p]
+    lib.attention_mix_fwd.restype = i
+    lib.attention_block_fwd.argtypes = [p] * 6 + [i] * 4 + [f, i, i, p]
+    lib.attention_block_fwd.restype = i
     lib.attention_mix_tnh_bwd.argtypes = [p] * 8 + [i] * 7 + [p]
     lib.attention_mix_tnh_bwd.restype = i
     lib.take_rows.argtypes = [p, p, p, ll, ll, i, i, i, p]

@@ -19,8 +19,13 @@ the two passes of ``csrc/flash_attention_bwd.cu``
 (:func:`flash_attention_padded_bwd_dkv`, :func:`flash_attention_padded_bwd_dq`);
 on CPU tensors the plain versions.
 
-Not ported yet: the JAX package's two kernels without a caller on the main
-path, ``attention_mix`` and ``fused_attention_block`` (ROADMAP queue B).
+The JAX package's two kernels without a caller on any path, ported as
+op-level entry points: :func:`attention_mix` is kernel B15, the mix over
+head-major ``[B, N, T, H]`` tensors (B1's device code with head-major
+strides; the plain VJP as its backward), and :func:`fused_attention_block`
+is kernel B16, the QKV projection, the mix and the output projection of one
+attention layer in one kernel (``csrc/attention_block.cu``; the VJP of
+:func:`attn_block_reference` as its backward).
 """
 
 from __future__ import annotations
@@ -471,14 +476,260 @@ def flash_attention_padded(q, k, v, seg, causal: bool = False):
 flash_attention_padded.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# B15: the mix over head-major [B, N, T, H]
+# ---------------------------------------------------------------------------
+
+def attention_mix_reference(q, k, v):
+    """Plain PyTorch version of B15's forward, with the Pallas kernel's
+    float32 and cast points: float32 scores and softmax with a division, p
+    rounded to v's dtype, float32 PV accumulation, z in q's dtype.  The
+    tests use it as the oracle, and the wrapper runs it for CPU tensors."""
+    s = torch.einsum("bnqh,bnkh->bnqk", q.float(), k.float())
+    s = s - s.amax(dim=-1, keepdim=True)
+    e = s.exp()
+    p = (e / e.sum(dim=-1, keepdim=True)).to(v.dtype).float()
+    return torch.einsum("bnqk,bnkh->bnqh", p, v.float()).to(q.dtype)
+
+
+def attention_mix_bwd_reference(q, k, v, dz):
+    """B15's VJP, the plain version of the JAX package's ``_mix_bwd`` (it
+    has no backward kernel): p recomputed in float32, ``ds = p (dp -
+    rowsum(dp p))``, float32 einsums, each gradient cast to its input's
+    dtype.  Returns ``(dq, dk, dv)``."""
+    s = torch.einsum("bnqh,bnkh->bnqk", q.float(), k.float())
+    s = s - s.amax(dim=-1, keepdim=True)
+    e = s.exp()
+    p = e / e.sum(dim=-1, keepdim=True)
+    dzf = dz.float()
+    dp = torch.einsum("bnqh,bnkh->bnqk", dzf, v.float())
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bnqk,bnkh->bnqh", ds, k.float())
+    dk = torch.einsum("bnqk,bnqh->bnkh", ds, q.float())
+    dv = torch.einsum("bnqk,bnqh->bnkh", p, dzf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _launch_mix(q, k, v):
+    """Run B15's kernel on PyTorch's current stream."""
+    _check_cuda("attention_mix", q, k, v)
+    B, N, T, H = q.shape
+    lib = _build.load_library()
+    z = torch.empty_like(q)
+    rc = lib.attention_mix_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), z.data_ptr(), B, N, T, H,
+        _DTYPE_CODES[q.dtype], q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, rc, "attention_mix")
+    attention_mix.launches += 1
+    return z
+
+
+class _Mix(torch.autograd.Function):
+    """B15 forward (the plain version on CPU tensors); the plain VJP as the
+    backward on either device."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        if q.device.type == "cpu":
+            return attention_mix_reference(q, k, v)
+        return _launch_mix(q, k, v)
+
+    @staticmethod
+    def backward(ctx, dz):
+        return attention_mix_bwd_reference(*ctx.saved_tensors, dz)
+
+
 def attention_mix(q, k, v):
-    """Head-major mix with head-group packing; not ported yet."""
-    raise NotImplementedError(
-        "attention_mix is not ported yet (ROADMAP queue B, at its end)")
+    """Fused softmax attention over head-major ``[B, N, T, H]`` tensors
+    (pre-scaled q, no mask) -> z ``[B, N, T, H]`` in q's dtype,
+    differentiable: kernel B15.
+
+    CUDA tensors launch the hand-written kernel, B1's device code with the
+    head-major strides, and add one to ``attention_mix.launches``; CPU
+    tensors run :func:`attention_mix_reference`.  The backward is the plain
+    :func:`attention_mix_bwd_reference` on either device, as in the JAX
+    package.  The JAX kernel's head-group packing (``_pick_head_group``) and
+    batch blocks (``_pick_batch_block``) choose tiles for the TPU's matrix
+    unit and on-chip memory and change no result; the port has neither.  It
+    takes what B1 takes (:func:`mix_tnh_fits_smem`); past that it raises
+    ``NotImplementedError`` on either device."""
+    if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError("attention_mix: q, k, v must share one [B, N, T, H] shape, got "
+                         f"{[tuple(x.shape) for x in (q, k, v)]}")
+    B, N, T, H = q.shape
+    if not mix_tnh_fits_smem(T, H):
+        raise NotImplementedError(
+            f"attention_mix: T={T}, H={H} does not fit the kernel's shared memory "
+            "(the gate of attention_mix_tnh); long token axes take the tiled flash "
+            "kernel (B13), flash_attention_padded")
+    if N > 65535:
+        raise ValueError(f"attention_mix: {N} heads exceed the grid limit of 65535")
+    return _Mix.apply(q, k, v)
 
 
-def fused_attention_block(*args, **kwargs):
-    """QKV GEMM, mix and O GEMM in one kernel; not ported yet."""
-    raise NotImplementedError(
-        "fused_attention_block is not ported yet (ROADMAP queue B, at its "
-        "end)")
+attention_mix.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B16: QKV projection, mix and output projection in one kernel
+# ---------------------------------------------------------------------------
+
+# Must match kHead, kRows, kOutCols, Gemm and smem_bytes() in
+# csrc/attention_block.cu.
+ATTN_BLOCK_HEAD = 64
+ATTN_BLOCK_MAX_T = 64
+_ATTN_BLOCK_COL_TILE = 128
+
+
+def attn_block_smem_bytes(dtype) -> int:
+    """Shared memory of B16's block: three stages of its GEMM staging (a
+    [64 x 32] x tile and a [32 x 192] weight tile, rows padded by 16 bytes),
+    one head's q, k, v [64 x 64] tiles padded likewise and, in float32, the
+    mix's per-warp P buffers.  It depends on the dtype alone."""
+    it = dtype.itemsize
+    pad = 16 // it
+    staging = 3 * (64 * (32 + pad) + 32 * (192 + pad)) * it
+    tiles = 3 * 64 * (ATTN_BLOCK_HEAD + pad) * it
+    pbufs = 4 * 16 * 68 * 4 if it == 4 else 0
+    return staging + tiles + pbufs
+
+
+def attn_block_fits_smem(T: int, D: int, NH: int, dtype, H: int = ATTN_BLOCK_HEAD) -> bool:
+    """Whether B16 takes an image of T tokens, model width D and N*H = NH
+    attention columns in ``dtype``: its block holds T <= 64 rows and one
+    head of width 64 at a time, writes out in 128-column tiles (D a
+    multiple of 128), and needs :func:`attn_block_smem_bytes` of shared
+    memory.  CLIP ViT-B/32 (T 50, D 768, N 12) fits in both dtypes; CLIP
+    L/14 (T 257) does not."""
+    return (0 < T <= ATTN_BLOCK_MAX_T and H == ATTN_BLOCK_HEAD and NH > 0
+            and NH % H == 0 and D > 0 and D % _ATTN_BLOCK_COL_TILE == 0
+            and dtype in _DTYPE_CODES and attn_block_smem_bytes(dtype) <= _MAX_SMEM_BYTES)
+
+
+def _scale_in(dtype, inv_scale: float) -> float:
+    """The scale as the kernel applies it: a Python float multiplying a JAX
+    array takes the array's dtype first."""
+    return torch.tensor(inv_scale, dtype=dtype).item()
+
+
+def _split_heads(qkv, B, T, n_heads, H):
+    q, k, v = qkv.reshape(B, T, 3, n_heads, H).unbind(2)
+    return q, k, v
+
+
+def fused_attention_block_plain(x, Wqkv, bqkv, Wo, n_heads: int, inv_scale: float):
+    """Plain PyTorch version of B16 at the Pallas kernel's rounding points
+    (the oracle for the kernel; the wrapper runs it for CPU tensors): qkv
+    accumulated in float32 with the float32 bias, rounded once to x's dtype;
+    q times the scale rounded again; float32 scores and softmax, p rounded
+    to v's dtype; each head's z rounded to x's dtype; out accumulated in
+    float32 over all N*H columns, rounded once."""
+    B, T, D = x.shape
+    NH = Wo.shape[0]
+    H = NH // n_heads
+    dt = x.dtype
+    qkv = (torch.matmul(x.reshape(B * T, D).float(), Wqkv.float()) + bqkv.float()).to(dt)
+    q, k, v = _split_heads(qkv, B, T, n_heads, H)
+    q = (q.float() * _scale_in(dt, inv_scale)).to(dt)
+    s = torch.einsum("bqnh,bknh->bnqk", q.float(), k.float())
+    s = s - s.amax(dim=-1, keepdim=True)
+    e = s.exp()
+    p = (e / e.sum(dim=-1, keepdim=True)).to(v.dtype).float()
+    z = torch.einsum("bnqk,bknh->bqnh", p, v.float()).to(dt)
+    out = torch.matmul(z.reshape(B * T, NH).float(), Wo.float()).to(dt)
+    return out.reshape(B, T, D)
+
+
+def attn_block_reference(x, Wqkv, bqkv, Wo, n_heads: int, inv_scale: float):
+    """The twin of the JAX package's ``_attn_block_ref``: every product in
+    x's dtype (float32 accumulation, one rounding each), the bias added in
+    x's dtype, softmax in float32, p rounded to x's dtype.  Its autograd is
+    B16's backward."""
+    B, T, D = x.shape
+    NH = Wo.shape[0]
+    H = NH // n_heads
+    qkv = x.reshape(B * T, D) @ Wqkv + bqkv
+    q, k, v = _split_heads(qkv, B, T, n_heads, H)
+    q = q * _scale_in(x.dtype, inv_scale)
+    s = torch.einsum("bqnh,bknh->bnqk", q.float(), k.float())
+    p = torch.softmax(s, dim=-1).to(x.dtype)
+    z = torch.einsum("bnqk,bknh->bqnh", p, v)
+    return (z.reshape(B * T, NH) @ Wo).reshape(B, T, D)
+
+
+def _launch_attn_block(x, Wqkv, bqkv, Wo, n_heads: int, inv_scale: float):
+    """Run B16's kernel on PyTorch's current stream."""
+    tensors = (x, Wqkv, bqkv, Wo)
+    _check_cuda("fused_attention_block", *tensors)
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("fused_attention_block: x, Wqkv, bqkv and Wo must be 16-byte aligned")
+    B, T, D = x.shape
+    NH = Wo.shape[0]
+    lib = _build.load_library()
+    out = torch.empty_like(x)
+    # each image's z rows, from the mix to the output projection
+    zbuf = torch.empty(B, ATTN_BLOCK_MAX_T, NH, dtype=x.dtype, device=x.device)
+    rc = lib.attention_block_fwd(
+        x.data_ptr(), Wqkv.data_ptr(), bqkv.data_ptr(), Wo.data_ptr(), zbuf.data_ptr(),
+        out.data_ptr(), B, T, D, n_heads, _scale_in(x.dtype, inv_scale),
+        _DTYPE_CODES[x.dtype], x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, rc, "fused_attention_block")
+    fused_attention_block.launches += 1
+    return out
+
+
+class _AttnBlock(torch.autograd.Function):
+    """B16 forward (the plain version on CPU tensors); the VJP of
+    :func:`attn_block_reference` as the backward on either device, as the
+    JAX package's ``_fab_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, Wqkv, bqkv, Wo, n_heads, inv_scale):
+        ctx.save_for_backward(x, Wqkv, bqkv, Wo)
+        ctx.n_heads, ctx.inv_scale = n_heads, inv_scale
+        if x.device.type == "cpu":
+            return fused_attention_block_plain(x, Wqkv, bqkv, Wo, n_heads, inv_scale)
+        return _launch_attn_block(x, Wqkv, bqkv, Wo, n_heads, inv_scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+            out = attn_block_reference(*leaves, ctx.n_heads, ctx.inv_scale)
+            grads = torch.autograd.grad(out, leaves, g)
+        return (*grads, None, None)
+
+
+def fused_attention_block(x, Wqkv, bqkv, Wo, n_heads: int, inv_scale: float):
+    """QKV projection, per-head softmax mix and output projection over
+    ``[B, T, D]`` (LayerNorm'd) input as one kernel, B16: ``Wqkv`` ``[D,
+    3*N*H]`` (q|k|v packed along the columns), ``bqkv`` ``[3*N*H]``, ``Wo``
+    ``[N*H, D]``; no output bias (the caller adds it with the residual).
+    Differentiable.
+
+    CUDA tensors launch the hand-written kernel (all three products by hand,
+    no library GEMM) and add one to ``fused_attention_block.launches``; CPU
+    tensors run :func:`fused_attention_block_plain`.  The backward is the VJP
+    of :func:`attn_block_reference` on either device.  Past
+    :func:`attn_block_fits_smem` it raises ``NotImplementedError`` on either
+    device."""
+    if x.ndim != 3 or Wqkv.ndim != 2 or bqkv.ndim != 1 or Wo.ndim != 2:
+        raise ValueError("fused_attention_block: x, Wqkv, bqkv, Wo must be [B, T, D], "
+                         "[D, 3*N*H], [3*N*H], [N*H, D]")
+    B, T, D = x.shape
+    NH = Wo.shape[0]
+    if (tuple(Wqkv.shape) != (D, 3 * NH) or tuple(bqkv.shape) != (3 * NH,)
+            or tuple(Wo.shape) != (NH, D) or NH % n_heads):
+        raise ValueError(
+            f"fused_attention_block: x {tuple(x.shape)}, Wqkv {tuple(Wqkv.shape)}, bqkv "
+            f"{tuple(bqkv.shape)}, Wo {tuple(Wo.shape)}, n_heads {n_heads} do not agree")
+    if not attn_block_fits_smem(T, D, NH, x.dtype, NH // n_heads):
+        raise NotImplementedError(
+            f"fused_attention_block: T={T}, D={D}, N*H={NH} (H={NH // n_heads}), {x.dtype} "
+            f"is past the kernel's gate (T <= {ATTN_BLOCK_MAX_T}, H = {ATTN_BLOCK_HEAD}, D a "
+            "multiple of 128, float32 or bfloat16)")
+    return _AttnBlock.apply(x, Wqkv, bqkv, Wo, n_heads, inv_scale)
+
+
+fused_attention_block.launches = 0

@@ -1,6 +1,6 @@
-"""Sparse-autoencoder training (PyTorch port of ``vit_prisma_tpu.sae``):
-the standard SAE, its activation store, train step and trainer, for one SAE
-or the all-layer sweep."""
+"""Sparse-autoencoder training and evaluation (PyTorch port of
+``vit_prisma_tpu.sae``): the standard SAE, its activation store, train step
+and trainer, for one SAE or the all-layer sweep, and the eval suite."""
 
 from vit_prisma_tpu_torch.sae.config import SAERunnerConfig
 from vit_prisma_tpu_torch.sae.convert import (
@@ -16,4 +16,8 @@ from vit_prisma_tpu_torch.sae.train import (
     sae_train_multistep, init_train_state, initialize_b_dec,
     reset_sparsity_counters, make_fused_cycle, SAESweepTrainer,
     sae_sweep_train_step, sae_sweep_train_multistep, init_sweep_state,
+)
+from vit_prisma_tpu_torch.sae.evals import (
+    EvalConfig, evaluate, process_dataset, find_top_activations,
+    make_replacement_hook, zero_ablate_hook,
 )

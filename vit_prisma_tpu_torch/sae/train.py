@@ -28,9 +28,18 @@ the generic step layer by layer.  :func:`make_fused_cycle` (``train_cycles``)
 is, in eager PyTorch, a refill from the cycle's image indices followed by K
 steps, serving the same rows as ``train_steps(store.next_batches(K))``.
 
-Not ported yet, and raising ``NotImplementedError``: validation, evaluation
-and wandb (ROADMAP queue A, item 8), checkpoints and ``mesh`` (item 15),
-transcoders and the approximate TopK (item 10).
+Both trainers validate in training, as the JAX package's: ``validate()``
+runs one eval step (``sae/evals.py``: clean, SAE-substituted and
+zero-ablated forwards) over a fixed labelled batch from ``eval_dataset``,
+``cfg.n_validation_runs`` times a run at even token thresholds and once at
+its end, and ``run`` aborts when the CE recovered falls below
+``cfg.min_ce_recovered``; the sweep's ``evaluate()`` runs the all-layer eval
+over a dataset.  With ``cfg.log_to_wandb`` the metrics go to wandb when it
+imports and starts; otherwise nothing is logged there.
+
+Not ported yet, and raising ``NotImplementedError``: checkpoints and
+``mesh`` (ROADMAP queue A, item 15), transcoders and the approximate TopK
+(item 10).
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ import time
 import warnings
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from vit_prisma_tpu_torch.configs.vit_config import DTYPE_MAP
@@ -534,27 +544,74 @@ def make_fused_cycle(cfg: SAERunnerConfig, store):
 # Trainers
 # ---------------------------------------------------------------------------
 
-def _not_ported_options(cfg, mesh, eval_dataset, class_embeddings):
+def _not_ported_options(cfg, mesh):
     if mesh is not None:
         raise NotImplementedError(
             "a sharded trainer (mesh=) is not ported yet (ROADMAP queue A, item 15)")
-    if cfg.n_validation_runs or eval_dataset is not None or class_embeddings is not None:
-        raise NotImplementedError(
-            "in-training validation is not ported yet (ROADMAP queue A, item 8)")
     if cfg.n_checkpoints:
         raise NotImplementedError(
             "checkpoints are not ported yet (ROADMAP queue A, item 15)")
-    if cfg.log_to_wandb:
-        raise NotImplementedError(
-            "wandb logging is not ported yet (ROADMAP queue A, item 8)")
+
+
+def _token_thresholds(cfg: SAERunnerConfig, n: int):
+    """Evenly spaced token thresholds of a run."""
+    if not n:
+        return []
+    total = cfg.total_training_tokens
+    return list(range(0, total, total // n))[1:]
+
+
+def _build_val_batch(eval_dataset, n: int):
+    """One fixed labelled eval batch (images, labels) from a dataset of
+    (image, label) items or bare images (labels 0), as tensors where the
+    items lie."""
+    items = [eval_dataset[i] for i in range(n)]
+    if isinstance(items[0], (tuple, list)):
+        images = torch.stack([torch.as_tensor(it[0]) for it in items])
+        labels = torch.tensor([int(it[1]) for it in items], dtype=torch.int64)
+    else:
+        images = torch.stack([torch.as_tensor(it) for it in items])
+        labels = torch.zeros((n,), dtype=torch.int64)
+    return images, labels
+
+
+def _class_emb_or_identity(model, images, class_embeddings):
+    """Class directions for the substitution CE: the given zero-shot or
+    probe matrix, else an identity readout over the model's own output."""
+    device = next(model.parameters()).device
+    if class_embeddings is not None:
+        return torch.as_tensor(class_embeddings).to(device)
+    probe = model(images[:1].to(device))
+    return torch.eye(probe.shape[-1], dtype=probe.dtype, device=device)
+
+
+def _start_wandb(cfg: SAERunnerConfig):
+    """The wandb module after ``wandb.init``, or None when it does not
+    import or start (the run goes on without it)."""
+    if not cfg.log_to_wandb:
+        return None
+    try:
+        import wandb
+        wandb.init(project=cfg.wandb_project, entity=cfg.wandb_entity, config=cfg.to_dict())
+        return wandb
+    except Exception:
+        return None
+
+
+def _substitution_score(clean: float, recons: float, zero: float) -> float:
+    denom = zero - clean
+    return (zero - recons) / denom if abs(denom) > 1e-9 else float("nan")
 
 
 class VisionSAETrainer:
     """Streams token rows from an activation store into the train step,
-    with the JAX trainer's log cadence, sparsity-window resets and bad-run
-    abort.  Parameters are drawn from ``generator`` (seeded with
-    ``cfg.seed`` when None) and live on ``device`` (when None: the store's,
-    or the CUDA card without a store)."""
+    with the JAX trainer's log cadence, sparsity-window resets, bad-run
+    abort, in-training validation (``eval_dataset``: (image, label) items
+    or bare images; ``class_embeddings``: the class directions, else an
+    identity readout of the model's output) and optional wandb logging.
+    Parameters are drawn from ``generator`` (seeded with ``cfg.seed`` when
+    None) and live on ``device`` (when None: the store's, or the CUDA card
+    without a store)."""
 
     _step = staticmethod(sae_train_step)
     _multistep = staticmethod(sae_train_multistep)
@@ -563,7 +620,7 @@ class VisionSAETrainer:
                  generator: Optional[torch.Generator] = None, device=None,
                  eval_dataset=None, class_embeddings=None, mesh=None):
         check_ported(cfg)
-        _not_ported_options(cfg, mesh, eval_dataset, class_embeddings)
+        _not_ported_options(cfg, mesh)
         self.cfg = cfg
         self.model = model
         self.store = store
@@ -575,6 +632,13 @@ class VisionSAETrainer:
         # instead of the device value, so the loop never waits for the
         # device except to log.  load_state() keeps it in sync.
         self._host_step = 0
+        self.validation_thresholds = _token_thresholds(cfg, cfg.n_validation_runs)
+        self.eval_dataset = eval_dataset if eval_dataset is not None else \
+            getattr(store, "eval_dataset", None)
+        self.class_embeddings = class_embeddings
+        self._val_step = None
+        self._val_batch = None
+        self._wandb = _start_wandb(cfg)
 
     def _init_state(self, generator, device) -> SAETrainState:
         cfg, store = self.cfg, self.store
@@ -636,9 +700,16 @@ class VisionSAETrainer:
         return self
 
     def log_metrics(self, metrics: StepMetrics, step: Optional[int] = None):
-        """The metrics as floats, fetched in one transfer."""
+        """The metrics as floats, fetched in one transfer (and logged to
+        wandb when it runs)."""
         host = torch.stack([getattr(metrics, k).float() for k in metrics._fields])
-        return dict(zip(metrics._fields, host.tolist()))
+        vals = dict(zip(metrics._fields, host.tolist()))
+        self._wandb_log(vals, step)
+        return vals
+
+    def _wandb_log(self, vals, step: Optional[int] = None):
+        if self._wandb is not None:
+            self._wandb.log(vals, step=self._host_step if step is None else step)
 
     def check_run_tolerance(self, metrics: StepMetrics) -> bool:
         """Bad-run abort conditions.  True if the run should be aborted."""
@@ -654,6 +725,66 @@ class VisionSAETrainer:
             return f"SAE training below quality tolerance (metrics={vals}); aborting run"
         return None
 
+    # -- in-training validation ------------------------------------------
+    def _get_val_inputs(self):
+        """One fixed labelled eval batch (images, labels) on the model's
+        device, built at the first call: ``min(cfg.store_batch_size,
+        len(eval_dataset))`` items."""
+        if self._val_batch is None and self.eval_dataset is not None:
+            images, labels = _build_val_batch(
+                self.eval_dataset, min(self.cfg.store_batch_size, len(self.eval_dataset)))
+            device = next(self.model.parameters()).device
+            self._val_batch = images.to(device), labels.to(device)
+        return self._val_batch
+
+    def validate(self) -> Optional[Dict[str, float]]:
+        """One validation pass over the fixed eval batch: the substitution
+        CE (clean, SAE-substituted and zero-ablated losses and the CE
+        recovered), L0 per image and the cosine similarity, from one eval
+        step (``sae/evals.py``).  Returns the metrics (also logged to wandb
+        under ``validation_metrics/``), or None without eval data or a
+        model."""
+        if self.model is None or self.eval_dataset is None:
+            return None
+        images, labels = self._get_val_inputs()
+        class_emb = _class_emb_or_identity(self.model, images, self.class_embeddings)
+        if self._val_step is None:
+            from vit_prisma_tpu_torch.sae.evals import make_eval_step
+            self._val_step = make_eval_step(self.model, self.sae)
+        s = self._val_step(self.model, self.state.params, images, labels, class_emb)
+        host = torch.stack([s.loss.float(), s.recons_loss.float(), s.zero_abl_loss.float(),
+                            s.l0_image.float().mean(), s.cos_sim.float()]).tolist()
+        clean, recons, zero, l0, cos = host
+        score = _substitution_score(clean, recons, zero)
+        step = int(self.state.step)
+        vals = {
+            "validation_metrics/substitution_loss": recons,
+            "validation_metrics/zero_ablation_loss": zero,
+            "validation_metrics/model_loss": clean,
+            "validation_metrics/substitution_score": score,
+            "validation_metrics/L0": l0,
+            "validation_metrics/cos_sim": cos,
+        }
+        self._wandb_log(vals, step)
+        if self.cfg.verbose:
+            print(f"val @ step {step}: CE-recovered {score:.3f} "
+                  f"(clean {clean:.4f} recon {recons:.4f} zero {zero:.4f})")
+        return vals
+
+    def check_validation_tolerance(self, vals: Dict[str, float]) -> bool:
+        """True if the run should abort on a CE-recovered regression."""
+        if self.cfg.min_ce_recovered is None:
+            return False
+        score = vals.get("validation_metrics/substitution_score")
+        return score is not None and score == score and score < self.cfg.min_ce_recovered
+
+    def _validation_abort_message(self, vals) -> Optional[str]:
+        if self.check_validation_tolerance(vals):
+            return ("SAE validation CE-recovered below tolerance "
+                    f"({vals['validation_metrics/substitution_score']:.3f} < "
+                    f"{self.cfg.min_ce_recovered}); aborting run")
+        return None
+
     def _progress(self, step: int, n_tokens: int, vals, seconds: float) -> str:
         return (f"step {step} tokens {n_tokens} loss {vals['loss']:.4f} "
                 f"L0 {vals['l0']:.1f} ev {vals['explained_variance']:.3f} "
@@ -664,13 +795,16 @@ class VisionSAETrainer:
 
     def run(self, max_steps: Optional[int] = None):
         """Train until ``cfg.total_training_tokens`` (or ``max_steps``),
-        reading the metrics every ``cfg.wandb_log_frequency`` steps."""
+        reading the metrics every ``cfg.wandb_log_frequency`` steps and
+        validating at ``cfg.n_validation_runs`` even token thresholds and at
+        the end, with the CE-recovered abort."""
         if self.store is None:
             raise ValueError("run() requires an activation store")
         total = self.cfg.total_training_tokens
         k = max(1, int(self.cfg.steps_per_dispatch))
         bs = self.cfg.train_batch_size
         freq = self.cfg.wandb_log_frequency
+        val_thresholds = list(self.validation_thresholds)
         step = 0
         # one sync here, then host accounting only
         self._host_step = int(self.state.step.reshape(-1)[0])
@@ -697,6 +831,14 @@ class VisionSAETrainer:
                 msg = self._abort_message(m, vals)
                 if msg is not None:
                     raise RuntimeError(msg)
+            while val_thresholds and n_tokens >= val_thresholds[0]:
+                val_thresholds.pop(0)
+                vvals = self.validate()
+                msg = None if vvals is None else self._validation_abort_message(vvals)
+                if msg is not None:
+                    raise RuntimeError(msg)
+        if self.cfg.n_validation_runs:
+            self.validate()
         return self._result()
 
 
@@ -755,13 +897,14 @@ class SAESweepTrainer(VisionSAETrainer):
 
     def log_metrics(self, metrics: StepMetrics, step: Optional[int] = None) -> Dict[str, Any]:
         """Per-layer (``layer_{l}/{name}``) and mean metrics, fetched in one
-        transfer."""
+        transfer (and logged to wandb when it runs)."""
         host = torch.stack([getattr(metrics, k).float() for k in metrics._fields]).cpu()
         vals: Dict[str, Any] = {}
         for k, row in zip(metrics._fields, host):
             vals[k] = float(row.mean())
             for layer, v in zip(self.layers, row.tolist()):
                 vals[f"layer_{layer}/{k}"] = v
+        self._wandb_log(vals, step)
         return vals
 
     def check_run_tolerance(self, metrics: StepMetrics) -> Optional[int]:
@@ -795,10 +938,76 @@ class SAESweepTrainer(VisionSAETrainer):
         raise NotImplementedError(
             "checkpoints are not ported yet (ROADMAP queue A, item 15)")
 
-    def validate(self):
-        raise NotImplementedError(
-            "in-training validation is not ported yet (ROADMAP queue A, item 8)")
+    def validate(self) -> Optional[Dict[str, float]]:
+        """One validation pass over all sweep layers in one sweep eval step
+        (``make_sweep_eval_step``: one clean forward, the layers' SAE
+        forwards and their prefix-shared substituted and zero-ablated
+        suffixes).  Returns per-layer (``layer_{l}/validation_metrics/...``)
+        and mean CE-recovered metrics (also logged to wandb), or None
+        without eval data or a model."""
+        if self.model is None or self.eval_dataset is None:
+            return None
+        images, labels = self._get_val_inputs()
+        class_emb = _class_emb_or_identity(self.model, images, self.class_embeddings)
+        if self._val_step is None:
+            from vit_prisma_tpu_torch.sae.evals import make_sweep_eval_step
+            self._val_step = make_sweep_eval_step(self.model, self.cfg, self.layers)
+        s = self._val_step(self.model, self.state.params, images, labels, class_emb)
+        host = torch.stack([s.loss.float(), s.recons_loss.float(), s.zero_abl_loss.float(),
+                            s.l0_image.float().mean(-1), s.cos_sim.float()]).tolist()
+        vals: Dict[str, float] = {}
+        scores = []
+        for i, layer in enumerate(self.layers):
+            clean, recons, zero, l0, cos = (row[i] for row in host)
+            score = _substitution_score(clean, recons, zero)
+            scores.append(score)
+            p = f"layer_{layer}/validation_metrics/"
+            vals[p + "substitution_loss"] = recons
+            vals[p + "zero_ablation_loss"] = zero
+            vals[p + "model_loss"] = clean
+            vals[p + "substitution_score"] = score
+            vals[p + "L0"] = l0
+            vals[p + "cos_sim"] = cos
+        vals["validation_metrics/substitution_score"] = \
+            float(np.nanmean(scores)) if scores else float("nan")
+        self._wandb_log(vals)
+        if self.cfg.verbose:
+            print(f"sweep val @ step {self._host_step}: CE-recovered "
+                  + " ".join(f"L{l}={sc:.3f}" for l, sc in zip(self.layers, scores)))
+        return vals
 
-    def evaluate(self, data_iter, class_embeddings=None, eval_cfg=None):
-        raise NotImplementedError(
-            "sweep evaluation is not ported yet (ROADMAP queue A, item 8)")
+    def check_validation_tolerance(self, vals: Dict[str, float]) -> Optional[int]:
+        """Index of the first layer whose CE recovered is below
+        ``cfg.min_ce_recovered``, or None."""
+        if self.cfg.min_ce_recovered is None:
+            return None
+        for i, layer in enumerate(self.layers):
+            score = vals.get(f"layer_{layer}/validation_metrics/substitution_score")
+            if score is not None and score == score and score < self.cfg.min_ce_recovered:
+                return i
+        return None
+
+    def _validation_abort_message(self, vals) -> Optional[str]:
+        bad = self.check_validation_tolerance(vals)
+        if bad is None:
+            return None
+        layer = self.layers[bad]
+        return (f"SAE sweep layer {layer} CE-recovered "
+                f"{vals[f'layer_{layer}/validation_metrics/substitution_score']:.3f} "
+                f"below min_ce_recovered={self.cfg.min_ce_recovered}; aborting run")
+
+    def evaluate(self, data_iter, class_embeddings=None, eval_cfg=None) -> List[Dict[str, Any]]:
+        """The all-layer eval over a labelled dataset (``data_iter`` yields
+        (images, labels) batches), one sweep eval step per batch
+        (``sweep_process_dataset``).  Returns one metric dict per layer."""
+        if self.model is None:
+            raise ValueError("evaluate() requires a model")
+        from vit_prisma_tpu_torch.sae.evals import EvalConfig, sweep_process_dataset
+        if class_embeddings is None:
+            batch = self._get_val_inputs()
+            if batch is None:
+                raise ValueError("evaluate() needs class_embeddings or an eval_dataset")
+            class_embeddings = _class_emb_or_identity(self.model, batch[0],
+                                                      self.class_embeddings)
+        return sweep_process_dataset(self.model, self.cfg, self.layers, self.state.params,
+                                     data_iter, class_embeddings, eval_cfg or EvalConfig())
