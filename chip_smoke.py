@@ -8,18 +8,21 @@ Run from the repository root with no arguments:
 Phases, each printing JSON lines with the card's name and power limit:
 
 1. build: compile the CUDA kernels from ``vit_prisma_tpu_torch/csrc``, one
-   nvcc process per source, all started together;
+   nvcc process per source, all started together; the bfloat16 mix
+   kernel's registers, which must not spill;
 2. kernel: every kernel against its plain PyTorch version on the card, at
    the shapes its path gives it, with both times from CUDA events, the
    time of one library call computing the same function where there is one
    (never used by the port) and the kernel's bound (bytes over the memory
    rate or operations over their peak rate): B1 (``attention_mix_tnh``) at
-   the ViT shapes beside ``scaled_dot_product_attention``; then
+   the ViT shapes, the route gate's last T and a padded head width (88),
+   in both dtypes (bfloat16 on the tensor cores, float32 by FFMA), beside
+   ``scaled_dot_product_attention``; then
    ``mix_kernels``, the path of B15 (``attention_mix``) and B16
    (``fused_attention_block``), the JAX package's two kernels without a
    caller: each entry point once at B/32 in bfloat16, forward and backward,
    with exact launches, then B15 against its plain version at B/32 (both
-   dtypes, and equal to B1 on the same data transposed) and CLIP L/14, B16
+   dtypes) and CLIP L/14, equal to B1 on the same data transposed, B16
    against its kernel-rounding plain version at B/32 in both dtypes and
    against the JAX reference's twin in float32, gradients through both
    wrappers against the plain versions' autograd, beside SDPA and
@@ -78,14 +81,16 @@ Phases, each printing JSON lines with the card's name and power limit:
     images on the card): ``HookedViT`` -> sweep ``VisionActivationsStore`` ->
     ``SAESweepTrainer.run(max_steps=18)`` -> ``train_cycles(2)``, then one
     cycle with ``fused_store_acts=False`` (the remat backward, B5).  Launch
-    counts exact; SAE-tokens per second and peak memory;
+    counts exact; SAE-tokens per second and peak memory; ``torch.profiler``'s
+    breakdown of one refill, with B1's share;
 12. sweep step check: three fused steps against three steps of the generic
     per-layer path from one state, in bfloat16 at 24 layers and in float32
     at two; then ``sweep_eval``: the sweep trainer's ``validate()`` and
     ``evaluate()`` over its 96 images at batch 32 (B1 exactly 300 a batch:
     24 for the clean forward, 276 for the prefix-shared suffixes), per-layer
-    CE recovered and L0, and layers 0 and 12 against ``make_eval_step`` with
-    that layer's SAE alone;
+    CE recovered and L0, layers 0 and 12 against ``make_eval_step`` with
+    that layer's SAE alone, and ``torch.profiler``'s breakdown of one eval
+    step, with B1's share;
 13. gated kernels: B11 (``sae_gated_fused_forward``) and B12
     (``sae_gated_fused_backward``) against their plain versions at the
     gated slice's shape (1 x 4096, 768 -> 12,288) in both dtypes and at two
@@ -153,6 +158,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -190,11 +196,15 @@ PEAK_OPS = {"bf16_tensor": 989e12, "fp32": 67e12}
 # differs only in summation order; bfloat16 may round p or z one ulp apart.
 KERNEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # name, B, T, N, H, causal: CLIP B/32 at serving batch, the CLIP text tower
-# (causal), CLIP L/14.
+# (causal), CLIP L/14, the last T of the route gate at H 64, and a head
+# width the bfloat16 kernel pads (88 -> 96: the registry's EVA giant/14,
+# T 257, N 16).
 KERNEL_SHAPES = [
     ("b32", 256, 50, 12, 64, False),
     ("text_causal", 256, 77, 8, 64, True),
     ("l14", 256, 257, 16, 64, False),
+    ("gate_edge", 16, 411, 12, 64, False),
+    ("head88", 64, 257, 16, 88, False),
 ]
 # Slice on the card against the CPU, both float32: atol = SLICE_F32_REL *
 # max(1, absmax of the CPU value), to absorb GEMM summation order over 12
@@ -618,8 +628,25 @@ def phase_build(info):
     seconds = time.perf_counter() - t0
     _build.load_library()
     log = (lib.parent / "nvcc.log").read_text().splitlines()
+    # the bfloat16 mix kernel's instantiations (one per padded head width):
+    # registers and spills, none allowed
+    tc = {}
+    kernel = None
+    for line in log:
+        m = re.search(r"Function properties for \S*mix_tc_kernelILi(\d+)E", line)
+        if m or "Function properties for" in line:
+            kernel = f"padded_head_{m.group(1)}" if m else None
+        elif kernel:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                tc[kernel] = {"spill_bytes": int(m.group(1)) + int(m.group(2))}
+            m = re.search(r"Used (\d+) registers", line)
+            if m and kernel in tc:
+                tc[kernel]["registers"] = int(m.group(1))
+    if len(tc) != 8 or any(r["spill_bytes"] or "registers" not in r for r in tc.values()):
+        raise AssertionError(f"mix_tc_kernel: expected 8 instantiations, no spills: {tc}")
     emit({"phase": "build", **info, "seconds": seconds, "cached": cached,
-          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "torch": torch.__version__, "cuda": torch.version.cuda, "mix_tc_ptxas": tc,
           "ptxas": [l.strip() for l in log if "registers" in l or "spill" in l]})
 
 
@@ -1380,9 +1407,15 @@ def phase_topk_remat(info, trainer, store, cfg):
     return launches
 
 
-def _profile(fn):
+# the device kernels of B1 and B15 (attention_mix_core.cuh), by name
+MIX_KERNEL_NAMES = ("mix_tc_kernel", "mix_fwd_kernel")
+
+
+def _profile(fn, share_of=()):
     """Device time by kernel over one call of ``fn`` (synchronized), the
-    device's busy total and the wall time, in milliseconds."""
+    device's busy total and the wall time, in milliseconds; with
+    ``share_of``, also the time and calls of every kernel whose name
+    contains one of those strings."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1397,10 +1430,16 @@ def _profile(fn):
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and e.device_time_total > 0), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    return {"wall_ms": wall_ms, "device_busy_ms": busy,
-            "idle_share": max(0.0, 1.0 - busy / wall_ms), "kernels_total": len(rows),
-            "kernels": [{"name": k[:90], "ms": ms, "calls": n}
-                        for k, ms, n in rows[:TOPK_PROFILE_TOP]]}
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy,
+           "idle_share": max(0.0, 1.0 - busy / wall_ms), "kernels_total": len(rows),
+           "kernels": [{"name": k[:90], "ms": ms, "calls": n}
+                       for k, ms, n in rows[:TOPK_PROFILE_TOP]]}
+    if share_of:
+        hit = [r for r in rows if any(s in r[0] for s in share_of)]
+        out["share_of"] = {"names": list(share_of), "ms": sum(r[1] for r in hit),
+                           "calls": sum(r[2] for r in hit),
+                           "share_of_busy": sum(r[1] for r in hit) / busy if busy else 0.0}
+    return out
 
 
 def phase_step_profile(info, trainer, store, cfg, phase):
@@ -1668,6 +1707,8 @@ def phase_sweep(info):
     # the multi-step loop's [K, B, L, d] -> [K, L, B, d] transpose, alone
     block = store.next_batches(K)
     transpose_ms = cuda_us(lambda: block.transpose(1, 2).contiguous(), iters=5) / 1000.0
+    # where a refill's time goes (the L/14 harvest: B1 24 a store batch)
+    refill_profile = _profile(store._refill_half, share_of=MIX_KERNEL_NAMES)
     sae_tokens = steps * cfg.train_batch_size * L
     train_s = run_s + cycles_s
     emit({"phase": "sweep", **info, "model": SWEEP_MODEL,
@@ -1693,6 +1734,7 @@ def phase_sweep(info):
           "sae_tokens_per_s_without_refill": sae_tokens / (train_s - sum(refills)),
           "step_ms_without_refill": 1000 * (train_s - sum(refills)) / steps,
           "peak_memory_GB": peak_gb, "transpose_ms": transpose_ms,
+          "refill_profile": refill_profile,
           "remat_cycle": {"launches": remat_launches, "seconds": remat_s,
                           "mean_loss_last_step": remat_host["loss"]},
           "metrics_logged": [{k: v[k] for k in ("loss", "l0", "explained_variance")}
@@ -2968,6 +3010,10 @@ def phase_sweep_eval(info, trainer, cfg):
                     for k in ("loss", "recons_loss", "zero_abl_loss")}
         del sae, one
     del sweep_stats
+    # where a batch's time goes: one sweep eval step (evaluate() runs one a
+    # batch, then reduces on the host)
+    batch_profile = _profile(lambda: trainer._val_step(model, trainer.state.params, x, y,
+                                                       class_emb), share_of=MIX_KERNEL_NAMES)
     emit({"phase": "sweep_eval", **info, "model": SWEEP_MODEL, "layers": L,
           "batch": SWEEP_EVAL_BATCH, "images": SWEEP_IMAGES,
           "validate_s": validate_s, "evaluate_s": evaluate_s,
@@ -2980,7 +3026,7 @@ def phase_sweep_eval(info, trainer, cfg):
           "cos_sim_per_layer": [r["avg_cos_sim"] for r in results],
           "alive_fraction_per_layer": [r["alive_fraction"] for r in results],
           "validate_mean_ce_recovered": vals["validation_metrics/substitution_score"],
-          "peak_memory_GB": peak_gb,
+          "peak_memory_GB": peak_gb, "batch_profile": batch_profile,
           "prefix_check": {"layers": list(SWEEP_EVAL_CHECK_LAYERS), "max_abs_err": check,
                            "rel_tol": SWEEP_EVAL_LOSS_REL}})
     return evaluate_launches
@@ -3060,14 +3106,15 @@ def phase_mix_kernels(info):
             rec = {"phase": "mix_kernel", **info, "kernel": "attention_mix", "shape": name,
                    "B": Bm, "N": Nm, "T": Tm, "H": Hm, "dtype": str(dtype).split(".")[1],
                    "max_abs_err": err, "tol": KERNEL_TOL[dtype]}
+            # B1 on the same data token-major: the same device code, so
+            # equal to the bit
+            tnh = lambda a: a.transpose(1, 2).reshape(Bm, Tm, Nm * Hm).contiguous()
+            z1 = A._launch(tnh(q), tnh(k), tnh(v), Nm, False)
+            rec["equals_b1_transposed"] = bool(torch.equal(tnh(z), z1))
+            if not rec["equals_b1_transposed"]:
+                raise AssertionError(f"attention_mix {name} {dtype}: differs from B1")
+            del z1
             if name == "b32":
-                # B1 on the same data token-major: the same device code, so
-                # equal to the bit
-                tnh = lambda a: a.transpose(1, 2).reshape(Bm, Tm, Nm * Hm).contiguous()
-                z1 = A._launch(tnh(q), tnh(k), tnh(v), Nm, False)
-                rec["equals_b1_transposed"] = bool(torch.equal(tnh(z), z1))
-                if not rec["equals_b1_transposed"]:
-                    raise AssertionError(f"attention_mix {name} {dtype}: differs from B1")
                 dz = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
                 got_g = _fwd_bwd(A.attention_mix, (q, k, v), dz)[1]
                 want_g = _fwd_bwd(A.attention_mix_reference, (q, k, v), dz)[1]
@@ -3076,7 +3123,7 @@ def phase_mix_kernels(info):
                     n_: check_close(f"attention_mix {name} {dtype} d{n_}", a, w, rel_atol(rel, w))
                     for n_, a, w in zip("qkv", got_g, want_g)}
                 rec["grad_rel_tol"] = rel
-                del z1, dz, got_g, want_g
+                del dz, got_g, want_g
             rec["us"] = cuda_us(lambda: A._launch_mix(q, k, v))
             rec["plain_us"] = cuda_us(lambda: A.attention_mix_reference(q, k, v), iters=5)
             rec["library_us"] = cuda_us(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0))
@@ -3236,9 +3283,13 @@ def main():
                 **bound(adam_bytes, [("fp32", adam_ops)])}
     sweep_rec = lambda k: sae_step_kernels[(k, "sweep_bf16")]
     topk_rec = lambda k: topk_kernels[(k, "slice_bf16")]
+    l14 = kernels[("l14", torch.bfloat16)]
     line = [
-        entry("attention_mix_tnh", KERNEL_SOURCE, KERNEL_REPLACES, launches,
-              kernels[("b32", torch.bfloat16)], "us", 1e-3),
+        # at B/32 serving's bf16 shape, with its CLIP L/14 figures beside
+        {**entry("attention_mix_tnh", KERNEL_SOURCE, KERNEL_REPLACES, launches,
+                 kernels[("b32", torch.bfloat16)], "us", 1e-3),
+         "l14_ms": l14["us"] * 1e-3, "l14_library_ms": l14["library_us"] * 1e-3,
+         "l14_bound_ms": l14["bound_ms"], "l14_max_abs_err": l14["max_abs_err"]},
         entry("take_rows", TAKE_ROWS_SOURCE, TAKE_ROWS_REPLACES, train_launches["take_rows"],
               sae_kernels[("take_rows", "store_f32")], "us", 1e-3),
         # one train step's four tensors, float32 moments

@@ -67,6 +67,21 @@ def test_mix_plain_matches_jax_bf16():
     assert_close(np.asarray(want, np.float32), got, atol=_bf16_ulps(2, want))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H", [64, 88])
+@pytest.mark.parametrize("T,batch", [(257, 2), (411, 1)])  # CLIP L/14; the gate's last T
+def test_mix_plain_matches_jax_long_T(T, batch, H, dtype):
+    """The token axes of CLIP L/14 and the gate's edge, at the head widths of
+    the bfloat16 kernel's unpadded and padded routes."""
+    qkv = _mix_inputs((batch, 2, T, H), seed=T + H)
+    qkv[0] = qkv[0] * H ** -0.5
+    want = jax_ops.attention_mix(*_j(qkv, getattr(jnp, dtype)))
+    got = port_ops.attention_mix_reference(*_t(qkv, getattr(torch, dtype)))
+    assert got.dtype == getattr(torch, dtype) and tuple(got.shape) == (batch, 2, T, H)
+    assert_close(np.asarray(want, np.float32), got,
+                 atol=F32_ATOL if dtype == "float32" else 2e-2)
+
+
 def test_mix_gradients_match_jax():
     qkv = _mix_inputs(seed=7)
     loss = lambda q, k, v: jnp.sum(jnp.sin(jax_ops.attention_mix(q, k, v)))

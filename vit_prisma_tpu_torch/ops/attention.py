@@ -9,7 +9,11 @@ the PV product, and an optional causal mask.  It is a
 (:func:`attention_mix_tnh_bwd`); on CPU tensors they run the plain versions
 :func:`attention_mix_tnh_reference` and
 :func:`attention_mix_tnh_bwd_reference`, so CPU gradients take the kernel's
-rounding points too.
+rounding points too.  The forward's device code (``csrc/attention_mix_core.cuh``,
+shared with B15) has two routes, chosen by dtype and head width: bfloat16
+heads up to 128 wide run both products on the tensor cores (mma.sync,
+bfloat16 K and V staged once per head); float32, and bfloat16 heads wider
+than 128, run FFMA on float32 copies.
 
 :func:`flash_attention_padded` is kernel B13, forward and backward: tiled
 flash attention over head-major ``[B, N, Tp, H]`` tensors for token axes too
@@ -34,7 +38,7 @@ import torch
 
 from vit_prisma_tpu_torch.ops import _build
 
-# Must match smem_bytes() in csrc/attention_mix_tnh.cu.
+# Must match smem_bytes() and kMaxHead in csrc/attention_mix_core.cuh.
 _WARPS = 8
 _MAX_SMEM_BYTES = 232448  # 227 KB: what one block may use on an H100
 MAX_HEAD_DIM = 256
@@ -42,16 +46,36 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def mix_tnh_smem_bytes(T: int, H: int) -> int:
-    """Shared memory the kernel needs for one (batch, head) at T tokens:
-    float32 K (rows padded for float4 reads) and V, plus one q row and one
-    p row per warp."""
+    """Shared memory of the float32 mix kernel for one (batch, head) at T
+    tokens: float32 K (rows padded for float4 reads) and V, plus one q row
+    and one p row per warp."""
     h4 = -(-H // 4) * 4
     return 4 * (T * (h4 + 4) + _WARPS * h4 + T * H + _WARPS * T)
 
 
 def mix_tnh_fits_smem(T: int, H: int) -> bool:
-    """Whether the kernel takes a head of width H at T tokens."""
+    """The route gate shared by B1, B2 and B15: whether the whole-T mix
+    takes a head of width H at T tokens.  It is the float32 kernel's
+    footprint (:func:`mix_tnh_smem_bytes`) in either dtype, so that a route
+    never depends on the dtype; the bfloat16 kernel fits wherever it does
+    (:func:`mix_tc_smem_bytes`).  Past it, models take the flash kernel
+    (B13)."""
     return H <= MAX_HEAD_DIM and mix_tnh_smem_bytes(T, H) <= _MAX_SMEM_BYTES
+
+
+# Must match kTcMaxHead, tc_keys(), tc_head_pad(), tc_stride() and
+# tc_smem_bytes() in csrc/attention_mix_core.cuh.
+MIX_TC_MAX_HEAD_DIM = 128
+
+
+def mix_tc_smem_bytes(T: int, H: int) -> int:
+    """Shared memory of the bfloat16 tensor-core mix kernel (bfloat16 heads
+    up to :data:`MIX_TC_MAX_HEAD_DIM` wide) for one (batch, head) at T
+    tokens: bfloat16 K and V, rows zero-padded to a multiple of 16 keys,
+    columns to H rounded up to 16 plus 8 elements of padding (none at 16)."""
+    hp = -(-H // 16) * 16
+    stride = hp if hp == 16 else hp + 8
+    return 2 * 2 * (-(-T // 16) * 16) * stride
 
 
 # Must match rows_smem_bytes(), cols_smem_bytes() and kShapes in
