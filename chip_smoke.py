@@ -24,7 +24,10 @@ Phases, each printing JSON lines with the card's name and power limit:
    with exact launches, then B15 against its plain version at B/32 (both
    dtypes) and CLIP L/14, equal to B1 on the same data transposed, B16
    against its kernel-rounding plain version at B/32 in both dtypes and
-   against the JAX reference's twin in float32, gradients through both
+   against the JAX reference's twin in float32 (bfloat16 also at an odd
+   batch, and each image equal to the bit to itself run alone, whatever
+   its slot; ptxas's registers and spills; the reckoned L2 and
+   device-memory bytes of PR 8's design and this one), gradients through both
    wrappers against the plain versions' autograd, beside SDPA and
    ``F.linear`` + SDPA + ``F.linear``; B3
    (``take_rows``) at the activation store's shape beside
@@ -124,7 +127,9 @@ Phases, each printing JSON lines with the card's name and power limit:
     the CPU, exact launches;
 21. ln_gemm kernels: B14 (``ln_matmul``) against its plain version at B/32
     serving's QKV and MLP-in shapes in both dtypes and at CLIP L/14-336's
-    MLP-in and (unfolded, as LNPre passes it) QKV in bfloat16, beside the
+    MLP-in and (unfolded, as LNPre passes it) QKV in bfloat16 and at a
+    640-column edge (the bf16 kernel's narrow tile, a ragged last row),
+    with ptxas's registers and spills of the bf16 kernel, beside the
     unfused ``F.layer_norm`` and ``torch.matmul``;
 22. flash kernels: B13's forward and both backward passes
     (``flash_attention_padded``, ``_bwd_dkv``, ``_bwd_dq``) against their
@@ -478,7 +483,11 @@ FLASH_REPLACES = {"flash_attention_padded": "vit_prisma_tpu/ops/attention.py:546
 LN_SHAPES = [("b32_qkv", 12_800, 3, 768, 768, (torch.bfloat16, torch.float32)),
              ("b32_mlp_in", 12_800, 1, 768, 3072, (torch.bfloat16, torch.float32)),
              ("l14_336_mlp_in", 36_928, 1, 1024, 4096, (torch.bfloat16,)),
-             ("l14_336_qkv_lnpre", 36_928, 3, 1024, 1024, (torch.bfloat16,))]
+             ("l14_336_qkv_lnpre", 36_928, 3, 1024, 1024, (torch.bfloat16,)),
+             # C a multiple of 128 but not of 256 (the bf16 kernel's narrow
+             # column tile), R one row past a 128-row tile
+             ("edge", 12_801, 1, 768, 640, (torch.bfloat16,))]
+LN_TC_KERNEL = "ln_gemm_tc_kernel"  # the bf16 route, for ptxas's record
 # Kernel against plain, relative to max(1, absmax): float32 differs by the
 # LayerNorm's and the GEMM's summation orders only; bfloat16 rounds xn and
 # the output after float32 sums taken in other orders, so an entry may land
@@ -530,10 +539,16 @@ BLOCK_GEOMETRY = (256, 50, 768, 12)
 BLOCK_INV_SCALE = 0.125
 # B16 against its kernel-rounding plain version: float32 relative to
 # max(1, |out|max) (sum orders of the three products); bfloat16 in ulps of
-# bfloat16 at |out|max (a sum order can flip a rounding of qkv or z, which
-# moves out by an ulp or so; the CPU twin agrees with JAX's within 2)
+# bfloat16 at |out|max (a sum order, or the bf16 kernel's ex2 and 1 / l in
+# p, can flip a rounding of qkv, p or z, which moves out by an ulp or so;
+# the CPU twin agrees with JAX's within 2)
 BLOCK_F32_REL = 1e-5
 BLOCK_BF16_ULPS = 4
+# the bf16 kernel takes two images a block: an odd batch leaves a lone image
+# in the last block; an image's output must equal, to the bit, its output
+# alone (batch 1, slot 0), whatever its batch or slot
+BLOCK_ODD_BATCH = 255
+BLOCK_TC_KERNEL = "block_tc_kernel"
 # gradients through the wrappers against autograd of the plain versions,
 # relative to max(1, |grad|max): float32 (B16's weight grads sum 12,800
 # rows), bfloat16 as GRAD_KERNEL_REL
@@ -648,6 +663,33 @@ def phase_build(info):
     emit({"phase": "build", **info, "seconds": seconds, "cached": cached,
           "torch": torch.__version__, "cuda": torch.version.cuda, "mix_tc_ptxas": tc,
           "ptxas": [l.strip() for l in log if "registers" in l or "spill" in l]})
+
+
+def ptxas(kernel: str) -> dict:
+    """Registers and spill bytes of each compiled function whose mangled
+    name holds ``kernel``, from the build's ``nvcc.log`` (``-Xptxas -v``),
+    and whether ptxas serialized its wgmma instructions (a warning that
+    cost the bf16 kernels 10-15% where it appeared)."""
+    from vit_prisma_tpu_torch.ops import _build
+    found, name = {}, None
+    log = (_build.build_dir() / "nvcc.log").read_text().splitlines()
+    serialized = {m.group(1) for line in log
+                  if (m := re.search(r"wgmma.mma_async instructions are serialized.*'(\S+)'", line))}
+    for line in log:
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+        elif name:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                found[name] = {"spill_bytes": int(m.group(1)) + int(m.group(2))}
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name in found:
+                found[name]["registers"] = int(m.group(1))
+                found[name]["wgmma_serialized"] = name in serialized
+    if not found:
+        raise AssertionError(f"ptxas: no function {kernel} in nvcc.log")
+    return found
 
 
 def phase_kernels(info):
@@ -2462,6 +2504,8 @@ def phase_ln_gemm_kernels(info):
                    # for the LayerNorm
                    **bound((R * D + S * D * C + S * C + S * R * C) * x.element_size(),
                            [(gemm, 2 * S * R * D * C), ("fp32", 6 * R * D)])}
+            if dtype == torch.bfloat16:
+                rec["ptxas"] = ptxas(LN_TC_KERNEL)
             results[(name, dtype)] = rec
             emit(rec)
             del x, W, b, got, want
@@ -3057,6 +3101,24 @@ def _fwd_bwd(fn, inputs, cot=None):
     return out.detach(), grads
 
 
+def block_traffic(B, T, D, N) -> dict:
+    """B16's bf16 traffic a call, reckoned from its design (bytes, not
+    measured): L2 reads and writes, and device-memory bytes (x, weights and
+    out once, the z scratch written back once).  PR 8's kernel (one block
+    an image; x re-read for each head, padded rows re-reading row T - 1; z
+    read once for each 128-column tile of out) against the wgmma kernel
+    (two images a block sharing each weight tile; TMA reads only rows < T;
+    z read once for each 192-column tile)."""
+    NH, it = N * 64, 2
+    weights = (D * 3 * NH + NH * D) * it
+    z = B * 64 * NH * it
+    out = (B * T * D + 3 * NH) * it  # out written, the bias read
+    old = B * weights + B * N * 64 * D * it + z * (1 + D // 128) + out
+    new = -(-B // 2) * weights + B * N * T * D * it + z * (1 + -(-D // 192)) + out
+    dram = weights + B * T * D * it + z + out
+    return {"l2_GB_pr8": old / 1e9, "l2_GB": new / 1e9, "dram_GB": dram / 1e9}
+
+
 def phase_mix_kernels(info):
     """B15 and B16, the op-level path of the JAX package's two kernels
     without a caller: first the path itself (each entry point once at the
@@ -3151,6 +3213,31 @@ def phase_mix_kernels(info):
                "max_abs_err": err, "tol": tol,
                "tol_rule": (f"{BLOCK_F32_REL} x max(1, |out|max)" if dtype == torch.float32
                             else f"{BLOCK_BF16_ULPS} bf16 ulps at |out|max")}
+        if dtype == torch.bfloat16:
+            # an odd batch against plain, and batch independence to the bit:
+            # image 0 (slot 0) and image 1 (slot 1 of the first block) each
+            # alone, and the odd batch's lone last image against the same
+            # image in the batch of 256
+            odd = [a[:BLOCK_ODD_BATCH] if a is x else a for a in args]
+            out_odd = A._launch_attn_block(*odd, N, BLOCK_INV_SCALE)
+            want_odd = A.fused_attention_block_plain(*odd, N, BLOCK_INV_SCALE)
+            rec["odd_batch"] = BLOCK_ODD_BATCH
+            rec["odd_batch_max_abs_err"] = check_close(
+                f"fused_attention_block batch {BLOCK_ODD_BATCH}", out_odd, want_odd,
+                _bf16_ulps(BLOCK_BF16_ULPS, want_odd))
+            alone = {i: A._launch_attn_block(x[i:i + 1], *args[1:], N, BLOCK_INV_SCALE)
+                     for i in (0, 1)}
+            same = {f"image_{i}_alone": bool(torch.equal(o, out[i:i + 1]))
+                    for i, o in alone.items()}
+            last = BLOCK_ODD_BATCH - 1
+            same[f"image_{last}_lone_in_batch_{BLOCK_ODD_BATCH}"] = bool(
+                torch.equal(out_odd[last], out[last]))
+            rec["batch_independent"] = same
+            if not all(same.values()):
+                raise AssertionError(f"fused_attention_block: batch dependence {same}")
+            rec["ptxas"] = ptxas(BLOCK_TC_KERNEL)
+            rec["traffic"] = block_traffic(B, T, D, N)
+            del odd, out_odd, want_odd, alone
         if dtype == torch.float32:
             ref = A.attn_block_reference(*args, N, BLOCK_INV_SCALE)
             rec["reference_max_abs_err"] = check_close(

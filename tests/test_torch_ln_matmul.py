@@ -72,6 +72,24 @@ def test_ln_matmul_matches_jax(R, S, dtype):
     assert torch.equal(got, port_ops.ln_matmul_reference(x, W, b, EPS))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R", [256, 257])
+def test_ln_matmul_matches_jax_at_the_narrow_column_tile(R, dtype):
+    """C = 640 is a multiple of 128 but not of 256: the bf16 kernel takes
+    its 128-wide column tile there.  R = 257 leaves a one-row last tile
+    (JAX takes its reference); R = 256 runs JAX's kernel."""
+    Cn = 640
+    arrays = (seeded(3, (R, D)) * 2.0 + 0.5, seeded(4, (1, D, Cn), 0.05),
+              seeded(5, (1, Cn), 0.01))
+    (jx, jW, jb), (x, W, b) = _both(arrays, dtype)
+    assert port_ops.ln_matmul_fits(R, 1, D, Cn)
+    assert jax_ops.ln_matmul_fits(R, 1, D, Cn, 4) == (R % 128 == 0)
+    want = jax_ops.ln_matmul(jx, jW, jb, EPS)
+    got = port_ops.ln_matmul(x, W, b, EPS)
+    assert got.dtype == dtype and tuple(got.shape) == (1, R, Cn)
+    assert_close(want, got, _atol(dtype, want), "out")
+
+
 @pytest.mark.parametrize("S", [3, 1])
 def test_ln_matmul_grads_match_jax_vjp(S):
     R = 256

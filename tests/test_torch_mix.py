@@ -151,6 +151,30 @@ def test_block_plain_matches_jax_bf16(geometry):
     assert_close(np.asarray(want, np.float32), got, atol=_bf16_ulps(2, want))
 
 
+# (B, T, D, N) at an odd batch: the bf16 kernel takes two images a block,
+# so the last block holds a lone image
+ODD_BATCH_GEOMETRIES = [(3, 10, 32, 4), (3, 50, 768, 12)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("geometry", ODD_BATCH_GEOMETRIES, ids=["small", "b32"])
+def test_block_plain_matches_jax_at_an_odd_batch(geometry, dtype):
+    """float32 as test_block_plain_matches_jax_f32, bfloat16 within 2 ulps
+    as test_block_plain_matches_jax_bf16."""
+    B, T, D, N = geometry
+    H = D // N
+    args = _block_inputs(B, T, D, N, H, seed=23)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    want = jax_ops.fused_attention_block(*_j(args, jdt), N, H ** -0.5)
+    got = port_ops.fused_attention_block_plain(*_t(args, dtype), N, H ** -0.5)
+    assert got.dtype == dtype and tuple(got.shape) == (B, T, D)
+    if dtype == torch.float32:
+        atol = F32_ATOL * max(1.0, float(np.abs(want).max()))
+    else:
+        atol = _bf16_ulps(2, want)
+    assert_close(np.asarray(want, np.float32), got, atol=atol)
+
+
 def test_block_reference_matches_jax_f32():
     B, T, D, N = BLOCK_GEOMETRIES[0]
     args = _block_inputs(B, T, D, N, D // N, seed=15)

@@ -19,22 +19,35 @@
 // output's round trip through device memory (R x D written and read) plus
 // the LN's own unfused elementwise passes.
 //
-// Design:
-//  * a first pass (ln_stats_kernel) reads each row once, one warp a row, and
-//    writes its float32 mean and scale (8 bytes a row);
-//  * the GEMM is sae_gemm.cuh's tile loop (128 x 128 tiles, BK 32, a
-//    3-stage cp.async ring, mma.sync m16n8k16 in bf16 and FFMA in float32)
-//    with one change: when an x tile has landed in shared memory, the block
-//    normalizes it in place, (x - mean) / scale rounded to x's dtype, before
-//    the products read it (16 bytes a thread; the quotient from the row's
-//    reciprocal with one Newton correction: a division's result but in rare
-//    last-bit cases, at a quarter of its instructions).  So xn never exists
-//    in device memory;
-//  * grid (C / 128, ceil(R / 128), S): a ragged last row tile reads row R-1
-//    again in place of the missing rows and does not store them, so R is any
-//    size; C must be a multiple of 128 and D of 32, and every pointer 16-byte
-//    aligned (the wrapper's gate, ln_matmul_fits).
+// Design.  A first pass (ln_stats_kernel) reads each row once, one warp a
+// row, and writes its float32 mean and scale (8 bytes a row).  Then the GEMM
+// normalizes each landed x tile in shared memory, (x - mean) / scale rounded
+// to x's dtype (the quotient from the row's reciprocal with one Newton
+// correction: a division's result but in rare last-bit cases, at a quarter
+// of its instructions), before the products read it, so xn never exists in
+// device memory.  Two routes, by dtype:
+//  * bfloat16 (ln_gemm_tc_kernel, Hopper): hopper_gemm.cuh's pieces.  One
+//    producer warp keeps a 4-stage ring of [128 x 64] x tiles and [64 x BN]
+//    W tiles (BN = 256 where C allows, else 128) filled by TMA, 128-byte
+//    swizzled, on mbarriers; two consumer warpgroups own 64 rows each of
+//    the 128-row tile.  Each normalizes its 64 rows of a landed stage in
+//    place (a swizzle moves 16-byte chunks only within a row, and the
+//    normalize needs only the row's mean and scale, so it ignores the
+//    swizzle), fences the writes to the async proxy, meets its own named
+//    barrier, and issues wgmma m64nBNk16 with float32 accumulators; one
+//    stage's products run while the next stage is normalized.  TMA zero-
+//    fills rows past R and columns past D (a D that is a multiple of 32 but
+//    not of 64 ends in a half-empty stage: W's missing rows are zero, so the
+//    normalized zero columns add nothing).  Epilogue: the bias in float32,
+//    one rounding, staged swizzled in the ring and stored by TMA (rows < R).
+//  * float32 (ln_gemm_kernel): sae_gemm.cuh's tile loop on the CUDA cores
+//    (128 x 128 tiles, BK 32, a 3-stage cp.async ring, FFMA); each landed x
+//    tile is normalized in place by the whole block between two barriers.
+//  Grid (C / BN, ceil(R / 128), S); R is any size; C must be a multiple of
+//  128 and D of 32, and every pointer 16-byte aligned (the wrapper's gate,
+//  ln_matmul_fits).
 
+#include "hopper_gemm.cuh"
 #include "sae_gemm.cuh"
 
 #include <math.h>
@@ -113,8 +126,8 @@ __device__ __forceinline__ void normalize_tile(T* As, const float* stats) {
   }
 }
 
-// Grid (C / BN, ceil(R / BM), S); dynamic shared memory Smem<T, true,
-// false>::bytes + kStatsBytes.
+// The float32 route (T = float).  Grid (C / BN, ceil(R / BM), S); dynamic
+// shared memory Smem<T, true, false>::bytes + kStatsBytes.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     ln_gemm_kernel(const T* __restrict__ x, const float* __restrict__ stats,
@@ -189,22 +202,188 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---- bfloat16: TMA, mbarriers and wgmma -------------------------------------
+
+namespace tc {
+
+constexpr int kBM = 128;                 // rows of a block tile, 64 a consumer warpgroup
+constexpr int kBK = hg::kBox;            // K a stage
+constexpr int kStages = 4;
+constexpr int kConsumers = 2;            // warpgroups
+constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer's warpgroup
+constexpr int kABytes = kBM * kBK * 2;   // one stage's x tile
+
+template <int BN>
+struct Layout {
+  static constexpr int stage_bytes = kABytes + (BN / hg::kBox) * hg::kBoxBytes;
+  static constexpr int bar_offset = kStages * stage_bytes;
+  static constexpr int bytes = bar_offset + 2 * kStages * 8 + hg::kSwizzleAlign;
+  static_assert(kConsumers * (BN / hg::kBox) * hg::kBoxBytes <= bar_offset, "out staging");
+};
+
+// Grid (C / BN, ceil(R / kBM), S), kThreads threads, Layout<BN>::bytes of
+// dynamic shared memory.  xmap: x [R, D] in boxes of [kBM rows x 64];
+// wmap: W [S, D, C] and omap: out [S, R, C] in boxes of [1 x 64 x 64].
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+    ln_gemm_tc_kernel(const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap wmap,
+                      const __grid_constant__ CUtensorMap omap, const float* __restrict__ stats,
+                      const __nv_bfloat16* __restrict__ b, int R, int D, int C) {
+  typedef Layout<BN> L;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + hg::kSwizzleAlign - 1) &
+      ~static_cast<uintptr_t>(hg::kSwizzleAlign - 1));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bar_offset);
+  uint64_t* empty = full + kStages;
+  const int s = blockIdx.z, m0 = blockIdx.y * kBM, n0 = blockIdx.x * BN;
+  const int ktiles = (D + kBK - 1) / kBK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      hg::mbar_init(&full[i], 1);
+      hg::mbar_init(&empty[i], 4 * kConsumers);  // one arrive a consumer warp
+    }
+    hg::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {  // the producer: one thread issues every copy
+    hg::reg_dealloc<40>();
+    if (threadIdx.x == 128 * kConsumers) {
+      for (int kt = 0; kt < ktiles; ++kt) {
+        const int st = kt % kStages, round = kt / kStages;
+        if (round > 0) hg::mbar_wait(&empty[st], (round - 1) & 1);
+        unsigned char* stage = smem + st * L::stage_bytes;
+        hg::mbar_expect_tx(&full[st], L::stage_bytes);
+        hg::tma_load_2d(stage, &xmap, &full[st], kt * kBK, m0);
+#pragma unroll
+        for (int i = 0; i < BN / hg::kBox; ++i)
+          hg::tma_load_3d(stage + kABytes + i * hg::kBoxBytes, &wmap, &full[st],
+                          n0 + i * hg::kBox, kt * kBK, s);
+      }
+    }
+  } else {  // consumer warpgroup wg: rows m0 + 64 wg .. + 64
+    hg::reg_alloc<232>();
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t & 31, tq = lane & 3;
+    // this thread normalizes rows t / 8 + 16 j, j < 4, of the warpgroup's 64
+    float mean[4], scale[4], inv[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = m0 + 64 * wg + t / 8 + 16 * j;
+      mean[j] = row < R ? stats[2 * static_cast<long long>(row)] : 0.f;
+      scale[j] = row < R ? stats[2 * static_cast<long long>(row) + 1] : 1.f;
+      inv[j] = 1.f / scale[j];
+    }
+    // this thread's bias column pairs, loaded under the products
+    __nv_bfloat162 bias[BN / 8];
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+      bias[j] = *reinterpret_cast<const __nv_bfloat162*>(b + static_cast<long long>(s) * C + n0 +
+                                                          8 * j + 2 * tq);
+    float acc[BN / 2];  // the first products overwrite it (scale_d 0)
+    for (int kt = 0; kt < ktiles; ++kt) {
+      const int st = kt % kStages;
+      hg::mbar_wait(&full[st], (kt / kStages) & 1);
+      unsigned char* stage = smem + st * L::stage_bytes;
+      __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(stage) + 64 * wg * kBK;
+      const __nv_bfloat16* Bs = reinterpret_cast<const __nv_bfloat16*>(stage + kABytes);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)  // chunk t + 128 j: row t / 8 + 16 j, any of its 8 chunks
+        normalize16(As + (t + 128 * j) * 8, mean[j], scale[j], inv[j]);
+      hg::fence_proxy_async_smem();
+      hg::named_sync(1 + wg, 128);
+      hg::fence_acc(acc);
+      hg::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        hg::mma_ss<BN>(acc, hg::desc_a(As, kk), hg::desc_b(Bs, kk), kt > 0 || kk > 0);
+      hg::wgmma_commit();
+      hg::wgmma_wait<1>();  // the previous stage's products are done
+      hg::fence_acc(acc);
+      if (kt > 0 && lane == 0) hg::mbar_arrive(&empty[(kt - 1) % kStages]);
+    }
+    hg::wgmma_wait<0>();
+    hg::fence_acc(acc);
+
+    // Epilogue: the bias in float32, one rounding, into this warpgroup's
+    // [64 x BN] tile staged 128-byte swizzled in the ring (free once both
+    // warpgroups' products are done: every load has been consumed), then
+    // stored by TMA, which drops the rows past R.
+    hg::named_sync(3, 128 * kConsumers);
+    unsigned char* ostage = smem + wg * (BN / hg::kBox) * hg::kBoxBytes;
+    const int g = lane >> 2;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const float2 b01 = __bfloat1622float2(bias[j]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = 16 * warp + g + 8 * h;
+        store2(reinterpret_cast<__nv_bfloat16*>(ostage + j / 8 * hg::kBoxBytes +
+                                                hg::sw128(row, j % 8) + 4 * tq),
+               acc[4 * j + 2 * h] + b01.x, acc[4 * j + 2 * h + 1] + b01.y);
+      }
+    }
+    hg::fence_proxy_async_smem();
+    hg::named_sync(1 + wg, 128);
+    if (t == 0) {
+#pragma unroll
+      for (int i = 0; i < BN / hg::kBox; ++i)
+        hg::tma_store_3d(&omap, ostage + i * hg::kBoxBytes, n0 + i * hg::kBox, m0 + 64 * wg, s);
+      hg::bulk_commit();
+      hg::bulk_wait_read();  // the staging outlives the stores' reads
+    }
+  }
+}
+
+template <int BN>
+cudaError_t launch(const void* x, const void* W, const void* b, void* out, const float* stats,
+                   int R, int S, int D, int C, cudaStream_t stream) {
+  CUtensorMap xmap, wmap, omap;
+  const uint64_t xdims[2] = {static_cast<uint64_t>(D), static_cast<uint64_t>(R)};
+  const uint64_t xstrides[1] = {static_cast<uint64_t>(D) * 2};
+  const uint32_t xbox[2] = {kBK, kBM};
+  cudaError_t err = hg::make_map(&xmap, x, 2, xdims, xstrides, xbox);
+  if (err != cudaSuccess) return err;
+  const uint64_t wdims[3] = {static_cast<uint64_t>(C), static_cast<uint64_t>(D),
+                             static_cast<uint64_t>(S)};
+  const uint64_t wstrides[2] = {static_cast<uint64_t>(C) * 2, static_cast<uint64_t>(D) * C * 2};
+  const uint32_t wbox[3] = {hg::kBox, kBK, 1};
+  if ((err = hg::make_map(&wmap, W, 3, wdims, wstrides, wbox)) != cudaSuccess) return err;
+  const uint64_t odims[3] = {static_cast<uint64_t>(C), static_cast<uint64_t>(R),
+                             static_cast<uint64_t>(S)};
+  const uint64_t ostrides[2] = {static_cast<uint64_t>(C) * 2, static_cast<uint64_t>(R) * C * 2};
+  const uint32_t obox[3] = {hg::kBox, hg::kBox, 1};
+  if ((err = hg::make_map(&omap, out, 3, odims, ostrides, obox)) != cudaSuccess) return err;
+  auto kernel = ln_gemm_tc_kernel<BN>;
+  if ((err = allow_smem(kernel, Layout<BN>::bytes)) != cudaSuccess) return err;
+  const dim3 grid(C / BN, (R + kBM - 1) / kBM, S);
+  kernel<<<grid, kThreads, Layout<BN>::bytes, stream>>>(
+      xmap, wmap, omap, stats, static_cast<const __nv_bfloat16*>(b), R, D, C);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 template <typename T>
-cudaError_t launch(const void* x, const void* W, const void* b, void* out, float* stats,
-                   int R, int S, int D, int C, float eps, cudaStream_t stream) {
-  const T* xt = static_cast<const T*>(x);
+cudaError_t launch_stats(const T* x, float* stats, int R, int D, float eps, cudaStream_t stream) {
   constexpr int kStatsWarps = 8;
   ln_stats_kernel<T><<<(R + kStatsWarps - 1) / kStatsWarps, 32 * kStatsWarps, 0, stream>>>(
-      xt, stats, R, D, eps);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int bytes = Smem<T, true, false>::bytes + static_cast<int>(kStatsBytes);
-  err = allow_smem(ln_gemm_kernel<T>, bytes);
+      x, stats, R, D, eps);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_f32(const void* x, const void* W, const void* b, void* out, float* stats,
+                       int R, int S, int D, int C, cudaStream_t stream) {
+  const int bytes = Smem<float, true, false>::bytes + static_cast<int>(kStatsBytes);
+  cudaError_t err = allow_smem(ln_gemm_kernel<float>, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(C / BN, (R + BM - 1) / BM, S);
-  ln_gemm_kernel<T><<<grid, kThreads, bytes, stream>>>(
-      xt, stats, static_cast<const T*>(W), static_cast<const T*>(b), static_cast<T*>(out), R, D,
-      C);
+  ln_gemm_kernel<float><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(x), stats, static_cast<const float*>(W),
+      static_cast<const float*>(b), static_cast<float*>(out), R, D, C);
   return cudaGetLastError();
 }
 
@@ -222,7 +401,15 @@ extern "C" int ln_matmul_fwd(const void* x, const void* W, const void* b, void* 
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* st = static_cast<float*>(stats);
-  if (dtype == 0) return launch<float>(x, W, b, out, st, R, S, D, C, eps, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, W, b, out, st, R, S, D, C, eps, s);
+  if (dtype == 0) {
+    err = launch_stats(static_cast<const float*>(x), st, R, D, eps, s);
+    return err != cudaSuccess ? err : launch_f32(x, W, b, out, st, R, S, D, C, s);
+  }
+  if (dtype == 1) {
+    err = launch_stats(static_cast<const __nv_bfloat16*>(x), st, R, D, eps, s);
+    if (err != cudaSuccess) return err;
+    return C % 256 == 0 ? tc::launch<256>(x, W, b, out, st, R, S, D, C, s)
+                        : tc::launch<128>(x, W, b, out, st, R, S, D, C, s);
+  }
   return cudaErrorInvalidValue;
 }

@@ -599,23 +599,31 @@ attention_mix.launches = 0
 # B16: QKV projection, mix and output projection in one kernel
 # ---------------------------------------------------------------------------
 
-# Must match kHead, kRows, kOutCols, Gemm and smem_bytes() in
-# csrc/attention_block.cu.
+# Must match kHead, kRows, kOutCols, Gemm and smem_bytes() (float32) and
+# tc::kBytes (bfloat16) in csrc/attention_block.cu.
 ATTN_BLOCK_HEAD = 64
 ATTN_BLOCK_MAX_T = 64
 _ATTN_BLOCK_COL_TILE = 128
 
 
 def attn_block_smem_bytes(dtype) -> int:
-    """Shared memory of B16's block: three stages of its GEMM staging (a
-    [64 x 32] x tile and a [32 x 192] weight tile, rows padded by 16 bytes),
-    one head's q, k, v [64 x 64] tiles padded likewise and, in float32, the
-    mix's per-warp P buffers.  It depends on the dtype alone."""
+    """Shared memory of B16's block; it depends on the dtype alone.
+    bfloat16 (the wgmma kernel, two images a block): a 4-stage TMA ring of
+    40 KB stages (both images' [64 x 64] x or z tiles and one [64 x 192]
+    weight tile), both images' q, k, v [64 x 64] tiles with rows padded by
+    16 bytes, nine mbarriers and 1024 bytes to align the 128-byte swizzle.
+    float32 (the FFMA kernel): three stages of its GEMM staging (a [64 x 32]
+    x tile and a [32 x 192] weight tile, rows padded by 16 bytes), one
+    head's q, k, v tiles padded likewise and the mix's per-warp P
+    buffers."""
     it = dtype.itemsize
     pad = 16 // it
-    staging = 3 * (64 * (32 + pad) + 32 * (192 + pad)) * it
     tiles = 3 * 64 * (ATTN_BLOCK_HEAD + pad) * it
-    pbufs = 4 * 16 * 68 * 4 if it == 4 else 0
+    if it == 2:
+        ring = 4 * (2 * 64 * 64 + 64 * 192) * it
+        return ring + 2 * tiles + 9 * 8 + 1024
+    staging = 3 * (64 * (32 + pad) + 32 * (192 + pad)) * it
+    pbufs = 4 * 16 * 68 * 4
     return staging + tiles + pbufs
 
 
@@ -733,7 +741,8 @@ def fused_attention_block(x, Wqkv, bqkv, Wo, n_heads: int, inv_scale: float):
     Differentiable.
 
     CUDA tensors launch the hand-written kernel (all three products by hand,
-    no library GEMM) and add one to ``fused_attention_block.launches``; CPU
+    no library GEMM; bfloat16 through TMA and wgmma, two images a block;
+    float32 by FFMA) and add one to ``fused_attention_block.launches``; CPU
     tensors run :func:`fused_attention_block_plain`.  The backward is the VJP
     of :func:`attn_block_reference` on either device.  Past
     :func:`attn_block_fits_smem` it raises ``NotImplementedError`` on either

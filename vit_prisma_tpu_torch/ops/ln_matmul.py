@@ -11,8 +11,10 @@ contiguous slice.  An affine LayerNorm folds into W and b first
 
 It is a ``torch.autograd.Function``: on CUDA tensors the forward launches
 ``csrc/ln_matmul.cu``, which normalizes each x tile in shared memory as the
-GEMM stages it, so the LayerNorm's output never reaches device memory; on CPU
-tensors it runs the plain version :func:`ln_matmul_reference`.  The backward,
+GEMM stages it, so the LayerNorm's output never reaches device memory
+(bfloat16: TMA, mbarriers and wgmma through ``csrc/hopper_gemm.cuh``;
+float32: an FFMA tile loop); on CPU tensors it runs the plain version
+:func:`ln_matmul_reference`.  The backward,
 on either device, is the plain version's VJP (:func:`ln_matmul_vjp`: one
 LayerNorm recomputed, then ``torch.matmul``), as the JAX package takes its
 reference's VJP.
@@ -25,7 +27,9 @@ import torch
 from vit_prisma_tpu_torch.ops import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# Must match BM, BN and BK in csrc/sae_gemm.cuh.
+# Must match the checks of ln_matmul_fwd in csrc/ln_matmul.cu: 128-row tiles,
+# columns in tiles of 128 (bf16: 256 where C allows), K in steps of 32 (bf16
+# stages of 64 zero-fill a last half step).
 _ROW_TILE, _COL_TILE, _DEPTH_TILE = 128, 128, 32
 
 
