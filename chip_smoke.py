@@ -399,14 +399,21 @@ GRAD_REPLACES = "vit_prisma_tpu/ops/attention.py:425"
 # B2 against its plain version: name, B, T, N, H, causal, dtypes.  The B/32
 # grad paths' shape, CLIP L/14's harvest shape, the CLIP text tower's
 # (causal), and the last T that B1's gate takes at H = 64, where both of B2's
-# passes run at 4 warps.
+# passes run at 4 warps; CLIP L/14's token count at a head width that the
+# bf16 kernel pads (88 to 96 columns; 257 rows to 272); and a bf16 head too
+# wide for the tensor-core passes.
 GRAD_KERNEL_SHAPES = [
     ("b32", 256, 50, 12, 64, False, (torch.bfloat16, torch.float32)),
     ("l14", 48, 257, 16, 64, False, (torch.bfloat16,)),
     ("text_causal", 256, 77, 8, 64, True, (torch.bfloat16,)),
     ("gate_edge", 4, 411, 2, 64, False, (torch.bfloat16, torch.float32)),
     ("gate_edge_causal", 4, 411, 2, 64, True, (torch.bfloat16,)),
+    ("l14_h88", 48, 257, 16, 88, False, (torch.bfloat16,)),
+    # a bf16 head past the tensor-core route (128 < H <= 256): the FFMA passes
+    ("wide_head", 16, 50, 4, 160, False, (torch.bfloat16,)),
 ]
+# The bf16 route's two passes (tensor cores), for ptxas's record.
+GRAD_TC_KERNELS = ("bwd_rows_tc_kernel", "bwd_cols_tc_kernel")
 # Each gradient within rel * max(1, its absmax) of the plain version's.
 # float32: the two differ in summation order only.  bfloat16: both round ds
 # to bfloat16 after float32 sums taken in other orders, so an entry may round
@@ -495,10 +502,17 @@ LN_TC_KERNEL = "ln_gemm_tc_kernel"  # the bf16 route, for ptxas's record
 LN_REL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
 # B13 against its plain versions: name, B, N, T, H, causal, dtypes.  CLIP
 # L/14-336 at serving batch 64 and at attribution batch 32 (T = 577, padded
-# to Tp = 640), and a causal stack of the same width.
+# to Tp = 640), a causal stack of the same width, the attribution shape at
+# the widest head the bf16 Hopper kernels take, and a bf16 head width they
+# do not take.
 FLASH_SHAPES = [("l14_336_serve", 64, 16, 577, 64, False, (torch.bfloat16, torch.float32)),
                 ("l14_336_attrib", 32, 16, 577, 64, False, (torch.bfloat16,)),
-                ("causal", 8, 16, 577, 64, True, (torch.bfloat16, torch.float32))]
+                ("causal", 8, 16, 577, 64, True, (torch.bfloat16, torch.float32)),
+                ("l14_336_attrib_h128", 32, 16, 577, 128, False, (torch.bfloat16,)),
+                # a bf16 width routed to the mma.sync kernels
+                ("h32", 8, 16, 577, 32, False, (torch.bfloat16,))]
+# The bf16 route's kernels (wgmma), for ptxas's record.
+FLASH_TC_KERNELS = ("fwd_tc_kernel", "bwd_dkv_tc_kernel", "bwd_dq_tc_kernel")
 # z and each gradient within rel of max(1, its absmax): float32 differs in
 # summation order (and the online softmax's rescaling) only; bfloat16 rounds
 # p (and ds) to bf16 after float32 sums taken in other orders, as B1 and B2.
@@ -612,6 +626,24 @@ def cuda_us(fn, iters=20, warmup=3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) * 1000.0 / iters
+
+
+def device_us(fn, calls=10, warmup=2) -> float:
+    """Device time of ``fn`` in microseconds a call: its kernels' (and
+    copies') times summed by ``torch.profiler`` over ``calls`` calls.  A
+    library call whose host side outruns its kernels (autograd's engine at
+    small shapes; CUDA events then time the host, 1.6x apart between calls)
+    is charged its device work alone, as a kernel is."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / calls
 
 
 def check_close(name, got, want, atol) -> float:
@@ -2058,7 +2090,9 @@ def phase_gated_step_check(info, trainer, store, cfg):
 def phase_grad_kernels(info):
     """B2 against its plain version on the card, with both times, the bound
     and the backward of ``scaled_dot_product_attention`` on a retained
-    graph at the same shapes; and B2's gate against B1's at H = 64."""
+    graph at the same shapes; batch item 0 alone against item 0 of the
+    batch, to the bit; ptxas's record of the bf16 passes; and B2's gate
+    against B1's at H = 64."""
     from vit_prisma_tpu_torch.ops.attention import (
         attention_mix_tnh_bwd, attention_mix_tnh_bwd_reference,
         mix_tnh_bwd_fits_smem, mix_tnh_fits_smem)
@@ -2081,6 +2115,13 @@ def phase_grad_kernels(info):
                     raise AssertionError(f"B2 {name} {dtype} {which}: {a.dtype} {tuple(a.shape)}")
                 errs[which] = check_close(f"B2 {name} {dtype} {which}", a, b,
                                           rel_atol(GRAD_KERNEL_REL[dtype], b))
+            # a (head, batch item) result depends on its own inputs alone
+            alone = attention_mix_tnh_bwd(q[:1], k[:1], v[:1], dz[:1], N, causal)
+            torch.cuda.synchronize()
+            for which, a, b in zip(("dq", "dk", "dv"), alone, got):
+                if not torch.equal(a[0], b[0]):
+                    raise AssertionError(f"B2 {name} {dtype} {which}: item 0 alone differs "
+                                         "from item 0 of the batch")
             us = cuda_us(lambda: attention_mix_tnh_bwd(q, k, v, dz, N, causal))
             plain_us = cuda_us(lambda: attention_mix_tnh_bwd_reference(q, k, v, dz, N, causal),
                                iters=5)
@@ -2091,22 +2132,31 @@ def phase_grad_kernels(info):
             leaves = [a.requires_grad_(True) for a in (qh, kh, vh)]
             out = torch.nn.functional.scaled_dot_product_attention(
                 *leaves, is_causal=causal, scale=1.0)
-            library_us = cuda_us(lambda: torch.autograd.grad(out, leaves, dzh, retain_graph=True))
-            del out, leaves
+            sdpa_bwd = lambda: torch.autograd.grad(out, leaves, dzh, retain_graph=True)
+            library_us, library_wall_us = device_us(sdpa_bwd), cuda_us(sdpa_bwd)
+            del out, leaves, sdpa_bwd
             pairs = T * (T + 1) // 2 if causal else T * T
             gemm = "bf16_tensor" if dtype == torch.bfloat16 else "fp32"
+            flops = 5 * 2 * B * N * pairs * H
             rec = {"phase": "grad_kernel", **info, "kernel": "attention_mix_tnh_bwd",
                    "shape": name, "B": B, "T": T, "N": N, "H": H, "causal": causal,
                    "dtype": str(dtype).split(".")[1], "max_abs_err": max(errs.values()),
                    "max_abs_err_by_grad": errs, "rel_tol": GRAD_KERNEL_REL[dtype],
-                   "us": us, "plain_us": plain_us, "library_us": library_us,
+                   "batch_independent": True, "us": us, "plain_us": plain_us,
+                   # the library's device time (profiler); its event time beside
+                   "library_us": library_us, "library_wall_us": library_wall_us,
+                   "TFLOP_s": flops / (us * 1e-6) / 1e12,
+                   "library_TFLOP_s": flops / (library_us * 1e-6) / 1e12,
                    # the Pallas kernel's cost estimate: 7 tensors moved once,
                    # five products of 2 B N T^2 H flops (the pairs this mask keeps)
                    **bound(7 * q.numel() * q.element_size(),
-                           [(gemm, 5 * 2 * B * N * pairs * H), ("fp32", 8 * B * N * pairs)])}
+                           [(gemm, flops), ("fp32", 8 * B * N * pairs)])}
             results[(name, dtype)] = rec
             emit(rec)
-            del q, k, v, dz, got, want, qh, kh, vh, dzh
+            del q, k, v, dz, got, want, alone, qh, kh, vh, dzh
+    emit({"phase": "grad_kernel_ptxas", **info,
+          **{kern: ptxas(kern) for kern in GRAD_TC_KERNELS + ("mix_tnh_bwd_rows_kernel",
+                                                              "mix_tnh_bwd_cols_kernel")}})
     return results
 
 
@@ -2530,7 +2580,8 @@ def _flash_inputs(g, B, N, T, H, dtype):
 def phase_flash_kernels(info):
     """B13's forward and both backward passes against their plain versions
     on the card, with times, bounds, and ``scaled_dot_product_attention``'s
-    forward and backward under the same mask."""
+    forward and backward under the same mask; batch item 0 alone against
+    item 0 of the batch, to the bit; ptxas's record of the bf16 kernels."""
     from vit_prisma_tpu_torch.ops import attention as A
     g = torch.Generator(device="cuda").manual_seed(12)
     results = {}
@@ -2558,6 +2609,16 @@ def phase_flash_kernels(info):
                 if a.dtype != dtype or a.shape != q.shape:
                     raise AssertionError(f"flash {name} {which}: {a.dtype} {tuple(a.shape)}")
                 errs[which] = check_close(f"flash {name} {dtype} {which}", a, w, rel_atol(rel, w))
+            # a (head, batch item) result depends on its own inputs alone
+            one = (q[:1], k[:1], v[:1], seg[:1], dz[:1], want_lse[:1], dsum[:1], causal)
+            alone = (*A._launch_flash(*one[:4], causal), *A._launch_flash_bwd(0, *one),
+                     A._launch_flash_bwd(1, *one))
+            torch.cuda.synchronize()
+            for which, a, w in zip(("z", "lse", "dk", "dv", "dq"), alone, (z, lse, dk, dv, dq)):
+                if not torch.equal(a[0], w[0]):
+                    raise AssertionError(f"flash {name} {dtype} {which}: item 0 alone differs "
+                                         "from item 0 of the batch")
+            del one, alone
             timed = {"fwd": (lambda: A._launch_flash(q, k, v, seg, causal),
                              lambda: A.flash_attention_padded_reference(q, k, v, seg, causal)),
                      "bwd_dkv": (lambda: A._launch_flash_bwd(0, *args),
@@ -2573,11 +2634,12 @@ def phase_flash_kernels(info):
                 keep = keep & torch.ones(Tp, Tp, dtype=torch.bool, device="cuda").tril()
             sdpa = lambda *a: torch.nn.functional.scaled_dot_product_attention(
                 *a, attn_mask=keep, scale=1.0)
-            library_fwd_us = cuda_us(lambda: sdpa(q, k, v))
+            library_fwd_us = device_us(lambda: sdpa(q, k, v))
             leaves = [a.clone().requires_grad_(True) for a in (q, k, v)]
             out = sdpa(*leaves)
-            library_bwd_us = cuda_us(lambda: torch.autograd.grad(out, leaves, dz, retain_graph=True))
-            del out, leaves, keep
+            sdpa_bwd = lambda: torch.autograd.grad(out, leaves, dz, retain_graph=True)
+            library_bwd_us, library_bwd_wall_us = device_us(sdpa_bwd), cuda_us(sdpa_bwd)
+            del out, leaves, keep, sdpa_bwd
             # pairs each row attends: real rows the real keys, padding rows
             # the padding keys (causal: those not after the row)
             P = Tp - T
@@ -2596,14 +2658,19 @@ def phase_flash_kernels(info):
             rec = {"phase": "flash_kernel", **info, "kernel": "flash_attention_padded",
                    "shape": name, "B": B, "N": N, "T": T, "Tp": Tp, "H": H, "causal": causal,
                    "dtype": str(dtype).split(".")[1], "max_abs_err": errs, "rel_tol": rel,
-                   "us": us, "plain_us": plain_us, "library_us": {
-                       "fwd": library_fwd_us, "bwd": library_bwd_us},
+                   "batch_independent": True, "us": us, "plain_us": plain_us,
+                   # the library's device time (profiler); the backward's event time beside
+                   "library_us": {"fwd": library_fwd_us, "bwd": library_bwd_us},
+                   "library_bwd_wall_us": library_bwd_wall_us,
                    "bound": bounds,
                    "TFLOP_s": {k_: (4 if k_ == "fwd" else 8 if k_ == "bwd_dkv" else 6)
                                * B * N * pairs * H / (u * 1e-6) / 1e12 for k_, u in us.items()}}
+            rec["route"] = ("ffma" if dtype == torch.float32
+                            else "wgmma" if H in (64, 128) else "mma.sync")
             results[(name, dtype)] = rec
             emit(rec)
             del q, k, v, dz, seg, z, lse, dq, dk, dv, want_z, want_dq, want_dk, want_dv
+    emit({"phase": "flash_kernel_ptxas", **info, **{kern: ptxas(kern) for kern in FLASH_TC_KERNELS}})
     return results
 
 
@@ -3407,15 +3474,20 @@ def main():
     # at the gated slice's bf16 shape; launches from its train path
     line += [entry(k, GATED_SOURCES[k], GATED_REPLACES[k], gated_launches[k],
                    gated_kernels[(k, "slice_bf16")]) for k in GATED_SOURCES]
-    # at the B/32 grad paths' bf16 shape; launches from the vit_train path
-    line.append(entry("attention_mix_tnh_bwd", GRAD_SOURCE, GRAD_REPLACES,
-                      vit_train_launches["attention_mix_tnh_bwd"],
-                      grad_kernels[("b32", torch.bfloat16)], "us", 1e-3))
+    # at the B/32 grad paths' bf16 shape, with its CLIP L/14 figures beside;
+    # launches from the vit_train path
+    l14_bwd = grad_kernels[("l14", torch.bfloat16)]
+    line.append({**entry("attention_mix_tnh_bwd", GRAD_SOURCE, GRAD_REPLACES,
+                         vit_train_launches["attention_mix_tnh_bwd"],
+                         grad_kernels[("b32", torch.bfloat16)], "us", 1e-3),
+                 "l14_ms": l14_bwd["us"] * 1e-3, "l14_library_ms": l14_bwd["library_us"] * 1e-3,
+                 "l14_bound_ms": l14_bwd["bound_ms"], "l14_max_abs_err": l14_bwd["max_abs_err"]})
     # B14 at B/32's bf16 QKV shape, launches from the fused-LN serve path;
     # B13 at CLIP L/14-336's bf16 serving shape (forward, launches from its
     # serve path) and attribution shape (backward passes, launches from the
-    # attribution path).  No single library call computes one backward pass:
-    # SDPA's whole backward is in the flash_kernel records.
+    # attribution path).  No single library call computes one backward pass,
+    # so library_ms is null there; SDPA's whole backward at the same shape
+    # stands beside both passes as library_bwd_ms.
     line.append(entry("ln_matmul", LN_SOURCE, LN_REPLACES, ln_launches["ln_matmul"],
                       ln_kernels[("b32_qkv", torch.bfloat16)], "us", 1e-3))
     serve_rec = flash_kernels[("l14_336_serve", torch.bfloat16)]
@@ -3430,8 +3502,11 @@ def main():
                 "us": rec["us"][key], "plain_us": rec["plain_us"][key],
                 "library_us": rec["library_us"]["fwd"] if key == "fwd" else None,
                 **rec["bound"][key]}
-        line.append(entry(name, FLASH_SOURCES[name], FLASH_REPLACES[name], launches[name],
-                          flat, "us", 1e-3))
+        e = entry(name, FLASH_SOURCES[name], FLASH_REPLACES[name], launches[name], flat, "us",
+                  1e-3)
+        if key != "fwd":
+            e["library_bwd_ms"] = rec["library_us"]["bwd"] * 1e-3
+        line.append(e)
     # B15 and B16 at B/32 bf16; launches from their op-level path (they have
     # no caller on any path of either package)
     line += [entry(k, src, rep_, mix_launches[k], mix_kernels[(k, "b32", torch.bfloat16)],

@@ -52,6 +52,25 @@ def test_bwd_reference_matches_jax_kernel(causal, T, H, dtype):
     _assert_grads_close(want, got, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("H", [64, 88])
+@pytest.mark.parametrize("T,batch", [(17, 2), (257, 2), (411, 1)])
+def test_bwd_reference_matches_jax_kernel_at_ragged_tiles(T, batch, H, causal, dtype):
+    """Token counts that leave the bfloat16 kernel's 16-row tiles ragged
+    (17, CLIP L/14's 257 and the gate's last T at H = 64), at head widths it
+    takes unpadded (64) and padded (88 to 96)."""
+    n = 2
+    shape = (batch, T, n * H)
+    arrays = (seeded(T + H, shape, H ** -0.5), seeded(T + H + 1, shape),
+              seeded(T + H + 2, shape), seeded(T + H + 3, shape))
+    want = _mix_tnh_backward(*(jnp.asarray(a, JAX_DTYPE[dtype]) for a in arrays),
+                             n, causal)
+    got = port_ops.attention_mix_tnh_bwd_reference(
+        *(torch.from_numpy(a).to(dtype) for a in arrays), n, causal)
+    _assert_grads_close(want, got, dtype)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_autograd_matches_jax_vjp(dtype, causal):
@@ -90,6 +109,31 @@ def test_bwd_gate_equals_forward_gate():
     # at 4 warps B2's rows pass takes exactly B1's bytes (H a multiple of 4)
     for T, H in ((411, 64), (257, 64), (106, 256), (50, 8)):
         assert port_ops.mix_tnh_bwd_smem_bytes(T, H, 4)[0] == port_ops.mix_tnh_smem_bytes(T, H)
+
+
+@pytest.mark.parametrize("H_first", [1, 65, 129, 193])
+def test_bwd_gate_equals_forward_gate_everywhere(H_first):
+    """B2's gate equals B1's at every T <= 1024 and H <= 256, so no route
+    moves."""
+    for H in range(H_first, H_first + 64):
+        for T in range(1, 1025):
+            assert port_ops.mix_tnh_bwd_fits_smem(T, H) == port_ops.mix_tnh_fits_smem(T, H), (T, H)
+
+
+@pytest.mark.parametrize("H_first", [1, 33, 65, 97])
+def test_tensor_core_backward_fits_wherever_the_gate_admits(H_first):
+    """Each pass of the bfloat16 tensor-core route fits the H100's 227 KB
+    at every (T, H <= 128) the gate admits, so no bfloat16 backward that
+    ran before can be refused."""
+    for H in range(H_first, H_first + 32):
+        T = 1
+        while port_ops.mix_tnh_bwd_fits_smem(T, H):
+            assert port_ops.mix_tnh_bwd_tc_smem_bytes(T, H) <= 232448, (T, H)
+            T += 1
+        assert T > 16, H
+    # CLIP L/14: one head's K and V (or Q and dZ) in 78 KB, two blocks an SM
+    assert port_ops.mix_tnh_bwd_tc_smem_bytes(257, 64) == 78336
+    assert port_ops.mix_tnh_bwd_tc_smem_bytes(257, 88) == 272 * 104 * 4  # 88 pads to 96
 
 
 def test_oversized_T_raises_naming_flash_kernel():

@@ -90,6 +90,31 @@ def test_bf16_plain_versions_within_bound(causal):
                      name)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("H,T,Tp", [(128, 77, 128), (32, 130, 192)])
+def test_plain_versions_match_jax_at_other_widths(H, T, Tp, causal, dtype):
+    """The widest head the bfloat16 Hopper kernels take (128, two TMA boxes)
+    and one routed to the mma.sync kernels (32), each with a ragged T inside
+    Tp: the forward and its VJP against JAX's (float32 twin) on the same
+    inputs, rounded to bf16 first in bf16."""
+    pad = lambda a: np.pad(a, ((0, 0), (0, 0), (0, Tp - T), (0, 0)))
+    rnd = (lambda a: a) if dtype == torch.float32 else (
+        lambda a: np.asarray(torch.from_numpy(a).bfloat16().float()))
+    q = pad(seeded(H + T, (B, N, T, H), H ** -0.5))
+    k, v = (pad(seeded(H + T + i, (B, N, T, H))) for i in (1, 2))
+    dz = seeded(H + T + 3, (B, N, Tp, H))
+    seg = np.broadcast_to(np.where(np.arange(Tp) < T, 1, 2).astype(np.int32), (B, Tp)).copy()
+    want = _jax(rnd(q), rnd(k), rnd(v), rnd(dz), seg, causal)
+    got = _port(q, k, v, dz, seg, causal, dtype)
+    for name, w, g in zip(("z", "dq", "dk", "dv"), want, got):
+        assert g.dtype == dtype and tuple(g.shape) == (B, N, Tp, H)
+        f32 = dtype == torch.float32
+        scale = 1.0 if f32 and name == "z" else max(1.0, float(np.abs(np.asarray(w)).max()))
+        assert_close(w, g.detach(), (F32_ATOL if f32 else BF16_REL) * scale, name)
+    assert torch.isfinite(got[0]).all()
+
+
 def test_passes_take_the_forwards_statistics():
     q, k, v, dz, seg = (torch.from_numpy(a) for a in _operands(seed=20))
     lse = port_ops.flash_lse_reference(q, k, seg)

@@ -364,10 +364,10 @@ __host__ __device__ inline size_t tc_smem_bytes(int t, int h) {
   return 2 * sizeof(bf16) * size_t(tc_keys(t)) * tc_stride(tc_head_pad(h));
 }
 
-// Warps of a block for n_tiles 16-row tiles: as few rounds as 8 warps
+// Warps of a block for n_tiles 16-row tiles: as few rounds as max_warps
 // allow, then as few warps as those rounds need.
-inline int tc_warps(int n_tiles) {
-  const int rounds = (n_tiles + kTcMaxWarps - 1) / kTcMaxWarps;
+inline int tc_warps(int n_tiles, int max_warps = kTcMaxWarps) {
+  const int rounds = (n_tiles + max_warps - 1) / max_warps;
   return (n_tiles + rounds - 1) / rounds;
 }
 
@@ -565,6 +565,37 @@ __device__ __forceinline__ void mix_rows(const bf16* Ks, const bf16* Vs,
                  n_tok, d_head, vec);
 }
 
+// Stage one head's rows [0, tc_keys(n_tok)) (row r at src + r * ts) into
+// dst as bfloat16 rows of tc_stride(HP), as one cp.async group: 16 bytes at
+// a time with `vec`, else element-wise; rows past the tokens and columns
+// past the head are zeros.
+template <int HP>
+__device__ __forceinline__ void stage_head(bf16* dst, const bf16* __restrict__ src, long long ts,
+                                           int n_tok, int d_head, bool vec) {
+  constexpr int S = tc_stride(HP);
+  const int n_keys = tc_keys(n_tok);
+  if (vec) {
+    constexpr int C = HP / 8;  // 16-byte chunks a padded row
+    const int hc = d_head / 8;
+    for (int i = threadIdx.x; i < n_keys * C; i += blockDim.x) {
+      const int r = i / C, c = i % C;
+      bf16* d = dst + r * S + 8 * c;
+      if (r < n_tok && c < hc)
+        sae::cp_async16(d, src + r * ts + 8 * c);
+      else
+        *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  } else {
+    for (int i = threadIdx.x; i < n_keys * HP; i += blockDim.x) {
+      const int r = i / HP, c = i % HP;
+      bf16 x = __float2bfloat16(0.f);
+      if (r < n_tok && c < d_head) x = src[r * ts + c];
+      dst[r * S + c] = x;
+    }
+  }
+  sae::cp_async_commit();
+}
+
 // Grid (N, B); tc_warps(ceil(T / 16)) warps; tc_smem_bytes(n_tok, d_head)
 // of shared memory.  vec: d_head a multiple of 8 and q, k, v, z 16-byte
 // aligned (so every head row is), else element-wise copies.
@@ -583,32 +614,9 @@ __global__ void __launch_bounds__(kTcMaxWarps * 32, tc_min_blocks(HP))
   const long long base =
       (long long)blockIdx.y * lay.batch_stride + (long long)blockIdx.x * lay.head_stride;
 
-  // Stage K (one cp.async group), then V (another); rows past the tokens
-  // and columns past the head are zeros.
-  auto stage = [&](bf16* dst, const bf16* __restrict__ src) {
-    if (vec) {
-      constexpr int C = HP / 8;  // 16-byte chunks a padded row
-      const int hc = d_head / 8;
-      for (int i = threadIdx.x; i < n_keys * C; i += blockDim.x) {
-        const int r = i / C, c = i % C;
-        bf16* d = dst + r * S + 8 * c;
-        if (r < n_tok && c < hc)
-          sae::cp_async16(d, src + base + r * ts + 8 * c);
-        else
-          *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-      }
-    } else {
-      for (int i = threadIdx.x; i < n_keys * HP; i += blockDim.x) {
-        const int r = i / HP, c = i % HP;
-        bf16 x = __float2bfloat16(0.f);
-        if (r < n_tok && c < d_head) x = src[base + r * ts + c];
-        dst[r * S + c] = x;
-      }
-    }
-    sae::cp_async_commit();
-  };
-  stage(Ks, k);
-  stage(Vs, v);
+  // Stage K (one cp.async group), then V (another).
+  stage_head<HP>(Ks, k + base, ts, n_tok, d_head, vec);
+  stage_head<HP>(Vs, v + base, ts, n_tok, d_head, vec);
   sae::cp_async_wait<1>();
   __syncthreads();
 

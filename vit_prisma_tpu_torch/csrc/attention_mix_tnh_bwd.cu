@@ -44,10 +44,49 @@
 // them at the T where that matters.  The Python wrapper
 // (vit_prisma_tpu_torch/ops/attention.py, mix_tnh_bwd_fits_smem) mirrors
 // both sizes.
+//
+// Two routes, chosen by dtype and head width (never after a failure), as
+// B1's forward: float32, and bfloat16 heads wider than 128, run the FFMA
+// passes above; bfloat16 heads up to 128 wide run the tensor-core passes
+// below (namespace tc), whose five products are mma.sync m16n8k16 in
+// bfloat16 with float32 accumulation:
+//  * one block per (head, batch item) in each pass; the block stages its
+//    resident pair once, as bfloat16 rows zero-padded to 16 (B1's
+//    stage_head: K and V in the rows pass, Q and dZ in the columns pass),
+//    and its warps walk the head's 16-row (16-key) tiles as B1's warps do,
+//    so no head is staged twice and no block holds a near-empty tile.  Each
+//    pass takes B1's bf16 bytes exactly (mix_tc_smem_bytes), inside the
+//    gate at every H <= 128;
+//  * rows pass, per 16-row tile with q and dz in A fragments: sweep 1 forms
+//    s = q K^T and dp = dz V^T, each row's running max m, sum l of
+//    exp(s - m) and sum w of dp exp(s - m), both rescaled as m grows (ex2
+//    with log2(e) folded in), so D = w / l = sum(dp p) in float32 from the
+//    fragments (the Pallas kernel's D, summed in another order); sweep 2
+//    forms s and dp again, p = exp(s - m) / l (one reciprocal a row) and
+//    ds = p (dp - D), rounded to bfloat16 in registers as the A fragments of
+//    dq += ds K (K fragments by ldmatrix.trans).  It writes dq and each
+//    row's log2-sum-exp m log2(e) + log2(l) and D, [T][2] per head, to the
+//    stats scratch;
+//  * columns pass, per 16-key tile with k and v in A fragments: s^T = K Q^T
+//    and dp^T = V dZ^T with keys as rows, p^T = exp2(s^T log2(e) - lse2),
+//    p^T rounded to bfloat16 and ds^T = p^T (dp^T - D) rounded to bfloat16
+//    go straight into the A fragments of dv += p^T dZ and dk += ds^T Q: no
+//    per-warp buffer.  Each query's statistics sit in the 16 bytes of
+//    padding of its Q row in shared memory (read through L1 at H <= 16,
+//    whose rows have none: 1.7x slower at L/14 than from shared memory).
+//    At H <= 64 a block has at most 6 warps and two blocks share an SM at
+//    170 registers a thread, so the A fragments and both accumulators stay
+//    in registers.
+// The two passes need not agree on p to the bit (the rows pass scales by
+// 1 / l, the columns pass subtracts log2(l)): the plain version's tolerance
+// holds each output.  No atomics and no split of a head's keys across
+// blocks: a (head, batch item) result depends on its own inputs alone.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "attention_mix_core.cuh"
 
 namespace {
 
@@ -551,24 +590,379 @@ template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dz,
                    void* dq, void* dk, void* dv, float* stats, int batch, int n_tok,
                    int n_heads, int d_head, int causal, cudaStream_t stream) {
-  switch ((d_head + 31) / 32) {
 #define VPT_CASE(NC)                                                             \
   case NC:                                                                       \
     return launch_nc<T, NC>(q, k, v, dz, dq, dk, dv, stats, batch, n_tok, n_heads, \
                             d_head, causal, stream);
-    VPT_CASE(1) VPT_CASE(2) VPT_CASE(3) VPT_CASE(4)
+  // bfloat16 heads up to 128 wide take the tensor-core passes (tc, below)
+  if constexpr (sizeof(T) == 4) {
+    switch ((d_head + 31) / 32) { VPT_CASE(1) VPT_CASE(2) VPT_CASE(3) VPT_CASE(4) }
+  }
+  switch ((d_head + 31) / 32) {
     VPT_CASE(5) VPT_CASE(6) VPT_CASE(7) VPT_CASE(8)
+    default:
+      return cudaErrorInvalidValue;
+  }
 #undef VPT_CASE
+}
+
+// ---- bfloat16: tensor cores -------------------------------------------------
+
+namespace tc {
+
+using mix::bf16;
+using mix::ex2;
+using mix::kLog2e;
+using mix::kSub;
+using mix::tc_stride;
+
+// The A fragments of rows [row0, row0 + 16) of one head (row r at p + r *
+// ts), zero past the tokens and the head, as B1's q.
+template <int HP>
+__device__ __forceinline__ void load_a(uint32_t (&a)[HP / 16][4], const bf16* __restrict__ p,
+                                       long long ts, int row0, int n_tok, int d_head, bool vec) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < HP / 16; ++kk) {
+    const int c0 = 16 * kk + 2 * t;
+    a[kk][0] = mix::load_pair(p, ts, row0 + g, c0, n_tok, d_head, vec);
+    a[kk][1] = mix::load_pair(p, ts, row0 + g + 8, c0, n_tok, d_head, vec);
+    a[kk][2] = mix::load_pair(p, ts, row0 + g, c0 + 8, n_tok, d_head, vec);
+    a[kk][3] = mix::load_pair(p, ts, row0 + g + 8, c0 + 8, n_tok, d_head, vec);
+  }
+}
+
+// c = a B^T for the 16 columns from n0: B's rows [n][HP] in shared memory
+// (B fragments by ldmatrix), c in the mma C-fragment layout: c[j][e] is
+// row g + 8 (e / 2), column n0 + 8 j + 2 t + (e % 2).
+template <int HP>
+__device__ __forceinline__ void nt16(float (&c)[2][4], const uint32_t (&a)[HP / 16][4],
+                                     const bf16* Bs, int n0) {
+  constexpr int S = tc_stride(HP);
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+  const bf16* Bc = Bs + (n0 + (lane & 7) + ((lane >> 4) << 3)) * S + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int kk = 0; kk < HP / 16; ++kk) {
+    uint32_t r[4];
+    sae::ldsm_x4(r, Bc + 16 * kk);
+    sae::mma_bf16(c[0], a[kk], r[0], r[1]);
+    sae::mma_bf16(c[1], a[kk], r[2], r[3]);
+  }
+}
+
+// acc += P B over the 16 rows of B from k0 (rows [k][HP] in shared memory,
+// fragments by ldmatrix.trans); pa: P's A fragment.
+template <int HP>
+__device__ __forceinline__ void pn16(float (&acc)[HP / 8][4], const uint32_t (&pa)[4],
+                                     const bf16* Bs, int k0) {
+  constexpr int S = tc_stride(HP);
+  const int lane = threadIdx.x & 31;
+  const bf16* Bc = Bs + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * S + (lane >> 4) * 8;
+#pragma unroll
+  for (int np = 0; np < HP / 16; ++np) {
+    uint32_t r[4];
+    sae::ldsm_x4_t(r, Bc + 16 * np);
+    sae::mma_bf16(acc[2 * np], pa, r[0], r[1]);
+    sae::mma_bf16(acc[2 * np + 1], pa, r[2], r[3]);
+  }
+}
+
+// C fragments of 16 columns, rounded to bfloat16, as one A fragment.
+__device__ __forceinline__ void to_a(uint32_t (&a)[4], const float (&c)[2][4]) {
+  a[0] = flash::pack_bf16(c[0][0], c[0][1]);
+  a[1] = flash::pack_bf16(c[0][2], c[0][3]);
+  a[2] = flash::pack_bf16(c[1][0], c[1][1]);
+  a[3] = flash::pack_bf16(c[1][2], c[1][3]);
+}
+
+// Store a warp's c[HP/8][4] as rows row0 + g and row0 + g + 8 of one head.
+template <int HP>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ p, const float (&c)[HP / 8][4],
+                                           long long ts, int row0, int n_tok, int d_head,
+                                           bool vec) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < HP / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      mix::store_pair(p, ts, row0 + g + 8 * h, 8 * j + 2 * t, c[j][2 * h], c[j][2 * h + 1],
+                      n_tok, d_head, vec);
+}
+
+// The rows pass for rows [row0, row0 + 16).
+template <int HP>
+__device__ __forceinline__ void rows_tile(const bf16* Ks, const bf16* Vs,
+                                          const bf16* __restrict__ qh,
+                                          const bf16* __restrict__ dzh, bf16* __restrict__ dqh,
+                                          float2* __restrict__ st, long long ts, int row0,
+                                          int n_tok, int d_head, int causal, bool vec) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  uint32_t qa[HP / 16][4], da[HP / 16][4];
+  load_a<HP>(qa, qh, ts, row0, n_tok, d_head, vec);
+  load_a<HP>(da, dzh, ts, row0, n_tok, d_head, vec);
+  // The keys the tile sees, in 16-key sub-chunks.
+  const int end = ((causal ? min(n_tok, row0 + kSub) : n_tok) + kSub - 1) / kSub * kSub;
+
+  // Sweep 1: s and dp, each row's running max m and sums l = sum(exp(s - m))
+  // and w = sum(dp exp(s - m)), rescaled as m grows; D = w / l is
+  // sum(dp p), summed in another order.
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, w[2] = {0.f, 0.f};
+#pragma unroll 1
+  for (int key0 = 0; key0 < end; key0 += kSub) {
+    float s[2][4], dp[2][4];
+    mix::chunk_scores<HP, 1>(s, qa, Ks, key0, row0, n_tok, causal);
+    nt16<HP>(dp, da, Vs, key0);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = m[h];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+      const float shift = -(mx == -INFINITY ? 0.f : mx) * kLog2e;
+      const float a = ex2(fmaf(m[h], kLog2e, shift));  // 0 while m is -inf
+      float sum = l[h] * a, ws = w[h] * a;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float e = ex2(fmaf(s[j][2 * h + c], kLog2e, shift));
+          sum += e;
+          ws = fmaf(dp[j][2 * h + c], e, ws);
+        }
+      m[h] = mx;
+      l[h] = sum;
+      w[h] = ws;
+    }
+  }
+  float nb[2], inv[2], lse2[2], D[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = m[h];
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    nb[h] = -(mx == -INFINITY ? 0.f : mx) * kLog2e;
+    const float a = ex2(fmaf(m[h], kLog2e, nb[h]));
+    float sum = l[h] * a, ws = w[h] * a;
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    ws += __shfl_xor_sync(0xffffffffu, ws, 1);
+    ws += __shfl_xor_sync(0xffffffffu, ws, 2);
+    inv[h] = sum > 0.f ? 1.f / sum : 0.f;
+    lse2[h] = log2f(sum) - nb[h];
+    D[h] = ws * inv[h];
+  }
+
+  // p and dp of one 16-key sub-chunk (p = 0 where masked).
+  auto p_dp = [&](float (&p)[2][4], float (&dp)[2][4], int key0) {
+    mix::chunk_scores<HP, 1>(p, qa, Ks, key0, row0, n_tok, causal);
+    nt16<HP>(dp, da, Vs, key0);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        p[j][e] = ex2(fmaf(p[j][e], kLog2e, nb[e >> 1])) * inv[e >> 1];
+  };
+
+  // Sweep 2: dq += ds K with ds = p (dp - D) rounded to bfloat16.
+  float acc[HP / 8][4];
+  flash::zero(acc);
+#pragma unroll 1
+  for (int key0 = 0; key0 < end; key0 += kSub) {
+    float p[2][4], dp[2][4];
+    p_dp(p, dp, key0);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[j][e] *= dp[j][e] - D[e >> 1];
+    uint32_t a[4];
+    to_a(a, p);
+    pn16<HP>(acc, a, Ks, key0);
+  }
+  store_rows<HP>(dqh, acc, ts, row0, n_tok, d_head, vec);
+  if (t == 0)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + g + 8 * h;
+      if (row < n_tok) st[row] = make_float2(lse2[h], D[h]);
+    }
+}
+
+// The columns pass for keys [key0, key0 + 16).
+template <int HP>
+__device__ __forceinline__ void cols_tile(const bf16* Qs, const bf16* dZs,
+                                          const bf16* __restrict__ kh,
+                                          const bf16* __restrict__ vh, bf16* __restrict__ dkh,
+                                          bf16* __restrict__ dvh, const float2* __restrict__ st,
+                                          long long ts, int key0, int n_tok, int d_head,
+                                          int causal, bool vec) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  uint32_t ka[HP / 16][4], va[HP / 16][4];
+  load_a<HP>(ka, kh, ts, key0, n_tok, d_head, vec);
+  load_a<HP>(va, vh, ts, key0, n_tok, d_head, vec);
+  float adk[HP / 8][4], adv[HP / 8][4];
+  flash::zero(adk);
+  flash::zero(adv);
+  // Queries before a key are masked when causal.
+  const int end = mix::tc_keys(n_tok);
+#pragma unroll 1
+  for (int q0 = causal ? key0 : 0; q0 < end; q0 += kSub) {
+    float p[2][4], dp[2][4];
+    nt16<HP>(p, ka, Qs, q0);   // s^T: rows are keys, columns queries
+    nt16<HP>(dp, va, dZs, q0);  // dp^T = V dZ^T
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int qi = q0 + 8 * j + 2 * t + c;
+        const float2 sd = qi >= n_tok ? make_float2(0.f, 0.f)
+                          : HP > 16 ? *reinterpret_cast<const float2*>(Qs + qi * tc_stride(HP) + HP)
+                                    : __ldg(st + qi);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int e = 2 * h + c;
+          const bool ok = qi < n_tok && (!causal || qi >= key0 + g + 8 * h);
+          const float pe = ok ? ex2(fmaf(p[j][e], kLog2e, -sd.x)) : 0.f;
+          p[j][e] = pe;
+          dp[j][e] = pe * (dp[j][e] - sd.y);
+        }
+      }
+    uint32_t a[4];
+    to_a(a, p);  // p^T rounded to bfloat16
+    pn16<HP>(adv, a, dZs, q0);
+    to_a(a, dp);  // ds^T rounded to bfloat16
+    pn16<HP>(adk, a, Qs, q0);
+  }
+  store_rows<HP>(dkh, adk, ts, key0, n_tok, d_head, vec);
+  store_rows<HP>(dvh, adv, ts, key0, n_tok, d_head, vec);
+}
+
+// The columns pass's warps a block at most and blocks an SM: two blocks of
+// at most 6 warps where H <= 64 (170 registers a thread: the 16 keys' A
+// fragments and both accumulators stay in registers), else B1's.
+__host__ __device__ constexpr int cols_max_warps(int hp) { return hp <= 64 ? 6 : mix::kTcMaxWarps; }
+__host__ __device__ constexpr int cols_min_blocks(int hp) { return hp <= 64 ? 2 : 1; }
+
+// Grid (N, B); mix::tc_warps(ceil(T / 16)) warps (the columns pass:
+// mix::tc_warps(ceil(T / 16), cols_max_warps(HP))); mix::tc_smem_bytes(T, H)
+// of shared memory.  vec as B1's.  stats: per head [T][2] float2.
+template <int HP>
+__global__ void __launch_bounds__(mix::kTcMaxWarps * 32, mix::tc_min_blocks(HP))
+    bwd_rows_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, const bf16* __restrict__ dz, bf16* __restrict__ dq,
+                float2* __restrict__ stats, int n_tok, int n_heads, int d_head, int causal,
+                int vec) {
+  constexpr int S = tc_stride(HP);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [tc_keys(T)][S]
+  bf16* Vs = Ks + mix::tc_keys(n_tok) * S;
+  const long long ts = (long long)n_heads * d_head;
+  const long long base = (long long)blockIdx.y * n_tok * ts + (long long)blockIdx.x * d_head;
+  mix::stage_head<HP>(Ks, k + base, ts, n_tok, d_head, vec);
+  mix::stage_head<HP>(Vs, v + base, ts, n_tok, d_head, vec);
+  sae::cp_async_wait<0>();
+  __syncthreads();
+  float2* st = stats + ((long long)blockIdx.y * n_heads + blockIdx.x) * n_tok;
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5;
+  const int n_tiles = (n_tok + kSub - 1) / kSub;
+  for (int i = warp; i < n_tiles; i += warps)
+    rows_tile<HP>(Ks, Vs, q + base, dz + base, dq + base, st, ts, i * kSub, n_tok, d_head, causal,
+                  vec);
+}
+
+template <int HP>
+__global__ void __launch_bounds__(cols_max_warps(HP) * 32, cols_min_blocks(HP))
+    bwd_cols_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, const bf16* __restrict__ dz,
+                const float2* stats, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                int n_tok, int n_heads, int d_head, int causal, int vec) {
+  constexpr int S = tc_stride(HP);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [tc_keys(T)][S]
+  bf16* dZs = Qs + mix::tc_keys(n_tok) * S;
+  const long long ts = (long long)n_heads * d_head;
+  const long long base = (long long)blockIdx.y * n_tok * ts + (long long)blockIdx.x * d_head;
+  mix::stage_head<HP>(Qs, q + base, ts, n_tok, d_head, vec);
+  mix::stage_head<HP>(dZs, dz + base, ts, n_tok, d_head, vec);
+  const float2* st = stats + ((long long)blockIdx.y * n_heads + blockIdx.x) * n_tok;
+  if (HP > 16)  // each row's statistics in its 16 bytes of padding, past column HP
+    for (int i = threadIdx.x; i < n_tok; i += blockDim.x)
+      *reinterpret_cast<float2*>(Qs + i * S + HP) = st[i];
+  sae::cp_async_wait<0>();
+  __syncthreads();
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5;
+  const int n_tiles = (n_tok + kSub - 1) / kSub;
+  for (int i = warp; i < n_tiles; i += warps)
+    cols_tile<HP>(Qs, dZs, k + base, v + base, dk + base, dv + base, st, ts, i * kSub, n_tok,
+                  d_head, causal, vec);
+}
+
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, size_t smem) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              int(cudaSharedmemCarveoutMaxShared));
+}
+
+template <int HP>
+cudaError_t launch_hp(const void* q, const void* k, const void* v, const void* dz, void* dq,
+                      void* dk, void* dv, float* stats, int batch, int n_tok, int n_heads,
+                      int d_head, int causal, cudaStream_t stream) {
+  const size_t smem = mix::tc_smem_bytes(n_tok, d_head);
+  if (smem > kMaxSmemBytes) return cudaErrorInvalidValue;
+  cudaError_t err;
+  if ((err = prepare(bwd_rows_tc_kernel<HP>, smem)) != cudaSuccess ||
+      (err = prepare(bwd_cols_tc_kernel<HP>, smem)) != cudaSuccess)
+    return err;
+  const int warps = mix::tc_warps((n_tok + kSub - 1) / kSub);  // the rows pass
+  const bool vec = d_head % 8 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                     reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dz) |
+                     reinterpret_cast<uintptr_t>(dq) | reinterpret_cast<uintptr_t>(dk) |
+                     reinterpret_cast<uintptr_t>(dv)) & 15) == 0;
+  const dim3 grid(n_heads, batch);
+  const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
+             *vb = static_cast<const bf16*>(v), *dzb = static_cast<const bf16*>(dz);
+  float2* st = reinterpret_cast<float2*>(stats);
+  bwd_rows_tc_kernel<HP><<<grid, warps * 32, smem, stream>>>(
+      qb, kb, vb, dzb, static_cast<bf16*>(dq), st, n_tok, n_heads, d_head, causal, int(vec));
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int n_tiles = (n_tok + kSub - 1) / kSub;
+  bwd_cols_tc_kernel<HP><<<grid, mix::tc_warps(n_tiles, cols_max_warps(HP)) * 32, smem,
+                           stream>>>(
+      qb, kb, vb, dzb, st, static_cast<bf16*>(dk), static_cast<bf16*>(dv), n_tok, n_heads,
+      d_head, causal, int(vec));
+  return cudaGetLastError();
+}
+
+cudaError_t launch(const void* q, const void* k, const void* v, const void* dz, void* dq,
+                   void* dk, void* dv, float* stats, int batch, int n_tok, int n_heads,
+                   int d_head, int causal, cudaStream_t stream) {
+  switch (mix::tc_head_pad(d_head)) {
+#define TC_CASE(HP) \
+  case HP:          \
+    return launch_hp<HP>(q, k, v, dz, dq, dk, dv, stats, batch, n_tok, n_heads, d_head, causal, stream);
+    TC_CASE(16) TC_CASE(32) TC_CASE(48) TC_CASE(64)
+    TC_CASE(80) TC_CASE(96) TC_CASE(112) TC_CASE(128)
+#undef TC_CASE
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+}  // namespace tc
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  stats: float32 scratch of 3 * batch *
-// n_heads * n_tok floats (each row's m, l and D, from the rows pass to the
-// columns pass).  Returns the launches' cudaError_t.
+// n_heads * n_tok floats (each row's statistics, from the rows pass to the
+// columns pass: m, l and D on the FFMA route, log2-sum-exp and D on the
+// tensor cores).  bfloat16 heads up to 128 wide take the tensor-core passes,
+// everything else the FFMA ones.  Returns the launches' cudaError_t.
 extern "C" int attention_mix_tnh_bwd(const void* q, const void* k, const void* v,
                                      const void* dz, void* dq, void* dk, void* dv,
                                      void* stats, int batch, int n_tok, int n_heads,
@@ -586,6 +980,8 @@ extern "C" int attention_mix_tnh_bwd(const void* q, const void* k, const void* v
   if (dtype == 0)
     return launch<float>(q, k, v, dz, dq, dk, dv, st, batch, n_tok, n_heads, d_head,
                          causal, s);
+  if (dtype == 1 && d_head <= mix::kTcMaxHead)
+    return tc::launch(q, k, v, dz, dq, dk, dv, st, batch, n_tok, n_heads, d_head, causal, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k, v, dz, dq, dk, dv, st, batch, n_tok, n_heads,
                                  d_head, causal, s);

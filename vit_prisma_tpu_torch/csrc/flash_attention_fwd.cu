@@ -19,7 +19,28 @@
 // bf16 tensor cores, not memory, are the limit.  So the products must run on
 // the tensor cores and the Tp x Tp scores must stay on the SM.
 //
-// Design (FlashAttention-2's, simple first; wgmma and TMA come later):
+// Two routes, chosen by dtype and head width (never after a failure):
+// bfloat16 heads 64 or 128 wide run the Hopper kernel (tc::fwd_tc_kernel,
+// below); float32, and bfloat16 at the other widths flash_fits takes
+// (multiples of 16 up to 128; no registered model has one), run
+// flash_fwd_kernel.
+//
+// Design of the Hopper kernel (flash_wgmma.cuh):
+//  * one block per (64 query rows, head, batch item): one consumer
+//    warpgroup, 16 rows a warp, and one producer warp, which loads the Q
+//    tile once and streams K and V tiles of 64 keys and their segment ids
+//    through a two-stage TMA/mbarrier ring; a causal block stops at its
+//    last row's tile;
+//  * s = Q K^T as wgmma m64n64k16 with both tiles K-major in shared memory;
+//    the masks on the accumulator fragments; the online softmax in
+//    registers with ex2 (log2(e) folded in); p rounded to bf16 in registers
+//    becomes the A operand of z += P V (wgmma m64nHk16, V MN-major);
+//  * two or three blocks an SM overlap one block's softmax with another's
+//    products.  Issuing the next tile's scores before this tile's P V
+//    inside a block (two score accumulators) measured 16% slower at the
+//    serve shape, so each block waits for its products.
+//
+// Design of flash_fwd_kernel (FlashAttention-2's, on mma.sync):
 //  * one block of 4 warps per (64 query rows, head, batch item); each warp
 //    owns 16 rows, so the row max and sum are reduced over the 4 lanes of a
 //    quad (flash_tile.cuh's C-fragment layout);
@@ -37,6 +58,7 @@
 //    ids, kept for safety) stores 0 and lse = +inf, so its backward p is 0.
 
 #include "flash_tile.cuh"
+#include "flash_wgmma.cuh"
 
 #include <math.h>
 
@@ -175,24 +197,181 @@ template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* seg, void* z,
                    float* lse, int batch, int n_heads, int n_tok, int d_head, int causal,
                    cudaStream_t stream) {
-  switch (d_head) {
 #define VPT_CASE(HD) \
   case HD:           \
     return launch_hd<T, HD>(q, k, v, seg, z, lse, batch, n_heads, n_tok, causal, stream);
-    VPT_CASE(16) VPT_CASE(32) VPT_CASE(48) VPT_CASE(64)
-    VPT_CASE(80) VPT_CASE(96) VPT_CASE(112) VPT_CASE(128)
-#undef VPT_CASE
+  // bfloat16 heads 64 and 128 wide take the Hopper kernel (tc, below)
+  if constexpr (sizeof(T) == 4) {
+    switch (d_head) { VPT_CASE(64) VPT_CASE(128) }
+  }
+  switch (d_head) {
+    VPT_CASE(16) VPT_CASE(32) VPT_CASE(48) VPT_CASE(80) VPT_CASE(96) VPT_CASE(112)
     default:
       return cudaErrorInvalidValue;
   }
+#undef VPT_CASE
 }
+
+// ---- bfloat16, H 64 or 128: wgmma and TMA -----------------------------------
+
+namespace tc {
+
+using fw::aligned_base;
+using fw::bf16;
+using fw::ex2;
+using fw::init_ring;
+using fw::issue_nt;
+using fw::issue_pn;
+using fw::kConsumers;
+using fw::kLog2e;
+using fw::kStages;
+using fw::kThreads;
+using fw::kTile;
+using fw::kVecBytes;
+using fw::kVecs;
+using fw::make_rows_map;
+using fw::produce;
+using fw::Ring;
+using fw::store_acc;
+using fw::to_a;
+
+// Grid (Tp / 64, N, B); kThreads threads; Ring<HD, 1>::bytes of shared
+// memory.  qmap, kmap, vmap: [B N Tp, HD] in [64 x 64] boxes.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 2)
+    fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                  const __grid_constant__ CUtensorMap vmap, const int* __restrict__ seg,
+                  bf16* __restrict__ z, float* __restrict__ lse, int n_heads, int n_tok,
+                  int causal) {
+  typedef Ring<HD, 1> L;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = aligned_base(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars) + 1;
+  uint64_t* empty = full + kStages;
+  const int b = blockIdx.z, i0 = blockIdx.x * kTile;
+  const int head = (b * n_heads + blockIdx.y) * n_tok;  // row (b, n, 0) of the maps
+  const int n_kt = causal ? blockIdx.x + 1 : n_tok / kTile;
+  const int* sb = seg + static_cast<long long>(b) * n_tok;
+  init_ring<HD, 1>(smem);
+
+  if (threadIdx.x >= kConsumers) {  // the producer warp
+    if (threadIdx.x == kConsumers) {
+      const void* const vsrc[kVecs] = {sb, nullptr, nullptr};
+      produce<HD, 1>(smem, &qmap, nullptr, head + i0, &kmap, &vmap, head, 0, n_kt, vsrc, 1);
+    }
+    return;
+  }
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row[2] = {i0 + 16 * warp + g, i0 + 16 * warp + g + 8};
+  const int seg_q[2] = {sb[row[0]], sb[row[1]]};
+  float acc[HD / 2], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  hg::fence_acc(acc);
+  hg::mbar_wait(reinterpret_cast<uint64_t*>(smem + L::bars), 0);  // Q
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int st = kt % kStages;
+    hg::mbar_wait(&full[st], (kt / kStages) & 1);
+    const unsigned char* Ks = smem + L::stages + st * 2 * L::tile;
+    const int* sk = reinterpret_cast<const int*>(smem + L::vecs + st * kVecs * kVecBytes);
+    float s[32];
+    hg::wgmma_fence();
+    issue_nt<HD>(s, smem, Ks);
+    hg::wgmma_commit();
+    hg::wgmma_wait<0>();
+    hg::fence_acc(s);
+    // s[4 j + e]: row 16 w + g + 8 (e / 2), key 8 j + 2 t + (e % 2)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int key = 8 * j + 2 * t + c, sg = sk[key];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (sg != seg_q[h] || (causal && kt * kTile + key > row[h])) s[4 * j + 2 * h + c] = -INFINITY;
+      }
+    // the online softmax: a fully masked tile leaves m at -inf, and the row
+    // then subtracts 0, so p and the rescale are 0, not NaN
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[h], mx);
+      const float nb = -(m_new == -INFINITY ? 0.f : m_new) * kLog2e;
+      const float alpha = ex2(fmaf(m[h], kLog2e, nb));  // 0 when m[h] is -inf
+      m[h] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float p = ex2(fmaf(s[4 * j + 2 * h + c], kLog2e, nb));
+          s[4 * j + 2 * h + c] = p;
+          sum += p;
+        }
+      l[h] = l[h] * alpha + sum;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        acc[4 * j + 2 * h] *= alpha;
+        acc[4 * j + 2 * h + 1] *= alpha;
+      }
+    }
+    uint32_t pa[4][4];
+    to_a(pa, s);  // p rounded to bf16
+    hg::fence_acc(acc);
+    hg::wgmma_fence();
+    issue_pn<HD>(acc, pa, Ks + L::tile, 1);  // z += P V
+    hg::wgmma_commit();
+    hg::wgmma_wait<0>();
+    hg::fence_acc(acc);
+    if (lane == 0) hg::mbar_arrive(&empty[st]);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    inv[h] = l[h] > 0.f ? 1.f / l[h] : 0.f;
+  }
+  store_acc<HD>(z + static_cast<long long>(head + i0) * HD, acc, inv);
+  if (t == 0)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) lse[head + row[h]] = l[h] > 0.f ? m[h] + logf(l[h]) : INFINITY;
+}
+
+template <int HD>
+cudaError_t launch_hd(const void* q, const void* k, const void* v, const int* seg, void* z,
+                      float* lse, int batch, int n_heads, int n_tok, int causal,
+                      cudaStream_t stream) {
+  const long long rows = static_cast<long long>(batch) * n_heads * n_tok;
+  CUtensorMap qmap, kmap, vmap;
+  cudaError_t err;
+  if ((err = make_rows_map(&qmap, q, rows, HD)) != cudaSuccess ||
+      (err = make_rows_map(&kmap, k, rows, HD)) != cudaSuccess ||
+      (err = make_rows_map(&vmap, v, rows, HD)) != cudaSuccess)
+    return err;
+  const int bytes = Ring<HD, 1>::bytes;
+  if ((err = sae::allow_smem(fwd_tc_kernel<HD>, bytes)) != cudaSuccess) return err;
+  fwd_tc_kernel<HD><<<dim3(n_tok / kTile, n_heads, batch), kThreads, bytes, stream>>>(
+      qmap, kmap, vmap, seg, static_cast<bf16*>(z), lse, n_heads, n_tok, causal);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
 
 }  // namespace
 
 // q, k, v, z: [batch, n_heads, n_tok, d_head]; seg: [batch, n_tok] int32;
 // lse: [batch, n_heads, n_tok] float32.  n_tok a multiple of 64; d_head a
-// multiple of 16 up to 128.  dtype: 0 = float32, 1 = bfloat16.  Returns the
-// launch's cudaError_t.
+// multiple of 16 up to 128; every pointer 16-byte aligned.  dtype: 0 =
+// float32, 1 = bfloat16 (heads 64 and 128 wide on the Hopper kernel).
+// Returns the launch's cudaError_t.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, const void* seg,
                                    void* z, void* lse, int batch, int n_heads, int n_tok,
                                    int d_head, int causal, int dtype, int device, void* stream) {
@@ -206,6 +385,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   float* ls = static_cast<float*>(lse);
   if (dtype == 0)
     return launch<float>(q, k, v, sg, z, ls, batch, n_heads, n_tok, d_head, causal, s);
+  if (dtype == 1 && d_head == 64)
+    return tc::launch_hd<64>(q, k, v, sg, z, ls, batch, n_heads, n_tok, causal, s);
+  if (dtype == 1 && d_head == 128)
+    return tc::launch_hd<128>(q, k, v, sg, z, ls, batch, n_heads, n_tok, causal, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k, v, sg, z, ls, batch, n_heads, n_tok, d_head, causal, s);
   return cudaErrorInvalidValue;

@@ -97,11 +97,25 @@ def mix_tnh_bwd_smem_bytes(T: int, H: int, warps: int, rows: int = 1):
     return rows_pass, cols_pass
 
 
+def mix_tnh_bwd_tc_smem_bytes(T: int, H: int) -> int:
+    """Shared memory of each pass of B2's bfloat16 tensor-core route (heads
+    up to :data:`MIX_TC_MAX_HEAD_DIM` wide) for one (batch, head) at T
+    tokens: the rows pass stages K and V, the columns pass Q and dZ, each as
+    B1's bfloat16 kernel stages K and V (:func:`mix_tc_smem_bytes`); each
+    row's statistics sit in the padding of its Q row (H <= 16 rows have
+    none: there they are read from device memory).  Must match
+    mix::tc_smem_bytes() as csrc/attention_mix_tnh_bwd.cu launches it."""
+    return mix_tc_smem_bytes(T, H)
+
+
 def mix_tnh_bwd_fits_smem(T: int, H: int) -> bool:
     """Whether B2 takes a head of width H at T tokens: where B1 does, since
     each pass then fits at one of its shapes (at 4 warps of one row the
     rows pass takes B1's bytes exactly), so a forward that ran B1 always
-    has a backward; the tests hold the two gates equal at every H."""
+    has a backward; the tests hold the two gates equal at every H.  It
+    describes the float32 (FFMA) route in either dtype, as B1's gate does;
+    bfloat16 heads up to 128 wide take the tensor-core passes, whose shared
+    memory (:func:`mix_tnh_bwd_tc_smem_bytes`) fits wherever it admits."""
     if not mix_tnh_fits_smem(T, H):
         return False
     sizes = [mix_tnh_bwd_smem_bytes(T, H, w, r) for w, r in _BWD_SHAPES]
@@ -221,9 +235,11 @@ def _check_shapes(what, q, *others, n_heads: int):
 def attention_mix_tnh_bwd(q, k, v, dz, n_heads: int, causal: bool = False):
     """Kernel B2, the mix's VJP: ``(dq, dk, dv)`` for the cotangent ``dz``
     of ``attention_mix_tnh(q, k, v)``.  CUDA tensors launch the hand-written
-    kernel and add one to ``attention_mix_tnh_bwd.launches``; CPU tensors run
-    the plain version.  It takes every T and H that B1 takes; past them it
-    raises ``NotImplementedError``, naming the flash kernel (B13),
+    kernel and add one to ``attention_mix_tnh_bwd.launches``: bfloat16
+    heads up to 128 wide run its products on the tensor cores, float32 (and
+    wider bfloat16 heads) on the CUDA cores; CPU tensors run the plain
+    version.  It takes every T and H that B1 takes; past them it raises
+    ``NotImplementedError``, naming the flash kernel (B13),
     :func:`flash_attention_padded`."""
     T, H = _check_shapes("attention_mix_tnh_bwd", q, k, v, dz, n_heads=n_heads)
     if not mix_tnh_bwd_fits_smem(T, H):
@@ -291,7 +307,11 @@ FLASH_MAX_HEAD_DIM = 128
 
 def flash_fits(Tp: int, H: int) -> bool:
     """Whether the flash kernels take a padded token count Tp and head width
-    H: Tp a multiple of their 64-row tile, H a multiple of 16 up to 128."""
+    H: Tp a multiple of their 64-row tile, H a multiple of 16 up to 128.
+    bfloat16 heads 64 and 128 wide (whole 128-byte TMA boxes) run the
+    Hopper kernels (wgmma, TMA); the other widths are routed by width to
+    the mma.sync kernels, as float32 is to the FFMA ones, so no width is
+    padded."""
     return Tp > 0 and Tp % FLASH_TILE == 0 and 0 < H <= FLASH_MAX_HEAD_DIM and H % 16 == 0
 
 
@@ -381,8 +401,9 @@ def _check_flash(what, q, k, v, seg, *others):
 
 def _check_flash_cuda(what, tensors, stats):
     _check_cuda(what, *tensors)
-    if any(x.data_ptr() % 16 for x in tensors):
-        raise ValueError(f"{what}: q, k, v (and dz) must be 16-byte aligned")
+    if any(x.data_ptr() % 16 for x in (*tensors, *stats)):
+        raise ValueError(f"{what}: q, k, v (and dz), seg (and lse, D) must be "
+                         "16-byte aligned")
     for x in stats:
         if x.device != tensors[0].device or not x.is_contiguous():
             raise ValueError(f"{what}: seg, lse and D must be contiguous on "
