@@ -30,11 +30,17 @@ Phases, each printing JSON lines with the card's name and power limit:
    device-memory bytes of PR 8's design and this one), gradients through both
    wrappers against the plain versions' autograd, beside SDPA and
    ``F.linear`` + SDPA + ``F.linear``; B3
-   (``take_rows``) at the activation store's shape beside
-   ``index_select``, B7 (``adam_update``) at the default SAE's four tensors
-   with float32 and bfloat16 moments, B10 (``kth_value``) at the generic
-   TopK step's [4096, 12288] and at d_sae 65,536 in both dtypes, bitwise,
-   beside ``torch.kthvalue``;
+   (``take_rows``) at the activation stores' shapes (the default SAE's in
+   both dtypes, the sweep's 49,152-byte rows) and on 3-byte rows and an
+   unaligned view with repeated indices, bitwise, with the kernel's own
+   device time beside the whole call's (the wrapper's index check syncs the
+   host) and ``index_select``'s; B7 (``adam_update``) at the default SAE's
+   four tensors with float32 and bfloat16 moments; B10 (``kth_value``) at
+   the generic TopK step's [4096, 12288] and at d_sae 65,536 in both
+   dtypes, and at the edges of its routes (one block, a cluster, streamed),
+   k = 1 and k = D, rows of one value, of signed zeros and with NaNs,
+   bitwise, with the route taken, ptxas's registers and spills, beside
+   ``torch.kthvalue``;
 3. slice: the CLIP ViT-B/32 resid_post cached forward (12 layers, 768 wide,
    random weights from seed 0) on the card against the same weights on the
    CPU in float32, and in bfloat16 against the einsum attention path;
@@ -222,10 +228,17 @@ SLICE_BF16_REL = 5e-2
 SERVE_BATCH = 256
 SERVE_REQUESTS = (256, 300, 7)
 # B3 at the store's shape: the train phase's buffer, 4 x 4096 x 50 = 819,200
-# rows of 768, in float32 and bfloat16.  The gather is exact: it must be
-# bitwise equal.
-TAKE_ROWS_SHAPES = [("store_f32", 819_200, 768, torch.float32),
-                    ("store_bf16", 819_200, 768, torch.bfloat16)]
+# rows of 768, in float32 and bfloat16; the sweep store's buffer (49,152 rows
+# of [24, 1024] bfloat16, 49,152 bytes each); and, with M != N and repeated
+# indices, rows of 3 bytes and an unaligned view (x[1:] of bfloat16 rows of
+# 767), which take 1- and 2-byte accesses.  name, N, row shape, dtype, M (None:
+# a permutation of N), offset (x[offset:] of N + offset rows).  The gather is
+# exact: it must be bitwise equal.
+TAKE_ROWS_SHAPES = [("store_f32", 819_200, (768,), torch.float32, None, 0),
+                    ("store_bf16", 819_200, (768,), torch.bfloat16, None, 0),
+                    ("sweep_bf16", 49_152, (24, 1024), torch.bfloat16, None, 0),
+                    ("odd_u8", 819_200, (3,), torch.uint8, 1_000_003, 0),
+                    ("unaligned_bf16", 819_200, (767,), torch.bfloat16, 600_001, 1)]
 # B7 at the default SAE's tensors, stacked [1, R, C] as the step passes them.
 ADAM_SHAPES = [("W_enc", (1, 768, 12288), False), ("W_dec", (1, 12288, 768), True),
                ("b_enc", (1, 1, 12288), False), ("b_dec", (1, 1, 768), False)]
@@ -251,6 +264,25 @@ KTH_SHAPES = [("slice_f32", 4096, 12288, torch.float32),
               ("wide_f32", 256, 65536, torch.float32),
               ("wide_bf16", 256, 65536, torch.bfloat16)]
 TOPK_K = 64
+# B10's edges, each bitwise against the plain version: the widest row of each
+# route and one more (kth_value_route: one block, a cluster, streamed) per
+# dtype, k = 1 and k = D, rows of one repeated value, rows of +0.0 and -0.0,
+# and rows with NaNs (held to the plain version only: torch.kthvalue orders
+# NaN otherwise).  name, rows, D, dtype, k (None: TOPK_K), fill.
+KTH_EDGES = [(f"{route}_{dt}_{D}", 8, D, dtype, None, "randn")
+             for dt, dtype, widths in (("f32", torch.float32, (16384, 16385, 131072, 131073)),
+                                       ("bf16", torch.bfloat16, (32768, 32769, 262144, 262145)))
+             for route, D in zip(("block", "cluster", "cluster", "streamed"), widths)] + [
+    ("k1_f32", 64, 12288, torch.float32, 1, "randn"),
+    ("kD_f32", 64, 12288, torch.float32, 12288, "randn"),
+    ("k1_bf16", 64, 65536, torch.bfloat16, 1, "randn"),
+    ("kD_bf16", 64, 65536, torch.bfloat16, 65536, "randn"),
+    ("equal_f32", 16, 65536, torch.float32, None, "equal"),
+    ("equal_bf16", 16, 12288, torch.bfloat16, None, "equal"),
+    ("signed_zeros_f32", 16, 12288, torch.float32, None, "zeros"),
+    ("signed_zeros_bf16", 16, 65536, torch.bfloat16, None, "zeros"),
+    ("nan_f32", 16, 16385, torch.float32, None, "nan"),
+    ("nan_bf16", 16, 12288, torch.bfloat16, None, "nan")]
 # The train phase: SAERunnerConfig's defaults except a 4-batch buffer (the
 # 20-batch default is a 16.4M-row, 50 GB buffer whose fill does not fit a
 # smoke run), on 1,024 random images cycled by the store's index iterator.
@@ -628,22 +660,36 @@ def cuda_us(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) * 1000.0 / iters
 
 
-def device_us(fn, calls=10, warmup=2) -> float:
-    """Device time of ``fn`` in microseconds a call: its kernels' (and
-    copies') times summed by ``torch.profiler`` over ``calls`` calls.  A
-    library call whose host side outruns its kernels (autograd's engine at
-    small shapes; CUDA events then time the host, 1.6x apart between calls)
-    is charged its device work alone, as a kernel is."""
+def device_us_by_name(fn, calls=10, warmup=2, tries=4) -> dict:
+    """Device time of ``fn`` in microseconds a call by kernel (or copy)
+    name, from ``torch.profiler`` over ``calls`` calls.  The profiler now
+    and then returns a window with no device events, or with some lost (a
+    kernel counted fewer times than there were calls); such a window is
+    measured again, and a last one that is still short raises."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / calls
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events and all(e.count % calls == 0 for e in events):
+            return {e.key: e.device_time_total / calls for e in events}
+    raise AssertionError(f"torch.profiler lost device events in {tries} windows: "
+                         f"{[(e.key[:60], e.count) for e in events]}")
+
+
+def device_us(fn, calls=10, warmup=2) -> float:
+    """Device time of ``fn`` in microseconds a call: its kernels' (and
+    copies') times summed by ``torch.profiler``.  A library call whose host
+    side outruns its kernels (autograd's engine at small shapes; CUDA events
+    then time the host, 1.6x apart between calls) is charged its device work
+    alone, as a kernel is."""
+    return sum(device_us_by_name(fn, calls, warmup).values())
 
 
 def check_close(name, got, want, atol) -> float:
@@ -761,15 +807,23 @@ def phase_kernels(info):
     return results
 
 
-def phase_sae_kernels(info):
-    """B3 and B7 against their plain versions on the card."""
-    from vit_prisma_tpu_torch.ops.opt_step import adam_update, adam_update_reference
-    from vit_prisma_tpu_torch.ops.shuffle import take_rows, take_rows_reference
+def phase_take_rows(info):
+    """B3 against its plain version, bitwise, at every shape of
+    TAKE_ROWS_SHAPES: the whole call's event time (the wrapper's index check
+    syncs the host before it launches), the kernel's own device time, and
+    ``index_select``'s device and event times."""
+    from vit_prisma_tpu_torch.ops.shuffle import _vector_bytes, take_rows, take_rows_reference
     g = torch.Generator(device="cuda").manual_seed(1)
     results = {}
-    for name, n, d, dtype in TAKE_ROWS_SHAPES:
-        x = torch.randn(n, d, generator=g, device="cuda").to(dtype)
-        idx = torch.randperm(n, generator=g, device="cuda")
+    for name, n, row, dtype, m, offset in TAKE_ROWS_SHAPES:
+        if dtype.is_floating_point:
+            x = torch.randn((n + offset,) + row, generator=g, device="cuda").to(dtype)
+        else:
+            x = torch.randint(0, 256, (n + offset,) + row, generator=g, device="cuda",
+                              dtype=dtype)
+        x = x[offset:]
+        idx = (torch.randperm(n, generator=g, device="cuda") if m is None else
+               torch.randint(0, n, (m,), generator=g, device="cuda", dtype=torch.int32))
         out = take_rows(x, idx)
         want = take_rows_reference(x, idx)
         torch.cuda.synchronize()
@@ -778,20 +832,37 @@ def phase_sae_kernels(info):
             raise AssertionError(f"take_rows {name}: {out.dtype} {tuple(out.shape)}, "
                                  f"not bitwise equal (max abs err {err})")
         us = cuda_us(lambda: take_rows(x, idx))
+        by_name = device_us_by_name(lambda: take_rows(x, idx))
+        kernel_us = sum(v for k, v in by_name.items() if "take_rows" in k)
         plain_us = cuda_us(lambda: take_rows_reference(x, idx))
         library_us = cuda_us(lambda: torch.index_select(x, 0, idx))
-        moved = 2 * x.numel() * x.element_size()
+        library_device_us = device_us(lambda: torch.index_select(x, 0, idx))
+        row_bytes = x[0].numel() * x.element_size()
+        moved = 2 * out.numel() * x.element_size()
         rec = {"phase": "kernel", **info, "kernel": "take_rows", "shape": name,
-               "rows": n, "row_bytes": d * x.element_size(),
+               "rows": n, "out_rows": idx.numel(), "row_bytes": row_bytes,
+               "x_offset_bytes": x.data_ptr() % 16, "index": str(idx.dtype).split(".")[1],
+               "vec_bytes": _vector_bytes(row_bytes, x.data_ptr(), out.data_ptr()),
                "dtype": str(dtype).split(".")[1], "max_abs_err": err, "tol": 0.0,
-               "us": us, "plain_us": plain_us, "library_us": library_us,
-               "GB_moved": moved / 1e9,
-               "hbm_share": moved / (us * 1e-6) / HBM_BYTES_PER_S,
-               "plain_hbm_share": moved / (plain_us * 1e-6) / HBM_BYTES_PER_S,
+               "us": us, "kernel_us": kernel_us, "call_device_us": sum(by_name.values()),
+               "check_share": 1.0 - kernel_us / us,
+               "plain_us": plain_us, "library_us": library_us,
+               "library_device_us": library_device_us, "GB_moved": moved / 1e9,
+               "hbm_share": moved / (kernel_us * 1e-6) / HBM_BYTES_PER_S,
+               "library_hbm_share": moved / (library_device_us * 1e-6) / HBM_BYTES_PER_S,
                **bound(moved + idx.numel() * idx.element_size())}
         results[("take_rows", name)] = rec
         emit(rec)
         del x, idx, out, want
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_sae_kernels(info):
+    """B3 and B7 against their plain versions on the card."""
+    from vit_prisma_tpu_torch.ops.opt_step import adam_update, adam_update_reference
+    results = phase_take_rows(info)
+    g = torch.Generator(device="cuda").manual_seed(2)
 
     # Inputs shaped like step 121 of the default run: unit W_dec rows,
     # grads ~1e-3, moments as 120 earlier steps leave them (mu ~1e-4, nu ~
@@ -1294,47 +1365,92 @@ def _stored_against_remat(g, apply, shape, dtype, keys):
     return out
 
 
-def phase_kth_value(info):
-    """B10 against its plain version, bitwise, with torch.kthvalue's time
-    beside it."""
-    from vit_prisma_tpu_torch.ops.topk import kth_value, kth_value_reference
-    g = torch.Generator(device="cuda").manual_seed(6)
-    results = {}
-    for name, R, D, dtype in KTH_SHAPES:
-        x = torch.randn(R, D, generator=g, device="cuda")
+def _kth_rows(g, R, D, dtype, fill):
+    """Rows for B10: N(0, 1) with every fourth row shifted negative and, in
+    float32, every other row quantized to quarters (tied k-th values); or
+    rows of one value each, of +0.0 and -0.0 mixed, or with NaNs."""
+    x = torch.randn(R, D, generator=g, device="cuda")
+    if fill == "randn":
         x[::4] -= 10.0  # rows whose k-th value is negative
         if dtype == torch.float32:
             x[1::2] = torch.round(x[1::2] * 4) / 4  # rows whose k-th value is tied
-        x = x.to(dtype)
-        t = kth_value(x, TOPK_K)
-        want = kth_value_reference(x, TOPK_K)
+    elif fill == "equal":
+        x = torch.round(x[:, :1] * 4).expand(R, D).contiguous() / 4
+    elif fill == "zeros":
+        x = torch.where(x > 0, 0.0, -0.0)
+        x[1::2, ::7] = 1.0  # rows whose top keys are positive, then zeros
+    elif fill == "nan":
+        x[torch.rand(R, D, generator=g, device="cuda") < 0.01] = float("nan")
+        x[1::2, ::3] = -float("nan")
+    return x.to(dtype)
+
+
+def phase_kth_value(info):
+    """B10 against its plain version, bitwise, at KTH_SHAPES (with
+    torch.kthvalue's event and device times beside it) and at KTH_EDGES;
+    each record names the route and cluster the kernel took, and the
+    kernel's own route function agrees with its Python mirror."""
+    import ctypes
+    from vit_prisma_tpu_torch.ops import _build
+    from vit_prisma_tpu_torch.ops.topk import kth_value, kth_value_reference, kth_value_route
+    lib = _build.load_library()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    regs = ptxas("radix_select_kernel")
+    results = {}
+    for name, R, D, dtype, k, fill in ([(n, R, D, dt, None, "randn") for n, R, D, dt in KTH_SHAPES]
+                                       + KTH_EDGES):
+        k = TOPK_K if k is None else k
+        route = kth_value_route(D, dtype)
+        plan = (ctypes.c_int * 4)()
+        _build.check(lib, lib.kth_value_plan(D, 0 if dtype == torch.float32 else 1, plan),
+                     "kth_value_plan")
+        if list(plan) != [route["cluster"], route["part"], int(route["route"] != "streamed"),
+                          route["stage_bytes"]]:
+            raise AssertionError(f"kth_value {name}: the kernel's plan {list(plan)} is not "
+                                 f"its Python mirror's {route}")
+        x = _kth_rows(g, R, D, dtype, fill)
+        t = kth_value(x, k)
+        want = kth_value_reference(x, k)
         torch.cuda.synchronize()
         if (tuple(t.shape) != (R, 1) or t.dtype != torch.float32
                 or not torch.equal(t.view(torch.int32), want.view(torch.int32))):
             raise AssertionError(f"kth_value {name}: {t.dtype} {tuple(t.shape)}, "
-                                 f"{int((t != want).sum())} rows differ from plain")
-        kept = (x >= t).sum(dim=1)
-        # the k-th value itself where the search is exact (every float32 row,
-        # bfloat16 rows with a non-negative k-th value), else a separator
-        values = torch.kthvalue(x, D - TOPK_K + 1, dim=1).values.float()
-        exact = values >= 0 if dtype == torch.bfloat16 else torch.ones_like(values, dtype=bool)
-        if not (bool((kept >= TOPK_K).all()) and torch.equal(t[:, 0][exact], values[exact])
-                and bool(((x.float() >= values[:, None]) == (x >= t)).all())):
-            raise AssertionError(f"kth_value {name}: the mask x >= t is not the top k")
-        ms = lambda fn: cuda_us(fn, iters=10, warmup=2) / 1000.0
-        n_bits = 16 if dtype == torch.bfloat16 else 32
+                                 f"{int((t.view(torch.int32) != want.view(torch.int32)).sum())}"
+                                 f" rows differ from plain")
         rec = {"phase": "kernel", **info, "kernel": "kth_value", "shape": name,
-               "rows": R, "D": D, "k": TOPK_K, "dtype": str(dtype).split(".")[1],
-               "max_abs_err": 0.0, "tol": "bitwise", "staged_in_shared_memory":
-                   D * x.element_size() <= 96 * 1024,
-               "rows_with_ties_kept": int((kept > TOPK_K).sum()),
-               "ms": ms(lambda: kth_value(x, TOPK_K)),
-               "plain_ms": ms(lambda: kth_value_reference(x, TOPK_K)),
-               "library_ms": ms(lambda: torch.kthvalue(x, D - TOPK_K + 1, dim=1)),
-               **bound(x.numel() * x.element_size() + R * 4, [("fp32", n_bits * x.numel())])}
+               "rows": R, "D": D, "k": k, "dtype": str(dtype).split(".")[1], "fill": fill,
+               "route": route["route"], "cluster": route["cluster"],
+               "stage_bytes": route["stage_bytes"], "max_abs_err": 0.0, "tol": "bitwise"}
+        ms = lambda fn: cuda_us(fn, iters=10, warmup=2) / 1000.0
+        if fill != "nan":
+            kept = (x >= t).sum(dim=1)
+            # the k-th value itself where the search is exact (every float32
+            # row, bfloat16 rows whose k-th value has a clear sign bit), else
+            # a separator (also below -0.0)
+            values = torch.kthvalue(x, D - k + 1, dim=1).values.float()
+            exact = (~torch.signbit(values) if dtype == torch.bfloat16
+                     else torch.ones_like(values, dtype=bool))
+            if not (bool((kept >= k).all()) and torch.equal(t[:, 0][exact], values[exact])
+                    and bool(((x.float() >= values[:, None]) == (x >= t)).all())):
+                raise AssertionError(f"kth_value {name}: the mask x >= t is not the top k")
+            rec["rows_with_ties_kept"] = int((kept > k).sum())
+        if fill == "randn" and k == TOPK_K:
+            # a key map, a prefix compare and a count a key in each digit pass
+            passes = 2 if dtype == torch.bfloat16 else 4
+            library = lambda: torch.kthvalue(x, D - k + 1, dim=1)
+            rec.update({"ms": ms(lambda: kth_value(x, k)),
+                        "device_ms": device_us(lambda: kth_value(x, k)) / 1000.0,
+                        "plain_ms": ms(lambda: kth_value_reference(x, k)),
+                        "library_ms": ms(library),
+                        "library_device_ms": device_us(library) / 1000.0,
+                        **bound(x.numel() * x.element_size() + R * 4,
+                                [("fp32", 3 * passes * x.numel())])})
+        if name in {n for n, *_ in KTH_SHAPES}:
+            rec["ptxas"] = regs
         results[name] = rec
         emit(rec)
-        del x, t, want, values
+        del x, t, want
+    torch.cuda.empty_cache()
     return results
 
 
@@ -3429,6 +3545,11 @@ def main():
                 "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                 "library_ms": None if lib is None else lib * scale}
 
+    take_rows_line = {
+        shape: {"max_abs_err": r["max_abs_err"], "us": r["kernel_us"], "call_us": r["us"],
+                "plain_us": r["plain_us"], "library_us": r["library_device_us"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
+        for (kernel, shape, *_), r in sae_kernels.items() if kernel == "take_rows"}
     adam = [sae_kernels[("adam_update", name, torch.float32)] for name, _, _ in ADAM_SHAPES]
     adam_bytes = sum(r["MB_moved"] for r in adam) * 1e6
     adam_ops = sum(15 * math.prod(r["dims"]) for r in adam)
@@ -3444,8 +3565,18 @@ def main():
                  kernels[("b32", torch.bfloat16)], "us", 1e-3),
          "l14_ms": l14["us"] * 1e-3, "l14_library_ms": l14["library_us"] * 1e-3,
          "l14_bound_ms": l14["bound_ms"], "l14_max_abs_err": l14["max_abs_err"]},
-        entry("take_rows", TAKE_ROWS_SOURCE, TAKE_ROWS_REPLACES, train_launches["take_rows"],
-              sae_kernels[("take_rows", "store_f32")], "us", 1e-3),
+        # at the store's f32 shape: the kernel's and index_select's device
+        # times (the call's event time, with the wrapper's index check, beside
+        # them), with the bf16 store's and the sweep store's figures; launches
+        # from the train path and the sweep's
+        {**entry("take_rows", TAKE_ROWS_SOURCE, TAKE_ROWS_REPLACES,
+                 train_launches["take_rows"] + sweep_launches["take_rows"],
+                 take_rows_line["store_f32"], "us", 1e-3),
+         "call_ms": take_rows_line["store_f32"]["call_us"] * 1e-3,
+         **{f"{shape}_{key.replace('us', 'ms')}":
+                take_rows_line[shape][key] * (1 if key == "bound_ms" else 1e-3)
+            for shape in ("store_bf16", "sweep_bf16")
+            for key in ("us", "library_us", "bound_ms")}},
         # one train step's four tensors, float32 moments
         entry("adam_update", ADAM_SOURCE, ADAM_REPLACES, train_launches["adam_update"],
               adam_rec, "us", 1e-3),
@@ -3468,9 +3599,12 @@ def main():
               TOPK_REPLACES["sae_fused_backward_topk"],
               topk_remat_launches["sae_fused_backward_topk"],
               topk_rec("sae_fused_backward_topk")),
-        # the generic TopK step's float32 [4096, 12288]; launches from the
-        # generic steps and encode of the TopK step check
-        entry("kth_value", KTH_SOURCE, KTH_REPLACES, kth_launches, kth["slice_f32"])]
+        # the generic TopK step's float32 [4096, 12288], with the other
+        # shapes of KTH_SHAPES beside it; launches from the generic steps and
+        # encode of the TopK step check
+        {**entry("kth_value", KTH_SOURCE, KTH_REPLACES, kth_launches, kth["slice_f32"]),
+         **{f"{shape}_{key}": kth[shape][key] for shape in ("slice_bf16", "wide_f32", "wide_bf16")
+            for key in ("ms", "library_ms", "bound_ms")}}]
     # at the gated slice's bf16 shape; launches from its train path
     line += [entry(k, GATED_SOURCES[k], GATED_REPLACES[k], gated_launches[k],
                    gated_kernels[(k, "slice_bf16")]) for k in GATED_SOURCES]

@@ -55,6 +55,45 @@ def test_take_rows_matches_jax_bitwise(dtype, idx_dtype):
     np.testing.assert_array_equal(got.float().numpy(), want)
 
 
+# Rows the card's kernel takes on its other route or in chunks: a
+# sweep-like row ([24, 16] bfloat16), 3-byte rows, and an unaligned view
+# (x[1:] of bfloat16 rows of odd width); M != N, with repeats.
+@pytest.mark.parametrize("idx_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("case", ["sweep_like_bf16", "three_bytes_u8", "unaligned_view_bf16"])
+def test_take_rows_plain_matches_jax_on_odd_rows(case, idx_dtype):
+    rng = np.random.default_rng(3)
+    if case == "sweep_like_bf16":
+        x = seeded(4, (37, 24, 16), 10.0)
+        jx, px = jnp.asarray(x, jnp.bfloat16), torch.from_numpy(x).bfloat16()
+    elif case == "three_bytes_u8":
+        x = rng.integers(0, 256, size=(37, 3)).astype(np.uint8)
+        jx, px = jnp.asarray(x), torch.from_numpy(x)
+    else:
+        x = seeded(5, (38, 7), 10.0)
+        jx, px = jnp.asarray(x, jnp.bfloat16)[1:], torch.from_numpy(x).bfloat16()[1:]
+        assert px.is_contiguous() and px.data_ptr() % 16 != 0
+    idx = rng.integers(0, 37, size=61).astype(idx_dtype)
+    assert len(np.unique(idx)) < len(idx)  # repeats
+    want = np.asarray(jnp.take(jx, jnp.asarray(idx), axis=0).astype(jnp.float32))
+    got = port_shuffle.take_rows(px, torch.from_numpy(idx))
+    assert got.dtype == px.dtype and tuple(got.shape) == (61,) + tuple(px.shape[1:])
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+# row bytes, source and output pointers, the widest access all three allow
+ROUTES = [(3072, 0, 0, 16), (1536, 4096, 512, 16), (49152, 0, 0, 16), (16, 16, 32, 16),
+          (48, 16, 16, 16), (3072, 8, 0, 8), (3072, 0, 4, 4), (1534, 1534, 0, 2),
+          (24, 0, 0, 8), (20, 0, 0, 4), (3, 0, 0, 1), (3072, 1, 0, 1)]
+
+
+@pytest.mark.parametrize("row_bytes,x_ptr,out_ptr,vec", ROUTES)
+def test_take_rows_route_by_width_and_alignment(row_bytes, x_ptr, out_ptr, vec):
+    """The kernel's access width (its route: 16-byte vectors for the
+    stores' rows, narrower for odd widths and unaligned views) is chosen
+    from the row width and both base pointers before the launch."""
+    assert port_shuffle._vector_bytes(row_bytes, x_ptr, out_ptr) == vec
+
+
 def test_permute_rows_from_indices_and_generator():
     x = torch.from_numpy(seeded(2, (50, 8)))
     idx = torch.randperm(50, generator=torch.Generator().manual_seed(0))

@@ -16,7 +16,11 @@
 //
 // Design.  The TPU kernel keeps a ring of per-row DMAs and semaphores in
 // flight from one core; on Hopper the parallelism comes from many warps
-// instead, so that ring is not carried over.
+// instead.  That ring's Hopper counterpart, TMA bulk copies through a ring
+// of shared-memory slots (probes/take_rows_bulk.cu), ran 5-7% slower at the
+// activation store's shapes, and 16-byte loads with streaming hints
+// (probes/take_rows_stream.cu) 1-3% slower; this kernel moves the store's
+// rows at 0.87-0.89 of 3.35 TB/s, as fast as index_select (`PERF.md`).
 //  * Each warp copies one row at a time (grid-stride over rows, 8 warps per
 //    block); all lanes read the row's index (one broadcast load).
 //  * A lane moves the widest vector (16, 8, 4, 2 or 1 bytes) that the row

@@ -136,6 +136,8 @@ def load_library() -> ctypes.CDLL:
     lib.sae_fused_bwd_gated.restype = i
     lib.kth_value.argtypes = [p, p, ll, i, i, i, i, p]
     lib.kth_value.restype = i
+    lib.kth_value_plan.argtypes = [i, i, p]
+    lib.kth_value_plan.restype = i
     lib.ln_matmul_fwd.argtypes = [p] * 5 + [i] * 4 + [f, i, i, p]
     lib.ln_matmul_fwd.restype = i
     lib.flash_attention_fwd.argtypes = [p] * 6 + [i] * 7 + [p]

@@ -3,11 +3,14 @@
 
 The TopK activation needs no sorted values, only "zero everything below
 the row's k-th largest".  :func:`kth_value` (kernel B10,
-``csrc/kth_value.cu``) finds that value by a bitwise binary search over the
-IEEE-754 patterns mapped onto unsigned integers in value order: 32 passes
-for float32 rows, 16 for bfloat16 rows (their float32 patterns have zero low
-halves).  :func:`topk_mask_activation` then keeps ``relu(x)`` where ``x >=
-t``, with ``t`` detached, so autograd flows through the mask alone.
+``csrc/kth_value.cu``) finds that value over the IEEE-754 patterns mapped
+onto unsigned integers in value order: its plain version by a bitwise
+binary search (32 passes for float32 rows, 16 for bfloat16 rows, whose
+float32 patterns have zero low halves), the kernel by a radix select on
+8-bit digits (4 or 2 passes) that gives the same bits.  The kernel's route
+depends on the row width alone (:func:`kth_value_route`).
+:func:`topk_mask_activation` then keeps ``relu(x)`` where ``x >= t``, with
+``t`` detached, so autograd flows through the mask alone.
 
 Tie semantics: a row whose k-th value is tied keeps every tied entry
 (>= k entries); distinct values give exactly k.  For bfloat16 rows whose
@@ -28,6 +31,32 @@ from vit_prisma_tpu_torch.ops import _build
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGN = 0x80000000
 _MASK32 = 0xFFFFFFFF
+# The kernel's routes (``plan`` in csrc/kth_value.cu): a block stages up to
+# KTH_STAGE_CAP bytes of a row; a wider row is split over a cluster of at
+# most KTH_MAX_CLUSTER blocks, KTH_CLUSTER_PART bytes each where it can be.
+KTH_STAGE_CAP = 64 * 1024
+KTH_CLUSTER_PART = 32 * 1024
+KTH_MAX_CLUSTER = 8
+
+
+def kth_value_route(D: int, dtype: torch.dtype) -> dict:
+    """The route of :func:`kth_value`'s kernel for rows of ``D`` elements,
+    as ``plan`` in ``csrc/kth_value.cu`` computes it: ``"block"`` (one
+    block stages the row in shared memory), ``"cluster"`` (a cluster of 3-8
+    blocks, each staging a part) or ``"streamed"`` (a cluster of 8 reading
+    its parts from device memory in every digit pass); ``cluster`` blocks a
+    row, ``part`` elements a block (a multiple of 16 bytes), and
+    ``stage_bytes`` of dynamic shared memory a block."""
+    elem = 2 if dtype == torch.bfloat16 else 4
+    vec = 16 // elem
+    nbytes = D * elem
+    cluster = (1 if nbytes <= KTH_STAGE_CAP
+               else min(KTH_MAX_CLUSTER, -(-nbytes // KTH_CLUSTER_PART)))
+    staged = nbytes <= KTH_MAX_CLUSTER * KTH_STAGE_CAP
+    part = -(-(-(-D // cluster)) // vec) * vec
+    route = "block" if cluster == 1 else "cluster" if staged else "streamed"
+    return {"route": route, "cluster": cluster, "part": part,
+            "stage_bytes": part * elem + 16 if staged else 0}
 
 
 def _check(x: torch.Tensor, k: int):
@@ -62,8 +91,9 @@ def kth_value(x: torch.Tensor, k: int) -> torch.Tensor:
     """Kernel B10: per-row k-th largest of ``x`` ``[R, D]`` (float32 or
     bfloat16, contiguous) -> ``[R, 1]`` float32 (a separator for bfloat16
     rows with a negative k-th value; see the module note).  CUDA tensors
-    launch ``csrc/kth_value.cu`` and add one to ``kth_value.launches``; CPU
-    tensors run the plain version."""
+    launch ``csrc/kth_value.cu`` on the route :func:`kth_value_route` gives
+    and add one to ``kth_value.launches``; CPU tensors run the plain
+    version."""
     _check(x, k)
     if x.device.type == "cpu":
         return kth_value_reference(x, k)
