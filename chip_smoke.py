@@ -64,17 +64,24 @@ Phases, each printing JSON lines with the card's name and power limit:
    against the CPU in float32 with its ReLU switches counted;
 7. SAE kernels: B4 (``sae_fused_forward``), B5 (``sae_fused_backward``) and
    B6 (``sae_fused_backward_stored``) against their plain versions at the
-   all-layer sweep's shape in bfloat16 (24 SAEs, batch 4096, 1024 -> 8192)
-   and at two layers in float32, with times and TFLOP/s; then B4+B6 against
-   B4+B5 through ``sae_fused_apply`` at the sweep's shape in both dtypes,
-   times and peak memory, the measurement behind always keeping hc;
+   all-layer sweep's shape (24 SAEs, batch 4096, 1024 -> 8192) and the TopK
+   slice's (1 x 4096, 768 -> 12,288) in bfloat16 and at two layers in
+   float32, with times and TFLOP/s; B4 and B6 also with the route they took
+   (the bf16 Hopper route, wgmma/TMA, at both bf16 shapes: checked against
+   the wrapper's picker and the library's mirror), two calls equal to the
+   bit, the cuBLAS time of their products alone beside them and ptxas's
+   record of the Hopper kernels (no spills, no serialized wgmma); then B4+B6
+   against B4+B5 through ``sae_fused_apply`` at the sweep's shape in both
+   dtypes, times and peak memory, the measurement behind always keeping hc;
 8. TopK kernels: B8 (``sae_fused_forward_topk``), B9
    (``sae_fused_backward_topk``) and B6 on B8's masked h against their plain
    versions at the TopK slice's shape (1 x 4096, 768 -> 12,288, k = 64) in
-   both dtypes and at the sweep's shape in bfloat16; masks that differ from
-   the plain version's are counted and bounded, and the kernels' own
-   invariants are exact; then B8+B6 against B8+B9 through
-   ``sae_fused_apply_topk``;
+   both dtypes and at the sweep's shape in bfloat16 (B6 with its route, two
+   calls equal to the bit and its products' cuBLAS time, as in phase 7);
+   masks that differ from the plain version's are counted and bounded, and
+   the kernels' own invariants are exact (B9 from t gives the grads of the
+   stored mode it shares code with, from h, to the bit); then B8+B6 against
+   B8+B9 through ``sae_fused_apply_topk``;
 9. TopK train: the fourth main path, phase 5's set-up with bench.py's
    bfloat16 TopK row (k = 64, bf16 compute, float32 masters):
    ``run(max_steps=120)`` through B8 and B6 on every step, exact launches;
@@ -91,7 +98,9 @@ Phases, each printing JSON lines with the card's name and power limit:
     ``SAESweepTrainer.run(max_steps=18)`` -> ``train_cycles(2)``, then one
     cycle with ``fused_store_acts=False`` (the remat backward, B5).  Launch
     counts exact; SAE-tokens per second and peak memory; ``torch.profiler``'s
-    breakdown of one refill, with B1's share;
+    breakdown of one refill, with B1's share, and of sweep steps on buffered
+    batches (device time by kernel, the Hopper SAE kernels' share, the idle
+    share of steps timed with CUDA events);
 12. sweep step check: three fused steps against three steps of the generic
     per-layer path from one state, in bfloat16 at 24 layers and in float32
     at two; then ``sweep_eval``: the sweep trainer's ``validate()`` and
@@ -185,6 +194,10 @@ ADAM_SOURCE = "vit_prisma_tpu_torch/csrc/adam_update.cu"
 ADAM_REPLACES = "vit_prisma_tpu/ops/opt_step.py:85"
 SAE_FWD_SOURCE = "vit_prisma_tpu_torch/csrc/sae_fused_fwd.cu"
 SAE_BWD_SOURCE = "vit_prisma_tpu_torch/csrc/sae_fused_bwd.cu"
+# B4's and B6's bf16 Hopper route (sae_gemm_route "wgmma"): its source and
+# the kernel's name in ptxas's record
+SAE_TC_SOURCE = "vit_prisma_tpu_torch/csrc/sae_fused_tc.cu"
+SAE_TC_KERNEL = "sae_tc_kernel"
 SAE_REPLACES = {"sae_fused_forward": "vit_prisma_tpu/ops/sae_step.py:148",
                 "sae_fused_backward": "vit_prisma_tpu/ops/sae_step.py:250",
                 "sae_fused_backward_stored": "vit_prisma_tpu/ops/sae_step.py:389"}
@@ -313,9 +326,20 @@ STEP_SWITCHED_MOMENT_REL = 2e-2
 # where such a switch was its one activation.
 STEP_EXACT = ("adam_count", "schedule_count", "step", "n_training_tokens",
               "n_frac_active_tokens")
-# B4-B6 against their plain versions: name, L, B, d_in, d_sae, dtype.
+# B4-B6 against their plain versions: name, L, B, d_in, d_sae, dtype.  The
+# sweep's shape in bf16, the TopK slice's (bench.py:164-171) in bf16, two
+# sweep layers in f32, and two layers of a ViT-S width (d_in 384, a multiple
+# of 128 but not of 256, at expansion 16) in bf16.
 SAE_STEP_SHAPES = [("sweep_bf16", 24, 4096, 1024, 8192, torch.bfloat16),
-                   ("two_layers_f32", 2, 4096, 1024, 8192, torch.float32)]
+                   ("topk_slice_bf16", 1, 4096, 768, 12288, torch.bfloat16),
+                   ("two_layers_f32", 2, 4096, 1024, 8192, torch.float32),
+                   ("vit_s_bf16", 2, 4096, 384, 6144, torch.bfloat16)]
+# The shapes at which B4 and B6 must take the bf16 Hopper route (wgmma/TMA,
+# csrc/sae_fused_tc.cu): the sweep's and the TopK slice's; and the one at
+# which they must keep the bf16 mma.sync tiles (csrc/sae_fused_fwd.cu,
+# csrc/sae_fused_bwd.cu's stored mode), which such widths take.
+SAE_TC_SHAPES = ("sweep_bf16", "topk_slice_bf16", "slice_bf16")
+SAE_MMA_SYNC_SHAPES = ("vit_s_bf16",)
 # Kept hc (B6) against recomputed hc (B5), timed through sae_fused_apply in
 # bfloat16 and float32 at the sweep's shape: L, B, d_in, d_sae.
 SAVE_ACTS_SHAPE = (24, 4096, 1024, 8192)
@@ -388,6 +412,10 @@ SWEEP_IMAGES = 96
 SWEEP_STEPS = 18
 SWEEP_CYCLES = 2
 SWEEP_CHECK_LAYERS = {torch.bfloat16: 24, torch.float32: 2}
+# Where a sweep step's time goes, after the main path: SWEEP_PROFILE_STEPS
+# steps timed with CUDA events on batches already in the buffer, then
+# torch.profiler over three.
+SWEEP_PROFILE_STEPS = 10
 # Every layer must fire at the first read, and every layer but these at
 # every read.  On these random weights layers 3-7 stop firing within 30
 # steps: from one initial state on the same rows, the fused bf16 step, the
@@ -660,36 +688,51 @@ def cuda_us(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) * 1000.0 / iters
 
 
-def device_us_by_name(fn, calls=10, warmup=2, tries=4) -> dict:
+def device_us_by_name(fn, calls=10, warmup=2, tries=4, one_call_short=False) -> dict:
     """Device time of ``fn`` in microseconds a call by kernel (or copy)
     name, from ``torch.profiler`` over ``calls`` calls.  The profiler now
     and then returns a window with no device events, or with some lost (a
     kernel counted fewer times than there were calls); such a window is
-    measured again, and a last one that is still short raises."""
-    from torch.profiler import ProfilerActivity, profile
+    measured again, and a last one that is still short raises.  With
+    ``one_call_short`` (for a library call made through autograd's engine
+    alone) a window that kept the events of every call but one, kernel by
+    kernel, is taken over the calls it kept."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
+        # a first cycle of calls while the profiler's device tracing starts
+        # (a window that began cold saw 4 of 10 calls on one host), then the
+        # cycle that is kept
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
         events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        if events and all(e.count % calls == 0 for e in events):
-            return {e.key: e.device_time_total / calls for e in events}
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.key.startswith("ProfilerStep")]
+        # every call's kernels; for SDPA's backward through autograd's engine
+        # also every call's but one call's: it lost all the device events of
+        # one call of the kept cycle, the same one kernel by kernel, on two
+        # hosts, and the time a call is then taken over the calls kept
+        for kept in (calls, calls - 1) if one_call_short else (calls,):
+            if events and kept > 0 and all(e.count % kept == 0 for e in events):
+                return {e.key: e.device_time_total / kept for e in events}
     raise AssertionError(f"torch.profiler lost device events in {tries} windows: "
                          f"{[(e.key[:60], e.count) for e in events]}")
 
 
-def device_us(fn, calls=10, warmup=2) -> float:
+def device_us(fn, calls=10, warmup=2, one_call_short=False) -> float:
     """Device time of ``fn`` in microseconds a call: its kernels' (and
     copies') times summed by ``torch.profiler``.  A library call whose host
     side outruns its kernels (autograd's engine at small shapes; CUDA events
     then time the host, 1.6x apart between calls) is charged its device work
     alone, as a kernel is."""
-    return sum(device_us_by_name(fn, calls, warmup).values())
+    return sum(device_us_by_name(fn, calls, warmup, one_call_short=one_call_short).values())
 
 
 def check_close(name, got, want, atol) -> float:
@@ -1256,15 +1299,73 @@ def _grad_errs(name, got, want, switched, dtype, switched_rel=SAE_SWITCHED_GRAD_
     return errs
 
 
+def _routed(fn, *args, **kwargs):
+    """One call of a B4 or B6 wrapper: its outputs and the route its tally
+    (``fn.routes``) counted."""
+    before = dict(fn.routes)
+    out = fn(*args, **kwargs)
+    taken = [r for r, n in fn.routes.items() if n != before[r]]
+    if len(taken) != 1:
+        raise AssertionError(f"{fn.__name__}: routes counted {taken}")
+    return out, taken[0]
+
+
+def _route_record(name, B, D, Sd, dtype, taken):
+    """The route a B4 or B6 call took against the wrapper's picker; in bf16
+    it must be the Hopper route at SAE_TC_SHAPES and the mma.sync tiles at
+    SAE_MMA_SYNC_SHAPES."""
+    from vit_prisma_tpu_torch.ops.sae_step import sae_gemm_route
+    want = sae_gemm_route(B, D, Sd, dtype)
+    rec = {"route": taken, "route_picker": want}
+    must = {**dict.fromkeys(SAE_TC_SHAPES, "wgmma"),
+            **dict.fromkeys(SAE_MMA_SYNC_SHAPES, "mma_sync")}
+    if taken != want or (dtype == torch.bfloat16 and must.get(name, taken) != taken):
+        raise AssertionError(f"{name} {dtype}: route {rec}")
+    return rec
+
+
+def _bitwise_repeat(name, fn):
+    """Two calls of ``fn`` give the same bits in every output."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    if not all(torch.equal(u, v) for u, v in zip(a, b)):
+        raise AssertionError(f"{name}: two calls differ")
+    return True
+
+
+def _cublas_products(products, n_flop):
+    """The bf16 (or f32) cuBLAS time of a kernel's products alone
+    (``torch.matmul`` on the same operands): for scale, not the same
+    function."""
+    ms = cuda_us(lambda: [torch.matmul(a, b) for a, b in products], iters=5, warmup=1) / 1000.0
+    return {"cublas_products_ms": ms, "cublas_products_TFLOP_per_s": n_flop / ms / 1e9,
+            "cublas_products_note": "cuBLAS products, not the same function",
+            "cublas_products": len(products)}
+
+
+def _tc_ptxas():
+    """ptxas's record of the Hopper route's kernels: no spills, no
+    serialized wgmma."""
+    rec = ptxas(SAE_TC_KERNEL)
+    if any(r["spill_bytes"] or r["wgmma_serialized"] for r in rec.values()):
+        raise AssertionError(f"{SAE_TC_KERNEL}: {rec}")
+    return rec
+
+
 def phase_sae_step_kernels(info):
-    """B4, B5 and B6 against their plain versions at the sweep's shapes."""
+    """B4, B5 and B6 against their plain versions at SAE_STEP_SHAPES (the
+    sweep's, the TopK slice's, and a width that keeps the bf16 mma.sync
+    tiles): the route B4 and B6 took, two calls equal to the bit, and the
+    cuBLAS time of their products beside them."""
     from vit_prisma_tpu_torch.ops import sae_step as S
     g = torch.Generator(device="cuda").manual_seed(4)
+    tc_ptxas = _tc_ptxas()
     results = {}
     for name, L, B, D, Sd, dtype in SAE_STEP_SHAPES:
         x, We, be, Wd, bd, dy, dl1 = _sae_inputs(g, L, B, D, Sd, dtype)
-        y, l1, nact, hc = S.sae_fused_forward(x, We, be, Wd, bd, save_h=True)
+        (y, l1, nact, hc), route4 = _routed(S.sae_fused_forward, x, We, be, Wd, bd, save_h=True)
         torch.cuda.synchronize()
+        routes = {"sae_fused_forward": _route_record(name, B, D, Sd, dtype, route4)}
         yr, l1r, nactr, hcr = S.sae_fused_forward_reference(x, We, be, Wd, bd, save_h=True)
         mask = hc.float() > 0
         mask_plain = (S._mm(x - bd[:, None], We) + be.float()[:, None]) > 0
@@ -1282,9 +1383,16 @@ def phase_sae_step_kernels(info):
                 and bool(((nact - nactr).abs() <= per_feature).all())):
             raise AssertionError(f"{name} forward: {fwd}")
         del yr, hcr, mask, mask_plain, flip
+        dW6, route6 = _routed(S.sae_fused_backward_stored, x, hc, Wd, bd, dy, dl1)
+        routes["sae_fused_backward_stored"] = _route_record(name, B, D, Sd, dtype, route6)
+        repeat = {
+            "sae_fused_forward": _bitwise_repeat(
+                f"{name} B4", lambda: S.sae_fused_forward(x, We, be, Wd, bd, save_h=True)),
+            "sae_fused_backward_stored": _bitwise_repeat(
+                f"{name} B6", lambda: S.sae_fused_backward_stored(x, hc, Wd, bd, dy, dl1))}
         bwd = {
             "sae_fused_backward_stored": _grad_errs(
-                f"{name} B6", S.sae_fused_backward_stored(x, hc, Wd, bd, dy, dl1),
+                f"{name} B6", dW6,
                 S.sae_fused_backward_stored_reference(x, hc, Wd, bd, dy, dl1),
                 torch.zeros_like(switched), dtype),
             "sae_fused_backward": _grad_errs(
@@ -1311,6 +1419,15 @@ def phase_sae_step_kernels(info):
                   * eb + L * 4 + g_bytes,
                   "sae_fused_backward": 2 * L * B * D * eb + w_bytes + L * 4 + g_bytes}
         gemm = "bf16_tensor" if dtype == torch.bfloat16 else "fp32"
+        # the products alone, on the same operands (dhc: B6's own rounding of dh)
+        xc = x - bd[:, None]
+        dhc = torch.where(hc > 0, S._mm(dy, Wd.transpose(1, 2)) + dl1[:, None, None],
+                          0.0).to(dtype)
+        cublas = {"sae_fused_forward": _cublas_products([(xc, We), (hc, Wd)], 2 * flop),
+                  "sae_fused_backward_stored": _cublas_products(
+                      [(dy, Wd.transpose(1, 2)), (xc.transpose(1, 2), dhc),
+                       (hc.transpose(1, 2), dy)], 3 * flop)}
+        del xc, dhc
         for kernel, (fn, plain, n_flop) in calls.items():
             t, plain_t = ms(fn, 5), ms(plain, 2)
             err = (fwd["y"] if kernel == "sae_fused_forward" else
@@ -1325,9 +1442,16 @@ def phase_sae_step_kernels(info):
                 rec["forward"] = fwd
             else:
                 rec["grad_errs"] = bwd[kernel]
+            if kernel in routes:
+                rec.update(routes[kernel])
+                rec.update(cublas[kernel])
+                rec["bitwise_repeat"] = repeat[kernel]
+                if rec["route"] == "wgmma":
+                    rec["source"] = SAE_TC_SOURCE
+                    rec["ptxas"] = tc_ptxas
             results[(kernel, name)] = rec
             emit(rec)
-        del x, We, be, Wd, bd, dy, y, hc
+        del x, We, be, Wd, bd, dy, y, hc, dW6
         torch.cuda.empty_cache()
     for dtype in (torch.bfloat16, torch.float32):
         emit({"phase": "save_acts", **info, **_stored_against_remat(
@@ -1500,12 +1624,21 @@ def phase_topk_kernels(info):
         _, hp_plain = S._hp(x, We, be, bd)
         switched9 = (S._topk_mask(hp_plain, t)[0] != mask).any(dim=1)
         del hp_plain
-        dWs = S.sae_fused_backward_stored(x, h, Wd, bd, dy, dl1)
+        dWs, route6 = _routed(S.sae_fused_backward_stored, x, h, Wd, bd, dy, dl1)
+        route6 = _route_record(name, B, D, Sd, dtype, route6)
+        repeat6 = _bitwise_repeat(f"{name} B6 on h",
+                                  lambda: S.sae_fused_backward_stored(x, h, Wd, bd, dy, dl1))
         dW9 = S.sae_fused_backward_topk(x, We, be, Wd, bd, dy, dl1, t)
+        # B9 shares the stored mode's code (csrc/sae_fused_bwd.cu): from t it
+        # gives that mode's grads from h bit for bit (the same active set and
+        # the same products), whichever route the B6 wrapper took
+        dW6_shared = S._backward_launch("sae_fused_backward_stored", S._STORED, x, Wd, bd, dy,
+                                        dl1, hc=h)
         torch.cuda.synchronize()
-        b9_is_b6 = all(torch.equal(a, b) for a, b in zip(dWs, dW9))
+        b9_is_b6 = all(torch.equal(a, b) for a, b in zip(dW6_shared, dW9))
         if not b9_is_b6:
             raise AssertionError(f"{name}: B9 from t does not give B6's grads from h")
+        del dW6_shared
         bwd = {"sae_fused_backward_stored": _grad_errs(
                    f"{name} B6", dWs, S.sae_fused_backward_stored_reference(x, h, Wd, bd, dy, dl1),
                    torch.zeros_like(switched9), dtype),
@@ -1536,6 +1669,12 @@ def phase_topk_kernels(info):
                 lambda: S.sae_fused_backward_stored_reference(x, h, Wd, bd, dy, dl1),
                 (2 * L * B * D + L * B * Sd + L * Sd * D + L * D) * eb + L * 4 + g_bytes,
                 [(gemm, 3 * flop)])}
+        xc = x - bd[:, None]
+        dhc = torch.where(h.float() > 0, S._mm(dy, Wd.transpose(1, 2)) + dl1[:, None, None],
+                          0.0).to(dtype)
+        cublas6 = _cublas_products([(dy, Wd.transpose(1, 2)), (xc.transpose(1, 2), dhc),
+                                    (h.transpose(1, 2), dy)], 3 * flop)
+        del xc, dhc
         for kernel, (fn, plain, nbytes, ops) in calls.items():
             k_ms, plain_ms = ms(fn, 5), ms(plain, 2)
             n_flop = ops[0][1]  # the products
@@ -1551,6 +1690,13 @@ def phase_topk_kernels(info):
             else:
                 rec["grad_errs"] = bwd[kernel]
                 rec["B9_equals_B6_on_h"] = b9_is_b6
+                rec["B9_compared_with"] = "B6's stored mode of csrc/sae_fused_bwd.cu"
+            if kernel == "sae_fused_backward_stored":
+                rec.update(route6)
+                rec.update(cublas6)
+                rec["bitwise_repeat"] = repeat6
+                if rec["route"] == "wgmma":
+                    rec["source"] = SAE_TC_SOURCE
             results[(kernel, name)] = rec
             emit(rec)
         del x, We, be, Wd, bd, dy, y, h, t, mask
@@ -1601,24 +1747,35 @@ def phase_topk_remat(info, trainer, store, cfg):
 MIX_KERNEL_NAMES = ("mix_tc_kernel", "mix_fwd_kernel")
 
 
-def _profile(fn, share_of=()):
+def _profile(fn, share_of=(), warm=False):
     """Device time by kernel over one call of ``fn`` (synchronized), the
     device's busy total and the wall time, in milliseconds; with
     ``share_of``, also the time and calls of every kernel whose name
-    contains one of those strings."""
-    from torch.profiler import ProfilerActivity, profile
+    contains one of those strings.  ``warm``: one more call first, in a
+    profiler cycle that is not kept, while device tracing starts."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1) if warm
+                 else None) as prof:
+        if warm:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = 1000.0 * (time.perf_counter() - t0)
+        if warm:
+            prof.step()
     # the device's own events (kernels, copies, sets), not the host ops that
-    # launched them, whose device totals would count them twice
+    # launched them, whose device totals would count them twice (nor the
+    # schedule's step annotation, which spans them all)
     rows = sorted(((e.key, e.device_time_total / 1000.0, e.count)
                    for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.device_time_total > 0), key=lambda r: -r[1])
+                   and e.device_time_total > 0 and not e.key.startswith("ProfilerStep")),
+                  key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     out = {"wall_ms": wall_ms, "device_busy_ms": busy,
            "idle_share": max(0.0, 1.0 - busy / wall_ms), "kernels_total": len(rows),
@@ -1899,6 +2056,7 @@ def phase_sweep(info):
     transpose_ms = cuda_us(lambda: block.transpose(1, 2).contiguous(), iters=5) / 1000.0
     # where a refill's time goes (the L/14 harvest: B1 24 a store batch)
     refill_profile = _profile(store._refill_half, share_of=MIX_KERNEL_NAMES)
+    step_profile = _sweep_step_profile(trainer, store, cfg)
     sae_tokens = steps * cfg.train_batch_size * L
     train_s = run_s + cycles_s
     emit({"phase": "sweep", **info, "model": SWEEP_MODEL,
@@ -1924,7 +2082,7 @@ def phase_sweep(info):
           "sae_tokens_per_s_without_refill": sae_tokens / (train_s - sum(refills)),
           "step_ms_without_refill": 1000 * (train_s - sum(refills)) / steps,
           "peak_memory_GB": peak_gb, "transpose_ms": transpose_ms,
-          "refill_profile": refill_profile,
+          "refill_profile": refill_profile, "step_profile": step_profile,
           "remat_cycle": {"launches": remat_launches, "seconds": remat_s,
                           "mean_loss_last_step": remat_host["loss"]},
           "metrics_logged": [{k: v[k] for k in ("loss", "l0", "explained_variance")}
@@ -1934,6 +2092,41 @@ def phase_sweep(info):
           "ev_per_layer_logged": [per_layer(v, "explained_variance") for v in log],
           "metrics_last": {k: host[-1][k] for k in ("loss", "l0", "explained_variance")}})
     return trainer, store, cfg, launches, remat_launches
+
+
+def _sweep_step_profile(trainer, store, cfg):
+    """One sweep step's time from the trained state, on three batches taken
+    from the store: the mean of SWEEP_PROFILE_STEPS steps by CUDA events, and
+    torch.profiler's device time by kernel over three, with the device's
+    idle share of the timed steps."""
+    from vit_prisma_tpu_torch.sae.train import sae_sweep_train_step
+    batches = [store.next_batch() for _ in range(3)]
+
+    def steps(n):
+        state = trainer.state
+        for j in range(n):
+            state, _ = sae_sweep_train_step(state, batches[j % len(batches)], cfg)
+
+    steps(2)  # warm-up
+    step_ms = cuda_us(lambda: steps(SWEEP_PROFILE_STEPS), iters=1, warmup=0) \
+        / 1000.0 / SWEEP_PROFILE_STEPS
+    # B4 and B6 launch six kernels a step (center16 and two GEMMs each); a
+    # window that lost device events (a kernel counted other than a whole
+    # number of times a step) is profiled again, and a fourth such raises
+    for tries in range(1, 5):
+        prof = _profile(lambda: steps(3), share_of=(SAE_TC_KERNEL, "center16_kernel"),
+                        warm=True)
+        if (all(k["calls"] % 3 == 0 for k in prof["kernels"])
+                and prof["share_of"]["calls"] == 6 * 3):
+            break
+    else:
+        raise AssertionError(f"torch.profiler lost device events in {tries} windows of "
+                             f"the sweep step: {prof['share_of']}, {prof['kernels']}")
+    return {"steps_timed": SWEEP_PROFILE_STEPS, "ms_per_step": step_ms, "profile_windows": tries,
+            "sae_tokens_per_s": cfg.train_batch_size * len(cfg.sweep_layers) / step_ms * 1e3,
+            "device_busy_ms_per_step": prof["device_busy_ms"] / 3,
+            "idle_share_of_timed_steps": max(0.0, 1.0 - prof["device_busy_ms"] / 3 / step_ms),
+            "profile_of_3_steps": prof}
 
 
 def _layer_slice(state, layers):
@@ -2249,7 +2442,8 @@ def phase_grad_kernels(info):
             out = torch.nn.functional.scaled_dot_product_attention(
                 *leaves, is_causal=causal, scale=1.0)
             sdpa_bwd = lambda: torch.autograd.grad(out, leaves, dzh, retain_graph=True)
-            library_us, library_wall_us = device_us(sdpa_bwd), cuda_us(sdpa_bwd)
+            library_us = device_us(sdpa_bwd, one_call_short=True)
+            library_wall_us = cuda_us(sdpa_bwd)
             del out, leaves, sdpa_bwd
             pairs = T * (T + 1) // 2 if causal else T * T
             gemm = "bf16_tensor" if dtype == torch.bfloat16 else "fp32"
@@ -2754,7 +2948,8 @@ def phase_flash_kernels(info):
             leaves = [a.clone().requires_grad_(True) for a in (q, k, v)]
             out = sdpa(*leaves)
             sdpa_bwd = lambda: torch.autograd.grad(out, leaves, dz, retain_graph=True)
-            library_bwd_us, library_bwd_wall_us = device_us(sdpa_bwd), cuda_us(sdpa_bwd)
+            library_bwd_us = device_us(sdpa_bwd, one_call_short=True)
+            library_bwd_wall_us = cuda_us(sdpa_bwd)
             del out, leaves, keep, sdpa_bwd
             # pairs each row attends: real rows the real keys, padding rows
             # the padding keys (causal: those not after the row)
@@ -3545,6 +3740,22 @@ def main():
                 "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                 "library_ms": None if lib is None else lib * scale}
 
+    def sae_tc_extra(rec, slice_rec):
+        """B4's or B6's route, rate and cuBLAS-products time at the sweep's
+        shape, the same at the TopK slice's, and at the ViT-S width that
+        keeps the mma.sync tiles."""
+        mma_rec = sae_step_kernels[(rec["kernel"], SAE_MMA_SYNC_SHAPES[0])]
+        keys = ("route", "TFLOP_per_s", "cublas_products_ms", "ms", "bound_ms",
+                "max_abs_err", "bitwise_repeat")
+        return {"route": rec["route"], "TFLOP_per_s": rec["TFLOP_per_s"],
+                "cublas_products_ms": rec["cublas_products_ms"],
+                "cublas_products_note": rec["cublas_products_note"],
+                "bitwise_repeat": rec["bitwise_repeat"],
+                "other_routes_source": SAE_FWD_SOURCE if rec["kernel"] == "sae_fused_forward"
+                else SAE_BWD_SOURCE,
+                **{f"topk_slice_{k}": slice_rec[k] for k in keys},
+                **{f"{SAE_MMA_SYNC_SHAPES[0]}_{k}": mma_rec[k] for k in keys}}
+
     take_rows_line = {
         shape: {"max_abs_err": r["max_abs_err"], "us": r["kernel_us"], "call_us": r["us"],
                 "plain_us": r["plain_us"], "library_us": r["library_device_us"],
@@ -3581,16 +3792,22 @@ def main():
         entry("adam_update", ADAM_SOURCE, ADAM_REPLACES, train_launches["adam_update"],
               adam_rec, "us", 1e-3),
         # at the sweep's bf16 shape; launches from the sweep's main path (B5:
-        # from its remat cycle; B6: the sweep's and the TopK slice's)
-        entry("sae_fused_forward", SAE_FWD_SOURCE, SAE_REPLACES["sae_fused_forward"],
-              sweep_launches["sae_fused_forward"], sweep_rec("sae_fused_forward")),
+        # from its remat cycle; B6: the sweep's and the TopK slice's).  B4 and
+        # B6 run their Hopper route there (source: its file), with the TopK
+        # slice's bf16 figures and the cuBLAS time of their products beside
+        {**entry("sae_fused_forward", SAE_TC_SOURCE, SAE_REPLACES["sae_fused_forward"],
+                 sweep_launches["sae_fused_forward"], sweep_rec("sae_fused_forward")),
+         **sae_tc_extra(sweep_rec("sae_fused_forward"),
+                        sae_step_kernels[("sae_fused_forward", "topk_slice_bf16")])},
         entry("sae_fused_backward", SAE_BWD_SOURCE, SAE_REPLACES["sae_fused_backward"],
               remat_launches["sae_fused_backward"], sweep_rec("sae_fused_backward")),
-        entry("sae_fused_backward_stored", SAE_BWD_SOURCE,
-              SAE_REPLACES["sae_fused_backward_stored"],
-              sweep_launches["sae_fused_backward_stored"]
-              + topk_launches["sae_fused_backward_stored"],
-              sweep_rec("sae_fused_backward_stored")),
+        {**entry("sae_fused_backward_stored", SAE_TC_SOURCE,
+                 SAE_REPLACES["sae_fused_backward_stored"],
+                 sweep_launches["sae_fused_backward_stored"]
+                 + topk_launches["sae_fused_backward_stored"],
+                 sweep_rec("sae_fused_backward_stored")),
+         **sae_tc_extra(sweep_rec("sae_fused_backward_stored"),
+                        topk_rec("sae_fused_backward_stored"))},
         # at the TopK slice's bf16 shape; launches from its train path (B9:
         # from its remat steps)
         entry("sae_fused_forward_topk", TOPK_FWD_SOURCE, TOPK_REPLACES["sae_fused_forward_topk"],

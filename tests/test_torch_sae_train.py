@@ -227,11 +227,14 @@ def test_trainer_options_not_ported_raise(fields, kwargs, item):
 
 @pytest.mark.parametrize("fields", [dict(n_validation_runs=2), dict(log_to_wandb=True)],
                          ids=["n_validation_runs", "log_to_wandb"])
-def test_trainer_validation_options_run(fields):
+def test_trainer_validation_options_run(monkeypatch, fields):
     """Validation and wandb are ported: both trainers build with them, and
     without a model and eval data ``validate()`` has nothing to do (wandb is
     not installed here, so it is left off); ``test_torch_evals.py`` holds
-    them against the JAX trainers."""
+    them against the JAX trainers.  wandb is made unimportable for the test:
+    the reference oracle of other test files, run earlier in the same
+    worker, stubs it."""
+    monkeypatch.setitem(sys.modules, "wandb", None)
     jc, pc = _cfgs(**fields)
     for cls, jcls, c, j in ((port_sae.VisionSAETrainer, jax_sae.VisionSAETrainer, pc, jc),
                             (port_sae.SAESweepTrainer, jax_sae.SAESweepTrainer,

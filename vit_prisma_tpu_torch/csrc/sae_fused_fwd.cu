@@ -35,7 +35,9 @@
 // 2 x 2 x 24 x 4096 x 1024 x 8192 = 3.3 TFLOP against about 4 GB of traffic
 // (x, W_enc, W_dec, hc written and read): some 800 flops per byte, far above
 // the ~295 where the tensor cores, and not device memory, are the limit.  So
-// the kernel is bound by tensor-core issue.  Measured on an NVIDIA H100
+// the kernel is bound by tensor-core issue (in bf16 at d_in and d_sae
+// multiples of 256, sae_fused_tc.cu's wgmma/TMA route runs instead).
+// Measured on an NVIDIA H100
 // 80GB HBM3 (700 W): 12.99 ms, 254 TFLOP/s, 26% of the 989 TFLOP/s dense
 // bf16 peak (the plain version: 79.7 ms).  mma.sync tiles fed by cp.async
 // reach that fraction; wgmma with TMA-fed tiles is what a later version

@@ -22,6 +22,13 @@ points for CPU tensors:
   ``hc``, whose mask is ``float(hc) > 0``: it equals B5's ``hpre > 0``
   except where a positive float32 pre-activation rounds to +0 in bf16.
 
+B4 and B6 take one of three routes by dtype and shape
+(:func:`sae_gemm_route`): bfloat16 with d_in and d_sae multiples of 256
+runs ``csrc/sae_fused_tc.cu`` (wgmma on a TMA-fed ring, on
+``csrc/sae_wgmma.cuh``), other bfloat16 shapes the mma.sync tiles of
+``csrc/sae_gemm.cuh``, float32 its FFMA tiles.  Each wrapper counts its
+launches by route in ``routes``.
+
 :func:`sae_fused_apply` wraps them in a ``torch.autograd.Function``
 returning ``(y, l1, nact)``.  Its gradient for ``x`` is zero (only the train
 step may use it), and the weight gradients are cast to the parameters'
@@ -323,33 +330,66 @@ def _lib_and_stream(device):
     return _build.load_library(), torch.cuda.current_stream(device).cuda_stream
 
 
+# The block tile's width on B4's and B6's bf16 Hopper route
+# (csrc/sae_wgmma.cuh kBN; its 128 rows are _TILE's): d_in and d_sae must
+# be multiples of it.
+_TC_BN = 256
+SAE_GEMM_ROUTES = ("wgmma", "mma_sync", "ffma")
+
+
+def sae_gemm_route(B: int, d_in: int, d_sae: int, dtype: torch.dtype):
+    """The route B4 (:func:`sae_fused_forward`) and B6
+    (:func:`sae_fused_backward_stored`) take on the card: ``"wgmma"`` (the
+    bf16 Hopper kernels of ``csrc/sae_fused_tc.cu``), ``"mma_sync"`` (the
+    other bf16 shapes, on ``csrc/sae_gemm.cuh``'s tensor-core tiles),
+    ``"ffma"`` (float32, its CUDA-core tiles), or None where no kernel takes the shape (B, d_in or
+    d_sae not a multiple of 128)."""
+    if B % _TILE or d_in % _TILE or d_sae % _TILE or dtype not in _DTYPE_CODES:
+        return None
+    if dtype == torch.float32:
+        return "ffma"
+    return "wgmma" if d_in % _TC_BN == 0 and d_sae % _TC_BN == 0 else "mma_sync"
+
+
 def sae_fused_forward(x, We, be, Wd, bd, save_h: bool = False):
     """Kernel B4: ``(y, l1, nact)`` (plus ``hc`` with ``save_h``) for the
     stacked SAEs; y and hc in x's dtype, l1 ``[L]`` and nact ``[L, d_sae]``
-    float32.  CUDA tensors launch ``csrc/sae_fused_fwd.cu`` and add one to
-    ``sae_fused_forward.launches``; CPU tensors run the plain version."""
+    float32.  CUDA tensors launch ``csrc/sae_fused_tc.cu`` (the "wgmma"
+    route of :func:`sae_gemm_route`) or ``csrc/sae_fused_fwd.cu`` and add one
+    to ``sae_fused_forward.launches`` and to the route's count in
+    ``sae_fused_forward.routes``; a launch that fails raises.  CPU tensors
+    run the plain version."""
     L, B, D, S = _shapes(x, We, Wd)
     _check("sae_fused_forward", x.dtype, x.device, x=x, W_enc=We, b_enc=be, W_dec=Wd, b_dec=bd)
     if x.device.type == "cpu":
         return sae_fused_forward_reference(x, We, be, Wd, bd, save_h)
     _kernel_shapes_ok("sae_fused_forward", B, D, S)
+    route = sae_gemm_route(B, D, S, x.dtype)
     new = lambda *shape, dtype=x.dtype: torch.empty(shape, dtype=dtype, device=x.device)
     xc, hc, y = new(L, B, D), new(L, B, S), new(L, B, D)
+    # per-tile partials: nact per 128-row block, l1 per block tile
     nact_part = new(L, B // _TILE, S, dtype=torch.float32)
-    l1_part = new(L, B // _TILE, S // _TILE, dtype=torch.float32)
+    l1_part = new(L, B // _TILE, S // (_TC_BN if route == "wgmma" else _TILE),
+                  dtype=torch.float32)
     lib, stream = _lib_and_stream(x.device)
-    rc = lib.sae_fused_fwd(x.data_ptr(), We.data_ptr(), be.data_ptr(), Wd.data_ptr(),
-                           bd.data_ptr(), xc.data_ptr(), hc.data_ptr(), y.data_ptr(),
-                           nact_part.data_ptr(), l1_part.data_ptr(), L, B, D, S,
-                           _DTYPE_CODES[x.dtype], x.device.index, stream)
-    _build.check(lib, rc, "sae_fused_forward")
+    ptrs = (x.data_ptr(), We.data_ptr(), be.data_ptr(), Wd.data_ptr(), bd.data_ptr(),
+            xc.data_ptr(), hc.data_ptr(), y.data_ptr(), nact_part.data_ptr(),
+            l1_part.data_ptr())
+    if route == "wgmma":
+        rc = lib.sae_fused_fwd_tc(*ptrs, L, B, D, S, x.device.index, stream)
+    else:
+        rc = lib.sae_fused_fwd(*ptrs, L, B, D, S, _DTYPE_CODES[x.dtype], x.device.index,
+                               stream)
+    _build.check(lib, rc, f"sae_fused_forward ({route})")
     sae_fused_forward.launches += 1
+    sae_fused_forward.routes[route] += 1
     # per-row-block partials, summed as the JAX package sums its own
     out = (y, l1_part.sum(dim=(1, 2)), nact_part.sum(dim=1))
     return out + (hc,) if save_h else out
 
 
 sae_fused_forward.launches = 0
+sae_fused_forward.routes = dict.fromkeys(SAE_GEMM_ROUTES, 0)
 
 
 # sae_fused_bwd's mask modes: B6 (stored hc), B5 (ReLU remat), B9 (TopK remat)
@@ -404,9 +444,11 @@ sae_fused_backward.launches = 0
 def sae_fused_backward_stored(x, hc, Wd, bd, dy, dl1):
     """Kernel B6, the VJP from the forward's stored ``hc`` ``[L, B, d_sae]``:
     the same outputs as :func:`sae_fused_backward`.  CUDA tensors launch
-    ``csrc/sae_fused_bwd.cu`` and add one to
-    ``sae_fused_backward_stored.launches``; CPU tensors run the plain
-    version."""
+    ``csrc/sae_fused_tc.cu`` (the "wgmma" route of :func:`sae_gemm_route`)
+    or ``csrc/sae_fused_bwd.cu`` and add one to
+    ``sae_fused_backward_stored.launches`` and to the route's count in
+    ``sae_fused_backward_stored.routes``; a launch that fails raises.  CPU
+    tensors run the plain version."""
     L, B, D = x.shape
     S = hc.shape[-1]
     if tuple(hc.shape) != (L, B, S) or tuple(Wd.shape) != (L, S, D):
@@ -416,12 +458,29 @@ def sae_fused_backward_stored(x, hc, Wd, bd, dy, dl1):
            dy=dy, dl1=dl1)
     if x.device.type == "cpu":
         return sae_fused_backward_stored_reference(x, hc, Wd, bd, dy, dl1)
-    out = _backward_launch("sae_fused_backward_stored", _STORED, x, Wd, bd, dy, dl1, hc=hc)
+    _kernel_shapes_ok("sae_fused_backward_stored", B, D, S)
+    route = sae_gemm_route(B, D, S, x.dtype)
+    if route == "wgmma":
+        new = lambda *shape, dtype=x.dtype: torch.empty(shape, dtype=dtype, device=x.device)
+        xc, dhc = new(L, B, D), new(L, B, S)
+        dWe, dWd = new(L, D, S, dtype=torch.float32), new(L, S, D, dtype=torch.float32)
+        dbe_part = new(L, B // _TILE, S, dtype=torch.float32)
+        lib, stream = _lib_and_stream(x.device)
+        rc = lib.sae_fused_bwd_stored_tc(
+            x.data_ptr(), hc.data_ptr(), Wd.data_ptr(), bd.data_ptr(), dy.data_ptr(),
+            dl1.data_ptr(), xc.data_ptr(), dhc.data_ptr(), dWe.data_ptr(), dWd.data_ptr(),
+            dbe_part.data_ptr(), L, B, D, S, x.device.index, stream)
+        _build.check(lib, rc, "sae_fused_backward_stored (wgmma)")
+        out = dWe, dWd, dbe_part.sum(dim=1)
+    else:
+        out = _backward_launch("sae_fused_backward_stored", _STORED, x, Wd, bd, dy, dl1, hc=hc)
     sae_fused_backward_stored.launches += 1
+    sae_fused_backward_stored.routes[route] += 1
     return out
 
 
 sae_fused_backward_stored.launches = 0
+sae_fused_backward_stored.routes = dict.fromkeys(SAE_GEMM_ROUTES, 0)
 
 
 def sae_fused_forward_topk(x, We, be, Wd, bd, k: int, save_h: bool = False):
