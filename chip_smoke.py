@@ -111,14 +111,21 @@ Phases, each printing JSON lines with the card's name and power limit:
     step, with B1's share;
 13. gated kernels: B11 (``sae_gated_fused_forward``) and B12
     (``sae_gated_fused_backward``) against their plain versions at the
-    gated slice's shape (1 x 4096, 768 -> 12,288) in both dtypes and at two
-    layers of the sweep's widths (2 x 4096, 1024 -> 8192) in bfloat16;
+    gated slice's shape (1 x 4096, 768 -> 12,288) in both dtypes, at two
+    layers of the sweep's widths (2 x 4096, 1024 -> 8192) in bfloat16 and
+    at a ViT-S width (384 -> 6144) that keeps the bf16 mma.sync tiles;
     gate and magnitude masks that differ from the plain version's are
-    counted and bounded, and nact equals the kernel's own mask count;
+    counted and bounded, and nact equals the kernel's own mask count; the
+    route each took against the picker (the bf16 Hopper route, wgmma/TMA,
+    at the slice and sweep widths), two calls equal to the bit, B12's
+    recomputed c(h) and c(hga) equal to B11's to the bit, the cuBLAS time
+    of their products alone beside them and ptxas's record of the gated
+    Hopper kernels;
 14. gated train: the fifth main path, phase 5's set-up with bench.py's
     gated row (bf16 compute, float32 masters): ``run(max_steps=120)``
-    through B11 and B12 on every step, exact launches, then where a gated
-    step's time goes (``torch.profiler``, as phase 9);
+    through B11 and B12 on every step, exact launches and routes, then
+    where a gated step's time goes (``torch.profiler``'s device time by
+    kernel, as phase 9);
 15. gated step check: three fused steps against three generic steps from
     the trained state in float32;
 16. grad kernels: B2 (``attention_mix_tnh_bwd``) against its plain version
@@ -395,6 +402,10 @@ TOPK_REMAT_STEPS = 4
 # the TOPK_PROFILE_TOP kernels by device time are printed.
 TOPK_PROFILE_STEPS = 20
 TOPK_PROFILE_TOP = 10
+# The gated step's profile lists more kernels (B11's and B12's Hopper route
+# launches eight a step), with the share of those whose names hold these.
+GATED_PROFILE_TOP = 24
+GATED_PROFILE_KERNELS = ("sae_tc_kernel", "center_kernel", "partial_sums_kernel")
 # TopK step check: fused (B8, B6) against generic (B10) steps from the
 # trained state in float32.  Both paths mask float32 pre-activations summed
 # in other orders, so an entry within rounding of its row's k-th value may
@@ -439,11 +450,20 @@ SWEEP_CHECK_TOL = {
     torch.float32: {"param_max": 2e-5, "param_p999": 2e-5, "step1_metric_rel": 2e-4},
     torch.bfloat16: {"param_max": 6e-3, "param_p999": 5e-5, "step1_metric_rel": 5e-3}}
 # B11 and B12 against their plain versions: name, L, B, d_in, d_sae, dtype.
-# The gated slice (bench.py:177-180) in both dtypes, and two layers at the
-# sweep's widths in bfloat16.
+# The gated slice (bench.py:177-180) in both dtypes, two layers at the
+# sweep's widths in bfloat16, and one at a ViT-S width (d_in 384, a multiple
+# of 128 but not of 256, at expansion 16) in bfloat16.  In bf16 the first
+# two take the Hopper route (wgmma/TMA, csrc/sae_fused_tc.cu) and the last
+# the mma.sync tiles (SAE_TC_SHAPES and SAE_MMA_SYNC_SHAPES hold their
+# names); float32 takes the FFMA tiles.
 GATED_SHAPES = [("slice_bf16", 1, 4096, 768, 12288, torch.bfloat16),
                 ("slice_f32", 1, 4096, 768, 12288, torch.float32),
-                ("sweep_bf16", 2, 4096, 1024, 8192, torch.bfloat16)]
+                ("sweep_bf16", 2, 4096, 1024, 8192, torch.bfloat16),
+                ("vit_s_bf16", 1, 4096, 384, 6144, torch.bfloat16)]
+# The instantiations of sae_tc_kernel (by Mode in csrc/sae_fused_tc.cu) that
+# B11 and B12 add: the gated encoder, its remat twin, dg, the gated wgrad and
+# B11's 192-wide decoder.
+GATED_TC_MODES = (4, 5, 6, 7, 8)
 # Kernel and plain version round hg = g + b_gate and hm = g e + b_mag to c
 # after float32 sums taken in other orders, so an hg or hm within a rounding
 # of 0 may fall on the other side of the gate or magnitude mask in one of
@@ -1113,6 +1133,7 @@ def phase_train(info, cfg=None, phase="train"):
 
     # The main path, with every count set to 0 just before it.
     _zero_counts(counters)
+    routes_before = {k: dict(f.routes) for k, f in counters.items() if hasattr(f, "routes")}
     t0 = time.perf_counter()
     store = VisionActivationsStore(cfg, model, images)
     torch.cuda.synchronize()
@@ -1127,6 +1148,8 @@ def phase_train(info, cfg=None, phase="train"):
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t1
     launches = {k: f.launches for k, f in counters.items()}
+    routes = {k: {r: counters[k].routes[r] - n for r, n in before.items()}
+              for k, before in routes_before.items()}
 
     per_batch = store.tokens_per_store_batch
     harvests = -(-cfg.tokens_per_buffer // per_batch) + \
@@ -1141,9 +1164,17 @@ def phase_train(info, cfg=None, phase="train"):
         expected["sae_fused_forward_topk"] = TRAIN_STEPS
         expected["sae_fused_backward_topk" if cfg.fused_store_acts is False
                  else "sae_fused_backward_stored"] = TRAIN_STEPS
-    if len(refills) != 1 or launches != expected:
+    # the routed SAE kernels' launches all on the route the picker gives the
+    # slice's shape (the gated and TopK slices in bf16: the Hopper route)
+    from vit_prisma_tpu_torch.ops.sae_step import sae_gemm_route
+    route = sae_gemm_route(cfg.train_batch_size, cfg.d_in, cfg.d_sae,
+                           getattr(torch, cfg.compute_dtype or cfg.dtype))
+    expected_routes = {k: {r: expected[k] if r == route else 0 for r in by}
+                       for k, by in routes.items()}
+    if len(refills) != 1 or launches != expected or routes != expected_routes:
         raise AssertionError(f"train launches {launches}, expected {expected}, "
-                             f"{len(refills)} refills")
+                             f"{len(refills)} refills; routes {routes}, expected "
+                             f"{expected_routes}")
     if len(log) != TRAIN_STEPS // cfg.wandb_log_frequency:
         raise AssertionError(f"{len(log)} metric reads")
     for vals in log:
@@ -1173,6 +1204,7 @@ def phase_train(info, cfg=None, phase="train"):
           "compute_dtype": cfg.compute_dtype,
           "buffer_rows": cfg.tokens_per_buffer, "steps": TRAIN_STEPS,
           "launches": launches, "expected_launches": expected,
+          "routes": {k: v for k, v in routes.items() if any(v.values())},
           "harvest_batches": harvests, "store_fill_s": fill_s, "trainer_init_s": init_s,
           "run_s": run_s, "refill_s": refills,
           "tokens_per_s_run": tokens / run_s,
@@ -1747,7 +1779,7 @@ def phase_topk_remat(info, trainer, store, cfg):
 MIX_KERNEL_NAMES = ("mix_tc_kernel", "mix_fwd_kernel")
 
 
-def _profile(fn, share_of=(), warm=False):
+def _profile(fn, share_of=(), warm=False, top=TOPK_PROFILE_TOP):
     """Device time by kernel over one call of ``fn`` (synchronized), the
     device's busy total and the wall time, in milliseconds; with
     ``share_of``, also the time and calls of every kernel whose name
@@ -1780,7 +1812,7 @@ def _profile(fn, share_of=(), warm=False):
     out = {"wall_ms": wall_ms, "device_busy_ms": busy,
            "idle_share": max(0.0, 1.0 - busy / wall_ms), "kernels_total": len(rows),
            "kernels": [{"name": k[:90], "ms": ms, "calls": n}
-                       for k, ms, n in rows[:TOPK_PROFILE_TOP]]}
+                       for k, ms, n in rows[:top]]}
     if share_of:
         hit = [r for r in rows if any(s in r[0] for s in share_of)]
         out["share_of"] = {"names": list(share_of), "ms": sum(r[1] for r in hit),
@@ -1813,7 +1845,11 @@ def phase_step_profile(info, trainer, store, cfg, phase):
         steps(c, 2)  # warm-up
         step_ms = cuda_us(lambda: steps(c, TOPK_PROFILE_STEPS), iters=1, warmup=0) \
             / 1000.0 / TOPK_PROFILE_STEPS
-        prof = _profile(lambda: steps(c, 3))
+        # the gated step: every kernel by device time, with the SAE kernels'
+        # share (B11's and B12's launches: sae_tc_kernel, center, partial sums)
+        prof = (_profile(lambda: steps(c, 3), share_of=GATED_PROFILE_KERNELS,
+                         top=GATED_PROFILE_TOP)
+                if cfg.architecture == "gated" else _profile(lambda: steps(c, 3)))
         # the profiler slows the host, so its wall time overstates idling:
         # the share that counts is of the steps timed without it
         emit({"phase": phase, **info, **shape, "what": f"{name} train step",
@@ -1979,6 +2015,7 @@ def phase_sweep(info):
 
     # The main path, with every count set to 0 just before it.
     _zero_counts(counters)
+    routes_before = {k: dict(f.routes) for k, f in counters.items() if hasattr(f, "routes")}
     t0 = time.perf_counter()
     store = VisionActivationsStore(cfg, model, images)
     torch.cuda.synchronize()
@@ -2110,11 +2147,11 @@ def _sweep_step_profile(trainer, store, cfg):
     steps(2)  # warm-up
     step_ms = cuda_us(lambda: steps(SWEEP_PROFILE_STEPS), iters=1, warmup=0) \
         / 1000.0 / SWEEP_PROFILE_STEPS
-    # B4 and B6 launch six kernels a step (center16 and two GEMMs each); a
+    # B4 and B6 launch six kernels a step (center and two GEMMs each); a
     # window that lost device events (a kernel counted other than a whole
     # number of times a step) is profiled again, and a fourth such raises
     for tries in range(1, 5):
-        prof = _profile(lambda: steps(3), share_of=(SAE_TC_KERNEL, "center16_kernel"),
+        prof = _profile(lambda: steps(3), share_of=(SAE_TC_KERNEL, "center_kernel"),
                         warm=True)
         if (all(k["calls"] % 3 == 0 for k in prof["kernels"])
                 and prof["share_of"]["calls"] == 6 * 3):
@@ -2226,24 +2263,73 @@ def _gated_masks_plain(x, We, bg, rmag, bm, bd):
     return hg > 0, (hg > 0) & (hm > 0), hg
 
 
+def _gated_ptxas():
+    """ptxas's record of the gated modes of the Hopper route's kernel (B11's
+    encoder and 192-wide decoder, B12's encoder, dg and wgrad): each built,
+    no spills, no serialized wgmma."""
+    rec = {m: r for m, r in _tc_ptxas().items()
+           if any(f"{SAE_TC_KERNEL}ILi{mode}E" in m for mode in GATED_TC_MODES)}
+    if len(rec) != len(GATED_TC_MODES):
+        raise AssertionError(f"{SAE_TC_KERNEL}: gated modes {GATED_TC_MODES} in {list(rec)}")
+    return rec
+
+
+def _gated_backward_acts(args, dy, dvia, dl1, route):
+    """c(h) and c(hga) as B12 recomputes them: its C entry on ``route``
+    called with this phase's own scratch buffers (the wrapper keeps them to
+    itself)."""
+    from vit_prisma_tpu_torch.ops import _build
+    from vit_prisma_tpu_torch.ops import sae_step as S
+    x, We, bg, rmag, bm, Wd, bd = args
+    L, B, D = x.shape
+    Sd = We.shape[-1]
+    e, wdn = S._gated_hoisted_card(rmag, Wd)
+    new = lambda *shape, dtype=x.dtype: torch.empty(shape, dtype=dtype, device="cuda")
+    f32 = torch.float32
+    xc, dgc = new(L, B, D), new(L, B, Sd)
+    part, sums = new(4, L, B // 128, Sd, dtype=f32), new(4, L, Sd, dtype=f32)
+    dWe, dWd = new(L, D, Sd, dtype=f32), new(L, Sd, D, dtype=f32)
+    ins = [t.data_ptr() for t in (x, We, bg, e, bm, Wd, bd, wdn, dy, dvia, dl1, xc)]
+    outs = [t.data_ptr() for t in (dgc, part, sums, dWe, dWd)]
+    lib, stream = _build.load_library(), torch.cuda.current_stream().cuda_stream
+    if route == "wgmma":
+        h, gf = new(L, 2 * B, Sd), new(L, B, Sd, dtype=f32)
+        rc = lib.sae_gated_bwd_tc(*ins, h.data_ptr(), gf.data_ptr(), *outs, L, B, D, Sd, 0,
+                                  stream)
+        hc, hgac = h[:, :B], h[:, B:]
+    else:
+        hc, hgac = new(L, B, Sd), new(L, B, Sd)
+        rc = lib.sae_fused_bwd_gated(*ins, hc.data_ptr(), hgac.data_ptr(), *outs, L, B, D, Sd,
+                                     S._DTYPE_CODES[x.dtype], 0, stream)
+    _build.check(lib, rc, f"sae_gated_bwd ({route})")
+    torch.cuda.synchronize()
+    return hc, hgac
+
+
 def phase_gated_kernels(info):
-    """B11 and B12 against their plain versions at the gated slice's shape
-    and two layers of the sweep's widths."""
+    """B11 and B12 against their plain versions at GATED_SHAPES (the gated
+    slice's, two layers of the sweep's widths, and a width that keeps the
+    bf16 mma.sync tiles): the route each took, two calls equal to the bit,
+    B12's recomputed activations equal to B11's, and the cuBLAS time of
+    their products beside them."""
     from vit_prisma_tpu_torch.ops import sae_step as S
     g = torch.Generator(device="cuda").manual_seed(8)
+    gated_ptxas = _gated_ptxas()
     results = {}
     for name, L, B, D, Sd, dtype in GATED_SHAPES:
         x, We, bg, Wd, bd, dy, dl1 = _sae_inputs(g, L, B, D, Sd, dtype)
         r = lambda *shape, sc: (torch.randn(*shape, generator=g, device="cuda") * sc).to(dtype)
         rmag, bm, dvia = r(L, Sd, sc=0.1), r(L, Sd, sc=0.01), r(L, B, D, sc=1e-3)
         args = (x, We, bg, rmag, bm, Wd, bd)
-        y, via, l1, nact, hc, hgac = S.sae_gated_fused_forward(*args, save_h=True)
+        (y, via, l1, nact, hc, hgac), route11 = _routed(S.sae_gated_fused_forward, *args,
+                                                          save_h=True)
         torch.cuda.synchronize()
+        routes = {"sae_gated_fused_forward": _route_record(name, B, D, Sd, dtype, route11)}
         yr, viar, l1r, nactr = S.sae_gated_fused_forward_reference(*args)
         gate_k, mag_k = hgac.float() > 0, hc.float() > 0
         gate_p, mag_p, hg_p = _gated_masks_plain(x, We, bg, rmag, bm, bd)
         gflip, mflip = gate_k != gate_p, mag_k != mag_p
-        del gate_p, mag_p, hc, hgac
+        del gate_p, mag_p
         flip = gflip | mflip
         flip_rows = flip.any(dim=-1)
         switched = flip.any(dim=1)  # [L, S]
@@ -2274,12 +2360,25 @@ def phase_gated_kernels(info):
                 and bool(((nact - nactr).abs() <= mflip.sum(dim=1)).all())):
             raise AssertionError(f"{name} gated forward: {fwd}")
         del yr, viar, gflip, mflip, flip, flip_rows, hg_p, gate_k, mag_k
-        grads = S.sae_gated_fused_backward(*args, dy, dvia, dl1)
+        grads, route12 = _routed(S.sae_gated_fused_backward, *args, dy, dvia, dl1)
         torch.cuda.synchronize()
+        routes["sae_gated_fused_backward"] = _route_record(name, B, D, Sd, dtype, route12)
         bwd = _grad_errs(f"{name} B12", grads,
                          S.sae_gated_fused_backward_reference(*args, dy, dvia, dl1), switched,
                          dtype, keys=("dW_enc", "dW_dec", "db_gate", "db_mag", "dr_mag"))
         del grads
+        # B12 recomputes B11's activations, so its masks are B11's: to the bit
+        hc12, hgac12 = _gated_backward_acts(args, dy, dvia, dl1, route12)
+        same_acts = {"h": torch.equal(hc12, hc), "hga": torch.equal(hgac12, hgac)}
+        del hc12, hgac12
+        if not all(same_acts.values()):
+            raise AssertionError(f"{name}: B12's recomputed activations differ from B11's "
+                                 f"{same_acts}")
+        repeat = {
+            "sae_gated_fused_forward": _bitwise_repeat(
+                f"{name} B11", lambda: S.sae_gated_fused_forward(*args, save_h=True)),
+            "sae_gated_fused_backward": _bitwise_repeat(
+                f"{name} B12", lambda: S.sae_gated_fused_backward(*args, dy, dvia, dl1))}
         flop = 2 * L * B * D * Sd
         eb = x.element_size()
         gemm = "bf16_tensor" if dtype == torch.bfloat16 else "fp32"
@@ -2295,6 +2394,15 @@ def phase_gated_kernels(info):
                 lambda: S.sae_gated_fused_backward_reference(*args, dy, dvia, dl1),
                 3 * L * B * D * eb + w_bytes + L * 4 + (2 * L * D * Sd + 3 * L * Sd) * 4,
                 6 * flop)}
+        # the products alone, on operands of the same shapes and layouts (c(dg)'s
+        # place is taken by c(hga): cuBLAS's time does not depend on the values)
+        xc, WdT = x - bd[:, None], Wd.transpose(1, 2)
+        cublas = {"sae_gated_fused_forward": _cublas_products(
+                      [(xc, We), (hc, Wd), (hgac, Wd)], 3 * flop),
+                  "sae_gated_fused_backward": _cublas_products(
+                      [(xc, We), (dy, WdT), (dvia, WdT), (xc.transpose(1, 2), hgac),
+                       (hc.transpose(1, 2), dy), (hgac.transpose(1, 2), dvia)], 6 * flop)}
+        del xc, WdT
         for kernel, (fn, plain, nbytes, n_flop) in calls.items():
             k_ms, plain_ms = ms(fn, 5), ms(plain, 2)
             rec = {"phase": "kernel", **info, "kernel": kernel, "shape": name, "path": "gated",
@@ -2305,14 +2413,19 @@ def phase_gated_kernels(info):
                    "ms": k_ms, "plain_ms": plain_ms, "TFLOP": n_flop / 1e12,
                    "TFLOP_per_s": n_flop / k_ms / 1e9,
                    "plain_TFLOP_per_s": n_flop / plain_ms / 1e9,
-                   **bound(nbytes, [(gemm, n_flop)])}
+                   **bound(nbytes, [(gemm, n_flop)]), **routes[kernel], **cublas[kernel],
+                   "bitwise_repeat": repeat[kernel],
+                   "b12_recomputes_b11_acts_bitwise": same_acts}
             if kernel == "sae_gated_fused_forward":
                 rec["forward"] = fwd
             else:
                 rec["grad_errs"] = bwd
+            if rec["route"] == "wgmma":
+                rec["source"] = SAE_TC_SOURCE
+                rec["ptxas"] = gated_ptxas
             results[(kernel, name)] = rec
             emit(rec)
-        del x, We, bg, rmag, bm, Wd, bd, dy, dvia, y, via, args
+        del x, We, bg, rmag, bm, Wd, bd, dy, dvia, y, via, hc, hgac, args
         torch.cuda.empty_cache()
     return results
 
@@ -3741,13 +3854,14 @@ def main():
                 "library_ms": None if lib is None else lib * scale}
 
     def sae_tc_extra(rec, slice_rec):
-        """B4's or B6's route, rate and cuBLAS-products time at the sweep's
-        shape, the same at the TopK slice's, and at the ViT-S width that
-        keeps the mma.sync tiles."""
+        """B4's or B6's GEMM route (`gemm_route`: the line's `route` is the
+        kernel's language, cuda), rate and cuBLAS-products time at the
+        sweep's shape, the same at the TopK slice's, and at the ViT-S width
+        that keeps the mma.sync tiles."""
         mma_rec = sae_step_kernels[(rec["kernel"], SAE_MMA_SYNC_SHAPES[0])]
         keys = ("route", "TFLOP_per_s", "cublas_products_ms", "ms", "bound_ms",
                 "max_abs_err", "bitwise_repeat")
-        return {"route": rec["route"], "TFLOP_per_s": rec["TFLOP_per_s"],
+        return {"gemm_route": rec["route"], "TFLOP_per_s": rec["TFLOP_per_s"],
                 "cublas_products_ms": rec["cublas_products_ms"],
                 "cublas_products_note": rec["cublas_products_note"],
                 "bitwise_repeat": rec["bitwise_repeat"],
@@ -3822,9 +3936,23 @@ def main():
         {**entry("kth_value", KTH_SOURCE, KTH_REPLACES, kth_launches, kth["slice_f32"]),
          **{f"{shape}_{key}": kth[shape][key] for shape in ("slice_bf16", "wide_f32", "wide_bf16")
             for key in ("ms", "library_ms", "bound_ms")}}]
-    # at the gated slice's bf16 shape; launches from its train path
-    line += [entry(k, GATED_SOURCES[k], GATED_REPLACES[k], gated_launches[k],
-                   gated_kernels[(k, "slice_bf16")]) for k in GATED_SOURCES]
+    # at the gated slice's bf16 shape; launches from its train path.  B11
+    # and B12 run their Hopper route there (source: its file), with the
+    # cuBLAS time of their products, and the sweep widths' and the ViT-S
+    # width's (mma.sync route) figures beside
+    gated_keys = ("route", "TFLOP_per_s", "cublas_products_ms", "ms", "bound_ms",
+                  "max_abs_err", "bitwise_repeat")
+    for k in GATED_SOURCES:
+        rec = gated_kernels[(k, "slice_bf16")]
+        line.append({**entry(k, SAE_TC_SOURCE, GATED_REPLACES[k], gated_launches[k], rec),
+                     "gemm_route": rec["route"], "TFLOP_per_s": rec["TFLOP_per_s"],
+                     "cublas_products_ms": rec["cublas_products_ms"],
+                     "cublas_products_note": rec["cublas_products_note"],
+                     "bitwise_repeat": rec["bitwise_repeat"],
+                     "b12_recomputes_b11_acts_bitwise": rec["b12_recomputes_b11_acts_bitwise"],
+                     "other_routes_source": GATED_SOURCES[k],
+                     **{f"{shape}_{key}": gated_kernels[(k, shape)][key]
+                        for shape in ("sweep_bf16", "vit_s_bf16") for key in gated_keys}})
     # at the B/32 grad paths' bf16 shape, with its CLIP L/14 figures beside;
     # launches from the vit_train path
     l14_bwd = grad_kernels[("l14", torch.bfloat16)]

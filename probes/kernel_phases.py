@@ -1,8 +1,11 @@
 """chip_smoke.py's kernel phases alone, after the build: each named phase
 (``take_rows``, ``kth_value``, ``grad_kernels``, ``flash_kernels``, ...: the
 ``phase_<name>`` functions that take only the card's record) in the order
-given.  Prints chip_smoke.py's JSON records.  Run from the repository root
-on a CUDA card: ``python3 probes/kernel_phases.py take_rows kth_value``."""
+given; ``gated_train`` runs phase 14 alone, the gated train path and its
+step profile.  Prints chip_smoke.py's JSON records.  Run from the
+repository root on a CUDA card: ``python3 probes/kernel_phases.py take_rows
+kth_value``.  A copy of this file in another checkout's ``probes/`` runs
+that checkout's phases (how a parent and a change are compared in turns)."""
 
 import sys
 from pathlib import Path
@@ -20,7 +23,13 @@ def main():
     print(info["card"])
     chip_smoke.phase_build(info)
     for name in sys.argv[1:]:
-        getattr(chip_smoke, f"phase_{name}")(info)
+        if name == "gated_train":
+            trainer, store, cfg, _ = chip_smoke.phase_train(info, chip_smoke.gated_config(),
+                                                            "gated_train")
+            chip_smoke.phase_step_profile(info, trainer, store, cfg, "gated_profile")
+            del trainer, store
+        else:
+            getattr(chip_smoke, f"phase_{name}")(info)
         chip_smoke.release()
 
 

@@ -1,19 +1,21 @@
-"""B4 and B6 in bf16 on their two tensor-core routes, called through the
-package's library: the wgmma/TMA kernels (``sae_fused_fwd_tc``,
-``sae_fused_bwd_stored_tc``; and those of other ``sae_fused_tc.cu`` files
-given as paths, each built alone and named by its directory; a header
-copied beside one is included in place of the package's) against the
-mma.sync tiles (``sae_fused_fwd``,
-``sae_fused_bwd`` in its stored mode) and the plain versions, at a small
-shape, the TopK slice's and the sweep's: every output's error against the
-plain version, nact against the kernel's own mask, two calls equal to the
-bit, times from CUDA events in turns (tc, mma.sync, mma.sync, tc), the bf16
-cuBLAS products alone beside them, each wgmma version's device time by
-kernel (``torch.profiler``), and ptxas's record of the new kernels.
-Prints JSON lines.  Run from the repository root on a CUDA card:
-``python3 probes/sae_tc_versions.py [dir/sae_fused_tc.cu ...]``; a
-version whose ``sae_wgmma.cuh`` copy sets ``kBN = 128`` is named with
-``bn128`` in its directory's name."""
+"""B4 and B6, and the gated B11 and B12, in bf16 on their two tensor-core
+routes, called through the package's library: the wgmma/TMA kernels
+(``sae_fused_fwd_tc``, ``sae_fused_bwd_stored_tc``, ``sae_gated_fwd_tc``,
+``sae_gated_bwd_tc``; and those of other ``sae_fused_tc.cu`` files given as
+paths, each built alone and named by its directory; a header copied beside
+one is included in place of the package's) against the mma.sync tiles
+(``sae_fused_fwd``, ``sae_fused_bwd`` in its stored mode,
+``sae_fused_fwd_gated``, ``sae_fused_bwd_gated``) and the plain versions,
+at a small shape, the TopK (and gated) slice's and the sweep's widths:
+every output's error against the plain version, nact against the kernel's
+own mask, two calls equal to the bit (and B12's recomputed activations
+equal to B11's), times from CUDA events in turns (tc, mma.sync, mma.sync,
+tc), the bf16 cuBLAS products alone beside them, each wgmma version's
+device time by kernel (``torch.profiler``), and ptxas's record of the new
+kernels.  Prints JSON lines.  Run from the repository root on a CUDA card:
+``python3 probes/sae_tc_versions.py [--only relu|gated] [dir/sae_fused_tc.cu
+...]``; a version whose ``sae_wgmma.cuh`` copy sets ``kBN = 128`` is named
+with ``bn128`` in its directory's name (B4 and B6 only)."""
 
 import ctypes
 import json
@@ -28,6 +30,11 @@ from _common import BUILD, card, finish_build, ms, start_build  # noqa: E402
 
 SHAPES = [("small", 2, 256, 256, 512), ("topk_slice", 1, 4096, 768, 12288),
           ("sweep", 24, 4096, 1024, 8192)]
+# the gated kernels: the gated slice (bench.py:177-180) and two layers at
+# the sweep's widths, as chip_smoke.py's phase 13
+GATED_SHAPES = [("small", 2, 256, 256, 512), ("gated_slice", 1, 4096, 768, 12288),
+                ("sweep_width", 2, 4096, 1024, 8192)]
+FLIP_FRAC = 1e-4     # gate and magnitude flips against the plain version (GATED_FLIP_FRAC)
 REL = 2.0 ** -7      # bf16 y and hc against the plain version (chip_smoke SAE_REL)
 GRAD_REL = 2e-3      # grads (chip_smoke SAE_GRAD_REL)
 L1_REL = 1e-5
@@ -76,6 +83,59 @@ def bwd(lib, tc, x, hc, Wd, bd, dy, dl1):
     return dWe, dWd, dbe_p.sum(dim=1)
 
 
+def gated_inputs(g, L, B, D, S):
+    x, We, bg, Wd, bd, dy, dl1 = inputs(g, L, B, D, S)
+    r = lambda *shape, sc: (torch.randn(*shape, generator=g, device="cuda") * sc).bfloat16()
+    rmag, bm, dvia = r(L, S, sc=0.1), r(L, S, sc=0.01), r(L, B, D, sc=1e-3)
+    return (x, We, bg, rmag, bm, Wd, bd), dy, dvia, dl1
+
+
+def gated_fwd(lib, tc, args, e, wdn, bn=256):
+    """B11 by its C entry (e and wdn hoisted, as the wrapper hoists them):
+    y, via, l1, nact, h, hga."""
+    x, We, bg, rmag, bm, Wd, bd = args
+    L, B, D = x.shape
+    S = We.shape[-1]
+    new = lambda *s, dtype=torch.bfloat16: torch.empty(s, dtype=dtype, device="cuda")
+    xc, h, y = new(L, B, D), new(L, 2 * B, S), new(L, 2 * B, D)
+    nact_p = new(L, B // 128, S, dtype=torch.float32)
+    l1_p = new(L, B // 128, S // (bn if tc else 128), dtype=torch.float32)
+    ptrs = [t.data_ptr() for t in (x, We, bg, e, bm, Wd, bd, wdn, xc, h, y, nact_p, l1_p)]
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = (lib.sae_gated_fwd_tc(*ptrs, L, B, D, S, 0, stream) if tc
+          else lib.sae_fused_fwd_gated(*ptrs, L, B, D, S, 1, 0, stream))
+    if rc:
+        raise RuntimeError(f"gated forward ({'tc' if tc else 'mma.sync'}): CUDA error {rc}")
+    return y[:, :B], y[:, B:], l1_p.sum(dim=(1, 2)), nact_p.sum(dim=1), h[:, :B], h[:, B:]
+
+
+def gated_bwd(lib, tc, args, e, wdn, dy, dvia, dl1):
+    """B12 by its C entry: (dW_enc, dW_dec, db_gate, db_mag, dr_mag), and
+    the recomputed h and hga."""
+    x, We, bg, rmag, bm, Wd, bd = args
+    L, B, D = x.shape
+    S = We.shape[-1]
+    new = lambda *s, dtype=torch.bfloat16: torch.empty(s, dtype=dtype, device="cuda")
+    f32 = torch.float32
+    xc, dgc = new(L, B, D), new(L, B, S)
+    part, sums = new(4, L, B // 128, S, dtype=f32), new(4, L, S, dtype=f32)
+    dWe, dWd = new(L, D, S, dtype=f32), new(L, S, D, dtype=f32)
+    ins = [t.data_ptr() for t in (x, We, bg, e, bm, Wd, bd, wdn, dy, dvia, dl1, xc)]
+    outs = [t.data_ptr() for t in (dgc, part, sums, dWe, dWd)]
+    stream = torch.cuda.current_stream().cuda_stream
+    if tc:
+        h, g = new(L, 2 * B, S), new(L, B, S, dtype=f32)
+        rc = lib.sae_gated_bwd_tc(*ins, h.data_ptr(), g.data_ptr(), *outs, L, B, D, S, 0, stream)
+        hc, hgac = h[:, :B], h[:, B:]
+    else:
+        hc, hgac = new(L, B, S), new(L, B, S)
+        rc = lib.sae_fused_bwd_gated(*ins, hc.data_ptr(), hgac.data_ptr(), *outs, L, B, D, S, 1,
+                                     0, stream)
+    if rc:
+        raise RuntimeError(f"gated backward ({'tc' if tc else 'mma.sync'}): CUDA error {rc}")
+    return (dWe, dWd, sums[1], sums[2], sums[3] * e), (hc, hgac)
+
+
 def by_kernel(fn, calls=5):
     """Device milliseconds a call by kernel name, from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
@@ -112,25 +172,8 @@ def ptxas(log: Path):
     return out
 
 
-def main():
-    from vit_prisma_tpu_torch.ops import _build
-    from vit_prisma_tpu_torch.ops import sae_step as S
-    procs = {Path(a).parent.name: start_build(Path(a), f"sae_tc_{Path(a).parent.name}")
-             for a in sys.argv[1:]}
-    lib = _build.load_library()
-    tcs = {"tc": lib}
-    for v, proc in procs.items():
-        other = finish_build(proc, f"sae_tc_{v}")
-        if other is not None:
-            p, i = ctypes.c_void_p, ctypes.c_int
-            other.sae_fused_fwd_tc.argtypes = [p] * 10 + [i] * 5 + [p]
-            other.sae_fused_bwd_stored_tc.argtypes = [p] * 11 + [i] * 5 + [p]
-            tcs[v] = other
-    print(json.dumps({"card": card(), "versions": list(tcs) + ["mma_sync"],
-                      "ptxas": ptxas(_build.build_dir() / "nvcc.log")}), flush=True)
-    for v in tcs:
-        if v != "tc":
-            print(json.dumps({f"{v}_ptxas": ptxas(BUILD / f"sae_tc_{v}.log")}), flush=True)
+def relu_shapes(lib, tcs, S):
+    """B4 and B6 on every version at SHAPES."""
     g = torch.Generator(device="cuda").manual_seed(4)
     for name, L, B, D, Sd in SHAPES:
         x, We, be, Wd, bd, dy, dl1 = inputs(g, L, B, D, Sd)
@@ -194,6 +237,109 @@ def main():
         print(json.dumps(rec), flush=True)
         del x, We, be, Wd, bd, dy, dl1, hc, xc, dhc, yr, hcr
         torch.cuda.empty_cache()
+
+
+def gated_shapes(lib, tcs, S):
+    """B11 and B12 on every version and the mma.sync tiles at GATED_SHAPES."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    for name, L, B, D, Sd in GATED_SHAPES:
+        args, dy, dvia, dl1 = gated_inputs(g, L, B, D, Sd)
+        e, wdn = S._gated_hoisted_card(args[3], args[5])
+        rec = {"shape": name, "kernels": "gated", "L": L, "B": B, "d_in": D, "d_sae": Sd,
+               "route": S.sae_gemm_route(B, D, Sd, torch.bfloat16)}
+        yr, viar, l1r, nactr, hcr, hgacr = S.sae_gated_fused_forward_reference(*args, save_h=True)
+        want = S.sae_gated_fused_backward_reference(*args, dy, dvia, dl1)
+        order = list(tcs) + ["mma_sync"]
+        bns = {v: 128 if "bn128" in v else 256 for v in order}
+        for v in order:
+            vlib, tc = (lib, False) if v == "mma_sync" else (tcs[v], True)
+            y, via, l1, nact, hc, hgac = gated_fwd(vlib, tc, args, e, wdn, bns[v])
+            again = gated_fwd(vlib, tc, args, e, wdn, bns[v])
+            grads, acts = gated_bwd(vlib, tc, args, e, wdn, dy, dvia, dl1)
+            grads2, _ = gated_bwd(vlib, tc, args, e, wdn, dy, dvia, dl1)
+            torch.cuda.synchronize()
+            flips = ((hgac.float() > 0) != (hgacr.float() > 0)) | (
+                (hc.float() > 0) != (hcr.float() > 0))
+            f = {"y": err(y, yr), "y_tol": REL * yr.float().abs().max().item(),
+                 "via": err(via, viar), "via_tol": REL * viar.float().abs().max().item(),
+                 "mask_flips": int(flips.sum()), "flip_frac": flips.float().mean().item(),
+                 "l1_rel": ((l1 - l1r).abs() / l1r.abs()).max().item(),
+                 "nact_minus_own_mask": (nact - (hc.float() > 0).sum(
+                     dim=1, dtype=torch.float32)).abs().max().item(),
+                 "bitwise_repeat": all(torch.equal(a, b) for a, b in
+                                       zip((y, via, l1, nact, hc, hgac), again)),
+                 "b12_acts_equal_b11": torch.equal(acts[0], hc) and torch.equal(acts[1], hgac)}
+            b = {k: {"err": err(a, w), "tol": GRAD_REL * w.abs().max().item()}
+                 for k, a, w in zip(("dW_enc", "dW_dec", "db_gate", "db_mag", "dr_mag"),
+                                    grads, want)}
+            b["bitwise_repeat"] = all(torch.equal(a, c) for a, c in zip(grads, grads2))
+            f["ok"] = (f["flip_frac"] <= FLIP_FRAC and f["nact_minus_own_mask"] == 0
+                       and f["bitwise_repeat"] and f["b12_acts_equal_b11"])
+            rec[f"{v}_forward"], rec[f"{v}_backward"] = f, b
+            del y, via, l1, nact, hc, hgac, again, grads, grads2, acts
+        flop = 2 * L * B * D * Sd
+        t = {}
+        for v in order + order[::-1]:
+            vlib, tc = (lib, False) if v == "mma_sync" else (tcs[v], True)
+            t.setdefault(f"{v}_fwd_ms", []).append(
+                ms(lambda: gated_fwd(vlib, tc, args, e, wdn, bns[v]), iters=5, warmup=1))
+            t.setdefault(f"{v}_bwd_ms", []).append(
+                ms(lambda: gated_bwd(vlib, tc, args, e, wdn, dy, dvia, dl1), iters=5, warmup=1))
+        x, We, Wd, bd = args[0], args[1], args[5], args[6]
+        xc, WdT = x - bd[:, None], Wd.transpose(1, 2)
+        t["cublas_fwd_products_ms"] = ms(
+            lambda: (torch.matmul(xc, We), torch.matmul(hcr, Wd), torch.matmul(hgacr, Wd)),
+            iters=5, warmup=1)
+        t["cublas_bwd_products_ms"] = ms(
+            lambda: (torch.matmul(xc, We), torch.matmul(dy, WdT), torch.matmul(dvia, WdT),
+                     torch.matmul(xc.transpose(1, 2), hgacr), torch.matmul(hcr.transpose(1, 2), dy),
+                     torch.matmul(hgacr.transpose(1, 2), dvia)), iters=5, warmup=1)
+        for k in list(t):
+            if isinstance(t[k], list):
+                n_flop = (3 if "fwd" in k else 6) * flop
+                t[k.replace("_ms", "_TFLOP_per_s")] = n_flop / min(t[k]) / 1e9
+        for v in order:
+            vlib, tc = (lib, False) if v == "mma_sync" else (tcs[v], True)
+            t[f"{v}_fwd_device_ms_by_kernel"] = by_kernel(
+                lambda: gated_fwd(vlib, tc, args, e, wdn, bns[v]))
+            t[f"{v}_bwd_device_ms_by_kernel"] = by_kernel(
+                lambda: gated_bwd(vlib, tc, args, e, wdn, dy, dvia, dl1))
+        rec["times"] = t
+        print(json.dumps(rec), flush=True)
+        del args, dy, dvia, dl1, e, wdn, yr, viar, hcr, hgacr, want, xc, WdT, x, We, Wd, bd
+        torch.cuda.empty_cache()
+
+
+def main():
+    from vit_prisma_tpu_torch.ops import _build
+    from vit_prisma_tpu_torch.ops import sae_step as S
+    args = sys.argv[1:]
+    only = None
+    if args and args[0].startswith("--only"):
+        only = args[0].split("=", 1)[1] if "=" in args[0] else args[1]
+        args = args[1:] if "=" in args[0] else args[2:]
+    procs = {Path(a).parent.name: start_build(Path(a), f"sae_tc_{Path(a).parent.name}")
+             for a in args}
+    lib = _build.load_library()
+    tcs = {"tc": lib}
+    for v, proc in procs.items():
+        other = finish_build(proc, f"sae_tc_{v}")
+        if other is not None:
+            p, i = ctypes.c_void_p, ctypes.c_int
+            other.sae_fused_fwd_tc.argtypes = [p] * 10 + [i] * 5 + [p]
+            other.sae_fused_bwd_stored_tc.argtypes = [p] * 11 + [i] * 5 + [p]
+            other.sae_gated_fwd_tc.argtypes = [p] * 13 + [i] * 5 + [p]
+            other.sae_gated_bwd_tc.argtypes = [p] * 19 + [i] * 5 + [p]
+            tcs[v] = other
+    print(json.dumps({"card": card(), "versions": list(tcs) + ["mma_sync"],
+                      "ptxas": ptxas(_build.build_dir() / "nvcc.log")}), flush=True)
+    for v in tcs:
+        if v != "tc":
+            print(json.dumps({f"{v}_ptxas": ptxas(BUILD / f"sae_tc_{v}.log")}), flush=True)
+    if only in (None, "gated"):
+        gated_shapes(lib, tcs, S)
+    if only in (None, "relu"):
+        relu_shapes(lib, tcs, S)
 
 
 if __name__ == "__main__":

@@ -216,20 +216,6 @@ dg_kernel(const T* __restrict__ xc, const T* __restrict__ We, const T* __restric
   block_col_sums(sum0, red + kDbg * kRedFloats, part_out(kDbg));
 }
 
-// sums[g, s] = sum over b of part[g, b, s] for the G = kParts * L groups of
-// nB partial rows, in the order b = 0, 1, ...
-__global__ void partial_sums_kernel(const float* __restrict__ part, float* __restrict__ sums,
-                                    long long n, int nB, int S) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const long long grp = i / S;
-  const int s = static_cast<int>(i % S);
-  const float* p = part + grp * nB * S + s;
-  float acc = 0.f;
-  for (int b = 0; b < nB; ++b) acc += p[static_cast<long long>(b) * S];
-  sums[i] = acc;
-}
-
 // dW_dec [S, D] = c(h)^T dy + c(hga)^T dvia + coef[s] W_dec[s, :], with
 // coef = dl1 colsum(max(hg, 0)) / max(wdn, 1e-30).  Grid (D/BN, S/BM, L).
 template <typename T>
@@ -289,10 +275,7 @@ cudaError_t backward(const void* x, const void* We, const void* bg, const void* 
       txc, tWe, tbg, te, tbm, tWd, twdn, tdy, tdvia, tdl1, thc, thgac, tdgc, tpart, L, B, D, S);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  const long long n = static_cast<long long>(kParts) * L * S;
-  partial_sums_kernel<<<static_cast<unsigned int>((n + 255) / 256), 256, 0, s>>>(
-      tpart, tsums, n, B / BM, S);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = partial_sums(tpart, tsums, kParts * L, B / BM, S, s)) != cudaSuccess) return err;
 
   constexpr int smem_w = Smem<T, false, false>::bytes;
   if ((err = allow_smem(wgrad_kernel<T>, smem_w)) != cudaSuccess) return err;

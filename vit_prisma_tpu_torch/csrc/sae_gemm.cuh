@@ -1,7 +1,8 @@
 // One tile GEMM, shared by the fused SAE kernels B4-B6, B8, B9, B11 and
 // B12 (sae_fused_fwd.cu, sae_fused_fwd_topk.cu, sae_fused_bwd.cu,
 // sae_fused_fwd_gated.cu, sae_fused_bwd_gated.cu), and the kernels that
-// more than one of them launch (center, decoder, wgrad).
+// more than one of them launch (center, decoder, wgrad, partial_sums; the
+// bf16 Hopper route, sae_fused_tc.cu, launches center and partial_sums).
 //
 // A block computes a BM x BN tile of C = A B for one layer of an [L, ...]
 // stack, accumulating in float32 registers over K in steps of BK, and then
@@ -325,26 +326,64 @@ cudaError_t allow_smem(Kernel k, int bytes) {
 }
 
 // xc = x - b_dec[l] in T (one rounding, as PyTorch and JAX subtract), over
-// [L, B, D]; D % 4 == 0.
+// [L, B, D], 16 bytes a thread (8 bf16 or 4 float32 values: D a multiple of
+// that and every pointer 16-byte aligned, as the wrappers check).  The one
+// center of every SAE kernel (B4-B6, B8, B9, B11, B12, on every route): at
+// the sweep's bf16 shape it takes 0.13 ms on an H100 80GB HBM3, where one
+// element a thread took 0.53.
 template <typename T>
-__global__ void center_kernel(const T* __restrict__ x, const T* __restrict__ bd,
-                              T* __restrict__ xc, long long n, int D, long long per_layer) {
+__global__ void center_kernel(const uint4* __restrict__ x, const T* __restrict__ bd,
+                              uint4* __restrict__ xc, long long n16, int d16,
+                              long long per_layer16) {
+  constexpr int V = 16 / sizeof(T);
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n16;
        i += stride) {
-    const long long l = i / per_layer;
-    const int d = static_cast<int>(i % D);
-    xc[i] = from_f<T>(__fsub_rn(to_f(x[i]), to_f(bd[l * D + d])));
+    const long long l = i / per_layer16;
+    const int d = static_cast<int>(i % d16);
+    uint4 v = x[i];
+    const uint4 b = reinterpret_cast<const uint4*>(bd)[l * d16 + d];
+    T* pv = reinterpret_cast<T*>(&v);
+    const T* pb = reinterpret_cast<const T*>(&b);
+#pragma unroll
+    for (int k = 0; k < V; ++k) pv[k] = from_f<T>(__fsub_rn(to_f(pv[k]), to_f(pb[k])));
+    xc[i] = v;
   }
 }
 
 template <typename T>
 cudaError_t center(const T* x, const T* bd, T* xc, int L, int B, int D, cudaStream_t s) {
-  const long long per_layer = static_cast<long long>(B) * D, n = per_layer * L;
-  long long blocks = (n + 255) / 256;
+  constexpr int V = 16 / sizeof(T);
+  const long long per_layer16 = static_cast<long long>(B) * D / V, n16 = per_layer16 * L;
+  long long blocks = (n16 + 255) / 256;
   if (blocks > (1 << 20)) blocks = 1 << 20;
-  center_kernel<T><<<static_cast<unsigned int>(blocks), 256, 0, s>>>(x, bd, xc, n, D,
-                                                                      per_layer);
+  center_kernel<T><<<static_cast<unsigned int>(blocks), 256, 0, s>>>(
+      reinterpret_cast<const uint4*>(x), bd, reinterpret_cast<uint4*>(xc), n16, D / V,
+      per_layer16);
+  return cudaGetLastError();
+}
+
+// sums[g, s] = sum over b of part[g, b, s] for G groups of nB partial rows
+// of S columns, in the order b = 0, 1, ... (no atomics: the same bits from
+// run to run).  The gated backward's (B12's) column sums on both routes.
+static __global__ void partial_sums_kernel(const float* __restrict__ part,
+                                           float* __restrict__ sums, long long n, int nB,
+                                           int S) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const long long grp = i / S;
+  const int s = static_cast<int>(i % S);
+  const float* p = part + grp * nB * S + s;
+  float acc = 0.f;
+  for (int b = 0; b < nB; ++b) acc += p[static_cast<long long>(b) * S];
+  sums[i] = acc;
+}
+
+inline cudaError_t partial_sums(const float* part, float* sums, int G, int nB, int S,
+                                cudaStream_t s) {
+  const long long n = static_cast<long long>(G) * S;
+  partial_sums_kernel<<<static_cast<unsigned int>((n + 255) / 256), 256, 0, s>>>(part, sums, n,
+                                                                                 nB, S);
   return cudaGetLastError();
 }
 

@@ -1,54 +1,26 @@
 // A persistent, warp-specialized bf16 GEMM for the SAE kernels on Hopper,
 // on hopper_gemm.cuh's TMA loads, mbarriers and wgmma.  B4's encoder and
-// decoder and B6's three products (sae_fused_tc.cu) run on it; it is
-// written so that the other SAE kernels (B5, B8, B11, B12), which still run
-// on sae_gemm.cuh's mma.sync tiles, can move onto it.  sm_90a only.
+// decoder, B6's three products, and B11's and B12's gated products
+// (sae_fused_tc.cu) run on it; B5 and B8, which still run on sae_gemm.cuh's
+// mma.sync tiles, can move onto it.  sm_90a only.
 //
 // A block computes 128 x 256 tiles of C = A B for one layer of an [L, ...]
-// stack at a time: A [M, K] and B [K, N], each lying in device memory with
-// either axis contiguous ("K-major": K contiguous; "MN-major": M or N
-// contiguous), bf16 in, float32 accumulators.  Every form that the five SAE
-// products need is one wgmma instruction, m64n256k16, with the operands'
+// stack at a time (128 x 192 for B11's decoder where those fill the waves
+// better, 128 x 128 for B12's dg tile, below): A [M, K] and B [K, N], each
+// lying in device memory with either axis contiguous ("K-major": K
+// contiguous; "MN-major": M or N contiguous), bf16 in, float32
+// accumulators.  Every form that the SAE products need is one wgmma
+// instruction, m64n256k16 (m64n192k16, m64n128k16), with the operands'
 // transpose bits set from their layouts:
 //   hpre = xc W_enc, y = hc W_dec:   A K-major, B MN-major;
 //   dh = dy W_dec^T:                 A K-major, B K-major (W_dec[s, d] is
 //                                    B(k = d, n = s) with K contiguous);
 //   dW_enc = xc^T dhc, dW_dec = hc^T dy: A MN-major (xc[b, d] is A(m = d,
 //                                    k = b) with M contiguous), B MN-major.
+// B12's dg tile computes two products on one B tile, dy W_dec^T and
+// dvia W_dec^T, into two accumulators: 128 x 128 tiles, m64n128k16 (mma128),
+// as two m64n256 accumulators would not fit a thread's registers.
 //
-// Roles.  Three warpgroups a block, one block an SM (the shared memory
-// allows no second), launched once with as many blocks as the card has SMs
-// (or tiles, if fewer); block b takes tiles b, b + grid, ... of a static
-// schedule.  Warpgroup 2's first thread is the producer: it walks the same
-// tiles and K steps as the consumers and keeps the ring of kStages stages
-// full, one [128 x 64] A tile (16 KB) and one [64 x 256] B tile (32 KB) a
-// stage, by TMA with 128-byte swizzle, each stage on a `full` mbarrier
-// (expect-tx) and an `empty` one (one arrive a consumer warp).  Warpgroups
-// 0 and 1 are the consumers, 64 rows of the tile each: four m64n256k16
-// wgmmas a stage, one stage in flight while the next is issued, then the
-// calling kernel's epilogue on the 128 float32 accumulators a thread.
-// setmaxnreg gives the producer 40 registers and each consumer thread 232.
-// The first product of a tile starts with scale-d 0, so the accumulators
-// are never zeroed by hand (that, or a branch around the wgmmas, makes
-// ptxas serialize them: PERF.md section 6).  The producer runs ahead into the
-// next tile while the consumers run an epilogue.
-//
-// Stage layout (byte offsets from a 1024-aligned stage): A at 0, warpgroup
-// w's 64 rows at w * 8192 in both layouts (K-major: one [64 K x 128 rows]
-// box, row r at r * 128; MN-major: two [64 K rows x 64 M] boxes, M-chunk w
-// at w * 8192); B at 16384 (MN-major: four [64 K rows x 64 N] boxes 8192
-// bytes apart; K-major: one [64 K x 256 N rows] box, row n at n * 128).
-// Descriptors: K-major tiles as hg::desc_a (a k16 step is 32 bytes along
-// the swizzled row, SBO 1024), MN-major ones as hg::desc_b (a k16 step is
-// 16 rows, 2048 bytes; LBO 8192 to the next 64 columns, SBO 1024).
-//
-// The accumulator of m64n256k16: d[4 j + e] of warp w of the warpgroup
-// holds row 16 w + g + 8 (e / 2), column 8 j + 2 t + (e % 2), j < 32, with
-// g = lane / 4 and t = lane % 4 (hopper_gemm.cuh).  Epilogues that write a
-// bf16 C tile stage each warpgroup's [64 x 256] in four 128-byte swizzled
-// [64 x 64] boxes (stage_off) and store them by TMA; column sums over the
-// tile's 128 rows go through shared memory in a fixed order (col_partial,
-// then one thread a column), so results are bitwise repeatable.
 #pragma once
 
 #include "hopper_gemm.cuh"
@@ -66,8 +38,7 @@ constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer's warpgroup
 constexpr int kABytes = kBM * kBK * 2;            // 16 KB
 constexpr int kBBytes = kBN * kBK * 2;            // 32 KB
 constexpr int kStageBytes = kABytes + kBBytes;
-constexpr int kOutBytes = 64 * kBN * 2;           // a warpgroup's bf16 C tile: 32 KB
-constexpr int kRedFloats = 4 * kConsumers * kBN;  // one row of column partials a consumer warp
+constexpr int kDgStageBytes = 3 * kABytes;        // B12's dg stage: dy, dvia, W_dec tiles
 constexpr int kMaxSmem = 232448;                  // an H100 block's dynamic shared memory
 
 enum Major { kKMajor = 0, kMNMajor = 1 };
@@ -107,15 +78,16 @@ inline int sm_count(int device) {
 // the blocks running together share the operand panels of the other axis
 // (and the first axis's whole operand stays in L2).
 struct Grid {
-  int tm, tn, L;
+  int tm, tn, L, bn;  // bn: the tile's columns, kBN (or 128: B12's dg tiles)
   bool m_fast;
 };
 
-inline Grid make_grid(int L, int M, int N) {
+inline Grid make_grid(int L, int M, int N, int bn = kBN) {
   Grid g;
   g.tm = M / kBM;
-  g.tn = N / kBN;
+  g.tn = N / bn;
   g.L = L;
+  g.bn = bn;
   g.m_fast = g.tm < g.tn;
   return g;
 }
@@ -132,7 +104,7 @@ __device__ __forceinline__ Tile tile_at(const Grid& g, int t) {
   Tile x;
   x.l = t / per;
   x.m0 = mt * kBM;
-  x.n0 = nt * kBN;
+  x.n0 = nt * g.bn;
   x.mt = mt;
   return x;
 }
@@ -182,6 +154,66 @@ __device__ __forceinline__ void mma256(float (&d)[128], uint64_t da, uint64_t db
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
+// d[64 x 128] (+)= A[64 x 16] B[16 x 128], as mma256.
+template <int TA, int TB>
+__device__ __forceinline__ void mma128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d[64 x 192] (+)= A[64 x 16] B[16 x 192], as mma256.
+template <int TA, int TB>
+__device__ __forceinline__ void mma192(float (&d)[96], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95}, "
+      "%96, %97, p, 1, 1, %99, %100;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
 template <int MAJOR>
 __device__ __forceinline__ uint64_t desc(const unsigned char* tile, int kk) {
   const bf16* t = reinterpret_cast<const bf16*>(tile);
@@ -190,61 +222,92 @@ __device__ __forceinline__ uint64_t desc(const unsigned char* tile, int kk) {
 
 // ---- device: the producer -------------------------------------------------------
 
-// Stage `stage` of A rows [m0, m0 + 128) and B columns [n0, n0 + 256) over
-// K [k0, k0 + 64) of layer l, completing on `bar`.
-template <int AM, int BM>
+// Bytes of a stage whose B tile is BN columns wide.
+template <int BN>
+__host__ __device__ constexpr int stage_bytes() { return kABytes + BN * kBK * 2; }
+
+// Stage `stage` of A rows [m0, m0 + 128) over K [ka, ka + 64) and B columns
+// [n0, n0 + BN) over K [kb, kb + 64) of layer l, completing on `bar`.
+template <int AM, int BM, int BN = kBN>
 __device__ __forceinline__ void load_stage(unsigned char* stage, const CUtensorMap* am,
                                            const CUtensorMap* bm, uint64_t* bar, int l, int m0,
-                                           int n0, int k0) {
-  hg::mbar_expect_tx(bar, kStageBytes);
+                                           int n0, int ka, int kb) {
+  hg::mbar_expect_tx(bar, stage_bytes<BN>());
   if (AM == kKMajor) {
-    hg::tma_load_3d(stage, am, bar, k0, m0, l);
+    hg::tma_load_3d(stage, am, bar, ka, m0, l);
   } else {
 #pragma unroll
     for (int i = 0; i < kBM / hg::kBox; ++i)
-      hg::tma_load_3d(stage + i * hg::kBoxBytes, am, bar, m0 + i * hg::kBox, k0, l);
+      hg::tma_load_3d(stage + i * hg::kBoxBytes, am, bar, m0 + i * hg::kBox, ka, l);
   }
   unsigned char* b = stage + kABytes;
   if (BM == kKMajor) {
-    hg::tma_load_3d(b, bm, bar, k0, n0, l);
+    hg::tma_load_3d(b, bm, bar, kb, n0, l);
   } else {
 #pragma unroll
-    for (int i = 0; i < kBN / hg::kBox; ++i)
-      hg::tma_load_3d(b + i * hg::kBoxBytes, bm, bar, n0 + i * hg::kBox, k0, l);
+    for (int i = 0; i < BN / hg::kBox; ++i)
+      hg::tma_load_3d(b + i * hg::kBoxBytes, bm, bar, n0 + i * hg::kBox, kb, l);
   }
 }
 
 // The ring's position: `it` counts the stages used since the kernel began,
 // in the same order on the producer and the consumers.
-template <int STAGES>
+template <int STAGES, int STAGE_BYTES = kStageBytes>
 struct Ring {
   unsigned char* base;
   uint64_t* full;
   uint64_t* empty;
   __device__ __forceinline__ unsigned char* stage(uint32_t it) const {
-    return base + (it % STAGES) * kStageBytes;
+    return base + (it % STAGES) * STAGE_BYTES;
   }
 };
 
-// The producer's K loop of one tile.
-template <int STAGES, int AM, int BM>
-__device__ __forceinline__ void produce_tile(const Ring<STAGES>& ring, uint32_t& it,
-                                             const CUtensorMap* am, const CUtensorMap* bm,
-                                             int ktiles, int l, int m0, int n0) {
+// The producer's K loop of one tile.  B's K steps from kswitch on come
+// from bm2, from its K row 0 (B12's dW_dec: [dy; dvia] stacked along K);
+// kswitch = ktiles reads bm alone.
+template <int STAGES, int AM, int BM, int BN = kBN>
+__device__ __forceinline__ void produce_tile(const Ring<STAGES, stage_bytes<BN>()>& ring,
+                                             uint32_t& it, const CUtensorMap* am,
+                                             const CUtensorMap* bm, const CUtensorMap* bm2,
+                                             int kswitch, int ktiles, int l, int m0, int n0) {
   for (int kt = 0; kt < ktiles; ++kt, ++it) {
     const uint32_t st = it % STAGES, round = it / STAGES;
     if (round > 0) hg::mbar_wait(&ring.empty[st], (round - 1) & 1);
-    load_stage<AM, BM>(ring.stage(it), am, bm, &ring.full[st], l, m0, n0, kt * kBK);
+    const bool lo = kt < kswitch;
+    load_stage<AM, BM, BN>(ring.stage(it), am, lo ? bm : bm2, &ring.full[st], l, m0, n0,
+                           kt * kBK, (lo ? kt : kt - kswitch) * kBK);
+  }
+}
+
+// B12's dg stage: dy and dvia rows [m0, m0 + 128) and W_dec rows [n0, n0 +
+// 128), all K-major [128 x 64] boxes over K [k0, k0 + 64): dy at 0, dvia at
+// kABytes, W_dec at 2 kABytes.  K steps [kt0, kt1) of the tile.
+template <int STAGES>
+__device__ __forceinline__ void produce_tile_dg(const Ring<STAGES, kDgStageBytes>& ring,
+                                                uint32_t& it, const CUtensorMap* dy,
+                                                const CUtensorMap* dvia, const CUtensorMap* wd,
+                                                int kt0, int kt1, int l, int m0, int n0) {
+  for (int kt = kt0; kt < kt1; ++kt, ++it) {
+    const uint32_t st = it % STAGES, round = it / STAGES;
+    if (round > 0) hg::mbar_wait(&ring.empty[st], (round - 1) & 1);
+    unsigned char* stage = ring.stage(it);
+    uint64_t* bar = &ring.full[st];
+    hg::mbar_expect_tx(bar, kDgStageBytes);
+    hg::tma_load_3d(stage, dy, bar, kt * kBK, m0, l);
+    hg::tma_load_3d(stage + kABytes, dvia, bar, kt * kBK, m0, l);
+    hg::tma_load_3d(stage + 2 * kABytes, wd, bar, kt * kBK, n0, l);
   }
 }
 
 // ---- device: the consumers -------------------------------------------------------
 
 // acc = A B over one tile's ktiles stages, for consumer warpgroup wg (its 64
-// rows).  Each consumer warp releases a stage once the products that read
-// it are done; ends with every product done and every stage released.
-template <int STAGES, int AM, int BM>
-__device__ __forceinline__ void consume_tile(float (&acc)[kBN / 2], const Ring<STAGES>& ring,
+// rows; BN columns: 256, or 192 for B11's decoder).  Each consumer warp
+// releases a stage once the products that read it are done; ends with
+// every product done and every stage released.
+template <int STAGES, int AM, int BM, int BN = kBN>
+__device__ __forceinline__ void consume_tile(float (&acc)[BN / 2],
+                                             const Ring<STAGES, stage_bytes<BN>()>& ring,
                                              uint32_t& it, int ktiles, int wg, int lane) {
   for (int kt = 0; kt < ktiles; ++kt, ++it) {
     const uint32_t st = it % STAGES;
@@ -255,8 +318,12 @@ __device__ __forceinline__ void consume_tile(float (&acc)[kBN / 2], const Ring<S
     hg::fence_acc(acc);
     hg::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk)
-      mma256<AM, BM>(acc, desc<AM>(a, kk), desc<BM>(b, kk), kt > 0 || kk > 0);
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      if constexpr (BN == kBN)
+        mma256<AM, BM>(acc, desc<AM>(a, kk), desc<BM>(b, kk), kt > 0 || kk > 0);
+      else
+        mma192<AM, BM>(acc, desc<AM>(a, kk), desc<BM>(b, kk), kt > 0 || kk > 0);
+    }
     hg::wgmma_commit();
     hg::wgmma_wait<1>();  // the previous stage's products are done
     hg::fence_acc(acc);
@@ -264,6 +331,40 @@ __device__ __forceinline__ void consume_tile(float (&acc)[kBN / 2], const Ring<S
   }
   hg::wgmma_wait<0>();
   hg::fence_acc(acc);
+  if (lane == 0) hg::mbar_arrive(&ring.empty[(it - 1) % STAGES]);
+}
+
+// B12's dg tile: ady = dy W_dec^T and adv = dvia W_dec^T over one tile's
+// ktiles stages (the stages of produce_tile_dg), for consumer warpgroup wg.
+template <int STAGES>
+__device__ __forceinline__ void consume_tile_dg(float (&ady)[64], float (&adv)[64],
+                                                const Ring<STAGES, kDgStageBytes>& ring,
+                                                uint32_t& it, int ktiles, int wg, int lane) {
+  for (int kt = 0; kt < ktiles; ++kt, ++it) {
+    const uint32_t st = it % STAGES;
+    hg::mbar_wait(&ring.full[st], (it / STAGES) & 1);
+    const unsigned char* stage = ring.stage(it);
+    const unsigned char* ay = stage + wg * hg::kBoxBytes;
+    const unsigned char* av = stage + kABytes + wg * hg::kBoxBytes;
+    const unsigned char* b = stage + 2 * kABytes;
+    hg::fence_acc(ady);
+    hg::fence_acc(adv);
+    hg::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint64_t db = desc<kKMajor>(b, kk);
+      mma128<kKMajor, kKMajor>(ady, desc<kKMajor>(ay, kk), db, kt > 0 || kk > 0);
+      mma128<kKMajor, kKMajor>(adv, desc<kKMajor>(av, kk), db, kt > 0 || kk > 0);
+    }
+    hg::wgmma_commit();
+    hg::wgmma_wait<1>();
+    hg::fence_acc(ady);
+    hg::fence_acc(adv);
+    if (kt > 0 && lane == 0) hg::mbar_arrive(&ring.empty[(it - 1) % STAGES]);
+  }
+  hg::wgmma_wait<0>();
+  hg::fence_acc(ady);
+  hg::fence_acc(adv);
   if (lane == 0) hg::mbar_arrive(&ring.empty[(it - 1) % STAGES]);
 }
 
@@ -299,38 +400,11 @@ __device__ __forceinline__ void col_sums(const float* red, float* out, int c) {
   out[c] = s;
 }
 
-// xc = x - b_dec[l] over [L, B, D] bf16 (D % 8 == 0, 16-byte aligned), one
-// rounding as PyTorch subtracts (sae::center's result), 16 bytes a thread.
-static __global__ void center16_kernel(const uint4* __restrict__ x, const bf16* __restrict__ bd,
-                                uint4* __restrict__ xc, long long n16, int d16,
-                                long long per_layer16) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n16;
-       i += stride) {
-    const long long l = i / per_layer16;
-    const int d = static_cast<int>(i % d16);
-    uint4 v = x[i];
-    const uint4 b = reinterpret_cast<const uint4*>(bd)[l * d16 + d];
-    __nv_bfloat162* pv = reinterpret_cast<__nv_bfloat162*>(&v);
-    const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&b);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float2 a = __bfloat1622float2(pv[k]), c = __bfloat1622float2(pb[k]);
-      pv[k] = __floats2bfloat162_rn(__fsub_rn(a.x, c.x), __fsub_rn(a.y, c.y));
-    }
-    xc[i] = v;
-  }
-}
-
-inline cudaError_t center16(const bf16* x, const bf16* bd, bf16* xc, int L, int B, int D,
-                            cudaStream_t s) {
-  const long long per_layer16 = static_cast<long long>(B) * D / 8, n16 = per_layer16 * L;
-  long long blocks = (n16 + 255) / 256;
-  if (blocks > (1 << 20)) blocks = 1 << 20;
-  center16_kernel<<<static_cast<unsigned int>(blocks), 256, 0, s>>>(
-      reinterpret_cast<const uint4*>(x), bd, reinterpret_cast<uint4*>(xc), n16, D / 8,
-      per_layer16);
-  return cudaGetLastError();
+// Every committed bulk store group but the newest N has read its shared
+// memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read_but() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 
 // The barrier over both consumer warpgroups (ids 1 and 2 are theirs alone).

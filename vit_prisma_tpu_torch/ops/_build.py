@@ -138,6 +138,10 @@ def load_library() -> ctypes.CDLL:
     lib.sae_fused_fwd_gated.restype = i
     lib.sae_fused_bwd_gated.argtypes = [p] * 19 + [i] * 6 + [p]
     lib.sae_fused_bwd_gated.restype = i
+    lib.sae_gated_fwd_tc.argtypes = [p] * 13 + [i] * 5 + [p]
+    lib.sae_gated_fwd_tc.restype = i
+    lib.sae_gated_bwd_tc.argtypes = [p] * 19 + [i] * 5 + [p]
+    lib.sae_gated_bwd_tc.restype = i
     lib.kth_value.argtypes = [p, p, ll, i, i, i, i, p]
     lib.kth_value.restype = i
     lib.kth_value_plan.argtypes = [i, i, p]

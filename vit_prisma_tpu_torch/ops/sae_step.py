@@ -70,6 +70,12 @@ decoder row norms ``wdn`` (float32, plain torch, :func:`_gated_hoisted`)::
 * B12 :func:`sae_gated_fused_backward` (``csrc/sae_fused_bwd_gated.cu``),
   the remat VJP from the cotangents of y, via and l1.
 
+B11 and B12 take B4's and B6's routes (:func:`sae_gemm_route`): bfloat16
+with d_in and d_sae multiples of 256 runs ``csrc/sae_fused_tc.cu``, the
+other shapes the files above; the route is a function of the shape and
+dtype alone, so a backward always recomputes its masks on its forward's
+route, to the bit.
+
 :func:`sae_gated_fused_apply` wraps them, returning ``(y, via, l1,
 nact)``.
 """
@@ -233,6 +239,13 @@ def _gated_hoisted(rmag, Wd):
     return torch.exp(rmag.float()), torch.sqrt(torch.square(Wd.float()).sum(dim=-1))
 
 
+def _gated_hoisted_card(rmag, Wd):
+    """:func:`_gated_hoisted` for the kernels' launches: the row norms in
+    one float32 reduction over W_dec as it lies, not three passes over a
+    float32 copy (the same sums of squares, in another order)."""
+    return torch.exp(rmag.float()), torch.linalg.vector_norm(Wd, dim=-1, dtype=torch.float32)
+
+
 def _gated_pre(x, We, bg, e, bm, bd):
     """The centered x, the float32 product g and the pre-activations hg and
     hm rounded to c (B11's and B12's cast point, so both see one mask)."""
@@ -338,12 +351,15 @@ SAE_GEMM_ROUTES = ("wgmma", "mma_sync", "ffma")
 
 
 def sae_gemm_route(B: int, d_in: int, d_sae: int, dtype: torch.dtype):
-    """The route B4 (:func:`sae_fused_forward`) and B6
-    (:func:`sae_fused_backward_stored`) take on the card: ``"wgmma"`` (the
-    bf16 Hopper kernels of ``csrc/sae_fused_tc.cu``), ``"mma_sync"`` (the
-    other bf16 shapes, on ``csrc/sae_gemm.cuh``'s tensor-core tiles),
-    ``"ffma"`` (float32, its CUDA-core tiles), or None where no kernel takes the shape (B, d_in or
-    d_sae not a multiple of 128)."""
+    """The route B4 (:func:`sae_fused_forward`), B6
+    (:func:`sae_fused_backward_stored`), B11 (:func:`sae_gated_fused_forward`)
+    and B12 (:func:`sae_gated_fused_backward`) take on the card: ``"wgmma"``
+    (the bf16 Hopper kernels of ``csrc/sae_fused_tc.cu``), ``"mma_sync"``
+    (the other bf16 shapes, on ``csrc/sae_gemm.cuh``'s tensor-core tiles),
+    ``"ffma"`` (float32, its CUDA-core tiles), or None where no kernel takes
+    the shape (B, d_in or d_sae not a multiple of 128).  It reads the shape
+    and dtype alone, so B11 and B12 always take the same route, and B12's
+    recomputed masks are B11's."""
     if B % _TILE or d_in % _TILE or d_sae % _TILE or dtype not in _DTYPE_CODES:
         return None
     if dtype == torch.float32:
@@ -555,67 +571,88 @@ def sae_gated_fused_forward(x, We, bg, rmag, bm, Wd, bd, save_h: bool = False):
     via ``[L, B, d_in]`` in x's dtype, l1 ``[L]`` and nact ``[L, d_sae]``
     float32; with ``save_h`` also the activations h and hga in x's dtype
     ``[L, B, d_sae]``, which hold the kernel's masks (for checks: the
-    backward recomputes them).  CUDA tensors launch
+    backward recomputes them).  CUDA tensors launch ``csrc/sae_fused_tc.cu``
+    (the "wgmma" route of :func:`sae_gemm_route`) or
     ``csrc/sae_fused_fwd_gated.cu`` and add one to
-    ``sae_gated_fused_forward.launches``; CPU tensors run the plain
-    version."""
+    ``sae_gated_fused_forward.launches`` and to the route's count in
+    ``sae_gated_fused_forward.routes``; a launch that fails raises.  CPU
+    tensors run the plain version."""
     L, B, D, S = _gated_check("sae_gated_fused_forward", x, We, bg, rmag, bm, Wd, bd)
     if x.device.type == "cpu":
         return sae_gated_fused_forward_reference(x, We, bg, rmag, bm, Wd, bd, save_h)
     _kernel_shapes_ok("sae_gated_fused_forward", B, D, S)
-    e, wdn = _gated_hoisted(rmag, Wd)
+    route = sae_gemm_route(B, D, S, x.dtype)
+    e, wdn = _gated_hoisted_card(rmag, Wd)
     new = lambda *shape, dtype=x.dtype: torch.empty(shape, dtype=dtype, device=x.device)
     # each layer's h and hga rows stacked, so are y and via: one decoder launch
     xc, h, y = new(L, B, D), new(L, 2 * B, S), new(L, 2 * B, D)
     nact_part = new(L, B // _TILE, S, dtype=torch.float32)
-    l1_part = new(L, B // _TILE, S // _TILE, dtype=torch.float32)
+    l1_part = new(L, B // _TILE, S // (_TC_BN if route == "wgmma" else _TILE),
+                  dtype=torch.float32)
     lib, stream = _lib_and_stream(x.device)
-    rc = lib.sae_fused_fwd_gated(x.data_ptr(), We.data_ptr(), bg.data_ptr(), e.data_ptr(),
-                                 bm.data_ptr(), Wd.data_ptr(), bd.data_ptr(), wdn.data_ptr(),
-                                 xc.data_ptr(), h.data_ptr(), y.data_ptr(), nact_part.data_ptr(),
-                                 l1_part.data_ptr(), L, B, D, S, _DTYPE_CODES[x.dtype],
-                                 x.device.index, stream)
-    _build.check(lib, rc, "sae_gated_fused_forward")
+    ptrs = (x.data_ptr(), We.data_ptr(), bg.data_ptr(), e.data_ptr(), bm.data_ptr(),
+            Wd.data_ptr(), bd.data_ptr(), wdn.data_ptr(), xc.data_ptr(), h.data_ptr(),
+            y.data_ptr(), nact_part.data_ptr(), l1_part.data_ptr())
+    if route == "wgmma":
+        rc = lib.sae_gated_fwd_tc(*ptrs, L, B, D, S, x.device.index, stream)
+    else:
+        rc = lib.sae_fused_fwd_gated(*ptrs, L, B, D, S, _DTYPE_CODES[x.dtype], x.device.index,
+                                     stream)
+    _build.check(lib, rc, f"sae_gated_fused_forward ({route})")
     sae_gated_fused_forward.launches += 1
+    sae_gated_fused_forward.routes[route] += 1
     out = (y[:, :B], y[:, B:], l1_part.sum(dim=(1, 2)), nact_part.sum(dim=1))
     return out + (h[:, :B], h[:, B:]) if save_h else out
 
 
 sae_gated_fused_forward.launches = 0
+sae_gated_fused_forward.routes = dict.fromkeys(SAE_GEMM_ROUTES, 0)
 
 
 def sae_gated_fused_backward(x, We, bg, rmag, bm, Wd, bd, dy, dvia, dl1):
     """Kernel B12, the gated remat VJP from ``dy`` and ``dvia`` (x's dtype)
     and ``dl1`` (float32 ``[L]``): float32 ``(dW_enc [L, d_in, d_sae],
     dW_dec [L, d_sae, d_in], db_gate, db_mag, dr_mag [L, d_sae])``.  CUDA
-    tensors launch ``csrc/sae_fused_bwd_gated.cu`` and add one to
-    ``sae_gated_fused_backward.launches``; CPU tensors run the plain
-    version."""
+    tensors launch ``csrc/sae_fused_tc.cu`` (the "wgmma" route of
+    :func:`sae_gemm_route`, B11's) or ``csrc/sae_fused_bwd_gated.cu`` and add
+    one to ``sae_gated_fused_backward.launches`` and to the route's count in
+    ``sae_gated_fused_backward.routes``; a launch that fails raises.  CPU
+    tensors run the plain version."""
     L, B, D, S = _gated_check("sae_gated_fused_backward", x, We, bg, rmag, bm, Wd, bd,
                               dy=dy, dvia=dvia, dl1=dl1)
     if x.device.type == "cpu":
         return sae_gated_fused_backward_reference(x, We, bg, rmag, bm, Wd, bd, dy, dvia, dl1)
     _kernel_shapes_ok("sae_gated_fused_backward", B, D, S)
-    e, wdn = _gated_hoisted(rmag, Wd)
+    route = sae_gemm_route(B, D, S, x.dtype)
+    e, wdn = _gated_hoisted_card(rmag, Wd)
     new = lambda *shape, dtype=x.dtype: torch.empty(shape, dtype=dtype, device=x.device)
-    xc, hc, hgac, dgc = new(L, B, D), new(L, B, S), new(L, B, S), new(L, B, S)
+    xc, dgc = new(L, B, D), new(L, B, S)
     part = new(4, L, B // _TILE, S, dtype=torch.float32)
     sums = new(4, L, S, dtype=torch.float32)
     dWe, dWd = new(L, D, S, dtype=torch.float32), new(L, S, D, dtype=torch.float32)
     lib, stream = _lib_and_stream(x.device)
-    rc = lib.sae_fused_bwd_gated(x.data_ptr(), We.data_ptr(), bg.data_ptr(), e.data_ptr(),
-                                 bm.data_ptr(), Wd.data_ptr(), bd.data_ptr(), wdn.data_ptr(),
-                                 dy.data_ptr(), dvia.data_ptr(), dl1.data_ptr(), xc.data_ptr(),
-                                 hc.data_ptr(), hgac.data_ptr(), dgc.data_ptr(), part.data_ptr(),
-                                 sums.data_ptr(), dWe.data_ptr(), dWd.data_ptr(), L, B, D, S,
-                                 _DTYPE_CODES[x.dtype], x.device.index, stream)
-    _build.check(lib, rc, "sae_gated_fused_backward")
+    ins = (x.data_ptr(), We.data_ptr(), bg.data_ptr(), e.data_ptr(), bm.data_ptr(),
+           Wd.data_ptr(), bd.data_ptr(), wdn.data_ptr(), dy.data_ptr(), dvia.data_ptr(),
+           dl1.data_ptr(), xc.data_ptr())
+    outs = (dgc.data_ptr(), part.data_ptr(), sums.data_ptr(), dWe.data_ptr(), dWd.data_ptr())
+    if route == "wgmma":
+        # c(h) and c(hga) stacked as B11 writes them, and the float32 g
+        h, g = new(L, 2 * B, S), new(L, B, S, dtype=torch.float32)
+        rc = lib.sae_gated_bwd_tc(*ins, h.data_ptr(), g.data_ptr(), *outs, L, B, D, S,
+                                  x.device.index, stream)
+    else:
+        hc, hgac = new(L, B, S), new(L, B, S)
+        rc = lib.sae_fused_bwd_gated(*ins, hc.data_ptr(), hgac.data_ptr(), *outs, L, B, D, S,
+                                     _DTYPE_CODES[x.dtype], x.device.index, stream)
+    _build.check(lib, rc, f"sae_gated_fused_backward ({route})")
     sae_gated_fused_backward.launches += 1
+    sae_gated_fused_backward.routes[route] += 1
     # sums: colsum(max(hg, 0)) (read by the kernel), db_gate, db_mag, sum(dhm g)
     return dWe, dWd, sums[1], sums[2], sums[3] * e
 
 
 sae_gated_fused_backward.launches = 0
+sae_gated_fused_backward.routes = dict.fromkeys(SAE_GEMM_ROUTES, 0)
 
 
 # ---------------------------------------------------------------------------
