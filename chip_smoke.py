@@ -65,30 +65,37 @@ Phases, each printing JSON lines with the card's name and power limit:
 7. SAE kernels: B4 (``sae_fused_forward``), B5 (``sae_fused_backward``) and
    B6 (``sae_fused_backward_stored``) against their plain versions at the
    all-layer sweep's shape (24 SAEs, batch 4096, 1024 -> 8192) and the TopK
-   slice's (1 x 4096, 768 -> 12,288) in bfloat16 and at two layers in
-   float32, with times and TFLOP/s; B4 and B6 also with the route they took
-   (the bf16 Hopper route, wgmma/TMA, at both bf16 shapes: checked against
-   the wrapper's picker and the library's mirror), two calls equal to the
-   bit, the cuBLAS time of their products alone beside them and ptxas's
-   record of the Hopper kernels (no spills, no serialized wgmma); then B4+B6
-   against B4+B5 through ``sae_fused_apply`` at the sweep's shape in both
-   dtypes, times and peak memory, the measurement behind always keeping hc;
+   slice's (1 x 4096, 768 -> 12,288) in bfloat16, at two layers in float32
+   and at a ViT-S width (384 -> 6144) in bfloat16, with times and TFLOP/s;
+   each with the route it took (the bf16 Hopper route, wgmma/TMA, at the
+   first two, the mma.sync tiles at ViT-S: checked against the wrapper's
+   picker), two calls equal to the bit, the cuBLAS time of its products
+   alone beside it and ptxas's record of the Hopper kernels (no spills, no
+   serialized wgmma); on the Hopper route B5's recomputed hc is B4's but for
+   its -0 marks (counted), and where it marks none B5's grads are B6's on
+   B4's hc, to the bit; then B4+B6 against B4+B5 through
+   ``sae_fused_apply`` at the sweep's shape in both dtypes, times and peak
+   memory, the measurement behind always keeping hc;
 8. TopK kernels: B8 (``sae_fused_forward_topk``), B9
    (``sae_fused_backward_topk``) and B6 on B8's masked h against their plain
    versions at the TopK slice's shape (1 x 4096, 768 -> 12,288, k = 64) in
-   both dtypes and at the sweep's shape in bfloat16 (B6 with its route, two
-   calls equal to the bit and its products' cuBLAS time, as in phase 7);
-   masks that differ from the plain version's are counted and bounded, and
-   the kernels' own invariants are exact (B9 from t gives the grads of the
-   stored mode it shares code with, from h, to the bit); then B8+B6 against
-   B8+B9 through ``sae_fused_apply_topk``;
+   both dtypes, at the sweep's shape in bfloat16 and at a ViT-S width (1 x
+   4096, 384 -> 6144) in bfloat16, each with its route (Hopper at the first
+   and third, mma.sync at ViT-S, checked against the picker), two calls
+   equal to the bit and its products' cuBLAS time, as in phase 7; masks
+   that differ from the plain version's are counted and bounded, and the
+   kernels' own invariants are exact (nact is the kernel's own mask count,
+   t the k-th largest of its own h, and B9 from t gives B6's grads from h
+   on the same route, to the bit); then B8+B6 against B8+B9 through
+   ``sae_fused_apply_topk``;
 9. TopK train: the fourth main path, phase 5's set-up with bench.py's
    bfloat16 TopK row (k = 64, bf16 compute, float32 masters):
-   ``run(max_steps=120)`` through B8 and B6 on every step, exact launches;
-   then a few steps with ``fused_store_acts=False`` through B9, and where
-   the time goes: fused and generic steps timed with CUDA events on
-   buffered batches, and ``torch.profiler``'s device time by kernel over
-   three steps of each and over one refill, with the device's idle share;
+   ``run(max_steps=120)`` through B8 and B6 on every step, exact launches
+   and routes; then a few steps with ``fused_store_acts=False`` through B9
+   (on B8's route), and where the time goes: fused and generic steps timed
+   with CUDA events on buffered batches, and ``torch.profiler``'s device
+   time by kernel over three steps of each (with the SAE kernels' share)
+   and over one refill, with the device's idle share;
 10. TopK step check: three fused steps against three generic steps (B10)
     from the trained state in float32, and ``SparseAutoencoder.encode``
     (B10) against B8's masked h;
@@ -97,7 +104,8 @@ Phases, each printing JSON lines with the card's name and power limit:
     images on the card): ``HookedViT`` -> sweep ``VisionActivationsStore`` ->
     ``SAESweepTrainer.run(max_steps=18)`` -> ``train_cycles(2)``, then one
     cycle with ``fused_store_acts=False`` (the remat backward, B5).  Launch
-    counts exact; SAE-tokens per second and peak memory; ``torch.profiler``'s
+    counts and routes exact (the Hopper route, in the remat cycle too);
+    SAE-tokens per second and peak memory; ``torch.profiler``'s
     breakdown of one refill, with B1's share, and of sweep steps on buffered
     batches (device time by kernel, the Hopper SAE kernels' share, the idle
     share of steps timed with CUDA events);
@@ -367,11 +375,14 @@ SAE_GRAD_REL = {torch.bfloat16: 2e-3, torch.float32: 1e-5}
 SAE_SWITCHED_GRAD_REL = 5e-2
 SAE_L1_REL = 1e-5
 # B8, B9 and B6 on B8's h against their plain versions: name, L, B, d_in,
-# d_sae, dtype.  The TopK slice (bench.py:164-171, k = 64) in both dtypes
-# and the all-layer sweep's shape in bfloat16.
+# d_sae, dtype.  The TopK slice (bench.py:164-171, k = 64) in both dtypes,
+# the all-layer sweep's shape in bfloat16 (both on the Hopper route in
+# bf16), and a ViT-S width (d_in 384, a multiple of 128 but not of 256, at
+# expansion 16) in bfloat16, which keeps the mma.sync tiles.
 TOPK_SHAPES = [("slice_bf16", 1, 4096, 768, 12288, torch.bfloat16),
                ("slice_f32", 1, 4096, 768, 12288, torch.float32),
-               ("sweep_bf16", 24, 4096, 1024, 8192, torch.bfloat16)]
+               ("sweep_bf16", 24, 4096, 1024, 8192, torch.bfloat16),
+               ("vit_s_bf16", 1, 4096, 384, 6144, torch.bfloat16)]
 # The kernel and the plain version round hp to c after float32 sums taken in
 # other orders, so an hp within a rounding of the row's k-th value or of 0
 # may fall on the other side of the mask in one of them.  Such entries are
@@ -406,6 +417,10 @@ TOPK_PROFILE_TOP = 10
 # launches eight a step), with the share of those whose names hold these.
 GATED_PROFILE_TOP = 24
 GATED_PROFILE_KERNELS = ("sae_tc_kernel", "center_kernel", "partial_sums_kernel")
+# The TopK step's SAE kernels on the Hopper route (B8: center, encoder,
+# select, counts, decoder; B6: center, dh, weight gradients): their share.
+TOPK_PROFILE_KERNELS = ("sae_tc_kernel", "center_kernel", "radix_select_kernel",
+                        "count_kernel")
 # TopK step check: fused (B8, B6) against generic (B10) steps from the
 # trained state in float32.  Both paths mask float32 pre-activations summed
 # in other orders, so an entry within rounding of its row's k-th value may
@@ -464,6 +479,10 @@ GATED_SHAPES = [("slice_bf16", 1, 4096, 768, 12288, torch.bfloat16),
 # B11 and B12 add: the gated encoder, its remat twin, dg, the gated wgrad and
 # B11's 192-wide decoder.
 GATED_TC_MODES = (4, 5, 6, 7, 8)
+# Those that B5, B8 and B9 add: B5's remat encoder (hc with its -0 marks),
+# B8's TopK encoder, B9's encoder masked against t, and B5's dh reading its
+# mask from hc's bits.
+REMAT_TOPK_TC_MODES = (9, 10, 11, 12)
 # Kernel and plain version round hg = g + b_gate and hm = g e + b_mag to c
 # after float32 sums taken in other orders, so an hg or hm within a rounding
 # of 0 may fall on the other side of the gate or magnitude mask in one of
@@ -1115,6 +1134,14 @@ def _time_refills(store):
     return times
 
 
+def _cfg_route(cfg):
+    """The route the picker gives a config's SAE kernels (its train batch,
+    widths and compute dtype)."""
+    from vit_prisma_tpu_torch.ops.sae_step import sae_gemm_route
+    return sae_gemm_route(cfg.train_batch_size, cfg.d_in, cfg.d_sae,
+                          getattr(torch, cfg.compute_dtype or cfg.dtype))
+
+
 def phase_train(info, cfg=None, phase="train"):
     """A training main path: harvest -> store -> trainer.run on the card;
     the default SAE (phase 5) or, with ``cfg``, the TopK or gated slice."""
@@ -1133,7 +1160,7 @@ def phase_train(info, cfg=None, phase="train"):
 
     # The main path, with every count set to 0 just before it.
     _zero_counts(counters)
-    routes_before = {k: dict(f.routes) for k, f in counters.items() if hasattr(f, "routes")}
+    routes_before = _route_counts(counters)
     t0 = time.perf_counter()
     store = VisionActivationsStore(cfg, model, images)
     torch.cuda.synchronize()
@@ -1148,8 +1175,6 @@ def phase_train(info, cfg=None, phase="train"):
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t1
     launches = {k: f.launches for k, f in counters.items()}
-    routes = {k: {r: counters[k].routes[r] - n for r, n in before.items()}
-              for k, before in routes_before.items()}
 
     per_batch = store.tokens_per_store_batch
     harvests = -(-cfg.tokens_per_buffer // per_batch) + \
@@ -1164,17 +1189,12 @@ def phase_train(info, cfg=None, phase="train"):
         expected["sae_fused_forward_topk"] = TRAIN_STEPS
         expected["sae_fused_backward_topk" if cfg.fused_store_acts is False
                  else "sae_fused_backward_stored"] = TRAIN_STEPS
+    if len(refills) != 1 or launches != expected:
+        raise AssertionError(f"train launches {launches}, expected {expected}, "
+                             f"{len(refills)} refills")
     # the routed SAE kernels' launches all on the route the picker gives the
     # slice's shape (the gated and TopK slices in bf16: the Hopper route)
-    from vit_prisma_tpu_torch.ops.sae_step import sae_gemm_route
-    route = sae_gemm_route(cfg.train_batch_size, cfg.d_in, cfg.d_sae,
-                           getattr(torch, cfg.compute_dtype or cfg.dtype))
-    expected_routes = {k: {r: expected[k] if r == route else 0 for r in by}
-                       for k, by in routes.items()}
-    if len(refills) != 1 or launches != expected or routes != expected_routes:
-        raise AssertionError(f"train launches {launches}, expected {expected}, "
-                             f"{len(refills)} refills; routes {routes}, expected "
-                             f"{expected_routes}")
+    routes = _check_routes(phase, counters, routes_before, launches, _cfg_route(cfg))
     if len(log) != TRAIN_STEPS // cfg.wandb_log_frequency:
         raise AssertionError(f"{len(log)} metric reads")
     for vals in log:
@@ -1204,7 +1224,7 @@ def phase_train(info, cfg=None, phase="train"):
           "compute_dtype": cfg.compute_dtype,
           "buffer_rows": cfg.tokens_per_buffer, "steps": TRAIN_STEPS,
           "launches": launches, "expected_launches": expected,
-          "routes": {k: v for k, v in routes.items() if any(v.values())},
+          "routes": routes,
           "harvest_batches": harvests, "store_fill_s": fill_s, "trainer_init_s": init_s,
           "run_s": run_s, "refill_s": refills,
           "tokens_per_s_run": tokens / run_s,
@@ -1332,8 +1352,8 @@ def _grad_errs(name, got, want, switched, dtype, switched_rel=SAE_SWITCHED_GRAD_
 
 
 def _routed(fn, *args, **kwargs):
-    """One call of a B4 or B6 wrapper: its outputs and the route its tally
-    (``fn.routes``) counted."""
+    """One call of a routed SAE wrapper (B4-B6, B8, B9, B11, B12): its
+    outputs and the route its tally (``fn.routes``) counted."""
     before = dict(fn.routes)
     out = fn(*args, **kwargs)
     taken = [r for r, n in fn.routes.items() if n != before[r]]
@@ -1343,9 +1363,9 @@ def _routed(fn, *args, **kwargs):
 
 
 def _route_record(name, B, D, Sd, dtype, taken):
-    """The route a B4 or B6 call took against the wrapper's picker; in bf16
-    it must be the Hopper route at SAE_TC_SHAPES and the mma.sync tiles at
-    SAE_MMA_SYNC_SHAPES."""
+    """The route a routed SAE wrapper's call took against the picker; in
+    bf16 it must be the Hopper route at SAE_TC_SHAPES and the mma.sync tiles
+    at SAE_MMA_SYNC_SHAPES."""
     from vit_prisma_tpu_torch.ops.sae_step import sae_gemm_route
     want = sae_gemm_route(B, D, Sd, dtype)
     rec = {"route": taken, "route_picker": want}
@@ -1384,14 +1404,54 @@ def _tc_ptxas():
     return rec
 
 
+def _remat_hc(x, We, be, Wd, bd, dy, dl1):
+    """hc as B5's Hopper route recomputes it (B4's, with -0 marks): its C
+    entry called with this phase's own scratch buffers (the wrapper keeps
+    them to itself)."""
+    from vit_prisma_tpu_torch.ops import _build
+    L, B, D = x.shape
+    Sd = We.shape[-1]
+    new = lambda *shape, dtype=x.dtype: torch.empty(shape, dtype=dtype, device="cuda")
+    xc, hc, dhc = new(L, B, D), new(L, B, Sd), new(L, B, Sd)
+    dWe, dWd = new(L, D, Sd, dtype=torch.float32), new(L, Sd, D, dtype=torch.float32)
+    dbe_part = new(L, B // 128, Sd, dtype=torch.float32)
+    lib, stream = _build.load_library(), torch.cuda.current_stream().cuda_stream
+    rc = lib.sae_fused_bwd_remat_tc(*(t.data_ptr() for t in (
+        x, We, be, Wd, bd, dy, dl1, xc, hc, dhc, dWe, dWd, dbe_part)), L, B, D, Sd, 0, stream)
+    _build.check(lib, rc, "sae_fused_bwd_remat_tc")
+    torch.cuda.synchronize()
+    return hc
+
+
+def _remat_against_stored(name, args, hc4, dW5, dW6, route):
+    """On the Hopper route B5 recomputes B4's encoder with B4's own mainloop
+    and launches, so its hc is B4's but for the -0 marks of entries whose
+    float32 hpre > 0 rounds to +0 in bf16, and wherever it marks none its
+    grads are B6's on B4's hc, to the bit.  None on the other routes."""
+    if route != "wgmma":
+        return None
+    hc5 = _remat_hc(*args).view(torch.int16)
+    marks = hc5 == -32768  # bits 0x8000: -0
+    rec = {"minus_zero_marks": int(marks.sum()),
+           "hc_is_b4_hc_outside_marks": torch.equal(torch.where(marks, 0, hc5),
+                                                    hc4.view(torch.int16)),
+           "grads_equal_b6_on_b4_hc": all(torch.equal(a, b) for a, b in zip(dW5, dW6))}
+    if not (rec["hc_is_b4_hc_outside_marks"]
+            and (rec["minus_zero_marks"] > 0 or rec["grads_equal_b6_on_b4_hc"])):
+        raise AssertionError(f"{name}: B5 against B6 on B4's hc {rec}")
+    return rec
+
+
 def phase_sae_step_kernels(info):
     """B4, B5 and B6 against their plain versions at SAE_STEP_SHAPES (the
     sweep's, the TopK slice's, and a width that keeps the bf16 mma.sync
-    tiles): the route B4 and B6 took, two calls equal to the bit, and the
-    cuBLAS time of their products beside them."""
+    tiles): the route each took, two calls equal to the bit, B5's grads
+    equal to B6's on B4's hc on the Hopper route, and the cuBLAS time of
+    their products beside them."""
     from vit_prisma_tpu_torch.ops import sae_step as S
     g = torch.Generator(device="cuda").manual_seed(4)
     tc_ptxas = _tc_ptxas()
+    new_ptxas = _modes_ptxas(REMAT_TOPK_TC_MODES)
     results = {}
     for name, L, B, D, Sd, dtype in SAE_STEP_SHAPES:
         x, We, be, Wd, bd, dy, dl1 = _sae_inputs(g, L, B, D, Sd, dtype)
@@ -1417,19 +1477,27 @@ def phase_sae_step_kernels(info):
         del yr, hcr, mask, mask_plain, flip
         dW6, route6 = _routed(S.sae_fused_backward_stored, x, hc, Wd, bd, dy, dl1)
         routes["sae_fused_backward_stored"] = _route_record(name, B, D, Sd, dtype, route6)
+        dW5, route5 = _routed(S.sae_fused_backward, x, We, be, Wd, bd, dy, dl1)
+        torch.cuda.synchronize()
+        routes["sae_fused_backward"] = _route_record(name, B, D, Sd, dtype, route5)
+        b5_vs_b6 = _remat_against_stored(name, (x, We, be, Wd, bd, dy, dl1), hc, dW5, dW6,
+                                         route5)
         repeat = {
             "sae_fused_forward": _bitwise_repeat(
                 f"{name} B4", lambda: S.sae_fused_forward(x, We, be, Wd, bd, save_h=True)),
             "sae_fused_backward_stored": _bitwise_repeat(
-                f"{name} B6", lambda: S.sae_fused_backward_stored(x, hc, Wd, bd, dy, dl1))}
+                f"{name} B6", lambda: S.sae_fused_backward_stored(x, hc, Wd, bd, dy, dl1)),
+            "sae_fused_backward": _bitwise_repeat(
+                f"{name} B5", lambda: S.sae_fused_backward(x, We, be, Wd, bd, dy, dl1))}
         bwd = {
             "sae_fused_backward_stored": _grad_errs(
                 f"{name} B6", dW6,
                 S.sae_fused_backward_stored_reference(x, hc, Wd, bd, dy, dl1),
                 torch.zeros_like(switched), dtype),
             "sae_fused_backward": _grad_errs(
-                f"{name} B5", S.sae_fused_backward(x, We, be, Wd, bd, dy, dl1),
+                f"{name} B5", dW5,
                 S.sae_fused_backward_reference(x, We, be, Wd, bd, dy, dl1), switched, dtype)}
+        del dW5
         flop = 2 * L * B * D * Sd
         ms = lambda fn, it: cuda_us(fn, iters=it, warmup=1) / 1000.0
         calls = {
@@ -1458,7 +1526,10 @@ def phase_sae_step_kernels(info):
         cublas = {"sae_fused_forward": _cublas_products([(xc, We), (hc, Wd)], 2 * flop),
                   "sae_fused_backward_stored": _cublas_products(
                       [(dy, Wd.transpose(1, 2)), (xc.transpose(1, 2), dhc),
-                       (hc.transpose(1, 2), dy)], 3 * flop)}
+                       (hc.transpose(1, 2), dy)], 3 * flop),
+                  "sae_fused_backward": _cublas_products(
+                      [(xc, We), (dy, Wd.transpose(1, 2)), (xc.transpose(1, 2), dhc),
+                       (hc.transpose(1, 2), dy)], 4 * flop)}
         del xc, dhc
         for kernel, (fn, plain, n_flop) in calls.items():
             t, plain_t = ms(fn, 5), ms(plain, 2)
@@ -1474,13 +1545,14 @@ def phase_sae_step_kernels(info):
                 rec["forward"] = fwd
             else:
                 rec["grad_errs"] = bwd[kernel]
-            if kernel in routes:
-                rec.update(routes[kernel])
-                rec.update(cublas[kernel])
-                rec["bitwise_repeat"] = repeat[kernel]
-                if rec["route"] == "wgmma":
-                    rec["source"] = SAE_TC_SOURCE
-                    rec["ptxas"] = tc_ptxas
+            rec.update(routes[kernel])
+            rec.update(cublas[kernel])
+            rec["bitwise_repeat"] = repeat[kernel]
+            if kernel == "sae_fused_backward":
+                rec["b5_against_b6_on_b4_hc"] = b5_vs_b6
+            if rec["route"] == "wgmma":
+                rec["source"] = SAE_TC_SOURCE
+                rec["ptxas"] = new_ptxas if kernel == "sae_fused_backward" else tc_ptxas
             results[(kernel, name)] = rec
             emit(rec)
         del x, We, be, Wd, bd, dy, y, hc, dW6
@@ -1612,15 +1684,21 @@ def phase_kth_value(info):
 
 def phase_topk_kernels(info):
     """B8, B9 and B6 on B8's h against their plain versions at the TopK
-    slice's and the sweep's shapes; then B8+B6 against B8+B9."""
+    slice's and the sweep's shapes and a width that keeps the bf16 mma.sync
+    tiles: the route each took, two calls equal to the bit, B9 from t equal
+    to B6 on B8's h on the same route, and the cuBLAS time of their products
+    beside them; then B8+B6 against B8+B9."""
     from functools import partial
     from vit_prisma_tpu_torch.ops import sae_step as S
     g = torch.Generator(device="cuda").manual_seed(7)
+    new_ptxas = _modes_ptxas(REMAT_TOPK_TC_MODES)
     results = {}
     for name, L, B, D, Sd, dtype in TOPK_SHAPES:
         x, We, be, Wd, bd, dy, dl1 = _sae_inputs(g, L, B, D, Sd, dtype)
-        y, l1, nact, t, h = S.sae_fused_forward_topk(x, We, be, Wd, bd, TOPK_K, save_h=True)
+        (y, l1, nact, t, h), route8 = _routed(S.sae_fused_forward_topk, x, We, be, Wd, bd,
+                                              TOPK_K, save_h=True)
         torch.cuda.synchronize()
+        routes = {"sae_fused_forward_topk": _route_record(name, B, D, Sd, dtype, route8)}
         yr, l1r, nactr, tr, hr = S.sae_fused_forward_topk_reference(x, We, be, Wd, bd, TOPK_K,
                                                                      save_h=True)
         mask = h.float() > 0
@@ -1657,20 +1735,24 @@ def phase_topk_kernels(info):
         switched9 = (S._topk_mask(hp_plain, t)[0] != mask).any(dim=1)
         del hp_plain
         dWs, route6 = _routed(S.sae_fused_backward_stored, x, h, Wd, bd, dy, dl1)
-        route6 = _route_record(name, B, D, Sd, dtype, route6)
-        repeat6 = _bitwise_repeat(f"{name} B6 on h",
-                                  lambda: S.sae_fused_backward_stored(x, h, Wd, bd, dy, dl1))
-        dW9 = S.sae_fused_backward_topk(x, We, be, Wd, bd, dy, dl1, t)
-        # B9 shares the stored mode's code (csrc/sae_fused_bwd.cu): from t it
-        # gives that mode's grads from h bit for bit (the same active set and
-        # the same products), whichever route the B6 wrapper took
-        dW6_shared = S._backward_launch("sae_fused_backward_stored", S._STORED, x, Wd, bd, dy,
-                                        dl1, hc=h)
+        routes["sae_fused_backward_stored"] = _route_record(name, B, D, Sd, dtype, route6)
+        dW9, route9 = _routed(S.sae_fused_backward_topk, x, We, be, Wd, bd, dy, dl1, t)
         torch.cuda.synchronize()
-        b9_is_b6 = all(torch.equal(a, b) for a, b in zip(dW6_shared, dW9))
+        routes["sae_fused_backward_topk"] = _route_record(name, B, D, Sd, dtype, route9)
+        # B9 takes B8's route (and so B6's, whose launches it shares): from t
+        # it recomputes B8's h to the bit and gives B6's grads from that h,
+        # bit for bit (the same active set and the same products)
+        b9_is_b6 = all(torch.equal(a, b) for a, b in zip(dWs, dW9))
         if not b9_is_b6:
             raise AssertionError(f"{name}: B9 from t does not give B6's grads from h")
-        del dW6_shared
+        repeat = {
+            "sae_fused_forward_topk": _bitwise_repeat(
+                f"{name} B8", lambda: S.sae_fused_forward_topk(x, We, be, Wd, bd, TOPK_K,
+                                                               save_h=True)),
+            "sae_fused_backward_stored": _bitwise_repeat(
+                f"{name} B6 on h", lambda: S.sae_fused_backward_stored(x, h, Wd, bd, dy, dl1)),
+            "sae_fused_backward_topk": _bitwise_repeat(
+                f"{name} B9", lambda: S.sae_fused_backward_topk(x, We, be, Wd, bd, dy, dl1, t))}
         bwd = {"sae_fused_backward_stored": _grad_errs(
                    f"{name} B6", dWs, S.sae_fused_backward_stored_reference(x, h, Wd, bd, dy, dl1),
                    torch.zeros_like(switched9), dtype),
@@ -1683,6 +1765,10 @@ def phase_topk_kernels(info):
         eb = x.element_size()
         n_bits = 16 if dtype == torch.bfloat16 else 32
         gemm = "bf16_tensor" if dtype == torch.bfloat16 else "fp32"
+        # the threshold's operations on the route taken: the radix select's two
+        # 8-bit digit passes (a key map, a prefix compare and a count a key)
+        # on the Hopper route, the bitwise search's n_bits - 1 compares else
+        select_ops = (3 * 2 if route8 == "wgmma" else n_bits - 1) * L * B * Sd
         w_bytes = (2 * L * D * Sd + L * Sd + L * D) * eb
         g_bytes = (2 * L * D * Sd + L * Sd) * 4
         ms = lambda fn, it: cuda_us(fn, iters=it, warmup=1) / 1000.0
@@ -1691,7 +1777,7 @@ def phase_topk_kernels(info):
                 lambda: S.sae_fused_forward_topk(x, We, be, Wd, bd, TOPK_K, save_h=True),
                 lambda: S.sae_fused_forward_topk_reference(x, We, be, Wd, bd, TOPK_K, True),
                 2 * L * B * D * eb + w_bytes + L * B * Sd * eb + L * B * 4 + L * Sd * 4 + L * 4,
-                [(gemm, 2 * flop), ("fp32", (n_bits - 1) * L * B * Sd)]),
+                [(gemm, 2 * flop), ("fp32", select_ops)]),
             "sae_fused_backward_topk": (
                 lambda: S.sae_fused_backward_topk(x, We, be, Wd, bd, dy, dl1, t),
                 lambda: S.sae_fused_backward_topk_reference(x, We, be, Wd, bd, dy, dl1, t),
@@ -1704,8 +1790,13 @@ def phase_topk_kernels(info):
         xc = x - bd[:, None]
         dhc = torch.where(h.float() > 0, S._mm(dy, Wd.transpose(1, 2)) + dl1[:, None, None],
                           0.0).to(dtype)
-        cublas6 = _cublas_products([(dy, Wd.transpose(1, 2)), (xc.transpose(1, 2), dhc),
-                                    (h.transpose(1, 2), dy)], 3 * flop)
+        cublas = {"sae_fused_forward_topk": _cublas_products([(xc, We), (h, Wd)], 2 * flop),
+                  "sae_fused_backward_stored": _cublas_products(
+                      [(dy, Wd.transpose(1, 2)), (xc.transpose(1, 2), dhc),
+                       (h.transpose(1, 2), dy)], 3 * flop),
+                  "sae_fused_backward_topk": _cublas_products(
+                      [(xc, We), (dy, Wd.transpose(1, 2)), (xc.transpose(1, 2), dhc),
+                       (h.transpose(1, 2), dy)], 4 * flop)}
         del xc, dhc
         for kernel, (fn, plain, nbytes, ops) in calls.items():
             k_ms, plain_ms = ms(fn, 5), ms(plain, 2)
@@ -1722,13 +1813,14 @@ def phase_topk_kernels(info):
             else:
                 rec["grad_errs"] = bwd[kernel]
                 rec["B9_equals_B6_on_h"] = b9_is_b6
-                rec["B9_compared_with"] = "B6's stored mode of csrc/sae_fused_bwd.cu"
-            if kernel == "sae_fused_backward_stored":
-                rec.update(route6)
-                rec.update(cublas6)
-                rec["bitwise_repeat"] = repeat6
-                if rec["route"] == "wgmma":
-                    rec["source"] = SAE_TC_SOURCE
+                rec["B9_compared_with"] = "B6 through its wrapper, on the same route"
+            rec.update(routes[kernel])
+            rec.update(cublas[kernel])
+            rec["bitwise_repeat"] = repeat[kernel]
+            if rec["route"] == "wgmma":
+                rec["source"] = SAE_TC_SOURCE
+                if kernel != "sae_fused_backward_stored":
+                    rec["ptxas"] = new_ptxas
             results[(kernel, name)] = rec
             emit(rec)
         del x, We, be, Wd, bd, dy, y, h, t, mask
@@ -1757,6 +1849,7 @@ def phase_topk_remat(info, trainer, store, cfg):
     remat = VisionSAETrainer(cfg.replace(fused_store_acts=False), trainer.model, store)
     remat.load_state(trainer.state)
     _zero_counts(counters)
+    routes_before = _route_counts(counters)
     t0 = time.perf_counter()
     remat.run(max_steps=TOPK_REMAT_STEPS)
     torch.cuda.synchronize()
@@ -1768,10 +1861,13 @@ def phase_topk_remat(info, trainer, store, cfg):
                 "adam_update": 4 * TOPK_REMAT_STEPS}
     if any(launches[k] != v for k, v in expected.items()):
         raise AssertionError(f"TopK remat steps launched {launches}, expected {expected}")
+    # B8 and B9 on the picker's route (the TopK slice in bf16: the Hopper route)
+    routes = _check_routes("TopK remat steps", counters, routes_before, launches,
+                           _cfg_route(cfg))
     if not all(torch.isfinite(v).all() for v in remat.state.params.values()):
         raise AssertionError("non-finite SAE parameters after the remat steps")
     emit({"phase": "topk_remat", **info, "steps": TOPK_REMAT_STEPS, "launches": launches,
-          "expected_launches": expected, "seconds": seconds})
+          "expected_launches": expected, "routes": routes, "seconds": seconds})
     return launches
 
 
@@ -1845,11 +1941,13 @@ def phase_step_profile(info, trainer, store, cfg, phase):
         steps(c, 2)  # warm-up
         step_ms = cuda_us(lambda: steps(c, TOPK_PROFILE_STEPS), iters=1, warmup=0) \
             / 1000.0 / TOPK_PROFILE_STEPS
-        # the gated step: every kernel by device time, with the SAE kernels'
-        # share (B11's and B12's launches: sae_tc_kernel, center, partial sums)
+        # every kernel by device time, with the SAE kernels' share (gated: B11's
+        # and B12's launches, sae_tc_kernel, center, partial sums; TopK: B8's
+        # and B6's, sae_tc_kernel, center, the select and the counts)
         prof = (_profile(lambda: steps(c, 3), share_of=GATED_PROFILE_KERNELS,
                          top=GATED_PROFILE_TOP)
-                if cfg.architecture == "gated" else _profile(lambda: steps(c, 3)))
+                if cfg.architecture == "gated"
+                else _profile(lambda: steps(c, 3), share_of=TOPK_PROFILE_KERNELS))
         # the profiler slows the host, so its wall time overstates idling:
         # the share that counts is of the steps timed without it
         emit({"phase": phase, **info, **shape, "what": f"{name} train step",
@@ -1987,6 +2085,22 @@ def _zero_counts(counters):
         f.launches = 0
 
 
+def _route_counts(counters):
+    """Each routed wrapper's tally of launches by route, as it stands."""
+    return {k: dict(f.routes) for k, f in counters.items() if hasattr(f, "routes")}
+
+
+def _check_routes(what, counters, before, launches, route):
+    """Every launch of a routed wrapper since ``before`` (``_route_counts``)
+    counted on ``route``, the picker's for the path's shape; returns the
+    tallies that moved."""
+    got = {k: {r: counters[k].routes[r] - n for r, n in by.items()} for k, by in before.items()}
+    want = {k: {r: launches[k] if r == route else 0 for r in by} for k, by in got.items()}
+    if got != want:
+        raise AssertionError(f"{what} routes {got}, expected {want}")
+    return {k: v for k, v in got.items() if any(v.values())}
+
+
 def _check_sweep_metrics(metrics_list, layers):
     """Finite loss, L0 and EV for every layer, and L0 > 0 at every read for
     every layer outside ``SWEEP_L0_EXEMPT``."""
@@ -2015,7 +2129,7 @@ def phase_sweep(info):
 
     # The main path, with every count set to 0 just before it.
     _zero_counts(counters)
-    routes_before = {k: dict(f.routes) for k, f in counters.items() if hasattr(f, "routes")}
+    routes_before = _route_counts(counters)
     t0 = time.perf_counter()
     store = VisionActivationsStore(cfg, model, images)
     torch.cuda.synchronize()
@@ -2059,6 +2173,8 @@ def phase_sweep(info):
     if len(refills) != SWEEP_STEPS // K - 1 + SWEEP_CYCLES or launches != expected:
         raise AssertionError(f"sweep launches {launches}, expected {expected}, "
                              f"{len(refills)} refills")
+    # B4's and B6's launches on the picker's route (the sweep in bf16: Hopper)
+    routes = _check_routes("sweep", counters, routes_before, launches, _cfg_route(cfg))
     host = [trainer.log_metrics(type(cycle_metrics)(*(f[j] for f in cycle_metrics)))
             for j in range(K)]
     per_layer = lambda vals, k: [vals[f"layer_{l}/{k}"] for l in cfg.sweep_layers]
@@ -2076,6 +2192,7 @@ def phase_sweep(info):
     remat = SAESweepTrainer(cfg.replace(fused_store_acts=False), model, store)
     remat.load_state(trainer.state)
     _zero_counts(counters)
+    remat_routes_before = _route_counts(counters)
     t3 = time.perf_counter()
     remat_metrics = remat.train_cycles(1)
     torch.cuda.synchronize()
@@ -2084,6 +2201,9 @@ def phase_sweep(info):
     if (remat_launches["sae_fused_backward"] != K or remat_launches["sae_fused_forward"] != K
             or remat_launches["sae_fused_backward_stored"] != 0):
         raise AssertionError(f"remat cycle launches {remat_launches}")
+    # B4's and B5's launches on the picker's route (bf16: Hopper)
+    remat_routes = _check_routes("sweep remat cycle", counters, remat_routes_before,
+                                 remat_launches, _cfg_route(cfg))
     remat_host = trainer.log_metrics(type(remat_metrics)(*(f[-1] for f in remat_metrics)))
     _check_sweep_metrics([{k: per_layer(remat_host, k)
                            for k in ("loss", "l0", "explained_variance")}], cfg.sweep_layers)
@@ -2120,8 +2240,9 @@ def phase_sweep(info):
           "step_ms_without_refill": 1000 * (train_s - sum(refills)) / steps,
           "peak_memory_GB": peak_gb, "transpose_ms": transpose_ms,
           "refill_profile": refill_profile, "step_profile": step_profile,
-          "remat_cycle": {"launches": remat_launches, "seconds": remat_s,
-                          "mean_loss_last_step": remat_host["loss"]},
+          "routes": routes,
+          "remat_cycle": {"launches": remat_launches, "routes": remat_routes,
+                          "seconds": remat_s, "mean_loss_last_step": remat_host["loss"]},
           "metrics_logged": [{k: v[k] for k in ("loss", "l0", "explained_variance")}
                              for v in log],
           "l0_per_layer_logged": [per_layer(v, "l0") for v in log],
@@ -2263,14 +2384,15 @@ def _gated_masks_plain(x, We, bg, rmag, bm, bd):
     return hg > 0, (hg > 0) & (hm > 0), hg
 
 
-def _gated_ptxas():
-    """ptxas's record of the gated modes of the Hopper route's kernel (B11's
-    encoder and 192-wide decoder, B12's encoder, dg and wgrad): each built,
-    no spills, no serialized wgmma."""
+def _modes_ptxas(modes):
+    """ptxas's record of the Hopper route kernel's ``modes`` (GATED_TC_MODES:
+    B11's encoder and 192-wide decoder, B12's encoder, dg and wgrad;
+    REMAT_TOPK_TC_MODES: B5's, B8's and B9's): each built, no spills, no
+    serialized wgmma."""
     rec = {m: r for m, r in _tc_ptxas().items()
-           if any(f"{SAE_TC_KERNEL}ILi{mode}E" in m for mode in GATED_TC_MODES)}
-    if len(rec) != len(GATED_TC_MODES):
-        raise AssertionError(f"{SAE_TC_KERNEL}: gated modes {GATED_TC_MODES} in {list(rec)}")
+           if any(f"{SAE_TC_KERNEL}ILi{mode}E" in m for mode in modes)}
+    if len(rec) != len(modes):
+        raise AssertionError(f"{SAE_TC_KERNEL}: modes {modes} in {list(rec)}")
     return rec
 
 
@@ -2314,7 +2436,7 @@ def phase_gated_kernels(info):
     their products beside them."""
     from vit_prisma_tpu_torch.ops import sae_step as S
     g = torch.Generator(device="cuda").manual_seed(8)
-    gated_ptxas = _gated_ptxas()
+    gated_ptxas = _modes_ptxas(GATED_TC_MODES)
     results = {}
     for name, L, B, D, Sd, dtype in GATED_SHAPES:
         x, We, bg, Wd, bd, dy, dl1 = _sae_inputs(g, L, B, D, Sd, dtype)
@@ -3853,22 +3975,37 @@ def main():
                 "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                 "library_ms": None if lib is None else lib * scale}
 
-    def sae_tc_extra(rec, slice_rec):
-        """B4's or B6's GEMM route (`gemm_route`: the line's `route` is the
-        kernel's language, cuda), rate and cuBLAS-products time at the
-        sweep's shape, the same at the TopK slice's, and at the ViT-S width
-        that keeps the mma.sync tiles."""
-        mma_rec = sae_step_kernels[(rec["kernel"], SAE_MMA_SYNC_SHAPES[0])]
-        keys = ("route", "TFLOP_per_s", "cublas_products_ms", "ms", "bound_ms",
-                "max_abs_err", "bitwise_repeat")
+    tc_keys = ("route", "TFLOP_per_s", "cublas_products_ms", "ms", "bound_ms",
+               "max_abs_err", "bitwise_repeat")
+    other_sources = {"sae_fused_forward": SAE_FWD_SOURCE, "sae_fused_backward": SAE_BWD_SOURCE,
+                     "sae_fused_backward_stored": SAE_BWD_SOURCE,
+                     "sae_fused_forward_topk": TOPK_FWD_SOURCE,
+                     "sae_fused_backward_topk": SAE_BWD_SOURCE}
+
+    def tc_extra(rec, beside):
+        """A routed SAE kernel's GEMM route (`gemm_route`: the line's `route`
+        is the kernel's language, cuda), rate, cuBLAS-products time and
+        repeatability at the line's shape, and the same figures at the
+        shapes of ``beside`` (name -> record: another Hopper shape and the
+        ViT-S width that keeps the mma.sync tiles)."""
         return {"gemm_route": rec["route"], "TFLOP_per_s": rec["TFLOP_per_s"],
                 "cublas_products_ms": rec["cublas_products_ms"],
                 "cublas_products_note": rec["cublas_products_note"],
                 "bitwise_repeat": rec["bitwise_repeat"],
-                "other_routes_source": SAE_FWD_SOURCE if rec["kernel"] == "sae_fused_forward"
-                else SAE_BWD_SOURCE,
-                **{f"topk_slice_{k}": slice_rec[k] for k in keys},
-                **{f"{SAE_MMA_SYNC_SHAPES[0]}_{k}": mma_rec[k] for k in keys}}
+                "other_routes_source": other_sources[rec["kernel"]],
+                **{f"{shape}_{k}": r[k] for shape, r in beside.items() for k in tc_keys}}
+
+    def sae_tc_extra(rec, slice_rec):
+        """B4, B5 or B6 at the sweep's shape, with the TopK slice's and the
+        ViT-S width's figures beside."""
+        return tc_extra(rec, {"topk_slice": slice_rec, SAE_MMA_SYNC_SHAPES[0]:
+                              sae_step_kernels[(rec["kernel"], SAE_MMA_SYNC_SHAPES[0])]})
+
+    def topk_tc_extra(rec):
+        """B8 or B9 at the TopK slice, with the sweep's and the ViT-S width's
+        figures beside."""
+        return tc_extra(rec, {shape: topk_kernels[(rec["kernel"], shape)]
+                              for shape in ("sweep_bf16", SAE_MMA_SYNC_SHAPES[0])})
 
     take_rows_line = {
         shape: {"max_abs_err": r["max_abs_err"], "us": r["kernel_us"], "call_us": r["us"],
@@ -3906,15 +4043,18 @@ def main():
         entry("adam_update", ADAM_SOURCE, ADAM_REPLACES, train_launches["adam_update"],
               adam_rec, "us", 1e-3),
         # at the sweep's bf16 shape; launches from the sweep's main path (B5:
-        # from its remat cycle; B6: the sweep's and the TopK slice's).  B4 and
-        # B6 run their Hopper route there (source: its file), with the TopK
+        # from its remat cycle; B6: the sweep's and the TopK slice's).  B4-B6
+        # run their Hopper route there (source: its file), with the TopK
         # slice's bf16 figures and the cuBLAS time of their products beside
         {**entry("sae_fused_forward", SAE_TC_SOURCE, SAE_REPLACES["sae_fused_forward"],
                  sweep_launches["sae_fused_forward"], sweep_rec("sae_fused_forward")),
          **sae_tc_extra(sweep_rec("sae_fused_forward"),
                         sae_step_kernels[("sae_fused_forward", "topk_slice_bf16")])},
-        entry("sae_fused_backward", SAE_BWD_SOURCE, SAE_REPLACES["sae_fused_backward"],
-              remat_launches["sae_fused_backward"], sweep_rec("sae_fused_backward")),
+        {**entry("sae_fused_backward", SAE_TC_SOURCE, SAE_REPLACES["sae_fused_backward"],
+                 remat_launches["sae_fused_backward"], sweep_rec("sae_fused_backward")),
+         **sae_tc_extra(sweep_rec("sae_fused_backward"),
+                        sae_step_kernels[("sae_fused_backward", "topk_slice_bf16")]),
+         "b5_against_b6_on_b4_hc": sweep_rec("sae_fused_backward")["b5_against_b6_on_b4_hc"]},
         {**entry("sae_fused_backward_stored", SAE_TC_SOURCE,
                  SAE_REPLACES["sae_fused_backward_stored"],
                  sweep_launches["sae_fused_backward_stored"]
@@ -3923,13 +4063,17 @@ def main():
          **sae_tc_extra(sweep_rec("sae_fused_backward_stored"),
                         topk_rec("sae_fused_backward_stored"))},
         # at the TopK slice's bf16 shape; launches from its train path (B9:
-        # from its remat steps)
-        entry("sae_fused_forward_topk", TOPK_FWD_SOURCE, TOPK_REPLACES["sae_fused_forward_topk"],
-              topk_launches["sae_fused_forward_topk"], topk_rec("sae_fused_forward_topk")),
-        entry("sae_fused_backward_topk", SAE_BWD_SOURCE,
-              TOPK_REPLACES["sae_fused_backward_topk"],
-              topk_remat_launches["sae_fused_backward_topk"],
-              topk_rec("sae_fused_backward_topk")),
+        # from its remat steps).  Both run their Hopper route there (source:
+        # its file), with the sweep's and the ViT-S width's figures beside
+        {**entry("sae_fused_forward_topk", SAE_TC_SOURCE, TOPK_REPLACES["sae_fused_forward_topk"],
+                 topk_launches["sae_fused_forward_topk"], topk_rec("sae_fused_forward_topk")),
+         **topk_tc_extra(topk_rec("sae_fused_forward_topk"))},
+        {**entry("sae_fused_backward_topk", SAE_TC_SOURCE,
+                 TOPK_REPLACES["sae_fused_backward_topk"],
+                 topk_remat_launches["sae_fused_backward_topk"],
+                 topk_rec("sae_fused_backward_topk")),
+         **topk_tc_extra(topk_rec("sae_fused_backward_topk")),
+         "b9_equals_b6_on_h": topk_rec("sae_fused_backward_topk")["B9_equals_B6_on_h"]},
         # the generic TopK step's float32 [4096, 12288], with the other
         # shapes of KTH_SHAPES beside it; launches from the generic steps and
         # encode of the TopK step check

@@ -26,8 +26,19 @@ and of B11's and B12's gated modes:
 * ``g_dg_nopart``: the dg epilogue takes no column partials (wrong sums: a
   bound on what the three reductions cost).
 
+and of B8's:
+
+* ``t_dec256``: B8's decoder on 256-wide tiles (96 of them at the TopK
+  slice), where the package's takes 192-wide ones (128).
+* ``t_sparse_dec``: B8's decoder over each row's active set alone, y =
+  b_dec + sum of h[j] W_dec[j, :] over the row's nonzero h (about k of
+  d_sae), one block a row (d_in / 2 threads, a column pair each), the
+  row's nonzeros compacted into shared memory in index order a chunk at a
+  time, W_dec's rows read through L2; in place of the dense decoder GEMM.
+
 Prints the sources written.  Then, on a CUDA card:
-``python3 probes/sae_tc_versions.py [--only relu|gated] <dir>/sae_fused_tc.cu ...``."""
+``python3 probes/sae_tc_versions.py [--only relu|gated|remat|topk]
+<dir>/sae_fused_tc.cu ...``."""
 
 from pathlib import Path
 
@@ -327,6 +338,99 @@ DG_PARTS = """        col_partial(sg0, sg1, red + (0 * 4 * kConsumers + cw) * C:
 """
 
 
+TOPK_FILL_WAVES = "constexpr bool kTopkFillWaves = true;"
+TOPK_DECODER_CALL = "return decoder(h, Wd, bd, y, L, B, D, S, device, s, kTopkFillWaves);"
+SPARSE_DECODER = """// B8's decoder over the active set (probes/sae_tc_variants.py, t_sparse_dec):
+// one block a row of h [L * B, S], blockDim D / 2 (a column pair a thread);
+// the row's nonzeros compacted into shared memory in index order, a chunk
+// of 8 blockDim entries at a time; y = b_dec + sum of h[j] W_dec[j, :].
+__global__ void sparse_decoder_kernel(const bf16* __restrict__ h, const bf16* __restrict__ Wd,
+                                      const bf16* __restrict__ bd, bf16* __restrict__ y, int B,
+                                      int D, int S) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nt = blockDim.x, chunk = 8 * nt;
+  int* idx = reinterpret_cast<int*>(smem_raw);
+  float* val = reinterpret_cast<float*>(idx + chunk);
+  __shared__ int wsum[33];
+  const long long row = blockIdx.x;
+  const int l = static_cast<int>(row / B), c = threadIdx.x, lane = c & 31, warp = c >> 5;
+  const bf16* hr = h + row * S;
+  const bf16* W = Wd + static_cast<long long>(l) * S * D + 2 * c;
+  const float2 b = bf2(bd + static_cast<long long>(l) * D + 2 * c);
+  float a0 = b.x, a1 = b.y;
+  for (int base = 0; base < S; base += chunk) {
+    const int i0 = base + 8 * c;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (i0 < S) v = *reinterpret_cast<const uint4*>(hr + i0);
+    const unsigned* w = &v.x;
+    int n = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) n += ((w[q] & 0xffffu) != 0u) + ((w[q] >> 16) != 0u);
+    int incl = n;  // the block's exclusive scan of n, in thread order
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += u;
+    }
+    if (lane == 31) wsum[warp] = incl;
+    __syncthreads();
+    if (c == 0) {
+      int s = 0;
+      for (int k = 0; k < nt / 32; ++k) {
+        const int t = wsum[k];
+        wsum[k] = s;
+        s += t;
+      }
+      wsum[32] = s;
+    }
+    __syncthreads();
+    int pos = wsum[warp] + incl - n;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const unsigned bits = (w[q >> 1] >> (16 * (q & 1))) & 0xffffu;
+      if (bits != 0u) {
+        idx[pos] = i0 + q;
+        val[pos] = __uint_as_float(bits << 16);
+        ++pos;
+      }
+    }
+    __syncthreads();
+    const int total = wsum[32];
+    int j = 0;
+    for (; j + 4 <= total; j += 4) {
+      float2 wv[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) wv[u] = bf2(W + static_cast<long long>(idx[j + u]) * D);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        a0 += val[j + u] * wv[u].x;
+        a1 += val[j + u] * wv[u].y;
+      }
+    }
+    for (; j < total; ++j) {
+      const float2 wv = bf2(W + static_cast<long long>(idx[j]) * D);
+      a0 += val[j] * wv.x;
+      a1 += val[j] * wv.y;
+    }
+    __syncthreads();
+  }
+  *reinterpret_cast<__nv_bfloat162*>(y + row * D + 2 * c) = __floats2bfloat162_rn(a0, a1);
+}
+
+cudaError_t sparse_decoder(const void* h, const void* Wd, const void* bd, void* y, int L, int B,
+                           int D, int S, cudaStream_t s) {
+  const int nt = D / 2;
+  if (nt % 32 != 0 || nt > 1024 || S % 8 != 0) return cudaErrorInvalidValue;
+  const int smem = 8 * nt * 8;
+  cudaError_t err = sae::allow_smem(sparse_decoder_kernel, smem);
+  if (err != cudaSuccess) return err;
+  sparse_decoder_kernel<<<static_cast<unsigned>(static_cast<long long>(L) * B), nt, smem, s>>>(
+      static_cast<const bf16*>(h), static_cast<const bf16*>(Wd), static_cast<const bf16*>(bd),
+      static_cast<bf16*>(y), B, D, S);
+  return cudaGetLastError();
+}
+
+"""
 TILE_256 = "constexpr int kBN = 256; "
 MMA_CALL = "mma256<AM, BM>(acc, "
 
@@ -336,7 +440,8 @@ def main():
     hdr = (CSRC / "sae_wgmma.cuh").read_text()
     if (BALLOT not in src or any(t not in hdr for t in (TILE_256, MMA_CALL))
             or any(t not in src for t in (HELPERS, DG_CALLS, CHUNKED, STAGING_FREE,
-                                          DG_PARTS, FILL_WAVES))):
+                                          DG_PARTS, FILL_WAVES, TOPK_FILL_WAVES,
+                                          TOPK_DECODER_CALL))):
         raise SystemExit("sae_fused_tc.cu or sae_wgmma.cuh no longer has the code these "
                          "versions edit")
     versions = {"v_shuffle": (src.replace(BALLOT, SHUFFLE), None),
@@ -349,7 +454,13 @@ def main():
                 "g_two_pass": (src.replace(CHUNKED, TWO_PASS).replace(
                     STAGING_FREE, STAGING_FREE.replace("if (!C::kGated)", "")
                     .replace("} else  {", "} else {")), None),
-                "g_dg_nopart": (src.replace(DG_PARTS, ""), None)}
+                "g_dg_nopart": (src.replace(DG_PARTS, ""), None),
+                "t_dec256": (src.replace(TOPK_FILL_WAVES, TOPK_FILL_WAVES.replace("true",
+                                                                                  "false")),
+                             None),
+                "t_sparse_dec": (src.replace(TOPK_FILL_WAVES, SPARSE_DECODER + TOPK_FILL_WAVES)
+                                 .replace(TOPK_DECODER_CALL, "return sparse_decoder(h, Wd, bd, "
+                                          "y, L, B, D, S, s);"), None)}
     for name, (cu, cuh) in versions.items():
         d = CSRC / "build" / name
         d.mkdir(parents=True, exist_ok=True)

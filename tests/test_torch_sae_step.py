@@ -232,7 +232,8 @@ def _build_copy(tmp_path):
     return mod, pkg / "csrc"
 
 
-@pytest.mark.parametrize("edited", ["sae_gemm.cuh", "sae_fused_fwd.cu", "sae_wgmma.cuh"])
+@pytest.mark.parametrize("edited", ["sae_gemm.cuh", "sae_fused_fwd.cu", "sae_wgmma.cuh",
+                                    "radix_select.cuh"])
 def test_build_dir_changes_when_a_source_or_header_changes(tmp_path, edited):
     build, csrc = _build_copy(tmp_path)
     assert (csrc / "sae_gemm.cuh").exists()

@@ -52,9 +52,10 @@
 // bf16 peak (the plain versions: 112.5 and 149.3 ms); in float32 the FFMA
 // tiles run at 36-39 TFLOP/s.  B5 pays one more product than B6 and, as it
 // writes hc in its own backward, saves no peak memory: `sae_fused_apply`
-// keeps hc (B6) unless it is asked to recompute it (B5).  B6 in bf16 at
-// d_in and d_sae multiples of 256 runs sae_fused_tc.cu's wgmma/TMA route
-// instead of this file's stored mode.
+// keeps hc (B6) unless it is asked to recompute it (B5).  In bf16 at d_in
+// and d_sae multiples of 256 (the wrapper's `sae_gemm_route`) B5, B6 and
+// B9 all run sae_fused_tc.cu's wgmma/TMA route instead of this file; it
+// keeps float32 and the other bf16 shapes.
 
 #include "sae_gemm.cuh"
 

@@ -1,4 +1,6 @@
-// Fused TopK SAE forward over L stacked SAEs (kernel B8).
+// Fused TopK SAE forward over L stacked SAEs (kernel B8): its float32 route
+// and the bf16 shapes that sae_fused_tc.cu's wgmma/TMA route does not take
+// (d_in or d_sae not a multiple of 256; the wrapper's `sae_gemm_route`).
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel_topk` (with its threshold
 // search `_row_kth_threshold`), launched by `_fused_forward_topk` in
@@ -30,7 +32,8 @@
 //      bfloat16 (non-negative patterns order as integers, so the sign bit is
 //      never searched).  It writes t and zeroes the inactive entries of hp in
 //      place, which leaves h;
-//   4. counts: per 128-row block and feature, the active count (h > 0
+//   4. counts (sae_gemm.cuh's active_counts, which the Hopper route shares):
+//      per 128-row block and feature, the active count (h > 0
 //      exactly on the active set), and per 128 x 128 tile the sum of h:
 //      partials summed by the wrapper in a fixed order, no atomics, so nact
 //      is exact and l1 the same from run to run;
@@ -106,53 +109,6 @@ threshold_kernel(T* h, float* __restrict__ t, int S, int k, int staged) {
   if (threadIdx.x == 0) t[blockIdx.x] = tf;
 }
 
-__device__ __forceinline__ void load2(const float* p, float& a, float& b) {
-  const float2 v = *reinterpret_cast<const float2*>(p);
-  a = v.x;
-  b = v.y;
-}
-__device__ __forceinline__ void load2(const __nv_bfloat16* p, float& a, float& b) {
-  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
-  a = __low2float(v);
-  b = __high2float(v);
-}
-
-constexpr int kCountThreads = BN / 2;  // two features a thread
-
-// Per 128-row block: nact_part[l, rb, j] = rows with h > 0 in feature j, and
-// l1_part[l, rb, cb] = sum of h over the 128 x 128 tile, each summed in a
-// fixed order.  Grid (S/BN, B/BM, L).
-template <typename T>
-__global__ void __launch_bounds__(kCountThreads)
-count_kernel(const T* __restrict__ h, float* __restrict__ nact_part,
-             float* __restrict__ l1_part, int B, int S) {
-  const int l = blockIdx.z, rb = blockIdx.y, cb = blockIdx.x;
-  const int c = cb * BN + 2 * threadIdx.x;
-  const T* p = h + (static_cast<long long>(l) * B + static_cast<long long>(rb) * BM) * S + c;
-  float n0 = 0.f, n1 = 0.f, s = 0.f;
-  for (int r = 0; r < BM; ++r) {
-    float a, b;
-    load2(p + static_cast<long long>(r) * S, a, b);
-    n0 += a > 0.f ? 1.f : 0.f;
-    n1 += b > 0.f ? 1.f : 0.f;
-    s += a + b;
-  }
-  float* out = nact_part + (static_cast<long long>(l) * gridDim.y + rb) * S + c;
-  out[0] = n0;
-  out[1] = n1;
-  __shared__ float red[kCountThreads / 32];
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x / 32] = s;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float total = 0.f;
-#pragma unroll
-    for (int w = 0; w < kCountThreads / 32; ++w) total += red[w];
-    l1_part[(static_cast<long long>(l) * gridDim.y + rb) * gridDim.x + cb] = total;
-  }
-}
-
 template <typename T>
 cudaError_t forward(const void* x, const void* We, const void* be, const void* Wd,
                     const void* bd, void* xc, void* h, void* y, void* t, void* nact_part,
@@ -176,9 +132,9 @@ cudaError_t forward(const void* x, const void* We, const void* be, const void* W
                         staged ? static_cast<size_t>(S) * sizeof(T) : 0, s>>>(
       th, static_cast<float*>(t), S, k, staged);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  count_kernel<T><<<dim3(S / BN, B / BM, L), kCountThreads, 0, s>>>(
-      th, static_cast<float*>(nact_part), static_cast<float*>(l1_part), B, S);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = active_counts<T>(th, static_cast<float*>(nact_part), static_cast<float*>(l1_part),
+                              L, B, S, s)) != cudaSuccess)
+    return err;
   decoder_kernel<T><<<dim3(D / BN, B / BM, L), kThreads, smem, s>>>(th, tWd, tbd, ty, B, D, S);
   return cudaGetLastError();
 }

@@ -1,17 +1,22 @@
 // The bfloat16 Hopper route of the fused standard-ReLU SAE forward (kernel
-// B4) and of its stored-activations backward (kernel B6), and of the gated
-// SAE's forward (B11) and remat backward (B12), over L stacked SAEs, on
-// sae_wgmma.cuh's persistent warp-specialized wgmma/TMA GEMM.
+// B4), its remat and stored-activations backwards (B5, B6), the TopK SAE's
+// forward and remat backward (B8, B9), and the gated SAE's forward (B11)
+// and remat backward (B12), over L stacked SAEs, on sae_wgmma.cuh's
+// persistent warp-specialized wgmma/TMA GEMM.
 //
-// Replaces, with sae_fused_fwd.cu, sae_fused_bwd.cu, sae_fused_fwd_gated.cu
-// and sae_fused_bwd_gated.cu (which keep the float32 route, the bf16 shapes
-// this route does not take, and B5 and B9), the Pallas TPU kernels
-// `_fwd_kernel` (launched by `_fused_forward`), `_bwd_kernel_stored`
-// (`_fused_backward_stored`), `_fwd_kernel_gated` (`_fused_forward_gated`)
-// and `_bwd_kernel_gated` (`_fused_backward_gated`) in
-// vit_prisma_tpu/ops/sae_step.py.  The functions and cast points are those
-// of the mma.sync kernels and of the plain versions
-// `sae_fused_forward_reference`, `sae_fused_backward_stored_reference`,
+// Replaces, with sae_fused_fwd.cu, sae_fused_bwd.cu, sae_fused_fwd_topk.cu,
+// sae_fused_fwd_gated.cu and sae_fused_bwd_gated.cu (which keep the float32
+// route and the bf16 shapes this route does not take), the Pallas TPU
+// kernels `_fwd_kernel` (launched by `_fused_forward`), `_bwd_kernel`
+// (`_fused_backward`), `_bwd_kernel_stored` (`_fused_backward_stored`),
+// `_fwd_kernel_topk` (`_fused_forward_topk`, its search
+// `_row_kth_threshold`), `_bwd_kernel_topk` (`_fused_backward_topk`),
+// `_fwd_kernel_gated` (`_fused_forward_gated`) and `_bwd_kernel_gated`
+// (`_fused_backward_gated`) in vit_prisma_tpu/ops/sae_step.py.  The
+// functions and cast points are those of the mma.sync kernels and of the
+// plain versions `sae_fused_forward_reference`,
+// `sae_fused_backward_reference`, `sae_fused_backward_stored_reference`,
+// `sae_fused_forward_topk_reference`, `sae_fused_backward_topk_reference`,
 // `sae_gated_fused_forward_reference` and
 // `sae_gated_fused_backward_reference` (vit_prisma_tpu_torch/ops/sae_step.py):
 //   B4: xc = x - b_dec (bf16); hpre = xc W_enc + b_enc (float32);
@@ -20,6 +25,11 @@
 //   B6: mask = float(hc) > 0 on the stored hc; dh = mask ? dy W_dec^T + dl1 : 0
 //       (float32); dhc = bf16(dh); dW_enc = xc^T dhc, dW_dec = hc^T dy
 //       (float32); db_enc = column sums of the float32 dh;
+//   B5: B4's hpre again; mask = hpre > 0 (float32), else as B6;
+//   B8: hp = bf16(hpre); t = k-th largest of max(float(hp), 0) over the row;
+//       h = (hp > 0 && hp >= t) ? hp : 0; y = bf16(b_dec + h W_dec);
+//       l1 = sum of h; nact = rows with h > 0;
+//   B9: B8's h again from hpre and the stored t, then B6 on it;
 //   B11: g = xc W_enc (float32); hg = bf16(g + b_gate), hm = bf16(g e + b_mag)
 //       (a rounded product, then a rounded sum: no FMA); h = hg > 0 ?
 //       max(hm, 0) : 0, hga = max(hg, 0); y, via = bf16(b_dec + h W_dec),
@@ -46,6 +56,22 @@
 //       launch, a schedule over both products' tiles (the same K = B), so
 //       neither leaves a tail; their float32 tiles go straight from the
 //       accumulators to device memory;
+//   B5: center; B4's encoder again, the same mainloop (so hpre is B4's to
+//       the bit) with a lighter epilogue: b_enc, ReLU and the hc store, no
+//       reductions, and hc's bits 0x8000 (-0, which B4 never writes) where
+//       hpre > 0 rounds to +0 in bf16 (below 2^-134), so that the mask
+//       travels in hc; then B6's launches, the dh GEMM reading its mask as
+//       "hc's bits != 0" (kDhMarked);
+//   B8: center; B5's encoder without the marks (hc = c(max(hpre, 0)), +0
+//       where hpre <= 0, which equals max(float(bf16(hpre)), 0) entry by
+//       entry, since rounding keeps the sign); radix_select.cuh's select on
+//       each row of hc, which writes t and rewrites the row in place as h
+//       (B10's radix select, one block a row staging it, two 8-bit digit
+//       passes: bitwise the search's t on rows of +0s and positives); the
+//       counts (sae::active_counts: nact and l1 per 128-row block); the
+//       decoder over h, on 192-wide tiles where they fill the waves better;
+//   B9: center; B8's encoder again masked against the stored t (no select),
+//       so its h is B8's to the bit; then B6's launches;
 //   B11: center, the gated encoder GEMM (its epilogue takes the tile in
 //       four chunks of 64 columns, staging each chunk's c(h) and c(hga) in
 //       two of four swizzled boxes for TMA stores to rows [0, B) and [B, 2B)
@@ -73,7 +99,10 @@
 // memory are the limit: both are bound by tensor-core issue (bounds 3.34 and
 // 5.00 ms at 989 TFLOP/s); at the gated slice (1 x 4096, 768 -> 12,288)
 // B11's three products (232 GFLOP) and B12's six (464 GFLOP) likewise
-// (bounds 0.234 and 0.469 ms), B12's float32 g adding 0.4 GB of traffic.
+// (bounds 0.234 and 0.469 ms), B12's float32 g adding 0.4 GB of traffic;
+// B5's four products at the sweep shape (6.6 TFLOP, 6.67 ms) and B8's two
+// at the TopK slice (155 GFLOP, 0.157 ms; its select reads and writes h,
+// 201 MB, 0.06 ms at 3.35 TB/s) likewise.
 // The mma.sync tiles they replace ran at 144-254 TFLOP/s; this route issues
 // wgmmas from two consumer warpgroups on a TMA-fed ring, the form that
 // reached 385-489 TFLOP/s in B14 (ln_matmul.cu).  Measured on an NVIDIA H100
@@ -86,6 +115,7 @@
 // `sae_gemm_route` picks them; the entries return cudaErrorInvalidValue for
 // others); every pointer 16-byte aligned.
 
+#include "radix_select.cuh"
 #include "sae_wgmma.cuh"
 
 namespace {
@@ -101,7 +131,11 @@ enum Mode {
   kGatedRemat = 5,     // B12: c(h), c(hga), the float32 g, colsum(max(hg, 0))
   kDg = 6,             // B12: c(dg), column partials of dhg, dhm, dhm g
   kGatedWgrad = 7,     // B12: dW_enc = xc^T c(dg), dW_dec = h^T [dy; dvia] + coef W_dec
-  kDecoder192 = 8,     // B11: kDecoder on 192-wide tiles, where they fill the waves better
+  kDecoder192 = 8,     // B11, B8: kDecoder on 192-wide tiles, where they fill the waves better
+  kReluRemat = 9,      // B5: hc = c(relu(hpre)), -0 where hpre > 0 rounds to +0
+  kTopkEncoder = 10,   // B8: hc = c(max(hpre, 0)), +0 where hpre <= 0
+  kTopkRemat = 11,     // B9: B8's h, hc masked against the stored t
+  kDhMarked = 12,      // B5: kDh with the mask "hc's bits != 0" (kReluRemat's marks)
 };
 
 // Per mode: operand layouts, ring depth, tile width, and what the epilogue
@@ -110,12 +144,16 @@ template <int MODE>
 struct Cfg {
   static constexpr bool kGated = MODE == kGatedEncoder || MODE == kGatedRemat;
   static constexpr bool kWgradLike = MODE == kWgrad || MODE == kGatedWgrad;
+  static constexpr bool kDhLike = MODE == kDh || MODE == kDhMarked;
+  // the encoders of B5, B8 and B9: hc alone, no reductions
+  static constexpr bool kPlainEncoder =
+      MODE == kReluRemat || MODE == kTopkEncoder || MODE == kTopkRemat;
   static constexpr int AM = kWgradLike ? kMNMajor : kKMajor;
-  static constexpr int BM = MODE == kDh || MODE == kDg ? kKMajor : kMNMajor;
+  static constexpr int BM = kDhLike || MODE == kDg ? kKMajor : kMNMajor;
   static constexpr bool kStaging = !kWgradLike && MODE != kDg;  // a bf16 C tile by TMA store
-  static constexpr bool kRed = MODE == kEncoder || MODE == kDh || kGated || MODE == kDg;
+  static constexpr bool kRed = MODE == kEncoder || kDhLike || kGated || MODE == kDg;
   // a tile loaded by TMA into the warpgroup's buffer: the stored hc (dh), g (dg)
-  static constexpr bool kLoadC = MODE == kDh || MODE == kDg;
+  static constexpr bool kLoadC = kDhLike || MODE == kDg;
   static constexpr int kTileN = MODE == kDg ? 128 : MODE == kDecoder192 ? 192 : kBN;
   // a stage: A and B tiles (dg: dy, dvia and W_dec tiles)
   static constexpr int kStageBytes = MODE == kDg ? kDgStageBytes : stage_bytes<kTileN>();
@@ -155,6 +193,7 @@ struct Params {
   const float* e;       // exp(r_mag) [L, S] (gated encoders, dg)
   const float* wdn;     // decoder row norms [L, S] (B11's encoder, dg, gated wgrad)
   const float* dl1;     // [L] (dh, dg, gated wgrad)
+  const float* t;       // B8's thresholds [L, B] (B9's encoder)
   float* g;             // the float32 g [L, B, S]: kGatedRemat writes it (kDg loads it by x0)
   bf16* out;            // c(dg) [L, B, S] (dg: stored from the registers)
   float* part;          // [L, B / 128, S]: nact (encoders), db_enc (dh), colsum(max(hg,
@@ -288,7 +327,7 @@ __global__ void __launch_bounds__(kThreads, 1)
               ring, it, second ? &a1 : &a0, bm, MODE == kGatedWgrad ? &x0 : bm,
               MODE == kGatedWgrad && second ? p.kswitch : kts, kts, x.l, x.m0, x.n0);
         }
-        if (MODE == kDh) load_c();
+        if (C::kDhLike) load_c();
       }
     }
     return;
@@ -397,7 +436,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         continue;
       }
 
-      if (MODE == kDh) {
+      if (C::kDhLike) {
         hg::mbar_wait(&cfull[wg], i & 1);  // the stored hc tile is in the staging
       } else if (!C::kGated) {
         staging_free(t, wg);  // the last tile's store has read the staging
@@ -502,6 +541,41 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1) l1 += __shfl_xor_sync(0xffffffffu, l1, o);
         if (lane == 0) l1red[cw] = l1;
+      } else if constexpr (C::kPlainEncoder) {
+        // b_enc, then hc = c(max(hpre, 0)) staged as B4's encoder stages it
+        // (the same mainloop: the same float32 hpre), with no reductions.
+        // B5 marks with -0 (bits 0x8000, which B4 never writes) each entry
+        // whose hpre > 0 rounds to +0, so that its dh mask, bits != 0, is
+        // B5's hpre > 0; -0 adds nothing to dW_dec = hc^T dy.  B9 keeps the
+        // entries of hc above 0 and at least the row's t (B8's h).
+        const bf16* be = p.bias + lcol;
+        float tr[2] = {0.f, 0.f};  // B9: the thread's two rows' thresholds
+        if (MODE == kTopkRemat) {
+          const long long row =
+              static_cast<long long>(x.l) * p.g0.tm * kBM + x.m0 + 64 * wg + 16 * warp + g;
+          tr[0] = p.t[row];
+          tr[1] = p.t[row + 8];
+        }
+#pragma unroll
+        for (int j = 0; j < kBN / 8; ++j) {
+          const float2 b = bf2(be + 8 * j + 2 * tq);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float p0 = acc[4 * j + 2 * h] + b.x, p1 = acc[4 * j + 2 * h + 1] + b.y;
+            const __nv_bfloat162 v = __floats2bfloat162_rn(p0 > 0.f ? p0 : 0.f,
+                                                           p1 > 0.f ? p1 : 0.f);
+            unsigned w = *reinterpret_cast<const unsigned*>(&v);
+            if (MODE == kReluRemat) {
+              if (p0 > 0.f && (w & 0xffffu) == 0u) w |= 0x8000u;
+              if (p1 > 0.f && (w >> 16) == 0u) w |= 0x80000000u;
+            } else if (MODE == kTopkRemat) {
+              const float2 f = __bfloat1622float2(v);
+              if (!(f.x > 0.f && f.x >= tr[h])) w &= 0xffff0000u;
+              if (!(f.y > 0.f && f.y >= tr[h])) w &= 0x0000ffffu;
+            }
+            *reinterpret_cast<unsigned*>(stg + stage_off(16 * warp + g + 8 * h, j, tq)) = w;
+          }
+        }
       } else if constexpr (MODE == kDecoder || MODE == kDecoder192) {
         const bf16* bd = p.bias + lcol;
 #pragma unroll
@@ -512,7 +586,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             sae::store2(reinterpret_cast<bf16*>(stg + stage_off(16 * warp + g + 8 * h, j, tq)),
                         b.x + acc[4 * j + 2 * h], b.y + acc[4 * j + 2 * h + 1]);
         }
-      } else if constexpr (MODE == kDh) {  // mask from the stored hc, dl1, dhc in place of hc
+      } else if constexpr (C::kDhLike) {  // mask from the stored hc, dl1, dhc in place of hc
         const float g1 = p.dl1[x.l];
 #pragma unroll
         for (int j = 0; j < kBN / 8; ++j) {
@@ -521,9 +595,19 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int h = 0; h < 2; ++h) {
             __nv_bfloat162* q =
                 reinterpret_cast<__nv_bfloat162*>(stg + stage_off(16 * warp + g + 8 * h, j, tq));
-            const float2 hv = __bfloat1622float2(*q);
-            const float d0 = hv.x > 0.f ? acc[4 * j + 2 * h] + g1 : 0.f;
-            const float d1 = hv.y > 0.f ? acc[4 * j + 2 * h + 1] + g1 : 0.f;
+            // B6: float(hc) > 0; B5 (kDhMarked): hc's bits != 0, its marks included
+            bool on0, on1;
+            if (MODE == kDhMarked) {
+              const unsigned w = *reinterpret_cast<const unsigned*>(q);
+              on0 = (w & 0xffffu) != 0u;
+              on1 = (w >> 16) != 0u;
+            } else {
+              const float2 hv = __bfloat1622float2(*q);
+              on0 = hv.x > 0.f;
+              on1 = hv.y > 0.f;
+            }
+            const float d0 = on0 ? acc[4 * j + 2 * h] + g1 : 0.f;
+            const float d1 = on1 ? acc[4 * j + 2 * h + 1] + g1 : 0.f;
             s0 += d0;
             s1 += d1;
             *q = __floats2bfloat162_rn(d0, d1);
@@ -534,7 +618,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
       if (!C::kGated) {  // the warpgroup's staged tile to device memory
         store_staged<C::kTileN / hg::kBox>(&cout, stg, x.n0, x.m0 + 64 * wg, x.l, t, wg);
-        if (MODE == kDh && t == 0) {  // the producer may load the next hc tile here
+        if (C::kDhLike && t == 0) {  // the producer may load the next hc tile here
           hg::bulk_wait_read();
           hg::mbar_arrive(&cempty[wg]);
         }
@@ -646,6 +730,77 @@ cudaError_t center(const void* x, const void* bd, void* xc, int L, int B, int D,
                            static_cast<bf16*>(xc), L, B, D, s);
 }
 
+// The encoder of B5, B8 or B9 (MODE kReluRemat, kTopkEncoder, kTopkRemat):
+// hc [L, B, S] from xc [L, B, D], W_enc [L, D, S] and b_enc (B9: masked
+// against t [L, B]), on B4's encoder's tiles and mainloop.
+template <int MODE>
+cudaError_t plain_encoder(const void* xc, const void* We, const void* be, const void* t,
+                          void* hc, int L, int B, int D, int S, int device, cudaStream_t s) {
+  CUtensorMap m[6];
+  cudaError_t err;
+  if ((err = product_maps(&m[0], &m[1], xc, B, D, kKMajor, We, D, S, kMNMajor, L)) != cudaSuccess ||
+      (err = map3(&m[5], hc, L, B, S, hg::kBox)) != cudaSuccess)
+    return err;
+  m[2] = m[0];
+  m[3] = m[1];
+  m[4] = m[5];
+  Params p = {};
+  p.g0 = p.g1 = make_grid(L, B, S);
+  p.total = p.tiles0 = tiles(p.g0);
+  p.ktiles = p.ktiles1 = D / kBK;
+  p.bias = static_cast<const bf16*>(be);
+  p.t = static_cast<const float*>(t);
+  return launch<MODE>(m, p, device, s);
+}
+
+// B6's launches after the center, which B5 and B9 share: the dh GEMM (DH
+// kDh: mask float(hc) > 0; kDhMarked: hc's bits != 0), then dW_enc and
+// dW_dec in one launch.
+template <int DH>
+cudaError_t backward_from_hc(const void* xc, const void* hc, const void* Wd, const void* dy,
+                             const void* dl1, void* dhc, void* dWe, void* dWd, void* dbe_part,
+                             int L, int B, int D, int S, int device, cudaStream_t s) {
+  // dh [L, B, S] = dy [L, B, D] W_dec^T, W_dec [L, S, D] as the K-major B
+  CUtensorMap m[6];
+  cudaError_t err;
+  if ((err = product_maps(&m[0], &m[1], dy, B, D, kKMajor, Wd, S, D, kKMajor, L)) != cudaSuccess ||
+      (err = map3(&m[4], hc, L, B, S, hg::kBox)) != cudaSuccess ||
+      (err = map3(&m[5], dhc, L, B, S, hg::kBox)) != cudaSuccess)
+    return err;
+  m[2] = m[0];
+  m[3] = m[1];
+  Params p = {};
+  p.g0 = p.g1 = make_grid(L, B, S);
+  p.total = p.tiles0 = tiles(p.g0);
+  p.ktiles = p.ktiles1 = D / kBK;
+  p.dl1 = static_cast<const float*>(dl1);
+  p.part = static_cast<float*>(dbe_part);
+  if ((err = launch<DH>(m, p, device, s)) != cudaSuccess) return err;
+
+  // dW_enc [L, D, S] = xc^T dhc and dW_dec [L, S, D] = hc^T dy, reduced over
+  // the B rows, in one launch: xc, hc ([L, B, .], M contiguous) as MN-major
+  // A, dhc and dy as MN-major B
+  if ((err = product_maps(&m[0], &m[1], xc, B, D, kMNMajor, dhc, B, S, kMNMajor, L)) !=
+          cudaSuccess ||
+      (err = product_maps(&m[2], &m[3], hc, B, S, kMNMajor, dy, B, D, kMNMajor, L)) != cudaSuccess)
+    return err;
+  m[4] = m[5] = m[0];
+  p = Params{};
+  p.g0 = make_grid(L, D, S);
+  p.g1 = make_grid(L, S, D);
+  p.tiles0 = tiles(p.g0);
+  p.total = p.tiles0 + tiles(p.g1);
+  p.ktiles = p.ktiles1 = B / kBK;
+  p.c0 = static_cast<float*>(dWe);
+  p.c1 = static_cast<float*>(dWd);
+  return launch<kWgrad>(m, p, device, s);
+}
+
+// B8's decoder on 192-wide tiles where they fill the waves better
+// (decoder's fill_waves): at the TopK slice 128 tiles of 192 columns
+// against 96 of 256 on 132 SMs.
+constexpr bool kTopkFillWaves = true;
+
 }  // namespace
 
 // B4, bf16: x, the weights, xc (scratch), hc and y in bf16; nact_part
@@ -692,40 +847,77 @@ extern "C" int sae_fused_bwd_stored_tc(const void* x, const void* hc, const void
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((err = center(x, bd, xc, L, B, D, s)) != cudaSuccess) return err;
+  return backward_from_hc<kDh>(xc, hc, Wd, dy, dl1, dhc, dWe, dWd, dbe_part, L, B, D, S, device,
+                               s);
+}
 
-  // dh [L, B, S] = dy [L, B, D] W_dec^T, W_dec [L, S, D] as the K-major B
-  CUtensorMap m[6];
-  if ((err = product_maps(&m[0], &m[1], dy, B, D, kKMajor, Wd, S, D, kKMajor, L)) != cudaSuccess ||
-      (err = map3(&m[4], hc, L, B, S, hg::kBox)) != cudaSuccess ||
-      (err = map3(&m[5], dhc, L, B, S, hg::kBox)) != cudaSuccess)
+// B5, bf16: x, the weights, dy, xc (scratch), hc (scratch: B4's hc with -0
+// marks) and dhc (scratch) in bf16; dl1 [L], dWe [L, D, S], dWd [L, S, D]
+// and dbe_part [L, B/128, S] float32.  Returns the launches' cudaError_t.
+extern "C" int sae_fused_bwd_remat_tc(const void* x, const void* We, const void* be,
+                                      const void* Wd, const void* bd, const void* dy,
+                                      const void* dl1, void* xc, void* hc, void* dhc, void* dWe,
+                                      void* dWd, void* dbe_part, int L, int B, int D, int S,
+                                      int device, void* stream) {
+  if (!fits(L, B, D, S)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((err = center(x, bd, xc, L, B, D, s)) != cudaSuccess ||
+      (err = plain_encoder<kReluRemat>(xc, We, be, nullptr, hc, L, B, D, S, device, s)) !=
+          cudaSuccess)
     return err;
-  m[2] = m[0];
-  m[3] = m[1];
-  Params p = {};
-  p.g0 = p.g1 = make_grid(L, B, S);
-  p.total = p.tiles0 = tiles(p.g0);
-  p.ktiles = p.ktiles1 = D / kBK;
-  p.dl1 = static_cast<const float*>(dl1);
-  p.part = static_cast<float*>(dbe_part);
-  if ((err = launch<kDh>(m, p, device, s)) != cudaSuccess) return err;
+  return backward_from_hc<kDhMarked>(xc, hc, Wd, dy, dl1, dhc, dWe, dWd, dbe_part, L, B, D, S,
+                                     device, s);
+}
 
-  // dW_enc [L, D, S] = xc^T dhc and dW_dec [L, S, D] = hc^T dy, reduced over
-  // the B rows, in one launch: xc, hc ([L, B, .], M contiguous) as MN-major
-  // A, dhc and dy as MN-major B
-  if ((err = product_maps(&m[0], &m[1], xc, B, D, kMNMajor, dhc, B, S, kMNMajor, L)) !=
+// B8, bf16: x, the weights, xc (scratch), h (the masked activations) and y
+// in bf16; t [L, B], nact_part [L, B/128, S] and l1_part [L, B/128, S/128]
+// float32; 1 <= k <= S.  Launches: center; the TopK encoder (hc = c(max(hpre,
+// 0)) into h); radix_select.cuh's select on each row of h, which writes t and
+// masks the row in place; the counts (sae::active_counts); the decoder over
+// h.  Returns the launches' cudaError_t.
+extern "C" int sae_fused_fwd_topk_tc(const void* x, const void* We, const void* be,
+                                     const void* Wd, const void* bd, void* xc, void* h, void* y,
+                                     void* t, void* nact_part, void* l1_part, int L, int B, int D,
+                                     int S, int k, int device, void* stream) {
+  if (!fits(L, B, D, S) || !sae::shapes_ok(L, B, D, S) || k < 1 || k > S ||
+      static_cast<long long>(L) * B > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  bf16* hb = static_cast<bf16*>(h);
+  if ((err = center(x, bd, xc, L, B, D, s)) != cudaSuccess ||
+      (err = plain_encoder<kTopkEncoder>(xc, We, be, nullptr, h, L, B, D, S, device, s)) !=
           cudaSuccess ||
-      (err = product_maps(&m[2], &m[3], hc, B, S, kMNMajor, dy, B, D, kMNMajor, L)) != cudaSuccess)
+      (err = rsel::select_rows<bf16, true>(hb, static_cast<float*>(t), hb,
+                                           static_cast<long long>(L) * B, S, k, s)) !=
+          cudaSuccess ||
+      (err = sae::active_counts<bf16>(hb, static_cast<float*>(nact_part),
+                                      static_cast<float*>(l1_part), L, B, S, s)) != cudaSuccess)
     return err;
-  m[4] = m[5] = m[0];
-  p = Params{};
-  p.g0 = make_grid(L, D, S);
-  p.g1 = make_grid(L, S, D);
-  p.tiles0 = tiles(p.g0);
-  p.total = p.tiles0 + tiles(p.g1);
-  p.ktiles = p.ktiles1 = B / kBK;
-  p.c0 = static_cast<float*>(dWe);
-  p.c1 = static_cast<float*>(dWd);
-  return launch<kWgrad>(m, p, device, s);
+  return decoder(h, Wd, bd, y, L, B, D, S, device, s, kTopkFillWaves);
+}
+
+// B9, bf16: x, the weights, dy, xc (scratch), h (scratch: B8's h again,
+// from B8's encoder mode masked against t) and dhc (scratch) in bf16; dl1
+// [L] and B8's thresholds t [L, B], dWe [L, D, S], dWd [L, S, D] and
+// dbe_part [L, B/128, S] float32.  Returns the launches' cudaError_t.
+extern "C" int sae_fused_bwd_topk_tc(const void* x, const void* We, const void* be,
+                                     const void* Wd, const void* bd, const void* dy,
+                                     const void* dl1, const void* t, void* xc, void* h,
+                                     void* dhc, void* dWe, void* dWd, void* dbe_part, int L,
+                                     int B, int D, int S, int device, void* stream) {
+  if (!fits(L, B, D, S) || t == nullptr) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((err = center(x, bd, xc, L, B, D, s)) != cudaSuccess ||
+      (err = plain_encoder<kTopkRemat>(xc, We, be, t, h, L, B, D, S, device, s)) != cudaSuccess)
+    return err;
+  return backward_from_hc<kDh>(xc, h, Wd, dy, dl1, dhc, dWe, dWd, dbe_part, L, B, D, S, device,
+                               s);
 }
 
 // B11, bf16: x, W_enc, b_gate, b_mag, W_dec, b_dec, xc (scratch), h ([L, 2B,

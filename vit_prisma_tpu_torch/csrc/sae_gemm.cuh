@@ -1,8 +1,9 @@
 // One tile GEMM, shared by the fused SAE kernels B4-B6, B8, B9, B11 and
 // B12 (sae_fused_fwd.cu, sae_fused_fwd_topk.cu, sae_fused_bwd.cu,
 // sae_fused_fwd_gated.cu, sae_fused_bwd_gated.cu), and the kernels that
-// more than one of them launch (center, decoder, wgrad, partial_sums; the
-// bf16 Hopper route, sae_fused_tc.cu, launches center and partial_sums).
+// more than one of them launch (center, decoder, wgrad, partial_sums, B8's
+// counts; the bf16 Hopper route, sae_fused_tc.cu, launches center,
+// partial_sums and the counts).
 //
 // A block computes a BM x BN tile of C = A B for one layer of an [L, ...]
 // stack, accumulating in float32 registers over K in steps of BK, and then
@@ -384,6 +385,63 @@ inline cudaError_t partial_sums(const float* part, float* sums, int G, int nB, i
   const long long n = static_cast<long long>(G) * S;
   partial_sums_kernel<<<static_cast<unsigned int>((n + 255) / 256), 256, 0, s>>>(part, sums, n,
                                                                                  nB, S);
+  return cudaGetLastError();
+}
+
+__device__ __forceinline__ void load2(const float* p, float& a, float& b) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  a = v.x;
+  b = v.y;
+}
+__device__ __forceinline__ void load2(const __nv_bfloat16* p, float& a, float& b) {
+  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
+  a = __low2float(v);
+  b = __high2float(v);
+}
+
+constexpr int kCountThreads = BN / 2;  // two features a thread
+
+// B8's counts pass over its masked h [L, B, S] (h > 0 exactly on the active
+// set), on every route: per 128-row block, nact_part[l, rb, j] = rows with
+// h > 0 in feature j, and l1_part[l, rb, cb] = sum of h over the 128 x 128
+// tile, each summed in a fixed order (no atomics: the same bits from run to
+// run).  Grid (S/BN, B/BM, L).
+template <typename T>
+__global__ void __launch_bounds__(kCountThreads)
+count_kernel(const T* __restrict__ h, float* __restrict__ nact_part,
+             float* __restrict__ l1_part, int B, int S) {
+  const int l = blockIdx.z, rb = blockIdx.y, cb = blockIdx.x;
+  const int c = cb * BN + 2 * threadIdx.x;
+  const T* p = h + (static_cast<long long>(l) * B + static_cast<long long>(rb) * BM) * S + c;
+  float n0 = 0.f, n1 = 0.f, s = 0.f;
+  for (int r = 0; r < BM; ++r) {
+    float a, b;
+    load2(p + static_cast<long long>(r) * S, a, b);
+    n0 += a > 0.f ? 1.f : 0.f;
+    n1 += b > 0.f ? 1.f : 0.f;
+    s += a + b;
+  }
+  float* out = nact_part + (static_cast<long long>(l) * gridDim.y + rb) * S + c;
+  out[0] = n0;
+  out[1] = n1;
+  __shared__ float red[kCountThreads / 32];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x / 32] = s;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float total = 0.f;
+#pragma unroll
+    for (int w = 0; w < kCountThreads / 32; ++w) total += red[w];
+    l1_part[(static_cast<long long>(l) * gridDim.y + rb) * gridDim.x + cb] = total;
+  }
+}
+
+// nact_part [L, B/128, S] and l1_part [L, B/128, S/128] from h (count_kernel).
+template <typename T>
+cudaError_t active_counts(const T* h, float* nact_part, float* l1_part, int L, int B, int S,
+                          cudaStream_t s) {
+  count_kernel<T><<<dim3(S / BN, B / BM, L), kCountThreads, 0, s>>>(h, nact_part, l1_part, B, S);
   return cudaGetLastError();
 }
 

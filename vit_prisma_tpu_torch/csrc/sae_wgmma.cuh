@@ -1,8 +1,8 @@
 // A persistent, warp-specialized bf16 GEMM for the SAE kernels on Hopper,
 // on hopper_gemm.cuh's TMA loads, mbarriers and wgmma.  B4's encoder and
-// decoder, B6's three products, and B11's and B12's gated products
-// (sae_fused_tc.cu) run on it; B5 and B8, which still run on sae_gemm.cuh's
-// mma.sync tiles, can move onto it.  sm_90a only.
+// decoder, B6's three products, B5's four, B8's two and B9's four, and
+// B11's and B12's gated products (sae_fused_tc.cu) run on it.  sm_90a
+// only.
 //
 // A block computes 128 x 256 tiles of C = A B for one layer of an [L, ...]
 // stack at a time (128 x 192 for B11's decoder where those fill the waves

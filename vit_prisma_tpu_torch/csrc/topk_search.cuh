@@ -1,5 +1,7 @@
-// Per-row k-th-largest search, shared by kernel B10 (kth_value.cu) and the
-// threshold pass of kernel B8 (sae_fused_fwd_topk.cu).
+// Per-row k-th-largest search: the threshold pass of kernel B8's float32
+// and mma.sync routes (sae_fused_fwd_topk.cu); its key maps (bits_of,
+// signed_key) also serve radix_select.cuh's radix select (B10, and B8's bf16
+// Hopper route).
 //
 // One block of kThreads threads owns one row.  Values are mapped onto
 // unsigned keys in value order, and the block builds the k-th largest key

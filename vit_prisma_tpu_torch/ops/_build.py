@@ -132,6 +132,12 @@ def load_library() -> ctypes.CDLL:
     lib.sae_fused_fwd_tc.restype = i
     lib.sae_fused_bwd_stored_tc.argtypes = [p] * 11 + [i] * 5 + [p]
     lib.sae_fused_bwd_stored_tc.restype = i
+    lib.sae_fused_bwd_remat_tc.argtypes = [p] * 13 + [i] * 5 + [p]
+    lib.sae_fused_bwd_remat_tc.restype = i
+    lib.sae_fused_fwd_topk_tc.argtypes = [p] * 11 + [i] * 6 + [p]
+    lib.sae_fused_fwd_topk_tc.restype = i
+    lib.sae_fused_bwd_topk_tc.argtypes = [p] * 14 + [i] * 5 + [p]
+    lib.sae_fused_bwd_topk_tc.restype = i
     lib.sae_fused_fwd_topk.argtypes = [p] * 11 + [i] * 7 + [p]
     lib.sae_fused_fwd_topk.restype = i
     lib.sae_fused_fwd_gated.argtypes = [p] * 13 + [i] * 6 + [p]

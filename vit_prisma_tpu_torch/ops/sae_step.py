@@ -22,12 +22,16 @@ points for CPU tensors:
   ``hc``, whose mask is ``float(hc) > 0``: it equals B5's ``hpre > 0``
   except where a positive float32 pre-activation rounds to +0 in bf16.
 
-B4 and B6 take one of three routes by dtype and shape
+Every SAE kernel here takes one of three routes by dtype and shape
 (:func:`sae_gemm_route`): bfloat16 with d_in and d_sae multiples of 256
 runs ``csrc/sae_fused_tc.cu`` (wgmma on a TMA-fed ring, on
 ``csrc/sae_wgmma.cuh``), other bfloat16 shapes the mma.sync tiles of
-``csrc/sae_gemm.cuh``, float32 its FFMA tiles.  Each wrapper counts its
-launches by route in ``routes``.
+``csrc/sae_gemm.cuh`` in the files named here, float32 its FFMA tiles.
+Each wrapper counts its launches by route in ``routes``.  On the Hopper
+route B5 recomputes B4's encoder product with B4's own mainloop and carries
+its mask ``hpre > 0`` into B6's dh launch in hc's bits: hc is B4's, with
+-0 (bits 0x8000, which B4 never writes) where a positive hpre rounds to +0,
+and the mask is "bits != 0".
 
 :func:`sae_fused_apply` wraps them in a ``torch.autograd.Function``
 returning ``(y, l1, nact)``.  Its gradient for ``x`` is zero (only the train
@@ -52,6 +56,13 @@ TopK (keep each row's k largest pre-activations) has three more::
 * the stored-acts backward needs no kernel of its own: B8's masked h is
   positive exactly on the active set, so B6 applies to it unchanged.
 
+On the Hopper route B8 stores ``c(max(hpre, 0))`` (+0 where hpre <= 0,
+which equals ``max(float(hp), 0)`` entry by entry), takes t by B10's radix
+select (``csrc/radix_select.cuh``, bitwise the bitwise search's t on such
+rows) and masks the rows in place; B9 recomputes that encoder with the same
+mainloop and masks it against t, then runs B6's launches, so B9 follows
+B8's route at every shape and its active set stays B8's.
+
 :func:`sae_fused_apply_topk` wraps them as :func:`sae_fused_apply` wraps
 B4-B6.
 
@@ -70,11 +81,11 @@ decoder row norms ``wdn`` (float32, plain torch, :func:`_gated_hoisted`)::
 * B12 :func:`sae_gated_fused_backward` (``csrc/sae_fused_bwd_gated.cu``),
   the remat VJP from the cotangents of y, via and l1.
 
-B11 and B12 take B4's and B6's routes (:func:`sae_gemm_route`): bfloat16
-with d_in and d_sae multiples of 256 runs ``csrc/sae_fused_tc.cu``, the
-other shapes the files above; the route is a function of the shape and
-dtype alone, so a backward always recomputes its masks on its forward's
-route, to the bit.
+B11 and B12 take the same routes (:func:`sae_gemm_route`): bfloat16 with
+d_in and d_sae multiples of 256 runs ``csrc/sae_fused_tc.cu``, the other
+shapes the files above; the route is a function of the shape and dtype
+alone, so a backward (B5, B9, B12) always recomputes its masks on its
+forward's route, to the bit.
 
 :func:`sae_gated_fused_apply` wraps them, returning ``(y, via, l1,
 nact)``.
@@ -351,15 +362,15 @@ SAE_GEMM_ROUTES = ("wgmma", "mma_sync", "ffma")
 
 
 def sae_gemm_route(B: int, d_in: int, d_sae: int, dtype: torch.dtype):
-    """The route B4 (:func:`sae_fused_forward`), B6
-    (:func:`sae_fused_backward_stored`), B11 (:func:`sae_gated_fused_forward`)
-    and B12 (:func:`sae_gated_fused_backward`) take on the card: ``"wgmma"``
-    (the bf16 Hopper kernels of ``csrc/sae_fused_tc.cu``), ``"mma_sync"``
-    (the other bf16 shapes, on ``csrc/sae_gemm.cuh``'s tensor-core tiles),
+    """The route every fused SAE kernel, B4-B6, B8, B9, B11 and B12, takes
+    on the card: ``"wgmma"`` (the bf16 Hopper kernels of
+    ``csrc/sae_fused_tc.cu``), ``"mma_sync"`` (the other bf16 shapes, on
+    ``csrc/sae_gemm.cuh``'s tensor-core tiles),
     ``"ffma"`` (float32, its CUDA-core tiles), or None where no kernel takes
     the shape (B, d_in or d_sae not a multiple of 128).  It reads the shape
-    and dtype alone, so B11 and B12 always take the same route, and B12's
-    recomputed masks are B11's."""
+    and dtype alone, so a forward and its remat backward (B4 and B5, B8 and
+    B9, B11 and B12) always take the same route, and the backward's
+    recomputed masks are the forward's."""
     if B % _TILE or d_in % _TILE or d_sae % _TILE or dtype not in _DTYPE_CODES:
         return None
     if dtype == torch.float32:
@@ -438,23 +449,53 @@ def _backward_launch(name, mode, x, Wd, bd, dy, dl1, hc=None, We=None, be=None, 
     return dWe, dWd, dbe_part.sum(dim=1)
 
 
+def _tc_backward(name, entry, x, S, ins, hc_scratch):
+    """A backward's launches on the "wgmma" route (``csrc/sae_fused_tc.cu``):
+    the library's ``entry`` with the pointers of ``ins``, then of xc, the
+    recomputed hc (B5, B9: ``hc_scratch``), dhc, dW_enc, dW_dec and the
+    db_enc partials, all allocated here.  Raises if the launch fails."""
+    L, B, D = x.shape
+    new = lambda *shape, dtype=x.dtype: torch.empty(shape, dtype=dtype, device=x.device)
+    xc, dhc = new(L, B, D), new(L, B, S)
+    scratch = (xc, new(L, B, S), dhc) if hc_scratch else (xc, dhc)
+    dWe, dWd = new(L, D, S, dtype=torch.float32), new(L, S, D, dtype=torch.float32)
+    dbe_part = new(L, B // _TILE, S, dtype=torch.float32)
+    lib, stream = _lib_and_stream(x.device)
+    rc = getattr(lib, entry)(*(t.data_ptr() for t in (*ins, *scratch, dWe, dWd, dbe_part)),
+                             L, B, D, S, x.device.index, stream)
+    _build.check(lib, rc, f"{name} (wgmma)")
+    return dWe, dWd, dbe_part.sum(dim=1)
+
+
 def sae_fused_backward(x, We, be, Wd, bd, dy, dl1):
     """Kernel B5, the remat VJP: float32 ``(dW_enc [L, d_in, d_sae],
     dW_dec [L, d_sae, d_in], db_enc [L, d_sae])`` from ``dy`` (x's dtype)
     and ``dl1`` (float32 ``[L]``).  CUDA tensors launch
-    ``csrc/sae_fused_bwd.cu`` and add one to ``sae_fused_backward.launches``;
-    CPU tensors run the plain version."""
-    _shapes(x, We, Wd)
+    ``csrc/sae_fused_tc.cu`` (the "wgmma" route of :func:`sae_gemm_route`,
+    B4's: its mask ``hpre > 0`` carried by -0 marks in the recomputed hc) or
+    ``csrc/sae_fused_bwd.cu`` and add one to ``sae_fused_backward.launches``
+    and to the route's count in ``sae_fused_backward.routes``; a launch that
+    fails raises.  CPU tensors run the plain version."""
+    L, B, D, S = _shapes(x, We, Wd)
     _check("sae_fused_backward", x.dtype, x.device, x=x, W_enc=We, b_enc=be, W_dec=Wd,
            b_dec=bd, dy=dy, dl1=dl1)
     if x.device.type == "cpu":
         return sae_fused_backward_reference(x, We, be, Wd, bd, dy, dl1)
-    out = _backward_launch("sae_fused_backward", _RELU_REMAT, x, Wd, bd, dy, dl1, We=We, be=be)
+    _kernel_shapes_ok("sae_fused_backward", B, D, S)
+    route = sae_gemm_route(B, D, S, x.dtype)
+    if route == "wgmma":
+        out = _tc_backward("sae_fused_backward", "sae_fused_bwd_remat_tc", x, S,
+                           (x, We, be, Wd, bd, dy, dl1), hc_scratch=True)
+    else:
+        out = _backward_launch("sae_fused_backward", _RELU_REMAT, x, Wd, bd, dy, dl1,
+                               We=We, be=be)
     sae_fused_backward.launches += 1
+    sae_fused_backward.routes[route] += 1
     return out
 
 
 sae_fused_backward.launches = 0
+sae_fused_backward.routes = dict.fromkeys(SAE_GEMM_ROUTES, 0)
 
 
 def sae_fused_backward_stored(x, hc, Wd, bd, dy, dl1):
@@ -477,17 +518,8 @@ def sae_fused_backward_stored(x, hc, Wd, bd, dy, dl1):
     _kernel_shapes_ok("sae_fused_backward_stored", B, D, S)
     route = sae_gemm_route(B, D, S, x.dtype)
     if route == "wgmma":
-        new = lambda *shape, dtype=x.dtype: torch.empty(shape, dtype=dtype, device=x.device)
-        xc, dhc = new(L, B, D), new(L, B, S)
-        dWe, dWd = new(L, D, S, dtype=torch.float32), new(L, S, D, dtype=torch.float32)
-        dbe_part = new(L, B // _TILE, S, dtype=torch.float32)
-        lib, stream = _lib_and_stream(x.device)
-        rc = lib.sae_fused_bwd_stored_tc(
-            x.data_ptr(), hc.data_ptr(), Wd.data_ptr(), bd.data_ptr(), dy.data_ptr(),
-            dl1.data_ptr(), xc.data_ptr(), dhc.data_ptr(), dWe.data_ptr(), dWd.data_ptr(),
-            dbe_part.data_ptr(), L, B, D, S, x.device.index, stream)
-        _build.check(lib, rc, "sae_fused_backward_stored (wgmma)")
-        out = dWe, dWd, dbe_part.sum(dim=1)
+        out = _tc_backward("sae_fused_backward_stored", "sae_fused_bwd_stored_tc", x, S,
+                           (x, hc, Wd, bd, dy, dl1), hc_scratch=False)
     else:
         out = _backward_launch("sae_fused_backward_stored", _STORED, x, Wd, bd, dy, dl1, hc=hc)
     sae_fused_backward_stored.launches += 1
@@ -503,9 +535,12 @@ def sae_fused_forward_topk(x, We, be, Wd, bd, k: int, save_h: bool = False):
     """Kernel B8: ``(y, l1, nact, t)`` (plus the masked ``h`` with
     ``save_h``) for the stacked TopK SAEs; y and h in x's dtype, l1 ``[L]``,
     nact ``[L, d_sae]`` and the per-row thresholds t ``[L, B, 1]`` float32.
-    CUDA tensors launch ``csrc/sae_fused_fwd_topk.cu`` and add one to
-    ``sae_fused_forward_topk.launches``; CPU tensors run the plain
-    version."""
+    CUDA tensors launch ``csrc/sae_fused_tc.cu`` (the "wgmma" route of
+    :func:`sae_gemm_route`: B10's radix select on the rows of
+    ``c(max(hpre, 0))``) or ``csrc/sae_fused_fwd_topk.cu`` and add one to
+    ``sae_fused_forward_topk.launches`` and to the route's count in
+    ``sae_fused_forward_topk.routes``; a launch that fails raises.  CPU
+    tensors run the plain version."""
     L, B, D, S = _shapes(x, We, Wd)
     _check("sae_fused_forward_topk", x.dtype, x.device, x=x, W_enc=We, b_enc=be, W_dec=Wd,
            b_dec=bd)
@@ -514,32 +549,44 @@ def sae_fused_forward_topk(x, We, be, Wd, bd, k: int, save_h: bool = False):
     if x.device.type == "cpu":
         return sae_fused_forward_topk_reference(x, We, be, Wd, bd, k, save_h)
     _kernel_shapes_ok("sae_fused_forward_topk", B, D, S)
+    route = sae_gemm_route(B, D, S, x.dtype)
     new = lambda *shape, dtype=x.dtype: torch.empty(shape, dtype=dtype, device=x.device)
     xc, h, y = new(L, B, D), new(L, B, S), new(L, B, D)
     t = new(L, B, 1, dtype=torch.float32)
+    # per-tile partials of the counts pass: nact per 128-row block, l1 per
+    # 128 x 128 tile (on every route)
     nact_part = new(L, B // _TILE, S, dtype=torch.float32)
     l1_part = new(L, B // _TILE, S // _TILE, dtype=torch.float32)
     lib, stream = _lib_and_stream(x.device)
-    rc = lib.sae_fused_fwd_topk(x.data_ptr(), We.data_ptr(), be.data_ptr(), Wd.data_ptr(),
-                                bd.data_ptr(), xc.data_ptr(), h.data_ptr(), y.data_ptr(),
-                                t.data_ptr(), nact_part.data_ptr(), l1_part.data_ptr(),
-                                L, B, D, S, k, _DTYPE_CODES[x.dtype], x.device.index, stream)
-    _build.check(lib, rc, "sae_fused_forward_topk")
+    ptrs = (x.data_ptr(), We.data_ptr(), be.data_ptr(), Wd.data_ptr(), bd.data_ptr(),
+            xc.data_ptr(), h.data_ptr(), y.data_ptr(), t.data_ptr(), nact_part.data_ptr(),
+            l1_part.data_ptr())
+    if route == "wgmma":
+        rc = lib.sae_fused_fwd_topk_tc(*ptrs, L, B, D, S, k, x.device.index, stream)
+    else:
+        rc = lib.sae_fused_fwd_topk(*ptrs, L, B, D, S, k, _DTYPE_CODES[x.dtype],
+                                    x.device.index, stream)
+    _build.check(lib, rc, f"sae_fused_forward_topk ({route})")
     sae_fused_forward_topk.launches += 1
+    sae_fused_forward_topk.routes[route] += 1
     out = (y, l1_part.sum(dim=(1, 2)), nact_part.sum(dim=1), t)
     return out + (h,) if save_h else out
 
 
 sae_fused_forward_topk.launches = 0
+sae_fused_forward_topk.routes = dict.fromkeys(SAE_GEMM_ROUTES, 0)
 
 
 def sae_fused_backward_topk(x, We, be, Wd, bd, dy, dl1, t):
     """Kernel B9, the TopK remat VJP from B8's thresholds ``t`` ``[L, B, 1]``
     float32: the same outputs as :func:`sae_fused_backward`.  CUDA tensors
-    launch ``csrc/sae_fused_bwd.cu`` (its TopK mask mode) and add one to
-    ``sae_fused_backward_topk.launches``; CPU tensors run the plain
-    version."""
-    L, B, _, _ = _shapes(x, We, Wd)
+    launch ``csrc/sae_fused_tc.cu`` (the "wgmma" route of
+    :func:`sae_gemm_route`, B8's: B8's encoder mode masked against t, then
+    B6's launches) or ``csrc/sae_fused_bwd.cu`` (its TopK mask mode) and add
+    one to ``sae_fused_backward_topk.launches`` and to the route's count in
+    ``sae_fused_backward_topk.routes``; a launch that fails raises.  CPU
+    tensors run the plain version."""
+    L, B, D, S = _shapes(x, We, Wd)
     _check("sae_fused_backward_topk", x.dtype, x.device, x=x, W_enc=We, b_enc=be, W_dec=Wd,
            b_dec=bd, dy=dy, dl1=dl1)
     if tuple(t.shape) != (L, B, 1) or t.dtype != torch.float32 or t.device != x.device:
@@ -547,13 +594,21 @@ def sae_fused_backward_topk(x, We, be, Wd, bd, dy, dl1, t):
                          f"{t.device}, expected float32 {(L, B, 1)} on {x.device}")
     if x.device.type == "cpu":
         return sae_fused_backward_topk_reference(x, We, be, Wd, bd, dy, dl1, t)
-    out = _backward_launch("sae_fused_backward_topk", _TOPK_REMAT, x, Wd, bd, dy, dl1,
-                           We=We, be=be, t=t.contiguous())
+    _kernel_shapes_ok("sae_fused_backward_topk", B, D, S)
+    route = sae_gemm_route(B, D, S, x.dtype)
+    if route == "wgmma":
+        out = _tc_backward("sae_fused_backward_topk", "sae_fused_bwd_topk_tc", x, S,
+                           (x, We, be, Wd, bd, dy, dl1, t.contiguous()), hc_scratch=True)
+    else:
+        out = _backward_launch("sae_fused_backward_topk", _TOPK_REMAT, x, Wd, bd, dy, dl1,
+                               We=We, be=be, t=t.contiguous())
     sae_fused_backward_topk.launches += 1
+    sae_fused_backward_topk.routes[route] += 1
     return out
 
 
 sae_fused_backward_topk.launches = 0
+sae_fused_backward_topk.routes = dict.fromkeys(SAE_GEMM_ROUTES, 0)
 
 
 def _gated_check(name, x, We, bg, rmag, bm, Wd, bd, **more):

@@ -3,12 +3,13 @@
 
 The TopK activation needs no sorted values, only "zero everything below
 the row's k-th largest".  :func:`kth_value` (kernel B10,
-``csrc/kth_value.cu``) finds that value over the IEEE-754 patterns mapped
-onto unsigned integers in value order: its plain version by a bitwise
-binary search (32 passes for float32 rows, 16 for bfloat16 rows, whose
-float32 patterns have zero low halves), the kernel by a radix select on
-8-bit digits (4 or 2 passes) that gives the same bits.  The kernel's route
-depends on the row width alone (:func:`kth_value_route`).
+``csrc/kth_value.cu`` on ``csrc/radix_select.cuh``, whose radix select
+B8's bf16 Hopper route shares) finds that value over the IEEE-754
+patterns mapped onto unsigned integers in value order: its plain version
+by a bitwise binary search (32 passes for float32 rows, 16 for bfloat16
+rows, whose float32 patterns have zero low halves), the kernel by a radix
+select on 8-bit digits (4 or 2 passes) that gives the same bits.  The
+kernel's route depends on the row width alone (:func:`kth_value_route`).
 :func:`topk_mask_activation` then keeps ``relu(x)`` where ``x >= t``, with
 ``t`` detached, so autograd flows through the mask alone.
 
@@ -31,7 +32,7 @@ from vit_prisma_tpu_torch.ops import _build
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGN = 0x80000000
 _MASK32 = 0xFFFFFFFF
-# The kernel's routes (``plan`` in csrc/kth_value.cu): a block stages up to
+# The kernel's routes (``plan`` in csrc/radix_select.cuh): a block stages up to
 # KTH_STAGE_CAP bytes of a row; a wider row is split over a cluster of at
 # most KTH_MAX_CLUSTER blocks, KTH_CLUSTER_PART bytes each where it can be.
 KTH_STAGE_CAP = 64 * 1024
@@ -41,7 +42,7 @@ KTH_MAX_CLUSTER = 8
 
 def kth_value_route(D: int, dtype: torch.dtype) -> dict:
     """The route of :func:`kth_value`'s kernel for rows of ``D`` elements,
-    as ``plan`` in ``csrc/kth_value.cu`` computes it: ``"block"`` (one
+    as ``plan`` in ``csrc/radix_select.cuh`` computes it: ``"block"`` (one
     block stages the row in shared memory), ``"cluster"`` (a cluster of 3-8
     blocks, each staging a part) or ``"streamed"`` (a cluster of 8 reading
     its parts from device memory in every digit pass); ``cluster`` blocks a
