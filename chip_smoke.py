@@ -35,7 +35,8 @@ Phases, each printing JSON lines with the card's name and power limit:
    unaligned view with repeated indices, bitwise, with the kernel's own
    device time beside the whole call's (the wrapper's index check syncs the
    host) and ``index_select``'s; B7 (``adam_update``) at the default SAE's
-   four tensors with float32 and bfloat16 moments; B10 (``kth_value``) at
+   four tensors with float32 and bfloat16 moments and at the sweep's four
+   stacked tensors (24 SAEs, 1024 -> 8192) with float32 moments; B10 (``kth_value``) at
    the generic TopK step's [4096, 12288] and at d_sae 65,536 in both
    dtypes, and at the edges of its routes (one block, a cluster, streamed),
    k = 1 and k = D, rows of one value, of signed zeros and with NaNs,
@@ -45,9 +46,12 @@ Phases, each printing JSON lines with the card's name and power limit:
    random weights from seed 0) on the card against the same weights on the
    CPU in float32, and in bfloat16 against the einsum attention path;
 4. serve: a bfloat16 ``CompiledForward`` at batch 256 answers three
-   requests; this is the first main path, whose B1 launches are counted.
-   Then the served images per second with the kernel and with the einsum
-   path;
+   requests; this is the first main path, whose B1 launches are counted:
+   the server runs one CUDA graph, so its launches are its warm-up
+   forward's and its replays', each exact (the wrappers' counters move at
+   the warm-up and the capture alone; ``torch.profiler`` counts one
+   replay's kernels by name).  Then the served images per second with the
+   kernel and with the einsum path;
 5. train: the second main path, SAE training at ``SAERunnerConfig``'s
    defaults (B/32 layer-9 resid_post, 768 -> 12,288, batch 4096, float32)
    with a 4-batch buffer: ``HookedViT`` -> ``VisionActivationsStore`` ->
@@ -75,7 +79,13 @@ Phases, each printing JSON lines with the card's name and power limit:
    its -0 marks (counted), and where it marks none B5's grads are B6's on
    B4's hc, to the bit; then B4+B6 against B4+B5 through
    ``sae_fused_apply`` at the sweep's shape in both dtypes, times and peak
-   memory, the measurement behind always keeping hc;
+   memory, the measurement behind always keeping hc; where B5 marks entries
+   its grads are held to the plain backward on its own mask;
+7a. remat_marks: B5's -0 marks forced (float32 hpre a subnormal in (0,
+   2^-134] at chosen entries) at the TopK slice's and the sweep's widths in
+   bf16: B5 marks exactly those entries (so the wgmma accumulators keep
+   such values), B4 stores +0 there, and B5's grads match the plain
+   backward on its own mask and the plain version;
 8. TopK kernels: B8 (``sae_fused_forward_topk``), B9
    (``sae_fused_backward_topk``) and B6 on B8's masked h against their plain
    versions at the TopK slice's shape (1 x 4096, 768 -> 12,288, k = 64) in
@@ -98,7 +108,12 @@ Phases, each printing JSON lines with the card's name and power limit:
    and over one refill, with the device's idle share;
 10. TopK step check: three fused steps against three generic steps (B10)
     from the trained state in float32, and ``SparseAutoencoder.encode``
-    (B10) against B8's masked h;
+    (B10) against B8's masked h; then ``checkpoint``: the TopK row's steps
+    on buffered batches, ``save_train_state`` after five, a fresh trainer
+    with ``load_state``, five more, equal to ten uninterrupted steps to the
+    bit (params, moments, counters; exact launches of B8, B6, B7); SAE files
+    in float32 and bfloat16 round trip to the bit; the sweep's
+    ``save_checkpoints`` of 24 SAEs timed, all in a temporary directory;
 11. sweep: the third main path, the CLIP ViT-L/14 24-SAE sweep of the JAX
     package's benchmark (bf16 model with random weights, 96 random float32
     images on the card): ``HookedViT`` -> sweep ``VisionActivationsStore`` ->
@@ -164,9 +179,11 @@ Phases, each printing JSON lines with the card's name and power limit:
 22. flash kernels: B13's forward and both backward passes
     (``flash_attention_padded``, ``_bwd_dkv``, ``_bwd_dq``) against their
     plain versions at CLIP L/14-336's serving and attribution shapes and
-    causal, beside ``scaled_dot_product_attention``'s forward and backward;
+    causal, and at the video towers' shapes (ViViT-B, 8 x 12 heads, Tp
+    3200, H 64; V-JEPA huge, 4 x 16 heads, Tp 1664, H 80), beside
+    ``scaled_dot_product_attention``'s forward and backward;
 23. serve_ln_fused: phase 4's server with ``use_fused_ln_gemm``, the eighth
-    main path: exact launches (B14 24, B1 12 a forward), the answers
+    main path: exact launches (B14 24, B1 12 a forward and a replay), the answers
     against the unfused forward, served images per second of both in turns
     and ``torch.profiler``'s breakdown of one forward each;
 24. serve_l14_336: CLIP ViT-L/14 at 336 pixels (T = 577), bf16, fused LN,
@@ -179,7 +196,24 @@ Phases, each printing JSON lines with the card's name and power limit:
     True)`` over its 24 resid_post hooks, bf16, batch 32: exact launches
     (B13 forward 24, each backward pass 23, B14 24), images per second, peak
     memory, gradients against the einsum path, and float32 gradients
-    against the CPU at 4 layers.
+    against the CPU at 4 layers;
+26. video: ViViT-B (12 x 768, 32 frames, T 3137, batch 8 clips) and V-JEPA
+    huge (32 x 1280, 16 frames, T 1568, d_head 80, no class token, batch
+    4) at full width in bf16: ``run_with_cache`` over the resid_post hooks
+    with B13 exactly once a layer on its two routes (wgmma at H 64,
+    mma.sync at H 80: the picker and the profiler's kernel names), each
+    layer's attention output and block output against the einsum path's
+    from the same residual, clips per second, TFLOP/s, peak memory; ViViT-B
+    cut to two layers in float32 against the CPU;
+27. serve_graph: the graphed ``CompiledForward`` against the eager forward
+    of the same padded batches, to the bit, at B/32 (fused LN, batch 256)
+    and L/14-336 (batch 64), launches exact per replay, served images per
+    second in turns (eager, graph, graph, eager) of 20 batches with each
+    batch's time, SM clock and power, the idle share of one graphed batch,
+    whose kernels counted by name are the launches per replay (as in phases
+    4, 23 and 24);
+    then ``export_forward`` -> ``load_forward`` at B/32 against the eager
+    einsum forward at batch 1, 7 and 256.
 
 The line before the last lists every kernel with its launches on its main
 path, its error, times, bound and library time.  It imports no JAX,
@@ -609,7 +643,12 @@ FLASH_SHAPES = [("l14_336_serve", 64, 16, 577, 64, False, (torch.bfloat16, torch
                 ("causal", 8, 16, 577, 64, True, (torch.bfloat16, torch.float32)),
                 ("l14_336_attrib_h128", 32, 16, 577, 128, False, (torch.bfloat16,)),
                 # a bf16 width routed to the mma.sync kernels
-                ("h32", 8, 16, 577, 32, False, (torch.bfloat16,))]
+                ("h32", 8, 16, 577, 32, False, (torch.bfloat16,)),
+                # the video towers' forwards: ViViT-B at batch 8 (Tp 3200,
+                # the wgmma route), V-JEPA huge at batch 4 (H 80, Tp 1664,
+                # the mma.sync route)
+                ("vivit_b", 8, 12, 3137, 64, False, (torch.bfloat16,)),
+                ("vjepa_h", 4, 16, 1568, 80, False, (torch.bfloat16,))]
 # The bf16 route's kernels (wgmma), for ptxas's record.
 FLASH_TC_KERNELS = ("fwd_tc_kernel", "bwd_dkv_tc_kernel", "bwd_dq_tc_kernel")
 # z and each gradient within rel of max(1, its absmax): float32 differs in
@@ -689,6 +728,63 @@ SWEEP_EVAL_CHECK_LAYERS = (0, 12)
 # layer's SAE alone (bf16 model: the suffix runs at batch 2B, the single
 # step at B), relative to max(1, |loss|)
 SWEEP_EVAL_LOSS_REL = 2.0 ** -7
+
+# B7 at the sweep's shape: the 24 SAEs' W_enc, W_dec, b_enc and b_dec at
+# 1024 -> 8192, stacked [L, R, C] as the sweep step passes them (four
+# launches a step), float32 masters and moments.
+ADAM_SWEEP_SHAPES = [("sweep_W_enc", (24, 1024, 8192), False),
+                     ("sweep_W_dec", (24, 8192, 1024), True),
+                     ("sweep_b_enc", (24, 1, 8192), False),
+                     ("sweep_b_dec", (24, 1, 1024), False)]
+
+# Video towers at full width, bf16, random weights from seed 0 and clips
+# from a seeded generator on the card.  ViViT-B (JAX registry.py:273): 12 x
+# 768, 32 frames in tubelets of 2, T = 16 * 196 + 1 = 3137 (Tp 3200), H 64:
+# B13's wgmma route.  V-JEPA huge (:325): 32 x 1280, 16 frames, T = 1568
+# (Tp 1664), H 80, no class token: B13's mma.sync route.
+VIVIT_MODEL = "google/vivit-b-16x2-kinetics400"
+VJEPA_MODEL = "vjepa_v1_vit_huge"
+VIVIT_BATCH = 8
+VJEPA_BATCH = 4
+VIDEO_TIMED = 3
+# bf16 kernel path against the bf16 einsum path, one layer at a time from
+# the same residual (no earlier layer's rounding carried): SLICE_BF16_REL of
+# each hook's absmax, for the attention output and the block's output.
+VIDEO_BF16_REL = SLICE_BF16_REL
+# ViViT-B cut to 2 layers in float32 at batch 1, card (B13's FFMA route)
+# against the CPU: SLICE_F32_REL.
+VIDEO_F32_LAYERS = 2
+
+# serve_graph: CompiledForward's CUDA graph against the eager forward of the
+# same padded batches, to the bit, at B/32 (bf16, fused LN, batch 256) and
+# L/14-336 (batch 64); served images per second in turns (eager, graph,
+# graph, eager) of GRAPH_TURN_BATCHES batches each, every batch's time, SM
+# clock and power draw recorded.
+GRAPH_TURN_BATCHES = 20
+GRAPH_ORDER = ("eager", "graph", "graph", "eager")
+# export_forward -> load_forward at B/32 bf16 against the eager einsum
+# forward (the artifact's routes): within two bf16 ulps of each output's
+# absmax (the exported program's ops are the eager ones; a fused or
+# reordered op may round once more).
+EXPORT_BF16_REL = 2.0 ** -7
+EXPORT_BATCHES = (1, 7, SERVE_BATCH)
+
+# checkpoint: the TopK slice's bf16 row, N steps, save_train_state, a fresh
+# trainer, load_state, M steps, against N + M uninterrupted steps on the
+# same buffered batches, to the bit.
+CKPT_STEPS = (5, 5)
+
+# B5's -0 marks on the card: name, L, B, d_in, d_sae (bf16).  In every layer
+# MARK_ROWS rows of x equal b_dec except at column 0 (where b_dec is 0),
+# which holds 2^-60; W_enc's row 0 holds 2^-76 m (m = 1 + j/128) at
+# MARK_FEATURES features and -2^-76 m at as many others, all with b_enc 0.
+# So hpre there is +-2^-136 m: a float32 subnormal in (0, 2^-134] that
+# rounds to +0 in bf16, which B5 must mark (and only where it is positive).
+REMAT_MARK_SHAPES = [("topk_slice_bf16", 1, 4096, 768, 12288),
+                     ("sweep_bf16", 24, 4096, 1024, 8192)]
+MARK_ROWS = 64
+MARK_FEATURES = 128
+
 
 def RESID_POST(name: str) -> bool:
     return "resid_post" in name
@@ -788,9 +884,14 @@ def rel_atol(rel, want) -> float:
 def bound(nbytes, ops=()) -> dict:
     """The least time the card could take for a call: its bytes (each input
     read once, each output written once) over the memory rate, or its
-    operations over the peak rates of their types, whichever is larger."""
+    operations over the peak rate of their type, whichever is larger.  The
+    tensor cores and the float32 units run at once, so the operations' time
+    is the slowest type's, each type's operations summed."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = sum(n / PEAK_OPS[kind] for kind, n in ops)
+    per_kind = {}
+    for kind, n in ops:
+        per_kind[kind] = per_kind.get(kind, 0) + n
+    t_ops = max((n / PEAK_OPS[kind] for kind, n in per_kind.items()), default=0.0)
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -941,7 +1042,9 @@ def phase_take_rows(info):
 
 
 def phase_sae_kernels(info):
-    """B3 and B7 against their plain versions on the card."""
+    """B3 and B7 against their plain versions on the card (B7 at the
+    default SAE's tensors in both moment dtypes and at the sweep's, float32
+    moments)."""
     from vit_prisma_tpu_torch.ops.opt_step import adam_update, adam_update_reference
     results = phase_take_rows(info)
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -952,8 +1055,10 @@ def phase_sae_kernels(info):
     kw = dict(b1=ADAM_B1, b2=ADAM_B2, eps=ADAM_EPS)
     scal = torch.tensor([[0.8, 1e-3 * 121 / 500, 1 / (1 - ADAM_B1 ** 121),
                           1 / math.sqrt(1 - ADAM_B2 ** 121)]], device="cuda")
-    for name, shape, project in ADAM_SHAPES:
-        for mdt in (torch.float32, torch.bfloat16):
+    both = (torch.float32, torch.bfloat16)
+    for name, shape, project, mdts in ([(*a, both) for a in ADAM_SHAPES]
+                                       + [(*a, (torch.float32,)) for a in ADAM_SWEEP_SHAPES]):
+        for mdt in mdts:
             p = torch.randn(shape, generator=g, device="cuda") * 0.03
             if project:
                 p = p / torch.linalg.norm(p, dim=-1, keepdim=True)
@@ -962,8 +1067,9 @@ def phase_sae_kernels(info):
             nu = (1 - ADAM_B2 ** 120) * (1e-3 * (
                 1 + 0.3 * torch.randn(shape, generator=g, device="cuda"))).square()
             nu = nu.to(mdt)
-            got = adam_update(p, grad, mu, nu, scal, project=project, **kw)
-            want = adam_update_reference(p, grad, mu, nu, scal, project=project, **kw)
+            sc = scal.expand(shape[0], 4).contiguous()  # one row of scalars a layer
+            got = adam_update(p, grad, mu, nu, sc, project=project, **kw)
+            want = adam_update_reference(p, grad, mu, nu, sc, project=project, **kw)
             torch.cuda.synchronize()
             errs = {}
             scales = ((want[0] - p).abs().max().item(), want[1].float().abs().max().item(),
@@ -975,8 +1081,8 @@ def phase_sae_kernels(info):
                     raise AssertionError(f"adam_update {name} {which}: {a.dtype} "
                                          f"{tuple(a.shape)}")
                 errs[which] = check_close(f"adam_update {name} {which}", a, b, tol * scale)
-            us = cuda_us(lambda: adam_update(p, grad, mu, nu, scal, project=project, **kw))
-            plain_us = cuda_us(lambda: adam_update_reference(p, grad, mu, nu, scal,
+            us = cuda_us(lambda: adam_update(p, grad, mu, nu, sc, project=project, **kw))
+            plain_us = cuda_us(lambda: adam_update_reference(p, grad, mu, nu, sc,
                                                              project=project, **kw))
             moved = p.numel() * (12 + 4 * mu.element_size())
             rec = {"phase": "kernel", **info, "kernel": "adam_update", "shape": name,
@@ -1056,21 +1162,22 @@ def phase_slice(info):
 
 def phase_serve(info, fused, plain):
     from vit_prisma_tpu_torch import CompiledForward
-    from vit_prisma_tpu_torch.ops.attention import attention_mix_tnh
     cfg = fused.cfg
     server = CompiledForward(fused, batch_size=SERVE_BATCH, names_filter=RESID_POST)
     g = torch.Generator().manual_seed(2)
     requests = [torch.randn(n, 3, 224, 224, generator=g) for n in SERVE_REQUESTS]
 
-    # The main path: the server answers the requests.
-    attention_mix_tnh.launches = 0
+    # The main path: the server answers the requests (its CUDA graph
+    # captured at the first), with every count set to 0 just before it.
+    counters = _sae_counters()
+    _zero_counts(counters)
     answers = [server(r) for r in requests]
     torch.cuda.synchronize()
-    launches = attention_mix_tnh.launches
     n_batches = sum(-(-n // SERVE_BATCH) for n in SERVE_REQUESTS)
-    if launches != n_batches * cfg.n_layers:
-        raise AssertionError(f"serving launched the kernel {launches} times, "
-                             f"expected {n_batches * cfg.n_layers}")
+    launches = _served_launches("serve", server, counters,
+                                {"attention_mix_tnh": cfg.n_layers}, n_batches,
+                                {k: f.launches for k, f in counters.items()})
+    launches = launches["attention_mix_tnh"]
     for n, (out, cache) in zip(SERVE_REQUESTS, answers):
         if tuple(out.shape) != (n, cfg.n_classes) or len(cache) != cfg.n_layers:
             raise AssertionError(f"request {n}: out {tuple(out.shape)}, "
@@ -1101,10 +1208,12 @@ def phase_serve(info, fused, plain):
             servers[which](batch)
         torch.cuda.synchronize()
         runs[which].append(3 * batch.shape[0] / (time.perf_counter() - t0))
+    prof = _profile_replay("serve", server, batch[:SERVE_BATCH])
     emit({"phase": "serve", **info, "batch_size": SERVE_BATCH,
           "requests": list(SERVE_REQUESTS), "launches": launches,
           "padded_request_max_abs_err": pad_err,
-          "img_per_s_kernel": runs["kernel"], "img_per_s_plain": runs["plain"]})
+          "img_per_s_kernel": runs["kernel"], "img_per_s_plain": runs["plain"],
+          "profile_of_one_graphed_batch": prof})
     return launches
 
 
@@ -1426,8 +1535,11 @@ def _remat_hc(x, We, be, Wd, bd, dy, dl1):
 def _remat_against_stored(name, args, hc4, dW5, dW6, route):
     """On the Hopper route B5 recomputes B4's encoder with B4's own mainloop
     and launches, so its hc is B4's but for the -0 marks of entries whose
-    float32 hpre > 0 rounds to +0 in bf16, and wherever it marks none its
-    grads are B6's on B4's hc, to the bit.  None on the other routes."""
+    float32 hpre > 0 rounds to +0 in bf16; wherever it marks none its grads
+    are B6's on B4's hc, to the bit, and where it marks some they are the
+    plain backward's on its own mask (hc nonzero or marked) within
+    SAE_GRAD_REL.  None on the other routes."""
+    from vit_prisma_tpu_torch.ops import sae_step as S
     if route != "wgmma":
         return None
     hc5 = _remat_hc(*args).view(torch.int16)
@@ -1436,6 +1548,13 @@ def _remat_against_stored(name, args, hc4, dW5, dW6, route):
            "hc_is_b4_hc_outside_marks": torch.equal(torch.where(marks, 0, hc5),
                                                     hc4.view(torch.int16)),
            "grads_equal_b6_on_b4_hc": all(torch.equal(a, b) for a, b in zip(dW5, dW6))}
+    if rec["minus_zero_marks"]:
+        x, We, be, Wd, bd, dy, dl1 = args
+        own = S._backward_from_mask(x - bd[:, None], hc4, hc5 != 0, Wd, dy, dl1)
+        rec["grads_vs_plain_on_own_mask"] = _grad_errs(
+            f"{name} B5 marked", dW5, own, torch.zeros(hc4.shape[0], hc4.shape[2],
+                                                       dtype=torch.bool, device="cuda"),
+            x.dtype)
     if not (rec["hc_is_b4_hc_outside_marks"]
             and (rec["minus_zero_marks"] > 0 or rec["grads_equal_b6_on_b4_hc"])):
         raise AssertionError(f"{name}: B5 against B6 on B4's hc {rec}")
@@ -1875,12 +1994,14 @@ def phase_topk_remat(info, trainer, store, cfg):
 MIX_KERNEL_NAMES = ("mix_tc_kernel", "mix_fwd_kernel")
 
 
-def _profile(fn, share_of=(), warm=False, top=TOPK_PROFILE_TOP):
+def _profile(fn, share_of=(), warm=False, top=TOPK_PROFILE_TOP, calls_of=()):
     """Device time by kernel over one call of ``fn`` (synchronized), the
     device's busy total and the wall time, in milliseconds; with
     ``share_of``, also the time and calls of every kernel whose name
-    contains one of those strings.  ``warm``: one more call first, in a
-    profiler cycle that is not kept, while device tracing starts."""
+    contains one of those strings; with ``calls_of``, the calls of the
+    kernels whose names contain each string.  ``warm``: one more call
+    first, in a profiler cycle that is not kept, while device tracing
+    starts."""
     from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -1914,6 +2035,8 @@ def _profile(fn, share_of=(), warm=False, top=TOPK_PROFILE_TOP):
         out["share_of"] = {"names": list(share_of), "ms": sum(r[1] for r in hit),
                            "calls": sum(r[2] for r in hit),
                            "share_of_busy": sum(r[1] for r in hit) / busy if busy else 0.0}
+    if calls_of:
+        out["calls_of"] = {c: sum(r[2] for r in rows if c in r[0]) for c in calls_of}
     return out
 
 
@@ -2064,20 +2187,8 @@ def sweep_config():
 
 def _sae_counters():
     """Every kernel wrapper of the port, by name, for its launch count."""
-    from vit_prisma_tpu_torch.ops import attention as A
-    from vit_prisma_tpu_torch.ops.ln_matmul import ln_matmul
-    from vit_prisma_tpu_torch.ops.opt_step import adam_update
-    from vit_prisma_tpu_torch.ops import sae_step as S
-    from vit_prisma_tpu_torch.ops.shuffle import take_rows
-    from vit_prisma_tpu_torch.ops.topk import kth_value
-    return {f.__name__: f for f in (
-        A.attention_mix_tnh, A.attention_mix_tnh_bwd, take_rows, S.sae_fused_forward,
-        S.sae_fused_backward,
-        S.sae_fused_backward_stored, adam_update, S.sae_fused_forward_topk,
-        S.sae_fused_backward_topk, kth_value, S.sae_gated_fused_forward,
-        S.sae_gated_fused_backward, ln_matmul, A.flash_attention_padded,
-        A.flash_attention_padded_bwd_dkv, A.flash_attention_padded_bwd_dq,
-        A.attention_mix, A.fused_attention_block)}
+    from vit_prisma_tpu_torch.ops import counted_kernels
+    return counted_kernels()
 
 
 def _zero_counts(counters):
@@ -3186,10 +3297,9 @@ def phase_flash_kernels(info):
             library_bwd_us = device_us(sdpa_bwd, one_call_short=True)
             library_bwd_wall_us = cuda_us(sdpa_bwd)
             del out, leaves, keep, sdpa_bwd
-            # pairs each row attends: real rows the real keys, padding rows
-            # the padding keys (causal: those not after the row)
-            P = Tp - T
-            pairs = T * (T + 1) // 2 + P * (P + 1) // 2 if causal else T * T + P * P
+            # the pairs a real row attends (causal: the keys not after it);
+            # the padding rows' outputs are thrown away, so not counted
+            pairs = T * (T + 1) // 2 if causal else T * T
             gemm = "bf16_tensor" if dtype == torch.bfloat16 else "fp32"
             el = q.numel() * q.element_size()
             vec = B * N * Tp * 4
@@ -3211,8 +3321,7 @@ def phase_flash_kernels(info):
                    "bound": bounds,
                    "TFLOP_s": {k_: (4 if k_ == "fwd" else 8 if k_ == "bwd_dkv" else 6)
                                * B * N * pairs * H / (u * 1e-6) / 1e12 for k_, u in us.items()}}
-            rec["route"] = ("ffma" if dtype == torch.float32
-                            else "wgmma" if H in (64, 128) else "mma.sync")
+            rec["route"] = A.flash_route(H, dtype)
             results[(name, dtype)] = rec
             emit(rec)
             del q, k, v, dz, seg, z, lse, dq, dk, dv, want_z, want_dq, want_dk, want_dv
@@ -3240,13 +3349,11 @@ def phase_serve_ln_fused(info):
     _zero_counts(counters)
     answers = [servers["fused"](r) for r in requests]
     torch.cuda.synchronize()
-    launches = {k: f.launches for k, f in counters.items()}
     n_batches = sum(-(-n // SERVE_BATCH) for n in SERVE_REQUESTS)
-    expected = dict.fromkeys(counters, 0)
-    expected.update(ln_matmul=2 * cfg.n_layers * n_batches,
-                    attention_mix_tnh=cfg.n_layers * n_batches)
-    if launches != expected:
-        raise AssertionError(f"serve_ln_fused launches {launches}, expected {expected}")
+    launches = _served_launches(
+        "serve_ln_fused", servers["fused"], counters,
+        {"ln_matmul": 2 * cfg.n_layers, "attention_mix_tnh": cfg.n_layers}, n_batches,
+        {k: f.launches for k, f in counters.items()})
     errs = {}
     for i, (n, (out, cache)) in enumerate(zip(SERVE_REQUESTS, answers)):
         want_out, want = servers["unfused"](requests[i])
@@ -3268,10 +3375,11 @@ def phase_serve_ln_fused(info):
         torch.cuda.synchronize()
         runs[which].append(3 * batch.shape[0] / (time.perf_counter() - t0))
     one = batch[:SERVE_BATCH]
-    profiles = {which: _profile(lambda: servers[which](one)) for which in ("fused", "unfused")}
+    profiles = {"fused": _profile_replay("serve_ln_fused", servers["fused"], one),
+                "unfused": _profile(lambda: servers["unfused"](one))}
     emit({"phase": "serve_ln_fused", **info, "model": cfg.model_name, "dtype": "bfloat16",
           "batch_size": SERVE_BATCH, "requests": list(SERVE_REQUESTS), "launches": launches,
-          "launches_per_forward": {k: v / n_batches for k, v in launches.items()},
+          "launches_per_forward": servers["fused"].launches_per_replay,
           "vs_unfused_max_abs_err": errs, "rel_tol": SLICE_BF16_REL,
           "img_per_s_fused": runs["fused"], "img_per_s_unfused": runs["unfused"],
           "profile_of_one_forward": profiles})
@@ -3308,13 +3416,11 @@ def phase_serve_l14_336(info):
     _zero_counts(counters)
     answers = [server(r) for r in requests]
     torch.cuda.synchronize()
-    launches = {k: f.launches for k, f in counters.items()}
     n_batches = sum(-(-n // L336_BATCH) for n in L336_REQUESTS)
-    expected = dict.fromkeys(counters, 0)
-    expected.update(flash_attention_padded=cfg.n_layers * n_batches,
-                    ln_matmul=cfg.n_layers * n_batches)
-    if launches != expected:
-        raise AssertionError(f"serve_l14_336 launches {launches}, expected {expected}")
+    launches = _served_launches(
+        "serve_l14_336", server, counters,
+        {"flash_attention_padded": cfg.n_layers, "ln_matmul": cfg.n_layers}, n_batches,
+        {k: f.launches for k, f in counters.items()})
     for n, (out, cache) in zip(L336_REQUESTS, answers):
         if tuple(out.shape) != (n, cfg.n_classes) or len(cache) != cfg.n_layers:
             raise AssertionError(f"request {n}: out {tuple(out.shape)}, {len(cache)} entries")
@@ -3330,10 +3436,10 @@ def phase_serve_l14_336(info):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated() / 1e9
-    prof = _profile(lambda: server(batch))
+    prof = _profile_replay("serve_l14_336", server, batch)
     # the same forward without the LN fusion (B13 still), in turns
     servers = {"fused": server, "unfused": CompiledForward(
-        _with_weights(model, use_fused_ln_gemm=False), batch_size=L336_BATCH,
+        model.with_cfg(use_fused_ln_gemm=False), batch_size=L336_BATCH,
         names_filter=RESID_POST)}
     runs = {"fused": [], "unfused": []}
     for which in ("fused", "unfused", "unfused", "fused"):
@@ -3348,7 +3454,7 @@ def phase_serve_l14_336(info):
     del servers
 
     # bf16 against the einsum path (neither B13 nor B14)
-    plain = _with_weights(model, use_fused_attention=False, use_fused_ln_gemm=False)
+    plain = model.with_cfg(use_fused_attention=False, use_fused_ln_gemm=False)
     x = requests[1][:8].cuda().bfloat16()
     out_k, cache_k = model.run_with_cache(x, names_filter=RESID_POST)
     out_p, cache_p = plain.run_with_cache(x, names_filter=RESID_POST)
@@ -3378,7 +3484,7 @@ def phase_serve_l14_336(info):
     emit({"phase": "serve_l14_336", **info, "model": L336_MODEL, "dtype": "bfloat16",
           "n_layers": cfg.n_layers, "T": cfg.n_tokens, "batch_size": L336_BATCH,
           "requests": list(L336_REQUESTS), "launches": launches,
-          "launches_per_forward": {k: v / n_batches for k, v in launches.items()},
+          "launches_per_forward": server.launches_per_replay,
           "seconds_per_batch": times[1:], "img_per_s": [L336_BATCH / t for t in times[1:]],
           "img_per_s_fused": runs["fused"], "img_per_s_unfused": runs["unfused"],
           "peak_memory_GB": peak, "profile_of_one_batch": prof,
@@ -3436,7 +3542,7 @@ def phase_attribution_l14_336(info):
                                                  loss_fn=_metric))
 
     # bf16 against the einsum path (neither B13 nor B14)
-    plain = _with_weights(model, use_fused_attention=False, use_fused_ln_gemm=False)
+    plain = model.with_cfg(use_fused_attention=False, use_fused_ln_gemm=False)
     _, cache_p = plain.run_with_cache(x, names_filter=RESID_POST, incl_bwd=True,
                                       loss_fn=_metric)
     bf16_errs = _cache_grad_errs(cache, cache_p, L336_GRAD_BF16_REL)
@@ -3468,6 +3574,497 @@ def phase_attribution_l14_336(info):
           "f32_rel_tol": GRAD_F32_REL})
     del model, card_model, cpu_model
     return launches
+
+
+def _clips(cfg, n, seed, dtype=torch.bfloat16, device="cuda"):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(n, cfg.n_channels, cfg.video_num_frames, cfg.image_size,
+                       cfg.image_size, generator=g, device=device).to(dtype)
+
+
+def _forward_tflop(cfg) -> float:
+    """Operations of one forward of one input, in TFLOP: the block GEMMs
+    (QKV, W_O, the MLP) over T tokens and the attention's two T x T
+    products, 2 per multiply-add; the embedding and head beside them are
+    left out."""
+    T, D, L = cfg.n_tokens, cfg.d_model, cfg.n_layers
+    NH = cfg.n_heads * cfg.d_head
+    gemm = 2 * T * (4 * D * NH + 2 * D * cfg.d_mlp)
+    return L * (gemm + 4 * T * T * NH) / 1e12
+
+
+def phase_video(info):
+    """ViViT-B and V-JEPA huge at full width, bf16, random weights from seed
+    0: ``run_with_cache`` over every resid_post hook, B13 (and no other
+    kernel) exactly once a layer, on the route its head width takes
+    (wgmma at H 64, mma.sync at H 80: the picker and the profiler's kernel
+    names), each layer's attention output and block output against the
+    einsum path's (``use_fused_attention=False``) from the same residual,
+    clips per second, TFLOP/s and peak memory; then ViViT-B cut to
+    two layers in float32 on the card (B13's FFMA route) against the CPU."""
+    from vit_prisma_tpu_torch import HookedViT, get_model_config
+    from vit_prisma_tpu_torch.models.vit import vit_forward
+    from vit_prisma_tpu_torch.ops.attention import flash_route
+    from vit_prisma_tpu_torch.prisma.hooks import HookRuntime
+    counters = _sae_counters()
+    kernel_names = {"wgmma": "fwd_tc_kernel", "mma_sync": "flash_fwd_kernel"}
+    results = {}
+    for name, batch, want_route in ((VIVIT_MODEL, VIVIT_BATCH, "wgmma"),
+                                    (VJEPA_MODEL, VJEPA_BATCH, "mma_sync")):
+        cfg = get_model_config(name, dtype="bfloat16")
+        model = HookedViT(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+        clips = _clips(cfg, batch, seed=40)
+        route = flash_route(cfg.d_head, torch.bfloat16)
+        if route != want_route:
+            raise AssertionError(f"{name}: H {cfg.d_head} takes route {route}")
+        release()
+        torch.cuda.reset_peak_memory_stats()
+
+        # The main path, with every count set to 0 just before it.
+        _zero_counts(counters)
+        out, cache = model.run_with_cache(clips, names_filter=RESID_POST)
+        torch.cuda.synchronize()
+        launches = {k: f.launches for k, f in counters.items() if f.launches}
+        if launches != {"flash_attention_padded": cfg.n_layers}:
+            raise AssertionError(f"{name} launches {launches}, expected "
+                                 f"{cfg.n_layers} of B13 alone")
+        d_out = cfg.d_model if cfg.return_type == "pre_logits" else cfg.n_classes
+        if tuple(out.shape) != (batch, d_out) or len(cache) != cfg.n_layers:
+            raise AssertionError(f"{name}: out {tuple(out.shape)}, {len(cache)} entries")
+        for k, a in cache.items():
+            if tuple(a.shape) != (batch, cfg.n_tokens, cfg.d_model) or not torch.isfinite(a).all():
+                raise AssertionError(f"{name}: {k} {tuple(a.shape)}")
+        times = []
+        for _ in range(VIDEO_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.run_with_cache(clips, names_filter=RESID_POST)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        prof = _profile(lambda: model.run_with_cache(clips, names_filter=RESID_POST),
+                        share_of=(kernel_names[route],), warm=True,
+                        calls_of=tuple(kernel_names.values()))
+        calls = prof["calls_of"]
+        if calls[kernel_names[route]] != cfg.n_layers or any(
+                n for k, n in calls.items() if k != kernel_names[route]):
+            raise AssertionError(f"{name}: B13's kernels by name {calls}, expected "
+                                 f"{cfg.n_layers} of {kernel_names[route]}")
+
+        # bf16 against the einsum path (no B13), the same weights, layer by
+        # layer: block l on the kernel route from the residual the einsum
+        # path feeds block l (layer 0: the clips, whose embedding is shared)
+        plain = model.with_cfg(use_fused_attention=False)
+        _, cache_p = plain.run_with_cache(clips, names_filter=[
+            f"blocks.{l}.{h}" for l in range(cfg.n_layers)
+            for h in ("hook_resid_pre", "hook_attn_out", "hook_resid_post")])
+        errs, limits = {}, {}
+        for l in range(cfg.n_layers):
+            names = [f"blocks.{l}.hook_attn_out", f"blocks.{l}.hook_resid_post"]
+            rt = HookRuntime(names_filter=names)
+            with torch.inference_mode():
+                vit_forward(model, cfg, clips if l == 0 else cache_p[f"blocks.{l}.hook_resid_pre"],
+                            rt, l + 1, start_at_layer=l)
+            for k in names:
+                limits[k] = rel_atol(VIDEO_BF16_REL, cache_p[k])
+                errs[k] = check_close(f"{name} {k}", rt.cache[k], cache_p[k], limits[k])
+            del rt
+        del plain, cache_p
+        tflop = _forward_tflop(cfg) * batch
+        rec = {"phase": "video", **info, "model": name, "dtype": "bfloat16",
+               "weights": "random, seed 0 (pretrained weights are not in the repository)",
+               "clip": [cfg.n_channels, cfg.video_num_frames, cfg.image_size, cfg.image_size],
+               "n_layers": cfg.n_layers, "d_model": cfg.d_model, "d_head": cfg.d_head,
+               "T": cfg.n_tokens, "Tp": -(-cfg.n_tokens // 128) * 128, "batch": batch,
+               "route": route, "launches": launches,
+               "seconds_per_forward": times, "clips_per_s": [batch / t for t in times],
+               "TFLOP_per_forward": tflop, "TFLOP_per_s": [tflop / t for t in times],
+               "peak_memory_GB": peak, "profile_of_one_forward": prof,
+               "vs_einsum_per_layer_max_abs_err": errs, "per_layer_limits": limits,
+               "rel_tol": VIDEO_BF16_REL}
+        results[name] = rec
+        emit(rec)
+        del model, clips, out, cache
+        release()
+
+    # float32, ViViT-B cut to two layers, card against CPU at batch 1
+    cfg = get_model_config(VIVIT_MODEL, dtype="float32", n_layers=VIDEO_F32_LAYERS)
+    card_m = HookedViT(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    cpu_m = HookedViT(cfg, device="cpu")
+    cpu_m.load_state_dict(card_m.state_dict())
+    x = _clips(cfg, 1, seed=41, dtype=torch.float32, device="cpu")
+    _zero_counts(counters)
+    out_c, got = card_m.run_with_cache(x.cuda(), names_filter=RESID_POST)
+    torch.cuda.synchronize()
+    f32_launches = {k: f.launches for k, f in counters.items() if f.launches}
+    if f32_launches != {"flash_attention_padded": VIDEO_F32_LAYERS}:
+        raise AssertionError(f"ViViT f32 launches {f32_launches}")
+    out_r, want = cpu_m.run_with_cache(x, names_filter=RESID_POST)
+    f32_errs = {"out": check_close("ViViT f32 out", out_c, out_r, rel_atol(SLICE_F32_REL, out_r))}
+    for k in want:
+        f32_errs[k] = check_close(f"ViViT f32 {k}", got[k], want[k],
+                                  rel_atol(SLICE_F32_REL, want[k]))
+    emit({"phase": "video_f32_check", **info, "model": VIVIT_MODEL,
+          "n_layers": VIDEO_F32_LAYERS, "batch": 1, "route": flash_route(cfg.d_head, torch.float32),
+          "launches": f32_launches, "card_vs_cpu_max_abs_err": f32_errs,
+          "rel_tol": SLICE_F32_REL})
+    del card_m, cpu_m
+    return results
+
+
+def _clock_power() -> dict:
+    """The card's SM clock (MHz) and power draw (W) now, through NVML."""
+    return {"sm_clock_MHz": float(torch.cuda.clock_rate()),
+            "power_W": torch.cuda.power_draw() / 1000.0}
+
+
+@torch.inference_mode()
+def _eager_serve(model, bs, images):
+    """What CompiledForward graphs, run eagerly: each batch of ``bs`` (the
+    last zero-padded to ``bs``) through ``vit_forward`` with the resid_post
+    cache, padding rows dropped."""
+    from vit_prisma_tpu_torch.models.vit import vit_forward
+    from vit_prisma_tpu_torch.prisma.hooks import HookRuntime
+    p = next(model.parameters())
+    images = images.to(p.device, p.dtype)
+    outs, caches = [], []
+    for i in range(0, images.shape[0], bs):
+        chunk = images[i:i + bs]
+        n = chunk.shape[0]
+        if n < bs:
+            chunk = torch.cat([chunk, chunk.new_zeros((bs - n,) + chunk.shape[1:])])
+        rt = HookRuntime(names_filter=RESID_POST)
+        outs.append(vit_forward(model, model.cfg, chunk, rt)[:n])
+        caches.append({k: v[:n] for k, v in rt.cache.items()})
+    return torch.cat(outs), {k: torch.cat([c[k] for c in caches]) for k in caches[0]}
+
+
+def _served_launches(what, server, counters, per_forward, n_batches, moved):
+    """A graphed server's launches: exactly ``per_forward`` (wrapper name ->
+    launches; the rest 0) in its warm-up forward and in each replay, and
+    ``n_batches`` replays; the wrappers' counters (``moved``: their change
+    since they were set to 0) moved by the warm-up and the capture alone.
+    Returns what the server launched on the card."""
+    want = {k: per_forward.get(k, 0) for k in server.launches_per_replay}
+    want_moved = {k: 2 * per_forward.get(k, 0) for k in counters}
+    got = {"warmup": server.warmup_launches, "per_replay": server.launches_per_replay,
+           "replays": server.replays, "counters_moved": moved}
+    if (server.warmup_launches != want or server.launches_per_replay != want
+            or server.replays != n_batches or moved != want_moved):
+        raise AssertionError(f"{what}: {got}, expected per forward {per_forward}, "
+                             f"{n_batches} replays")
+    return server.launches
+
+
+# The bf16 kernels a served forward can launch, by wrapper: the name the
+# profiler gives each (B1's mma.sync mix, B14's and B13's wgmma kernels).
+SERVED_KERNEL_NAMES = {"attention_mix_tnh": "mix_tc_kernel",
+                       "ln_matmul": "ln_gemm_tc_kernel",
+                       "flash_attention_padded": "fwd_tc_kernel"}
+
+
+def _profile_replay(what, server, batch):
+    """``torch.profiler`` over one graphed batch (one replay) of ``server``;
+    the kernels it ran, counted by name, must be the server's launches per
+    replay, so that the count the graph's replays are charged is measured."""
+    if batch.shape[0] != server.batch_size or server.graph is None:
+        raise AssertionError(f"{what}: profile one full batch of a captured graph")
+    replays = server.replays
+    prof = _profile(lambda: server(batch), warm=True,
+                    calls_of=tuple(SERVED_KERNEL_NAMES.values()))
+    want = {SERVED_KERNEL_NAMES[k]: server.launches_per_replay[k] for k in SERVED_KERNEL_NAMES}
+    if prof["calls_of"] != want or server.replays != replays + 2:
+        raise AssertionError(f"{what}: one replay ran {prof['calls_of']}, expected {want} "
+                             f"(the server's launches per replay)")
+    return prof
+
+
+def _serve_turns(fns, batch, bs):
+    """Served images per second of each server in ``fns`` in GRAPH_ORDER's
+    turns of GRAPH_TURN_BATCHES batches of ``bs``: each batch synchronized
+    and timed, the card's SM clock and power read after it."""
+    runs = {k: [] for k in fns}
+    for which in GRAPH_ORDER:
+        fns[which](batch)  # warm-up
+        torch.cuda.synchronize()
+        per = []
+        for _ in range(GRAPH_TURN_BATCHES):
+            t0 = time.perf_counter()
+            fns[which](batch)
+            torch.cuda.synchronize()
+            per.append({"s": time.perf_counter() - t0, **_clock_power()})
+        s = sum(b["s"] for b in per)
+        runs[which].append({"img_per_s": GRAPH_TURN_BATCHES * bs / s, "batches": per})
+    return runs
+
+
+def phase_serve_graph(info):
+    """``CompiledForward`` on its CUDA graph against the eager forward of the
+    same padded batches, equal to the bit, at B/32 (bf16, fused LN, batch
+    256: B14 24 and B1 12 a replay) and CLIP L/14-336 (bf16, fused LN, batch
+    64: B13 24 and B14 24 a replay), launches exact per replay; served
+    images per second in turns (eager, graph, graph, eager), every batch's
+    time, SM clock and power; ``torch.profiler``'s idle share of one
+    graphed batch; then ``export_forward`` -> ``load_forward`` at B/32
+    against the eager einsum forward, at batch 1, 7 and 256."""
+    from vit_prisma_tpu_torch import (CompiledForward, HookedViT, export_forward,
+                                      get_model_config, load_forward)
+    counters = _sae_counters()
+    results = {}
+    b32 = get_model_config("openai/clip-vit-base-patch32", dtype="bfloat16",
+                           use_fused_ln_gemm=True)
+    rows = [("b32", HookedViT(b32, device="cuda", generator=torch.Generator().manual_seed(0)),
+             SERVE_BATCH, SERVE_REQUESTS,
+             {"ln_matmul": 2 * b32.n_layers, "attention_mix_tnh": b32.n_layers}),
+            ("l14_336", _l336_model(), L336_BATCH, L336_REQUESTS, None)]
+    for name, model, bs, request_sizes, per_forward in rows:
+        cfg = model.cfg
+        if per_forward is None:
+            per_forward = {"flash_attention_padded": cfg.n_layers, "ln_matmul": cfg.n_layers}
+        g = torch.Generator().manual_seed(2)
+        requests = [torch.randn(n, 3, cfg.image_size, cfg.image_size, generator=g)
+                    for n in request_sizes]
+        server = CompiledForward(model, batch_size=bs, names_filter=RESID_POST)
+        release()
+        torch.cuda.reset_peak_memory_stats()
+
+        # The main path, with every count set to 0 just before it.
+        _zero_counts(counters)
+        t0 = time.perf_counter()
+        answers = [server(r) for r in requests]
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        moved = {k: f.launches for k, f in counters.items()}
+        n_batches = sum(-(-n // bs) for n in request_sizes)
+        launches = _served_launches(f"serve_graph {name}", server, counters, per_forward,
+                                    n_batches, moved)
+        bitwise = {}
+        for n, r, (out, cache) in zip(request_sizes, requests, answers):
+            want_out, want = _eager_serve(model, bs, r)
+            same = torch.equal(out, want_out) and list(cache) == list(want) and all(
+                torch.equal(cache[k], want[k]) for k in want)
+            if not same:
+                diff = max((cache[k].float() - want[k].float()).abs().max().item()
+                           for k in want)
+                raise AssertionError(f"serve_graph {name} request {n}: the graph differs "
+                                     f"from the eager forward (max abs {diff})")
+            bitwise[n] = True
+        batch = torch.randn(bs, 3, cfg.image_size, cfg.image_size, device="cuda",
+                            dtype=torch.bfloat16)
+        runs = _serve_turns({"eager": lambda b: _eager_serve(model, bs, b), "graph": server},
+                            batch, bs)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        prof = _profile_replay(f"serve_graph {name}", server, batch)
+        rec = {"phase": "serve_graph", **info, "model": cfg.model_name, "dtype": "bfloat16",
+               "use_fused_ln_gemm": True, "batch_size": bs, "requests": list(request_sizes),
+               "launches": launches, "launches_per_replay": server.launches_per_replay,
+               "replays_of_the_requests": n_batches, "capture_and_requests_s": first_s,
+               "graph_equals_eager_bitwise": bitwise, "turns": list(GRAPH_ORDER),
+               "img_per_s_eager": [r["img_per_s"] for r in runs["eager"]],
+               "img_per_s_graph": [r["img_per_s"] for r in runs["graph"]],
+               "batches": runs, "peak_memory_GB": peak, "profile_of_one_graphed_batch": prof}
+        results[name] = rec
+        emit(rec)
+        del server, answers, model
+        release()
+
+    # the exported forward (plain routes) against the eager einsum forward
+    model = HookedViT(b32, device="cuda", generator=torch.Generator().manual_seed(0))
+    t0 = time.perf_counter()
+    data = export_forward(model, names_filter=RESID_POST)
+    export_s = time.perf_counter() - t0
+    fwd = load_forward(data)
+    plain = model.with_cfg(use_fused_attention=False, use_fused_ln_gemm=False)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    errs = {}
+    for n in EXPORT_BATCHES:
+        x = torch.randn(n, 3, 224, 224, generator=g, device="cuda").bfloat16()
+        out, cache = fwd(x)
+        want_out, want = plain.run_with_cache(x, names_filter=RESID_POST)
+        if list(cache) != list(want) or tuple(out.shape) != tuple(want_out.shape):
+            raise AssertionError(f"export batch {n}: keys {list(cache)}, out {tuple(out.shape)}")
+        e = {"out": check_close(f"export batch {n} out", out, want_out,
+                                rel_atol(EXPORT_BF16_REL, want_out))}
+        for k in want:
+            e[k] = check_close(f"export batch {n} {k}", cache[k], want[k],
+                               rel_atol(EXPORT_BF16_REL, want[k]))
+        e["bitwise"] = torch.equal(out, want_out) and all(torch.equal(cache[k], want[k])
+                                                          for k in want)
+        errs[n] = e
+    emit({"phase": "serve_export", **info, "model": b32.model_name, "dtype": "bfloat16",
+          "batch_polymorphic": True, "artifact_MB": len(data) / 1e6, "export_s": export_s,
+          "vs_eager_einsum_max_abs_err": errs, "rel_tol": EXPORT_BF16_REL})
+    del model, plain, fwd, data
+    return results
+
+
+def phase_checkpoint(info, store=None):
+    """The TopK slice's bf16 row (B8, B6, B7): CKPT_STEPS[0] steps,
+    ``save_train_state``, a fresh trainer (other weights drawn) with
+    ``load_state``, CKPT_STEPS[1] steps, against the uninterrupted steps on
+    the same buffered batches (the store's, else seeded activations on the
+    card), to the bit: params, moments, counters; exact launches.  Then
+    ``save_model`` / ``load_from_pretrained`` in float32 and bfloat16, and
+    the sweep's ``save_checkpoints`` (24 SAEs, 1024 -> 8192, float32): seconds
+    and bytes.  Everything goes into a temporary directory, removed after."""
+    import shutil
+    import tempfile
+    from vit_prisma_tpu_torch.sae import (SAESweepTrainer, SparseAutoencoder,
+                                          VisionSAETrainer, load_train_state, save_train_state)
+    from vit_prisma_tpu_torch.sae.convert import train_state_to_numpy
+    cfg = topk_config()
+    n, m = CKPT_STEPS
+    bs = cfg.train_batch_size
+    if store is not None:
+        buf, k = store.buffer, store.buffer.shape[0] // bs
+        batches = [buf[(i % k) * bs:(i % k + 1) * bs].clone() for i in range(n + m)]
+    else:
+        g = torch.Generator(device="cuda").manual_seed(6)
+        batches = [torch.randn(bs, cfg.d_in, generator=g, device="cuda") for _ in range(n + m)]
+    counters = _sae_counters()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        _zero_counts(counters)
+        whole = VisionSAETrainer(cfg, device="cuda")
+        for b in batches:
+            whole.train_step(b)
+        first = VisionSAETrainer(cfg, device="cuda")
+        for b in batches[:n]:
+            first.train_step(b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_train_state(os.path.join(tmp, "topk_state"), first.state, cfg)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        state, cfg_back = load_train_state(path, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        fresh = VisionSAETrainer(cfg, device="cuda",
+                                 generator=torch.Generator().manual_seed(99)).load_state(state)
+        for b in batches[n:]:
+            fresh.train_step(b)
+        torch.cuda.synchronize()
+        launches = {k: f.launches for k, f in counters.items() if f.launches}
+        steps = 2 * (n + m)
+        expected = {"sae_fused_forward_topk": steps, "sae_fused_backward_stored": steps,
+                    "adam_update": len(whole.state.params) * steps}
+        if launches != expected:
+            raise AssertionError(f"checkpoint launches {launches}, expected {expected}")
+        want, got = train_state_to_numpy(whole.state), train_state_to_numpy(fresh.state)
+        differ = [k for k in want if want[k].tobytes() != got[k].tobytes()]
+        if cfg_back != cfg or differ or fresh._host_step != n + m:
+            raise AssertionError(f"the resumed TopK run differs from the uninterrupted one: "
+                                 f"{differ}, host step {fresh._host_step}")
+        state_bytes = os.path.getsize(path)
+
+        # SAE files: the trained SAE in float32, and in bfloat16
+        sae_files = {}
+        for dtype in ("float32", "bfloat16"):
+            sae = fresh.sae
+            if dtype == "bfloat16":
+                sae = SparseAutoencoder(cfg.replace(dtype="bfloat16"),
+                                        params={k: v.bfloat16() for k, v in sae.params.items()})
+            p = os.path.join(tmp, f"sae_{dtype}")
+            sae.save_model(p)
+            back = SparseAutoencoder.load_from_pretrained(p, device="cuda")
+            same = back.cfg == sae.cfg and all(
+                back.params[k].dtype == v.dtype and torch.equal(back.params[k], v)
+                for k, v in sae.params.items())
+            if not same:
+                raise AssertionError(f"SAE file round trip in {dtype} differs")
+            sae_files[dtype] = {"bytes": os.path.getsize(p + ".npz"), "round_trip_bitwise": True}
+
+        # the sweep's checkpoints: 24 SAEs of one sweep state
+        sweep = SAESweepTrainer(sweep_config(), device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        paths = sweep.save_checkpoints(os.path.join(tmp, "sweep"))
+        sweep_s = time.perf_counter() - t0
+        sweep_bytes = sum(os.path.getsize(p + ".npz") for p in paths)
+        back = SparseAutoencoder.load_from_pretrained(paths[-1], device="cuda")
+        if not all(torch.equal(back.params[k], v[-1]) for k, v in sweep.state.params.items()):
+            raise AssertionError("the sweep's last SAE file differs from its state")
+        del sweep, back
+    finally:
+        shutil.rmtree(tmp)
+    rec = {"phase": "checkpoint", **info, "config": "TopK slice bf16 row (k 64, bf16 compute, "
+           "float32 masters)", "steps": [n, m], "launches": launches,
+           "batches": "the store's buffer" if store is not None else "seeded, on the card",
+           "resume_equals_uninterrupted_bitwise": True, "train_state_bytes": state_bytes,
+           "save_train_state_s": save_s, "load_train_state_s": load_s,
+           "sae_files": sae_files, "sweep_saes": len(paths), "sweep_save_s": sweep_s,
+           "sweep_bytes": sweep_bytes, "sweep_GB_per_s": sweep_bytes / sweep_s / 1e9}
+    emit(rec)
+    return launches
+
+
+def _mark_inputs(g, L, B, D, S):
+    """_sae_inputs in bf16 with B5's -0 marks forced (REMAT_MARK_SHAPES):
+    the inputs and the [L, B, S] entries that must be marked."""
+    x, We, be, Wd, bd, dy, dl1 = _sae_inputs(g, L, B, D, S, torch.bfloat16)
+    rows = torch.arange(0, B, B // MARK_ROWS, device="cuda")[:MARK_ROWS]
+    stride = S // (2 * MARK_FEATURES)
+    pos = torch.arange(MARK_FEATURES, device="cuda") * 2 * stride + 3
+    neg = pos + stride
+    m = 1 + torch.randint(0, 128, (L, 2 * MARK_FEATURES), generator=g, device="cuda") / 128
+    bd[:, 0] = 0
+    x[:, rows] = bd[:, None, :]
+    x[:, rows, 0] = 2.0 ** -60
+    We[:, 0, pos] = (2.0 ** -76 * m[:, :MARK_FEATURES]).bfloat16()
+    We[:, 0, neg] = (-(2.0 ** -76) * m[:, MARK_FEATURES:]).bfloat16()
+    be[:, pos] = 0
+    be[:, neg] = 0
+    want = torch.zeros(L, B, S, dtype=torch.bool, device="cuda")
+    want[:, rows[:, None], pos[None, :]] = True
+    return (x, We, be, Wd, bd, dy, dl1), want
+
+
+def phase_remat_marks(info):
+    """B5's -0 marks on the card (ROADMAP C): inputs whose float32 hpre lies
+    in (0, 2^-134] at chosen entries (REMAT_MARK_SHAPES), at the TopK
+    slice's and the sweep's widths in bf16.  B5 (Hopper route) marks exactly
+    those entries, so the wgmma accumulators keep such float32 subnormals;
+    B4 stores +0 there; its hc is B4's elsewhere; its grads equal the plain
+    backward's on its own mask and the plain version's
+    (``sae_fused_backward_reference``) within phase 7's tolerances."""
+    from vit_prisma_tpu_torch.ops import sae_step as S
+    g = torch.Generator(device="cuda").manual_seed(13)
+    results = {}
+    for name, L, B, D, Sd in REMAT_MARK_SHAPES:
+        args, want = _mark_inputs(g, L, B, D, Sd)
+        x, We, be, Wd, bd, dy, dl1 = args
+        (y, l1, nact, hc4), route4 = _routed(S.sae_fused_forward, *args[:5], save_h=True)
+        dW6, _ = _routed(S.sae_fused_backward_stored, x, hc4, Wd, bd, dy, dl1)
+        dW5, route5 = _routed(S.sae_fused_backward, *args)
+        torch.cuda.synchronize()
+        if route4 != "wgmma" or route5 != "wgmma":
+            raise AssertionError(f"remat_marks {name}: routes {route4}, {route5}")
+        hc5 = _remat_hc(*args).view(torch.int16)
+        marks = hc5 == -32768
+        hpre = S._mm(x - bd[:, None], We) + be.float()[:, None]
+        rec = {"minus_zero_marks": int(marks.sum()), "chosen": int(want.sum()),
+               "marks_exactly_the_chosen": torch.equal(marks, want),
+               "b4_hc_zero_at_the_chosen": bool((hc4.view(torch.int16)[want] == 0).all()),
+               "plain_hpre_positive_at_the_chosen": bool((hpre[want] > 0).all()),
+               "plain_hpre_max_at_the_chosen": hpre[want].max().item(),
+               "stored_vs_remat": _remat_against_stored(name, args, hc4, dW5, dW6, route5)}
+        if not (rec["marks_exactly_the_chosen"] and rec["b4_hc_zero_at_the_chosen"]):
+            raise AssertionError(f"remat_marks {name}: {rec}")
+        # the plain version, its mask hpre > 0 from its own float32 product
+        mask_plain = hpre > 0
+        switched = (mask_plain != (hc5 != 0)).any(dim=1)
+        rec["switched_features"] = int(switched.sum())
+        rec["grads_vs_plain"] = _grad_errs(
+            f"remat_marks {name} B5", dW5,
+            S.sae_fused_backward_reference(*args), switched, torch.bfloat16)
+        results[name] = rec
+        emit({"phase": "remat_marks", **info, "shape": name, "L": L, "B": B, "d_in": D,
+              "d_sae": Sd, "dtype": "bfloat16", "route": route5,
+              "rel_tol": {"grads": SAE_GRAD_REL[torch.bfloat16],
+                          "switched": SAE_SWITCHED_GRAD_REL}, **rec})
+        del args, want, x, We, be, Wd, bd, dy, dl1, y, hc4, dW5, dW6, hc5, hpre
+        torch.cuda.empty_cache()
+    return results
 
 
 def _eval_inputs(model, n, image_size, image_seed):
@@ -3894,15 +4491,6 @@ def phase_mix_kernels(info):
     return results, launches
 
 
-def _with_weights(model, **overrides):
-    """A HookedViT on the card with ``model``'s weights and config fields
-    overridden."""
-    from vit_prisma_tpu_torch import HookedViT
-    other = HookedViT(model.cfg.replace(**overrides), device="cuda")
-    other.load_state_dict(model.state_dict())
-    return other
-
-
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; none is available")
@@ -3928,11 +4516,14 @@ def main():
     del trainer
     release()
     sae_step_kernels = phase_sae_step_kernels(info)
+    phase_remat_marks(info)
+    release()
     topk_kernels = phase_topk_kernels(info)
     trainer, store, cfg, topk_launches = phase_train(info, topk_config(), "topk_train")
     topk_remat_launches = phase_topk_remat(info, trainer, store, cfg)
     kth_launches = phase_topk_step_check(info, trainer, store, cfg)
     phase_step_profile(info, trainer, store, cfg, "topk_profile")
+    phase_checkpoint(info, store)
     del trainer, store
     release()
     sweep, sweep_store, sweep_cfg, sweep_launches, remat_launches = phase_sweep(info)
@@ -3964,6 +4555,10 @@ def main():
     l336_launches = phase_serve_l14_336(info)
     release()
     l336_attrib_launches = phase_attribution_l14_336(info)
+    release()
+    phase_video(info)
+    release()
+    phase_serve_graph(info)
 
     def entry(name, source, replaces, launches, rec, ms_key="ms", scale=1.0):
         """One kernel's line: launches from its main path, the rest measured
@@ -4018,6 +4613,18 @@ def main():
     adam_rec = {"max_abs_err": max(max(r["max_abs_err"].values()) for r in adam),
                 "us": sum(r["us"] for r in adam), "plain_us": sum(r["plain_us"] for r in adam),
                 **bound(adam_bytes, [("fp32", adam_ops)])}
+    # the sweep's step: its four stacked tensors, float32 moments
+    adam_sweep = [sae_kernels[("adam_update", name, torch.float32)]
+                  for name, _, _ in ADAM_SWEEP_SHAPES]
+    adam_sweep_bytes = sum(r["MB_moved"] for r in adam_sweep) * 1e6
+    adam_sweep_line = {
+        "sweep_ms": sum(r["us"] for r in adam_sweep) * 1e-3,
+        "sweep_plain_ms": sum(r["plain_us"] for r in adam_sweep) * 1e-3,
+        "sweep_MB_moved": adam_sweep_bytes / 1e6,
+        "sweep_max_abs_err": max(max(r["max_abs_err"].values()) for r in adam_sweep),
+        **{f"sweep_{k}": v for k, v in bound(
+            adam_sweep_bytes,
+            [("fp32", sum(15 * math.prod(r["dims"]) for r in adam_sweep))]).items()}}
     sweep_rec = lambda k: sae_step_kernels[(k, "sweep_bf16")]
     topk_rec = lambda k: topk_kernels[(k, "slice_bf16")]
     l14 = kernels[("l14", torch.bfloat16)]
@@ -4039,9 +4646,10 @@ def main():
                 take_rows_line[shape][key] * (1 if key == "bound_ms" else 1e-3)
             for shape in ("store_bf16", "sweep_bf16")
             for key in ("us", "library_us", "bound_ms")}},
-        # one train step's four tensors, float32 moments
-        entry("adam_update", ADAM_SOURCE, ADAM_REPLACES, train_launches["adam_update"],
-              adam_rec, "us", 1e-3),
+        # one train step's four tensors, float32 moments, with the sweep
+        # step's four stacked tensors beside
+        {**entry("adam_update", ADAM_SOURCE, ADAM_REPLACES, train_launches["adam_update"],
+                 adam_rec, "us", 1e-3), **adam_sweep_line},
         # at the sweep's bf16 shape; launches from the sweep's main path (B5:
         # from its remat cycle; B6: the sweep's and the TopK slice's).  B4-B6
         # run their Hopper route there (source: its file), with the TopK
@@ -4129,6 +4737,15 @@ def main():
                   1e-3)
         if key != "fwd":
             e["library_bwd_ms"] = rec["library_us"]["bwd"] * 1e-3
+        else:  # the video towers' forwards beside
+            for shape in ("vivit_b", "vjepa_h"):
+                v = flash_kernels[(shape, torch.bfloat16)]
+                e.update({f"{shape}_ms": v["us"]["fwd"] * 1e-3,
+                          f"{shape}_library_ms": v["library_us"]["fwd"] * 1e-3,
+                          f"{shape}_bound_ms": v["bound"]["fwd"]["bound_ms"],
+                          f"{shape}_TFLOP_per_s": v["TFLOP_s"]["fwd"],
+                          f"{shape}_route": v["route"],
+                          f"{shape}_max_abs_err": v["max_abs_err"]["z"]})
         line.append(e)
     # B15 and B16 at B/32 bf16; launches from their op-level path (they have
     # no caller on any path of either package)

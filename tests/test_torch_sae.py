@@ -164,7 +164,7 @@ def test_constraints_match_jax():
     assert float(rows.abs().max()) < 1e-5
 
 
-def test_sae_module_matches_jax():
+def test_sae_module_matches_jax(tmp_path):
     jc, pc = _cfgs(**SMALL)
     jparams = _jax_params(jc)
     sae = port_sae.SparseAutoencoder(pc, params=sae_params_from_jax(
@@ -177,8 +177,13 @@ def test_sae_module_matches_jax():
     assert_close(want(jnp.asarray(x)).loss, sae(torch.from_numpy(x)).loss, 1e-5, "loss")
     assert sae.get_name() == want.get_name()
     assert not any(p.requires_grad for p in sae.parameters())
-    with pytest.raises(NotImplementedError, match="item 15"):
-        sae.save_model("unused")
+    # saved in the JAX package's format: both packages load it back
+    sae.save_model(str(tmp_path / "sae"))
+    back = port_sae.SparseAutoencoder.load_from_pretrained(str(tmp_path / "sae"), device="cpu")
+    assert back.cfg == pc and all(torch.equal(back.params[k], v) for k, v in sae.params.items())
+    jback = jax_sae.SparseAutoencoder.load_from_pretrained(str(tmp_path / "sae.npz"))
+    np.testing.assert_array_equal(np.asarray(jback(jnp.asarray(x)).loss),
+                                  np.asarray(want(jnp.asarray(x)).loss))
 
 
 def test_port_init_is_unit_norm_and_seeded():

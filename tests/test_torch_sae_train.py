@@ -214,11 +214,20 @@ def test_train_state_from_jax_maps_every_leaf():
 
 
 @pytest.mark.parametrize("fields,kwargs,item", [
-    (dict(n_checkpoints=2), {}, "item 15"),
+    (dict(n_checkpoints=2), {}, None),
     ({}, dict(mesh=object()), "item 15"),
 ])
 def test_trainer_options_not_ported_raise(fields, kwargs, item):
-    _, pc = _cfgs(**fields)
+    """``mesh=`` raises; ``n_checkpoints`` is ported (test_torch_checkpoints.py
+    holds the saves against JAX's): both trainers build with it and take
+    JAX's token thresholds."""
+    jc, pc = _cfgs(**fields)
+    if item is None:
+        tr = port_sae.VisionSAETrainer(pc, device="cpu")
+        assert tr.checkpoint_thresholds == jax_sae.VisionSAETrainer(jc).checkpoint_thresholds
+        sweep = port_sae.SAESweepTrainer(pc.replace(sweep_layers=(0, 1)), device="cpu")
+        assert len(sweep.checkpoint_thresholds) == 1
+        return
     with pytest.raises(NotImplementedError, match=item):
         port_sae.VisionSAETrainer(pc, **kwargs)
     with pytest.raises(NotImplementedError, match=item):

@@ -88,7 +88,8 @@ class ViTConfig:
     return_type: str = "pre_logits"  # 'pre_logits' | 'class_logits' | 'logits'
     normalize_output: bool = False
 
-    # Video (not ported: ROADMAP queue A, item 14)
+    # Video: [B, C, frames, H, W] input cut into tubelets of
+    # video_tubelet_depth frames (models/layers.py tubelet_embedding)
     is_video_transformer: bool = False
     video_tubelet_depth: Optional[int] = None
     video_num_frames: Optional[int] = None

@@ -88,11 +88,17 @@ class LayerNorm(nn.Module):
         self.b = new_param((d,), device, dtype)
 
 
+def patch_dim(cfg: ViTConfig) -> int:
+    """Rows of ``embed.W``: C·P² for images, C·D·P² for a video config's
+    tubelets of depth D."""
+    n = cfg.n_channels * cfg.patch_size ** 2
+    return n * cfg.video_tubelet_depth if cfg.is_video_transformer else n
+
+
 class PatchEmbedding(nn.Module):
     def __init__(self, cfg: ViTConfig, device=None):
         super().__init__()
-        patch_dim = cfg.n_channels * cfg.patch_size ** 2
-        self.W = new_param((patch_dim, cfg.d_model), device, cfg.torch_dtype)
+        self.W = new_param((patch_dim(cfg), cfg.d_model), device, cfg.torch_dtype)
         self.b = new_param((cfg.d_model,), device, cfg.torch_dtype)
 
 
@@ -221,9 +227,21 @@ def patch_embedding(params, cfg: ViTConfig, x):
     return patches @ params.W + params.b
 
 
+def tubelet_patchify(cfg: ViTConfig, x):
+    """[B, C, T, H, W] -> [B, (T/D)·(H/P)·(W/P), C*D*P*P] in the (C, D, Ph,
+    Pw) element order of ``Conv3d.weight.reshape(d_model, -1)``."""
+    B, C, T, H, W = x.shape
+    P, D = cfg.patch_size, cfg.video_tubelet_depth
+    x = x.reshape(B, C, T // D, D, H // P, P, W // P, P)
+    x = x.permute(0, 2, 4, 6, 1, 3, 5, 7)
+    return x.reshape(B, (T // D) * (H // P) * (W // P), C * D * P * P)
+
+
 def tubelet_embedding(params, cfg: ViTConfig, x):
-    raise NotImplementedError(
-        "video tubelet embedding is not ported yet (ROADMAP queue A, item 14)")
+    """Video tubelet embedding: tubelet extraction plus one matmul, the
+    stride=kernel Conv3d.  ``params.W: [C*D*P*P, d_model]``."""
+    patches = tubelet_patchify(cfg, x).to(params.W.dtype)
+    return patches @ params.W + params.b
 
 
 # ---------------------------------------------------------------------------

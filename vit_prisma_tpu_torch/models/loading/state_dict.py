@@ -33,7 +33,9 @@ def port_state_dict(flat: Flat, cfg: ViTConfig) -> Dict[str, torch.Tensor]:
 
     Accepts the matmul layout ``embed.W [C*P*P, d_model]`` or the
     convolution's ``embed.proj.weight [d_model, C, P, P]`` (flattened in
-    (C, Ph, Pw) order).  ``cls_token`` of any shape is reshaped to
+    (C, Ph, Pw) order), or for a video config the Conv3d's ``[d_model, C,
+    D, P, P]`` (flattened in (C, D, Ph, Pw) order, that of
+    ``tubelet_patchify``).  ``cls_token`` of any shape is reshaped to
     ``[1, 1, d_model]``; a missing head is zero-filled, as in the JAX
     package.  Dtype and device are left to ``load_state_dict``."""
     out = {k: _tensor(v) for k, v in flat.items()}

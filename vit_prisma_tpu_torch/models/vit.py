@@ -14,6 +14,7 @@ the fused path.
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -104,7 +105,7 @@ def init_vit_params(cfg: ViTConfig,
     in ``cfg``'s dtype.  The numbers differ from the JAX init's."""
     g = generator if generator is not None else torch.Generator().manual_seed(0)
     Lyr, N, D, Dh, M = cfg.n_layers, cfg.n_heads, cfg.d_model, cfg.d_head, cfg.d_mlp
-    patch_dim = cfg.n_channels * cfg.patch_size ** 2
+    patch_dim = L.patch_dim(cfg)
 
     def normal(shape, std):
         return torch.randn(shape, generator=g) * std
@@ -163,7 +164,8 @@ def init_vit_params(cfg: ViTConfig,
 
 def embed_tokens(params, cfg: ViTConfig, x, hooks: HookRuntime):
     """Patch-embed + cls token + positional embedding + optional pre-LN."""
-    embed = hooks("hook_embed", L.patch_embedding(params.embed, cfg, x))
+    embed_fn = L.tubelet_embedding if cfg.is_video_transformer else L.patch_embedding
+    embed = hooks("hook_embed", embed_fn(params.embed, cfg, x))
     B = x.shape[0]
     if cfg.use_cls_token:
         cls = params.cls_token.to(embed.dtype).expand(B, 1, cfg.d_model)
@@ -239,10 +241,6 @@ class HookedViT(nn.Module):
     def __init__(self, cfg: ViTConfig, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.is_video_transformer:
-            raise NotImplementedError(
-                "video transformers are not ported yet (ROADMAP queue A, "
-                "item 14)")
         self.cfg = cfg
         device = resolve_device(device)
         dt = cfg.torch_dtype
@@ -258,6 +256,22 @@ class HookedViT(nn.Module):
         self.ln_final = L.LayerNorm(cfg.d_model, device, dt) if ln else None
         self.head = L.Head(cfg, device)
         self.load_state_dict(init_vit_params(cfg, generator))
+
+    def with_cfg(self, **overrides) -> "HookedViT":
+        """This model with config fields overridden (its routes, as
+        ``use_fused_attention``), sharing its parameters: no second draw
+        or copy of the weights."""
+        cfg = self.cfg.replace(**overrides)
+        other = copy.copy(self)
+        other.__dict__["_modules"] = dict(self._modules)
+        other.cfg = cfg
+        blocks = []
+        for b in self.blocks:
+            b = copy.copy(b)
+            b.cfg = cfg
+            blocks.append(b)
+        other.blocks = nn.ModuleList(blocks)
+        return other
 
     # -- plain forward ---------------------------------------------------
     @torch.inference_mode()

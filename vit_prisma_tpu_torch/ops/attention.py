@@ -315,6 +315,16 @@ def flash_fits(Tp: int, H: int) -> bool:
     return Tp > 0 and Tp % FLASH_TILE == 0 and 0 < H <= FLASH_MAX_HEAD_DIM and H % 16 == 0
 
 
+def flash_route(H: int, dtype: torch.dtype) -> str:
+    """The forward kernel ``csrc/flash_attention_fwd.cu`` runs for a head
+    width and dtype: ``"wgmma"`` (bfloat16 at H 64 and 128: the Hopper
+    kernel), ``"mma_sync"`` (the other bfloat16 widths) or ``"ffma"``
+    (float32)."""
+    if dtype == torch.float32:
+        return "ffma"
+    return "wgmma" if H in (64, 128) else "mma_sync"
+
+
 def _flash_scores(q, k, seg, causal: bool):
     """float32 scores with -inf where the segment ids (or the causal mask)
     hide a key."""

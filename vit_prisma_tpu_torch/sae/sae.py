@@ -27,9 +27,12 @@ ghost grads and the activation normalization modes (item 5).
 
 from __future__ import annotations
 
+import json
 import math
+import os
 from typing import Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -265,8 +268,9 @@ class SparseAutoencoder(nn.Module):
     JAX class's surface: ``__call__`` (the forward with losses),
     ``encode``, ``decode``, ``reconstruct`` and ``get_name``.  Drawn parameters go to ``device``
     (the CUDA card when None); given ``params`` stay on their device unless
-    ``device`` names another.  Saving and loading are ROADMAP queue A,
-    item 15."""
+    ``device`` names another.  :meth:`save_model` and
+    :meth:`load_from_pretrained` read and write the JAX package's ``.npz``
+    format."""
 
     def __init__(self, cfg: SAERunnerConfig, params: Optional[Params] = None,
                  generator: Optional[torch.Generator] = None, device=None):
@@ -301,14 +305,46 @@ class SparseAutoencoder(nn.Module):
         return (f"sparse_autoencoder_{self.cfg.model_name}_"
                 f"{self.cfg.hook_point}_{self.cfg.d_sae}").replace("/", "_")
 
+    # -- persistence ------------------------------------------------------
     def save_model(self, path: str):
-        raise NotImplementedError(
-            "saving SAEs is not ported yet (ROADMAP queue A, item 15)")
+        """Write the JAX package's format: one ``.npz`` (the suffix is added
+        when missing) holding ``__config__``, the config's JSON, and one
+        array per parameter.  bfloat16 parameters are written as their raw
+        two-byte words (numpy's ``|V2``), the bytes the JAX package writes
+        for an ``ml_dtypes`` bfloat16 array."""
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        arrays = {k: tensor_to_numpy(v) for k, v in self.params.items()}
+        np.savez(path if path.endswith(".npz") else path + ".npz",
+                 __config__=json.dumps(self.cfg.to_dict()), **arrays)
 
     @classmethod
     def load_from_pretrained(cls, path: str, device=None) -> "SparseAutoencoder":
-        raise NotImplementedError(
-            "loading SAEs is not ported yet (ROADMAP queue A, item 15)")
+        """Load a file written by :meth:`save_model` or by the JAX package's
+        ``save_model``, onto ``device`` (the CUDA card when None).  Two-byte
+        void arrays are read as bfloat16 words."""
+        if not path.endswith(".npz") and os.path.exists(path + ".npz"):
+            path = path + ".npz"
+        with np.load(path, allow_pickle=False) as z:
+            cfg = SAERunnerConfig.from_dict(json.loads(str(z["__config__"])))
+            params = {k: numpy_to_tensor(z[k]) for k in z.files if k != "__config__"}
+        return cls(cfg, params=params, device=resolve_device(device))
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array on the host; bfloat16 as ``|V2`` words,
+    which numpy has no float type for."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.dtype("V2"))
+    return t.numpy()
+
+
+def numpy_to_tensor(a: np.ndarray) -> torch.Tensor:
+    """The inverse of :func:`tensor_to_numpy`: ``|V2`` words (or an
+    ``ml_dtypes`` bfloat16 array) as a bfloat16 tensor, to the bit."""
+    if a.dtype.itemsize == 2 and a.dtype.kind == "V" or a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
 
 
 def build_sae(cfg: SAERunnerConfig, generator: Optional[torch.Generator] = None,

@@ -37,13 +37,22 @@ its end, and ``run`` aborts when the CE recovered falls below
 over a dataset.  With ``cfg.log_to_wandb`` the metrics go to wandb when it
 imports and starts; otherwise nothing is logged there.
 
-Not ported yet, and raising ``NotImplementedError``: checkpoints and
-``mesh`` (ROADMAP queue A, item 15), transcoders and the approximate TopK
-(item 10).
+Checkpoints: with ``cfg.n_checkpoints`` both trainers save at even token
+thresholds and once at the end (``"final"``), as the JAX trainers do: the
+single trainer one SAE ``.npz`` and its log feature sparsity
+(:meth:`VisionSAETrainer.save_checkpoint`), the sweep one ``.npz`` a layer
+(:meth:`SAESweepTrainer.save_checkpoints`).  :func:`save_train_state` and
+:func:`load_train_state` keep the whole train state (params, Adam moments in
+their dtype, counters) for a resume equal to the uninterrupted run.
+
+Not ported yet, and raising ``NotImplementedError``: ``mesh`` and the
+sharded train-state checkpoint (ROADMAP queue A, item 15), transcoders and
+the approximate TopK (item 10).
 """
 
 from __future__ import annotations
 
+import os
 import time
 import warnings
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
@@ -548,9 +557,6 @@ def _not_ported_options(cfg, mesh):
     if mesh is not None:
         raise NotImplementedError(
             "a sharded trainer (mesh=) is not ported yet (ROADMAP queue A, item 15)")
-    if cfg.n_checkpoints:
-        raise NotImplementedError(
-            "checkpoints are not ported yet (ROADMAP queue A, item 15)")
 
 
 def _token_thresholds(cfg: SAERunnerConfig, n: int):
@@ -632,6 +638,7 @@ class VisionSAETrainer:
         # instead of the device value, so the loop never waits for the
         # device except to log.  load_state() keeps it in sync.
         self._host_step = 0
+        self.checkpoint_thresholds = _token_thresholds(cfg, cfg.n_checkpoints)
         self.validation_thresholds = _token_thresholds(cfg, cfg.n_validation_runs)
         self.eval_dataset = eval_dataset if eval_dataset is not None else \
             getattr(store, "eval_dataset", None)
@@ -785,6 +792,51 @@ class VisionSAETrainer:
                     f"{self.cfg.min_ce_recovered}); aborting run")
         return None
 
+    # -- checkpoints -------------------------------------------------------
+    def save_checkpoint(self, tag: Optional[str] = None) -> str:
+        """Save the SAE (``save_model``'s ``.npz``) under
+        ``cfg.checkpoint_path`` as ``{name}_{tag}`` (default tag
+        ``n_tokens_{n}``), with its log10 feature sparsity beside it as
+        ``{name}_{tag}_log_feature_sparsity.npy``, and upload both as wandb
+        artifacts when ``cfg.wandb_checkpoint_artifacts`` and wandb runs.
+        Returns the path without its suffix."""
+        sae = self.sae
+        n = tag if tag is not None else f"n_tokens_{int(self.state.n_training_tokens)}"
+        path = os.path.join(self.cfg.checkpoint_path, f"{sae.get_name()}_{n}")
+        sae.save_model(path)
+        sparsity = (self.state.act_freq_scores
+                    / torch.clamp(self.state.n_frac_active_tokens, min=1.0)).cpu().numpy()
+        np.save(path + "_log_feature_sparsity.npy", np.log10(sparsity + 1e-10))
+        if self._wandb is not None and self.cfg.wandb_checkpoint_artifacts:
+            self._upload_checkpoint_artifact(path)
+        return path
+
+    def _upload_checkpoint_artifact(self, path: str):
+        """The SAE and its sparsity as wandb artifacts; a failed upload
+        never stops training."""
+        try:
+            wandb = self._wandb
+            run_id = wandb.run.id if wandb.run else "run"
+            name = os.path.basename(path)
+            model_art = wandb.Artifact(f"{name}_{run_id}", type="model",
+                                       metadata=dict(self.cfg.to_dict()))
+            model_art.add_file(path if os.path.exists(path) else path + ".npz")
+            wandb.log_artifact(model_art, aliases=["latest", f"step_{int(self.state.step)}"])
+            sparsity_art = wandb.Artifact(f"{name}_log_feature_sparsity_{run_id}",
+                                          type="log_feature_sparsity",
+                                          metadata=dict(self.cfg.to_dict()))
+            sparsity_art.add_file(path + "_log_feature_sparsity.npy")
+            wandb.log_artifact(sparsity_art)
+        except Exception as e:
+            if self.cfg.verbose:
+                print(f"wandb artifact upload failed: {e}")
+
+    def _save_at_threshold(self, n_tokens: int):
+        self.save_checkpoint()
+
+    def _save_final(self):
+        self.save_checkpoint(tag="final")
+
     def _progress(self, step: int, n_tokens: int, vals, seconds: float) -> str:
         return (f"step {step} tokens {n_tokens} loss {vals['loss']:.4f} "
                 f"L0 {vals['l0']:.1f} ev {vals['explained_variance']:.3f} "
@@ -804,6 +856,7 @@ class VisionSAETrainer:
         k = max(1, int(self.cfg.steps_per_dispatch))
         bs = self.cfg.train_batch_size
         freq = self.cfg.wandb_log_frequency
+        thresholds = list(self.checkpoint_thresholds)
         val_thresholds = list(self.validation_thresholds)
         step = 0
         # one sync here, then host accounting only
@@ -831,15 +884,29 @@ class VisionSAETrainer:
                 msg = self._abort_message(m, vals)
                 if msg is not None:
                     raise RuntimeError(msg)
+            # the JAX sweep saves before it validates, the single trainer after
+            if self._checkpoint_first:
+                self._checkpoints_due(thresholds, n_tokens)
             while val_thresholds and n_tokens >= val_thresholds[0]:
                 val_thresholds.pop(0)
                 vvals = self.validate()
                 msg = None if vvals is None else self._validation_abort_message(vvals)
                 if msg is not None:
                     raise RuntimeError(msg)
+            if not self._checkpoint_first:
+                self._checkpoints_due(thresholds, n_tokens)
         if self.cfg.n_validation_runs:
             self.validate()
+        if self.cfg.n_checkpoints:
+            self._save_final()
         return self._result()
+
+    _checkpoint_first = False
+
+    def _checkpoints_due(self, thresholds, n_tokens: int):
+        while thresholds and n_tokens >= thresholds[0]:
+            thresholds.pop(0)
+            self._save_at_threshold(n_tokens)
 
 
 class SAESweepTrainer(VisionSAETrainer):
@@ -934,9 +1001,26 @@ class SAESweepTrainer(VisionSAETrainer):
     def _result(self) -> List[SparseAutoencoder]:
         return [self.sae_for_layer(i) for i in range(len(self.layers))]
 
-    def save_checkpoints(self, out_dir: str):
-        raise NotImplementedError(
-            "checkpoints are not ported yet (ROADMAP queue A, item 15)")
+    def save_checkpoints(self, out_dir: str) -> List[str]:
+        """One ``.npz`` a layer (``save_model``) in ``out_dir``, each named
+        by its SAE (``get_name``, which holds the layer).  Returns the
+        paths without their suffix."""
+        paths = []
+        for i in range(len(self.layers)):
+            sae = self.sae_for_layer(i)
+            path = os.path.join(out_dir, sae.get_name())
+            sae.save_model(path)
+            paths.append(path)
+        return paths
+
+    _checkpoint_first = True
+
+    def _save_at_threshold(self, n_tokens: int):
+        self.save_checkpoints(os.path.join(self.cfg.checkpoint_path,
+                                           f"sweep_n_tokens_{n_tokens}"))
+
+    def _save_final(self):
+        self.save_checkpoints(os.path.join(self.cfg.checkpoint_path, "sweep_final"))
 
     def validate(self) -> Optional[Dict[str, float]]:
         """One validation pass over all sweep layers in one sweep eval step
@@ -1011,3 +1095,50 @@ class SAESweepTrainer(VisionSAETrainer):
                                                       self.class_embeddings)
         return sweep_process_dataset(self.model, self.cfg, self.layers, self.state.params,
                                      data_iter, class_embeddings, eval_cfg or EvalConfig())
+
+
+# ---------------------------------------------------------------------------
+# The whole train state, for a resume equal to the uninterrupted run
+# ---------------------------------------------------------------------------
+
+_STATE_TYPES = (SAETrainState, ScaleByAdamState, ScaleByScheduleState)
+
+
+def save_train_state(path: str, state: SAETrainState, cfg: SAERunnerConfig) -> str:
+    """Save the whole train state (params, Adam moments in their dtype,
+    counters) and the config, as ``torch.save`` of ``{"cfg": cfg.to_dict(),
+    "state": state}`` with every tensor on the CPU, to ``path`` (``.pt``
+    added when missing).  The format is the port's own: the JAX package
+    pickles numpy leaves with optax's classes (``sae/convert.py`` maps such a
+    state).  Returns the path."""
+    if not path.endswith(".pt"):
+        path = path + ".pt"
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    host = _map_state(lambda t: t.detach().cpu(), state)
+    torch.save({"cfg": cfg.to_dict(), "state": host}, path)
+    return path
+
+
+def load_train_state(path: str, device=None) -> Tuple[SAETrainState, SAERunnerConfig]:
+    """Load :func:`save_train_state`'s file onto ``device`` (the CUDA card
+    when None): ``(state, cfg)``.  It unpickles with ``weights_only=True``,
+    the state's NamedTuples allowed by name."""
+    if not path.endswith(".pt") and os.path.exists(path + ".pt"):
+        path = path + ".pt"
+    with torch.serialization.safe_globals(list(_STATE_TYPES)):
+        blob = torch.load(path, map_location="cpu", weights_only=True)
+    dev = resolve_device(device)
+    state = _map_state(lambda t: t.to(dev), blob["state"])
+    return state, SAERunnerConfig.from_dict(blob["cfg"])
+
+
+def save_train_state_sharded(path: str, state: SAETrainState, cfg: SAERunnerConfig):
+    raise NotImplementedError(
+        "the sharded train-state checkpoint is not ported yet (ROADMAP queue A, "
+        "item 15: parallelism); save_train_state keeps the whole state")
+
+
+def load_train_state_sharded(path: str, mesh=None):
+    raise NotImplementedError(
+        "the sharded train-state checkpoint is not ported yet (ROADMAP queue A, "
+        "item 15: parallelism); load_train_state reads save_train_state's file")
