@@ -214,6 +214,24 @@ Phases, each printing JSON lines with the card's name and power limit:
     4, 23 and 24);
     then ``export_forward`` -> ``load_forward`` at B/32 against the eager
     einsum forward at batch 1, 7 and 256.
+28. analysis: CLIP ViT-B/32 at full width loaded through
+    ``load_hooked_model`` from an HF ``CLIPModel``-layout state dict drawn
+    from a seed, raw, processed (``fold_ln``, ``center_writing_weights``,
+    ``fold_value_biases``) and refactored
+    (``refactor_factored_attn_matrices``): the processed and refactored
+    forwards on B1's route against the raw one; ``run_with_cache`` to an
+    ``ActivationCache`` at batch 8 in float32 and bfloat16 with its
+    invariants (heads + remainder = the last resid_post, the remainder =
+    the MLPs + b_O + the first resid_pre, neuron results + b_out = mlp_out
+    in every layer, the LayerNorm-scaled last residual =
+    ``ln_final.hook_normalized``); ``get_full_resid_decomposition
+    (expand_neurons=True, apply_ln=True)`` at batch 1 (37,009 components)
+    with its time and peak memory, summing to the scaled difference of the
+    last resid_post and the first resid_pre; the logit lens over 1,000
+    seed-drawn class directions with the ImageNet names against a plain
+    einsum and the CPU; B1's launches exactly 12 for each forward on its
+    route (the caches with ``hook_z`` take the einsum attention); and
+    ``save_local`` -> ``from_local`` on the card to the bit in both dtypes.
 
 The line before the last lists every kernel with its launches on its main
 path, its error, times, bound and library time.  It imports no JAX,
@@ -785,6 +803,26 @@ REMAT_MARK_SHAPES = [("topk_slice_bf16", 1, 4096, 768, 12288),
 MARK_ROWS = 64
 MARK_FEATURES = 128
 
+# analysis: CLIP ViT-B/32 at full width loaded through load_hooked_model from
+# an HF CLIPModel-layout vision state dict drawn from a seed, raw and
+# processed; cached forwards to an ActivationCache at ANALYSIS_BATCH in both
+# dtypes, the full residual decomposition at batch 1, the logit lens over
+# ANALYSIS_CLASSES seed-drawn class directions.  Tolerances, of max(1,
+# absmax): float32 1e-4 (processing and the analyses reorder float32 sums
+# over up to 36,865 components); bfloat16 3e-2 (a neuron's product and the
+# LayerNorm's centring round to bf16 before the sum, where the forward
+# accumulates in float32: a few bf16 ulps of the absmax).
+ANALYSIS_MODEL = "openai/clip-vit-base-patch32"
+ANALYSIS_BATCH = 8
+ANALYSIS_CLASSES = 1000
+ANALYSIS_F32_REL = 1e-4
+ANALYSIS_BF16_REL = 3e-2
+# processed (folded, centred, refactored) against raw weights, and the card
+# against the CPU: other roundings of the weights or other GEMM orders
+# carried through 12 layers, as the slice's SLICE_F32_REL
+ANALYSIS_PROCESSED_REL = 1e-3
+ANALYSIS_CPU_BATCH = 2
+
 
 def RESID_POST(name: str) -> bool:
     return "resid_post" in name
@@ -1109,7 +1147,8 @@ def phase_slice(info):
     images = torch.randn(4, 3, 224, 224, generator=torch.Generator().manual_seed(1))
 
     attention_mix_tnh.launches = 0
-    out, cache = model.run_with_cache(images.cuda(), names_filter=RESID_POST)
+    out, cache = model.run_with_cache(images.cuda(), names_filter=RESID_POST,
+                                      return_cache_object=False)
     torch.cuda.synchronize()
     launches_f32 = attention_mix_tnh.launches
     if launches_f32 != cfg.n_layers:
@@ -1117,7 +1156,8 @@ def phase_slice(info):
 
     cpu = HookedViT(cfg, device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    ref_out, ref_cache = cpu.run_with_cache(images, names_filter=RESID_POST)
+    ref_out, ref_cache = cpu.run_with_cache(images, names_filter=RESID_POST,
+                                            return_cache_object=False)
     if list(cache) != list(ref_cache) or len(cache) != cfg.n_layers:
         raise AssertionError(f"cache keys differ: {list(cache)}")
     f32_errs = {"logits": check_close("f32 logits", out, ref_out,
@@ -1133,10 +1173,10 @@ def phase_slice(info):
     plain.load_state_dict(model.state_dict())
     x = images.cuda().bfloat16()
     attention_mix_tnh.launches = 0
-    out_k, cache_k = fused.run_with_cache(x, names_filter=RESID_POST)
+    out_k, cache_k = fused.run_with_cache(x, names_filter=RESID_POST, return_cache_object=False)
     torch.cuda.synchronize()
     launches_bf16 = attention_mix_tnh.launches
-    out_p, cache_p = plain.run_with_cache(x, names_filter=RESID_POST)
+    out_p, cache_p = plain.run_with_cache(x, names_filter=RESID_POST, return_cache_object=False)
     torch.cuda.synchronize()
     if launches_bf16 != cfg.n_layers or attention_mix_tnh.launches != cfg.n_layers:
         raise AssertionError(f"bf16 launches {launches_bf16}, "
@@ -1189,7 +1229,7 @@ def phase_serve(info, fused, plain):
             raise AssertionError(f"request {n}: non-finite output")
     # The padded request's rows are the unpadded forward's rows.
     small_out, _ = fused.run_with_cache(requests[2].cuda().bfloat16(),
-                                        names_filter=RESID_POST)
+                                        names_filter=RESID_POST, return_cache_object=False)
     pad_err = check_close("padded request", answers[2][0], small_out,
                           rel_atol(SLICE_BF16_REL, small_out))
 
@@ -2859,7 +2899,7 @@ def phase_attribution(info):
     # The main path, with every count set to 0 just before it.
     _zero_counts(counters)
     out, cache = model.run_with_cache(x, names_filter=RESID_POST, incl_bwd=True,
-                                      loss_fn=_metric)
+                                      loss_fn=_metric, return_cache_object=False)
     torch.cuda.synchronize()
     launches = {k: f.launches for k, f in counters.items()}
     # Autograd runs only the backward that the cached gradients need: layer
@@ -2881,7 +2921,8 @@ def phase_attribution(info):
     for _ in range(GRAD_TIMED + 1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        model.run_with_cache(x, names_filter=RESID_POST, incl_bwd=True, loss_fn=_metric)
+        model.run_with_cache(x, names_filter=RESID_POST, incl_bwd=True, loss_fn=_metric,
+                             return_cache_object=False)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -2890,7 +2931,8 @@ def phase_attribution(info):
     # resid_post leaves every layer below it without gradient.
     _, cut = model.run_with_cache(
         x, names_filter=RESID_POST, incl_bwd=True, loss_fn=_metric,
-        bwd_hooks=[("blocks.6.hook_resid_post", lambda g, hook: g * 0.0)])
+        bwd_hooks=[("blocks.6.hook_resid_post", lambda g, hook: g * 0.0)],
+        return_cache_object=False)
     up = cut["blocks.2.hook_resid_post_grad"].abs().max().item()
     down = cut["blocks.9.hook_resid_post_grad"].abs().max().item()
     if not (up == 0.0 and down > 0.0):
@@ -2903,7 +2945,7 @@ def phase_attribution(info):
     plain.load_state_dict(model.state_dict())
     _zero_counts(counters)
     _, cache_p = plain.run_with_cache(x, names_filter=RESID_POST, incl_bwd=True,
-                                      loss_fn=_metric)
+                                      loss_fn=_metric, return_cache_object=False)
     torch.cuda.synchronize()
     if any(f.launches for f in counters.values()):
         raise AssertionError("the einsum path launched a kernel")
@@ -2917,9 +2959,10 @@ def phase_attribution(info):
     cpu_model.load_state_dict(card_model.state_dict())
     xs = _images(GRAD_F32_BATCH, 6, "cpu")
     out_c, got = card_model.run_with_cache(xs.cuda(), names_filter=RESID_POST,
-                                           incl_bwd=True, loss_fn=_metric)
+                                           incl_bwd=True, loss_fn=_metric,
+                                           return_cache_object=False)
     out_r, want = cpu_model.run_with_cache(xs, names_filter=RESID_POST, incl_bwd=True,
-                                           loss_fn=_metric)
+                                           loss_fn=_metric, return_cache_object=False)
     f32_errs = {"logits": check_close("f32 logits", out_c, out_r, rel_atol(GRAD_F32_REL, out_r)),
                 **_cache_grad_errs(got, want, GRAD_F32_REL)}
     emit({"phase": "attribution", **info, "config": "bench.py:56-61 (B/32 geometry, 512 classes)",
@@ -3131,7 +3174,7 @@ def phase_sae_attribution(info):
     _zero_counts(counters)
     with model.saes([sae], use_error_term=True):
         out, cache = model.run_with_cache(x, names_filter=names, incl_bwd=True,
-                                          loss_fn=_metric)
+                                          loss_fn=_metric, return_cache_object=False)
     torch.cuda.synchronize()
     launches = {k: f.launches for k, f in counters.items()}
     # The cached points are the SAE's, at layer 9: the backward reaches them
@@ -3154,7 +3197,7 @@ def phase_sae_attribution(info):
                                 device="cpu")
     with cpu.saes([cpu_sae], use_error_term=True):
         _, want = cpu.run_with_cache(x[:GRAD_F32_BATCH].cpu(), names_filter=names,
-                                     incl_bwd=True, loss_fn=_metric)
+                                     incl_bwd=True, loss_fn=_metric, return_cache_object=False)
     # The gradients at and after the features do not depend on which
     # pre-activations the ReLU kept; those before them do, and a
     # pre-activation within rounding of 0 may switch between the devices.
@@ -3456,8 +3499,8 @@ def phase_serve_l14_336(info):
     # bf16 against the einsum path (neither B13 nor B14)
     plain = model.with_cfg(use_fused_attention=False, use_fused_ln_gemm=False)
     x = requests[1][:8].cuda().bfloat16()
-    out_k, cache_k = model.run_with_cache(x, names_filter=RESID_POST)
-    out_p, cache_p = plain.run_with_cache(x, names_filter=RESID_POST)
+    out_k, cache_k = model.run_with_cache(x, names_filter=RESID_POST, return_cache_object=False)
+    out_p, cache_p = plain.run_with_cache(x, names_filter=RESID_POST, return_cache_object=False)
     bf16_errs = {"logits": check_close("l14_336 bf16 logits", out_k, out_p,
                                        rel_atol(L336_BF16_REL, out_p))}
     for k in cache_p:
@@ -3472,10 +3515,11 @@ def phase_serve_l14_336(info):
     f32_cpu.load_state_dict(f32_card.state_dict())
     xs = requests[1][:1]
     _zero_counts(counters)
-    out_c, got = f32_card.run_with_cache(xs.cuda(), names_filter=RESID_POST)
+    out_c, got = f32_card.run_with_cache(xs.cuda(), names_filter=RESID_POST,
+                                         return_cache_object=False)
     torch.cuda.synchronize()
     f32_launches = {k: f.launches for k, f in counters.items() if f.launches}
-    out_r, want = f32_cpu.run_with_cache(xs, names_filter=RESID_POST)
+    out_r, want = f32_cpu.run_with_cache(xs, names_filter=RESID_POST, return_cache_object=False)
     f32_errs = {"logits": check_close("l14_336 f32 logits", out_c, out_r,
                                       rel_atol(SLICE_F32_REL, out_r))}
     for k in want:
@@ -3511,7 +3555,7 @@ def phase_attribution_l14_336(info):
     # The main path, with every count set to 0 just before it.
     _zero_counts(counters)
     out, cache = model.run_with_cache(x, names_filter=RESID_POST, incl_bwd=True,
-                                      loss_fn=_metric)
+                                      loss_fn=_metric, return_cache_object=False)
     torch.cuda.synchronize()
     launches = {k: f.launches for k, f in counters.items()}
     # layer 0's attention lies upstream of every cached point (phase 17)
@@ -3534,17 +3578,18 @@ def phase_attribution_l14_336(info):
     for _ in range(GRAD_TIMED + 1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        model.run_with_cache(x, names_filter=RESID_POST, incl_bwd=True, loss_fn=_metric)
+        model.run_with_cache(x, names_filter=RESID_POST, incl_bwd=True, loss_fn=_metric,
+                             return_cache_object=False)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated() / 1e9
     prof = _profile(lambda: model.run_with_cache(x, names_filter=RESID_POST, incl_bwd=True,
-                                                 loss_fn=_metric))
+                                                 loss_fn=_metric, return_cache_object=False))
 
     # bf16 against the einsum path (neither B13 nor B14)
     plain = model.with_cfg(use_fused_attention=False, use_fused_ln_gemm=False)
     _, cache_p = plain.run_with_cache(x, names_filter=RESID_POST, incl_bwd=True,
-                                      loss_fn=_metric)
+                                      loss_fn=_metric, return_cache_object=False)
     bf16_errs = _cache_grad_errs(cache, cache_p, L336_GRAD_BF16_REL)
     del plain, cache_p
 
@@ -3555,9 +3600,9 @@ def phase_attribution_l14_336(info):
     cpu_model.load_state_dict({k: v.cpu() for k, v in card_model.state_dict().items()})
     xs = _l336_images(L336_GRAD_F32_BATCH, 41, "cpu")
     out_c, got = card_model.run_with_cache(xs.cuda(), names_filter=RESID_POST, incl_bwd=True,
-                                           loss_fn=_metric)
+                                           loss_fn=_metric, return_cache_object=False)
     out_r, want = cpu_model.run_with_cache(xs, names_filter=RESID_POST, incl_bwd=True,
-                                           loss_fn=_metric)
+                                           loss_fn=_metric, return_cache_object=False)
     f32_errs = {"logits": check_close("l14_336 f32 logits", out_c, out_r,
                                       rel_atol(GRAD_F32_REL, out_r)),
                 **_cache_grad_errs(got, want, GRAD_F32_REL)}
@@ -3622,7 +3667,7 @@ def phase_video(info):
 
         # The main path, with every count set to 0 just before it.
         _zero_counts(counters)
-        out, cache = model.run_with_cache(clips, names_filter=RESID_POST)
+        out, cache = model.run_with_cache(clips, names_filter=RESID_POST, return_cache_object=False)
         torch.cuda.synchronize()
         launches = {k: f.launches for k, f in counters.items() if f.launches}
         if launches != {"flash_attention_padded": cfg.n_layers}:
@@ -3638,11 +3683,12 @@ def phase_video(info):
         for _ in range(VIDEO_TIMED):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            model.run_with_cache(clips, names_filter=RESID_POST)
+            model.run_with_cache(clips, names_filter=RESID_POST, return_cache_object=False)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         peak = torch.cuda.max_memory_allocated() / 1e9
-        prof = _profile(lambda: model.run_with_cache(clips, names_filter=RESID_POST),
+        prof = _profile(lambda: model.run_with_cache(clips, names_filter=RESID_POST,
+                                                     return_cache_object=False),
                         share_of=(kernel_names[route],), warm=True,
                         calls_of=tuple(kernel_names.values()))
         calls = prof["calls_of"]
@@ -3657,7 +3703,8 @@ def phase_video(info):
         plain = model.with_cfg(use_fused_attention=False)
         _, cache_p = plain.run_with_cache(clips, names_filter=[
             f"blocks.{l}.{h}" for l in range(cfg.n_layers)
-            for h in ("hook_resid_pre", "hook_attn_out", "hook_resid_post")])
+            for h in ("hook_resid_pre", "hook_attn_out", "hook_resid_post")],
+            return_cache_object=False)
         errs, limits = {}, {}
         for l in range(cfg.n_layers):
             names = [f"blocks.{l}.hook_attn_out", f"blocks.{l}.hook_resid_post"]
@@ -3694,12 +3741,12 @@ def phase_video(info):
     cpu_m.load_state_dict(card_m.state_dict())
     x = _clips(cfg, 1, seed=41, dtype=torch.float32, device="cpu")
     _zero_counts(counters)
-    out_c, got = card_m.run_with_cache(x.cuda(), names_filter=RESID_POST)
+    out_c, got = card_m.run_with_cache(x.cuda(), names_filter=RESID_POST, return_cache_object=False)
     torch.cuda.synchronize()
     f32_launches = {k: f.launches for k, f in counters.items() if f.launches}
     if f32_launches != {"flash_attention_padded": VIDEO_F32_LAYERS}:
         raise AssertionError(f"ViViT f32 launches {f32_launches}")
-    out_r, want = cpu_m.run_with_cache(x, names_filter=RESID_POST)
+    out_r, want = cpu_m.run_with_cache(x, names_filter=RESID_POST, return_cache_object=False)
     f32_errs = {"out": check_close("ViViT f32 out", out_c, out_r, rel_atol(SLICE_F32_REL, out_r))}
     for k in want:
         f32_errs[k] = check_close(f"ViViT f32 {k}", got[k], want[k],
@@ -3880,7 +3927,7 @@ def phase_serve_graph(info):
     for n in EXPORT_BATCHES:
         x = torch.randn(n, 3, 224, 224, generator=g, device="cuda").bfloat16()
         out, cache = fwd(x)
-        want_out, want = plain.run_with_cache(x, names_filter=RESID_POST)
+        want_out, want = plain.run_with_cache(x, names_filter=RESID_POST, return_cache_object=False)
         if list(cache) != list(want) or tuple(out.shape) != tuple(want_out.shape):
             raise AssertionError(f"export batch {n}: keys {list(cache)}, out {tuple(out.shape)}")
         e = {"out": check_close(f"export batch {n} out", out, want_out,
@@ -4491,6 +4538,297 @@ def phase_mix_kernels(info):
     return results, launches
 
 
+def hf_clip_vision_state_dict(cfg, seed=0):
+    """An HF ``CLIPModel``-layout state dict of ``cfg``'s vision tower
+    (``vision_model.*`` and ``visual_projection.weight``), drawn from
+    ``seed`` at the scales of transformers' CLIP init (initializer factor
+    1: class embedding d^-1/2, patch and position embeddings 0.02, q/k/v
+    and fc2 d^-1/2 (2 L)^-1/2, out_proj d^-1/2, fc1 (2 d)^-1/2, the
+    projection d^-1/2).  That init's LayerNorms are the identity and its
+    biases zero, which would leave nothing to fold: here LayerNorm weights
+    are 1 + N(0, 0.1^2) and every bias N(0, 0.02^2)."""
+    g = torch.Generator().manual_seed(seed)
+    D, M, L = cfg.d_model, cfg.d_mlp, cfg.n_layers
+    P, T = cfg.patch_size, cfg.n_tokens
+    attn_std, fc_std = D ** -0.5 * (2 * L) ** -0.5, (2 * D) ** -0.5
+
+    def normal(shape, std):
+        return torch.randn(shape, generator=g) * std
+
+    def ln(prefix, sd):
+        sd[prefix + ".weight"] = 1.0 + normal(D, 0.1)
+        sd[prefix + ".bias"] = normal(D, 0.02)
+
+    sd = {"embeddings.class_embedding": normal(D, D ** -0.5),
+          "embeddings.patch_embedding.weight": normal((D, cfg.n_channels, P, P), 0.02),
+          "embeddings.position_embedding.weight": normal((T, D), 0.02)}
+    ln("pre_layrnorm", sd)  # (sic) HF's name
+    for l in range(L):
+        k = f"encoder.layers.{l}"
+        ln(k + ".layer_norm1", sd)
+        ln(k + ".layer_norm2", sd)
+        for m, std in (("q", attn_std), ("k", attn_std), ("v", attn_std), ("out", D ** -0.5)):
+            sd[f"{k}.self_attn.{m}_proj.weight"] = normal((D, D), std)
+            sd[f"{k}.self_attn.{m}_proj.bias"] = normal(D, 0.02)
+        sd[f"{k}.mlp.fc1.weight"] = normal((M, D), fc_std)
+        sd[f"{k}.mlp.fc1.bias"] = normal(M, 0.02)
+        sd[f"{k}.mlp.fc2.weight"] = normal((D, M), attn_std)
+        sd[f"{k}.mlp.fc2.bias"] = normal(D, 0.02)
+    ln("post_layernorm", sd)
+    out = {"vision_model." + k: v for k, v in sd.items()}
+    out["visual_projection.weight"] = normal((cfg.n_classes, D), D ** -0.5)
+    return out
+
+
+def _analysis_names(cfg, attn=False):
+    """The hook names of a cached analysis forward: resid_pre/mid/post, the
+    attention and MLP outputs, the neurons, the LayerNorm scales and
+    ln_final's output; with ``attn`` each head's z as well, which takes the
+    einsum attention (no B1), without it the forward runs B1."""
+    names = ["ln_final.hook_scale", "ln_final.hook_normalized"]
+    for l in range(cfg.n_layers):
+        p = f"blocks.{l}."
+        names += [p + n for n in ("hook_resid_pre", "hook_resid_mid", "hook_resid_post",
+                                  "hook_attn_out", "hook_mlp_out", "mlp.hook_post",
+                                  "ln1.hook_scale", "ln2.hook_scale")]
+        if attn:
+            names.append(p + "attn.hook_z")
+    return names
+
+
+def _cache_checks(cache, model, rel):
+    """The invariants of one cache, each an error raising past ``rel`` of
+    max(1, the reference's absmax): neuron results + b_out = mlp_out in
+    every layer; the last accumulated residual, LayerNorm-scaled, =
+    ln_final.hook_normalized (ln_final is the identity once folded)."""
+    n = model.cfg.n_layers
+    errs = {}
+    for l in range(n):
+        want = cache[("mlp_out", l)]
+        got = cache.get_neuron_results(l).sum(-2) + model.b_out[l].detach()
+        errs[f"neurons_L{l}"] = check_close(f"neurons + b_out L{l}", got, want,
+                                            rel_atol(rel, want))
+    want = cache["ln_final.hook_normalized"]
+    got = cache.accumulated_resid(apply_ln=True)[-1]
+    errs["accumulated_resid_ln_final"] = check_close(
+        "accumulated_resid ln_final", got, want, rel_atol(rel, want))
+    return errs
+
+
+def _plain_logit_lens(cache_dict, n_layers, answers):
+    """The logit lens by hand: every resid_pre and the last resid_post,
+    centred, over ln_final's cached scale, onto the class directions:
+    [batch, pos, layers + 1, classes]."""
+    stack = torch.stack([cache_dict[f"blocks.{l}.hook_resid_pre"] for l in range(n_layers)]
+                        + [cache_dict[f"blocks.{n_layers - 1}.hook_resid_post"]])
+    stack = (stack - stack.mean(-1, keepdim=True)) / cache_dict["ln_final.hook_scale"]
+    return torch.einsum("lbpd,od->bplo", stack, answers)
+
+
+def phase_analysis(info):
+    """CLIP ViT-B/32 loaded and analysed on the card: an HF CLIPModel-layout
+    state dict (``hf_clip_vision_state_dict``) through ``load_hooked_model``
+    raw, processed (``fold_ln``, ``center_writing_weights``,
+    ``fold_value_biases``) and also refactored
+    (``refactor_factored_attn_matrices``), the processed forwards on the B1
+    route against the raw one; ``run_with_cache`` to an ``ActivationCache``
+    at batch 8 in float32 and bfloat16 (its first and second call timed)
+    with its invariants (heads +
+    remainder, neurons + b_out, the LayerNorm-scaled last residual);
+    ``get_full_resid_decomposition(expand_neurons=True, apply_ln=True)`` at
+    batch 1 with its shape, time and peak memory, summing to the
+    LayerNorm-scaled difference of the last resid_post and the first
+    resid_pre; the logit lens over 1,000 seed-drawn class directions with
+    the ImageNet names against a plain einsum and the CPU; B1's launches,
+    exactly n_layers for each forward on its route and none elsewhere; and
+    ``save_local`` -> ``from_local`` to the bit in both dtypes."""
+    import shutil
+    import tempfile
+    from vit_prisma_tpu_torch import HookedViT, load_hooked_model
+    from vit_prisma_tpu_torch.dataloaders.imagenet_names import load_imagenet_dict
+    from vit_prisma_tpu_torch.models.loading.registry import get_model_config
+    from vit_prisma_tpu_torch.prisma.cache import ActivationCache
+    from vit_prisma_tpu_torch.prisma.logit_lens import (get_patch_logit_dictionary,
+                                                        get_patch_logit_directions)
+    cfg = get_model_config(ANALYSIS_MODEL)
+    sd = hf_clip_vision_state_dict(cfg, seed=0)
+    processing = dict(fold_ln=True, center_writing_weights=True, fold_value_biases=True)
+    t0 = time.perf_counter()
+    raw = load_hooked_model(ANALYSIS_MODEL, state_dict=sd, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proc = load_hooked_model(ANALYSIS_MODEL, state_dict=sd, device="cuda", **processing)
+    torch.cuda.synchronize()
+    load_processed_s = time.perf_counter() - t0
+    refac = load_hooked_model(ANALYSIS_MODEL, state_dict=sd, device="cuda",
+                              refactor_factored_attn_matrices=True, **processing)
+    proc_bf16 = load_hooked_model(ANALYSIS_MODEL, state_dict=sd, device="cuda",
+                                  dtype="bfloat16", **processing)
+    x = _images(ANALYSIS_BATCH, 51)
+    answers = torch.randn(ANALYSIS_CLASSES, cfg.d_model,
+                          generator=torch.Generator().manual_seed(52)).cuda()
+    b1_names = _analysis_names(cfg)
+    z_names = _analysis_names(cfg, attn=True)
+
+    # The phase's path, with every count set to 0 just before it: the
+    # forwards on B1's route are counted as they run.
+    counters = _sae_counters()
+    _zero_counts(counters)
+    b1_forwards = 0
+    out_raw = raw(x)
+    out_proc = proc(x)
+    out_refac = refac(x)
+    b1_forwards += 3
+    caches, cache_s = {}, {}
+    for name, model in (("f32", proc), ("bf16", proc_bf16)):
+        xm = x.to(model.cfg.torch_dtype)
+        for when in ("first", "second"):  # the first call's warm-up apart
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, caches[name] = model.run_with_cache(xm, names_filter=b1_names)
+            torch.cuda.synchronize()
+            cache_s[f"{name}_{when}"] = time.perf_counter() - t0
+            b1_forwards += 1
+        _, caches[name + "_z"] = model.run_with_cache(xm, names_filter=z_names)
+    _, one = proc.run_with_cache(x[:1], names_filter=z_names)
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items() if f.launches}
+    expected = {"attention_mix_tnh": cfg.n_layers * b1_forwards}
+    if launches != expected:
+        raise AssertionError(f"analysis launches {launches}, expected {expected}")
+    if not all(isinstance(c, ActivationCache) for c in caches.values()):
+        raise AssertionError("run_with_cache did not return an ActivationCache")
+
+    proc_errs = {
+        "processed_vs_raw": check_close("processed vs raw", out_proc, out_raw,
+                                        rel_atol(ANALYSIS_PROCESSED_REL, out_raw)),
+        "refactored_vs_raw": check_close("refactored vs raw", out_refac, out_raw,
+                                         rel_atol(ANALYSIS_PROCESSED_REL, out_raw))}
+
+    # The caches' invariants, in both dtypes.
+    invariants = {}
+    last = f"blocks.{cfg.n_layers - 1}.hook_resid_post"
+    for name, model in (("f32", proc), ("bf16", proc_bf16)):
+        rel = ANALYSIS_F32_REL if name == "f32" else ANALYSIS_BF16_REL
+        errs = _cache_checks(caches[name], model, rel)
+        zc = caches[name + "_z"]
+        heads, labels = zc.stack_head_results(incl_remainder=True, return_labels=True)
+        if heads.shape[0] != cfg.n_layers * cfg.n_heads + 1 or labels[-1] != "remainder":
+            raise AssertionError(f"head stack {tuple(heads.shape)}")
+        errs["heads_plus_remainder"] = check_close(
+            f"{name} heads + remainder", heads.float().sum(0), zc[last],
+            rel_atol(rel, zc[last]))
+        # the remainder is everything but the heads: the MLPs, b_O and the
+        # first residual.  In bf16 the cached residual carries the rounding
+        # of its 2 L additions (each at most half an ulp, 2^-9 of the
+        # absmax), which the float32 sum of the parts does not
+        rest = (zc[("resid_pre", 0)].float() + model.b_O.detach().float().sum(0)
+                + sum(zc[("mlp_out", l)].float() for l in range(cfg.n_layers)))
+        resid_rel = rel if name == "f32" else 2 * cfg.n_layers * 2.0 ** -9
+        errs["remainder_is_mlps_bias_embed"] = check_close(
+            f"{name} remainder", heads[-1].float(), rest, rel_atol(resid_rel, zc[last]))
+        errs["resid_post_absmax"] = zc[last].float().abs().max().item()
+        errs["mlp_out_absmax"] = max(zc[("mlp_out", l)].float().abs().max().item()
+                                     for l in range(cfg.n_layers))
+        invariants[name] = errs
+        del heads, rest
+    del caches
+    release()
+
+    # The full decomposition at batch 1.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    full, labels = one.get_full_resid_decomposition(expand_neurons=True, apply_ln=True,
+                                                    return_labels=True)
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    full_peak = torch.cuda.max_memory_allocated() / 1e9
+    full_shape = list(full.shape)
+    want_shape = [cfg.n_layers * (cfg.n_heads + cfg.d_mlp) + 1, 1, cfg.n_tokens, cfg.d_model]
+    if full_shape != want_shape or len(labels) != want_shape[0] or labels[-1] != "bias":
+        raise AssertionError(f"full decomposition {full_shape}, {len(labels)} labels")
+    total = full.sum(0)
+    del full
+    diff = (one[last] - one[("resid_pre", 0)])[None]
+    want = one.apply_ln_to_stack(diff, layer=-1)[0]
+    full_err = check_close("full decomposition sum", total, want,
+                           rel_atol(ANALYSIS_F32_REL, want))
+    del total, diff, want, one
+    release()
+
+    # The logit lens on the float32 cache of batch 8 (B1's route), against
+    # a plain einsum and against the CPU at ANALYSIS_CPU_BATCH.
+    _zero_counts(counters)
+    _, lens_cache = proc.run_with_cache(x, names_filter=b1_names)
+    torch.cuda.synchronize()
+    lens_launches = {k: f.launches for k, f in counters.items() if f.launches}
+    if lens_launches != {"attention_mix_tnh": cfg.n_layers}:
+        raise AssertionError(f"logit lens launches {lens_launches}")
+    t0 = time.perf_counter()
+    lens, lens_labels = get_patch_logit_directions(lens_cache, answers)
+    torch.cuda.synchronize()
+    lens_s = time.perf_counter() - t0
+    plain = _plain_logit_lens(lens_cache.cache_dict, cfg.n_layers, answers)
+    lens_err = check_close("logit lens", lens, plain, rel_atol(ANALYSIS_F32_REL, plain))
+    names = load_imagenet_dict()
+    readout = get_patch_logit_dictionary(lens, batch_idx=0, class_names=names)
+    if (len(readout) != cfg.n_tokens or any(len(v) != cfg.n_layers + 1 for v in readout.values())
+            or not all(t[1] == names[t[2]] for v in readout.values() for t in v)):
+        raise AssertionError("logit-lens readout malformed")
+    cpu = load_hooked_model(ANALYSIS_MODEL, state_dict=sd, device="cpu", **processing)
+    _, cpu_cache = cpu.run_with_cache(x[:ANALYSIS_CPU_BATCH].cpu(), names_filter=b1_names)
+    cpu_lens = get_patch_logit_directions(cpu_cache, answers.cpu(), return_labels=False)
+    lens_cpu_err = check_close("logit lens vs CPU", lens[:ANALYSIS_CPU_BATCH], cpu_lens,
+                               rel_atol(ANALYSIS_PROCESSED_REL, cpu_lens))
+    del lens_cache, lens, plain, cpu, cpu_cache, cpu_lens
+
+    # save_local -> from_local on the card, to the bit, in both dtypes.
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_local_")
+    round_trip = {}
+    try:
+        for name, model in (("f32", proc), ("bf16", proc_bf16)):
+            path = os.path.join(tmp, name)
+            t0 = time.perf_counter()
+            model.save_local(path)
+            save_s = time.perf_counter() - t0
+            back = HookedViT.from_local(model.cfg, path + ".npz", device="cuda")
+            same = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in
+                       zip(model.state_dict().values(), back.state_dict().values()))
+            if not same or list(model.state_dict()) != list(back.state_dict()):
+                raise AssertionError(f"save_local -> from_local differs in {name}")
+            round_trip[name] = {"bitwise": True, "bytes": os.path.getsize(path + ".npz"),
+                                "save_s": save_s}
+            del back
+    finally:
+        shutil.rmtree(tmp)
+
+    b1 = launches["attention_mix_tnh"] + lens_launches["attention_mix_tnh"]
+    emit({"phase": "analysis", **info, "model": ANALYSIS_MODEL,
+          "source": "HF CLIPModel layout, seed 0 (hf_clip_vision_state_dict)",
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model, "batch": ANALYSIS_BATCH,
+          "load_s": load_s, "load_processed_s": load_processed_s,
+          "processing": sorted(processing) + ["refactor_factored_attn_matrices"],
+          "processed_max_abs_err": proc_errs, "logits_absmax": out_raw.abs().max().item(),
+          "f32_rel_tol": ANALYSIS_F32_REL, "bf16_rel_tol": ANALYSIS_BF16_REL,
+          "processed_and_cpu_rel_tol": ANALYSIS_PROCESSED_REL,
+          "bf16_remainder_rel_tol": 2 * cfg.n_layers * 2.0 ** -9,
+          "invariant_max_abs_err": invariants, "run_with_cache_s": cache_s,
+          "full_decomposition": {"shape": full_shape, "s": full_s, "peak_GB": full_peak,
+                                 "allocated_before_GB": base / 1e9,
+                                 "GB": math.prod(full_shape) * 4 / 1e9,
+                                 "sum_max_abs_err": full_err},
+          "logit_lens": {"classes": ANALYSIS_CLASSES, "layers": len(lens_labels), "s": lens_s,
+                         "vs_einsum_max_abs_err": lens_err,
+                         "vs_cpu_max_abs_err": lens_cpu_err,
+                         "patch0_last_layer": readout[0][-1][1]},
+          "save_local_from_local": round_trip,
+          "b1_forwards": b1_forwards + 1, "launches": {"attention_mix_tnh": b1}})
+    return b1
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; none is available")
@@ -4559,6 +4897,8 @@ def main():
     phase_video(info)
     release()
     phase_serve_graph(info)
+    release()
+    analysis_launches = phase_analysis(info)
 
     def entry(name, source, replaces, launches, rec, ms_key="ms", scale=1.0):
         """One kernel's line: launches from its main path, the rest measured
@@ -4632,6 +4972,7 @@ def main():
         # at B/32 serving's bf16 shape, with its CLIP L/14 figures beside
         {**entry("attention_mix_tnh", KERNEL_SOURCE, KERNEL_REPLACES, launches,
                  kernels[("b32", torch.bfloat16)], "us", 1e-3),
+         "analysis_launches": analysis_launches,
          "l14_ms": l14["us"] * 1e-3, "l14_library_ms": l14["library_us"] * 1e-3,
          "l14_bound_ms": l14["bound_ms"], "l14_max_abs_err": l14["max_abs_err"]},
         # at the store's f32 shape: the kernel's and index_select's device

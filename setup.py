@@ -11,5 +11,6 @@ setup(
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "optax", "einops", "torch"],
     package_data={"": ["*.md"], "vit_prisma_tpu.dataloaders": ["data/*.json"],
-                  "vit_prisma_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+                  "vit_prisma_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
+                  "vit_prisma_tpu_torch.dataloaders": ["data/*.json"]},
 )

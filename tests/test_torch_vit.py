@@ -128,8 +128,10 @@ def test_registry_config_matches_jax():
     name = "openai/clip-vit-base-patch32"
     port_cfg = vit_prisma_tpu_torch.get_model_config(name)
     assert port_cfg.to_dict() == jax_get_config(name).to_dict()
-    with pytest.raises(NotImplementedError, match="item 4"):
-        vit_prisma_tpu_torch.get_model_config("openai/clip-vit-base-patch16")
+    # every name of the JAX registry resolves now, not only the port's slices'
+    other = "openai/clip-vit-base-patch16"
+    assert (vit_prisma_tpu_torch.get_model_config(other).to_dict()
+            == jax_get_config(other).to_dict())
 
 
 def test_full_cache_golden_through_jax_converter():

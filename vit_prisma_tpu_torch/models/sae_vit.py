@@ -21,6 +21,7 @@ from typing import Dict, List, Optional, Union
 import torch
 
 from vit_prisma_tpu_torch.models.vit import HookedViT, hook_names, vit_forward
+from vit_prisma_tpu_torch.prisma.cache import ActivationCache
 from vit_prisma_tpu_torch.prisma.hooks import (HookRuntime, grad_cached_traced,
                                                resolve_names_filter)
 from vit_prisma_tpu_torch.sae.sae import SparseAutoencoder, sae_forward
@@ -126,7 +127,7 @@ class HookedSAEViT(HookedViT):
         with torch.inference_mode():
             return self._spliced_forward(x, HookRuntime(record=False), stop_at_layer)
 
-    def run_with_cache(self, x, names_filter=None, return_cache_object=False,
+    def run_with_cache(self, x, names_filter=None, return_cache_object=True,
                        stop_at_layer=None, fwd_hooks=(), remove_batch_dim=False,
                        incl_bwd=False, bwd_hooks=(), loss_fn=None):
         """Spliced cached forward.  Each spliced hook point's key is replaced
@@ -142,10 +143,6 @@ class HookedSAEViT(HookedViT):
                 stop_at_layer=stop_at_layer, fwd_hooks=fwd_hooks,
                 remove_batch_dim=remove_batch_dim, incl_bwd=incl_bwd,
                 bwd_hooks=bwd_hooks, loss_fn=loss_fn)
-        if return_cache_object:
-            raise NotImplementedError(
-                "ActivationCache is not ported yet (ROADMAP queue A, item 11); "
-                "pass return_cache_object=False for a dict")
         pred = resolve_names_filter(names_filter)
         expanded: List[str] = []
         for n in self._resolve_names(None, stop_at_layer):
@@ -158,6 +155,8 @@ class HookedSAEViT(HookedViT):
         out, cache = traced(self, x)
         if remove_batch_dim:
             cache = {k: v[0] for k, v in cache.items()}
+        if return_cache_object:
+            cache = ActivationCache(cache, self, has_batch_dim=not remove_batch_dim)
         return out, cache
 
     def run_with_hooks(self, x, fwd_hooks=(), stop_at_layer=None, **kw):
@@ -177,7 +176,7 @@ class HookedSAEViT(HookedViT):
 
     def run_with_cache_with_saes(self, x, saes=(), reset_saes_end: bool = True,
                                  use_error_term: Optional[bool] = None,
-                                 return_cache_object: bool = False,
+                                 return_cache_object: bool = True,
                                  remove_batch_dim: bool = False, **kw):
         with self.saes(saes=saes, reset_saes_end=reset_saes_end,
                        use_error_term=use_error_term):

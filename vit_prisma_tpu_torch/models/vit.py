@@ -18,12 +18,15 @@ import copy
 import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from vit_prisma_tpu_torch.configs.vit_config import ViTConfig
 from vit_prisma_tpu_torch.models import layers as L
 from vit_prisma_tpu_torch.models.loading.state_dict import port_state_dict
+from vit_prisma_tpu_torch.prisma.cache import ActivationCache
+from vit_prisma_tpu_torch.prisma.factored_matrix import FactoredMatrix
 from vit_prisma_tpu_torch.prisma.hooks import (
     NULL_HOOKS,
     HookRuntime,
@@ -234,9 +237,11 @@ def vit_forward(params, cfg: ViTConfig, x, hooks: HookRuntime = NULL_HOOKS,
 
 class HookedViT(nn.Module):
     """Counterpart of the JAX package's ``HookedViT``: ``forward``,
-    ``run_with_cache`` and ``run_with_hooks``, with parameters on
-    ``device`` (the CUDA card when None) in ``cfg.dtype``, initialized from
-    ``generator`` (seed 0 when None)."""
+    ``run_with_cache`` and ``run_with_hooks``, the stacked weight
+    properties and circuits, and loading (``from_pretrained``,
+    ``from_local``, ``save_local``), with parameters on ``device`` (the
+    CUDA card when None) in ``cfg.dtype``, initialized from ``generator``
+    (seed 0 when None)."""
 
     def __init__(self, cfg: ViTConfig, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -281,7 +286,7 @@ class HookedViT(nn.Module):
 
     # -- cached forward --------------------------------------------------
     def run_with_cache(self, x, names_filter: NamesFilter = None,
-                       return_cache_object: bool = False,
+                       return_cache_object: bool = True,
                        stop_at_layer: Optional[int] = None,
                        fwd_hooks: Sequence[Tuple] = (),
                        remove_batch_dim: bool = False,
@@ -301,13 +306,8 @@ class HookedViT(nn.Module):
         Only these calls record an autograd graph; the rest run in inference
         mode.  Parameter gradients are not computed.
 
-        Unlike the JAX package, the default is a plain dict:
-        ``return_cache_object=True`` (ActivationCache) waits for ROADMAP
-        queue A, item 11."""
-        if return_cache_object:
-            raise NotImplementedError(
-                "ActivationCache is not ported yet (ROADMAP queue A, item 11); "
-                "pass return_cache_object=False for a dict")
+        Returns ``(output, ActivationCache)``, or ``(output, dict)`` with
+        ``return_cache_object=False``."""
         names = self._resolve_names(names_filter, stop_at_layer)
         cfg = self.cfg
         traced = grad_cached_traced(
@@ -321,6 +321,8 @@ class HookedViT(nn.Module):
                 raise ValueError(
                     f"remove_batch_dim requires batch size 1, got {batch}")
             cache = {k: v[0] for k, v in cache.items()}
+        if return_cache_object:
+            cache = ActivationCache(cache, self, has_batch_dim=not remove_batch_dim)
         return out, cache
 
     # -- intervened forward ----------------------------------------------
@@ -402,3 +404,75 @@ class HookedViT(nn.Module):
     def W_H(self): return self.head.W_H
     @property
     def b_H(self): return self.head.b_H
+
+    @property
+    def OV(self) -> FactoredMatrix:
+        """Each head's OV circuit W_V·W_O: [n_layers, n_heads, d_model,
+        d_model], factored."""
+        return FactoredMatrix(self.W_V.detach(), self.W_O.detach())
+
+    @property
+    def QK(self) -> FactoredMatrix:
+        """Each head's QK circuit W_Q·W_Kᵀ: [n_layers, n_heads, d_model,
+        d_model], factored."""
+        return FactoredMatrix(self.W_Q.detach(), self.W_K.detach().transpose(-2, -1))
+
+    @torch.no_grad()
+    def tokens_to_residual_directions(self, labels) -> torch.Tensor:
+        """Residual directions of class labels, the columns of W_H:
+        labels [batch] -> [batch, d_model]."""
+        idx = torch.as_tensor(labels, dtype=torch.long, device=self.W_H.device)
+        return self.W_H[:, idx].transpose(-2, -1)
+
+    @torch.no_grad()
+    def accumulated_bias(self, layer: int, mlp_input: bool = False,
+                         include_mlp_biases: bool = True) -> torch.Tensor:
+        """The output biases (b_O, and b_out with ``include_mlp_biases``)
+        summed up to the input of ``layer``, in float32; with ``mlp_input``
+        also that layer's b_O."""
+        bias = torch.zeros(self.cfg.d_model, dtype=torch.float32, device=self.W_E.device)
+        if layer > 0:
+            bias = bias + self.b_O[:layer].sum(0)
+            if include_mlp_biases and not self.cfg.attn_only:
+                bias = bias + self.b_out[:layer].sum(0)
+        if mlp_input:
+            assert layer < self.cfg.n_layers, \
+                "Cannot include attn_bias from beyond the final layer"
+            bias = bias + self.b_O[layer]
+        return bias
+
+    # -- loading ----------------------------------------------------------
+    @classmethod
+    def from_pretrained(cls, model_name: str, **kwargs) -> "HookedViT":
+        """``load_hooked_model(model_name, **kwargs)``."""
+        from vit_prisma_tpu_torch.models.loading.loader import load_hooked_model
+        return load_hooked_model(model_name, **kwargs)
+
+    @classmethod
+    def from_local(cls, cfg: ViTConfig, checkpoint_path: str, device=None) -> "HookedViT":
+        """A model from a local checkpoint: the port's supervised-trainer
+        ``.ckpt``, an ``.npz`` of the flat reference-named state dict (as
+        :meth:`save_local` and the JAX package write it), or a torch file of
+        that dict."""
+        if checkpoint_path.endswith(".ckpt"):
+            from vit_prisma_tpu_torch.training.trainer import load_checkpoint
+            flat = load_checkpoint(checkpoint_path)["params"]
+        elif checkpoint_path.endswith(".npz"):
+            from vit_prisma_tpu_torch.sae.sae import numpy_to_tensor
+            with np.load(checkpoint_path) as z:
+                flat = {k: numpy_to_tensor(z[k]) for k in z.files}
+        else:
+            from vit_prisma_tpu_torch.models.loading.loader import _load_checkpoint
+            flat = _load_checkpoint(checkpoint_path)
+        model = cls(cfg, device=device)
+        model.load_state_dict(flat)
+        return model
+
+    def save_local(self, path: str):
+        """Save the flat reference-named state dict (the JAX package's
+        names and patch-embedding layout) as ``.npz``; bfloat16 weights as
+        their two-byte words."""
+        from vit_prisma_tpu_torch.models.loading.state_dict import reference_state_dict
+        from vit_prisma_tpu_torch.sae.sae import tensor_to_numpy
+        flat = {k: tensor_to_numpy(v.cpu()) for k, v in reference_state_dict(self).items()}
+        np.savez(path if path.endswith(".npz") else path + ".npz", **flat)

@@ -187,7 +187,8 @@ class VisionActivationsStore:
             images = images.to(self._wire_dtype)
         images = images.to(self._model_dtype)
         _, cache = self.model.run_with_cache(
-            images, names_filter=self._hook_names, stop_at_layer=self._stop_at)
+            images, names_filter=self._hook_names, stop_at_layer=self._stop_at,
+            return_cache_object=False)
         outs = []
         for name in self._hook_names:
             act = cache[name]  # [B, ctx, d] (or [B, ctx, heads, d_head])

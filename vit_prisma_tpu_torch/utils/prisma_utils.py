@@ -1,14 +1,15 @@
-"""Utility helpers (PyTorch port of ``vit_prisma_tpu/utils/prisma_utils.py``).
-
-Only the hook-name resolver :func:`get_act_name` is ported; ``to_numpy``,
-``Slice`` and ``test_prompt`` wait for the analysis surface (ROADMAP queue A,
-item 11).
+"""Utility helpers (PyTorch port of ``vit_prisma_tpu/utils/prisma_utils.py``):
+the hook-name resolver :func:`get_act_name`, :func:`to_numpy`, :class:`Slice`
+and the top-k readout :func:`test_prompt`.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Optional, Union
+from typing import Any, Optional, Sequence, Union
+
+import numpy as np
+import torch
 
 _LAYER_TYPE_ALIAS = {
     "a": "attn",
@@ -33,9 +34,6 @@ _ACT_NAME_ALIAS = {
 _ATTN_ACTS = {"k", "v", "q", "z", "rot_k", "rot_q", "result", "pattern", "attn_scores"}
 _MLP_ACTS = {"pre", "post", "mid", "pre_linear"}
 _LN_NAMES = {"scale", "normalized"}
-
-_NOT_PORTED = ("is not ported yet (ROADMAP queue A, item 11: analysis "
-               "surface)")
 
 
 def get_act_name(name: str, layer: Optional[Union[int, str]] = None,
@@ -69,14 +67,102 @@ def get_act_name(name: str, layer: Optional[Union[int, str]] = None,
     return full
 
 
-def to_numpy(x):
-    raise NotImplementedError(f"to_numpy {_NOT_PORTED}")
+def to_numpy(x) -> np.ndarray:
+    """Tensors (bfloat16 as float32), numpy arrays, lists, tuples and
+    scalars as a numpy array."""
+    if isinstance(x, np.ndarray):
+        return x
+    if isinstance(x, (list, tuple)):
+        return np.array(x)
+    if isinstance(x, (int, float, bool, np.number)):
+        return np.array(x)
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    return np.asarray(x)
+
+
+SliceInput = Optional[Union[int, slice, tuple, Sequence[int], np.ndarray, torch.Tensor]]
 
 
 class Slice:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"Slice {_NOT_PORTED}")
+    """An int, a slice, a ``(start, stop[, step])`` tuple, a list or array
+    of indices, or None (everything), applied along one axis of a tensor or
+    numpy array."""
+
+    def __init__(self, input_slice: SliceInput = None):
+        if isinstance(input_slice, tuple):
+            input_slice = slice(*input_slice)
+        if input_slice is None:
+            self.slice: Any = slice(None)
+            self.mode = "identity"
+        elif isinstance(input_slice, int):
+            self.slice = input_slice
+            self.mode = "int"
+        elif isinstance(input_slice, slice):
+            self.slice = input_slice
+            self.mode = "slice"
+        elif isinstance(input_slice, (list, np.ndarray)) or hasattr(input_slice, "shape"):
+            self.slice = to_numpy(input_slice)
+            self.mode = "array"
+        elif isinstance(input_slice, Slice):
+            self.slice = input_slice.slice
+            self.mode = input_slice.mode
+        else:
+            raise ValueError(f"Invalid slice input {input_slice!r}")
+
+    def apply(self, tensor, dim: int = 0):
+        idx = [slice(None)] * tensor.ndim
+        sl = self.slice
+        if self.mode == "array" and isinstance(tensor, torch.Tensor):
+            sl = torch.as_tensor(sl, dtype=torch.long, device=tensor.device)
+        idx[dim] = sl
+        return tensor[tuple(idx)]
+
+    def indices(self, max_ctx: Optional[int] = None):
+        if self.mode == "identity" and max_ctx is None:
+            raise ValueError("Cannot get indices of an identity slice without max_ctx")
+        return np.arange(max_ctx)[self.slice] if self.mode != "array" else self.slice
+
+    def __repr__(self):
+        return f"Slice: [{self.slice}], mode: {self.mode}"
 
 
-def test_prompt(*args, **kwargs):
-    raise NotImplementedError(f"test_prompt {_NOT_PORTED}")
+def test_prompt(example_data_point, model, example_answer: Optional[str] = None,
+                top_k: int = 10, class_names=None) -> None:
+    """Top-k class readout for one image ``[C, H, W]`` (a batch dim is
+    added): prints each of the top-k predictions with its logit and
+    probability, then the rank of ``example_answer`` if given.
+    ``class_names`` defaults to the ImageNet table.  The image goes to the
+    device of ``model``'s parameters."""
+    from vit_prisma_tpu_torch.dataloaders.imagenet_names import (
+        imagenet_index_from_word, load_imagenet_dict)
+
+    if class_names is None:
+        class_names = load_imagenet_dict()
+
+    x = torch.as_tensor(example_data_point)
+    if x.ndim == 3:
+        x = x[None]
+    param = next(iter(model.parameters()), None) if hasattr(model, "parameters") else None
+    if param is not None:
+        x = x.to(param.device)
+    logits = to_numpy(model(x))[0]
+    probs = np.exp(logits - logits.max())
+    probs = probs / probs.sum()
+    order = np.argsort(probs)[::-1]
+
+    for i in range(top_k):
+        index = int(order[i])
+        label = class_names.get(index, str(index)) \
+            if isinstance(class_names, dict) else class_names[index]
+        print(f"Top {i}th token. Logit: {logits[index]:.2f} "
+              f"Prob: {probs[index] * 100:.2f}% Label: |{label}|")
+
+    if example_answer is not None:
+        answer_index = imagenet_index_from_word(example_answer,
+                                                mapping=class_names)
+        rank = int(np.where(order == answer_index)[0][0])
+        print("Rank of the correct answer:")
+        print(f"Class Name: {example_answer} | Rank: {rank} | "
+              f"ImageNet Index: {answer_index}")
