@@ -52,6 +52,24 @@ Phases, each printing JSON lines with the card's name and power limit:
    the warm-up and the capture alone; ``torch.profiler`` counts one
    replay's kernels by name).  Then the served images per second with the
    kernel and with the einsum path;
+4a. text: the CLIP text tower of ``openai/clip-vit-base-patch32`` (12 x
+   512, 8 heads, vocab 49,408, context 77) loaded through
+   ``load_hooked_model(model_type="text")`` from an HF ``CLIPModel`` state
+   dict drawn from seed 0 (``hf_clip_state_dict``, both towers), raw and
+   processed (f32, processed against raw); a BPE merge table learned from
+   the 80,000 prompts (1,000 ImageNet names x 80 templates; the public
+   table is not in the repository); the bf16 forward at batch 256 with
+   B1's causal launches exact (12), prompts per second in turns with the
+   einsum bypass, once with the LN fusion (B14 24, B1 12); f32 at batch 8
+   against the CPU; ``run_with_cache(incl_bwd=True)`` over the 12
+   resid_post hooks (B1 12, B2 11) against the einsum path, f32 gradients
+   against the CPU; ``zero_shot_classifier`` in f32 and bf16 (B1 12 for
+   each of 2,000 forwards) with the tokenizer's seconds apart, unit
+   columns, the truncated prompts counted and 8 classes against the CPU;
+   ``zero_shot_eval`` of the B/32 vision tower (bf16, same state dict)
+   over 2,048 images at batch 256, plain and with a forward hook, each
+   equal to a plain top-k count on the same logits.  Its f32 classifier is
+   ``sae_eval``'s class embeddings;
 5. train: the second main path, SAE training at ``SAERunnerConfig``'s
    defaults (B/32 layer-9 resid_post, 768 -> 12,288, batch 4096, float32)
    with a 4-batch buffer: ``HookedViT`` -> ``VisionActivationsStore`` ->
@@ -61,7 +79,8 @@ Phases, each printing JSON lines with the card's name and power limit:
 6. step check: from the trained state, three steps on three batches on the
    card and on the CPU in float32; grads, params, moments and counters are
    compared; then ``sae_eval``: that SAE's evals (``process_dataset`` over
-   2,048 random images at batch 256, ``trainer.validate()``, ``evaluate()``
+   2,048 random images at batch 256 with phase 4a's zero-shot classifier as
+   the class embeddings, ``trainer.validate()``, ``evaluate()``
    into ``smoke_out/sae_eval`` with its top images, and a heatmap), exact
    launches (B1 36 an eval batch, 10 a top-image batch), eval images per
    second, CE recovered, L0, alive fraction, peak memory, and one batch of 8
@@ -635,11 +654,14 @@ FLASH_REPLACES = {"flash_attention_padded": "vit_prisma_tpu/ops/attention.py:546
                   "flash_attention_padded_bwd_dkv": "vit_prisma_tpu/ops/attention.py:631",
                   "flash_attention_padded_bwd_dq": "vit_prisma_tpu/ops/attention.py:631"}
 # B14 against its plain version: name, R, S, D, C, dtypes.  B/32 at serving
-# batch 256 (R = 256 x 50), QKV and MLP-in; CLIP L/14-336 at batch 64 (R =
-# 64 x 577, ragged against the 128-row tile), MLP-in, and its QKV with W
-# unfolded as an LNPre model passes it.
+# batch 256 (R = 256 x 50), QKV and MLP-in; the B/32 text tower at the text
+# phase's batch 256 (R = 256 x 77), QKV and MLP-in; CLIP L/14-336 at batch
+# 64 (R = 64 x 577, ragged against the 128-row tile), MLP-in, and its QKV
+# with W unfolded as an LNPre model passes it.
 LN_SHAPES = [("b32_qkv", 12_800, 3, 768, 768, (torch.bfloat16, torch.float32)),
              ("b32_mlp_in", 12_800, 1, 768, 3072, (torch.bfloat16, torch.float32)),
+             ("text_qkv", 19_712, 3, 512, 512, (torch.bfloat16,)),
+             ("text_mlp_in", 19_712, 1, 512, 2048, (torch.bfloat16,)),
              ("l14_336_mlp_in", 36_928, 1, 1024, 4096, (torch.bfloat16,)),
              ("l14_336_qkv_lnpre", 36_928, 3, 1024, 1024, (torch.bfloat16,)),
              # C a multiple of 128 but not of 256 (the bf16 kernel's narrow
@@ -823,6 +845,48 @@ ANALYSIS_BF16_REL = 3e-2
 ANALYSIS_PROCESSED_REL = 1e-3
 ANALYSIS_CPU_BATCH = 2
 
+# text: the CLIP text tower of openai/clip-vit-base-patch32 (12 x 512, 8
+# heads, MLP 2048, vocab 49,408, context 77) loaded through
+# load_hooked_model(model_type="text") from the same HF CLIPModel state dict
+# as the vision tower (seed 0), raw and processed; a BPE merge table trained
+# on the 80,000 prompts (1,000 ImageNet names x 80 templates), since the
+# public table is not in the repository.  The forward at TEXT_BATCH in
+# bf16: B1's causal route (12 a forward), in turns with the einsum bypass,
+# and once with the LN fusion (B14 24, B1 12); the gradient cache over the
+# 12 resid_post hooks (B2 11); the zero-shot classifier in f32 and bf16
+# (B1 12 for each of its 2,000 forwards), 8 classes against the CPU; then
+# zero_shot_eval of the B/32 vision tower (bf16) over ZS_IMAGES seeded images.
+TEXT_MODEL = "openai/clip-vit-base-patch32"
+TEXT_BATCH = 256
+TEXT_TIMED = 10
+TEXT_TURNS = ("kernel", "einsum", "einsum", "kernel")
+# the card against the CPU in float32: forward and gradients at this batch
+TEXT_CPU_BATCH = 8
+# The text tower's outputs and the classifier's columns are unit vectors
+# of 512 (entries near 0.044), so every text check is relative to the
+# compared value's own absmax, with no floor of 1 (text_atol).
+# The card against the CPU in float32 (outputs and the classifier): GEMM
+# summation order only.  A TF32 forward of the same model, measured beside
+# it, must land past the limit, or the check could not tell float32 from
+# TF32.
+TEXT_F32_REL = 1e-5
+# processed (folded, centred) against raw weights in float32 on the card:
+# the folding reorders float32 sums over 12 layers
+TEXT_PROCESSED_REL = 3e-5
+# bf16: the kernel path against the einsum path (that path rounds scores and
+# the softmax to bf16, the kernel keeps them float32), the fused LN against
+# the unfused forward, and the bf16 classifier against the f32 one: bf16
+# rounding carried through 12 layers.  The bidirectional tower on the same
+# weights (what an attention that dropped the causal mask would give),
+# measured beside it, must land past the limit.
+TEXT_BF16_REL = 5e-2
+# classifier columns: unit norm within float32 rounding of a mean of 80
+# unit vectors renormalized (f32), within bf16's (bf16)
+ZS_NORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+ZS_CPU_CLASSES = 8
+ZS_IMAGES = 2048
+ZS_BATCH = 256
+
 
 def RESID_POST(name: str) -> bool:
     return "resid_post" in name
@@ -917,6 +981,11 @@ def check_close(name, got, want, atol) -> float:
 
 def rel_atol(rel, want) -> float:
     return rel * max(1.0, want.float().abs().max().item())
+
+
+def text_atol(rel, want) -> float:
+    """rel of ``want``'s own absmax, for values well below 1."""
+    return rel * want.float().abs().max().item()
 
 
 def bound(nbytes, ops=()) -> dict:
@@ -1015,13 +1084,14 @@ def phase_kernels(info):
             library_us = cuda_us(lambda: torch.nn.functional.scaled_dot_product_attention(
                 qh, kh, vh, is_causal=causal, scale=1.0))
             gemm = "bf16_tensor" if dtype == torch.bfloat16 else "fp32"
+            pairs = T * (T + 1) // 2 if causal else T * T  # the (query, key) pairs kept
             rec = {"phase": "kernel", **info, "kernel": "attention_mix_tnh",
                    "shape": name, "B": B, "T": T, "N": N, "H": H,
                    "causal": causal, "dtype": str(dtype).split(".")[1],
                    "max_abs_err": err, "tol": KERNEL_TOL[dtype],
                    "us": us, "plain_us": plain_us, "library_us": library_us,
                    **bound(4 * q.numel() * q.element_size(),
-                           [(gemm, 4 * B * N * T * T * H), ("fp32", 5 * B * N * T * T)])}
+                           [(gemm, 4 * B * N * pairs * H), ("fp32", 5 * B * N * pairs)])}
             results[(name, dtype)] = rec
             emit(rec)
             del q, k, v, z, want, qh, kh, vh
@@ -4146,20 +4216,23 @@ def _eval_batches(images, labels, bs):
         yield images[i:i + bs], labels[i:i + bs], torch.arange(i, i + bs)
 
 
-def phase_sae_eval(info, trainer, cfg):
+def phase_sae_eval(info, trainer, cfg, class_emb):
     """The SAE evals at B/32: ``process_dataset`` over 2,048 images,
     ``validate()`` once and ``evaluate()`` into EVAL_OUT_DIR, with exact
     launches (B1 36 an eval batch, 10 a top-image batch and 10 for the
     heatmap, every other kernel 0); then one batch of 8 on the card against
-    the CPU in float32.  The model's ``ln_final`` bias is drawn first
-    (:func:`_draw_final_ln_bias`)."""
+    the CPU in float32.  The class embeddings ``class_emb`` [1000, 512] are
+    the text phase's f32 zero-shot classifier, transposed.  The model's
+    ``ln_final`` bias is drawn first (:func:`_draw_final_ln_bias`)."""
     from vit_prisma_tpu_torch import HookedViT
     from vit_prisma_tpu_torch.sae import SparseAutoencoder
     from vit_prisma_tpu_torch.sae import evals as E
     model, sae = trainer.model, trainer.sae
     _draw_final_ln_bias(model)
     counters = _sae_counters()
-    images, labels, class_emb, d_out = _eval_inputs(model, EVAL_IMAGES, cfg.image_size, 7)
+    images, labels, _, d_out = _eval_inputs(model, EVAL_IMAGES, cfg.image_size, 7)
+    if tuple(class_emb.shape) != (EVAL_CLASSES, d_out) or class_emb.dtype != torch.float32:
+        raise AssertionError(f"class embeddings {tuple(class_emb.shape)} {class_emb.dtype}")
     trainer.eval_dataset = [(images[i], labels[i]) for i in range(EVAL_BATCH)]
     trainer.class_embeddings = class_emb
     n_batches = EVAL_IMAGES // EVAL_BATCH
@@ -4235,7 +4308,8 @@ def phase_sae_eval(info, trainer, cfg):
           "d_in": cfg.d_in, "d_sae": cfg.d_sae, "dtype": cfg.dtype,
           "sae": "the train phase's (120 steps from random weights, seed 0)",
           "dataset": f"{EVAL_IMAGES} random float32 {cfg.image_size}px images, numpy seed 7, "
-                     f"labels and [{EVAL_CLASSES}, {d_out}] class embeddings from numpy seed 0",
+                     f"labels from numpy seed 0; [{EVAL_CLASSES}, {d_out}] class embeddings: "
+                     "the text phase's f32 zero-shot classifier, transposed",
           "batch": EVAL_BATCH, "parts": parts, "expected_attention_mix_tnh": expected,
           "eval_images_per_s": EVAL_IMAGES / parts["process_dataset"]["seconds"],
           "evaluate_s": parts["evaluate"]["seconds"],
@@ -4264,6 +4338,8 @@ def phase_sweep_eval(info, trainer, cfg):
     L = len(trainer.layers)
     counters = _sae_counters()
     # the sweep's own images (numpy seed 5, as phase_sweep draws them)
+    # seed-drawn class embeddings: L/14's output is 768 wide, the text
+    # phase's classifier (B/32's text tower) 512
     images, labels, class_emb, _ = _eval_inputs(model, SWEEP_IMAGES, cfg.image_size, 5)
     trainer.eval_dataset = [(images[i], labels[i]) for i in range(SWEEP_EVAL_BATCH)]
     trainer.class_embeddings = class_emb
@@ -4538,45 +4614,61 @@ def phase_mix_kernels(info):
     return results, launches
 
 
-def hf_clip_vision_state_dict(cfg, seed=0):
+def hf_clip_state_dict(cfg, text_cfg=None, seed=0):
     """An HF ``CLIPModel``-layout state dict of ``cfg``'s vision tower
-    (``vision_model.*`` and ``visual_projection.weight``), drawn from
-    ``seed`` at the scales of transformers' CLIP init (initializer factor
-    1: class embedding d^-1/2, patch and position embeddings 0.02, q/k/v
-    and fc2 d^-1/2 (2 L)^-1/2, out_proj d^-1/2, fc1 (2 d)^-1/2, the
-    projection d^-1/2).  That init's LayerNorms are the identity and its
-    biases zero, which would leave nothing to fold: here LayerNorm weights
-    are 1 + N(0, 0.1^2) and every bias N(0, 0.02^2)."""
+    (``vision_model.*`` and ``visual_projection.weight``) and, with
+    ``text_cfg``, of that text tower (``text_model.*`` and
+    ``text_projection.weight``, drawn after the vision tower, which is the
+    same with or without it), drawn from ``seed`` at the scales of
+    transformers' CLIP init (initializer factor 1: class embedding d^-1/2,
+    patch, position and token embeddings 0.02, q/k/v and fc2 d^-1/2 (2
+    L)^-1/2, out_proj d^-1/2, fc1 (2 d)^-1/2, the projections d^-1/2).  That
+    init's LayerNorms are the identity and its biases zero, which would
+    leave nothing to fold: here LayerNorm weights are 1 + N(0, 0.1^2) and
+    every bias N(0, 0.02^2)."""
     g = torch.Generator().manual_seed(seed)
-    D, M, L = cfg.d_model, cfg.d_mlp, cfg.n_layers
-    P, T = cfg.patch_size, cfg.n_tokens
-    attn_std, fc_std = D ** -0.5 * (2 * L) ** -0.5, (2 * D) ** -0.5
 
     def normal(shape, std):
         return torch.randn(shape, generator=g) * std
 
-    def ln(prefix, sd):
+    def ln(sd, prefix, D):
         sd[prefix + ".weight"] = 1.0 + normal(D, 0.1)
         sd[prefix + ".bias"] = normal(D, 0.02)
 
+    def layers(sd, cfg):
+        D, M, L = cfg.d_model, cfg.d_mlp, cfg.n_layers
+        attn_std, fc_std = D ** -0.5 * (2 * L) ** -0.5, (2 * D) ** -0.5
+        for l in range(L):
+            k = f"encoder.layers.{l}"
+            ln(sd, k + ".layer_norm1", D)
+            ln(sd, k + ".layer_norm2", D)
+            for m, std in (("q", attn_std), ("k", attn_std), ("v", attn_std),
+                           ("out", D ** -0.5)):
+                sd[f"{k}.self_attn.{m}_proj.weight"] = normal((D, D), std)
+                sd[f"{k}.self_attn.{m}_proj.bias"] = normal(D, 0.02)
+            sd[f"{k}.mlp.fc1.weight"] = normal((M, D), fc_std)
+            sd[f"{k}.mlp.fc1.bias"] = normal(M, 0.02)
+            sd[f"{k}.mlp.fc2.weight"] = normal((D, M), attn_std)
+            sd[f"{k}.mlp.fc2.bias"] = normal(D, 0.02)
+
+    D, P = cfg.d_model, cfg.patch_size
     sd = {"embeddings.class_embedding": normal(D, D ** -0.5),
           "embeddings.patch_embedding.weight": normal((D, cfg.n_channels, P, P), 0.02),
-          "embeddings.position_embedding.weight": normal((T, D), 0.02)}
-    ln("pre_layrnorm", sd)  # (sic) HF's name
-    for l in range(L):
-        k = f"encoder.layers.{l}"
-        ln(k + ".layer_norm1", sd)
-        ln(k + ".layer_norm2", sd)
-        for m, std in (("q", attn_std), ("k", attn_std), ("v", attn_std), ("out", D ** -0.5)):
-            sd[f"{k}.self_attn.{m}_proj.weight"] = normal((D, D), std)
-            sd[f"{k}.self_attn.{m}_proj.bias"] = normal(D, 0.02)
-        sd[f"{k}.mlp.fc1.weight"] = normal((M, D), fc_std)
-        sd[f"{k}.mlp.fc1.bias"] = normal(M, 0.02)
-        sd[f"{k}.mlp.fc2.weight"] = normal((D, M), attn_std)
-        sd[f"{k}.mlp.fc2.bias"] = normal(D, 0.02)
-    ln("post_layernorm", sd)
+          "embeddings.position_embedding.weight": normal((cfg.n_tokens, D), 0.02)}
+    ln(sd, "pre_layrnorm", D)  # (sic) HF's name
+    layers(sd, cfg)
+    ln(sd, "post_layernorm", D)
     out = {"vision_model." + k: v for k, v in sd.items()}
     out["visual_projection.weight"] = normal((cfg.n_classes, D), D ** -0.5)
+    if text_cfg is not None:
+        D = text_cfg.d_model
+        sd = {"embeddings.token_embedding.weight": normal((text_cfg.vocab_size, D), 0.02),
+              "embeddings.position_embedding.weight": normal((text_cfg.context_length, D),
+                                                             0.02)}
+        layers(sd, text_cfg)
+        ln(sd, "final_layer_norm", D)
+        out.update({"text_model." + k: v for k, v in sd.items()})
+        out["text_projection.weight"] = normal((text_cfg.n_classes, D), D ** -0.5)
     return out
 
 
@@ -4627,7 +4719,7 @@ def _plain_logit_lens(cache_dict, n_layers, answers):
 
 def phase_analysis(info):
     """CLIP ViT-B/32 loaded and analysed on the card: an HF CLIPModel-layout
-    state dict (``hf_clip_vision_state_dict``) through ``load_hooked_model``
+    state dict (``hf_clip_state_dict``) through ``load_hooked_model``
     raw, processed (``fold_ln``, ``center_writing_weights``,
     ``fold_value_biases``) and also refactored
     (``refactor_factored_attn_matrices``), the processed forwards on the B1
@@ -4651,7 +4743,7 @@ def phase_analysis(info):
     from vit_prisma_tpu_torch.prisma.logit_lens import (get_patch_logit_dictionary,
                                                         get_patch_logit_directions)
     cfg = get_model_config(ANALYSIS_MODEL)
-    sd = hf_clip_vision_state_dict(cfg, seed=0)
+    sd = hf_clip_state_dict(cfg, seed=0)
     processing = dict(fold_ln=True, center_writing_weights=True, fold_value_biases=True)
     t0 = time.perf_counter()
     raw = load_hooked_model(ANALYSIS_MODEL, state_dict=sd, device="cuda")
@@ -4807,7 +4899,7 @@ def phase_analysis(info):
 
     b1 = launches["attention_mix_tnh"] + lens_launches["attention_mix_tnh"]
     emit({"phase": "analysis", **info, "model": ANALYSIS_MODEL,
-          "source": "HF CLIPModel layout, seed 0 (hf_clip_vision_state_dict)",
+          "source": "HF CLIPModel layout, seed 0 (hf_clip_state_dict)",
           "n_layers": cfg.n_layers, "d_model": cfg.d_model, "batch": ANALYSIS_BATCH,
           "load_s": load_s, "load_processed_s": load_processed_s,
           "processing": sorted(processing) + ["refactor_factored_attn_matrices"],
@@ -4829,6 +4921,351 @@ def phase_analysis(info):
     return b1
 
 
+def train_merges(classnames, templates):
+    """A BPE merge table learned from the prompts ``template(name)``: the
+    standard greedy training (merge the most frequent adjacent pair, ties by
+    the pair's order, until every word is one symbol), over the words of the
+    tokenizer's own split (cleaned, lower-cased, byte-mapped, ``</w>`` on
+    the last symbol), each word counted as often as the prompts hold it: a
+    template's words once per name, a name's once per template."""
+    import collections
+    import heapq
+    from vit_prisma_tpu_torch.utils import clip_tokenizer as T
+    base = T.CLIPTokenizer([])
+    counts = collections.Counter()
+
+    def add(text, n):
+        for token in base._split.findall(T._clean(text).lower()):
+            counts["".join(base.byte_encoder[b] for b in token.encode("utf-8"))] += n
+
+    for t in templates:
+        add(t.replace("{c}", " "), len(classnames))
+    for name in classnames:
+        add(name, len(templates))
+    words = [list(w[:-1]) + [w[-1] + "</w>"] for w in counts]
+    freq = list(counts.values())
+    pairs, where = collections.Counter(), collections.defaultdict(set)
+    for i, w in enumerate(words):
+        for p in zip(w, w[1:]):
+            pairs[p] += freq[i]
+            where[p].add(i)
+    heap = [(-n, p) for p, n in pairs.items()]
+    heapq.heapify(heap)
+    merges = []
+    while heap and len(merges) < T.N_CLIP_MERGES:
+        n, p = heapq.heappop(heap)
+        if pairs.get(p) != -n:  # a stale entry
+            continue
+        merges.append(p)
+        touched = set()
+        for i in where.pop(p):
+            for q in zip(words[i], words[i][1:]):
+                pairs[q] -= freq[i]
+                touched.add(q)
+            words[i] = T._merge_pass(words[i], p)
+            for q in zip(words[i], words[i][1:]):
+                pairs[q] += freq[i]
+                where[q].add(i)
+                touched.add(q)
+        del pairs[p]
+        for q in touched - {p}:
+            if pairs[q] > 0:
+                heapq.heappush(heap, (-pairs[q], q))
+    return merges
+
+
+def _zs_plain_counts(logits, target):
+    """Top-1 and top-5 hits by rank, without a sort: a row's target ranks
+    after every larger logit and every equal one of a lower class index."""
+    t = logits.gather(1, target[:, None])
+    idx = torch.arange(logits.shape[1], device=logits.device)
+    rank = ((logits > t) | ((logits == t) & (idx < target[:, None]))).sum(1)
+    return [float((rank < k).sum()) for k in (1, 5)]
+
+
+def phase_text(info):
+    """The CLIP text tower and zero-shot classification at B/32 width: the
+    text tower loaded from an HF CLIPModel state dict (``hf_clip_state_dict``
+    with the text tower, seed 0) raw and processed (f32, processed against
+    raw on B1's causal route); a merge table learned from the 80,000 prompts
+    (``train_merges``); the bf16 forward at TEXT_BATCH with exact launches
+    (B1 12), prompts per second in turns with the einsum bypass, once with
+    the LN fusion (B14 24, B1 12), both bypasses the same weights
+    (``with_cfg``); f32 at TEXT_CPU_BATCH against the CPU; each limit
+    relative to the compared value's own absmax, and shown to fail a
+    control (a TF32 forward for float32, the bidirectional tower for bf16);
+    ``run_with_cache(incl_bwd=True)`` over the 12 resid_post hooks in bf16
+    (B1 12, B2 11) against the einsum path, f32 gradients against the CPU;
+    ``zero_shot_classifier`` over the 1,000 ImageNet names x 80 templates
+    in f32 and bf16 (B1 12 for each of its 2,000 forwards), with the
+    tokenizer's and the rest's seconds, unit columns, 8 classes against
+    the CPU and the bf16 classifier against the f32 one; then ``zero_shot_eval`` of the B/32 vision tower from the same
+    state dict (bf16, against the f32 classifier) over ZS_IMAGES images and
+    labels from a seed, plain and with a forward hook, each equal to a plain
+    top-k count on the same logits.  Returns the
+    f32 classifier's transpose ([1000, 512]) for the SAE evals and the
+    phase's launches."""
+    from vit_prisma_tpu_torch import load_hooked_model
+    from vit_prisma_tpu_torch.dataloaders.imagenet_names import get_imagenet_text_labels
+    from vit_prisma_tpu_torch.model_eval import zero_shot as Z
+    from vit_prisma_tpu_torch.models.loading.registry import get_model_config
+    from vit_prisma_tpu_torch.utils.clip_tokenizer import CLIPTokenizer
+    from vit_prisma_tpu_torch.utils.openai_templates import OPENAI_IMAGENET_TEMPLATE_STRINGS
+    phase_t0 = time.perf_counter()
+    counters = _sae_counters()
+    vcfg = get_model_config(TEXT_MODEL)
+    tcfg = get_model_config(TEXT_MODEL, model_type="text")
+    sd = hf_clip_state_dict(vcfg, tcfg, seed=0)
+    n_params = sum(v.numel() for k, v in sd.items() if k.startswith("text"))
+
+    def load(**kw):
+        return load_hooked_model(TEXT_MODEL, model_type="text", state_dict=sd, **kw)
+
+    t0 = time.perf_counter()
+    raw = load(device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    processing = dict(fold_ln=True, center_writing_weights=True, fold_value_biases=True)
+    proc = load(device="cuda", **processing)
+
+    # the tokenizer: a merge table learned from the prompts
+    names = get_imagenet_text_labels()
+    templates = OPENAI_IMAGENET_TEMPLATE_STRINGS
+    t0 = time.perf_counter()
+    tok = CLIPTokenizer(train_merges(names, templates))
+    merges_s = time.perf_counter() - t0
+    prompts = [t.format(c=c) for c in names[:4] for t in templates][:TEXT_BATCH]
+    toks = torch.from_numpy(tok(prompts)).cuda()
+
+    # f32: processed against raw, the card against the CPU
+    out_raw, out_proc = raw(toks), proc(toks)
+    processed_err = check_close("text processed vs raw", out_proc, out_raw,
+                                text_atol(TEXT_PROCESSED_REL, out_raw))
+    cpu = load(device="cpu")
+    small = toks[:TEXT_CPU_BATCH]
+    out_cpu = cpu(small.cpu())
+    f32_limit = text_atol(TEXT_F32_REL, out_cpu)
+    f32_cpu_err = check_close("text f32 card vs cpu", raw(small), out_cpu, f32_limit)
+    # the lower-precision control: the same forward with TF32 GEMMs
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32_err = (raw(small).cpu() - out_cpu).abs().max().item()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    if not tf32_err > max(f32_limit, text_atol(TEXT_PROCESSED_REL, out_raw)):
+        raise AssertionError(f"text f32 limits {f32_limit} pass a TF32 forward ({tf32_err})")
+    _, got = raw.run_with_cache(small, names_filter=RESID_POST, incl_bwd=True,
+                                loss_fn=_metric, return_cache_object=False)
+    _, want = cpu.run_with_cache(small.cpu(), names_filter=RESID_POST, incl_bwd=True,
+                                 loss_fn=_metric, return_cache_object=False)
+    f32_grad_errs = _cache_grad_errs(got, want, GRAD_F32_REL)
+    del proc, got, want
+
+    # The main path: the bf16 forward, with every count set to 0 just before it.
+    bf16 = load(device="cuda", dtype="bfloat16")
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(counters)
+    out = bf16(toks)
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items() if f.launches}
+    if launches != {"attention_mix_tnh": tcfg.n_layers}:
+        raise AssertionError(f"text forward launches {launches}")
+    if tuple(out.shape) != (TEXT_BATCH, tcfg.n_classes) or not torch.isfinite(out).all():
+        raise AssertionError(f"text forward {tuple(out.shape)}")
+    einsum = bf16.with_cfg(use_fused_attention=False)
+    fused_ln = bf16.with_cfg(use_fused_ln_gemm=True)
+    _zero_counts(counters)
+    out_e = einsum(toks)
+    torch.cuda.synchronize()
+    if any(f.launches for f in counters.values()):
+        raise AssertionError("the text einsum path launched a kernel")
+    out_ln = fused_ln(toks)
+    torch.cuda.synchronize()
+    ln_launches = {k: f.launches for k, f in counters.items() if f.launches}
+    if ln_launches != {"attention_mix_tnh": tcfg.n_layers, "ln_matmul": 2 * tcfg.n_layers}:
+        raise AssertionError(f"text fused-LN launches {ln_launches}")
+    bf16_limit = text_atol(TEXT_BF16_REL, out_e)
+    bf16_errs = {"einsum": check_close("text bf16 kernel vs einsum", out, out_e, bf16_limit),
+                 "fused_ln": check_close("text bf16 fused LN vs unfused", out_ln, out,
+                                         text_atol(TEXT_BF16_REL, out))}
+    # the control: the same weights without the causal mask
+    unmasked_err = (bf16.with_cfg(causal_attention=False)(toks).float()
+                    - out_e.float()).abs().max().item()
+    if not unmasked_err > bf16_limit:
+        raise AssertionError(f"text bf16 limit {bf16_limit} passes the unmasked tower "
+                             f"({unmasked_err})")
+    models = {"kernel": bf16, "einsum": einsum, "fused_ln": fused_ln}
+    turns = []
+    for name in TEXT_TURNS + ("fused_ln",):
+        model = models[name]
+        model(toks)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TEXT_TIMED):
+            model(toks)
+        torch.cuda.synchronize()
+        seconds = (time.perf_counter() - t0) / TEXT_TIMED
+        turns.append({"path": name, "ms": seconds * 1e3, "prompts_per_s": TEXT_BATCH / seconds})
+
+    # the gradient cache over the 12 resid_post hooks, bf16: the first call
+    # counted, then GRAD_TIMED calls timed
+    _zero_counts(counters)
+    _, cache = bf16.run_with_cache(toks, names_filter=RESID_POST, incl_bwd=True,
+                                   loss_fn=_metric, return_cache_object=False)
+    torch.cuda.synchronize()
+    grad_launches = {k: f.launches for k, f in counters.items() if f.launches}
+    if grad_launches != {"attention_mix_tnh": tcfg.n_layers,
+                         "attention_mix_tnh_bwd": tcfg.n_layers - 1}:
+        raise AssertionError(f"text gradient launches {grad_launches}")
+    t0 = time.perf_counter()
+    for _ in range(GRAD_TIMED):
+        bf16.run_with_cache(toks, names_filter=RESID_POST, incl_bwd=True, loss_fn=_metric,
+                            return_cache_object=False)
+    torch.cuda.synchronize()
+    grad_s = (time.perf_counter() - t0) / GRAD_TIMED
+    _, cache_e = einsum.run_with_cache(toks, names_filter=RESID_POST, incl_bwd=True,
+                                       loss_fn=_metric, return_cache_object=False)
+    bf16_grad_errs = _cache_grad_errs(cache, cache_e, GRAD_BF16_REL)
+    if not all(cache[k].abs().max() > 0 for k in cache if k.endswith("_grad")):
+        raise AssertionError("a text resid_post gradient is all zeros")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del einsum, fused_ln, cache, cache_e
+
+    # the zero-shot classifier, f32 and bf16, the tokenizer timed apart
+    tally = {}
+
+    def timed_tok(texts):
+        t0 = time.perf_counter()
+        ids = tok(texts)
+        tally["s"] += time.perf_counter() - t0
+        # rows that reach the context's end: truncated, or exactly 77 long
+        tally["full"] += int((ids[:, -1] != 0).sum())
+        return ids
+
+    classifiers, builds = {}, {}
+    for name, model in (("f32", raw), ("bf16", bf16)):
+        tally.update(s=0.0, full=0)
+        _zero_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c = Z.zero_shot_classifier(model, timed_tok, names, templates)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        forwards = len(names) * -(-len(templates) // 64)
+        b = {k: f.launches for k, f in counters.items() if f.launches}
+        if b != {"attention_mix_tnh": tcfg.n_layers * forwards}:
+            raise AssertionError(f"classifier {name} launches {b}, {forwards} forwards")
+        if tuple(c.shape) != (tcfg.n_classes, len(names)) or c.dtype != model.cfg.torch_dtype:
+            raise AssertionError(f"classifier {name}: {tuple(c.shape)} {c.dtype}")
+        norm_err = (torch.linalg.norm(c.float(), dim=0) - 1).abs().max().item()
+        if not norm_err <= ZS_NORM_TOL[c.dtype]:
+            raise AssertionError(f"classifier {name} column norms off by {norm_err}")
+        classifiers[name] = c
+        builds[name] = {"s": total, "tokenizer_s": tally["s"],
+                        "encoder_and_rest_s": total - tally["s"], "forwards": forwards,
+                        "launches": b, "column_norm_err": norm_err}
+    full = tally["full"]
+    truncated = sum(len(tok.encode(t.format(c=c))) + 2 > tcfg.context_length
+                    for c in names for t in templates) if full else 0
+    t0 = time.perf_counter()
+    cpu_c = Z.zero_shot_classifier(cpu, tok, names[:ZS_CPU_CLASSES], templates)
+    cpu_s = time.perf_counter() - t0
+    cpu_err = check_close("classifier card vs cpu", classifiers["f32"][:, :ZS_CPU_CLASSES],
+                          cpu_c, text_atol(TEXT_F32_REL, cpu_c))
+    bf16_vs_f32 = check_close("classifier bf16 vs f32", classifiers["bf16"], classifiers["f32"],
+                              text_atol(TEXT_BF16_REL, classifiers["f32"]))
+    del cpu, cpu_c, raw, bf16
+    release()
+
+    # zero-shot evaluation of the vision tower from the same state dict
+    vision = load_hooked_model(TEXT_MODEL, state_dict=sd, device="cuda", dtype="bfloat16")
+    classifier = classifiers["f32"]
+    g = torch.Generator(device="cuda").manual_seed(61)
+    images = torch.randn(ZS_IMAGES, 3, vcfg.image_size, vcfg.image_size, generator=g,
+                         device="cuda").bfloat16()
+    labels = torch.randint(0, len(names), (ZS_IMAGES,), generator=g, device="cuda")
+    batches = [(images[i:i + ZS_BATCH], labels[i:i + ZS_BATCH])
+               for i in range(0, ZS_IMAGES, ZS_BATCH)]
+    hooks = [("blocks.6.hook_resid_post", lambda v, hook: v * 0.5)]
+    evals = {}
+    for name, fwd_hooks in (("plain", None), ("hooked", hooks)):
+        _zero_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = Z.zero_shot_eval(vision, {"imagenet-val": batches},
+                               pretrained_classifier=classifier, fwd_hooks=fwd_hooks)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        b = {k: f.launches for k, f in counters.items() if f.launches}
+        if b != {"attention_mix_tnh": vcfg.n_layers * len(batches)}:
+            raise AssertionError(f"zero_shot_eval {name} launches {b}")
+        hits = [0.0, 0.0]
+        for x, y in batches:
+            feats = vision(x) if fwd_hooks is None else vision.run_with_hooks(x, fwd_hooks)
+            for i, h in enumerate(_zs_plain_counts((100.0 * feats).float() @ classifier, y)):
+                hits[i] += h
+        want = [h / ZS_IMAGES for h in hits]
+        got = [res["imagenet-zeroshot-val-top1"], res["imagenet-zeroshot-val-top5"]]
+        if got != want:
+            raise AssertionError(f"zero_shot_eval {name}: {got}, plain top-k counts {want}")
+        evals[name] = {"top1": got[0], "top5": got[1], "s": seconds,
+                       "img_per_s": ZS_IMAGES / seconds, "launches": b}
+    del vision, images, batches
+
+    emit({"phase": "text", **info, "model": TEXT_MODEL, "n_layers": tcfg.n_layers,
+          "d_model": tcfg.d_model, "n_heads": tcfg.n_heads, "vocab_size": tcfg.vocab_size,
+          "context_length": tcfg.context_length, "text_params": n_params,
+          "source": "HF CLIPModel layout, seed 0 (hf_clip_state_dict with the text tower)",
+          "load_s": load_s, "output_absmax": out_raw.abs().max().item(),
+          "processed_vs_raw_max_abs_err": processed_err,
+          "processed_rel_tol": TEXT_PROCESSED_REL,
+          "f32_card_vs_cpu": {"batch": TEXT_CPU_BATCH, "output_max_abs_err": f32_cpu_err,
+                              "rel_tol": TEXT_F32_REL, "atol": f32_limit,
+                              "tf32_control_max_abs_err": tf32_err,
+                              "grad_max_abs_err": f32_grad_errs,
+                              "grad_rel_tol": GRAD_F32_REL},
+          "tokenizer": {"merges": len(tok.ranks), "vocab": tok.vocab_size,
+                        "train_merges_s": merges_s, "prompts": len(names) * len(templates),
+                        "rows_filling_context": full, "truncated": truncated},
+          "batch": TEXT_BATCH, "dtype": "bfloat16", "launches": launches,
+          "fused_ln_launches": ln_launches, "bf16_max_abs_err": bf16_errs,
+          "bf16_rel_tol": TEXT_BF16_REL, "bf16_atol": bf16_limit,
+          "unmasked_control_max_abs_err": unmasked_err, "turns": turns,
+          "forward_tflop": _text_forward_tflop(tcfg, TEXT_BATCH),
+          "grad": {"s": grad_s, "prompts_per_s": TEXT_BATCH / grad_s,
+                   "launches": grad_launches, "bf16_vs_einsum_max_abs_err": bf16_grad_errs,
+                   "rel_tol": GRAD_BF16_REL},
+          "peak_memory_GB": peak,
+          "classifier": {**builds, "classes": len(names), "templates": len(templates),
+                         "tflop": _text_forward_tflop(tcfg, len(names) * len(templates)),
+                         "cpu_classes": ZS_CPU_CLASSES, "cpu_s": cpu_s,
+                         "card_vs_cpu_max_abs_err": cpu_err, "rel_tol": TEXT_F32_REL,
+                         "bf16_vs_f32_max_abs_err": bf16_vs_f32,
+                         "bf16_rel_tol": TEXT_BF16_REL},
+          "zero_shot_eval": {"images": ZS_IMAGES, "batch": ZS_BATCH, "vision_dtype": "bfloat16",
+                             "classifier_dtype": "float32", "hook": hooks[0][0] + " * 0.5",
+                             **evals},
+          "phase_s": time.perf_counter() - phase_t0})
+    # B1 over the phase's counted parts, B2 and B14 on theirs
+    parts = [launches, ln_launches, grad_launches] + [r["launches"] for r in builds.values()]
+    parts += [r["launches"] for r in evals.values()]
+    text_launches = {"attention_mix_tnh": sum(p["attention_mix_tnh"] for p in parts),
+                     "attention_mix_tnh_bwd": grad_launches["attention_mix_tnh_bwd"],
+                     "ln_matmul": ln_launches["ln_matmul"]}
+    return classifier.T.contiguous(), text_launches
+
+
+def _text_forward_tflop(cfg, n_prompts) -> float:
+    """The text forward's products over n_prompts of context_length tokens:
+    QKV, O and the MLP per token, the causal scores and PV per kept pair,
+    and the head on the pooled rows."""
+    T, D, M, L = cfg.context_length, cfg.d_model, cfg.d_mlp, cfg.n_layers
+    per_prompt = L * (T * 2 * (4 * D * D + 2 * D * M) + 2 * 2 * (T * (T + 1) // 2) * D)
+    return n_prompts * (per_prompt + 2 * D * cfg.n_classes) / 1e12
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; none is available")
@@ -4846,11 +5283,14 @@ def main():
     fused, plain = phase_slice(info)
     launches = phase_serve(info, fused, plain)
     del fused, plain
+    release()
+    class_emb, text_launches = phase_text(info)
+    release()
     trainer, store, cfg, train_launches = phase_train(info)
     check_steps(*phase_step_check(info, trainer, store, cfg))
     del store
     release()
-    phase_sae_eval(info, trainer, cfg)
+    phase_sae_eval(info, trainer, cfg, class_emb)
     del trainer
     release()
     sae_step_kernels = phase_sae_step_kernels(info)
@@ -4968,13 +5408,19 @@ def main():
     sweep_rec = lambda k: sae_step_kernels[(k, "sweep_bf16")]
     topk_rec = lambda k: topk_kernels[(k, "slice_bf16")]
     l14 = kernels[("l14", torch.bfloat16)]
+    text = kernels[("text_causal", torch.bfloat16)]
     line = [
-        # at B/32 serving's bf16 shape, with its CLIP L/14 figures beside
+        # at B/32 serving's bf16 shape, with its CLIP L/14 and causal text
+        # tower figures beside
         {**entry("attention_mix_tnh", KERNEL_SOURCE, KERNEL_REPLACES, launches,
                  kernels[("b32", torch.bfloat16)], "us", 1e-3),
          "analysis_launches": analysis_launches,
+         "text_phase_launches": text_launches["attention_mix_tnh"],
          "l14_ms": l14["us"] * 1e-3, "l14_library_ms": l14["library_us"] * 1e-3,
-         "l14_bound_ms": l14["bound_ms"], "l14_max_abs_err": l14["max_abs_err"]},
+         "l14_bound_ms": l14["bound_ms"], "l14_max_abs_err": l14["max_abs_err"],
+         "text_ms": text["us"] * 1e-3, "text_library_ms": text["library_us"] * 1e-3,
+         "text_bound_ms": text["bound_ms"], "text_plain_ms": text["plain_us"] * 1e-3,
+         "text_max_abs_err": text["max_abs_err"]},
         # at the store's f32 shape: the kernel's and index_select's device
         # times (the call's event time, with the wrapper's index check, beside
         # them), with the bf16 store's and the sweep store's figures; launches
@@ -5049,19 +5495,34 @@ def main():
     # at the B/32 grad paths' bf16 shape, with its CLIP L/14 figures beside;
     # launches from the vit_train path
     l14_bwd = grad_kernels[("l14", torch.bfloat16)]
+    text_bwd = grad_kernels[("text_causal", torch.bfloat16)]
     line.append({**entry("attention_mix_tnh_bwd", GRAD_SOURCE, GRAD_REPLACES,
                          vit_train_launches["attention_mix_tnh_bwd"],
                          grad_kernels[("b32", torch.bfloat16)], "us", 1e-3),
+                 "text_phase_launches": text_launches["attention_mix_tnh_bwd"],
                  "l14_ms": l14_bwd["us"] * 1e-3, "l14_library_ms": l14_bwd["library_us"] * 1e-3,
-                 "l14_bound_ms": l14_bwd["bound_ms"], "l14_max_abs_err": l14_bwd["max_abs_err"]})
+                 "l14_bound_ms": l14_bwd["bound_ms"], "l14_max_abs_err": l14_bwd["max_abs_err"],
+                 "text_ms": text_bwd["us"] * 1e-3,
+                 "text_library_ms": text_bwd["library_us"] * 1e-3,
+                 "text_bound_ms": text_bwd["bound_ms"],
+                 "text_max_abs_err": text_bwd["max_abs_err"]})
     # B14 at B/32's bf16 QKV shape, launches from the fused-LN serve path;
     # B13 at CLIP L/14-336's bf16 serving shape (forward, launches from its
     # serve path) and attribution shape (backward passes, launches from the
     # attribution path).  No single library call computes one backward pass,
     # so library_ms is null there; SDPA's whole backward at the same shape
     # stands beside both passes as library_bwd_ms.
-    line.append(entry("ln_matmul", LN_SOURCE, LN_REPLACES, ln_launches["ln_matmul"],
-                      ln_kernels[("b32_qkv", torch.bfloat16)], "us", 1e-3))
+    # B14's figures at the text phase's two shapes beside it.
+    line.append({**entry("ln_matmul", LN_SOURCE, LN_REPLACES, ln_launches["ln_matmul"],
+                         ln_kernels[("b32_qkv", torch.bfloat16)], "us", 1e-3),
+                 "text_phase_launches": text_launches["ln_matmul"],
+                 **{f"{shape}_{k}": v for shape in ("text_qkv", "text_mlp_in")
+                    for k, v in (("ms", ln_kernels[(shape, torch.bfloat16)]["us"] * 1e-3),
+                                 ("library_ms",
+                                  ln_kernels[(shape, torch.bfloat16)]["library_us"] * 1e-3),
+                                 ("bound_ms", ln_kernels[(shape, torch.bfloat16)]["bound_ms"]),
+                                 ("max_abs_err",
+                                  ln_kernels[(shape, torch.bfloat16)]["max_abs_err"]))}})
     serve_rec = flash_kernels[("l14_336_serve", torch.bfloat16)]
     attrib_rec = flash_kernels[("l14_336_attrib", torch.bfloat16)]
     passes = [("flash_attention_padded", serve_rec, "fwd", ("z",), l336_launches),

@@ -30,9 +30,14 @@ def jax_and_port(seed=0, **cfg_fields):
 
 
 def port_from_jax(jax_model):
-    """The port's HookedViT with the JAX model's weights."""
-    cfg = vit_prisma_tpu_torch.ViTConfig.from_dict(jax_model.cfg.to_dict())
-    port = vit_prisma_tpu_torch.HookedViT(cfg, device="cpu")
+    """The port's HookedViT, or HookedTextTransformer for a JAX text tower,
+    with the JAX model's weights."""
+    if isinstance(jax_model, vit_prisma_tpu.HookedTextTransformer):
+        cfg = vit_prisma_tpu_torch.TextTransformerConfig.from_dict(jax_model.cfg.to_dict())
+        port = vit_prisma_tpu_torch.HookedTextTransformer(cfg, device="cpu")
+    else:
+        cfg = vit_prisma_tpu_torch.ViTConfig.from_dict(jax_model.cfg.to_dict())
+        port = vit_prisma_tpu_torch.HookedViT(cfg, device="cpu")
     port.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jax_model.params)))
     return port
 

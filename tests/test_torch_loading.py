@@ -392,10 +392,12 @@ def test_registry_errors_match_jax(name):
 
 def test_registry_text_and_check_model_name(caplog):
     for name in ("openai/clip-vit-base-patch32", "open-clip:laion/CLIP-ViT-B-32-x"):
-        with pytest.raises(NotImplementedError, match="text-tower"):
-            port_registry.get_model_config(name, model_type="text")
-    with pytest.raises(NotImplementedError, match="text-tower"):
-        port_registry.open_clip_text_config("open-clip:laion/CLIP-ViT-B-32-x")
+        got = port_registry.get_model_config(name, model_type="text")
+        assert isinstance(got, vit_prisma_tpu_torch.TextTransformerConfig)
+        assert got.to_dict() == jax_registry.get_model_config(name, model_type="text").to_dict()
+    got = port_registry.open_clip_text_config("open-clip:laion/CLIP-ViT-B-32-x")
+    assert got.to_dict() == jax_registry.open_clip_text_config(
+        "open-clip:laion/CLIP-ViT-B-32-x").to_dict()
     failing = sorted(jax_registry.FAILING_MODELS)[0]
     with pytest.raises(ValueError, match="known-failing"):
         port_registry.check_model_name(failing)
@@ -559,8 +561,25 @@ def test_load_hooked_model_bfloat16_and_errors(tmp_path, monkeypatch):
         "openai/clip-vit-base-patch32", dtype="bfloat16", n_layers=L, d_model=D, n_heads=N,
         d_head=H, d_mlp=M, patch_size=P, image_size=IMG, n_classes=C)
     assert reg.cfg.eps == 1e-6 and reg.W_in.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="text tower"):
-        port_loader.load_hooked_model("openai/clip-test", model_type="text", state_dict=sd)
+    # the text tower from the same CLIPModel state dict, in bfloat16
+    text_fields = dict(n_layers=L, d_model=D, d_head=H, n_heads=N, d_mlp=M, n_classes=C,
+                       vocab_size=VOCAB, context_length=CTX, activation_name="quick_gelu",
+                       eps=1e-5, return_type="class_logits", dtype="bfloat16")
+    text = port_loader.load_hooked_model(
+        "openai/clip-test", model_type="text", state_dict=sd, device="cpu",
+        cfg=vit_prisma_tpu_torch.TextTransformerConfig(**text_fields))
+    want_text = jax_loader.load_hooked_model(
+        "openai/clip-test", model_type="text", state_dict=sd,
+        cfg=vit_prisma_tpu.TextTransformerConfig(**text_fields))
+    assert isinstance(text, vit_prisma_tpu_torch.HookedTextTransformer)
+    assert text.W_Q.dtype == torch.bfloat16
+    from vit_prisma_tpu.models.text import unstack_text_params
+    want_flat = unstack_text_params(want_text.params, want_text.cfg)
+    got_flat = port_sd.reference_state_dict(text)
+    assert sorted(got_flat) == sorted(want_flat)
+    for k, v in got_flat.items():  # bf16 copies of the same float32 weights
+        want_v = np.asarray(want_flat[k]).astype(np.float32)
+        assert torch.equal(v.float(), torch.from_numpy(want_v)), k
     # safetensors: read through the package, or a clear error without it
     safetensors = pytest.importorskip("safetensors.numpy")
     path = str(tmp_path / "src.safetensors")

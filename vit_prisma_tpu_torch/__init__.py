@@ -2,7 +2,9 @@
 
 It runs the hooked ViT of the JAX package (same config fields, hook names,
 parameter names and layouts), its gradient paths, SAE splicing, supervised
-training, the activation cache's analyses and model loading on PyTorch,
+training, the activation cache's analyses, model loading, the CLIP text
+tower (``HookedTextTransformer``), its tokenizer and zero-shot
+classification (``model_eval``) on PyTorch,
 with the JAX package's Pallas kernels rewritten by hand for NVIDIA Hopper
 (sm_90a) under ``csrc/``.  It imports no JAX.
 """
@@ -12,6 +14,7 @@ __version__ = "0.1.0"
 from vit_prisma_tpu_torch.configs.vit_config import ViTConfig, TextTransformerConfig
 from vit_prisma_tpu_torch.models.vit import HookedViT, vit_forward, hook_names, init_vit_params
 from vit_prisma_tpu_torch.models.sae_vit import HookedSAEViT
+from vit_prisma_tpu_torch.models.text import HookedTextTransformer
 from vit_prisma_tpu_torch.models.loading.loader import load_hooked_model
 from vit_prisma_tpu_torch.models.loading.registry import get_model_config
 from vit_prisma_tpu_torch.prisma.cache import ActivationCache

@@ -165,10 +165,18 @@ class ViTConfig:
         return dataclasses.replace(self, **kw)
 
 
-class TextTransformerConfig:
-    """The CLIP text tower's config; not ported yet."""
+@dataclass(frozen=True)
+class TextTransformerConfig(ViTConfig):
+    """The CLIP text tower's config (``HookedTextTransformer``); field for
+    field the JAX package's ``TextTransformerConfig``."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "TextTransformerConfig is not ported yet (ROADMAP queue A, "
-            "item 12: text tower and zero-shot)")
+    context_length: int = 77
+    vocab_size: int = 10_000
+    # a causal mask over the tokens, on by default for text
+    causal_attention: bool = True
+    # a learned embedding appended after the last token (CoCa-style towers)
+    use_cls_emb: bool = False
+
+    @property
+    def n_tokens(self) -> int:  # type: ignore[override]
+        return self.context_length + (1 if self.use_cls_emb else 0)

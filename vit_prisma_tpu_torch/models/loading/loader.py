@@ -1,10 +1,13 @@
-"""Model loader: ``load_hooked_model`` / ``HookedViT.from_pretrained``
-(PyTorch port of ``vit_prisma_tpu/models/loading/loader.py``).
+"""Model loader: ``load_hooked_model`` / ``HookedViT.from_pretrained`` /
+``HookedTextTransformer.from_pretrained`` (PyTorch port of
+``vit_prisma_tpu/models/loading/loader.py``).
 
 Resolve the config (registry) -> get the source state dict -> convert it to
 the flat reference-named dict -> fill missing keys -> optionally fold,
 centre and refactor -> build the model on its device (the CUDA card unless
-the caller passes ``device``).
+the caller passes ``device``).  ``model_type="text"`` loads a CLIP text
+tower into a ``HookedTextTransformer``; a whole HF ``CLIPModel`` state dict
+serves both towers.
 
 The source state dict is passed in (``state_dict=``) or read from a local
 torch or safetensors checkpoint (``checkpoint_path=``); with neither, the
@@ -29,10 +32,9 @@ from vit_prisma_tpu_torch.models.loading.registry import (
 )
 from vit_prisma_tpu_torch.models.loading.state_dict import (reference_state_dict, stack_params,
                                                             unstack_params)
+from vit_prisma_tpu_torch.models.text import (HookedTextTransformer, stack_text_params,
+                                              unstack_text_params)
 from vit_prisma_tpu_torch.models.vit import HookedViT
-
-_TEXT_NOT_PORTED = ("the text tower is not ported yet (ROADMAP queue A, "
-                    "item 12)")
 
 
 def _to_numpy_sd(sd) -> Dict[str, Any]:
@@ -155,13 +157,11 @@ def load_hooked_model(model_name: str, model_type: str = "vision",
                       dtype: str = "float32",
                       allow_failing: bool = False,
                       device=None,
-                      **config_overrides) -> HookedViT:
-    """Load pretrained weights into a ``HookedViT`` on ``device`` (the CUDA
-    card when None).  The processing flags default to off; the processing
-    runs in float32 on the host, before the weights are cast to ``dtype``
-    and moved."""
-    if model_type == "text":
-        raise NotImplementedError(_TEXT_NOT_PORTED)
+                      **config_overrides):
+    """Load pretrained weights into a ``HookedViT`` (``model_type="text"``:
+    a ``HookedTextTransformer``) on ``device`` (the CUDA card when None).
+    The processing flags default to off; the processing runs in float32 on
+    the host, before the weights are cast to ``dtype`` and moved."""
     category = categorize(model_name)
     check_model_name(model_name, allow_failing=allow_failing)
     if cfg is None:
@@ -183,7 +183,8 @@ def load_hooked_model(model_name: str, model_type: str = "vision",
         raw = _fetch_from_hub(model_name, category)
 
     flat = convert_weights(category, raw, cfg, model_type)
-    model = HookedViT(cfg, device=device)
+    text = model_type == "text"
+    model = (HookedTextTransformer if text else HookedViT)(cfg, device=device)
     # keys the source lacks keep the new model's initial values
     flat = C.fill_missing_keys(flat, cfg, reference_state_dict(model))
     if fold_ln or center_writing_weights or fold_value_biases or \
@@ -194,5 +195,8 @@ def load_hooked_model(model_name: str, model_type: str = "vision",
             refactor_factored=refactor_factored_attn_matrices)
     # through the stacked layout, as the JAX loader: keys the config has no
     # place for (a class token, ln_pre) are dropped, a missing head is zero
-    model.load_state_dict(unstack_params(stack_params(flat, cfg), cfg))
+    if text:
+        model.load_state_dict(unstack_text_params(stack_text_params(flat, cfg), cfg))
+    else:
+        model.load_state_dict(unstack_params(stack_params(flat, cfg), cfg))
     return model

@@ -5,8 +5,9 @@ here and held equal to it by ``tests/test_torch_loading.py``).
 Offline: the architecture of every supported family is written here (public
 constants: width, depth and heads per ViT size class), and OpenCLIP-style
 names are parsed structurally (``ViT-B-32`` -> size class B, patch 32).
-The text towers' entries are kept as data; resolving a text config raises
-until the text tower is ported (ROADMAP queue A, item 12).
+Text towers resolve through ``get_model_config(name, model_type="text")``:
+the explicit ``TEXT_MODEL_CONFIGS`` entries, or OpenCLIP names parsed as
+for the vision towers (:func:`open_clip_text_config`).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import re
 from enum import Enum
 from typing import Any, Dict
 
-from vit_prisma_tpu_torch.configs.vit_config import ViTConfig
+from vit_prisma_tpu_torch.configs.vit_config import TextTransformerConfig, ViTConfig
 
 
 class ModelCategory(Enum):
@@ -128,12 +129,24 @@ def open_clip_vision_config(model_name: str) -> ViTConfig:
     )
 
 
-_TEXT_NOT_PORTED = ("text-tower configs are not ported yet (ROADMAP queue A, "
-                    "item 12)")
-
-
-def open_clip_text_config(model_name: str):
-    raise NotImplementedError(_TEXT_NOT_PORTED)
+def open_clip_text_config(model_name: str) -> TextTransformerConfig:
+    """The text tower paired with an OpenCLIP vision size class."""
+    parsed = parse_open_clip_name(model_name)
+    if parsed is None:
+        raise ValueError(f"Cannot parse OpenCLIP model name: {model_name}")
+    size = parsed[0]
+    d_model, n_layers, n_heads, embed = CLIP_TEXT_SIZES[size]
+    quick = "openai" in model_name
+    return TextTransformerConfig(
+        model_name=model_name,
+        d_model=d_model, n_layers=n_layers, n_heads=n_heads,
+        d_head=d_model // n_heads, d_mlp=d_model * 4,
+        n_classes=embed, vocab_size=49408, context_length=77,
+        activation_name="quick_gelu" if quick else "gelu",
+        normalization_type="LN", eps=1e-5,
+        return_type="class_logits", normalize_output=True,
+        use_cls_token=False, causal_attention=True,
+    )
 
 
 # Explicit per-checkpoint configs (reference model_config_registry.py:81-113
@@ -459,7 +472,13 @@ def get_model_config(model_name: str, model_type: str = "vision",
     """Resolve a config for ``model_name``, offline, with ``overrides``
     (``dtype="bfloat16"``, any other field) applied."""
     if model_type == "text":
-        raise NotImplementedError(_TEXT_NOT_PORTED)
+        if model_name in TEXT_MODEL_CONFIGS:
+            base = dict(TEXT_MODEL_CONFIGS[model_name])
+            base.setdefault("model_name", model_name)
+            base.update(overrides)
+            return TextTransformerConfig(**base)
+        cfg = open_clip_text_config(model_name)
+        return cfg.replace(**overrides) if overrides else cfg
     if model_name in MODEL_CONFIGS:
         base = dict(MODEL_CONFIGS[model_name])
         base.setdefault("model_name", model_name)

@@ -5,8 +5,10 @@ The port's modules already carry the reference's flat names
 (``blocks.{l}.attn.W_Q``), so what is left here is the patch-embedding
 layout and the JAX package's stacked-by-layer parameter tree:
 :func:`stack_params` and :func:`unstack_params` go between the flat dict
-and that tree, as the JAX functions of the same names do, and
-:func:`params_from_jax` reads the JAX package's tree into the port.
+and that tree, as the JAX functions of the same names do (the text tower's
+are ``models/text.py``'s ``stack_text_params`` and
+``unstack_text_params``), and :func:`params_from_jax` reads the JAX
+package's tree of either tower into the port.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from vit_prisma_tpu_torch.configs.vit_config import ViTConfig
+from vit_prisma_tpu_torch.configs.vit_config import TextTransformerConfig, ViTConfig
 
 Flat = Dict[str, Any]
 
@@ -54,9 +56,10 @@ def port_state_dict(flat: Flat, cfg: ViTConfig) -> Dict[str, torch.Tensor]:
 
 
 def params_from_jax(tree) -> Dict[str, torch.Tensor]:
-    """The JAX package's nested parameter tree, with numpy leaves
-    (``jax.tree.map(np.asarray, model.params)``) -> the port's flat dict.
-    Leaves under ``blocks`` are stacked over layers and are split here."""
+    """The JAX package's nested parameter tree of a ``HookedViT`` or a
+    ``HookedTextTransformer``, with numpy leaves (``jax.tree.map(np.asarray,
+    model.params)``) -> the port's flat dict.  Leaves under ``blocks`` are
+    stacked over layers and are split here."""
     flat: Dict[str, torch.Tensor] = {}
 
     def walk(node, path):
@@ -169,6 +172,10 @@ def unstack_params(params: Dict[str, Any], cfg: ViTConfig) -> Flat:
 def reference_state_dict(model) -> Dict[str, torch.Tensor]:
     """A port ``HookedViT``'s weights as the JAX package's flat state dict
     (``HookedViT.state_dict()`` there): the convolution's patch-embedding
-    layout, the rest by the same names."""
+    layout, the rest by the same names.  A ``HookedTextTransformer``'s
+    as the JAX package's ``unstack_text_params`` gives them."""
     flat = {k: v.detach() for k, v in model.state_dict().items()}
+    if isinstance(model.cfg, TextTransformerConfig):
+        from vit_prisma_tpu_torch.models.text import stack_text_params, unstack_text_params
+        return unstack_text_params(stack_text_params(flat, model.cfg), model.cfg)
     return unstack_params(stack_params(flat, model.cfg), model.cfg)

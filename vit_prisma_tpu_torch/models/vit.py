@@ -24,7 +24,7 @@ from torch import nn
 
 from vit_prisma_tpu_torch.configs.vit_config import ViTConfig
 from vit_prisma_tpu_torch.models import layers as L
-from vit_prisma_tpu_torch.models.loading.state_dict import port_state_dict
+from vit_prisma_tpu_torch.models.loading.state_dict import _tensor, port_state_dict
 from vit_prisma_tpu_torch.prisma.cache import ActivationCache
 from vit_prisma_tpu_torch.prisma.factored_matrix import FactoredMatrix
 from vit_prisma_tpu_torch.prisma.hooks import (
@@ -235,13 +235,95 @@ def vit_forward(params, cfg: ViTConfig, x, hooks: HookRuntime = NULL_HOOKS,
 # HookedViT
 # ---------------------------------------------------------------------------
 
-class HookedViT(nn.Module):
+class HookedModule(nn.Module):
+    """The surface that ``HookedViT`` and ``HookedTextTransformer`` share:
+    ``with_cfg``, ``run_with_hooks``, the cached forward behind each
+    ``run_with_cache``, loading a flat reference-named state dict, and the
+    stacked block weights.  A subclass sets ``_forward_fn(module, cfg, x,
+    hooks, stop_at_layer)`` and overrides ``_inputs`` or
+    ``_port_state_dict`` where its inputs or its state dict need
+    converting."""
+
+    _forward_fn = None
+
+    def _inputs(self, x):
+        return x
+
+    def _port_state_dict(self, state_dict) -> Dict[str, torch.Tensor]:
+        return {k: _tensor(v) for k, v in state_dict.items()}
+
+    def with_cfg(self, **overrides):
+        """This model with config fields overridden (its routes, as
+        ``use_fused_attention``), sharing its parameters: no second draw
+        or copy of the weights."""
+        cfg = self.cfg.replace(**overrides)
+        other = copy.copy(self)
+        other.__dict__["_modules"] = dict(self._modules)
+        other.cfg = cfg
+        blocks = []
+        for b in self.blocks:
+            b = copy.copy(b)
+            b.cfg = cfg
+            blocks.append(b)
+        other.blocks = nn.ModuleList(blocks)
+        return other
+
+    def _cached_forward(self, x, names: Tuple[str, ...], stop_at_layer: Optional[int],
+                        fwd_hooks: Sequence[Tuple], incl_bwd: bool,
+                        bwd_hooks: Sequence[Tuple], loss_fn):
+        """``(output, {name: value})`` of a forward caching ``names``, with
+        the gradients of ``incl_bwd`` (see ``HookedViT.run_with_cache``)."""
+        cfg, forward = self.cfg, self._forward_fn
+        traced = grad_cached_traced(
+            lambda p, x, rt: forward(p, cfg, x, rt, stop_at_layer), names,
+            fwd_hooks=fwd_hooks, bwd_hooks=bwd_hooks, loss_fn=loss_fn,
+            incl_bwd=incl_bwd)
+        return traced(self, self._inputs(x))
+
+    # -- intervened forward ----------------------------------------------
+    @torch.inference_mode()
+    def run_with_hooks(self, x, fwd_hooks: Sequence[Tuple] = (),
+                       stop_at_layer: Optional[int] = None):
+        """Forward with intervention hooks ``(name_or_pred, fn)`` where
+        ``fn(value, hook) -> value``."""
+        hooks = (HookRuntime(fwd_hooks=fwd_hooks, record=False)
+                 if fwd_hooks else NULL_HOOKS)
+        return self._forward_fn(self, self.cfg, self._inputs(x), hooks, stop_at_layer)
+
+    # -- state-dict round trip -------------------------------------------
+    def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
+        """Load a flat reference-named state dict of numpy arrays or
+        tensors."""
+        return super().load_state_dict(self._port_state_dict(state_dict),
+                                       strict=strict, assign=assign)
+
+    # -- stacked weight properties ---------------------------------------
+    def _stack(self, module: str, name: str) -> torch.Tensor:
+        return torch.stack([getattr(getattr(b, module), name) for b in self.blocks])
+
+    @property
+    def W_Q(self): return self._stack("attn", "W_Q")
+    @property
+    def W_K(self): return self._stack("attn", "W_K")
+    @property
+    def W_V(self): return self._stack("attn", "W_V")
+    @property
+    def W_O(self): return self._stack("attn", "W_O")
+    @property
+    def W_in(self): return self._stack("mlp", "W_in")
+    @property
+    def W_out(self): return self._stack("mlp", "W_out")
+
+
+class HookedViT(HookedModule):
     """Counterpart of the JAX package's ``HookedViT``: ``forward``,
     ``run_with_cache`` and ``run_with_hooks``, the stacked weight
     properties and circuits, and loading (``from_pretrained``,
     ``from_local``, ``save_local``), with parameters on ``device`` (the
     CUDA card when None) in ``cfg.dtype``, initialized from ``generator``
     (seed 0 when None)."""
+
+    _forward_fn = staticmethod(vit_forward)
 
     def __init__(self, cfg: ViTConfig, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -262,21 +344,10 @@ class HookedViT(nn.Module):
         self.head = L.Head(cfg, device)
         self.load_state_dict(init_vit_params(cfg, generator))
 
-    def with_cfg(self, **overrides) -> "HookedViT":
-        """This model with config fields overridden (its routes, as
-        ``use_fused_attention``), sharing its parameters: no second draw
-        or copy of the weights."""
-        cfg = self.cfg.replace(**overrides)
-        other = copy.copy(self)
-        other.__dict__["_modules"] = dict(self._modules)
-        other.cfg = cfg
-        blocks = []
-        for b in self.blocks:
-            b = copy.copy(b)
-            b.cfg = cfg
-            blocks.append(b)
-        other.blocks = nn.ModuleList(blocks)
-        return other
+    def _port_state_dict(self, state_dict) -> Dict[str, torch.Tensor]:
+        """The patch embedding as ``embed.W`` or as the convolution's
+        ``embed.proj.weight`` (:func:`port_state_dict`)."""
+        return port_state_dict(state_dict, self.cfg)
 
     # -- plain forward ---------------------------------------------------
     @torch.inference_mode()
@@ -308,13 +379,9 @@ class HookedViT(nn.Module):
 
         Returns ``(output, ActivationCache)``, or ``(output, dict)`` with
         ``return_cache_object=False``."""
-        names = self._resolve_names(names_filter, stop_at_layer)
-        cfg = self.cfg
-        traced = grad_cached_traced(
-            lambda p, x, rt: vit_forward(p, cfg, x, rt, stop_at_layer), names,
-            fwd_hooks=fwd_hooks, bwd_hooks=bwd_hooks, loss_fn=loss_fn,
-            incl_bwd=incl_bwd)
-        out, cache = traced(self, x)
+        out, cache = self._cached_forward(
+            x, self._resolve_names(names_filter, stop_at_layer), stop_at_layer,
+            fwd_hooks, incl_bwd, bwd_hooks, loss_fn)
         if remove_batch_dim:
             batch = next(iter(cache.values())).shape[0] if cache else 1
             if batch != 1:
@@ -325,16 +392,12 @@ class HookedViT(nn.Module):
             cache = ActivationCache(cache, self, has_batch_dim=not remove_batch_dim)
         return out, cache
 
-    # -- intervened forward ----------------------------------------------
-    @torch.inference_mode()
     def run_with_hooks(self, x, fwd_hooks: Sequence[Tuple] = (),
                        stop_at_layer: Optional[int] = None,
                        return_type: str = "output"):
-        """Forward with intervention hooks ``(name_or_pred, fn)`` where
-        ``fn(value, hook) -> value``."""
-        hooks = (HookRuntime(fwd_hooks=fwd_hooks, record=False)
-                 if fwd_hooks else NULL_HOOKS)
-        return vit_forward(self, self.cfg, x, hooks, stop_at_layer)
+        """:meth:`HookedModule.run_with_hooks`; ``return_type`` is accepted
+        and ignored, as in the JAX package."""
+        return super().run_with_hooks(x, fwd_hooks, stop_at_layer)
 
     def _resolve_names(self, names_filter: NamesFilter,
                        stop_at_layer: Optional[int]) -> Tuple[str, ...]:
@@ -360,26 +423,7 @@ class HookedViT(nn.Module):
         raise NotImplementedError(
             "sharding is not ported yet (ROADMAP queue A, item 15)")
 
-    # -- state-dict round trip -------------------------------------------
-    def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
-        """Load a flat reference-named state dict: numpy arrays or tensors,
-        with the patch embedding as ``embed.W`` or as the convolution's
-        ``embed.proj.weight``."""
-        return super().load_state_dict(port_state_dict(state_dict, self.cfg),
-                                       strict=strict, assign=assign)
-
     # -- stacked weight properties ---------------------------------------
-    def _stack(self, module: str, name: str) -> torch.Tensor:
-        return torch.stack([getattr(getattr(b, module), name) for b in self.blocks])
-
-    @property
-    def W_Q(self): return self._stack("attn", "W_Q")
-    @property
-    def W_K(self): return self._stack("attn", "W_K")
-    @property
-    def W_V(self): return self._stack("attn", "W_V")
-    @property
-    def W_O(self): return self._stack("attn", "W_O")
     @property
     def b_Q(self): return self._stack("attn", "b_Q")
     @property
@@ -388,10 +432,6 @@ class HookedViT(nn.Module):
     def b_V(self): return self._stack("attn", "b_V")
     @property
     def b_O(self): return self._stack("attn", "b_O")
-    @property
-    def W_in(self): return self._stack("mlp", "W_in")
-    @property
-    def W_out(self): return self._stack("mlp", "W_out")
     @property
     def b_in(self): return self._stack("mlp", "b_in")
     @property
