@@ -85,6 +85,23 @@ Phases, each printing JSON lines with the card's name and power limit:
    launches (B1 36 an eval batch, 10 a top-image batch), eval images per
    second, CE recovered, L0, alive fraction, peak memory, and one batch of 8
    against the CPU in float32 with its ReLU switches counted;
+6a. data: the image pipeline into the store: the host's CPU count, g++,
+   libjpeg and PIL; where
+   the host has libjpeg (``DATA_JPEG``), the native library's build
+   seconds, each fixture JPEG's decode against ``tests/fixtures/jpeg/
+   MANIFEST.json`` and ``NativeBatchLoader``'s images per second (4,096
+   paths, batch 32, 224 px, both wires, 4 and min(CPUs, 16) workers); the
+   default SAE (phase 5's config with a 2-batch buffer: fill 8,192 images,
+   4,096 a refill) fed from a host stream (the loader, else 2,048 seeded
+   uint8 images and their float32 normalization) three ways, the float32
+   wire and the uint8 wire with and without prefetch: fill and refill
+   seconds, bytes sent a refill (exact), SAE tokens per second over 100
+   steps across the refill, exact launches (B1, B3, B7); prefetch on and off
+   to the bit and uint8 against float32 rows on small stores; a uint8
+   device-resident dataset with a seeded augment through ``train_cycles``
+   equal to the stepwise path to the bit (exact launches); six float16
+   shards in a temporary directory (deleted) and ``CachedActivationsStore``
+   across a refill that spans two shards, against the float16 harvest;
 7. SAE kernels: B4 (``sae_fused_forward``), B5 (``sae_fused_backward``) and
    B6 (``sae_fused_backward_stored``) against their plain versions at the
    all-layer sweep's shape (24 SAEs, batch 4096, 1024 -> 8192) and the TopK
@@ -2444,8 +2461,9 @@ def phase_sweep(info):
           "changed_from_bench_py_189_214": {
               "model": "the port's openai/clip-vit-large-patch14 registry entry in bf16",
               "images": "float32 on the card, not the uint8 wire with device_norm "
-                        "(ROADMAP queue A, item 6)",
-              "prefetch": "none in the port (the harvest runs at refill time)",
+                        "(phase data drives that wire)",
+              "prefetch": "none: the port's prefetch stages host-fed streams only, and "
+                          "the harvest runs at refill time",
               "wandb_log_frequency": "3, not 10: per-layer metrics read every 3 steps"},
           "layers": L, "d_in": cfg.d_in, "d_sae": cfg.d_sae,
           "train_batch_size": cfg.train_batch_size, "compute_dtype": cfg.compute_dtype,
@@ -5266,6 +5284,367 @@ def _text_forward_tflop(cfg, n_prompts) -> float:
     return n_prompts * (per_prompt + 2 * D * cfg.n_classes) / 1e12
 
 
+# -- phase `data`: the image pipeline into the activation store ------------
+
+# The card's host has neither the libjpeg headers nor the library (no
+# jpeglib.h, no libjpeg.so in ldconfig), so the native loader cannot be
+# built there: the JPEG steps are left out by this fixed decision,
+# and the store's steps read seeded uint8 arrays.  Set it where g++ finds
+# jpeglib.h and libjpeg.
+DATA_JPEG = False
+DATA_FIXTURES = "tests/fixtures/jpeg"
+DATA_PATHS = 4096             # the fixtures repeated
+DATA_BATCH = 32               # images a loader batch and a store batch
+DATA_WORKERS = (4, min(os.cpu_count() or 1, 16))
+DATA_LOADER_BATCHES = 64      # timed loader batches, after 4 warm-up ones
+DATA_POOL_TOL = 0.05          # a fixture's 8 x 8 pool against the manifest
+DATA_IMAGES = 2048            # seeded uint8 images of the host-fed stream
+DATA_BUFFER_BATCHES = 2       # the default SAE's buffer: fill 8,192 images
+DATA_STEPS = 100              # across the one refill, at step 51
+DATA_CHECK_BUFFER = 16_384    # rows of the stores of the bitwise checks
+# uint8 rows against float32 rows of the same images: the seeded arrays'
+# float32 images are the uint8 pixels normalized on the host (rounding
+# alone), the loader's are not quantized (half a pixel step at most)
+DATA_ROW_REL = 5e-2 if DATA_JPEG else 1e-4
+DATA_CYCLE_IMAGES = 1024      # a uint8 device-resident dataset (154 MB)
+DATA_CYCLE_BUFFER = 32_768    # half: 4 steps a cycle
+DATA_CYCLES = 2
+DATA_CACHE_BUFFER = 65_536
+DATA_CACHE_SHARDS = 6
+DATA_CACHE_SHARD_ROWS = 20_000  # a refill's 32,768 fresh rows span shards
+
+
+def _data_host() -> dict:
+    """What the host offers the native loader (facts, read, not tried)."""
+    def first_line(cmd):
+        out = subprocess.run(cmd, capture_output=True, text=True, timeout=60)
+        return (out.stdout or out.stderr).strip().splitlines()[:1]
+    ldconfig = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True,
+                              timeout=60).stdout
+    try:
+        import PIL
+        pil = PIL.__version__
+    except ImportError:
+        pil = None
+    return {"cpu_count": os.cpu_count(), "cpu_affinity": len(os.sched_getaffinity(0)),
+            "gxx": first_line(["g++", "--version"]),
+            "jpeglib_h": os.path.exists("/usr/include/jpeglib.h"),
+            "libjpeg": [l.strip() for l in ldconfig.splitlines()
+                        if "libjpeg" in l or "libturbojpeg" in l],
+            "PIL": pil}
+
+
+def _data_jpeg_checks() -> dict:
+    """The native library's build, each fixture's decode against the
+    manifest, and the loader's images per second by wire and workers."""
+    import hashlib
+    from vit_prisma_tpu_torch.dataloaders import native
+    t0 = time.perf_counter()
+    _, built = native.build_library()
+    out = {"library_built": built, "library_s": time.perf_counter() - t0}
+    manifest = _data_manifest()
+    equal, worst = 0, 0.0
+    for f in manifest["files"]:
+        with open(os.path.join(DATA_FIXTURES, f["name"]), "rb") as fh:
+            data = fh.read()
+        if hashlib.sha256(data).hexdigest() != f["sha256"]:
+            raise AssertionError(f"fixture {f['name']} differs from its manifest")
+        img = native.decode_and_preprocess(data, manifest["out_size"])
+        equal += hashlib.sha256(img.tobytes()).hexdigest() == f["out_sha256"]
+        p, s = manifest["pool"], manifest["out_size"]
+        pool = img.reshape(3, p, s // p, p, s // p).mean(axis=(2, 4))
+        worst = max(worst, float(np.abs(pool - np.asarray(f["out_pool8"])).max()))
+    if not worst <= DATA_POOL_TOL:
+        raise AssertionError(f"fixture decodes {worst} from the manifest's pools")
+    out.update(fixtures=len(manifest["files"]), decodes_equal_to_manifest=equal,
+               pool8_max_diff=worst, pool8_tol=DATA_POOL_TOL)
+    paths = _data_paths()
+    for wire in ("float32", "uint8"):
+        for workers in DATA_WORKERS:
+            ld = native.NativeBatchLoader(paths, DATA_BATCH, 224, n_workers=workers,
+                                          uint8_wire=wire == "uint8")
+            for _ in range(4):
+                next(ld)
+            t0 = time.perf_counter()
+            for _ in range(DATA_LOADER_BATCHES):
+                next(ld)
+            out[f"loader_img_per_s_{wire}_{workers}_workers"] = \
+                DATA_LOADER_BATCHES * DATA_BATCH / (time.perf_counter() - t0)
+            if ld.decode_failures():
+                raise AssertionError(f"{ld.decode_failures()} decode failures")
+            ld.close()
+    return out
+
+
+def _data_manifest() -> dict:
+    with open(os.path.join(DATA_FIXTURES, "MANIFEST.json")) as fh:
+        return json.load(fh)
+
+
+def _data_paths():
+    names = [f["name"] for f in _data_manifest()["files"]]
+    return [os.path.join(DATA_FIXTURES, names[i % len(names)]) for i in range(DATA_PATHS)]
+
+
+def _data_arrays():
+    """The seeded uint8 images and their float32 normalization (CLIP's
+    statistics, the default model's), on the host."""
+    from vit_prisma_tpu_torch.dataloaders.transforms import CLIP_MEAN, CLIP_STD
+    raw = np.random.default_rng(5).integers(0, 256, (DATA_IMAGES, 3, 224, 224), dtype=np.uint8)
+    mean = np.asarray(CLIP_MEAN, np.float32).reshape(1, 3, 1, 1)
+    std = np.asarray(CLIP_STD, np.float32).reshape(1, 3, 1, 1)
+    return raw, (raw.astype(np.float32) / 255.0 - mean) / std
+
+
+def _data_source(wire, arrays, workers):
+    """The host-fed stream on ``wire``: a native loader over the fixtures or
+    the seeded arrays (kept on the host), and the store's extra arguments."""
+    if DATA_JPEG:
+        from vit_prisma_tpu_torch.dataloaders.native import NativeBatchLoader
+        return NativeBatchLoader(_data_paths(), DATA_BATCH, 224, n_workers=workers,
+                                 uint8_wire=wire == "uint8"), {}
+    return arrays[0] if wire == "uint8" else arrays[1], {"device_dataset": False}
+
+
+def _data_run(model, cfg, arrays, prefetch, counters):
+    """One feed of the default SAE: fill, ``run(DATA_STEPS)`` across a
+    refill, with every count set to 0 just before and read just after."""
+    from vit_prisma_tpu_torch.sae import VisionActivationsStore, VisionSAETrainer
+    source, kw = _data_source(cfg.store_wire_dtype, arrays, DATA_WORKERS[-1])
+    torch.cuda.synchronize()
+    _zero_counts(counters)
+    t0 = time.perf_counter()
+    store = VisionActivationsStore(cfg, model, source, prefetch=prefetch, **kw)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    trainer = VisionSAETrainer(cfg, model, store)
+    refills = _time_refills(store)
+    log = _record_logs(trainer)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    trainer.run(max_steps=DATA_STEPS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    launches = {k: f.launches for k, f in counters.items()}
+    store.close()
+    if DATA_JPEG:
+        source.close()
+    per_batch = store.tokens_per_store_batch
+    n_fill = -(-cfg.tokens_per_buffer // per_batch)
+    n_fresh = -(-(cfg.tokens_per_buffer // 2) // per_batch)
+    expected = dict.fromkeys(counters, 0)
+    expected.update({"attention_mix_tnh": (cfg.hook_point_layer + 1)
+                     * (n_fill + len(refills) * n_fresh),
+                     "take_rows": 1 + len(refills),
+                     "adam_update": len(trainer.state.params) * DATA_STEPS})
+    if len(refills) != 1 or launches != expected:
+        raise AssertionError(f"data launches {launches}, expected {expected}, "
+                             f"{len(refills)} refills")
+    item = 3 * 224 * 224 * (1 if cfg.store_wire_dtype == "uint8" else 4)
+    block = n_fresh * cfg.store_batch_size * item
+    want_bytes = n_fill * cfg.store_batch_size * item + (len(refills) + prefetch) * block
+    if store.bytes_to_device != want_bytes:
+        raise AssertionError(f"{store.bytes_to_device} bytes sent, expected {want_bytes}")
+    if not log or not all(math.isfinite(v) for vals in log for v in vals.values()) \
+            or not log[-1]["l0"] > 0:
+        raise AssertionError(f"metrics {log[-1:]}")
+    tokens = DATA_STEPS * cfg.train_batch_size
+    return launches, {"wire": cfg.store_wire_dtype, "prefetch": prefetch,
+                      "fill_s": fill_s, "refill_s": refills[0], "run_s": run_s,
+                      "bytes_per_refill": block, "fill_bytes": n_fill * cfg.store_batch_size
+                      * item, "sae_tokens_per_s": tokens / run_s,
+                      "sae_tokens_per_s_without_refill": tokens / (run_s - refills[0]),
+                      "launches": launches}
+
+
+def _data_rows_check(model, cfg, arrays):
+    """Bitwise: prefetch on and off serve the same rows (one loader worker:
+    batches in order); uint8 rows against float32 rows of the same images."""
+    from vit_prisma_tpu_torch.sae import VisionActivationsStore
+    cfg = cfg.replace(buffer_tokens_override=DATA_CHECK_BUFFER)
+    rows, sources = {}, []
+    for name, wire, prefetch in (("on", "uint8", True), ("off", "uint8", False),
+                                 ("f32", "float32", True)):
+        source, kw = _data_source(wire, arrays, 1)
+        sources.append(source)
+        store = VisionActivationsStore(cfg.replace(store_wire_dtype=wire), model, source,
+                                       prefetch=prefetch, **kw)
+        rows[name] = torch.cat([store.buffer.clone()] + [store.next_batch() for _ in range(6)])
+        store.close()
+    if DATA_JPEG:
+        for source in sources:
+            source.close()
+    if not torch.equal(rows["on"], rows["off"]):
+        raise AssertionError("prefetch changed the rows")
+    scale = rows["f32"].abs().max().item()
+    err = (rows["on"] - rows["f32"]).abs().max().item()
+    if not err <= DATA_ROW_REL * scale:
+        raise AssertionError(f"uint8 rows {err} from float32 rows (absmax {scale})")
+    return {"prefetch_rows_bitwise": True, "rows": rows["on"].shape[0],
+            "uint8_vs_f32_max_abs_err": err, "f32_rows_absmax": scale,
+            "uint8_vs_f32_rel_limit": DATA_ROW_REL}
+
+
+def _smoke_augment(generator, images):
+    """A seeded augment: a random horizontal flip per image and noise."""
+    flip = torch.rand((images.shape[0], 1, 1, 1), generator=generator,
+                      device=images.device) < 0.5
+    images = torch.where(flip, images.flip(-1), images)
+    return images + 0.05 * torch.randn(images.shape, generator=generator,
+                                       device=images.device, dtype=images.dtype)
+
+
+def _data_cycles(model, cfg, counters):
+    """A uint8 device-resident dataset with a seeded augment through
+    ``train_cycles``, against the stepwise path from the same state: the
+    same buffer and parameters, to the bit; the cycles' launches exact."""
+    from vit_prisma_tpu_torch.sae import VisionActivationsStore, VisionSAETrainer
+    cfg = cfg.replace(buffer_tokens_override=DATA_CYCLE_BUFFER, store_wire_dtype="auto")
+    raw = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 256, (DATA_CYCLE_IMAGES, 3, 224, 224), dtype=np.uint8).copy()).cuda()
+    pairs = []
+    for _ in range(2):
+        store = VisionActivationsStore(cfg, model, raw, augment=_smoke_augment)
+        pairs.append((VisionSAETrainer(cfg, model, store), store))
+    half = pairs[0][1].buffer.shape[0] // 2
+    K = half // cfg.train_batch_size
+    for trainer, store in pairs:
+        if store._dev_images.dtype != torch.uint8 or store._wire_dtype != torch.uint8:
+            raise AssertionError("the cycles' dataset is not uint8 on the card")
+        trainer.train_steps(store.next_batches(K))
+    torch.cuda.synchronize()
+    _zero_counts(counters)
+    t0 = time.perf_counter()
+    pairs[0][0].train_cycles(DATA_CYCLES)
+    torch.cuda.synchronize()
+    cycles_s = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counters.items()}
+    for _ in range(DATA_CYCLES):
+        pairs[1][0].train_steps(pairs[1][1].next_batches(K))
+    n_fresh = -(-half // pairs[0][1].tokens_per_store_batch)
+    expected = dict.fromkeys(counters, 0)
+    expected.update({"attention_mix_tnh": (cfg.hook_point_layer + 1) * n_fresh * DATA_CYCLES,
+                     "take_rows": DATA_CYCLES, "adam_update": 4 * K * DATA_CYCLES})
+    if launches != expected:
+        raise AssertionError(f"cycle launches {launches}, expected {expected}")
+    (ta, sa), (tb, sb) = pairs
+    if not torch.equal(sa.buffer, sb.buffer) or not all(
+            torch.equal(ta.state.params[k], tb.state.params[k]) for k in ta.state.params):
+        raise AssertionError("train_cycles differs from the stepwise path")
+    return launches, {"images": DATA_CYCLE_IMAGES, "cycles": DATA_CYCLES, "steps_a_cycle": K,
+                      "cycles_s": cycles_s, "bitwise_equal_to_stepwise": True,
+                      "augment": "seeded flip + noise", "launches": launches}
+
+
+def _data_cached(model, cfg, counters):
+    """Float16 shards of a uint8 device-resident dataset's harvest in a
+    temporary directory (deleted after); ``CachedActivationsStore`` across a
+    refill whose fresh rows span two shards, against the float16 harvest."""
+    import shutil
+    import tempfile
+    from vit_prisma_tpu_torch.sae import CachedActivationsStore, VisionActivationsStore
+    raw = np.random.default_rng(7).integers(0, 256, (DATA_CYCLE_IMAGES, 3, 224, 224),
+                                            dtype=np.uint8)
+    cfg = cfg.replace(buffer_tokens_override=DATA_CACHE_BUFFER, store_wire_dtype="auto")
+    live = VisionActivationsStore(cfg, model, raw)
+    chunks, fill = [], live._fill
+
+    def kept_fill(n, *args, **kwargs):
+        out = fill(n, *args, **kwargs)
+        chunks.append(out.to(torch.float16))
+        return out
+    live._fill = kept_fill
+    tmp = tempfile.mkdtemp(prefix="smoke_shards_")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = live.generate_cached_activations(tmp, DATA_CACHE_SHARDS * DATA_CACHE_SHARD_ROWS,
+                                             DATA_CACHE_SHARD_ROWS)
+        write_s = time.perf_counter() - t0
+        written = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))
+        perms = []
+
+        def recorded(m):
+            perms.append(torch.randperm(m, device="cuda", generator=gen))
+            return perms[-1]
+        gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
+        torch.cuda.synchronize()
+        _zero_counts(counters)
+        t0 = time.perf_counter()
+        cached = CachedActivationsStore(cfg, tmp, device="cuda", permutation=recorded)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        rows = cfg.tokens_per_buffer
+        want = torch.cat(chunks)[:rows].float()[perms[0]]
+        if n != DATA_CACHE_SHARDS or not torch.equal(cached.buffer, want):
+            raise AssertionError("the cached store's buffer is not the float16 harvest")
+        before = cached.buffer.clone()
+        half = rows // 2
+        cached.next_batches(half // cfg.train_batch_size)
+        t0 = time.perf_counter()
+        cached.next_batch()  # refills
+        torch.cuda.synchronize()
+        refill_s = time.perf_counter() - t0
+        n_init = -(-rows // DATA_CACHE_SHARD_ROWS)
+        fresh = torch.cat(chunks[n_init:])[:rows - half].float()
+        if n_init + 2 > n or fresh.shape[0] <= DATA_CACHE_SHARD_ROWS:
+            raise AssertionError("the refill does not span two shards")
+        want = torch.cat([before[half:], fresh])[perms[1]]
+        if not torch.equal(cached.buffer, want):
+            raise AssertionError("the cached store's refill is not the float16 harvest")
+        launches = {k: f.launches for k, f in counters.items()}
+        if launches != {**dict.fromkeys(counters, 0), "take_rows": 2}:
+            raise AssertionError(f"cached store launches {launches}")
+    finally:
+        shutil.rmtree(tmp)
+    return {"shards": n, "shard_rows": DATA_CACHE_SHARD_ROWS, "MB_written": written / 1e6,
+            "write_s_with_harvest": write_s, "MB_per_s_with_harvest": written / 1e6 / write_s,
+            "load_s": load_s, "refill_s": refill_s, "buffer_rows": rows,
+            "refill_spans_shards": [n_init, n_init + 1], "launches": launches}
+
+
+def phase_data(info):
+    """The image pipeline into the store: the host's facts; with DATA_JPEG
+    the native library's build, the fixtures against their manifest and the
+    loader's images per second; the default SAE fed three ways (float32
+    wire, uint8 wire with and without prefetch) with exact launches; the
+    rows of prefetch on and off to the bit, uint8 against float32 rows;
+    ``train_cycles`` on a uint8 device dataset with a seeded augment against
+    the stepwise path; float16 shards and ``CachedActivationsStore``."""
+    from vit_prisma_tpu_torch import HookedViT, get_model_config
+    from vit_prisma_tpu_torch.sae import SAERunnerConfig
+    t_phase = time.perf_counter()
+    rec = {"phase": "data", **info, "host": _data_host(), "jpeg_steps": DATA_JPEG}
+    if DATA_JPEG:
+        rec.update(_data_jpeg_checks())
+    else:
+        rec["source"] = (f"{DATA_IMAGES} seeded uint8 224 px images (numpy seed 5) and their "
+                         "float32 normalization, on the host: the card's host has no libjpeg")
+    counters = _sae_counters()
+    cfg = SAERunnerConfig(n_batches_in_buffer=DATA_BUFFER_BATCHES)
+    model = HookedViT(get_model_config(cfg.model_name), device="cuda",
+                      generator=torch.Generator().manual_seed(0))
+    arrays = None if DATA_JPEG else _data_arrays()
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    launches, runs = {}, {}
+    for name, wire, prefetch in (("f32_wire", "float32", True),
+                                 ("uint8_prefetch", "uint8", True),
+                                 ("uint8_no_prefetch", "uint8", False)):
+        launches[name], runs[name] = _data_run(model, cfg.replace(store_wire_dtype=wire),
+                                               arrays, prefetch, counters)
+        release()
+    rec["runs"] = runs
+    rec["rows_check"] = _data_rows_check(model, cfg, arrays)
+    launches["cycles"], rec["cycles"] = _data_cycles(model, cfg, counters)
+    release()
+    rec["cached"] = _data_cached(model, cfg, counters)
+    rec.update(peak_memory_GB=torch.cuda.max_memory_allocated() / 1e9,
+               phase_s=time.perf_counter() - t_phase)
+    emit(rec)
+    return {k: sum(l[k] for l in launches.values()) for k in counters}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; none is available")
@@ -5292,6 +5671,8 @@ def main():
     release()
     phase_sae_eval(info, trainer, cfg, class_emb)
     del trainer
+    release()
+    data_launches = phase_data(info)
     release()
     sae_step_kernels = phase_sae_step_kernels(info)
     phase_remat_marks(info)
@@ -5415,6 +5796,7 @@ def main():
         {**entry("attention_mix_tnh", KERNEL_SOURCE, KERNEL_REPLACES, launches,
                  kernels[("b32", torch.bfloat16)], "us", 1e-3),
          "analysis_launches": analysis_launches,
+         "data_phase_launches": data_launches["attention_mix_tnh"],
          "text_phase_launches": text_launches["attention_mix_tnh"],
          "l14_ms": l14["us"] * 1e-3, "l14_library_ms": l14["library_us"] * 1e-3,
          "l14_bound_ms": l14["bound_ms"], "l14_max_abs_err": l14["max_abs_err"],
@@ -5432,11 +5814,13 @@ def main():
          **{f"{shape}_{key.replace('us', 'ms')}":
                 take_rows_line[shape][key] * (1 if key == "bound_ms" else 1e-3)
             for shape in ("store_bf16", "sweep_bf16")
-            for key in ("us", "library_us", "bound_ms")}},
+            for key in ("us", "library_us", "bound_ms")},
+         "data_phase_launches": data_launches["take_rows"]},
         # one train step's four tensors, float32 moments, with the sweep
         # step's four stacked tensors beside
         {**entry("adam_update", ADAM_SOURCE, ADAM_REPLACES, train_launches["adam_update"],
-                 adam_rec, "us", 1e-3), **adam_sweep_line},
+                 adam_rec, "us", 1e-3), **adam_sweep_line,
+         "data_phase_launches": data_launches["adam_update"]},
         # at the sweep's bf16 shape; launches from the sweep's main path (B5:
         # from its remat cycle; B6: the sweep's and the TopK slice's).  B4-B6
         # run their Hopper route there (source: its file), with the TopK

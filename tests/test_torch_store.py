@@ -186,8 +186,6 @@ def test_store_default_permutations_come_from_its_generator():
 
 @pytest.mark.parametrize("kwargs,match", [
     (dict(mesh=object()), "item 15"),
-    (dict(augment=lambda k, x: x), "augment"),
-    (dict(device_norm=(0.5, 0.5)), "uint8"),
 ])
 def test_store_options_not_ported_raise(kwargs, match):
     _, model = jax_and_port(**VIT)
@@ -197,7 +195,32 @@ def test_store_options_not_ported_raise(kwargs, match):
     with pytest.raises(NotImplementedError, match="item 10"):
         port_sae.VisionActivationsStore(cfg.replace(is_transcoder=True), model,
                                         seeded(9, (64, 3, 16, 16)))
-    with pytest.raises(NotImplementedError, match="uint8"):
-        port_sae.VisionActivationsStore(cfg, model, np.zeros((64, 3, 16, 16), np.uint8))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        port_sae.CachedActivationsStore(cfg)
+
+
+# The options that once raised here (augment, device_norm, a uint8 dataset,
+# CachedActivationsStore); tests/test_torch_store_wire.py and
+# tests/test_torch_cached_store.py hold them to the JAX package.
+@pytest.mark.parametrize("option", ["augment", "device_norm", "uint8", "cached"])
+def test_store_options_once_raising_now_run(option, tmp_path):
+    _, model = jax_and_port(**VIT)
+    cfg = port_sae.SAERunnerConfig(**STORE)
+    images = seeded(9, (64, 3, 16, 16))
+    raw = np.random.default_rng(9).integers(0, 256, (64, 3, 16, 16), dtype=np.uint8)
+    plain = port_sae.VisionActivationsStore(cfg, model, images)
+    if option == "augment":
+        store = port_sae.VisionActivationsStore(cfg, model, images, augment=lambda g, x: x)
+        assert torch.equal(store.buffer, plain.buffer)
+    elif option == "device_norm":
+        store = port_sae.VisionActivationsStore(cfg, model, raw, device_norm=(0.5, 0.5))
+        want = port_sae.VisionActivationsStore(cfg.replace(store_wire_dtype="float32"), model,
+                                               (raw.astype(np.float32) / 255.0 - 0.5) / 0.5)
+        torch.testing.assert_close(store.buffer, want.buffer, rtol=1e-5, atol=1e-5)
+    elif option == "uint8":
+        store = port_sae.VisionActivationsStore(cfg, model, raw)
+        assert store._dev_images.dtype == torch.uint8 and store.device_norm is not None
+    else:
+        plain.generate_cached_activations(str(tmp_path), 800, tokens_per_file=400)
+        store = port_sae.CachedActivationsStore(cfg.replace(cached_activations_path=str(tmp_path)),
+                                                device="cpu")
+    assert tuple(store.buffer.shape) == (cfg.tokens_per_buffer, cfg.d_in)
+    assert torch.isfinite(store.next_batch()).all()

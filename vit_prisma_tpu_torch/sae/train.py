@@ -37,6 +37,10 @@ its end, and ``run`` aborts when the CE recovered falls below
 over a dataset.  With ``cfg.log_to_wandb`` the metrics go to wandb when it
 imports and starts; otherwise nothing is logged there.
 
+Datasets: :meth:`VisionSAETrainer.load_dataset` gives the (train, eval)
+pair a config names, as the JAX trainer's (ImageNet folders, through the
+native JPEG loader with ``use_native_loader``; CIFAR-10; any image folder).
+
 Checkpoints: with ``cfg.n_checkpoints`` both trainers save at even token
 thresholds and once at the end (``"final"``), as the JAX trainers do: the
 single trainer one SAE ``.npz`` and its log feature sparsity
@@ -654,6 +658,48 @@ class VisionSAETrainer:
             sample = store.peek_tokens(min(4096 * 8, cfg.tokens_per_buffer))
             params = initialize_b_dec(cfg, params, sample.to(device))
         return init_train_state(cfg, params=params)
+
+    @staticmethod
+    def load_dataset(cfg: SAERunnerConfig):
+        """(train, eval) datasets from cfg: ``imagenet1k`` (folder-per-class
+        train/val paths; with ``use_native_loader`` and only JPEGs, the train
+        feed is a ``NativeBatchLoader`` at ``cfg.image_size`` with the
+        model's statistics, on the uint8 wire when ``store_wire_dtype`` is
+        'uint8'), ``cifar10`` (pickle batches under dataset_path), or any
+        image folder with an 80/20 split.  Items are (image[C,H,W] float32,
+        label)."""
+        from vit_prisma_tpu_torch.dataloaders.imagenet import ImageFolderDataset
+        from vit_prisma_tpu_torch.dataloaders.transforms import (
+            get_model_transform_params, get_model_transforms)
+        transform = get_model_transforms(cfg.model_name)
+
+        if cfg.dataset_name == "imagenet1k":
+            train = ImageFolderDataset(cfg.dataset_train_path or cfg.dataset_path,
+                                       transform=transform)
+            all_jpeg = all(p.lower().endswith((".jpg", ".jpeg")) for p, _ in train.samples)
+            if cfg.use_native_loader and not all_jpeg:
+                warnings.warn("use_native_loader: dataset contains non-JPEG images the "
+                              "C++ decoder cannot read; keeping the indexed PIL pipeline")
+            if cfg.use_native_loader and all_jpeg:
+                from vit_prisma_tpu_torch.dataloaders.native import NativeBatchLoader
+                _, mean, std = get_model_transform_params(cfg.model_name)
+                train = NativeBatchLoader(
+                    [p for p, _ in train.samples], batch_size=cfg.store_batch_size,
+                    out_size=cfg.image_size, mean=mean, std=std, seed=cfg.seed,
+                    uint8_wire=(cfg.store_wire_dtype == "uint8"))
+            val = ImageFolderDataset(cfg.dataset_val_path or cfg.dataset_path,
+                                     transform=transform)
+            return train, val
+        if cfg.dataset_name == "cifar10":
+            from vit_prisma_tpu_torch.dataloaders.cifar import load_cifar_10
+            train, val, _ = load_cifar_10(cfg.dataset_path, image_size=cfg.image_size)
+            return train, val
+        ds = ImageFolderDataset(cfg.dataset_path, transform=transform)
+        order = np.random.default_rng(cfg.seed).permutation(len(ds))
+        n_train = int(0.8 * len(ds))
+        train = [ds[int(i)] for i in order[:n_train]]
+        val = [ds[int(i)] for i in order[n_train:]]
+        return train, val
 
     @property
     def sae(self) -> SparseAutoencoder:
