@@ -57,23 +57,23 @@ Phases, each printing JSON lines with the card's name and power limit:
    ``load_hooked_model(model_type="text")`` from an HF ``CLIPModel`` state
    dict drawn from seed 0 (``hf_clip_state_dict``, both towers), raw and
    processed (f32, processed against raw); a BPE merge table learned from
-   the 80,000 prompts (1,000 ImageNet names x 80 templates; the public
+   the 8,000 prompts (the first 100 ImageNet names x 80 templates; the public
    table is not in the repository); the bf16 forward at batch 256 with
    B1's causal launches exact (12), prompts per second in turns with the
    einsum bypass, once with the LN fusion (B14 24, B1 12); f32 at batch 8
    against the CPU; ``run_with_cache(incl_bwd=True)`` over the 12
    resid_post hooks (B1 12, B2 11) against the einsum path, f32 gradients
    against the CPU; ``zero_shot_classifier`` in f32 and bf16 (B1 12 for
-   each of 2,000 forwards) with the tokenizer's seconds apart, unit
-   columns, the truncated prompts counted and 8 classes against the CPU;
+   each of 200 forwards) with the tokenizer's seconds apart, unit
+   columns, the truncated prompts counted and 2 classes against the CPU;
    ``zero_shot_eval`` of the B/32 vision tower (bf16, same state dict)
    over 2,048 images at batch 256, plain and with a forward hook, each
    equal to a plain top-k count on the same logits.  Its f32 classifier is
    ``sae_eval``'s class embeddings;
 5. train: the second main path, SAE training at ``SAERunnerConfig``'s
    defaults (B/32 layer-9 resid_post, 768 -> 12,288, batch 4096, float32)
-   with a 4-batch buffer: ``HookedViT`` -> ``VisionActivationsStore`` ->
-   ``VisionSAETrainer.run(max_steps=120)``, which crosses one refill.  Every
+   with a 2-batch buffer: ``HookedViT`` -> ``VisionActivationsStore`` ->
+   ``VisionSAETrainer.run(max_steps=60)``, which crosses one refill.  Every
    kernel's launches are counted and must be exact; training tokens per
    second and peak device memory are printed;
 6. step check: from the trained state, three steps on three batches on the
@@ -91,17 +91,32 @@ Phases, each printing JSON lines with the card's name and power limit:
    seconds, each fixture JPEG's decode against ``tests/fixtures/jpeg/
    MANIFEST.json`` and ``NativeBatchLoader``'s images per second (4,096
    paths, batch 32, 224 px, both wires, 4 and min(CPUs, 16) workers); the
-   default SAE (phase 5's config with a 2-batch buffer: fill 8,192 images,
-   4,096 a refill) fed from a host stream (the loader, else 2,048 seeded
+   default SAE (phase 5's config with a 1-batch buffer: fill 4,096 images,
+   2,048 a refill) fed from a host stream (the loader, else 2,048 seeded
    uint8 images and their float32 normalization) three ways, the float32
    wire and the uint8 wire with and without prefetch: fill and refill
-   seconds, bytes sent a refill (exact), SAE tokens per second over 100
+   seconds, bytes sent a refill (exact), SAE tokens per second over 30
    steps across the refill, exact launches (B1, B3, B7); prefetch on and off
    to the bit and uint8 against float32 rows on small stores; a uint8
    device-resident dataset with a seeded augment through ``train_cycles``
    equal to the stepwise path to the bit (exact launches); six float16
    shards in a temporary directory (deleted) and ``CachedActivationsStore``
    across a refill that spans two shards, against the float16 harvest;
+6b. sae_variants: the SAE variants at B/32 width (random weights from seed
+   0, float32): a transcoder from ``blocks.9.hook_resid_mid`` to
+   ``blocks.9.hook_mlp_out`` (768 -> 12,288 -> 768, ``W_skip``, batch 4096)
+   through the two-hook store (``[409,600, 2, 768]``, rows of 6,144 bytes)
+   and ``VisionSAETrainer.run(max_steps=60)`` across one refill, exact
+   launches (B1 10 a store batch, B3 one a mix, B7 6 a step), fill and
+   refill seconds, SAE tokens per second with and without the refill, and a
+   step against the CPU; ghost grads on the default ReLU SAE with a seeded
+   quarter of its features dead (the ghost loss, W_dec's alive rows'
+   gradients equal to those without ghost grads to the bit, its dead rows'
+   moved, pre-activations past exp's overflow counted, a step against the
+   CPU); a step under each normalization against the CPU;
+   ``topk_use_approx`` (no B8, B9 or B10 launch, exactly k active a row); a
+   reference-format checkpoint and a legacy SAELens-v2 dump written at full
+   width, loaded onto the card and stepped;
 7. SAE kernels: B4 (``sae_fused_forward``), B5 (``sae_fused_backward``) and
    B6 (``sae_fused_backward_stored``) against their plain versions at the
    all-layer sweep's shape (24 SAEs, batch 4096, 1024 -> 8192) and the TopK
@@ -136,7 +151,8 @@ Phases, each printing JSON lines with the card's name and power limit:
    ``sae_fused_apply_topk``;
 9. TopK train: the fourth main path, phase 5's set-up with bench.py's
    bfloat16 TopK row (k = 64, bf16 compute, float32 masters):
-   ``run(max_steps=120)`` through B8 and B6 on every step, exact launches
+   with a 1-batch buffer, ``run(max_steps=30)`` (one refill) through B8 and
+   B6 on every step, exact launches
    and routes; then a few steps with ``fused_store_acts=False`` through B9
    (on B8's route), and where the time goes: fused and generic steps timed
    with CUDA events on buffered batches, and ``torch.profiler``'s device
@@ -161,7 +177,7 @@ Phases, each printing JSON lines with the card's name and power limit:
     batches (device time by kernel, the Hopper SAE kernels' share, the idle
     share of steps timed with CUDA events);
 12. sweep step check: three fused steps against three steps of the generic
-    per-layer path from one state, in bfloat16 at 24 layers and in float32
+    per-layer path from one state, in bfloat16 at 4 layers and in float32
     at two; then ``sweep_eval``: the sweep trainer's ``validate()`` and
     ``evaluate()`` over its 96 images at batch 32 (B1 exactly 300 a batch:
     24 for the clean forward, 276 for the prefix-shared suffixes), per-layer
@@ -181,7 +197,8 @@ Phases, each printing JSON lines with the card's name and power limit:
     of their products alone beside them and ptxas's record of the gated
     Hopper kernels;
 14. gated train: the fifth main path, phase 5's set-up with bench.py's
-    gated row (bf16 compute, float32 masters): ``run(max_steps=120)``
+    gated row (bf16 compute, float32 masters), a 1-batch buffer:
+    ``run(max_steps=30)``
     through B11 and B12 on every step, exact launches and routes, then
     where a gated step's time goes (``torch.profiler``'s device time by
     kernel, as phase 9);
@@ -244,7 +261,7 @@ Phases, each printing JSON lines with the card's name and power limit:
 27. serve_graph: the graphed ``CompiledForward`` against the eager forward
     of the same padded batches, to the bit, at B/32 (fused LN, batch 256)
     and L/14-336 (batch 64), launches exact per replay, served images per
-    second in turns (eager, graph, graph, eager) of 20 batches with each
+    second in turns (eager, graph, graph, eager) of 5 batches with each
     batch's time, SM clock and power, the idle share of one graphed batch,
     whose kernels counted by name are the launches per replay (as in phases
     4, 23 and 24);
@@ -343,9 +360,11 @@ SLICE_F32_REL = 1e-3
 SLICE_BF16_REL = 5e-2
 SERVE_BATCH = 256
 SERVE_REQUESTS = (256, 300, 7)
-# B3 at the store's shape: the train phase's buffer, 4 x 4096 x 50 = 819,200
-# rows of 768, in float32 and bfloat16; the sweep store's buffer (49,152 rows
-# of [24, 1024] bfloat16, 49,152 bytes each); and, with M != N and repeated
+# B3 at the store's shape: a 4-batch buffer of the default SAE, 4 x 4096 x 50
+# = 819,200 rows of 768, in float32 and bfloat16; the sweep store's buffer
+# (49,152 rows of [24, 1024] bfloat16, 49,152 bytes each); the transcoder
+# store's (sae_variants: 409,600 rows of [2, 768] float32, 6,144 bytes
+# each); and, with M != N and repeated
 # indices, rows of 3 bytes and an unaligned view (x[1:] of bfloat16 rows of
 # 767), which take 1- and 2-byte accesses.  name, N, row shape, dtype, M (None:
 # a permutation of N), offset (x[offset:] of N + offset rows).  The gather is
@@ -353,6 +372,7 @@ SERVE_REQUESTS = (256, 300, 7)
 TAKE_ROWS_SHAPES = [("store_f32", 819_200, (768,), torch.float32, None, 0),
                     ("store_bf16", 819_200, (768,), torch.bfloat16, None, 0),
                     ("sweep_bf16", 49_152, (24, 1024), torch.bfloat16, None, 0),
+                    ("transcoder_f32", 409_600, (2, 768), torch.float32, None, 0),
                     ("odd_u8", 819_200, (3,), torch.uint8, 1_000_003, 0),
                     ("unaligned_bf16", 819_200, (767,), torch.bfloat16, 600_001, 1)]
 # B7 at the default SAE's tensors, stacked [1, R, C] as the step passes them.
@@ -399,12 +419,17 @@ KTH_EDGES = [(f"{route}_{dt}_{D}", 8, D, dtype, None, "randn")
     ("signed_zeros_bf16", 16, 65536, torch.bfloat16, None, "zeros"),
     ("nan_f32", 16, 16385, torch.float32, None, "nan"),
     ("nan_bf16", 16, 12288, torch.bfloat16, None, "nan")]
-# The train phase: SAERunnerConfig's defaults except a 4-batch buffer (the
+# The train phase: SAERunnerConfig's defaults except a 2-batch buffer (the
 # 20-batch default is a 16.4M-row, 50 GB buffer whose fill does not fit a
-# smoke run), on 1,024 random images cycled by the store's index iterator.
-TRAIN_BUFFER_BATCHES = 4
+# smoke run), on 1,024 random images cycled by the store's index iterator;
+# 60 steps, the refill at step 51.  The TopK and gated slices take a 1-batch
+# buffer and 30 steps (the refill at step 26): their kernels run every step,
+# and their step profiles profile one refill.
+TRAIN_BUFFER_BATCHES = 2
 TRAIN_IMAGES = 1024
-TRAIN_STEPS = 120
+TRAIN_STEPS = 60
+SLICE_BUFFER_BATCHES = 1
+SLICE_STEPS = 30
 STEP_CHECK_STEPS = 3
 # Step check, card against CPU from one state, float32 with TF32 off.  A
 # pre-activation within GEMM rounding of 0 may switch its ReLU on one device
@@ -525,7 +550,7 @@ SWEEP_MODEL = "openai/clip-vit-large-patch14"
 SWEEP_IMAGES = 96
 SWEEP_STEPS = 18
 SWEEP_CYCLES = 2
-SWEEP_CHECK_LAYERS = {torch.bfloat16: 24, torch.float32: 2}
+SWEEP_CHECK_LAYERS = {torch.bfloat16: 4, torch.float32: 2}
 # Where a sweep step's time goes, after the main path: SWEEP_PROFILE_STEPS
 # steps timed with CUDA events on batches already in the buffer, then
 # torch.profiler over three.
@@ -766,12 +791,12 @@ BLOCK_GRAD_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 # SAE evals and validation at full width.  B/32: the default SAE trained by
 # the train phase over 2,048 random images in batches of 256; L/14: the
-# sweep trainer over its 96 images at batch 32.  Class embeddings [1000,
-# d_out] and labels are random from seed 0 (the text tower is ROADMAP item
-# 10; no weights are in the repository).
+# sweep trainer over its 96 images at batch 32.  Labels are random from seed
+# 0 over the text phase's ZS_CLASSES classes, whose zero-shot classifier
+# gives the B/32 evals' class embeddings; the sweep's are random [ZS_CLASSES,
+# d_out] from seed 0 (no weights are in the repository).
 EVAL_IMAGES = 2048
 EVAL_BATCH = 256
-EVAL_CLASSES = 1000
 EVAL_OUT_DIR = "smoke_out/sae_eval"  # gitignored
 # card against CPU, one batch of 8 in float32: the losses as SLICE_F32_REL
 # (relative to max(1, |loss|)); ReLU switches (features firing on one side
@@ -817,7 +842,7 @@ VIDEO_F32_LAYERS = 2
 # L/14-336 (batch 64); served images per second in turns (eager, graph,
 # graph, eager) of GRAPH_TURN_BATCHES batches each, every batch's time, SM
 # clock and power draw recorded.
-GRAPH_TURN_BATCHES = 20
+GRAPH_TURN_BATCHES = 5
 GRAPH_ORDER = ("eager", "graph", "graph", "eager")
 # export_forward -> load_forward at B/32 bf16 against the eager einsum
 # forward (the artifact's routes): within two bf16 ulps of each output's
@@ -866,12 +891,13 @@ ANALYSIS_CPU_BATCH = 2
 # heads, MLP 2048, vocab 49,408, context 77) loaded through
 # load_hooked_model(model_type="text") from the same HF CLIPModel state dict
 # as the vision tower (seed 0), raw and processed; a BPE merge table trained
-# on the 80,000 prompts (1,000 ImageNet names x 80 templates), since the
+# on the 8,000 prompts (the first ZS_CLASSES ImageNet names x 80
+# templates), since the
 # public table is not in the repository.  The forward at TEXT_BATCH in
 # bf16: B1's causal route (12 a forward), in turns with the einsum bypass,
 # and once with the LN fusion (B14 24, B1 12); the gradient cache over the
 # 12 resid_post hooks (B2 11); the zero-shot classifier in f32 and bf16
-# (B1 12 for each of its 2,000 forwards), 8 classes against the CPU; then
+# (B1 12 for each of its 200 forwards), 2 classes against the CPU; then
 # zero_shot_eval of the B/32 vision tower (bf16) over ZS_IMAGES seeded images.
 TEXT_MODEL = "openai/clip-vit-base-patch32"
 TEXT_BATCH = 256
@@ -900,7 +926,8 @@ TEXT_BF16_REL = 5e-2
 # classifier columns: unit norm within float32 rounding of a mean of 80
 # unit vectors renormalized (f32), within bf16's (bf16)
 ZS_NORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
-ZS_CPU_CLASSES = 8
+ZS_CLASSES = 100
+ZS_CPU_CLASSES = 2
 ZS_IMAGES = 2048
 ZS_BATCH = 256
 
@@ -923,8 +950,28 @@ def release() -> None:
     torch.cuda.empty_cache()
 
 
+# The wall seconds of each phase run by ``timed``, in order; ``emit`` gives
+# every record the seconds since its phase began.
+PHASE_SECONDS = {}
+_PHASE_START = [None]
+
+
 def emit(record: dict) -> None:
+    if _PHASE_START[0] is not None:
+        record = {**record, "phase_wall_s": time.perf_counter() - _PHASE_START[0]}
     print(json.dumps(record), flush=True)
+
+
+def timed(fn, *args, name=None, **kwargs):
+    """Run the phase ``fn`` and keep its wall seconds in ``PHASE_SECONDS``
+    under ``name`` (the function's name without ``phase_`` when None)."""
+    name = name or fn.__name__.removeprefix("phase_")
+    _PHASE_START[0] = t0 = time.perf_counter()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + time.perf_counter() - t0
+        _PHASE_START[0] = None
 
 
 def cuda_us(fn, iters=20, warmup=3) -> float:
@@ -949,8 +996,8 @@ def device_us_by_name(fn, calls=10, warmup=2, tries=4, one_call_short=False) -> 
     kernel counted fewer times than there were calls); such a window is
     measured again, and a last one that is still short raises.  With
     ``one_call_short`` (for a library call made through autograd's engine
-    alone) a window that kept the events of every call but one, kernel by
-    kernel, is taken over the calls it kept."""
+    alone) a window that lost whole calls, the same ones kernel by kernel,
+    and kept at least half of them, is taken over the calls it kept."""
     from torch.profiler import ProfilerActivity, profile, schedule
     for _ in range(warmup):
         fn()
@@ -970,10 +1017,11 @@ def device_us_by_name(fn, calls=10, warmup=2, tries=4, one_call_short=False) -> 
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and not e.key.startswith("ProfilerStep")]
         # every call's kernels; for SDPA's backward through autograd's engine
-        # also every call's but one call's: it lost all the device events of
-        # one call of the kept cycle, the same one kernel by kernel, on two
-        # hosts, and the time a call is then taken over the calls kept
-        for kept in (calls, calls - 1) if one_call_short else (calls,):
+        # also fewer whole calls: it lost all the device events of one call
+        # of the kept cycle, the same one kernel by kernel, on two hosts, and
+        # of four calls on a third (PR 20), and the time a call is then taken
+        # over the calls kept
+        for kept in range(calls, calls // 2 - 1, -1) if one_call_short else (calls,):
             if events and kept > 0 and all(e.count % kept == 0 for e in events):
                 return {e.key: e.device_time_total / kept for e in events}
     raise AssertionError(f"torch.profiler lost device events in {tries} windows: "
@@ -1378,9 +1426,10 @@ def _cfg_route(cfg):
                           getattr(torch, cfg.compute_dtype or cfg.dtype))
 
 
-def phase_train(info, cfg=None, phase="train"):
-    """A training main path: harvest -> store -> trainer.run on the card;
-    the default SAE (phase 5) or, with ``cfg``, the TopK or gated slice."""
+def phase_train(info, cfg=None, phase="train", steps=TRAIN_STEPS):
+    """A training main path: harvest -> store -> trainer.run(steps) on the
+    card; the default SAE (phase 5) or, with ``cfg``, the TopK or gated
+    slice."""
     from vit_prisma_tpu_torch import HookedViT, get_model_config
     from vit_prisma_tpu_torch.sae import (SAERunnerConfig, VisionActivationsStore,
                                           VisionSAETrainer)
@@ -1407,7 +1456,7 @@ def phase_train(info, cfg=None, phase="train"):
     refills = _time_refills(store)
     log = _record_logs(trainer)
     t1 = time.perf_counter()
-    sae = trainer.run(max_steps=TRAIN_STEPS)
+    sae = trainer.run(max_steps=steps)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t1
     launches = {k: f.launches for k, f in counters.items()}
@@ -1418,20 +1467,20 @@ def phase_train(info, cfg=None, phase="train"):
     expected = dict.fromkeys(counters, 0)
     expected.update({"attention_mix_tnh": (cfg.hook_point_layer + 1) * harvests,
                      "take_rows": 1 + len(refills),
-                     "adam_update": len(trainer.state.params) * TRAIN_STEPS})
+                     "adam_update": len(trainer.state.params) * steps})
     if cfg.architecture == "gated":  # the fused step at L = 1: B11, then B12
-        expected["sae_gated_fused_forward"] = expected["sae_gated_fused_backward"] = TRAIN_STEPS
+        expected["sae_gated_fused_forward"] = expected["sae_gated_fused_backward"] = steps
     elif cfg.activation_fn_str == "topk":  # the fused step at L = 1: B8, then B6 or B9
-        expected["sae_fused_forward_topk"] = TRAIN_STEPS
+        expected["sae_fused_forward_topk"] = steps
         expected["sae_fused_backward_topk" if cfg.fused_store_acts is False
-                 else "sae_fused_backward_stored"] = TRAIN_STEPS
+                 else "sae_fused_backward_stored"] = steps
     if len(refills) != 1 or launches != expected:
         raise AssertionError(f"train launches {launches}, expected {expected}, "
                              f"{len(refills)} refills")
     # the routed SAE kernels' launches all on the route the picker gives the
     # slice's shape (the gated and TopK slices in bf16: the Hopper route)
     routes = _check_routes(phase, counters, routes_before, launches, _cfg_route(cfg))
-    if len(log) != TRAIN_STEPS // cfg.wandb_log_frequency:
+    if len(log) != steps // cfg.wandb_log_frequency:
         raise AssertionError(f"{len(log)} metric reads")
     for vals in log:
         if not all(math.isfinite(v) for v in vals.values()):
@@ -1439,12 +1488,12 @@ def phase_train(info, cfg=None, phase="train"):
     last = log[-1]
     if not last["l0"] > 0:
         raise AssertionError(f"L0 is {last['l0']}")
-    if int(trainer.state.step) != TRAIN_STEPS or tuple(sae.W_dec.shape) != (cfg.d_sae, cfg.d_in):
+    if int(trainer.state.step) != steps or tuple(sae.W_dec.shape) != (cfg.d_sae, cfg.d_in):
         raise AssertionError(f"step {int(trainer.state.step)}, W_dec {tuple(sae.W_dec.shape)}")
     if not all(torch.isfinite(v).all() for v in sae.params.values()):
         raise AssertionError("non-finite SAE parameters")
-    tokens = TRAIN_STEPS * cfg.train_batch_size
-    changed = {"n_batches_in_buffer": [20, TRAIN_BUFFER_BATCHES]}
+    tokens = steps * cfg.train_batch_size
+    changed = {"n_batches_in_buffer": [20, cfg.n_batches_in_buffer]}
     if cfg.activation_fn_str == "topk":
         changed.update(activation_fn_str=["relu", "topk"], k=TOPK_K,
                        compute_dtype=[None, cfg.compute_dtype])
@@ -1458,7 +1507,7 @@ def phase_train(info, cfg=None, phase="train"):
           "hook_point": cfg.hook_point, "d_in": cfg.d_in, "d_sae": cfg.d_sae,
           "train_batch_size": cfg.train_batch_size, "dtype": cfg.dtype,
           "compute_dtype": cfg.compute_dtype,
-          "buffer_rows": cfg.tokens_per_buffer, "steps": TRAIN_STEPS,
+          "buffer_rows": cfg.tokens_per_buffer, "steps": steps,
           "launches": launches, "expected_launches": expected,
           "routes": routes,
           "harvest_batches": harvests, "store_fill_s": fill_s, "trainer_init_s": init_s,
@@ -2080,11 +2129,11 @@ def phase_topk_kernels(info):
 
 def topk_config():
     """The TopK slice: bench.py's exact-bf16 TopK row (k = 64, bf16 compute,
-    float32 masters) at SAERunnerConfig's default widths, with phase 5's
-    4-batch buffer."""
+    float32 masters) at SAERunnerConfig's default widths, with a 1-batch
+    buffer."""
     from vit_prisma_tpu_torch.sae import SAERunnerConfig
     return SAERunnerConfig(activation_fn_str="topk", activation_fn_kwargs=(("k", TOPK_K),),
-                           compute_dtype="bfloat16", n_batches_in_buffer=TRAIN_BUFFER_BATCHES)
+                           compute_dtype="bfloat16", n_batches_in_buffer=SLICE_BUFFER_BATCHES)
 
 
 def phase_topk_remat(info, trainer, store, cfg):
@@ -2171,8 +2220,9 @@ def phase_step_profile(info, trainer, store, cfg, phase):
     """Where a TopK or gated train step's time goes, from the trained state
     on batches already in the buffer: the fused step (TopK: B8, B6; gated:
     B11, B12) and the generic step, each timed over TOPK_PROFILE_STEPS steps
-    with CUDA events and profiled over three; then one refill (harvest +
-    mix) profiled."""
+    with CUDA events and profiled over three; then, for TopK, one refill
+    (harvest + mix) profiled (the gated slice's store and harvest are the
+    same)."""
     from vit_prisma_tpu_torch.sae.train import sae_train_step
     bs = cfg.train_batch_size
     batches = [store.buffer[i * bs:(i + 1) * bs] for i in range(store.buffer.shape[0] // bs)]
@@ -2206,8 +2256,9 @@ def phase_step_profile(info, trainer, store, cfg, phase):
               "device_busy_ms_per_step": prof["device_busy_ms"] / 3,
               "idle_share_of_timed_steps": max(0.0, 1.0 - prof["device_busy_ms"] / 3 / step_ms),
               "profile_of_3_steps": prof})
-    emit({"phase": phase, **info, **shape, "what": "one refill (harvest + mix)",
-          "profile": _profile(store._refill_half)})
+    if cfg.architecture != "gated":  # the gated store's refill is the TopK one's
+        emit({"phase": phase, **info, **shape, "what": "one refill (harvest + mix)",
+              "profile": _profile(store._refill_half)})
 
 
 def _topk_masks(state, x, cfg, fused):
@@ -2793,10 +2844,10 @@ def phase_gated_kernels(info):
 
 def gated_config():
     """The gated slice: bench.py's gated row (bf16 compute, float32 masters)
-    at SAERunnerConfig's default widths, with phase 5's 4-batch buffer."""
+    at SAERunnerConfig's default widths, with a 1-batch buffer."""
     from vit_prisma_tpu_torch.sae import SAERunnerConfig
     return SAERunnerConfig(architecture="gated", compute_dtype="bfloat16",
-                           n_batches_in_buffer=TRAIN_BUFFER_BATCHES)
+                           n_batches_in_buffer=SLICE_BUFFER_BATCHES)
 
 
 def _gated_step_masks(state, x, cfg, fused):
@@ -4203,13 +4254,13 @@ def phase_remat_marks(info):
 
 
 def _eval_inputs(model, n, image_size, image_seed):
-    """n random images on the card, with labels and class embeddings [1000,
-    the model's output width] from seed 0."""
+    """n random images on the card, with labels and class embeddings
+    [ZS_CLASSES, the model's output width] from seed 0."""
     with torch.inference_mode():
         d_out = model(torch.zeros(1, 3, image_size, image_size, device="cuda")).shape[-1]
     rng = np.random.default_rng(0)
-    labels = torch.from_numpy(rng.integers(0, EVAL_CLASSES, size=n)).cuda()
-    class_emb = torch.from_numpy(rng.standard_normal((EVAL_CLASSES, d_out),
+    labels = torch.from_numpy(rng.integers(0, ZS_CLASSES, size=n)).cuda()
+    class_emb = torch.from_numpy(rng.standard_normal((ZS_CLASSES, d_out),
                                                      dtype=np.float32)).cuda()
     images = torch.from_numpy(np.random.default_rng(image_seed).standard_normal(
         (n, 3, image_size, image_size), dtype=np.float32)).cuda()
@@ -4239,7 +4290,7 @@ def phase_sae_eval(info, trainer, cfg, class_emb):
     ``validate()`` once and ``evaluate()`` into EVAL_OUT_DIR, with exact
     launches (B1 36 an eval batch, 10 a top-image batch and 10 for the
     heatmap, every other kernel 0); then one batch of 8 on the card against
-    the CPU in float32.  The class embeddings ``class_emb`` [1000, 512] are
+    the CPU in float32.  The class embeddings ``class_emb`` [ZS_CLASSES, 512] are
     the text phase's f32 zero-shot classifier, transposed.  The model's
     ``ln_final`` bias is drawn first (:func:`_draw_final_ln_bias`)."""
     from vit_prisma_tpu_torch import HookedViT
@@ -4249,7 +4300,7 @@ def phase_sae_eval(info, trainer, cfg, class_emb):
     _draw_final_ln_bias(model)
     counters = _sae_counters()
     images, labels, _, d_out = _eval_inputs(model, EVAL_IMAGES, cfg.image_size, 7)
-    if tuple(class_emb.shape) != (EVAL_CLASSES, d_out) or class_emb.dtype != torch.float32:
+    if tuple(class_emb.shape) != (ZS_CLASSES, d_out) or class_emb.dtype != torch.float32:
         raise AssertionError(f"class embeddings {tuple(class_emb.shape)} {class_emb.dtype}")
     trainer.eval_dataset = [(images[i], labels[i]) for i in range(EVAL_BATCH)]
     trainer.class_embeddings = class_emb
@@ -4324,9 +4375,9 @@ def phase_sae_eval(info, trainer, cfg, class_emb):
     del cpu_model, cpu_sae
     emit({"phase": "sae_eval", **info, "model": cfg.model_name, "hook_point": cfg.hook_point,
           "d_in": cfg.d_in, "d_sae": cfg.d_sae, "dtype": cfg.dtype,
-          "sae": "the train phase's (120 steps from random weights, seed 0)",
+          "sae": f"the train phase's ({TRAIN_STEPS} steps from random weights, seed 0)",
           "dataset": f"{EVAL_IMAGES} random float32 {cfg.image_size}px images, numpy seed 7, "
-                     f"labels from numpy seed 0; [{EVAL_CLASSES}, {d_out}] class embeddings: "
+                     f"labels from numpy seed 0; [{ZS_CLASSES}, {d_out}] class embeddings: "
                      "the text phase's f32 zero-shot classifier, transposed",
           "batch": EVAL_BATCH, "parts": parts, "expected_attention_mix_tnh": expected,
           "eval_images_per_s": EVAL_IMAGES / parts["process_dataset"]["seconds"],
@@ -5014,14 +5065,14 @@ def phase_text(info):
     control (a TF32 forward for float32, the bidirectional tower for bf16);
     ``run_with_cache(incl_bwd=True)`` over the 12 resid_post hooks in bf16
     (B1 12, B2 11) against the einsum path, f32 gradients against the CPU;
-    ``zero_shot_classifier`` over the 1,000 ImageNet names x 80 templates
+    ``zero_shot_classifier`` over the first ZS_CLASSES ImageNet names x 80 templates
     in f32 and bf16 (B1 12 for each of its 2,000 forwards), with the
     tokenizer's and the rest's seconds, unit columns, 8 classes against
     the CPU and the bf16 classifier against the f32 one; then ``zero_shot_eval`` of the B/32 vision tower from the same
     state dict (bf16, against the f32 classifier) over ZS_IMAGES images and
     labels from a seed, plain and with a forward hook, each equal to a plain
     top-k count on the same logits.  Returns the
-    f32 classifier's transpose ([1000, 512]) for the SAE evals and the
+    f32 classifier's transpose ([ZS_CLASSES, 512]) for the SAE evals and the
     phase's launches."""
     from vit_prisma_tpu_torch import load_hooked_model
     from vit_prisma_tpu_torch.dataloaders.imagenet_names import get_imagenet_text_labels
@@ -5047,7 +5098,7 @@ def phase_text(info):
     proc = load(device="cuda", **processing)
 
     # the tokenizer: a merge table learned from the prompts
-    names = get_imagenet_text_labels()
+    names = get_imagenet_text_labels()[:ZS_CLASSES]
     templates = OPENAI_IMAGENET_TEMPLATE_STRINGS
     t0 = time.perf_counter()
     tok = CLIPTokenizer(train_merges(names, templates))
@@ -5299,8 +5350,8 @@ DATA_WORKERS = (4, min(os.cpu_count() or 1, 16))
 DATA_LOADER_BATCHES = 64      # timed loader batches, after 4 warm-up ones
 DATA_POOL_TOL = 0.05          # a fixture's 8 x 8 pool against the manifest
 DATA_IMAGES = 2048            # seeded uint8 images of the host-fed stream
-DATA_BUFFER_BATCHES = 2       # the default SAE's buffer: fill 8,192 images
-DATA_STEPS = 100              # across the one refill, at step 51
+DATA_BUFFER_BATCHES = 1       # the default SAE's buffer: fill 4,096 images
+DATA_STEPS = 30               # across the one refill, at step 26
 DATA_CHECK_BUFFER = 16_384    # rows of the stores of the bitwise checks
 # uint8 rows against float32 rows of the same images: the seeded arrays'
 # float32 images are the uint8 pixels normalized on the host (rounding
@@ -5645,6 +5696,399 @@ def phase_data(info):
     return {k: sum(l[k] for l in launches.values()) for k in counters}
 
 
+# sae_variants: the SAE variants at B/32 width (12 x 768, random weights from
+# seed 0, float32).  A transcoder from blocks.9.hook_resid_mid to
+# blocks.9.hook_mlp_out (768 -> 12,288 -> 768, W_skip, train batch 4096) on
+# the train phase's 2-batch buffer (409,600 rows of [2, 768] float32, 6,144 B:
+# fill 8,192 images, 4,096 a refill), VARIANT_STEPS steps across one refill
+# (at step 51): B1 10 a store batch (stop at layer 10), B3 one a mix, B7 6 a
+# step.  Then, on the store's input rows, default ReLU SAEs (768 -> 12,288)
+# with ghost grads, each normalization and the TopK row with
+# topk_use_approx, drawn from seed 0 with the geometric-median b_dec, each
+# trained VARIANT_WARM_STEPS steps on the card first (Adam's first step is
+# lr * sign(g), which a near-zero gradient's rounding can flip), then one
+# step held to the CPU's as phase 6 holds three (step_check's bounds).
+# Ghost grads: a seeded quarter of the features marked dead through
+# n_forward_passes_since_fired.  Last, a reference-format checkpoint of the
+# trained transcoder and a legacy SAELens-v2 dump of the ghost SAE, written
+# at full width in a temporary directory, loaded onto the card and stepped.
+VARIANT_BUFFER_BATCHES = 2
+VARIANT_STEPS = 60
+VARIANT_WARM_STEPS = 5
+VARIANT_DEAD_SEED = 7
+# The ghost loss is ill-conditioned in float32 (in JAX as here): it rescales
+# each element by mse / (mse_ghost + 1e-6), so an element whose ghost fit is
+# near exact turns its rounding into a large change of its gradient term,
+# and such elements dominate the ghost gradient.  The entries the ghost
+# loss reaches are held to the CPU within the larger of step_check's bound
+# and twice the spread of either device's own gradients when x moves by one
+# or two ulps (SPREAD_PERTURBATIONS), as the CPU tests hold the port to JAX
+# (``_step_against_cpu``).
+SPREAD_PERTURBATIONS = tuple(1 + s * 2.0 ** -e for e in (23, 22) for s in (1, -1))
+# float32 exp overflows past log(FLT_MAX) = 88.72: the ghost loss's
+# exp(hidden_pre) * mask is then inf * 0 = NaN for an alive feature, in JAX
+# as here; the phase counts such pre-activations.
+EXP_OVERFLOW = 88.72
+
+
+def _variant_state(cfg, sample, seed=0):
+    """A fresh train state on the card: parameters drawn from ``seed``,
+    b_dec by ``cfg``'s method from ``sample``."""
+    from vit_prisma_tpu_torch.sae import init_train_state, initialize_b_dec
+    from vit_prisma_tpu_torch.sae.sae import init_sae_params
+    params = init_sae_params(cfg, torch.Generator().manual_seed(seed), "cuda")
+    return init_train_state(cfg, params=initialize_b_dec(cfg, params, sample))
+
+
+def _grad_spread(state, cfg, x, y, grads):
+    """How far one device's own gradients ``grads`` move, relative to their
+    absmax, when x moves by one or two ulps (SPREAD_PERTURBATIONS)."""
+    from vit_prisma_tpu_torch.sae.sae import set_decoder_norm_to_unit_norm
+    from vit_prisma_tpu_torch.sae.train import loss_and_grads
+    dead = state.n_forward_passes_since_fired > cfg.dead_feature_window
+    params = set_decoder_norm_to_unit_norm(state.params)
+    spread = dict.fromkeys(grads, 0.0)
+    for f in SPREAD_PERTURBATIONS:
+        moved, _ = loss_and_grads(params, x * f, cfg, dead, y)
+        for k in grads:
+            d = (moved[k] - grads[k]).abs().max().item() / grads[k].abs().max().item()
+            spread[k] = max(spread[k], d)
+    return spread
+
+
+def _feature_parts(key, ghost, hit):
+    """Boolean masks (alive, ghost, switched) over the entries of the
+    tensor ``key`` names (``W_enc``, ``mu/W_dec``, ...): by feature, its last
+    axis for W_enc and b_enc and its first for W_dec; b_dec, which every
+    dead feature's ghost term reaches, is wholly ghost where any is dead.
+    ReLU switches (``hit``) only split W_enc and b_enc, as phase 6 does."""
+    name = key.rsplit("/", 1)[-1]
+    any_ghost = bool(ghost.any())
+    if name in ("W_enc", "b_enc"):
+        return ~ghost & ~hit, ghost & ~hit, hit
+    if name == "W_dec":
+        none = torch.zeros_like(ghost)
+        return ~ghost[:, None], ghost[:, None], none[:, None]
+    whole = torch.ones((), dtype=torch.bool)
+    return (~whole if name == "b_dec" and any_ghost else whole,
+            whole if name == "b_dec" and any_ghost else ~whole, ~whole)
+
+
+def _part_max(d, mask):
+    mask = mask.expand(d.shape)
+    return float(d[mask].max()) if mask.any() else 0.0
+
+
+def _step_against_cpu(name, state, cfg, x, y=None):
+    """One step from ``state`` on the card and on the CPU in float32 (with
+    ``y``, a transcoder's target): step-1 gradients, then params, moments and
+    counters, held as phase 6 holds them (``check_steps``).  With ghost
+    grads, the entries the ghost loss reaches (the dead features' W_enc
+    columns, b_enc entries and W_dec rows, and b_dec) may differ by up to
+    twice either device's own spread (``_grad_spread``) where that exceeds
+    phase 6's gradient bound, and their params and moments by phase 6's
+    bounds times the same ratio (twice it for nu, Adam's second moment of
+    the gradient); alive features keep phase 6's bounds.  The ghost parts'
+    errors are divided by their widening before ``check_steps`` reads
+    them."""
+    from vit_prisma_tpu_torch.sae.convert import train_state_to_numpy
+    from vit_prisma_tpu_torch.sae.sae import encode, set_decoder_norm_to_unit_norm
+    from vit_prisma_tpu_torch.sae.train import loss_and_grads, sae_train_step
+    cpu = _state_to(state, "cpu")
+    xc, yc = x.cpu(), None if y is None else y.cpu()
+    dead = state.n_forward_passes_since_fired > cfg.dead_feature_window
+    pg = set_decoder_norm_to_unit_norm(state.params)
+    pc = set_decoder_norm_to_unit_norm(cpu.params)
+    gg, og = loss_and_grads(pg, x, cfg, dead, y)
+    gc, oc = loss_and_grads(pc, xc, cfg, dead.cpu(), yc)
+    flip = (encode(pg, cfg, x)[2] > 0).cpu() != (encode(pc, cfg, xc)[2] > 0)
+    hit = flip.any(0)
+    ghost = dead.cpu() if cfg.use_ghost_grads else torch.zeros_like(hit)
+    spread = ratio = None
+    if cfg.use_ghost_grads:
+        on_cpu, on_card = _grad_spread(cpu, cfg, xc, yc, gc), _grad_spread(state, cfg, x, y, gg)
+        spread = {k: max(on_cpu[k], on_card[k]) for k in gc}
+        ratio = {k: max(1.0, 2 * spread[k] / STEP_GRAD_REL) for k in gc}
+    widen = lambda k, nu=False: 1.0 if ratio is None else ratio[k] * (2 if nu else 1)
+    grad_errs, raw = {}, {}
+    for k in gc:
+        d = (gg[k].cpu() - gc[k]).abs() / gc[k].abs().max().item()
+        alive, gh, sw = _feature_parts(k, ghost, hit)
+        raw[k] = {"alive": _part_max(d, alive), "ghost": _part_max(d, gh),
+                  "switched": _part_max(d, sw)}
+        grad_errs[k] = {"rel": d.max().item(),
+                        "rel_unswitched": max(raw[k]["alive"], raw[k]["ghost"] / widen(k))}
+    card, mg = sae_train_step(state, x, cfg, y)
+    cpu, mc = sae_train_step(cpu, xc, cfg, yc)
+    got, want = train_state_to_numpy(card), train_state_to_numpy(cpu)
+    errs, scales = {}, {}
+    for k in want:
+        d = torch.from_numpy(np.asarray(np.abs(got[k].astype(np.float64) - want[k])))
+        scales[k] = float(np.abs(want[k]).max())
+        if "/" not in k:
+            errs[k] = {"unswitched": float(d.max()), "switched": 0.0}
+            continue
+        alive, gh, sw = _feature_parts(k, ghost, hit)
+        w = widen(k.split("/", 1)[1], nu=k.startswith("nu/"))
+        errs[k] = {"unswitched": max(_part_max(d, alive), _part_max(d, gh) / w),
+                   "switched": _part_max(d, sw), "ghost_raw": _part_max(d, gh)}
+    rec = {"grad_rel_err": grad_errs, "grad_rel_err_by_part": raw, "state_max_abs_err": errs,
+           "relu_switches": int(flip.sum()), "spread_of_either_device": spread,
+           "losses_card_cpu": {f: (getattr(mg, f).item(), getattr(mc, f).item()) for f in (
+               "loss", "mse_loss", "l1_loss", "ghost_grad_loss", "explained_variance")},
+           "ghost_loss_card": og.ghost_grad_loss.item(),
+           "ghost_loss_cpu": oc.ghost_grad_loss.item()}
+    emit({"phase": "sae_variants", "what": f"{name} step against the CPU", **rec})
+    check_steps([grad_errs], errs, scales, int(flip.sum()), int(hit.sum()), got, want)
+    for f, (a, b) in rec["losses_card_cpu"].items():
+        if not abs(a - b) <= STEP_GRAD_REL * max(1.0, abs(b)):
+            raise AssertionError(f"{name} {f}: {a} on the card, {b} on the CPU")
+    return rec
+
+
+def _warm(state, cfg, xs):
+    from vit_prisma_tpu_torch.sae.train import sae_train_step
+    for x in xs:
+        state, m = sae_train_step(state, x, cfg)
+    if not all(math.isfinite(v) for v in (m.loss.item(), m.explained_variance.item())):
+        raise AssertionError(f"warm-up metrics {m}")
+    return state
+
+
+def _variant_ghost(cfg, store, counters):
+    """Ghost grads on the default ReLU SAE: after the warm-up, a seeded
+    quarter marked dead; the ghost loss, the W_dec gradients with and
+    without ghost grads (alive rows equal, to the bit; dead rows moved), the
+    pre-activations past exp's overflow, then the step against the CPU."""
+    from vit_prisma_tpu_torch.sae.sae import encode, set_decoder_norm_to_unit_norm
+    from vit_prisma_tpu_torch.sae.train import loss_and_grads
+    gcfg = cfg.replace(architecture="standard", is_transcoder=False, use_ghost_grads=True)
+    xs = [store.next_batch()[:, 0] for _ in range(VARIANT_WARM_STEPS + 1)]
+    state = _warm(_variant_state(gcfg, store.peek_tokens(4096 * 8)), gcfg, xs[:-1])
+    dead = torch.from_numpy(np.random.default_rng(VARIANT_DEAD_SEED).permutation(gcfg.d_sae)
+                            < gcfg.d_sae // 4).cuda()
+    state = state._replace(n_forward_passes_since_fired=torch.where(
+        dead, float(gcfg.dead_feature_window + 1), 0.0))
+    x = xs[-1]
+    params = set_decoder_norm_to_unit_norm(state.params)
+    _zero_counts(counters)
+    g_ghost, out = loss_and_grads(params, x, gcfg, dead)
+    g_plain, _ = loss_and_grads(params, x, gcfg.replace(use_ghost_grads=False), dead)
+    launches = {k: f.launches for k, f in counters.items() if f.launches}
+    hidden_pre = encode(params, gcfg, x)[2]
+    moved = (g_ghost["W_dec"] - g_plain["W_dec"]).abs().amax(-1)
+    rec = {"dead_features": int(dead.sum()), "ghost_loss": out.ghost_grad_loss.item(),
+           "loss": out.loss.item(), "mse_loss": out.mse_loss.item(),
+           "alive_rows_equal_bitwise": bool(torch.equal(g_ghost["W_dec"][~dead],
+                                                        g_plain["W_dec"][~dead])),
+           "dead_rows_moved": int((moved[dead] > 0).sum()),
+           "dead_rows_min_change": moved[dead].min().item(),
+           "hidden_pre_max": hidden_pre.max().item(),
+           "exp_overflow_entries": int((hidden_pre > EXP_OVERFLOW).sum()),
+           "exp_overflow_alive_entries": int((hidden_pre[:, ~dead] > EXP_OVERFLOW).sum()),
+           "launches_two_grads": launches}
+    if not (rec["ghost_loss"] > 0 and math.isfinite(rec["loss"])
+            and rec["alive_rows_equal_bitwise"] and rec["dead_rows_moved"] == rec["dead_features"]):
+        raise AssertionError(f"ghost grads: {rec}")
+    rec["against_cpu"] = _step_against_cpu("ghost_grads", state, gcfg, x)
+    return rec, state
+
+
+def _variant_norms(cfg, store):
+    """One step under each normalization, after the warm-up, against the
+    CPU."""
+    out = {}
+    for norm in ("layer_norm", "constant_norm_rescale"):
+        ncfg = cfg.replace(architecture="standard", is_transcoder=False,
+                           normalize_activations=norm)
+        xs = [store.next_batch()[:, 0] for _ in range(VARIANT_WARM_STEPS + 1)]
+        state = _warm(_variant_state(ncfg, store.peek_tokens(4096 * 8)), ncfg, xs[:-1])
+        out[norm] = _step_against_cpu(norm, state, ncfg, xs[-1])
+    return out
+
+
+def _variant_topk_approx(cfg, store, counters):
+    """The TopK row with topk_use_approx: the generic step (the fused gate
+    refuses it) and ``encode`` take the exact top k, JAX's route off the
+    TPU: no B8, B9 or B10 launch, and exactly k active a row (min(k, the
+    positive pre-activations))."""
+    from vit_prisma_tpu_torch.sae.sae import encode
+    from vit_prisma_tpu_torch.sae.train import _fused_single_ok, sae_train_step
+    tcfg = topk_config().replace(topk_use_approx=True, layer_subtype=cfg.layer_subtype,
+                                 n_batches_in_buffer=cfg.n_batches_in_buffer)
+    state = _variant_state(tcfg, store.peek_tokens(4096 * 8))
+    x = store.next_batch()[:, 0]
+    _zero_counts(counters)
+    state, m = sae_train_step(state, x, tcfg)
+    _, feats, hidden_pre, _ = encode(state.params, tcfg, x)
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items() if f.launches}
+    want_k = torch.clamp((hidden_pre > 0).sum(-1), max=tcfg.topk_k)
+    rec = {"fused_gate": _fused_single_ok(tcfg, x.shape[0]), "launches": launches,
+           "l0": m.l0.item(), "rows_with_k_active": int(((feats > 0).sum(-1) == want_k).sum()),
+           "rows": x.shape[0], "k": tcfg.topk_k}
+    if rec["fused_gate"] or launches != {"adam_update": 4} \
+            or rec["rows_with_k_active"] != rec["rows"]:
+        raise AssertionError(f"topk_use_approx: {rec}")
+    return rec
+
+
+def _variant_import(tc_trainer, tc_cfg, ghost_state, store, counters):
+    """A reference-format checkpoint of the trained transcoder (its config an
+    object of a class that does not import, as the reference's) and a legacy
+    SAELens-v2 dump of the ghost SAE, written at full width in a temporary
+    directory (deleted after), loaded onto the card by default, equal to
+    what was written, and stepped (B7 6 and 4)."""
+    import shutil
+    import tempfile
+    import types
+    from vit_prisma_tpu_torch.sae import (init_train_state, load_legacy_saelens_v2,
+                                          load_reference_sae_checkpoint)
+    from vit_prisma_tpu_torch.sae.train import sae_train_step
+    tmp = tempfile.mkdtemp(prefix="smoke_import_")
+    try:
+        ref_params = {k: v.detach().cpu() for k, v in tc_trainer.state.params.items()}
+        ref_cfg = types.SimpleNamespace(
+            d_in=tc_cfg.d_in, expansion_factor=tc_cfg.expansion_factor, _dtype=torch.float32,
+            _device="cuda", hook_point=tc_cfg.hook_point, architecture="transcoder",
+            is_transcoder=True, d_out=tc_cfg.d_out, out_hook_point_layer=9,
+            layer_out_subtype="hook_mlp_out", use_ghost_grads=True, log_to_wandb=False)
+        legacy_params = {k: v.detach().cpu() for k, v in ghost_state.params.items()}
+        legacy_cfg = {"d_in": tc_cfg.d_in, "expansion_factor": 16, "l1_coefficient": 2e-4,
+                      "hook_point": tc_cfg.hook_point, "dtype": torch.float32}
+        paths = {"reference": os.path.join(tmp, "n_images_2600058.pt"),
+                 "legacy": os.path.join(tmp, "legacy_saelens_v2.pt")}
+        torch.save({"cfg": ref_cfg, "state_dict": ref_params}, paths["reference"])
+        torch.save({"config": legacy_cfg, "autoencoder": {"state_dict": legacy_params}},
+                   paths["legacy"])
+        rec = {"file_MB": {k: os.path.getsize(p) / 1e6 for k, p in paths.items()}}
+        t0 = time.perf_counter()
+        saes = {"reference": load_reference_sae_checkpoint(paths["reference"]),
+                "legacy": load_legacy_saelens_v2(paths["legacy"])}
+        torch.cuda.synchronize()
+        rec["load_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp)
+    batch = store.next_batch()
+    for name, sae, written in (("reference", saes["reference"], ref_params),
+                               ("legacy", saes["legacy"], legacy_params)):
+        cfg = sae.cfg
+        if not (all(v.is_cuda for v in sae.params.values()) and set(sae.params) == set(written)
+                and all(torch.equal(sae.params[k].cpu(), v) for k, v in written.items())
+                and cfg.use_ghost_grads):
+            placed = {k: (v.device, tuple(v.shape)) for k, v in sae.params.items()}
+            raise AssertionError(f"{name} checkpoint loaded as {cfg}, {placed}")
+        state = init_train_state(cfg, params=sae.params)
+        state = state._replace(n_forward_passes_since_fired=torch.where(
+            torch.arange(cfg.d_sae, device="cuda") % 4 == 0,
+            float(cfg.dead_feature_window + 1), 0.0))
+        _zero_counts(counters)
+        new, m = sae_train_step(state, batch[:, 0], cfg,
+                                batch[:, 1] if cfg.is_transcoder else None)
+        torch.cuda.synchronize()
+        launches = {k: f.launches for k, f in counters.items() if f.launches}
+        r = {"is_transcoder": cfg.is_transcoder, "use_ghost_grads": cfg.use_ghost_grads,
+             "hook_point": cfg.hook_point, "params": sorted(sae.params), "launches": launches,
+             "loss": m.loss.item(), "ghost_grad_loss": m.ghost_grad_loss.item(),
+             "params_moved": bool(not torch.equal(new.params["W_enc"], state.params["W_enc"]))}
+        if not (math.isfinite(r["loss"]) and r["ghost_grad_loss"] > 0 and r["params_moved"]
+                and launches == {"adam_update": len(sae.params)}):
+            raise AssertionError(f"{name} checkpoint step: {r}")
+        rec[name] = r
+    return rec
+
+
+def phase_sae_variants(info):
+    """The SAE variants on the card: the transcoder's main path (two-hook
+    store, B3 on 6,144-byte rows, the target step) across a refill with
+    exact launches, fill and refill seconds, SAE tokens per second and a step
+    against the CPU; ghost grads; both normalizations; ``topk_use_approx``;
+    the import tools.  Returns the transcoder path's launches."""
+    from vit_prisma_tpu_torch import HookedViT, get_model_config
+    from vit_prisma_tpu_torch.sae import (SAERunnerConfig, VisionActivationsStore,
+                                          VisionSAETrainer)
+    t_phase = time.perf_counter()
+    cfg = SAERunnerConfig(architecture="transcoder", is_transcoder=True,
+                          layer_subtype="hook_resid_mid", layer_out_subtype="hook_mlp_out",
+                          n_batches_in_buffer=VARIANT_BUFFER_BATCHES)
+    counters = _sae_counters()
+    model = HookedViT(get_model_config(cfg.model_name), device="cuda",
+                      generator=torch.Generator().manual_seed(0))
+    images = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (TRAIN_IMAGES, 3, cfg.image_size, cfg.image_size), dtype=np.float32)).cuda()
+    torch.cuda.synchronize()
+    release()
+    torch.cuda.reset_peak_memory_stats()
+
+    # The transcoder's main path, with every count set to 0 just before it.
+    _zero_counts(counters)
+    t0 = time.perf_counter()
+    store = VisionActivationsStore(cfg, model, images)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    trainer = VisionSAETrainer(cfg, model, store)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0 - fill_s
+    refills = _time_refills(store)
+    log = _record_logs(trainer)
+    t1 = time.perf_counter()
+    sae = trainer.run(max_steps=VARIANT_STEPS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    launches = {k: f.launches for k, f in counters.items()}
+
+    harvests = -(-cfg.tokens_per_buffer // store.tokens_per_store_batch) + \
+        len(refills) * -(-(cfg.tokens_per_buffer // 2) // store.tokens_per_store_batch)
+    expected = dict.fromkeys(counters, 0)
+    expected.update({"attention_mix_tnh": (cfg.out_hook_point_layer + 1) * harvests,
+                     "take_rows": 1 + len(refills),
+                     "adam_update": len(trainer.state.params) * VARIANT_STEPS})
+    row_bytes = store.buffer[0].numel() * store.buffer.element_size()
+    if len(refills) != 1 or launches != expected or row_bytes != 2 * cfg.d_in * 4 \
+            or tuple(store.buffer.shape) != (cfg.tokens_per_buffer, 2, cfg.d_in):
+        raise AssertionError(f"transcoder launches {launches}, expected {expected}, "
+                             f"{len(refills)} refills, rows {tuple(store.buffer.shape)}")
+    shapes = {k: tuple(v.shape) for k, v in sae.params.items()}
+    d, s = cfg.d_in, cfg.d_sae
+    if shapes != {"W_enc": (d, s), "W_dec": (s, d), "b_enc": (s,), "b_dec": (d,),
+                  "b_dec_out": (d,), "W_skip": (d, d)}:
+        raise AssertionError(f"transcoder params {shapes}")
+    if len(log) != VARIANT_STEPS // cfg.wandb_log_frequency or not all(
+            math.isfinite(v) for vals in log for v in vals.values()) or not log[-1]["l0"] > 0:
+        raise AssertionError(f"transcoder metrics {log}")
+    if not all(torch.isfinite(v).all() for v in sae.params.values()):
+        raise AssertionError("non-finite transcoder parameters")
+    tokens = VARIANT_STEPS * cfg.train_batch_size
+    rec = {"phase": "sae_variants", **info, "model": cfg.model_name,
+           "weights": "random, seed 0", "dataset": f"{TRAIN_IMAGES} random float32 images, "
+           "numpy seed 3, on the card",
+           "transcoder": {
+               "hook_point": cfg.hook_point, "out_hook_point": cfg.out_hook_point,
+               "d_in": cfg.d_in, "d_sae": cfg.d_sae, "d_out": cfg.d_out,
+               "train_batch_size": cfg.train_batch_size, "buffer_rows": cfg.tokens_per_buffer,
+               "row_bytes": row_bytes, "steps": VARIANT_STEPS, "harvest_batches": harvests,
+               "launches": launches, "expected_launches": expected,
+               "store_fill_s": fill_s, "trainer_init_s": init_s, "run_s": run_s,
+               "refill_s": refills, "tokens_per_s_run": tokens / run_s,
+               "tokens_per_s_without_refill": tokens / (run_s - sum(refills)),
+               "metrics_first": log[0], "metrics_last": log[-1]}}
+    emit({**rec, "what": "transcoder path"})
+    batch = store.next_batch()
+    rec["transcoder"]["against_cpu"] = _step_against_cpu(
+        "transcoder", trainer.state, cfg, batch[:, 0], batch[:, 1])
+    rec["ghost_grads"], ghost_state = _variant_ghost(cfg, store, counters)
+    rec["normalize_activations"] = _variant_norms(cfg, store)
+    rec["topk_use_approx"] = _variant_topk_approx(cfg, store, counters)
+    rec["import"] = _variant_import(trainer, cfg, ghost_state, store, counters)
+    rec.update(peak_memory_GB=torch.cuda.max_memory_allocated() / 1e9,
+               phase_s=time.perf_counter() - t_phase)
+    emit(rec)
+    return launches
+
+
+T_START = time.perf_counter()
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; none is available")
@@ -5653,73 +6097,77 @@ def main():
     name_power = card()
     info = {"card": name_power}
 
-    phase_build(info)
-    kernels = phase_kernels(info)
-    mix_kernels, mix_launches = phase_mix_kernels(info)
+    timed(phase_build, info)
+    kernels = timed(phase_kernels, info)
+    mix_kernels, mix_launches = timed(phase_mix_kernels, info)
     release()
-    sae_kernels = phase_sae_kernels(info)
-    kth = phase_kth_value(info)
-    fused, plain = phase_slice(info)
-    launches = phase_serve(info, fused, plain)
+    sae_kernels = timed(phase_sae_kernels, info)
+    kth = timed(phase_kth_value, info)
+    fused, plain = timed(phase_slice, info)
+    launches = timed(phase_serve, info, fused, plain)
     del fused, plain
     release()
-    class_emb, text_launches = phase_text(info)
+    class_emb, text_launches = timed(phase_text, info)
     release()
-    trainer, store, cfg, train_launches = phase_train(info)
-    check_steps(*phase_step_check(info, trainer, store, cfg))
+    trainer, store, cfg, train_launches = timed(phase_train, info)
+    check_steps(*timed(phase_step_check, info, trainer, store, cfg))
     del store
     release()
-    phase_sae_eval(info, trainer, cfg, class_emb)
+    timed(phase_sae_eval, info, trainer, cfg, class_emb)
     del trainer
     release()
-    data_launches = phase_data(info)
+    data_launches = timed(phase_data, info)
     release()
-    sae_step_kernels = phase_sae_step_kernels(info)
-    phase_remat_marks(info)
+    variant_launches = timed(phase_sae_variants, info)
     release()
-    topk_kernels = phase_topk_kernels(info)
-    trainer, store, cfg, topk_launches = phase_train(info, topk_config(), "topk_train")
-    topk_remat_launches = phase_topk_remat(info, trainer, store, cfg)
-    kth_launches = phase_topk_step_check(info, trainer, store, cfg)
-    phase_step_profile(info, trainer, store, cfg, "topk_profile")
-    phase_checkpoint(info, store)
+    sae_step_kernels = timed(phase_sae_step_kernels, info)
+    timed(phase_remat_marks, info)
+    release()
+    topk_kernels = timed(phase_topk_kernels, info)
+    trainer, store, cfg, topk_launches = timed(phase_train, info, topk_config(), "topk_train",
+                                              SLICE_STEPS, name="topk_train")
+    topk_remat_launches = timed(phase_topk_remat, info, trainer, store, cfg)
+    kth_launches = timed(phase_topk_step_check, info, trainer, store, cfg)
+    timed(phase_step_profile, info, trainer, store, cfg, "topk_profile", name="topk_profile")
+    timed(phase_checkpoint, info, store)
     del trainer, store
     release()
-    sweep, sweep_store, sweep_cfg, sweep_launches, remat_launches = phase_sweep(info)
-    check_sweep_steps(phase_sweep_step_check(info, sweep, sweep_store, sweep_cfg))
+    sweep, sweep_store, sweep_cfg, sweep_launches, remat_launches = timed(phase_sweep, info)
+    check_sweep_steps(timed(phase_sweep_step_check, info, sweep, sweep_store, sweep_cfg))
     del sweep_store
     release()
-    phase_sweep_eval(info, sweep, sweep_cfg)
+    timed(phase_sweep_eval, info, sweep, sweep_cfg)
     del sweep
     release()
-    gated_kernels = phase_gated_kernels(info)
-    trainer, store, cfg, gated_launches = phase_train(info, gated_config(), "gated_train")
-    phase_step_profile(info, trainer, store, cfg, "gated_profile")
-    phase_gated_step_check(info, trainer, store, cfg)
+    gated_kernels = timed(phase_gated_kernels, info)
+    trainer, store, cfg, gated_launches = timed(phase_train, info, gated_config(), "gated_train",
+                                              SLICE_STEPS, name="gated_train")
+    timed(phase_step_profile, info, trainer, store, cfg, "gated_profile", name="gated_profile")
+    timed(phase_gated_step_check, info, trainer, store, cfg)
     del trainer, store
     release()
-    grad_kernels = phase_grad_kernels(info)
-    phase_attribution(info)
+    grad_kernels = timed(phase_grad_kernels, info)
+    timed(phase_attribution, info)
     release()
-    vit_train_launches = phase_vit_train(info)
+    vit_train_launches = timed(phase_vit_train, info)
     release()
-    phase_vit_train_check(info)
-    phase_sae_attribution(info)
+    timed(phase_vit_train_check, info)
+    timed(phase_sae_attribution, info)
     release()
-    ln_kernels = phase_ln_gemm_kernels(info)
-    flash_kernels = phase_flash_kernels(info)
+    ln_kernels = timed(phase_ln_gemm_kernels, info)
+    flash_kernels = timed(phase_flash_kernels, info)
     release()
-    ln_launches = phase_serve_ln_fused(info)
+    ln_launches = timed(phase_serve_ln_fused, info)
     release()
-    l336_launches = phase_serve_l14_336(info)
+    l336_launches = timed(phase_serve_l14_336, info)
     release()
-    l336_attrib_launches = phase_attribution_l14_336(info)
+    l336_attrib_launches = timed(phase_attribution_l14_336, info)
     release()
-    phase_video(info)
+    timed(phase_video, info)
     release()
-    phase_serve_graph(info)
+    timed(phase_serve_graph, info)
     release()
-    analysis_launches = phase_analysis(info)
+    analysis_launches = timed(phase_analysis, info)
 
     def entry(name, source, replaces, launches, rec, ms_key="ms", scale=1.0):
         """One kernel's line: launches from its main path, the rest measured
@@ -5797,6 +6245,7 @@ def main():
                  kernels[("b32", torch.bfloat16)], "us", 1e-3),
          "analysis_launches": analysis_launches,
          "data_phase_launches": data_launches["attention_mix_tnh"],
+         "variants_phase_launches": variant_launches["attention_mix_tnh"],
          "text_phase_launches": text_launches["attention_mix_tnh"],
          "l14_ms": l14["us"] * 1e-3, "l14_library_ms": l14["library_us"] * 1e-3,
          "l14_bound_ms": l14["bound_ms"], "l14_max_abs_err": l14["max_abs_err"],
@@ -5813,14 +6262,18 @@ def main():
          "call_ms": take_rows_line["store_f32"]["call_us"] * 1e-3,
          **{f"{shape}_{key.replace('us', 'ms')}":
                 take_rows_line[shape][key] * (1 if key == "bound_ms" else 1e-3)
-            for shape in ("store_bf16", "sweep_bf16")
+            for shape in ("store_bf16", "sweep_bf16", "transcoder_f32")
             for key in ("us", "library_us", "bound_ms")},
-         "data_phase_launches": data_launches["take_rows"]},
+         "transcoder_f32_max_abs_err": take_rows_line["transcoder_f32"]["max_abs_err"],
+         "transcoder_f32_plain_ms": take_rows_line["transcoder_f32"]["plain_us"] * 1e-3,
+         "data_phase_launches": data_launches["take_rows"],
+         "variants_phase_launches": variant_launches["take_rows"]},
         # one train step's four tensors, float32 moments, with the sweep
         # step's four stacked tensors beside
         {**entry("adam_update", ADAM_SOURCE, ADAM_REPLACES, train_launches["adam_update"],
                  adam_rec, "us", 1e-3), **adam_sweep_line,
-         "data_phase_launches": data_launches["adam_update"]},
+         "data_phase_launches": data_launches["adam_update"],
+         "variants_phase_launches": variant_launches["adam_update"]},
         # at the sweep's bf16 shape; launches from the sweep's main path (B5:
         # from its remat cycle; B6: the sweep's and the TopK slice's).  B4-B6
         # run their Hopper route there (source: its file), with the TopK
@@ -5942,6 +6395,8 @@ def main():
     missing = [e["name"] for e in line if not e["launches"] > 0]
     if missing:
         raise AssertionError(f"kernels not launched on their main paths: {missing}")
+    emit({"phase_seconds": PHASE_SECONDS, "total_s": time.perf_counter() - T_START,
+          "card": name_power})
     print(name_power)
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -26,12 +26,12 @@ def main():
     for name in sys.argv[1:]:
         if name == "gated_train":
             trainer, store, cfg, _ = chip_smoke.phase_train(info, chip_smoke.gated_config(),
-                                                            "gated_train")
+                                                            "gated_train", chip_smoke.SLICE_STEPS)
             chip_smoke.phase_step_profile(info, trainer, store, cfg, "gated_profile")
             del trainer, store
         elif name == "topk_train":
             trainer, store, cfg, _ = chip_smoke.phase_train(info, chip_smoke.topk_config(),
-                                                            "topk_train")
+                                                            "topk_train", chip_smoke.SLICE_STEPS)
             chip_smoke.phase_topk_remat(info, trainer, store, cfg)
             chip_smoke.phase_step_profile(info, trainer, store, cfg, "topk_profile")
             del trainer, store

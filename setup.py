@@ -12,5 +12,6 @@ setup(
     install_requires=["jax", "numpy", "optax", "einops", "torch"],
     package_data={"": ["*.md"], "vit_prisma_tpu.dataloaders": ["data/*.json"],
                   "vit_prisma_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
-                  "vit_prisma_tpu_torch.dataloaders": ["data/*.json"]},
+                  "vit_prisma_tpu_torch.dataloaders": ["data/*.json"],
+                  "vit_prisma_tpu_torch.sae": ["*.json"]},
 )

@@ -203,25 +203,33 @@ def test_port_init_is_unit_norm_and_seeded():
     (dict(use_ghost_grads=True), "item 5"),
     (dict(normalize_activations="layer_norm"), "item 5"),
 ])
-def test_unported_variants_raise_naming_their_item(fields, item):
-    _, pc = _cfgs(**SMALL, **fields)
+def test_unported_variants_raise_naming_their_item(fields, item, tmp_path):
+    """Every variant this test once saw raise (the ROADMAP item it named:
+    ``item``) is ported: the forward runs with its own losses, and a file of
+    it loads in both packages.  tests/test_torch_sae_variants.py holds them
+    to the JAX package."""
+    jc, pc = _cfgs(**SMALL, **fields, d_out=48)
+    params = port_sae.init_sae_params(pc, device="cpu")
+    x = torch.from_numpy(seeded(3, (4, 48)))
+    if pc.activation_fn_str == "topk":
+        # the approximate TopK too: the exact top k, JAX's route off the TPU
+        pc = pc.replace(topk_use_approx=True)
+    dead = torch.ones(pc.d_sae, dtype=torch.bool)
+    out = port_sae.sae_forward(params, pc, x, y=x.flip(0), dead_neuron_mask=dead)
+    assert torch.isfinite(out.loss) and tuple(out.sae_out.shape) == (4, 48)
     if pc.architecture == "gated":
-        # gated is ported: the forward runs with its gate L1 and aux loss
-        params = port_sae.init_sae_params(pc, device="cpu")
-        out = port_sae.sae_forward(params, pc, torch.from_numpy(seeded(3, (4, 48))))
-        assert torch.isfinite(out.loss) and float(out.aux_reconstruction_loss) > 0
+        assert float(out.aux_reconstruction_loss) > 0
         torch.testing.assert_close(out.loss, out.mse_loss + out.l1_loss
                                    + out.aux_reconstruction_loss)
-        return
-    if pc.activation_fn_str == "topk":
-        # TopK is ported: the forward runs, without a sparsity loss; only
-        # the approximate TopK (an XLA op of the TPU) still raises
-        params = port_sae.init_sae_params(pc, device="cpu")
-        out = port_sae.sae_forward(params, pc, torch.from_numpy(seeded(3, (4, 48))))
-        assert out.l1_loss is None and torch.isfinite(out.loss) and out.loss == out.mse_loss
-        assert ((out.feature_acts > 0).sum(-1) <= pc.topk_k).all()
-        pc = pc.replace(topk_use_approx=True)
-    with pytest.raises(NotImplementedError, match=item):
-        port_sae.init_sae_params(pc)
-    with pytest.raises(NotImplementedError, match=item):
-        port_sae.sae_forward({}, pc, torch.zeros(2, 48))
+    elif pc.activation_fn_str == "topk":
+        assert out.l1_loss is None and out.loss == out.mse_loss
+        assert ((out.feature_acts > 0).sum(-1) == pc.topk_k).all()
+    elif pc.use_ghost_grads:
+        assert float(out.ghost_grad_loss) > 0
+        torch.testing.assert_close(out.loss, out.mse_loss + out.l1_loss + out.ghost_grad_loss)
+    elif pc.is_transcoder:  # the MSE is taken against the target
+        assert {"b_dec_out", "W_skip"} <= set(params)
+        assert float(out.mse_loss) != float(port_sae.sae_forward(params, pc, x).mse_loss)
+    port_sae.SparseAutoencoder(pc, params=params).save_model(str(tmp_path / "sae"))
+    back = jax_sae.SparseAutoencoder.load_from_pretrained(str(tmp_path / "sae.npz"))
+    assert set(back.params) == set(params) and back.cfg.to_dict() == pc.to_dict()

@@ -188,13 +188,19 @@ def test_store_default_permutations_come_from_its_generator():
     (dict(mesh=object()), "item 15"),
 ])
 def test_store_options_not_ported_raise(kwargs, match):
+    """``mesh=`` raises, naming its item; a transcoder's store, which raised
+    here before, is ported: two hooks, ``[tokens, 2, d]`` rows
+    (tests/test_torch_transcoder_train.py holds it to the JAX store)."""
     _, model = jax_and_port(**VIT)
     cfg = port_sae.SAERunnerConfig(**STORE)
     with pytest.raises(NotImplementedError, match=match):
         port_sae.VisionActivationsStore(cfg, model, seeded(9, (64, 3, 16, 16)), **kwargs)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        port_sae.VisionActivationsStore(cfg.replace(is_transcoder=True), model,
-                                        seeded(9, (64, 3, 16, 16)))
+    store = port_sae.VisionActivationsStore(
+        cfg.replace(is_transcoder=True, layer_subtype="hook_resid_mid", out_hook_point_layer=1),
+        model, seeded(9, (64, 3, 16, 16)))
+    assert store._hook_names == ["blocks.1.hook_resid_mid", "blocks.1.hook_mlp_out"]
+    assert tuple(store.buffer.shape) == (cfg.tokens_per_buffer, 2, cfg.d_in)
+    assert torch.equal(store.peek_tokens(7), store.buffer[:7, 0])
 
 
 # The options that once raised here (augment, device_norm, a uint8 dataset,

@@ -19,10 +19,20 @@ TopK keeps each row's k largest pre-activations (ReLU'd): with
 ``cfg.fused_topk`` (the default) through the threshold mask of
 ``ops/topk.py`` (kernel B10 on the card; ties at the k-th value keep every
 tied entry), else through :func:`topk_activation` (exactly k).
+``topk_use_approx`` takes :func:`topk_activation` too: the JAX package's
+approximate select (``lax.approx_max_k``) runs on the TPU alone, and off the
+TPU it returns the exact top k, as here.
 
-Not ported yet, and raising ``NotImplementedError``: transcoders (ROADMAP
-queue A, item 10), the approximate TopK (``topk_use_approx``, item 10),
-ghost grads and the activation normalization modes (item 5).
+The transcoder (``architecture="transcoder"``) maps the input hook's rows
+to the output hook's: ``W_dec`` is ``[d_sae, d_out]``, its bias
+``b_dec_out``, and ``W_skip`` ``[d_in, d_in]`` (with
+``transcoder_with_skip_connection``) adds ``x W_skip^T`` to the output; the
+MSE is taken against the target ``y``.  ``normalize_activations``
+(``constant_norm_rescale``: rows scaled to norm sqrt(d_in);
+``layer_norm``: centred and divided by their std + 1e-5) normalizes the
+input before the encoder and undoes it on the output.  Ghost grads
+(``use_ghost_grads``) add, in training, the reference's resurrection loss
+for the features that ``dead_neuron_mask`` marks, as a multiplicative mask.
 """
 
 from __future__ import annotations
@@ -54,26 +64,6 @@ class SAEOutput(NamedTuple):
     aux_reconstruction_loss: torch.Tensor
 
 
-def check_ported(cfg: SAERunnerConfig) -> None:
-    """Raise ``NotImplementedError`` for the SAE variants not ported yet."""
-    if cfg.architecture not in ("standard", "gated") or cfg.is_transcoder:
-        raise NotImplementedError(
-            f"architecture={cfg.architecture!r} (is_transcoder="
-            f"{cfg.is_transcoder}) is not ported yet: transcoders are "
-            "ROADMAP queue A, item 10")
-    if cfg.activation_fn_str == "topk" and cfg.topk_use_approx:
-        raise NotImplementedError(
-            "topk_use_approx (the approximate TopK, an XLA op of the TPU) is not "
-            "ported yet (ROADMAP queue A, item 10)")
-    if cfg.normalize_activations != "none":
-        raise NotImplementedError(
-            f"normalize_activations={cfg.normalize_activations!r} is not "
-            "ported yet (ROADMAP queue A, item 5)")
-    if cfg.use_ghost_grads:
-        raise NotImplementedError(
-            "ghost grads are not ported yet (ROADMAP queue A, item 5)")
-
-
 def topk_activation(x: torch.Tensor, k: int) -> torch.Tensor:
     """Keep the k largest entries of each row (ReLU'd), zero elsewhere:
     exactly k, as the JAX package's ``lax.top_k`` + scatter."""
@@ -89,14 +79,37 @@ def get_activation_fn(cfg: SAERunnerConfig):
         return lambda x: torch.tanh(torch.relu(x))
     if name == "topk":
         k = cfg.topk_k
-        if cfg.topk_use_approx:
-            raise NotImplementedError(
-                "topk_use_approx (the approximate TopK, an XLA op of the TPU) is "
-                "not ported yet (ROADMAP queue A, item 10)")
-        if cfg.fused_topk:
+        if cfg.fused_topk and not cfg.topk_use_approx:
             return lambda x: topk_mask_activation(x, k)
         return lambda x: topk_activation(x, k)
     raise ValueError(f"Unknown activation function: {name}")
+
+
+# ---------------------------------------------------------------------------
+# Runtime activation normalization
+# ---------------------------------------------------------------------------
+
+def norm_in(cfg: SAERunnerConfig, x: torch.Tensor):
+    """Returns (normalized x, the context that :func:`norm_out` undoes)."""
+    if cfg.normalize_activations == "constant_norm_rescale":
+        coeff = (cfg.d_in ** 0.5) / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+        return x * coeff, ("rescale", coeff)
+    if cfg.normalize_activations == "layer_norm":
+        mu = x.mean(dim=-1, keepdim=True)
+        xc = x - mu
+        std = xc.std(dim=-1, keepdim=True, correction=1)
+        return xc / (std + 1e-5), ("ln", (mu, std))
+    return x, ("none", None)
+
+
+def norm_out(ctx, y: torch.Tensor) -> torch.Tensor:
+    kind, data = ctx
+    if kind == "rescale":
+        return y / data
+    if kind == "ln":
+        mu, std = data
+        return y * std + mu
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -122,8 +135,9 @@ def init_sae_params(cfg: SAERunnerConfig,
     unit-row Kaiming-uniform decoder, the encoder independent or tied to the
     decoder's transpose, zero biases.  Gated: Kaiming-uniform ``W_enc`` and
     ``W_dec`` without unit rows, zero ``b_gate``, ``r_mag``, ``b_mag``,
-    ``b_enc`` and ``b_dec``."""
-    check_ported(cfg)
+    ``b_enc`` and ``b_dec``.  Transcoder: the standard SAE's unit rows with
+    ``W_dec`` ``[d_sae, d_out]``, zero ``b_dec_out`` and, with the skip
+    connection, a unit-row Kaiming-uniform ``W_skip`` ``[d_in, d_in]``."""
     device = resolve_device(device)
     g = generator if generator is not None else torch.Generator().manual_seed(cfg.seed)
     dt = cfg.torch_dtype
@@ -134,6 +148,14 @@ def init_sae_params(cfg: SAERunnerConfig,
         params = {"W_enc": W_enc_draw, "W_dec": _kaiming_uniform(g, (d_sae, d_in), dt),
                   "b_gate": zeros(d_sae), "r_mag": zeros(d_sae), "b_mag": zeros(d_sae),
                   "b_enc": zeros(d_sae), "b_dec": zeros(d_in)}
+        return {k: v.to(device) for k, v in params.items()}
+    if cfg.architecture == "transcoder":
+        params = {"W_enc": _unit_rows(W_enc_draw.T).T.contiguous(),
+                  "W_dec": _unit_rows(_kaiming_uniform(g, (d_sae, cfg.d_out), dt)),
+                  "b_enc": torch.zeros(d_sae, dtype=dt), "b_dec": torch.zeros(d_in, dtype=dt),
+                  "b_dec_out": torch.zeros(cfg.d_out, dtype=dt)}
+        if cfg.transcoder_with_skip_connection:
+            params["W_skip"] = _unit_rows(_kaiming_uniform(g, (d_in, d_in), dt))
         return {k: v.to(device) for k, v in params.items()}
     W_dec = _unit_rows(_kaiming_uniform(g, (d_sae, d_in), dt))
     if cfg.initialization_method == "encoder_transpose_decoder":
@@ -164,6 +186,28 @@ def _mse_loss(x: torch.Tensor, sae_out: torch.Tensor) -> torch.Tensor:
     return (mse / norm_factor).mean(dtype=torch.float32)
 
 
+def _ghost_residual_loss(params: Params, x: torch.Tensor, sae_out: torch.Tensor,
+                         hidden_pre: torch.Tensor, dead_neuron_mask: torch.Tensor
+                         ) -> torch.Tensor:
+    """The ghost-grads resurrection loss: the dead features' ``exp`` of
+    their pre-activations, decoded and scaled to half the residual's norm,
+    fit to the residual, rescaled to the MSE.  The reference gathers the
+    dead columns; the JAX package multiplies by the mask (the same math,
+    static shapes), and so does this."""
+    residual = x - sae_out
+    residual_centred = residual - residual.mean(dim=0, keepdim=True)
+    l2_norm_residual = torch.linalg.vector_norm(residual, dim=-1)
+    mask = dead_neuron_mask.to(hidden_pre.dtype)
+    ghost_out = (torch.exp(hidden_pre) * mask) @ params["W_dec"]
+    l2_norm_ghost_out = torch.linalg.vector_norm(ghost_out, dim=-1)
+    norm_scaling = l2_norm_residual / (1e-6 + l2_norm_ghost_out * 2)
+    ghost_out = ghost_out * norm_scaling.detach()[:, None]
+    mse_ghost = torch.square(ghost_out - residual.detach()) / torch.sqrt(
+        torch.sum(residual_centred.detach() ** 2, dim=-1, keepdim=True))
+    rescale = (_mse_loss(x, sae_out) / (mse_ghost + 1e-6)).detach()
+    return (rescale * mse_ghost).mean()
+
+
 # ---------------------------------------------------------------------------
 # Encode / decode / forward
 # ---------------------------------------------------------------------------
@@ -171,31 +215,38 @@ def _mse_loss(x: torch.Tensor, sae_out: torch.Tensor) -> torch.Tensor:
 def encode(params: Params, cfg: SAERunnerConfig, x: torch.Tensor,
            hooks: HookRuntime = NULL_HOOKS, prefix: str = ""):
     """Returns (sae_in, feature_acts, hidden_pre, norm_ctx).  Compute
-    follows the parameters' dtype.  Gated: two products, the gate's and the
+    follows the parameters' dtype; ``x`` is normalized first
+    (:func:`norm_in`).  Gated: two products, the gate's and the
     magnitude's (as the reference computes them), ``hook_hidden_pre`` is not
     fired, and the gate pre-activation takes ``hidden_pre``'s place."""
-    check_ported(cfg)
     x = x.to(params["W_enc"].dtype)
     act_fn = get_activation_fn(cfg)
-    sae_in = hooks(f"{prefix}hook_sae_in", x - params["b_dec"])
+    xn, ctx = norm_in(cfg, x)
+    sae_in = hooks(f"{prefix}hook_sae_in", xn - params["b_dec"])
     if cfg.architecture == "gated":
         gate_pre = sae_in @ params["W_enc"] + params["b_gate"]
         active = (gate_pre > 0).to(gate_pre.dtype)
         mag_pre = sae_in @ (params["W_enc"] * torch.exp(params["r_mag"])) + params["b_mag"]
         feature_acts = hooks(f"{prefix}hook_hidden_post", active * act_fn(mag_pre))
-        return sae_in, feature_acts, gate_pre, ("none", None)
+        return sae_in, feature_acts, gate_pre, ctx
     hidden_pre = hooks(f"{prefix}hook_hidden_pre",
                        sae_in @ params["W_enc"] + params["b_enc"])
     feature_acts = hooks(f"{prefix}hook_hidden_post", act_fn(hidden_pre))
-    return sae_in, feature_acts, hidden_pre, ("none", None)
+    return sae_in, feature_acts, hidden_pre, ctx
 
 
 def decode(params: Params, cfg: SAERunnerConfig, feature_acts: torch.Tensor,
            ctx=("none", None), hooks: HookRuntime = NULL_HOOKS,
            prefix: str = "") -> torch.Tensor:
-    check_ported(cfg)
-    return hooks(f"{prefix}hook_sae_out",
-                 feature_acts @ params["W_dec"] + params["b_dec"])
+    """The decoder, then :func:`norm_out`; a transcoder's output takes
+    ``b_dec_out`` and is left for :func:`sae_forward` to finish (the skip,
+    then the de-normalization)."""
+    if cfg.architecture == "transcoder":
+        return hooks(f"{prefix}hook_sae_out",
+                     feature_acts @ params["W_dec"] + params["b_dec_out"])
+    sae_out = hooks(f"{prefix}hook_sae_out",
+                    feature_acts @ params["W_dec"] + params["b_dec"])
+    return norm_out(ctx, sae_out)
 
 
 def sae_forward(params: Params, cfg: SAERunnerConfig, x: torch.Tensor,
@@ -208,13 +259,27 @@ def sae_forward(params: Params, cfg: SAERunnerConfig, x: torch.Tensor,
     ``loss = mse + l1 + aux``, with the gate path's activations (ReLU, or
     the TopK activation) weighted by the decoder row norms in the L1 (0 for
     TopK) and decoded against ``sae_in`` in the aux loss, as the reference
-    computes it (``aux_reconstruction_loss``)."""
-    check_ported(cfg)
+    computes it (``aux_reconstruction_loss``).  Transcoder: the skip
+    ``x W_skip^T`` is added to the decoder's output, which is then
+    de-normalized and held to ``y`` (``x`` when None) in the MSE.  With
+    ``cfg.use_ghost_grads``, in training and given ``dead_neuron_mask``, the
+    standard SAE and the transcoder add the ghost loss
+    (``ghost_grad_loss``)."""
     x = x.to(params["W_enc"].dtype)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     sae_in, feature_acts, hidden_pre, ctx = encode(params, cfg, x, hooks, prefix)
     sae_out = decode(params, cfg, feature_acts, ctx, hooks, prefix)
-    mse_loss = _mse_loss(x, sae_out)
+    if cfg.architecture == "transcoder":
+        if cfg.transcoder_with_skip_connection:
+            sae_out = sae_out + x @ params["W_skip"].T
+        sae_out = norm_out(ctx, sae_out)
+        mse_loss = _mse_loss(y if y is not None else x, sae_out)
+    else:
+        mse_loss = _mse_loss(x, sae_out)
+    ghost_loss = zero
+    if (cfg.use_ghost_grads and training and dead_neuron_mask is not None
+            and cfg.architecture in ("standard", "transcoder")):
+        ghost_loss = _ghost_residual_loss(params, x, sae_out, hidden_pre, dead_neuron_mask)
     if cfg.architecture == "gated":
         topk = cfg.activation_fn_str == "topk"
         pi_gate_act = get_activation_fn(cfg)(hidden_pre) if topk else torch.relu(hidden_pre)
@@ -226,15 +291,16 @@ def sae_forward(params: Params, cfg: SAERunnerConfig, x: torch.Tensor,
         return SAEOutput(sae_out, feature_acts, mse_loss + l1_loss + aux_loss, mse_loss,
                          l1_loss, zero, aux_loss)
     if cfg.activation_fn_str == "topk":
-        return SAEOutput(sae_out, feature_acts, mse_loss, mse_loss, None, zero, zero)
+        return SAEOutput(sae_out, feature_acts, mse_loss + ghost_loss, mse_loss, None,
+                         ghost_loss, zero)
     if cfg.lp_norm == 1.0:
         sparsity = feature_acts.abs().sum(dim=1, dtype=torch.float32).mean()
     else:
         sparsity = torch.linalg.vector_norm(
             feature_acts, ord=cfg.lp_norm, dim=1).mean(dtype=torch.float32)
     l1_loss = cfg.l1_coefficient * sparsity
-    loss = mse_loss + l1_loss
-    return SAEOutput(sae_out, feature_acts, loss, mse_loss, l1_loss, zero, zero)
+    loss = mse_loss + l1_loss + ghost_loss
+    return SAEOutput(sae_out, feature_acts, loss, mse_loss, l1_loss, ghost_loss, zero)
 
 
 # ---------------------------------------------------------------------------
@@ -264,7 +330,8 @@ def remove_gradient_parallel_to_decoder_directions(grads: Params,
 # ---------------------------------------------------------------------------
 
 class SparseAutoencoder(nn.Module):
-    """The parameters (four; seven for gated) as an ``nn.Module``, with the
+    """The parameters (four; seven for gated; five or six for a transcoder)
+    as an ``nn.Module``, with the
     JAX class's surface: ``__call__`` (the forward with losses),
     ``encode``, ``decode``, ``reconstruct`` and ``get_name``.  Drawn parameters go to ``device``
     (the CUDA card when None); given ``params`` stay on their device unless
@@ -275,7 +342,6 @@ class SparseAutoencoder(nn.Module):
     def __init__(self, cfg: SAERunnerConfig, params: Optional[Params] = None,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
-        check_ported(cfg)
         self.cfg = cfg
         if params is None:
             device = resolve_device(device)

@@ -6,7 +6,11 @@ The harvest is ``run_with_cache`` on the requested hook point with
 head-index slicing.  A sweep store (``cfg.sweep_layers``) caches
 ``blocks.{l}.{layer_subtype}`` for every listed layer in the same forward
 and stacks the rows to ``[tokens, L, d]``; its buffer is 3-D and every
-operation below moves whole ``[L, d]`` rows.  The buffer is filled, then
+operation below moves whole ``[L, d]`` rows.  A transcoder's store
+(``cfg.is_transcoder``) caches the input hook and the output hook
+(``cfg.out_hook_point``) in one forward stopped past the later, and stacks
+them to ``[tokens, 2, d]`` rows in the same way: slot 0 the input, slot 1
+the target.  The buffer is filled, then
 shuffled by a row permutation through kernel B3
 (:func:`~vit_prisma_tpu_torch.ops.shuffle.take_rows`).
 When half of it has been served, the unserved half is kept, a fresh half is
@@ -62,7 +66,7 @@ served:
 that :meth:`VisionActivationsStore.generate_cached_activations` writes.
 
 Not ported yet, and raising ``NotImplementedError``: ``mesh`` (ROADMAP queue
-A, item 15) and transcoder hooks (item 10).
+A, item 15).
 """
 
 from __future__ import annotations
@@ -141,10 +145,6 @@ class VisionActivationsStore:
         if mesh is not None:
             raise NotImplementedError(
                 "a sharded store (mesh=) is not ported yet (ROADMAP queue A, item 15)")
-        if cfg.is_transcoder:
-            raise NotImplementedError(
-                "transcoder stores (two hooks, targets) are not ported yet "
-                "(ROADMAP queue A, item 10)")
         self.cfg = cfg
         self.model = model
         self.dataset = dataset
@@ -206,6 +206,9 @@ class VisionActivationsStore:
         else:
             self._hook_names = [cfg.hook_point]
             self._stop_at = cfg.hook_point_layer + 1
+            if cfg.is_transcoder:
+                self._hook_names.append(cfg.out_hook_point)
+                self._stop_at = max(cfg.hook_point_layer, cfg.out_hook_point_layer) + 1
         self.tokens_per_store_batch = cfg.store_batch_size * cfg.tokens_per_image
         self.buffer_tokens = cfg.tokens_per_buffer
 
@@ -382,7 +385,7 @@ class VisionActivationsStore:
     # -- harvesting ------------------------------------------------------
     def get_activations(self, images) -> torch.Tensor:
         """One harvested batch of token rows: ``[tokens, d]``, or ``[tokens,
-        L, d]`` for a sweep."""
+        L, d]`` for a sweep (``[tokens, 2, d]`` for a transcoder)."""
         images = self._decode(torch.as_tensor(images).to(self.device))
         _, cache = self.model.run_with_cache(
             images, names_filter=self._hook_names, stop_at_layer=self._stop_at,
@@ -528,7 +531,8 @@ class VisionActivationsStore:
 
     def peek_tokens(self, n: int, layer_slot: Optional[int] = None) -> torch.Tensor:
         """A copy of the first n rows (for the b_dec init); ``layer_slot``
-        picks a layer of a sweep buffer (the first when None)."""
+        picks a slot of a sweep's or a transcoder's buffer (the first when
+        None)."""
         rows = self.buffer[:n]
         if rows.ndim == 3:
             rows = rows[:, layer_slot if layer_slot is not None else 0]
@@ -553,7 +557,8 @@ class VisionActivationsStore:
 
 class CachedActivationsStore:
     """Shard-backed store: loads ``{path}/{i}.npy`` shards (sorted by their
-    integer name, read round robin) instead of running the model, casts them
+    integer name, read round robin; rows of any shape, a transcoder's
+    ``[tokens, 2, d]`` too) instead of running the model, casts them
     to ``cfg.dtype`` on ``device`` (the CUDA card when None) and mixes
     through kernel B3, with the live store's buffer protocol.  Its refill
     keeps ``buffer[n//2:]`` and permutes ``[kept, fresh]``, as the JAX class
@@ -623,5 +628,4 @@ class CachedActivationsStore:
         self.ptr += k * bs
         return out.reshape((k, bs) + tuple(self.buffer.shape[1:]))
 
-    def peek_tokens(self, n: int) -> torch.Tensor:
-        return self.buffer[:n].clone()
+    peek_tokens = VisionActivationsStore.peek_tokens

@@ -49,9 +49,18 @@ single trainer one SAE ``.npz`` and its log feature sparsity
 :func:`load_train_state` keep the whole train state (params, Adam moments in
 their dtype, counters) for a resume equal to the uninterrupted run.
 
+The variants that the fused kernels do not take run the generic step, as in
+the JAX package (``_fused_step_ok``): ghost grads (the resurrection loss of
+the features unfired for over ``cfg.dead_feature_window`` steps),
+``normalize_activations``, ``topk_use_approx`` (the exact
+:func:`~vit_prisma_tpu_torch.sae.sae.topk_activation`, JAX's route off the
+TPU) and the transcoder, whose step takes the output hook's rows as its
+``target`` (the store's ``[..., 1, :]`` slot): the MSE, the explained
+variance and the ghost loss's residual are taken as the JAX step takes
+them.
+
 Not ported yet, and raising ``NotImplementedError``: ``mesh`` and the
-sharded train-state checkpoint (ROADMAP queue A, item 15), transcoders and
-the approximate TopK (item 10).
+sharded train-state checkpoint (ROADMAP queue A, item 15).
 """
 
 from __future__ import annotations
@@ -82,7 +91,6 @@ from vit_prisma_tpu_torch.sae.geometric_median import compute_geometric_median
 from vit_prisma_tpu_torch.sae.sae import (
     SAEOutput,
     SparseAutoencoder,
-    check_ported,
     init_sae_params,
     sae_forward,
     set_decoder_norm_to_unit_norm,
@@ -166,20 +174,23 @@ def _grads(loss: torch.Tensor, leaves: Params) -> Params:
 
 
 def loss_and_grads(params: Params, batch: torch.Tensor, cfg: SAERunnerConfig,
-                   dead_neuron_mask: Optional[torch.Tensor] = None
+                   dead_neuron_mask: Optional[torch.Tensor] = None,
+                   target: Optional[torch.Tensor] = None
                    ) -> Tuple[Params, SAEOutput]:
     """The step's forward and backward: gradients of ``sae_forward``'s loss
-    with respect to ``params``, optionally computed in
-    ``cfg.compute_dtype`` (the cast sits inside the graph, so float32
-    params get float32 grads).  Returns (grads, detached output)."""
+    (against ``target``, a transcoder's) with respect to ``params``,
+    optionally computed in ``cfg.compute_dtype`` (the cast sits inside the
+    graph, so float32 params get float32 grads).  Returns (grads, detached
+    output)."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     compute_dt = cfg.compute_torch_dtype
     with torch.enable_grad():
-        p, b = leaves, batch
+        p, b, t = leaves, batch, target
         if compute_dt is not None:
             p = {k: v.to(compute_dt) for k, v in leaves.items()}
             b = batch.to(compute_dt)
-        out = sae_forward(p, cfg, b, dead_neuron_mask=dead_neuron_mask, training=True)
+            t = None if target is None else target.to(compute_dt)
+        out = sae_forward(p, cfg, b, y=t, dead_neuron_mask=dead_neuron_mask, training=True)
         grads = _grads(out.loss, leaves)
     return grads, SAEOutput(*(
         None if t is None else t.detach() for t in out))
@@ -190,21 +201,16 @@ def _sae_train_step_impl(state: SAETrainState, batch: torch.Tensor,
                          cfg: SAERunnerConfig,
                          target: Optional[torch.Tensor] = None
                          ) -> Tuple[SAETrainState, StepMetrics]:
-    if target is not None:
-        raise NotImplementedError(
-            "transcoder targets are not ported yet (ROADMAP queue A, item 10)")
-    check_ported(cfg)
     schedule = make_schedule(cfg)
 
     # 1. decoder unit-norm projection before the forward
     params = set_decoder_norm_to_unit_norm(state.params)
 
-    # 2. ghost mask from the fired counters (only the n_dead metric reads it
-    # while ghost grads are not ported)
+    # 2. ghost mask from the fired counters
     ghost_mask = state.n_forward_passes_since_fired > cfg.dead_feature_window
 
     # 3. forward/backward
-    grads, out = loss_and_grads(params, batch, cfg, ghost_mask)
+    grads, out = loss_and_grads(params, batch, cfg, ghost_mask, target)
     feature_acts, sae_out = out.feature_acts, out.sae_out
 
     # 4+5. clip -> W_dec projection -> Adam, one kernel-B7 pass per tensor
@@ -226,7 +232,7 @@ def _sae_train_step_impl(state: SAETrainState, batch: torch.Tensor,
 
     # metrics
     l0 = active.sum(dim=-1, dtype=torch.float32).mean()
-    tgt = batch.to(cfg.torch_dtype)
+    tgt = (target if cfg.is_transcoder and target is not None else batch).to(cfg.torch_dtype)
     resid_var = torch.square(tgt - sae_out).sum(-1)
     total_var = torch.square(tgt - tgt.mean(0)).sum(-1)
     explained_variance = (1 - resid_var / total_var).mean()
@@ -255,10 +261,10 @@ def sae_train_step(state: SAETrainState, batch: torch.Tensor,
                    cfg: SAERunnerConfig,
                    target: Optional[torch.Tensor] = None
                    ) -> Tuple[SAETrainState, StepMetrics]:
-    """One training step on ``batch`` [train_batch_size, d_in].  Returns a
-    new state; ``state`` is left as it was.  Configs that
-    :func:`_fused_single_ok` admits (TopK) run the fused step on a stack of
-    one, as the JAX package does."""
+    """One training step on ``batch`` [train_batch_size, d_in] (``target``:
+    a transcoder's output-hook rows).  Returns a new state; ``state`` is
+    left as it was.  Configs that :func:`_fused_single_ok` admits (TopK,
+    gated) run the fused step on a stack of one, as the JAX package does."""
     if target is None and _fused_single_ok(cfg, batch.shape[0]):
         new1, m1 = _sae_train_step_fused(_map_state(lambda a: a[None], state),
                                          batch[None], cfg)
@@ -285,14 +291,12 @@ def sae_train_multistep(state: SAETrainState, batches: torch.Tensor,
                         cfg: SAERunnerConfig,
                         targets: Optional[torch.Tensor] = None
                         ) -> Tuple[SAETrainState, StepMetrics]:
-    """K steps over ``batches`` [K, B, d_in] with the window resets applied
-    after each, as the JAX package's ``lax.scan``; metrics stacked [K]."""
-    if targets is not None:
-        raise NotImplementedError(
-            "transcoder targets are not ported yet (ROADMAP queue A, item 10)")
+    """K steps over ``batches`` [K, B, d_in] (and ``targets``, a
+    transcoder's, likewise) with the window resets applied after each, as
+    the JAX package's ``lax.scan``; metrics stacked [K]."""
     per_step = []
-    for b in batches:
-        state, m = sae_train_step(state, b, cfg)
+    for i, b in enumerate(batches):
+        state, m = sae_train_step(state, b, cfg, None if targets is None else targets[i])
         state = _apply_window_reset(state, cfg)
         per_step.append(m)
     return state, StepMetrics(*(torch.stack(f) for f in zip(*per_step)))
@@ -405,7 +409,6 @@ def _sae_train_step_fused(state: SAETrainState, x: torch.Tensor,
     TopK has no sparsity penalty: its l1 metric is 0.  Gated adds the
     decoder-norm-weighted gate L1 and the aux reconstruction of the gate
     path against ``x - b_dec`` (b_dec's gradient flows through both)."""
-    check_ported(cfg)
     schedule = make_schedule(cfg)
     B = x.shape[1]
     params = set_decoder_norm_to_unit_norm(state.params)
@@ -629,7 +632,6 @@ class VisionSAETrainer:
     def __init__(self, cfg: SAERunnerConfig, model=None, store=None,
                  generator: Optional[torch.Generator] = None, device=None,
                  eval_dataset=None, class_embeddings=None, mesh=None):
-        check_ported(cfg)
         _not_ported_options(cfg, mesh)
         self.cfg = cfg
         self.model = model
@@ -655,6 +657,7 @@ class VisionSAETrainer:
         cfg, store = self.cfg, self.store
         params = init_sae_params(cfg, generator, device)
         if store is not None and cfg.b_dec_init_method != "zeros":
+            # of a transcoder's [tokens, 2, d] buffer, the input slot
             sample = store.peek_tokens(min(4096 * 8, cfg.tokens_per_buffer))
             params = initialize_b_dec(cfg, params, sample.to(device))
         return init_train_state(cfg, params=params)
@@ -914,10 +917,10 @@ class VisionSAETrainer:
             if max_steps is not None and step >= max_steps:
                 break
             chunk = k if max_steps is None else min(k, max_steps - step)
-            if chunk == 1:
-                metrics = self.train_step(self.store.next_batch())
-            else:
-                metrics = self.train_steps(self.store.next_batches(chunk))
+            rows = self.store.next_batch() if chunk == 1 else self.store.next_batches(chunk)
+            # a transcoder's rows carry the input and the target slots
+            split = (rows[..., 0, :], rows[..., 1, :]) if self.cfg.is_transcoder else (rows,)
+            metrics = (self.train_step if chunk == 1 else self.train_steps)(*split)
             for j in range(chunk):
                 step += 1
                 n_tokens += bs
@@ -984,19 +987,14 @@ class SAESweepTrainer(VisionSAETrainer):
             state = state._replace(params={**state.params, "b_dec": torch.stack(b_decs)})
         return state
 
-    def train_step(self, batch, target=None) -> StepMetrics:
-        """``batch``: ``[B, L, d_in]`` from a sweep store."""
-        if target is not None:
-            raise NotImplementedError(
-                "transcoder targets are not ported yet (ROADMAP queue A, item 10)")
+    def train_step(self, batch) -> StepMetrics:
+        """``batch``: ``[B, L, d_in]`` from a sweep store.  A sweep takes no
+        target, as the JAX sweep trainer."""
         return super().train_step(batch)
 
-    def train_steps(self, batches, targets=None) -> StepMetrics:
+    def train_steps(self, batches) -> StepMetrics:
         """K sweep steps over ``batches`` ``[K, B, L, d_in]``; metrics
         ``[K, L]``."""
-        if targets is not None:
-            raise NotImplementedError(
-                "transcoder targets are not ported yet (ROADMAP queue A, item 10)")
         return super().train_steps(batches)
 
     @property
