@@ -1,7 +1,7 @@
 """chip_smoke.py's kernel phases alone, after the build: each named phase
 (``take_rows``, ``kth_value``, ``grad_kernels``, ``flash_kernels``,
-``text``, ...: the ``phase_<name>`` functions that take only the card's
-record) in the order given; ``gated_train`` runs phase 14 alone, the gated train path and its
+``text``, ``tools``, ``parallel``, ...: the ``phase_<name>`` functions that
+take only the card's record) in the order given; ``gated_train`` runs phase 14 alone, the gated train path and its
 step profile, and ``topk_train`` phase 9 alone (the TopK train path, its
 remat steps and its step profile).  Prints chip_smoke.py's JSON records.  Run from the
 repository root on a CUDA card: ``python3 probes/kernel_phases.py take_rows

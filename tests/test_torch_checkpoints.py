@@ -232,13 +232,28 @@ def test_jax_train_state_resumes_in_the_port(tmp_path):
             np.testing.assert_allclose(got[k], want[k], rtol=0, atol=ATOL, err_msg=k)
 
 
-def test_sharded_train_state_raises_naming_parallelism():
+def test_sharded_train_state_raises_naming_parallelism(tmp_path):
+    """The sharded train state is ported (it raised here before): at a
+    world of one, saved through a mesh and restored whole and into a mesh,
+    it equals the state to the bit, beside ``config.json``
+    (tests/test_torch_parallel_sae.py saves at 4 ranks and loads at 2 and
+    1)."""
+    from vit_prisma_tpu_torch.parallel import make_mesh
     from vit_prisma_tpu_torch.sae.train import (load_train_state_sharded,
                                                 save_train_state_sharded)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        save_train_state_sharded("unused", None, None)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        load_train_state_sharded("unused")
+    cfg = port_sae.SAERunnerConfig(d_in=32, expansion_factor=2, adam_dtype="bfloat16")
+    state = port_sae.init_train_state(cfg, device="cpu")
+    state, _ = port_sae.sae_train_step(state, torch.from_numpy(seeded(3, (64, 32))), cfg)
+    mesh = make_mesh(1, 1, device="cpu")
+    path = save_train_state_sharded(str(tmp_path / "ckpt"), state, cfg, mesh=mesh)
+    assert os.path.exists(os.path.join(path, "config.json"))
+    want = train_state_to_numpy(state)
+    for kwargs in (dict(device="cpu"), dict(mesh=mesh)):
+        back, back_cfg = load_train_state_sharded(path, **kwargs)
+        assert back_cfg.to_dict() == cfg.to_dict()
+        assert back.opt_state[0].mu["W_dec"].dtype == torch.bfloat16
+        for k, v in train_state_to_numpy(back).items():
+            np.testing.assert_array_equal(v, want[k], err_msg=k)
 
 
 # -- trainer checkpoints --------------------------------------------------------------

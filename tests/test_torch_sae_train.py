@@ -215,12 +215,14 @@ def test_train_state_from_jax_maps_every_leaf():
 
 @pytest.mark.parametrize("fields,kwargs,item", [
     (dict(n_checkpoints=2), {}, None),
-    ({}, dict(mesh=object()), "item 15"),
+    ({}, dict(mesh="world of one"), "item 15"),
 ])
 def test_trainer_options_not_ported_raise(fields, kwargs, item):
-    """``mesh=`` raises; ``n_checkpoints`` is ported (test_torch_checkpoints.py
-    holds the saves against JAX's): both trainers build with it and take
-    JAX's token thresholds."""
+    """Both options are ported (they raised here before).  ``n_checkpoints``
+    (test_torch_checkpoints.py holds the saves against JAX's): both trainers
+    build with it and take JAX's token thresholds.  ``mesh=``: at a world of
+    one both trainers' sharded steps equal the unsharded steps to the bit
+    (tests/test_torch_parallel_sae.py runs worlds of 2 and 4)."""
     jc, pc = _cfgs(**fields)
     if item is None:
         tr = port_sae.VisionSAETrainer(pc, device="cpu")
@@ -228,10 +230,21 @@ def test_trainer_options_not_ported_raise(fields, kwargs, item):
         sweep = port_sae.SAESweepTrainer(pc.replace(sweep_layers=(0, 1)), device="cpu")
         assert len(sweep.checkpoint_thresholds) == 1
         return
-    with pytest.raises(NotImplementedError, match=item):
-        port_sae.VisionSAETrainer(pc, **kwargs)
-    with pytest.raises(NotImplementedError, match=item):
-        port_sae.SAESweepTrainer(pc.replace(sweep_layers=(0, 1)), **kwargs)
+    from vit_prisma_tpu_torch.parallel import make_mesh
+    batch = torch.from_numpy(_batches(jc, 1)[0])
+    for cls, cfg, x in ((port_sae.VisionSAETrainer, pc, batch),
+                        (port_sae.SAESweepTrainer, pc.replace(sweep_layers=(0, 1)),
+                         torch.stack([batch, batch * 0.5], dim=1))):
+        plain = cls(cfg, device="cpu")
+        sharded = cls(cfg, device="cpu", mesh=make_mesh(1, 1, device="cpu"))
+        assert sharded.mesh is not None and plain.mesh is None
+        for _ in range(2):
+            want, got = plain.train_step(x), sharded.train_step(x)
+        for a, b in zip(want, got):
+            assert torch.equal(a, b)
+        for a, b in zip(train_state_to_numpy(plain.state).values(),
+                        train_state_to_numpy(sharded.whole_state()).values()):
+            np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("fields", [dict(n_validation_runs=2), dict(log_to_wandb=True)],

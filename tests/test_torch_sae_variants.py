@@ -175,6 +175,46 @@ def test_gradients_match_jax(variant):
         assert_close(want[k], got[k], _tol(GRAD_ATOL, spread, k), k)
 
 
+GHOST_VARIANTS = [v for v in VARIANTS if VARIANTS[v].get("use_ghost_grads")]
+
+
+@pytest.mark.parametrize("variant", GHOST_VARIANTS)
+def test_ghost_gradients_lie_within_the_spread_of_a_float64_anchor(variant):
+    """The ghost-grads tolerance above hides no error of the port: the
+    port's ghost-grads gradients computed in float64 (parameters and inputs
+    cast up; TopK through the exact select, the float64 rows the threshold
+    kernel does not take) anchor both float32 results, and the port's and
+    JAX's float32 gradients each lie within the documented tolerance of it
+    (the larger of GRAD_ATOL and twice JAX's own spread).  JAX's x64 config
+    is left as it is."""
+    jc, pc = _cfgs(**VARIANTS[variant])
+    params = _jax_params(jc)
+    x, y, dead = _inputs(jc, seed=30)
+    jy = None if y is None else jnp.asarray(y)
+    jax_grads = lambda xx: jax.grad(lambda p: jax_sae.sae_forward(
+        p, jc, jnp.asarray(xx), y=jy, dead_neuron_mask=jnp.asarray(dead)).loss)(params)
+    want32 = jax_grads(x)
+    spread = _jax_spread(jax_grads, x)
+
+    def port_grads(dtype, cfg):
+        leaves = {k: v.to(dtype).requires_grad_(True) for k, v in _port_params(params).items()}
+        out = port_sae.sae_forward(leaves, cfg, torch.from_numpy(x).to(dtype),
+                                   y=None if y is None else torch.from_numpy(y).to(dtype),
+                                   dead_neuron_mask=torch.from_numpy(dead))
+        assert out.ghost_grad_loss.dtype == dtype and float(out.ghost_grad_loss.detach()) > 0
+        return dict(zip(leaves, torch.autograd.grad(out.loss, list(leaves.values()))))
+
+    anchor = port_grads(torch.float64, pc.replace(fused_topk=False))
+    got32 = port_grads(torch.float32, pc)
+    for k in want32:
+        tol = _tol(GRAD_ATOL, spread, k)
+        a = anchor[k].numpy()
+        np.testing.assert_allclose(got32[k].double().numpy(), a, rtol=0, atol=tol,
+                                   err_msg=f"port {k}")
+        np.testing.assert_allclose(np.asarray(want32[k], np.float64), a, rtol=0, atol=tol,
+                                   err_msg=f"jax {k}")
+
+
 def test_ghost_grads_reach_only_the_dead_rows_of_w_dec():
     """The ghost loss's W_dec gradient lies on the dead features' rows; the
     alive rows' gradients equal those without ghost grads."""

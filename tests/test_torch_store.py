@@ -185,16 +185,28 @@ def test_store_default_permutations_come_from_its_generator():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(mesh=object()), "item 15"),
+    (dict(mesh="world of one"), "item 15"),
 ])
 def test_store_options_not_ported_raise(kwargs, match):
-    """``mesh=`` raises, naming its item; a transcoder's store, which raised
-    here before, is ported: two hooks, ``[tokens, 2, d]`` rows
-    (tests/test_torch_transcoder_train.py holds it to the JAX store)."""
+    """``mesh=`` is ported (it raised here before): at a world of one the
+    sharded store (the model made tensor-parallel, the exchange-based fill
+    and mixes) serves the unsharded store's rows to the bit, across a
+    refill (tests/test_torch_parallel_sae.py runs worlds of 2 and 4).  A
+    transcoder's store, which raised here before too, is ported: two hooks,
+    ``[tokens, 2, d]`` rows (tests/test_torch_transcoder_train.py holds it
+    to the JAX store)."""
+    from vit_prisma_tpu_torch.parallel import make_mesh
     _, model = jax_and_port(**VIT)
+    _, sharded_model = jax_and_port(**VIT)
     cfg = port_sae.SAERunnerConfig(**STORE)
-    with pytest.raises(NotImplementedError, match=match):
-        port_sae.VisionActivationsStore(cfg, model, seeded(9, (64, 3, 16, 16)), **kwargs)
+    plain = port_sae.VisionActivationsStore(cfg, model, seeded(9, (64, 3, 16, 16)))
+    sharded = port_sae.VisionActivationsStore(cfg, sharded_model, seeded(9, (64, 3, 16, 16)),
+                                              mesh=make_mesh(1, 1, device="cpu"))
+    assert sharded_model.mesh is sharded.mesh
+    assert torch.equal(sharded.buffer, plain.buffer)
+    for _ in range(2 * cfg.tokens_per_buffer // cfg.train_batch_size):
+        assert torch.equal(sharded.next_batch(), plain.next_batch())
+    assert torch.equal(sharded.peek_tokens(7), plain.peek_tokens(7))
     store = port_sae.VisionActivationsStore(
         cfg.replace(is_transcoder=True, layer_subtype="hook_resid_mid", out_hook_point_layer=1),
         model, seeded(9, (64, 3, 16, 16)))

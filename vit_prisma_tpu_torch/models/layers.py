@@ -23,11 +23,21 @@ Numerics notes:
    (:func:`_fused_ln_attention`, where the whole-T mix would run) and ln2 ->
    W_in (:func:`_fused_ln_mlp`) as the LayerNorm-prologue GEMM B14, unless a
    hook inside that LayerNorm is requested.
+ * Tensor parallelism (``HookedViT.shard``, ``parallel/mesh.py``): a
+   sharded block's ``attn`` and ``mlp`` hold this rank's heads and
+   ``d_mlp`` columns and carry the mesh's ``model`` axis as ``.tp``.  Their
+   input passes ``copy_to`` (whose backward sums the partial gradients),
+   their output is summed over the axis (``reduce_from``) before the bias,
+   and a head- or ``d_mlp``-indexed hook point that a hook wants fires on
+   the whole tensor (``hook_whole``): two all-reduces a block and no other
+   collective on the plain path.  The kernels run on the local heads and
+   columns.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +47,7 @@ from vit_prisma_tpu_torch.configs.vit_config import ViTConfig
 from vit_prisma_tpu_torch.ops.attention import (attention_mix_tnh, flash_attention_padded,
                                                 mix_tnh_fits_smem)
 from vit_prisma_tpu_torch.ops.ln_matmul import fold_ln_affine, ln_matmul, ln_matmul_fits
+from vit_prisma_tpu_torch.parallel.collectives import SINGLE, hook_whole
 from vit_prisma_tpu_torch.prisma.hooks import NULL_HOOKS, HookRuntime
 from vit_prisma_tpu_torch.utils.device import resolve_device
 
@@ -248,6 +259,12 @@ def tubelet_embedding(params, cfg: ViTConfig, x):
 # Attention
 # ---------------------------------------------------------------------------
 
+def _tp(params):
+    """The tensor-parallel axis of a sharded ``attn`` or ``mlp`` (SINGLE
+    when whole)."""
+    return params.__dict__.get("tp") or SINGLE
+
+
 def _wants_attn_internals(hooks: HookRuntime, prefix: str) -> bool:
     """True if any hook inside the attention mix is cached or edited."""
     return any(hooks.wants(f"{prefix}.{n}") for n in
@@ -275,25 +292,29 @@ def _fused_ln_attention(params, ln_params, cfg: ViTConfig, x, prefix: str,
     slices for the mix.  An affine ln1 folds into W_Q, W_K, W_V on every
     call, after W_Q and b_Q are divided by the scale (fold_ln_affine)."""
     scale = math.sqrt(cfg.d_head) if cfg.use_attn_scale else 1.0
+    tp = _tp(params)
+    x = tp.copy_to(x)
     B, T, D = x.shape
-    NH = cfg.n_heads * cfg.d_head
+    N = params.W_Q.shape[0]
+    NH = N * cfg.d_head
     Wq, Wk, Wv, Wo = _qkv_weights(params, D, NH)
     W = torch.stack([Wq / scale, Wk, Wv])
     b = torch.stack([params.b_Q.reshape(-1) / scale, params.b_K.reshape(-1),
                      params.b_V.reshape(-1)])
     if ln_params is not None:  # normalization_type == "LN"
-        W, b = fold_ln_affine(W, b, ln_params.w, ln_params.b)
+        W, b = fold_ln_affine(W, b, tp.copy_to(ln_params.w), tp.copy_to(ln_params.b))
     qkv = ln_matmul(x.reshape(B * T, D), W, b, cfg.eps)  # [3, B*T, N*H]
     z = attention_mix_tnh(qkv[0].reshape(B, T, NH), qkv[1].reshape(B, T, NH),
-                          qkv[2].reshape(B, T, NH), cfg.n_heads, causal)
-    return (z.reshape(B * T, NH) @ Wo).reshape(B, T, D) + params.b_O
+                          qkv[2].reshape(B, T, NH), N, causal)
+    return tp.reduce_from((z.reshape(B * T, NH) @ Wo).reshape(B, T, D)) + params.b_O
 
 
 def _ln_gemm_fusable(cfg: ViTConfig, hooks: HookRuntime, prefix: str,
-                     attn_mask, x) -> bool:
+                     attn_mask, x, n_heads: Optional[int] = None) -> bool:
     """Gate for the ln1 -> QKV fusion: the conditions under which
     :func:`attention` would take the whole-T mix (B1), plus no ln1 hook and
-    a shape the LayerNorm-prologue GEMM takes."""
+    a shape the LayerNorm-prologue GEMM takes (``n_heads``: the block's
+    local heads under tensor parallelism, ``cfg.n_heads`` when None)."""
     if not (cfg.use_fused_ln_gemm and cfg.use_fused_attention
             and cfg.normalization_type in ("LN", "LNPre")
             and not (cfg.use_split_qkv_input or cfg.use_attn_in)
@@ -307,7 +328,7 @@ def _ln_gemm_fusable(cfg: ViTConfig, hooks: HookRuntime, prefix: str,
         return False
     B, T, D = x.shape
     return (mix_tnh_fits_smem(T, cfg.d_head)
-            and ln_matmul_fits(B * T, 3, D, cfg.n_heads * cfg.d_head))
+            and ln_matmul_fits(B * T, 3, D, (n_heads or cfg.n_heads) * cfg.d_head))
 
 
 def _project_qkv(params, cfg: ViTConfig, x):
@@ -316,8 +337,8 @@ def _project_qkv(params, cfg: ViTConfig, x):
     [N*H, d_model]."""
     scale = math.sqrt(cfg.d_head) if cfg.use_attn_scale else 1.0
     B, T, D = x.shape
-    xf = x.reshape(B * T, D)
-    Wq, Wk, Wv, Wo = _qkv_weights(params, D, cfg.n_heads * cfg.d_head)
+    xf = _tp(params).copy_to(x).reshape(B * T, D)
+    Wq, Wk, Wv, Wo = _qkv_weights(params, D, params.W_Q.shape[0] * cfg.d_head)
     q = (xf @ Wq) / scale + params.b_Q.reshape(-1) / scale
     k = xf @ Wk + params.b_K.reshape(-1)
     v = xf @ Wv + params.b_V.reshape(-1)
@@ -331,11 +352,12 @@ def _fused_attention(params, cfg: ViTConfig, x, prefix: str,
     no layout copy, and the scores, softmax and PV product stay inside the
     kernel (float32 softmax)."""
     B, T, D = x.shape
-    NH = cfg.n_heads * cfg.d_head
+    N = params.W_Q.shape[0]
+    NH = N * cfg.d_head
     q, k, v, Wo = _project_qkv(params, cfg, x)
     z = attention_mix_tnh(q.reshape(B, T, NH), k.reshape(B, T, NH), v.reshape(B, T, NH),
-                          cfg.n_heads, causal)
-    return (z.reshape(B * T, NH) @ Wo).reshape(B, T, D) + params.b_O
+                          N, causal)
+    return _tp(params).reduce_from((z.reshape(B * T, NH) @ Wo).reshape(B, T, D)) + params.b_O
 
 
 def _flash_attention_long(params, cfg: ViTConfig, x, prefix: str,
@@ -348,7 +370,7 @@ def _flash_attention_long(params, cfg: ViTConfig, x, prefix: str,
     tokens, 2 for padding, so neither sees the other) are plain torch ops,
     and the padding rows are sliced away."""
     B, T, D = x.shape
-    N, H = cfg.n_heads, cfg.d_head
+    N, H = params.W_Q.shape[0], cfg.d_head
     q, k, v, Wo = _project_qkv(params, cfg, x)
     Tp = -(-T // 128) * 128
 
@@ -359,7 +381,7 @@ def _flash_attention_long(params, cfg: ViTConfig, x, prefix: str,
     z = flash_attention_padded(heads(q), heads(k), heads(v),
                                seg.expand(B, Tp).contiguous(), causal)
     z = z[:, :, :T].transpose(1, 2).reshape(B * T, N * H)
-    return (z @ Wo).reshape(B, T, D) + params.b_O
+    return _tp(params).reduce_from((z @ Wo).reshape(B, T, D)) + params.b_O
 
 
 def attention(params, cfg: ViTConfig, query_input, key_input, value_input,
@@ -393,20 +415,29 @@ def attention(params, cfg: ViTConfig, query_input, key_input, value_input,
         return _flash_attention_long(params, cfg, query_input, prefix,
                                      causal=causal_marker)
 
+    tp = _tp(params)
+    if tp.size > 1:
+        # this rank's heads of a split input; the whole input otherwise
+        if split:
+            query_input, key_input, value_input = (tp.own(t, 2) for t in
+                                                   (query_input, key_input, value_input))
+        elif query_input is key_input is value_input:
+            query_input = key_input = value_input = tp.copy_to(query_input)
+        else:
+            query_input, key_input, value_input = (tp.copy_to(t) for t in
+                                                   (query_input, key_input, value_input))
+    hk = lambda name, value, dim: hook_whole(hooks, f"{prefix}.{name}", value, tp, dim)
     if not split and cfg.fused_qkv and query_input is key_input is value_input:
         Wqkv = torch.stack([params.W_Q, params.W_K, params.W_V])
         qkv = torch.einsum("bpd,sndh->sbpnh", query_input, Wqkv)
-        q = hooks(f"{prefix}.hook_q", qkv[0] + params.b_Q)
-        k = hooks(f"{prefix}.hook_k", qkv[1] + params.b_K)
-        v = hooks(f"{prefix}.hook_v", qkv[2] + params.b_V)
+        q = hk("hook_q", qkv[0] + params.b_Q, 2)
+        k = hk("hook_k", qkv[1] + params.b_K, 2)
+        v = hk("hook_v", qkv[2] + params.b_V, 2)
     else:
         eq = "bpnd,ndh->bpnh" if split else "bpd,ndh->bpnh"
-        q = hooks(f"{prefix}.hook_q",
-                  torch.einsum(eq, query_input, params.W_Q) + params.b_Q)
-        k = hooks(f"{prefix}.hook_k",
-                  torch.einsum(eq, key_input, params.W_K) + params.b_K)
-        v = hooks(f"{prefix}.hook_v",
-                  torch.einsum(eq, value_input, params.W_V) + params.b_V)
+        q = hk("hook_q", torch.einsum(eq, query_input, params.W_Q) + params.b_Q, 2)
+        k = hk("hook_k", torch.einsum(eq, key_input, params.W_K) + params.b_K, 2)
+        v = hk("hook_v", torch.einsum(eq, value_input, params.W_V) + params.b_V, 2)
 
     attn_scale = math.sqrt(cfg.d_head) if cfg.use_attn_scale else 1.0
     scores = torch.einsum("bqnh,bknh->bnqk", q, k) / attn_scale
@@ -418,20 +449,19 @@ def attention(params, cfg: ViTConfig, query_input, key_input, value_input,
                                          ~keep, float("-inf"))
     if attention_mask is not None:
         scores = scores + attention_mask
-    scores = hooks(f"{prefix}.hook_attn_scores", scores)
+    scores = hk("hook_attn_scores", scores, 1)
 
     pattern = torch.softmax(scores, dim=-1)
     pattern = torch.where(torch.isnan(pattern), torch.zeros_like(pattern), pattern)
-    pattern = hooks(f"{prefix}.hook_pattern", pattern)
+    pattern = hk("hook_pattern", pattern, 1)
     pattern = pattern.to(cfg.torch_dtype)
 
-    z = hooks(f"{prefix}.hook_z", torch.einsum("bknh,bnqk->bqnh", v, pattern))
+    z = hk("hook_z", torch.einsum("bknh,bnqk->bqnh", v, pattern), 2)
 
     if not cfg.use_attn_result:
-        return torch.einsum("bqnh,nhd->bqd", z, params.W_O) + params.b_O
-    result = hooks(f"{prefix}.hook_result",
-                   torch.einsum("bqnh,nhd->bqnd", z, params.W_O))
-    return result.sum(dim=2) + params.b_O
+        return tp.reduce_from(torch.einsum("bqnh,nhd->bqd", z, params.W_O)) + params.b_O
+    result = hk("hook_result", torch.einsum("bqnh,nhd->bqnd", z, params.W_O), 2)
+    return tp.reduce_from(result.sum(dim=2)) + params.b_O
 
 
 # ---------------------------------------------------------------------------
@@ -440,6 +470,7 @@ def attention(params, cfg: ViTConfig, query_input, key_input, value_input,
 
 def mlp(params, cfg: ViTConfig, x, hooks: HookRuntime = NULL_HOOKS,
         prefix: str = "mlp"):
+    x = _tp(params).copy_to(x)
     return _mlp_from_pre(params, cfg, x @ params.W_in + params.b_in, hooks,
                          prefix)
 
@@ -448,32 +479,37 @@ def _fused_ln_mlp(params, ln_params, cfg: ViTConfig, x,
                   hooks: HookRuntime = NULL_HOOKS, prefix: str = "mlp"):
     """The MLP with ln2's normalize fused into the W_in GEMM (kernel B14);
     ``hook_pre`` and everything after it are those of :func:`mlp`."""
+    tp = _tp(params)
+    x = tp.copy_to(x)
     B, T, D = x.shape
     W, b = params.W_in[None], params.b_in[None]
     if ln_params is not None:  # normalization_type == "LN"
-        W, b = fold_ln_affine(W, b, ln_params.w, ln_params.b)
+        W, b = fold_ln_affine(W, b, tp.copy_to(ln_params.w), tp.copy_to(ln_params.b))
     pre = ln_matmul(x.reshape(B * T, D), W, b, cfg.eps)
     return _mlp_from_pre(params, cfg, pre[0].reshape(B, T, -1), hooks, prefix)
 
 
-def _ln_mlp_fusable(cfg: ViTConfig, hooks: HookRuntime, prefix: str, x) -> bool:
+def _ln_mlp_fusable(cfg: ViTConfig, hooks: HookRuntime, prefix: str, x,
+                    d_mlp: Optional[int] = None) -> bool:
     """Gate for the ln2 -> W_in fusion: the flag, an LN or LNPre norm, the
-    default matmul precision, no ln2 hook, and a shape the kernel takes."""
+    default matmul precision, no ln2 hook, and a shape the kernel takes
+    (``d_mlp``: the block's local columns, ``cfg.d_mlp`` when None)."""
     if not (cfg.use_fused_ln_gemm and cfg.normalization_type in ("LN", "LNPre")
             and cfg.matmul_precision == "default"):
         return False
     if _wants_ln(hooks, f"{prefix}.ln2"):
         return False
     B, T, D = x.shape
-    return ln_matmul_fits(B * T, 1, D, cfg.d_mlp)
+    return ln_matmul_fits(B * T, 1, D, d_mlp or cfg.d_mlp)
 
 
 def _mlp_from_pre(params, cfg: ViTConfig, pre, hooks: HookRuntime,
                   prefix: str):
-    pre = hooks(f"{prefix}.hook_pre", pre)
+    tp = _tp(params)
+    pre = hook_whole(hooks, f"{prefix}.hook_pre", pre, tp, -1)
     act_fn = ACT_FNS[cfg.activation_name]
     if not cfg.activation_name.endswith("_ln"):
-        post = hooks(f"{prefix}.hook_post", act_fn(pre))
+        post = hook_whole(hooks, f"{prefix}.hook_post", act_fn(pre), tp, -1)
     else:
         mid = hooks(f"{prefix}.hook_mid", act_fn(pre))
         if cfg.normalization_type == "LN":
@@ -481,7 +517,7 @@ def _mlp_from_pre(params, cfg: ViTConfig, pre, hooks: HookRuntime,
         else:
             normed = layer_norm_pre(cfg, mid, hooks, f"{prefix}.ln")
         post = hooks(f"{prefix}.hook_post", normed)
-    return post @ params.W_out + params.b_out
+    return tp.reduce_from(post @ params.W_out) + params.b_out
 
 
 def head(params, cfg: ViTConfig, x):
@@ -534,7 +570,7 @@ def transformer_block(params, cfg: ViTConfig, resid_pre,
     resid_pre = hooks(f"{prefix}.hook_resid_pre", resid_pre)
     q_in, k_in, v_in = _split_inputs(cfg, resid_pre, hooks, prefix)
     affine = cfg.normalization_type == "LN"
-    if _ln_gemm_fusable(cfg, hooks, prefix, attn_mask, q_in):
+    if _ln_gemm_fusable(cfg, hooks, prefix, attn_mask, q_in, params.attn.W_Q.shape[0]):
         attn_out = _fused_ln_attention(
             params.attn, params.ln1 if affine else None, cfg, q_in, f"{prefix}.attn",
             causal=isinstance(attn_mask, str) and attn_mask == "causal")
@@ -554,7 +590,7 @@ def transformer_block(params, cfg: ViTConfig, resid_pre,
         return hooks(f"{prefix}.hook_resid_post", resid_pre + attn_out)
     resid_mid = hooks(f"{prefix}.hook_resid_mid", resid_pre + attn_out)
     mlp_in = hooks(f"{prefix}.hook_mlp_in", resid_mid) if cfg.use_hook_mlp_in else resid_mid
-    if _ln_mlp_fusable(cfg, hooks, prefix, mlp_in):
+    if _ln_mlp_fusable(cfg, hooks, prefix, mlp_in, params.mlp.W_in.shape[1]):
         mlp_out = _fused_ln_mlp(params.mlp, params.ln2 if affine else None, cfg, mlp_in,
                                 hooks, f"{prefix}.mlp")
     else:

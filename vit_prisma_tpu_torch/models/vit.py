@@ -419,9 +419,20 @@ class HookedViT(HookedModule):
             all_names = [n for n in all_names if alive(n)]
         return tuple(n for n in all_names if pred(n))
 
-    def shard(self, mesh):
-        raise NotImplementedError(
-            "sharding is not ported yet (ROADMAP queue A, item 15)")
+    def shard(self, mesh) -> "HookedViT":
+        """Make the model tensor-parallel over the ``model`` axis of a
+        ``(data, model)`` mesh (``parallel/mesh.py``), in place: each rank
+        keeps its heads of ``W_Q``/``W_K``/``W_V``/``b_Q``/``b_K``/``b_V``/
+        ``W_O`` and its ``d_mlp`` columns of ``W_in``/``b_in`` and rows of
+        ``W_out`` (heads that do not divide the axis keep attention whole).
+        The forward sums over the axis after ``W_O`` and after ``W_out``
+        (differentiable, so ``incl_bwd`` runs B2 on the local heads), the
+        kernels run on the local heads and columns, and hooks and the cache
+        see whole tensors.  Pass each rank its rows of the batch
+        (``parallel.data_rows``).  The stacked weight properties then give
+        this rank's shard.  Returns self."""
+        from vit_prisma_tpu_torch.parallel.mesh import shard_vit_
+        return shard_vit_(self, mesh)
 
     # -- stacked weight properties ---------------------------------------
     @property

@@ -116,7 +116,8 @@ adam_update.launches = 0
 
 
 def fused_clip_project_adam(params, grads, opt_state, *, lr, b1, b2,
-                            eps=1e-8, max_grad_norm=None):
+                            eps=1e-8, max_grad_norm=None, model_axis=None,
+                            sharded_keys=()):
     """Clip -> W_dec projection -> Adam, one :func:`adam_update` pass per
     tensor.
 
@@ -125,7 +126,12 @@ def fused_clip_project_adam(params, grads, opt_state, *, lr, b1, b2,
     ScaleByScheduleState)`` with ``[L]``-stacked leaves.  ``lr``: the
     scheduled learning rate, a float or a ``[L]`` (or scalar) tensor on the
     params' device; it is read by the kernel, never by the host.  Returns
-    ``(new_params, new_opt_state)``."""
+    ``(new_params, new_opt_state)``.
+
+    Under a feature-parallel SAE (``parallel/mesh.py``) each rank holds a
+    shard of the tensors named in ``sharded_keys``: their sums of squares
+    are summed over ``model_axis`` (a ``parallel.collectives.Axis``) before
+    the global norm, so every rank takes the same clip scale into B7."""
     adam_st, sched_st = opt_state
     first = next(iter(params.values()))
     L, device = first.shape[0], first.device
@@ -137,8 +143,13 @@ def fused_clip_project_adam(params, grads, opt_state, *, lr, b1, b2,
 
     if max_grad_norm:
         # summed in sorted key order, as JAX flattens a dict
-        sumsq = sum(torch.square(grads[k]).sum(dim=tuple(range(1, grads[k].ndim)))
-                    for k in sorted(grads))
+        per_key = {k: torch.square(grads[k]).sum(dim=tuple(range(1, grads[k].ndim)))
+                   for k in sorted(grads)}
+        shards = [k for k in sorted(grads) if k in sharded_keys]
+        if shards and model_axis is not None and model_axis.size > 1:
+            summed = model_axis.sum(torch.stack([per_key[k] for k in shards]))
+            per_key.update(zip(shards, summed))
+        sumsq = sum(per_key[k] for k in sorted(grads))
         gnorm = torch.sqrt(sumsq)
         scale = torch.clamp(max_grad_norm / (gnorm + 1e-6), max=1.0)
     else:

@@ -18,7 +18,8 @@ from vit_prisma_tpu_torch.sae.train import (
     sae_train_multistep, init_train_state, initialize_b_dec,
     reset_sparsity_counters, make_fused_cycle, SAESweepTrainer,
     sae_sweep_train_step, sae_sweep_train_multistep, init_sweep_state,
-    save_train_state, load_train_state,
+    save_train_state, load_train_state, save_train_state_sharded,
+    load_train_state_sharded,
 )
 from vit_prisma_tpu_torch.sae.evals import (
     EvalConfig, evaluate, process_dataset, find_top_activations,

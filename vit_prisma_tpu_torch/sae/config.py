@@ -217,6 +217,8 @@ class SAERunnerConfig:
         d = {k: v for k, v in d.items() if k in known}
         if isinstance(d.get("activation_fn_kwargs"), dict):
             d["activation_fn_kwargs"] = tuple(sorted(d["activation_fn_kwargs"].items()))
+        if isinstance(d.get("sweep_layers"), list):  # a JSON round trip
+            d["sweep_layers"] = tuple(d["sweep_layers"])
         return cls(**d)
 
     @classmethod

@@ -46,7 +46,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from vit_prisma_tpu_torch.ops.topk import topk_mask_activation
+from vit_prisma_tpu_torch.ops.topk import kth_value, topk_mask_activation
+from vit_prisma_tpu_torch.parallel.collectives import NO_SHARDING, ShardAxes
 from vit_prisma_tpu_torch.prisma.hooks import NULL_HOOKS, HookRuntime
 from vit_prisma_tpu_torch.sae.config import SAERunnerConfig
 from vit_prisma_tpu_torch.utils.device import resolve_device
@@ -71,7 +72,24 @@ def topk_activation(x: torch.Tensor, k: int) -> torch.Tensor:
     return torch.zeros_like(x).scatter(-1, idx, torch.relu(vals))
 
 
-def get_activation_fn(cfg: SAERunnerConfig):
+def topk_mask_activation_sharded(x: torch.Tensor, k: int, axes: ShardAxes) -> torch.Tensor:
+    """:func:`topk_mask_activation` over features split on ``axes.model``:
+    each rank's k largest pre-activations of a row are gathered, kernel
+    B10 selects the row's k-th value over the gathered ``[rows, k * model]``
+    candidates (the global k largest are among them), and each rank masks
+    its own features against that threshold, so ties keep >= k entries as
+    unsharded."""
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1])
+    cand = torch.topk(x2.detach(), min(k, x2.shape[-1]), dim=-1).values
+    t = kth_value(axes.model.all_gather(cand, dim=-1).contiguous(), k)
+    out = torch.where(x2 >= t, torch.relu(x2), torch.zeros((), dtype=x.dtype, device=x.device))
+    return out.reshape(shape)
+
+
+def get_activation_fn(cfg: SAERunnerConfig, axes: ShardAxes = NO_SHARDING):
+    """The activation; ``axes`` shards the features (TopK's global select,
+    :func:`topk_mask_activation_sharded`)."""
     name = cfg.activation_fn_str
     if name == "relu":
         return torch.relu
@@ -79,6 +97,8 @@ def get_activation_fn(cfg: SAERunnerConfig):
         return lambda x: torch.tanh(torch.relu(x))
     if name == "topk":
         k = cfg.topk_k
+        if axes.model.size > 1:
+            return lambda x: topk_mask_activation_sharded(x, k, axes)
         if cfg.fused_topk and not cfg.topk_use_approx:
             return lambda x: topk_mask_activation(x, k)
         return lambda x: topk_activation(x, k)
@@ -174,12 +194,15 @@ def init_sae_params(cfg: SAERunnerConfig,
 # Losses
 # ---------------------------------------------------------------------------
 
-def _mse_loss(x: torch.Tensor, sae_out: torch.Tensor) -> torch.Tensor:
+def _mse_loss(x: torch.Tensor, sae_out: torch.Tensor,
+              axes: ShardAxes = NO_SHARDING) -> torch.Tensor:
     """Normalized MSE: elementwise MSE scaled by 1/||x - x̄||₂ per row.
     Reductions accumulate in float32; under a bf16 compute dtype the
-    elementwise ops stay bf16, as in the JAX package."""
+    elementwise ops stay bf16, as in the JAX package.  With rows split on
+    ``axes.data`` the batch mean x̄ is the global one and the loss this
+    shard's mean."""
     x = x.detach()
-    x_centred = x - x.mean(dim=0, keepdim=True)
+    x_centred = x - axes.data.mean(x.mean(dim=0, keepdim=True))
     mse = torch.square(sae_out - x)
     norm_factor = torch.sqrt(torch.square(x_centred).sum(
         dim=-1, keepdim=True, dtype=torch.float32)).to(x.dtype)
@@ -187,24 +210,24 @@ def _mse_loss(x: torch.Tensor, sae_out: torch.Tensor) -> torch.Tensor:
 
 
 def _ghost_residual_loss(params: Params, x: torch.Tensor, sae_out: torch.Tensor,
-                         hidden_pre: torch.Tensor, dead_neuron_mask: torch.Tensor
-                         ) -> torch.Tensor:
+                         hidden_pre: torch.Tensor, dead_neuron_mask: torch.Tensor,
+                         axes: ShardAxes = NO_SHARDING) -> torch.Tensor:
     """The ghost-grads resurrection loss: the dead features' ``exp`` of
     their pre-activations, decoded and scaled to half the residual's norm,
     fit to the residual, rescaled to the MSE.  The reference gathers the
     dead columns; the JAX package multiplies by the mask (the same math,
     static shapes), and so does this."""
     residual = x - sae_out
-    residual_centred = residual - residual.mean(dim=0, keepdim=True)
+    residual_centred = residual - axes.data.mean(residual.mean(dim=0, keepdim=True))
     l2_norm_residual = torch.linalg.vector_norm(residual, dim=-1)
     mask = dead_neuron_mask.to(hidden_pre.dtype)
-    ghost_out = (torch.exp(hidden_pre) * mask) @ params["W_dec"]
+    ghost_out = axes.model.reduce_from((torch.exp(hidden_pre) * mask) @ params["W_dec"])
     l2_norm_ghost_out = torch.linalg.vector_norm(ghost_out, dim=-1)
     norm_scaling = l2_norm_residual / (1e-6 + l2_norm_ghost_out * 2)
     ghost_out = ghost_out * norm_scaling.detach()[:, None]
     mse_ghost = torch.square(ghost_out - residual.detach()) / torch.sqrt(
         torch.sum(residual_centred.detach() ** 2, dim=-1, keepdim=True))
-    rescale = (_mse_loss(x, sae_out) / (mse_ghost + 1e-6)).detach()
+    rescale = (axes.data.mean(_mse_loss(x, sae_out, axes)) / (mse_ghost + 1e-6)).detach()
     return (rescale * mse_ghost).mean()
 
 
@@ -213,39 +236,43 @@ def _ghost_residual_loss(params: Params, x: torch.Tensor, sae_out: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def encode(params: Params, cfg: SAERunnerConfig, x: torch.Tensor,
-           hooks: HookRuntime = NULL_HOOKS, prefix: str = ""):
+           hooks: HookRuntime = NULL_HOOKS, prefix: str = "",
+           axes: ShardAxes = NO_SHARDING):
     """Returns (sae_in, feature_acts, hidden_pre, norm_ctx).  Compute
     follows the parameters' dtype; ``x`` is normalized first
     (:func:`norm_in`).  Gated: two products, the gate's and the
     magnitude's (as the reference computes them), ``hook_hidden_pre`` is not
-    fired, and the gate pre-activation takes ``hidden_pre``'s place."""
+    fired, and the gate pre-activation takes ``hidden_pre``'s place.  With
+    the features split on ``axes.model`` the parameters are this rank's
+    columns, and the feature-indexed values are its shard."""
     x = x.to(params["W_enc"].dtype)
-    act_fn = get_activation_fn(cfg)
+    act_fn = get_activation_fn(cfg, axes)
     xn, ctx = norm_in(cfg, x)
     sae_in = hooks(f"{prefix}hook_sae_in", xn - params["b_dec"])
+    enc_in = axes.model.copy_to(sae_in)
     if cfg.architecture == "gated":
-        gate_pre = sae_in @ params["W_enc"] + params["b_gate"]
+        gate_pre = enc_in @ params["W_enc"] + params["b_gate"]
         active = (gate_pre > 0).to(gate_pre.dtype)
-        mag_pre = sae_in @ (params["W_enc"] * torch.exp(params["r_mag"])) + params["b_mag"]
+        mag_pre = enc_in @ (params["W_enc"] * torch.exp(params["r_mag"])) + params["b_mag"]
         feature_acts = hooks(f"{prefix}hook_hidden_post", active * act_fn(mag_pre))
         return sae_in, feature_acts, gate_pre, ctx
     hidden_pre = hooks(f"{prefix}hook_hidden_pre",
-                       sae_in @ params["W_enc"] + params["b_enc"])
+                       enc_in @ params["W_enc"] + params["b_enc"])
     feature_acts = hooks(f"{prefix}hook_hidden_post", act_fn(hidden_pre))
     return sae_in, feature_acts, hidden_pre, ctx
 
 
 def decode(params: Params, cfg: SAERunnerConfig, feature_acts: torch.Tensor,
            ctx=("none", None), hooks: HookRuntime = NULL_HOOKS,
-           prefix: str = "") -> torch.Tensor:
+           prefix: str = "", axes: ShardAxes = NO_SHARDING) -> torch.Tensor:
     """The decoder, then :func:`norm_out`; a transcoder's output takes
     ``b_dec_out`` and is left for :func:`sae_forward` to finish (the skip,
-    then the de-normalization)."""
+    then the de-normalization).  With the features split on
+    ``axes.model`` each rank's partial product is summed over the axis."""
+    dec = axes.model.reduce_from(feature_acts @ params["W_dec"])
     if cfg.architecture == "transcoder":
-        return hooks(f"{prefix}hook_sae_out",
-                     feature_acts @ params["W_dec"] + params["b_dec_out"])
-    sae_out = hooks(f"{prefix}hook_sae_out",
-                    feature_acts @ params["W_dec"] + params["b_dec"])
+        return hooks(f"{prefix}hook_sae_out", dec + params["b_dec_out"])
+    sae_out = hooks(f"{prefix}hook_sae_out", dec + params["b_dec"])
     return norm_out(ctx, sae_out)
 
 
@@ -253,7 +280,8 @@ def sae_forward(params: Params, cfg: SAERunnerConfig, x: torch.Tensor,
                 y: Optional[torch.Tensor] = None,
                 dead_neuron_mask: Optional[torch.Tensor] = None,
                 hooks: HookRuntime = NULL_HOOKS,
-                training: bool = True, prefix: str = "") -> SAEOutput:
+                training: bool = True, prefix: str = "",
+                axes: ShardAxes = NO_SHARDING) -> SAEOutput:
     """The SAE's forward with its losses.  Standard: ``loss = mse + l1``;
     TopK has no sparsity loss (``l1_loss`` is None, ``loss = mse``).  Gated:
     ``loss = mse + l1 + aux``, with the gate path's activations (ReLU, or
@@ -264,29 +292,36 @@ def sae_forward(params: Params, cfg: SAERunnerConfig, x: torch.Tensor,
     de-normalized and held to ``y`` (``x`` when None) in the MSE.  With
     ``cfg.use_ghost_grads``, in training and given ``dead_neuron_mask``, the
     standard SAE and the transcoder add the ghost loss
-    (``ghost_grad_loss``)."""
+    (``ghost_grad_loss``).
+
+    ``axes`` shards the step (``parallel/mesh.py``): rows over
+    ``axes.data`` (the batch means in the losses are the global ones; the
+    losses are this shard's means) and the features over ``axes.model``
+    (every sum over features is summed over the axis).  The default is the
+    unsharded forward."""
     x = x.to(params["W_enc"].dtype)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    sae_in, feature_acts, hidden_pre, ctx = encode(params, cfg, x, hooks, prefix)
-    sae_out = decode(params, cfg, feature_acts, ctx, hooks, prefix)
+    sae_in, feature_acts, hidden_pre, ctx = encode(params, cfg, x, hooks, prefix, axes)
+    sae_out = decode(params, cfg, feature_acts, ctx, hooks, prefix, axes)
     if cfg.architecture == "transcoder":
         if cfg.transcoder_with_skip_connection:
             sae_out = sae_out + x @ params["W_skip"].T
         sae_out = norm_out(ctx, sae_out)
-        mse_loss = _mse_loss(y if y is not None else x, sae_out)
+        mse_loss = _mse_loss(y if y is not None else x, sae_out, axes)
     else:
-        mse_loss = _mse_loss(x, sae_out)
+        mse_loss = _mse_loss(x, sae_out, axes)
     ghost_loss = zero
     if (cfg.use_ghost_grads and training and dead_neuron_mask is not None
             and cfg.architecture in ("standard", "transcoder")):
-        ghost_loss = _ghost_residual_loss(params, x, sae_out, hidden_pre, dead_neuron_mask)
+        ghost_loss = _ghost_residual_loss(params, x, sae_out, hidden_pre, dead_neuron_mask,
+                                          axes)
     if cfg.architecture == "gated":
         topk = cfg.activation_fn_str == "topk"
-        pi_gate_act = get_activation_fn(cfg)(hidden_pre) if topk else torch.relu(hidden_pre)
-        l1_loss = zero if topk else cfg.l1_coefficient * (
-            pi_gate_act * torch.linalg.norm(params["W_dec"], dim=1)).sum(
-                dim=-1, dtype=torch.float32).mean()
-        via_gate = pi_gate_act @ params["W_dec"] + params["b_dec"]
+        pi_gate_act = get_activation_fn(cfg, axes)(hidden_pre) if topk else torch.relu(hidden_pre)
+        l1_loss = zero if topk else cfg.l1_coefficient * axes.model.reduce_from(
+            (pi_gate_act * torch.linalg.norm(params["W_dec"], dim=1)).sum(
+                dim=-1, dtype=torch.float32)).mean()
+        via_gate = axes.model.reduce_from(pi_gate_act @ params["W_dec"]) + params["b_dec"]
         aux_loss = torch.square(via_gate - sae_in).sum(dim=-1, dtype=torch.float32).mean()
         return SAEOutput(sae_out, feature_acts, mse_loss + l1_loss + aux_loss, mse_loss,
                          l1_loss, zero, aux_loss)
@@ -294,10 +329,15 @@ def sae_forward(params: Params, cfg: SAERunnerConfig, x: torch.Tensor,
         return SAEOutput(sae_out, feature_acts, mse_loss + ghost_loss, mse_loss, None,
                          ghost_loss, zero)
     if cfg.lp_norm == 1.0:
-        sparsity = feature_acts.abs().sum(dim=1, dtype=torch.float32).mean()
-    else:
+        sparsity = axes.model.reduce_from(
+            feature_acts.abs().sum(dim=1, dtype=torch.float32)).mean()
+    elif axes.model.size == 1:
         sparsity = torch.linalg.vector_norm(
             feature_acts, ord=cfg.lp_norm, dim=1).mean(dtype=torch.float32)
+    else:
+        p = cfg.lp_norm
+        sparsity = torch.pow(axes.model.reduce_from(
+            (feature_acts.abs() ** p).sum(dim=1, dtype=torch.float32)), 1.0 / p).mean()
     l1_loss = cfg.l1_coefficient * sparsity
     loss = mse_loss + l1_loss + ghost_loss
     return SAEOutput(sae_out, feature_acts, loss, mse_loss, l1_loss, ghost_loss, zero)

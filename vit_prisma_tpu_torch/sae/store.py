@@ -65,8 +65,21 @@ served:
 :class:`CachedActivationsStore` serves rows from float16 ``{i}.npy`` shards
 that :meth:`VisionActivationsStore.generate_cached_activations` writes.
 
-Not ported yet, and raising ``NotImplementedError``: ``mesh`` (ROADMAP queue
-A, item 15).
+With ``mesh`` (a ``(data, model)`` mesh, ``parallel/mesh.py``) the model
+is made tensor-parallel over ``model`` (``HookedViT.shard``), each rank
+harvests its rows of every store batch's images (the forward dp x tp), and
+the buffer is row-sharded over ``data`` (a sweep buffer's layer axis split
+over ``model`` too).  Every rank serves its rows of the same global row
+stream as the single-process store: the buffer's global rows are dealt to
+the ranks in blocks of ``train_batch_size / data`` rows, so a global batch
+is one block of each rank and ``next_batch`` needs no communication.  The
+fill and every mix apply one global permutation (the same on every rank)
+through :func:`~vit_prisma_tpu_torch.parallel.collectives.exchange_rows`:
+each rank gathers with B3 the rows each other rank needs from it, one
+``all_to_all_single`` moves every row once, and a second B3 gather orders
+what arrived.  An all-gather of the buffer followed by a local gather
+would move ``data - 1`` times the buffer into each rank; the exchange
+moves each row once.
 """
 
 from __future__ import annotations
@@ -83,6 +96,7 @@ import torch
 
 from vit_prisma_tpu_torch.dataloaders.transforms import get_model_transform_params
 from vit_prisma_tpu_torch.ops.shuffle import take_rows
+from vit_prisma_tpu_torch.parallel.collectives import SINGLE, exchange_rows
 from vit_prisma_tpu_torch.sae.config import SAERunnerConfig
 from vit_prisma_tpu_torch.utils.device import resolve_device
 
@@ -131,7 +145,9 @@ class VisionActivationsStore:
     in the wire dtype, is kept on ``device`` and indexed there
     (``device_dataset`` forces the choice).  ``device`` defaults to the
     model's.  ``generator``, a ``torch.Generator`` on ``device``, draws the
-    mix permutations (seeded with ``seed`` or ``cfg.seed`` when None)."""
+    mix permutations (seeded with ``seed`` or ``cfg.seed`` when None).
+    ``mesh``: see the module note; ``next_batch`` then gives this rank's
+    ``train_batch_size / data`` rows of each global batch."""
 
     _DEVICE_DATASET_AUTO_BYTES = 256 * 1024 * 1024
     _STAGE_CHUNK_BATCHES = 8  # store batches a pinned ring buffer holds
@@ -142,10 +158,11 @@ class VisionActivationsStore:
                  device_dataset: Optional[bool] = None, augment=None,
                  device=None, generator: Optional[torch.Generator] = None,
                  permutation: Optional[Callable[[int], torch.Tensor]] = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a sharded store (mesh=) is not ported yet (ROADMAP queue A, item 15)")
         self.cfg = cfg
+        self.mesh = mesh
+        self._data = self._model = SINGLE
+        if mesh is not None:
+            self._setup_mesh(cfg, model, mesh)
         self.model = model
         self.dataset = dataset
         self.eval_dataset = eval_dataset
@@ -211,12 +228,83 @@ class VisionActivationsStore:
                 self._stop_at = max(cfg.hook_point_layer, cfg.out_hook_point_layer) + 1
         self.tokens_per_store_batch = cfg.store_batch_size * cfg.tokens_per_image
         self.buffer_tokens = cfg.tokens_per_buffer
+        dp = self._data.size
+        self.local_batch_size = cfg.train_batch_size // dp
+        if dp > 1 and self.buffer_tokens % cfg.train_batch_size:
+            raise ValueError(f"under a mesh the buffer ({self.buffer_tokens} tokens) must be "
+                             f"a multiple of train_batch_size ({cfg.train_batch_size})")
 
-        self.buffer = self._fill(self.buffer_tokens)
-        self.buffer = take_rows(self.buffer, self._perm(self.buffer.shape[0]))
+        if self.mesh is None:
+            self.buffer = self._fill(self.buffer_tokens)
+            self.buffer = take_rows(self.buffer, self._perm(self.buffer.shape[0]))
+        else:
+            rows, held = self._fill_sharded(self.buffer_tokens)
+            perm = self._perm(self.buffer_tokens)
+            self.buffer = exchange_rows(rows, held, [perm[self._positions(r)] for r in range(dp)],
+                                        self._data, take_rows)
         self.ptr = 0
         if self.prefetch and self._dev_images is None:
             self._staged = self._stage_async(self._fresh_batches())
+
+    # -- the mesh ----------------------------------------------------------
+    def _setup_mesh(self, cfg: SAERunnerConfig, model, mesh):
+        from vit_prisma_tpu_torch.parallel.mesh import axis
+        self._data, self._model = axis(mesh, "data"), axis(mesh, "model")
+        dp = self._data.size
+        for name, n in (("store_batch_size", cfg.store_batch_size),
+                        ("train_batch_size", cfg.train_batch_size)):
+            if n % dp:
+                raise ValueError(f"{name}({n}) must divide over data={dp}")
+        if cfg.sweep_layers and len(cfg.sweep_layers) % self._model.size:
+            raise ValueError(f"{len(cfg.sweep_layers)} sweep layers do not divide over "
+                             f"model={self._model.size}")
+        if getattr(model, "mesh", None) is None:
+            model.shard(mesh)
+
+    def _positions(self, rank: int) -> torch.Tensor:
+        """The global buffer positions of data rank ``rank``'s local rows:
+        blocks of ``train_batch_size / data`` rows dealt round the ranks,
+        so global batch ``s`` is local block ``s`` of every rank."""
+        dp, bs = self._data.size, self.cfg.train_batch_size
+        bl = bs // dp
+        j = torch.arange(self.buffer_tokens // dp, device=self.device)
+        return (j // bl) * bs + rank * bl + j % bl
+
+    def _my_images(self, images: torch.Tensor) -> torch.Tensor:
+        """This rank's images of a store batch (rows over ``data``)."""
+        return self._data.slice(images, 0)
+
+    def _my_layers(self, rows: torch.Tensor) -> torch.Tensor:
+        """This rank's layer slots of a sweep's rows (layers over
+        ``model``)."""
+        if self.cfg.sweep_layers and rows.ndim == 3 and self._model.size > 1:
+            return self._model.slice(rows, 1).contiguous()
+        return rows
+
+    def _fill_sharded(self, n_tokens: int, indices=None, staged=None):
+        """Harvest the first ``n_tokens`` rows of the next store batches
+        split over ``data``: each rank runs its images of every store batch.
+        Returns (this rank's rows, the harvest positions every rank holds)."""
+        dp, me = self._data.size, self._data.rank
+        per = self.tokens_per_store_batch // dp
+        n_batches = -(-n_tokens // self.tokens_per_store_batch)
+        chunks = []
+        for images in self._image_batches(n_batches, indices, staged):
+            chunks.append(self._my_layers(self.get_activations(self._my_images(images))))
+        starts = torch.arange(n_batches, device=self.device) * self.tokens_per_store_batch
+        held = []
+        for r in range(dp):
+            pos = (starts[:, None] + r * per + torch.arange(per, device=self.device)).reshape(-1)
+            held.append(pos[pos < n_tokens])
+        rows = torch.cat(chunks)[:held[me].numel()]
+        return rows, held
+
+    def _gather_positions(self, positions: torch.Tensor) -> torch.Tensor:
+        """The buffer's rows at global ``positions`` on every rank of
+        ``data`` (this rank's layer slots)."""
+        dp = self._data.size
+        return exchange_rows(self.buffer, [self._positions(r) for r in range(dp)],
+                             [positions] * dp, self._data, take_rows)
 
     # -- the image wire --------------------------------------------------
     def _dataset_is_uint8(self) -> bool:
@@ -446,7 +534,7 @@ class VisionActivationsStore:
 
     def _fresh_batches(self) -> int:
         """Store batches a refill harvests."""
-        return -(-(self.buffer.shape[0] // 2) // self.tokens_per_store_batch)
+        return -(-(self.buffer_tokens // 2) // self.tokens_per_store_batch)
 
     def _perm(self, n: int) -> torch.Tensor:
         idx = torch.as_tensor(self._permutation(n), device=self.device)
@@ -459,7 +547,7 @@ class VisionActivationsStore:
         """[train_batch_size, d_in] token rows (a copy; ``[B, L, d_in]`` for
         a sweep)."""
         bs = self.cfg.train_batch_size
-        half = self.buffer.shape[0] // 2
+        half = self.buffer_tokens // 2
         if bs > half:
             raise ValueError(
                 f"train_batch_size({bs}) must fit in half the buffer ({half} "
@@ -467,7 +555,8 @@ class VisionActivationsStore:
                 "next mix")
         if self.ptr + bs > half:
             self._refill_half()
-        out = self.buffer[self.ptr:self.ptr + bs].clone()
+        lo, n = self.ptr // self._data.size, self.local_batch_size
+        out = self.buffer[lo:lo + n].clone()
         self.ptr += bs
         return out
 
@@ -476,7 +565,7 @@ class VisionActivationsStore:
         copy.  Row content is identical to k ``next_batch()`` calls when
         ``k`` divides the number of batches served per half-buffer."""
         bs = self.cfg.train_batch_size
-        half = self.buffer.shape[0] // 2
+        half = self.buffer_tokens // 2
         if k * bs > half:
             raise ValueError(
                 f"steps_per_dispatch({k}) x train_batch_size({bs}) must fit in "
@@ -491,9 +580,10 @@ class VisionActivationsStore:
                     stacklevel=2)
                 self._warned_early_refill = True
             self._refill_half()
-        out = self.buffer[self.ptr:self.ptr + k * bs].clone()
+        lo, n = self.ptr // self._data.size, self.local_batch_size
+        out = self.buffer[lo:lo + k * n].clone()
         self.ptr += k * bs
-        return out.reshape((k, bs) + tuple(self.buffer.shape[1:]))
+        return out.reshape((k, n) + tuple(self.buffer.shape[1:]))
 
     def _refill_half(self, indices=None):
         """Keep the unserved half, harvest a fresh half, re-permute.  The
@@ -504,10 +594,15 @@ class VisionActivationsStore:
         The JAX store permutes ``concat([buffer[n//2:], fresh])``.  Here the
         fresh rows are written over the served rows ``buffer[:n//2]`` and
         the permutation's indices are mapped onto that layout, so one gather
-        (kernel B3) reads the buffer once and writes the new one."""
-        n = self.buffer.shape[0]
+        (kernel B3) reads the buffer once and writes the new one.  Under a
+        mesh the kept rows and this rank's fresh rows are exchanged
+        (module note)."""
+        n = self.buffer_tokens
         n_fresh, n_kept = n // 2, n - n // 2
         staged, self._staged = self._staged, None
+        if self.mesh is not None:
+            self._refill_half_sharded(n_fresh, n_kept, indices, staged)
+            return
         self._fill(n_fresh, out=self.buffer, indices=indices,
                    staged=None if staged is None else staged.result())
         if self.prefetch and self._dev_images is None:
@@ -515,6 +610,28 @@ class VisionActivationsStore:
         perm = self._perm(n)
         src = torch.where(perm < n_kept, perm + n_fresh, perm - n_kept)
         self.buffer = take_rows(self.buffer, src)
+        self.ptr = 0
+
+    def _refill_half_sharded(self, n_fresh: int, n_kept: int, indices, staged):
+        """The mix of ``concat([buffer[n//2:], fresh])`` by the global
+        permutation, over a row-sharded buffer: rows of the global row space
+        (kept rows at ``position - n//2``, fresh ones at ``n_kept +
+        harvest position``) are exchanged to the ranks whose positions the
+        permutation maps them to."""
+        dp, me = self._data.size, self._data.rank
+        fresh, fresh_held = self._fill_sharded(
+            n_fresh, indices=indices, staged=None if staged is None else staged.result())
+        if self.prefetch and self._dev_images is None:
+            self._staged = self._stage_async(self._fresh_batches())
+        held = []
+        for r in range(dp):
+            pos = self._positions(r)
+            held.append(torch.cat([pos[pos >= n_fresh] - n_fresh, fresh_held[r] + n_kept]))
+        mine = self._positions(me)
+        rows = torch.cat([self.buffer[mine >= n_fresh], fresh])
+        perm = self._perm(self.buffer_tokens)
+        self.buffer = exchange_rows(rows, held, [perm[self._positions(r)] for r in range(dp)],
+                                    self._data, take_rows)
         self.ptr = 0
 
     # -- fused cycle -------------------------------------------------------
@@ -532,8 +649,13 @@ class VisionActivationsStore:
     def peek_tokens(self, n: int, layer_slot: Optional[int] = None) -> torch.Tensor:
         """A copy of the first n rows (for the b_dec init); ``layer_slot``
         picks a slot of a sweep's or a transcoder's buffer (the first when
-        None)."""
-        rows = self.buffer[:n]
+        None).  Under a mesh, the global first n rows, on every rank."""
+        if self._data.size == 1:  # the global rows are the local ones
+            rows = self.buffer[:n]
+        else:
+            rows = self._gather_positions(torch.arange(n, device=self.device))
+        if self.cfg.sweep_layers and rows.ndim == 3:
+            rows = self._model.all_gather(rows, dim=1)
         if rows.ndim == 3:
             rows = rows[:, layer_slot if layer_slot is not None else 0]
         return rows.clone()
@@ -547,7 +669,20 @@ class VisionActivationsStore:
         os.makedirs(path, exist_ok=True)
         written, shard = 0, 0
         while written < n_tokens:
-            chunk = self._fill(min(tokens_per_file, n_tokens - written))
+            m = min(tokens_per_file, n_tokens - written)
+            if self.mesh is None:
+                chunk = self._fill(m)
+            else:
+                # the whole chunk on every rank, in harvest order; rank 0 writes
+                rows, held = self._fill_sharded(m)
+                chunk = exchange_rows(rows, held, [torch.arange(m, device=self.device)]
+                                      * self._data.size, self._data, take_rows)
+                if chunk.ndim == 3 and self.cfg.sweep_layers:
+                    chunk = self._model.all_gather(chunk, dim=1)
+                if torch.distributed.get_rank() != 0:
+                    written += chunk.shape[0]
+                    shard += 1
+                    continue
             np.save(os.path.join(path, f"{shard}.npy"),
                     chunk.to(torch.float16).cpu().numpy())
             written += chunk.shape[0]
@@ -628,4 +763,5 @@ class CachedActivationsStore:
         self.ptr += k * bs
         return out.reshape((k, bs) + tuple(self.buffer.shape[1:]))
 
+    _data = _model = SINGLE  # unsharded: peek_tokens reads the buffer's first rows
     peek_tokens = VisionActivationsStore.peek_tokens

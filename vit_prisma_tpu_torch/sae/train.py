@@ -59,8 +59,16 @@ TPU) and the transcoder, whose step takes the output hook's rows as its
 variance and the ghost loss's residual are taken as the JAX step takes
 them.
 
-Not ported yet, and raising ``NotImplementedError``: ``mesh`` and the
-sharded train-state checkpoint (ROADMAP queue A, item 15).
+Sharding (``parallel/mesh.py``): with ``mesh`` (or a store built with one)
+both trainers train this rank's shard of the state on its rows of each
+batch: the single SAE feature-parallel over ``model`` and data-parallel
+over ``data`` (:func:`~vit_prisma_tpu_torch.parallel.mesh.shard_sae_train_step`),
+the sweep layer-parallel over ``model`` and data-parallel over ``data``
+(:func:`~vit_prisma_tpu_torch.parallel.mesh.shard_sae_sweep_step`).  The
+metrics are the global ones on every rank; ``whole_state`` gathers the
+state.  :func:`save_train_state_sharded` and :func:`load_train_state_sharded`
+keep a sharded state with ``torch.distributed.checkpoint``: each rank
+writes its own shards, and a load restores into any mesh's plan, or whole.
 """
 
 from __future__ import annotations
@@ -86,6 +94,7 @@ from vit_prisma_tpu_torch.ops.sae_step import (
     sae_fused_apply_topk,
     sae_gated_fused_apply,
 )
+from vit_prisma_tpu_torch.parallel.collectives import NO_SHARDING, SINGLE, Axis, ShardAxes
 from vit_prisma_tpu_torch.sae.config import SAERunnerConfig
 from vit_prisma_tpu_torch.sae.geometric_median import compute_geometric_median
 from vit_prisma_tpu_torch.sae.sae import (
@@ -175,8 +184,8 @@ def _grads(loss: torch.Tensor, leaves: Params) -> Params:
 
 def loss_and_grads(params: Params, batch: torch.Tensor, cfg: SAERunnerConfig,
                    dead_neuron_mask: Optional[torch.Tensor] = None,
-                   target: Optional[torch.Tensor] = None
-                   ) -> Tuple[Params, SAEOutput]:
+                   target: Optional[torch.Tensor] = None,
+                   axes: ShardAxes = NO_SHARDING) -> Tuple[Params, SAEOutput]:
     """The step's forward and backward: gradients of ``sae_forward``'s loss
     (against ``target``, a transcoder's) with respect to ``params``,
     optionally computed in ``cfg.compute_dtype`` (the cast sits inside the
@@ -190,18 +199,30 @@ def loss_and_grads(params: Params, batch: torch.Tensor, cfg: SAERunnerConfig,
             p = {k: v.to(compute_dt) for k, v in leaves.items()}
             b = batch.to(compute_dt)
             t = None if target is None else target.to(compute_dt)
-        out = sae_forward(p, cfg, b, y=t, dead_neuron_mask=dead_neuron_mask, training=True)
+        out = sae_forward(p, cfg, b, y=t, dead_neuron_mask=dead_neuron_mask, training=True,
+                          axes=axes)
         grads = _grads(out.loss, leaves)
     return grads, SAEOutput(*(
         None if t is None else t.detach() for t in out))
 
 
+# the parameters a feature-parallel SAE splits over the model axis
+FEATURE_KEYS = ("W_enc", "W_dec", "b_enc", "b_gate", "r_mag", "b_mag")
+
+
 @torch.no_grad()
 def _sae_train_step_impl(state: SAETrainState, batch: torch.Tensor,
                          cfg: SAERunnerConfig,
-                         target: Optional[torch.Tensor] = None
+                         target: Optional[torch.Tensor] = None,
+                         axes: ShardAxes = NO_SHARDING
                          ) -> Tuple[SAETrainState, StepMetrics]:
+    """The generic step.  ``axes`` shards it (``parallel/mesh.py``): the
+    batch is this rank's rows of the global batch (``axes.data``) and the
+    state its shard of the features (``axes.model``); the gradients are
+    averaged over the rows' axis, every sum over features and rows is
+    summed over its axis, and the metrics are the global ones."""
     schedule = make_schedule(cfg)
+    data, model = axes.data, axes.model
 
     # 1. decoder unit-norm projection before the forward
     params = set_decoder_norm_to_unit_norm(state.params)
@@ -209,8 +230,9 @@ def _sae_train_step_impl(state: SAETrainState, batch: torch.Tensor,
     # 2. ghost mask from the fired counters
     ghost_mask = state.n_forward_passes_since_fired > cfg.dead_feature_window
 
-    # 3. forward/backward
-    grads, out = loss_and_grads(params, batch, cfg, ghost_mask, target)
+    # 3. forward/backward; the mean of the shards' gradients is the global one
+    grads, out = loss_and_grads(params, batch, cfg, ghost_mask, target, axes)
+    grads = {k: data.mean(g) for k, g in grads.items()}
     feature_acts, sae_out = out.feature_acts, out.sae_out
 
     # 4+5. clip -> W_dec projection -> Adam, one kernel-B7 pass per tensor
@@ -219,23 +241,24 @@ def _sae_train_step_impl(state: SAETrainState, batch: torch.Tensor,
     new_p, (new_adam, new_sched) = fused_clip_project_adam(
         _lift(params), _lift(grads),
         (adam_st._replace(mu=_lift(adam_st.mu), nu=_lift(adam_st.nu)), sched_st),
-        lr=lr, b1=cfg.adam_b1, b2=cfg.adam_b2, max_grad_norm=cfg.max_grad_norm)
+        lr=lr, b1=cfg.adam_b1, b2=cfg.adam_b2, max_grad_norm=cfg.max_grad_norm,
+        model_axis=model, sharded_keys=FEATURE_KEYS)
     new_adam = new_adam._replace(mu=_drop(new_adam.mu), nu=_drop(new_adam.nu))
 
     # 6. fired/act-freq counters.  The activations are >= 0 (ReLU,
     # tanh-ReLU or TopK), so the JAX package's |h| > 0 and h > 0 are one mask.
     active = feature_acts > 0
-    did_fire = active.any(dim=-2)
-    fired_counter = torch.where(did_fire, 0.0, state.n_forward_passes_since_fired + 1.0)
-    act_freq = state.act_freq_scores + active.sum(dim=0, dtype=torch.float32)
-    n_rows = batch.shape[0]
+    n_active = data.sum(active.sum(dim=0, dtype=torch.float32))
+    fired_counter = torch.where(n_active > 0, 0.0, state.n_forward_passes_since_fired + 1.0)
+    act_freq = state.act_freq_scores + n_active
+    n_rows = batch.shape[0] * data.size
 
     # metrics
-    l0 = active.sum(dim=-1, dtype=torch.float32).mean()
+    l0 = data.mean(model.sum(active.sum(dim=-1, dtype=torch.float32)).mean())
     tgt = (target if cfg.is_transcoder and target is not None else batch).to(cfg.torch_dtype)
     resid_var = torch.square(tgt - sae_out).sum(-1)
-    total_var = torch.square(tgt - tgt.mean(0)).sum(-1)
-    explained_variance = (1 - resid_var / total_var).mean()
+    total_var = torch.square(tgt - data.mean(tgt.mean(0))).sum(-1)
+    explained_variance = data.mean((1 - resid_var / total_var).mean())
     # TopK has no sparsity loss: the metric reads 0
     l1_val = out.l1_loss if out.l1_loss is not None else torch.zeros(
         (), dtype=torch.float32, device=batch.device)
@@ -249,11 +272,11 @@ def _sae_train_step_impl(state: SAETrainState, batch: torch.Tensor,
         step=state.step + 1,
         n_training_tokens=state.n_training_tokens + n_rows)
     metrics = StepMetrics(
-        loss=out.loss, mse_loss=out.mse_loss,
-        l1_loss=l1_val, ghost_grad_loss=out.ghost_grad_loss,
-        aux_reconstruction_loss=out.aux_reconstruction_loss,
+        loss=data.mean(out.loss), mse_loss=data.mean(out.mse_loss),
+        l1_loss=data.mean(l1_val), ghost_grad_loss=data.mean(out.ghost_grad_loss),
+        aux_reconstruction_loss=data.mean(out.aux_reconstruction_loss),
         l0=l0, explained_variance=explained_variance,
-        n_dead_features=ghost_mask.sum(), lr_multiplier=schedule(state.step))
+        n_dead_features=model.sum(ghost_mask.sum()), lr_multiplier=schedule(state.step))
     return new_state, metrics
 
 
@@ -401,16 +424,22 @@ def _fused_single_ok(cfg: SAERunnerConfig, n_rows: int) -> bool:
 
 @torch.no_grad()
 def _sae_train_step_fused(state: SAETrainState, x: torch.Tensor,
-                          cfg: SAERunnerConfig) -> Tuple[SAETrainState, StepMetrics]:
+                          cfg: SAERunnerConfig,
+                          data: Axis = SINGLE) -> Tuple[SAETrainState, StepMetrics]:
     """Stacked step on the fused kernels, for a layer-major batch ``x``
-    ``[L, B, d_in]``; the JAX package's ``_sae_train_step_fused`` with
-    ``data_axis=None``.  The per-layer losses are summed for one backward
+    ``[L, B, d_in]``; the JAX package's ``_sae_train_step_fused``.  With
+    ``data`` (the JAX ``data_axis``), ``x`` is this rank's rows of the
+    global batch, and the step inserts the JAX step's collectives: the
+    global batch mean in the normalized-MSE denominator, the mean of the
+    gradients, the sum of ``nact``, the means of the metrics and the global
+    B in the token counters.  The per-layer losses are summed for one backward
     (the layers' params are disjoint, so each layer gets its own grads).
     TopK has no sparsity penalty: its l1 metric is 0.  Gated adds the
     decoder-norm-weighted gate L1 and the aux reconstruction of the gate
     path against ``x - b_dec`` (b_dec's gradient flows through both)."""
     schedule = make_schedule(cfg)
     B = x.shape[1]
+    B_global = B * data.size
     params = set_decoder_norm_to_unit_norm(state.params)
     ghost_mask = state.n_forward_passes_since_fired > cfg.dead_feature_window
     compute_dt = cfg.compute_torch_dtype
@@ -429,7 +458,7 @@ def _sae_train_step_fused(state: SAETrainState, x: torch.Tensor,
                                                     save_acts=cfg.fused_store_acts)
         else:
             y, l1_sums, nact = sae_fused_apply(*weights, save_acts=cfg.fused_store_acts)
-        cent = xt - xt.mean(dim=1, keepdim=True)
+        cent = xt - data.mean(xt.mean(dim=1, keepdim=True))
         norm = torch.sqrt(torch.square(cent).sum(
             dim=-1, keepdim=True, dtype=torch.float32)).to(xt.dtype)
         mse_l = (torch.square(y - xt) / norm).mean(dim=(1, 2), dtype=torch.float32)
@@ -440,6 +469,10 @@ def _sae_train_step_fused(state: SAETrainState, x: torch.Tensor,
             aux_l = torch.square(via - sae_in).sum(dim=-1, dtype=torch.float32).mean(dim=-1)
         loss_l = mse_l + l1_l + aux_l
         grads = _grads(loss_l.sum(), leaves)
+    # the mean of the shards' gradients is the global batch's gradient
+    grads = {k: data.mean(g) for k, g in grads.items()}
+    nact = data.sum(nact)
+    mse_l, l1_l, aux_l, loss_l = (data.mean(v.detach()) for v in (mse_l, l1_l, aux_l, loss_l))
 
     # clip -> W_dec projection -> Adam per layer, kernel B7 over the stacks
     adam_st, sched_st = state.opt_state
@@ -450,22 +483,22 @@ def _sae_train_step_fused(state: SAETrainState, x: torch.Tensor,
     # nact is the per-feature count of active rows: the counters and L0
     fired_counter = torch.where(nact > 0, 0.0, state.n_forward_passes_since_fired + 1.0)
     act_freq = state.act_freq_scores + nact
-    l0 = nact.sum(dim=-1) / B
+    l0 = nact.sum(dim=-1) / B_global
     x32 = x.to(cfg.torch_dtype)
     y = y.detach()
     resid_var = torch.square(x32 - y.to(x32.dtype)).sum(-1)
-    total_var = torch.square(x32 - x32.mean(dim=1, keepdim=True)).sum(-1)
-    explained_variance = (1 - resid_var / total_var).mean(dim=-1)
+    total_var = torch.square(x32 - data.mean(x32.mean(dim=1, keepdim=True))).sum(-1)
+    explained_variance = data.mean((1 - resid_var / total_var).mean(dim=-1))
 
     zeros_l = torch.zeros_like(mse_l)
     new_state = SAETrainState(
         params=new_params, opt_state=new_opt,
         act_freq_scores=act_freq, n_forward_passes_since_fired=fired_counter,
-        n_frac_active_tokens=state.n_frac_active_tokens + B,
-        step=state.step + 1, n_training_tokens=state.n_training_tokens + B)
+        n_frac_active_tokens=state.n_frac_active_tokens + B_global,
+        step=state.step + 1, n_training_tokens=state.n_training_tokens + B_global)
     metrics = StepMetrics(
-        loss=loss_l.detach(), mse_loss=mse_l.detach(), l1_loss=l1_l.detach(),
-        ghost_grad_loss=zeros_l, aux_reconstruction_loss=aux_l.detach(),
+        loss=loss_l, mse_loss=mse_l, l1_loss=l1_l,
+        ghost_grad_loss=zeros_l, aux_reconstruction_loss=aux_l,
         l0=l0, explained_variance=explained_variance,
         n_dead_features=ghost_mask.sum(dim=-1).float(), lr_multiplier=schedule(state.step))
     return new_state, metrics
@@ -527,7 +560,7 @@ def _warn_unserved_half(ptr: int, half: int) -> None:
             stacklevel=3)
 
 
-def make_fused_cycle(cfg: SAERunnerConfig, store):
+def make_fused_cycle(cfg: SAERunnerConfig, store, multistep=None):
     """The steady-state cycle: images from the cycle's indices -> harvest of
     the fresh (floor) half -> the B3 mix -> K train steps.  The JAX package
     makes this one XLA program; PyTorch runs it eagerly, in the same order,
@@ -537,20 +570,23 @@ def make_fused_cycle(cfg: SAERunnerConfig, store):
     Needs ``store.fused_cycle_available`` (a device-resident dataset) and
     ``K * train_batch_size`` equal to half the buffer.  Returns
     ``cycle(state, idx) -> (state, metrics)``, where ``idx`` is
-    ``store.next_cycle_indices()``."""
+    ``store.next_cycle_indices()``.  ``multistep(state, batches, cfg)``
+    runs the K steps (a sharded trainer's; the unsharded one when None)."""
     if not store.fused_cycle_available:
         raise ValueError("the fused cycle needs a device-resident dataset (a tensor, a "
                          "small ndarray, or device_dataset=True)")
     bs = cfg.train_batch_size
-    half = store.buffer.shape[0] // 2
+    half = store.buffer_tokens // 2
     K = half // bs
     if K * bs != half:
         raise ValueError(f"train_batch_size({bs}) must divide the half-buffer ({half})")
-    multistep = sae_sweep_train_multistep if cfg.sweep_layers else sae_train_multistep
+    if multistep is None:
+        multistep = sae_sweep_train_multistep if cfg.sweep_layers else sae_train_multistep
 
     def cycle(state: SAETrainState, idx) -> Tuple[SAETrainState, StepMetrics]:
         store._refill_half(indices=idx)
-        batches = store.buffer[:K * bs].reshape((K, bs) + tuple(store.buffer.shape[1:]))
+        n = store.local_batch_size  # this rank's rows of a batch under a mesh
+        batches = store.buffer[:K * n].reshape((K, n) + tuple(store.buffer.shape[1:]))
         return multistep(state, batches, cfg)
 
     return cycle
@@ -559,12 +595,6 @@ def make_fused_cycle(cfg: SAERunnerConfig, store):
 # ---------------------------------------------------------------------------
 # Trainers
 # ---------------------------------------------------------------------------
-
-def _not_ported_options(cfg, mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "a sharded trainer (mesh=) is not ported yet (ROADMAP queue A, item 15)")
-
 
 def _token_thresholds(cfg: SAERunnerConfig, n: int):
     """Evenly spaced token thresholds of a run."""
@@ -624,22 +654,32 @@ class VisionSAETrainer:
     identity readout of the model's output) and optional wandb logging.
     Parameters are drawn from ``generator`` (seeded with ``cfg.seed`` when
     None) and live on ``device`` (when None: the store's, or the CUDA card
-    without a store)."""
+    without a store).
+
+    ``mesh`` (default: the store's): a ``(data, model)`` mesh; the state is
+    this rank's shard (``whole_state()`` gathers it; ``load_state`` takes a
+    shard), steps take this rank's rows, and one rank writes the
+    checkpoints.  Every rank runs the same calls."""
 
     _step = staticmethod(sae_train_step)
     _multistep = staticmethod(sae_train_multistep)
+    _shard_builders = ("shard_sae_train_step", "shard_sae_train_multistep",
+                       "sae_state_shardings")
 
     def __init__(self, cfg: SAERunnerConfig, model=None, store=None,
                  generator: Optional[torch.Generator] = None, device=None,
                  eval_dataset=None, class_embeddings=None, mesh=None):
-        _not_ported_options(cfg, mesh)
         self.cfg = cfg
         self.model = model
         self.store = store
+        self.mesh = mesh if mesh is not None else getattr(store, "mesh", None)
         self._cycle = None
         if device is None:
             device = store.device if store is not None else resolve_device()
         self.state = self._init_state(generator, device)
+        self._plan = None
+        if self.mesh is not None:
+            self._setup_mesh()
         # Host mirror of the device step counter: the cadence checks read it
         # instead of the device value, so the loop never waits for the
         # device except to log.  load_state() keeps it in sync.
@@ -661,6 +701,31 @@ class VisionSAETrainer:
             sample = store.peek_tokens(min(4096 * 8, cfg.tokens_per_buffer))
             params = initialize_b_dec(cfg, params, sample.to(device))
         return init_train_state(cfg, params=params)
+
+    def _setup_mesh(self):
+        """Place the whole state on the mesh (this rank's shard) and take
+        the sharded step and multistep."""
+        from vit_prisma_tpu_torch.parallel import mesh as M
+        step_b, multi_b, plan_b = (getattr(M, n) for n in self._shard_builders)
+        place, step = step_b(self.cfg, self.mesh, self.state)
+        multi = multi_b(self.cfg, self.mesh, self.state)
+        self._plan = plan_b(self.mesh, self.state)
+        self.state = place(self.state)
+        self._step = lambda state, batch, cfg, *target: step(state, batch, *target)
+        self._multistep = lambda state, batches, cfg, *targets: multi(state, batches, *targets)
+
+    @property
+    def _is_writer(self) -> bool:
+        """The rank that writes files: rank 0 under a mesh."""
+        return self.mesh is None or torch.distributed.get_rank() == 0
+
+    def whole_state(self) -> SAETrainState:
+        """The whole train state: the state itself, or under a mesh the
+        shards gathered (a collective: every rank calls it)."""
+        if self.mesh is None:
+            return self.state
+        from vit_prisma_tpu_torch.parallel.mesh import gather_tree
+        return gather_tree(self.state, self._plan)
 
     @staticmethod
     def load_dataset(cfg: SAERunnerConfig):
@@ -706,7 +771,7 @@ class VisionSAETrainer:
 
     @property
     def sae(self) -> SparseAutoencoder:
-        return SparseAutoencoder(self.cfg, params=self.state.params)
+        return SparseAutoencoder(self.cfg, params=self.whole_state().params)
 
     def train_step(self, batch, target=None) -> StepMetrics:
         if target is not None:
@@ -738,8 +803,8 @@ class VisionSAETrainer:
             raise ValueError(f"train_cycles requires n_cycles >= 1 (got {n_cycles})")
         store = self.store
         if self._cycle is None:
-            self._cycle = make_fused_cycle(self.cfg, store)
-        half = store.buffer.shape[0] // 2
+            self._cycle = make_fused_cycle(self.cfg, store, self._multistep)
+        half = store.buffer_tokens // 2
         _warn_unserved_half(store.ptr, half)
         K = half // self.cfg.train_batch_size
         metrics = None
@@ -750,7 +815,9 @@ class VisionSAETrainer:
         return metrics
 
     def load_state(self, state: SAETrainState) -> "VisionSAETrainer":
-        """Swap in a (resumed) train state and re-sync the host step mirror."""
+        """Swap in a (resumed) train state, this rank's shard under a mesh
+        (``load_train_state_sharded(path, mesh)``), and re-sync the host
+        step mirror."""
         self.state = state
         self._host_step = int(state.step.reshape(-1)[0])
         return self
@@ -807,7 +874,7 @@ class VisionSAETrainer:
         if self._val_step is None:
             from vit_prisma_tpu_torch.sae.evals import make_eval_step
             self._val_step = make_eval_step(self.model, self.sae)
-        s = self._val_step(self.model, self.state.params, images, labels, class_emb)
+        s = self._val_step(self.model, self.whole_state().params, images, labels, class_emb)
         host = torch.stack([s.loss.float(), s.recons_loss.float(), s.zero_abl_loss.float(),
                             s.l0_image.float().mean(), s.cos_sim.float()]).tolist()
         clean, recons, zero, l0, cos = host
@@ -849,12 +916,15 @@ class VisionSAETrainer:
         ``{name}_{tag}_log_feature_sparsity.npy``, and upload both as wandb
         artifacts when ``cfg.wandb_checkpoint_artifacts`` and wandb runs.
         Returns the path without its suffix."""
-        sae = self.sae
-        n = tag if tag is not None else f"n_tokens_{int(self.state.n_training_tokens)}"
+        whole = self.whole_state()
+        sae = SparseAutoencoder(self.cfg, params=whole.params)
+        n = tag if tag is not None else f"n_tokens_{int(whole.n_training_tokens)}"
         path = os.path.join(self.cfg.checkpoint_path, f"{sae.get_name()}_{n}")
+        if not self._is_writer:
+            return path
         sae.save_model(path)
-        sparsity = (self.state.act_freq_scores
-                    / torch.clamp(self.state.n_frac_active_tokens, min=1.0)).cpu().numpy()
+        sparsity = (whole.act_freq_scores
+                    / torch.clamp(whole.n_frac_active_tokens, min=1.0)).cpu().numpy()
         np.save(path + "_log_feature_sparsity.npy", np.log10(sparsity + 1e-10))
         if self._wandb is not None and self.cfg.wandb_checkpoint_artifacts:
             self._upload_checkpoint_artifact(path)
@@ -965,6 +1035,8 @@ class SAESweepTrainer(VisionSAETrainer):
 
     _step = staticmethod(sae_sweep_train_step)
     _multistep = staticmethod(sae_sweep_train_multistep)
+    _shard_builders = ("shard_sae_sweep_step", "shard_sae_sweep_multistep",
+                       "sweep_state_shardings")
 
     def __init__(self, cfg: SAERunnerConfig, model=None, store=None,
                  generator: Optional[torch.Generator] = None, device=None,
@@ -1001,10 +1073,13 @@ class SAESweepTrainer(VisionSAETrainer):
     def sae(self):
         raise AttributeError("a sweep trains one SAE per layer: use sae_for_layer(i)")
 
-    def sae_for_layer(self, i: int) -> SparseAutoencoder:
+    def sae_for_layer(self, i: int, state: Optional[SAETrainState] = None) -> SparseAutoencoder:
+        """Layer ``i``'s SAE, from ``state`` (a whole state; the trainer's,
+        gathered under a mesh, when None)."""
+        state = self.whole_state() if state is None else state
         layer_cfg = self.cfg.replace(sweep_layers=None, hook_point_layer=self.layers[i])
         return SparseAutoencoder(layer_cfg,
-                                 params={k: v[i] for k, v in self.state.params.items()})
+                                 params={k: v[i] for k, v in state.params.items()})
 
     def log_metrics(self, metrics: StepMetrics, step: Optional[int] = None) -> Dict[str, Any]:
         """Per-layer (``layer_{l}/{name}``) and mean metrics, fetched in one
@@ -1043,17 +1118,20 @@ class SAESweepTrainer(VisionSAETrainer):
                 f"({n_tokens * len(self.layers) / seconds:.0f} SAE-tok/s)")
 
     def _result(self) -> List[SparseAutoencoder]:
-        return [self.sae_for_layer(i) for i in range(len(self.layers))]
+        whole = self.whole_state()
+        return [self.sae_for_layer(i, whole) for i in range(len(self.layers))]
 
     def save_checkpoints(self, out_dir: str) -> List[str]:
         """One ``.npz`` a layer (``save_model``) in ``out_dir``, each named
         by its SAE (``get_name``, which holds the layer).  Returns the
         paths without their suffix."""
         paths = []
+        whole = self.whole_state()
         for i in range(len(self.layers)):
-            sae = self.sae_for_layer(i)
+            sae = self.sae_for_layer(i, whole)
             path = os.path.join(out_dir, sae.get_name())
-            sae.save_model(path)
+            if self._is_writer:
+                sae.save_model(path)
             paths.append(path)
         return paths
 
@@ -1080,7 +1158,7 @@ class SAESweepTrainer(VisionSAETrainer):
         if self._val_step is None:
             from vit_prisma_tpu_torch.sae.evals import make_sweep_eval_step
             self._val_step = make_sweep_eval_step(self.model, self.cfg, self.layers)
-        s = self._val_step(self.model, self.state.params, images, labels, class_emb)
+        s = self._val_step(self.model, self.whole_state().params, images, labels, class_emb)
         host = torch.stack([s.loss.float(), s.recons_loss.float(), s.zero_abl_loss.float(),
                             s.l0_image.float().mean(-1), s.cos_sim.float()]).tolist()
         vals: Dict[str, float] = {}
@@ -1137,8 +1215,9 @@ class SAESweepTrainer(VisionSAETrainer):
                 raise ValueError("evaluate() needs class_embeddings or an eval_dataset")
             class_embeddings = _class_emb_or_identity(self.model, batch[0],
                                                       self.class_embeddings)
-        return sweep_process_dataset(self.model, self.cfg, self.layers, self.state.params,
-                                     data_iter, class_embeddings, eval_cfg or EvalConfig())
+        return sweep_process_dataset(self.model, self.cfg, self.layers,
+                                     self.whole_state().params, data_iter, class_embeddings,
+                                     eval_cfg or EvalConfig())
 
 
 # ---------------------------------------------------------------------------
@@ -1176,13 +1255,124 @@ def load_train_state(path: str, device=None) -> Tuple[SAETrainState, SAERunnerCo
     return state, SAERunnerConfig.from_dict(blob["cfg"])
 
 
-def save_train_state_sharded(path: str, state: SAETrainState, cfg: SAERunnerConfig):
-    raise NotImplementedError(
-        "the sharded train-state checkpoint is not ported yet (ROADMAP queue A, "
-        "item 15: parallelism); save_train_state keeps the whole state")
+def _flatten_state(state: SAETrainState) -> Dict[str, Any]:
+    """The train state's leaves by dotted name (``params.W_enc``,
+    ``opt_state.0.mu.W_enc``, ``opt_state.1.count``, ``step``, ...)."""
+    adam, sched = state.opt_state
+    flat = {f"params.{k}": v for k, v in state.params.items()}
+    flat["opt_state.0.count"] = adam.count
+    flat.update({f"opt_state.0.mu.{k}": v for k, v in adam.mu.items()})
+    flat.update({f"opt_state.0.nu.{k}": v for k, v in adam.nu.items()})
+    flat["opt_state.1.count"] = sched.count
+    flat.update({f: getattr(state, f) for f in _COUNTERS})
+    return flat
 
 
-def load_train_state_sharded(path: str, mesh=None):
-    raise NotImplementedError(
-        "the sharded train-state checkpoint is not ported yet (ROADMAP queue A, "
-        "item 15: parallelism); load_train_state reads save_train_state's file")
+def _unflatten_state(flat: Dict[str, Any]) -> SAETrainState:
+    pick = lambda prefix: {k[len(prefix):]: v for k, v in flat.items() if k.startswith(prefix)}
+    return SAETrainState(
+        params=pick("params."),
+        opt_state=(ScaleByAdamState(count=flat["opt_state.0.count"],
+                                    mu=pick("opt_state.0.mu."), nu=pick("opt_state.0.nu.")),
+                   ScaleByScheduleState(count=flat["opt_state.1.count"])),
+        **{f: flat[f] for f in _COUNTERS})
+
+
+def _state_plan(mesh, cfg: SAERunnerConfig, state: SAETrainState):
+    from vit_prisma_tpu_torch.parallel.mesh import sae_state_shardings, sweep_state_shardings
+    return (sweep_state_shardings if cfg.sweep_layers else sae_state_shardings)(mesh, state)
+
+
+def _dtensor_placements(placement):
+    from vit_prisma_tpu_torch.parallel.mesh import MESH_DIMS
+    from torch.distributed.tensor import Replicate, Shard
+    out = [Replicate() for _ in MESH_DIMS]
+    for dim, name in enumerate(placement.spec):
+        if name is not None:
+            out[MESH_DIMS.index(name)] = Shard(dim)
+    return out
+
+
+def _as_dtensor(local: torch.Tensor, placement, shape) -> Any:
+    from torch.distributed.tensor import DTensor
+    shape = torch.Size(shape)
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(local, placement.mesh, _dtensor_placements(placement),
+                              run_check=False, shape=shape, stride=stride)
+
+
+def _whole_shape(local: torch.Tensor, placement) -> Tuple[int, ...]:
+    from vit_prisma_tpu_torch.parallel.mesh import axis
+    shape = list(local.shape)
+    for dim, name in enumerate(placement.spec):
+        if name is not None:
+            shape[dim] *= axis(placement.mesh, name).size
+    return tuple(shape)
+
+
+def save_train_state_sharded(path: str, state: SAETrainState, cfg: SAERunnerConfig,
+                             mesh=None) -> str:
+    """Save a train state with ``torch.distributed.checkpoint`` under
+    ``{path}/state``, ``config.json`` beside it, as the JAX package lays out
+    its Orbax checkpoint.  With ``mesh`` (a sharded trainer's), ``state`` is
+    this rank's shard and each rank writes its own shards, with no gather
+    (every rank calls this); without it ``state`` is whole.  The format is
+    the port's own: the JAX package's Orbax directories are not read here
+    (a JAX state crosses through ``sae/convert.py``).  Returns the path."""
+    import json
+
+    import torch.distributed as dist
+    import torch.distributed.checkpoint as dcp
+    path = os.path.abspath(path)
+    flat = _flatten_state(state)
+    if mesh is not None:
+        plan = _flatten_state(_state_plan(mesh, cfg, state))
+        flat = {k: _as_dtensor(v.contiguous(), plan[k], _whole_shape(v, plan[k]))
+                for k, v in flat.items()}
+    elif dist.is_initialized() and dist.get_world_size() > 1:
+        raise ValueError("a whole state saved from a multi-rank world needs mesh=")
+    os.makedirs(path, exist_ok=True)
+    dcp.save(flat, checkpoint_id=os.path.join(path, "state"),
+             no_dist=not dist.is_initialized())
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        with open(os.path.join(path, "config.json"), "w") as f:
+            json.dump(cfg.to_dict(), f)
+    if dist.is_initialized():
+        dist.barrier()
+    return path
+
+
+def load_train_state_sharded(path: str, mesh=None, device=None
+                             ) -> Tuple[SAETrainState, SAERunnerConfig]:
+    """Restore :func:`save_train_state_sharded`'s checkpoint: with ``mesh``
+    straight into this rank's shard of that mesh's plan (any mesh: each
+    rank reads only the pieces of its shards; every rank calls this),
+    without it whole, on ``device`` (the CUDA card when None).  Returns
+    ``(state, cfg)``."""
+    import json
+
+    import torch.distributed as dist
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.checkpoint import FileSystemReader
+    path = os.path.abspath(path)
+    with open(os.path.join(path, "config.json")) as f:
+        cfg = SAERunnerConfig.from_dict(json.load(f))
+    ckpt = os.path.join(path, "state")
+    meta = FileSystemReader(ckpt).read_metadata().state_dict_metadata
+    shapes = {k: (tuple(m.size), m.properties.dtype) for k, m in meta.items()}
+    if mesh is None:
+        dev = resolve_device(device)
+        flat = {k: torch.empty(shape, dtype=dt) for k, (shape, dt) in shapes.items()}
+        dcp.load(flat, checkpoint_id=ckpt, no_dist=not dist.is_initialized())
+        return _unflatten_state({k: v.to(dev) for k, v in flat.items()}), cfg
+    from vit_prisma_tpu_torch.parallel.mesh import shard_tensor
+    dev = torch.device(mesh.device_type) if mesh.device_type == "cpu" else resolve_device(device)
+    whole = _unflatten_state({k: torch.empty(shape, dtype=dt, device="meta")
+                              for k, (shape, dt) in shapes.items()})
+    plan = _flatten_state(_state_plan(mesh, cfg, whole))
+    flat = {}
+    for k, (shape, dt) in shapes.items():
+        local_shape = shard_tensor(torch.empty(shape, device="meta"), plan[k]).shape
+        flat[k] = _as_dtensor(torch.empty(local_shape, dtype=dt, device=dev), plan[k], shape)
+    dcp.load(flat, checkpoint_id=ckpt)
+    return _unflatten_state({k: v.to_local() for k, v in flat.items()}), cfg
