@@ -19,11 +19,12 @@
 // depends on its own q, k and v alone: no atomics, no split of the keys, no
 // tiling that changes with B.
 //
-// Two kernels, chosen by dtype and head width (never after a failure):
+// Three kernels, chosen by dtype and head width (never after a failure):
 //  * bfloat16 with H <= 128: mix_tc_kernel, below;
-//  * float32 (any H <= 256) and bfloat16 with 128 < H <= 256 (no registered
-//    model has such a head): mix_fwd_kernel, FFMA on float32 copies of K
-//    and V (TF32 would round float32 inputs).
+//  * float32 with H <= 128: mix_tf32_kernel (mix_tf32.cuh), each float32
+//    product as three TF32 products on the tensor cores ("3xTF32");
+//  * float32 and bfloat16 with 128 < H <= 256 (no registered model has such
+//    a head): mix_fwd_kernel, FFMA on float32 copies of K and V.
 //
 // What bounds the bfloat16 kernel on an H100.  At CLIP ViT-L/14 (B 256,
 // T 257, N 16, H 64) it must move q, k, v and z once, 0.54 GB, 0.16 ms at
@@ -58,7 +59,7 @@
 // The arithmetic of a row depends neither on the layout nor on which warp
 // takes it, so B1 and B15 agree to the bit on the same data.
 //
-// Shared memory: float32 kernel, T*(H4+4) floats for K, T*H for V, and per
+// Shared memory: FFMA kernel, T*(H4+4) floats for K, T*H for V, and per
 // warp R rows of q (H4 each) and of p (T each), H4 = H rounded up to 4; the
 // Python wrapper (vit_prisma_tpu_torch/ops/attention.py, mix_tnh_smem_bytes)
 // gates T on its R = 1 size, which is the route gate of B1, B2 and B15.
@@ -66,6 +67,8 @@
 // (16 bytes of padding a row, so ldmatrix hits distinct banks; no padding at
 // HP = 16, where it would not fit the gate's T at H <= 4): at most 219 KB for
 // every (T, H <= 128) the gate admits (mix_tc_smem_bytes mirrors it).
+// float32 tensor-core kernel: K and V as float32 rows (mix_tf32.cuh,
+// smem_bytes; mix_tf32_layout mirrors it), within the gate as well.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -316,10 +319,7 @@ cudaError_t launch_rows(const void* q, const void* k, const void* v, void* z,
 #define VPT_CASE(NC) \
   case NC:           \
     return launch_nc<T, NC, R>(q, k, v, z, batch, n_tok, n_heads, d_head, causal, lay, stream);
-  // bfloat16 heads up to 128 wide take the tensor-core kernel (below)
-  if constexpr (sizeof(T) == 4) {
-    switch ((d_head + 31) / 32) { VPT_CASE(1) VPT_CASE(2) VPT_CASE(3) VPT_CASE(4) }
-  }
+  // heads up to 128 wide take a tensor-core kernel (below, mix_tf32.cuh)
   switch ((d_head + 31) / 32) {
     VPT_CASE(5) VPT_CASE(6) VPT_CASE(7) VPT_CASE(8)
     default:
@@ -665,9 +665,16 @@ inline cudaError_t launch_tc(const void* q, const void* k, const void* v, void* 
   }
 }
 
+}  // namespace mix
+
+#include "mix_tf32.cuh"
+
+namespace mix {
+
 // Check the arguments, select the device and launch (0 = float32, 1 =
-// bfloat16): bfloat16 heads up to kTcMaxHead wide take the tensor-core
-// kernel, everything else the float32 one.  Returns the cudaError_t.
+// bfloat16): heads up to kTcMaxHead wide take the tensor-core kernel of
+// their dtype (mix_tc_kernel, mix_tf32_kernel), wider ones the FFMA kernel.
+// Returns the cudaError_t.
 inline int run(const void* q, const void* k, const void* v, void* z, int batch,
                int n_tok, int n_heads, int d_head, int causal, int dtype, int device,
                Layout lay, void* stream) {
@@ -675,6 +682,8 @@ inline int run(const void* q, const void* k, const void* v, void* z, int batch,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && d_head <= tf32::kMaxHead)
+    return tf32::launch_fwd(q, k, v, z, batch, n_tok, n_heads, d_head, causal, lay, device, s);
   if (dtype == 0) return launch<float>(q, k, v, z, batch, n_tok, n_heads, d_head, causal, lay, s);
   if (dtype == 1 && d_head <= kTcMaxHead)
     return launch_tc(q, k, v, z, batch, n_tok, n_heads, d_head, causal, lay, s);

@@ -594,10 +594,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dz,
   case NC:                                                                       \
     return launch_nc<T, NC>(q, k, v, dz, dq, dk, dv, stats, batch, n_tok, n_heads, \
                             d_head, causal, stream);
-  // bfloat16 heads up to 128 wide take the tensor-core passes (tc, below)
-  if constexpr (sizeof(T) == 4) {
-    switch ((d_head + 31) / 32) { VPT_CASE(1) VPT_CASE(2) VPT_CASE(3) VPT_CASE(4) }
-  }
+  // heads up to 128 wide take a tensor-core route (tc and tf32, below)
   switch ((d_head + 31) / 32) {
     VPT_CASE(5) VPT_CASE(6) VPT_CASE(7) VPT_CASE(8)
     default:
@@ -956,13 +953,320 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dz, 
 
 }  // namespace tc
 
+// ---- float32: tensor cores (3xTF32) ------------------------------------------
+
+namespace f32tc {
+
+namespace t = mix::tf32;
+using t::kStep;
+using t::round8;
+
+// Per padded head width: the rows (keys) of a warp's tile and the gradient
+// columns a sweep accumulates (the scores are formed again for each group).
+// A warp holds both A operands (q and dz, or k and v) raw in registers; past
+// H 64 that took every register and spilled, so wider heads take 8-row
+// tiles, whose fragments' rows 8-15 are zero constants (half the registers,
+// twice the products a row), and chunks of two 8-key (8-query) steps.  Past
+// H 64 the operands' splits stay in the chunk loop (t::split_kept; else the
+// compiler hoists them, doubling the operands' registers).
+__host__ __device__ constexpr int tile_rows(int hp) { return hp <= 64 ? 16 : 8; }
+__host__ __device__ constexpr int group(int hp) {
+  return hp <= 64 ? hp : hp == 128 ? 32 : hp / 2;
+}
+constexpr int kSubs = 2;
+template <int HP>
+constexpr bool kKeptSplit = HP > 64;
+
+// s = q K^T and dp = dz V^T for the NJ 8-key steps from key0 (rows pass), s
+// masked.
+template <int HP, int NJ>
+__device__ __forceinline__ void rows_scores(float (&s)[NJ][4], float (&dp)[NJ][4],
+                                            const float (&qa)[HP / 8][4],
+                                            const float (&da)[HP / 8][4], const float* Ks,
+                                            const float* Vs, int S, int key0, int row0,
+                                            int n_tok, int causal) {
+  t::nt_chunk<HP, NJ, true, kKeptSplit<HP>>(s, qa, Ks, S, key0);
+  t::nt_chunk<HP, NJ, true, kKeptSplit<HP>>(dp, da, Vs, S, key0);
+  t::mask_scores<NJ>(s, key0, row0, n_tok, causal);
+}
+
+template <int HP, int NJ>
+__device__ __forceinline__ void rows_sweep1(float (&m)[2], float (&l)[2], float (&w)[2],
+                                            const float (&qa)[HP / 8][4],
+                                            const float (&da)[HP / 8][4], const float* Ks,
+                                            const float* Vs, int S, int key0, int row0,
+                                            int n_tok, int causal) {
+  float s[NJ][4], dp[NJ][4];
+  rows_scores<HP, NJ>(s, dp, qa, da, Ks, Vs, S, key0, row0, n_tok, causal);
+  t::running_stats<NJ, true>(m, l, w, s, dp);
+}
+
+// acc += ds K over one chunk, for the CG gradient columns from c0.
+template <int HP, int NJ, int CG>
+__device__ __forceinline__ void rows_sweep2(float (&acc)[CG / 8][4], const float (&nb)[2],
+                                            const float (&inv)[2], const float (&D)[2],
+                                            const float (&qa)[HP / 8][4],
+                                            const float (&da)[HP / 8][4], const float* Ks,
+                                            const float* Vs, int S, int key0, int row0,
+                                            int c0, int n_tok, int causal) {
+  float s[NJ][4], dp[NJ][4];
+  rows_scores<HP, NJ>(s, dp, qa, da, Ks, Vs, S, key0, row0, n_tok, causal);
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      dp[j][e] = t::prob(s[j][e], nb[e >> 1], inv[e >> 1]) * (dp[j][e] - D[e >> 1]);
+  t::pn_chunk<CG / 8>(acc, dp, Ks, S, key0, c0);
+}
+
+// The rows pass for rows [row0, row0 + R): sweep 1 forms s and dp, each
+// row's running max m and sums l = sum(exp(s - m)) and w = sum(dp exp(s - m)),
+// so D = w / l = sum(dp p) (the Pallas kernel's D, summed in another order);
+// sweep 2 forms them again, p = exp(s - m) / l and ds = p (dp - D) (float32:
+// no rounding), the A fragments of dq += ds K.  It writes dq and each row's
+// m, l and D (st: m | l | D, T floats each).
+template <int HP>
+__device__ __forceinline__ void rows_tile(const float* Ks, const float* Vs, int S,
+                                          const float* __restrict__ qh,
+                                          const float* __restrict__ dzh, float* __restrict__ dqh,
+                                          float* __restrict__ st, long long ts, int row0,
+                                          int n_tok, int d_head, int causal) {
+  constexpr int R = tile_rows(HP), NJ = kSubs, CG = group(HP);
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  float qa[HP / 8][4], da[HP / 8][4];
+  t::load_a<HP, R>(qa, qh, ts, row0, n_tok, d_head);
+  t::load_a<HP, R>(da, dzh, ts, row0, n_tok, d_head);
+  const int end = round8(causal ? min(n_tok, row0 + R) : n_tok);
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, w[2] = {0.f, 0.f};
+  t::for_chunks<NJ>(0, end, [&](auto nj, int key0) {
+    rows_sweep1<HP, decltype(nj)::value>(m, l, w, qa, da, Ks, Vs, S, key0, row0, n_tok, causal);
+  });
+  float mx[2], sum[2], ws[2], nb[2], inv[2], D[2];
+  t::merge_stats<true>(mx, sum, ws, m, l, w);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    t::row_factors(mx[h], sum[h], nb[h], inv[h]);
+    D[h] = ws[h] * inv[h];
+  }
+
+#pragma unroll 1
+  for (int c0 = 0; c0 < HP; c0 += CG) {
+    float acc[CG / 8][4];
+    flash::zero(acc);
+    t::for_chunks<NJ>(0, end, [&](auto nj, int key0) {
+      rows_sweep2<HP, decltype(nj)::value, CG>(acc, nb, inv, D, qa, da, Ks, Vs, S, key0, row0,
+                                               c0, n_tok, causal);
+    });
+    t::store_acc<CG / 8, R>(dqh, acc, ts, row0, c0, n_tok, d_head);
+  }
+  if (tq == 0)
+#pragma unroll
+    for (int h = 0; h < R / 8; ++h) {
+      const int row = row0 + g + 8 * h;
+      if (row < n_tok) {
+        st[row] = mx[h];
+        st[n_tok + row] = sum[h];
+        st[2 * n_tok + row] = D[h];
+      }
+    }
+}
+
+// One chunk of the columns pass (NJ 8-query steps from q0) for keys [key0,
+// key0 + R) and the CG gradient columns from c0: s^T = K Q^T and dp^T =
+// V dZ^T with the keys as A, in the rows pass's product order (so s, and p,
+// come out bit for bit as there); p^T and ds^T = p^T (dp^T - D) into dv +=
+// p^T dZ and dk += ds^T Q.  rs: each query's nb, inv and D (rows floats each).
+template <int HP, int NJ, int CG>
+__device__ __forceinline__ void cols_chunk(float (&adk)[CG / 8][4], float (&adv)[CG / 8][4],
+                                           const float (&ka)[HP / 8][4],
+                                           const float (&va)[HP / 8][4], const float* Qs,
+                                           const float* dZs, const float* rs, int rows, int S,
+                                           int q0, int key0, int c0, int n_tok, int causal) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  float s[NJ][4], dp[NJ][4];
+  t::nt_chunk<HP, NJ, false, kKeptSplit<HP>>(s, ka, Qs, S, q0);
+  t::nt_chunk<HP, NJ, false, kKeptSplit<HP>>(dp, va, dZs, S, q0);
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qi = q0 + kStep * j + 2 * tq + (e & 1);
+      const bool ok = qi < n_tok && (!causal || qi >= key0 + g + 8 * (e >> 1));
+      const float p = ok ? t::prob(s[j][e], rs[qi], rs[rows + qi]) : 0.f;
+      s[j][e] = p;
+      dp[j][e] = p * (dp[j][e] - rs[2 * rows + qi]);
+    }
+  }
+  t::pn_chunk<CG / 8>(adv, s, dZs, S, q0, c0);
+  t::pn_chunk<CG / 8>(adk, dp, Qs, S, q0, c0);
+}
+
+// The columns pass for keys [key0, key0 + R): dk and dv, CG columns a sweep.
+template <int HP>
+__device__ __forceinline__ void cols_tile(const float* Qs, const float* dZs, const float* rs,
+                                          int rows, int S,
+                                          const float* __restrict__ kh,
+                                          const float* __restrict__ vh, float* __restrict__ dkh,
+                                          float* __restrict__ dvh, long long ts, int key0,
+                                          int n_tok, int d_head, int causal) {
+  constexpr int R = tile_rows(HP), NJ = kSubs, CG = group(HP);
+  float ka[HP / 8][4], va[HP / 8][4];
+  t::load_a<HP, R>(ka, kh, ts, key0, n_tok, d_head);
+  t::load_a<HP, R>(va, vh, ts, key0, n_tok, d_head);
+  // Queries before a key are masked when causal.
+  const int q_first = causal ? key0 : 0;
+#pragma unroll 1
+  for (int c0 = 0; c0 < HP; c0 += CG) {
+    float adk[CG / 8][4], adv[CG / 8][4];
+    flash::zero(adk);
+    flash::zero(adv);
+    t::for_chunks<NJ>(q_first, rows, [&](auto nj, int q0) {
+      cols_chunk<HP, decltype(nj)::value, CG>(adk, adv, ka, va, Qs, dZs, rs, rows, S, q0, key0,
+                                              c0, n_tok, causal);
+    });
+    t::store_acc<CG / 8, R>(dkh, adk, ts, key0, c0, n_tok, d_head);
+    t::store_acc<CG / 8, R>(dvh, adv, ts, key0, c0, n_tok, d_head);
+  }
+}
+
+// Grid (splits, N, B); t::plan's warps; t::smem_bytes(T, H, false) of shared
+// memory.  Block x takes the tiles [x * tiles, (x + 1) * tiles) of its head
+// (tile_rows(HP) rows each) and stages K and V for the keys its rows see.
+// stats: per head m | l | D, T floats each.
+template <int HP>
+__global__ void __launch_bounds__(mix::kTcMaxWarps * 32, 1)
+    bwd_rows_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ dz,
+                         float* __restrict__ dq, float* __restrict__ stats, int n_tok,
+                         int n_heads, int d_head, int causal, int S, int tiles, int vec) {
+  constexpr int R = tile_rows(HP);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int rows = round8(n_tok);
+  float* Ks = reinterpret_cast<float*>(smem_raw);  // [rows][S]
+  float* Vs = Ks + rows * S;                       // [rows][S], then the slack
+  const long long ts = (long long)n_heads * d_head;
+  const long long base = (long long)blockIdx.z * n_tok * ts + (long long)blockIdx.y * d_head;
+  const int n_tiles = (n_tok + R - 1) / R;
+  const int tile0 = blockIdx.x * tiles, tile_end = min(n_tiles, tile0 + tiles);
+  const int key_end = round8(causal ? min(n_tok, tile_end * R) : n_tok);
+  t::stage_rows(Ks, k + base, ts, 0, key_end, rows, n_tok, d_head, S, vec);
+  t::stage_rows(Vs, v + base, ts, 0, key_end, rows, n_tok, d_head, S, vec);
+  t::zero_slack(Vs + rows * S);
+  sae::cp_async_wait<0>();
+  __syncthreads();
+  float* st = stats + ((long long)blockIdx.z * n_heads + blockIdx.y) * 3 * n_tok;
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5;
+  for (int i = tile0 + warp; i < tile_end; i += warps)
+    rows_tile<HP>(Ks, Vs, S, q + base, dz + base, dq + base, st, ts, i * R, n_tok, d_head,
+                  causal);
+}
+
+// Grid (splits, N, B); t::plan's warps; t::smem_bytes(T, H, true) of shared
+// memory.  Block x takes the key tiles [x * tiles, (x + 1) * tiles) of its
+// head and stages Q and dZ for the queries those keys meet (all, or causal
+// from its first key), and each such query's nb, inv (from the rows pass's m
+// and l, by t::row_factors as there) and D.
+template <int HP>
+__global__ void __launch_bounds__(mix::kTcMaxWarps * 32, 1)
+    bwd_cols_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ dz,
+                         const float* __restrict__ stats, float* __restrict__ dk,
+                         float* __restrict__ dv, int n_tok, int n_heads, int d_head, int causal,
+                         int S, int tiles, int vec) {
+  constexpr int R = tile_rows(HP);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int rows = round8(n_tok);
+  float* Qs = reinterpret_cast<float*>(smem_raw);  // [rows][S]
+  float* dZs = Qs + rows * S;                      // [rows][S]
+  float* rs = dZs + rows * S;                      // nb, inv, D: [rows] each, then the slack
+  const long long ts = (long long)n_heads * d_head;
+  const long long base = (long long)blockIdx.z * n_tok * ts + (long long)blockIdx.y * d_head;
+  const int n_tiles = (n_tok + R - 1) / R;
+  const int tile0 = blockIdx.x * tiles, tile_end = min(n_tiles, tile0 + tiles);
+  const int q_lo = causal ? tile0 * R : 0;
+  t::stage_rows(Qs, q + base, ts, q_lo, rows, rows, n_tok, d_head, S, vec);
+  t::stage_rows(dZs, dz + base, ts, q_lo, rows, rows, n_tok, d_head, S, vec);
+  const float* st = stats + ((long long)blockIdx.z * n_heads + blockIdx.y) * 3 * n_tok;
+  for (int i = threadIdx.x; i < rows; i += blockDim.x) {
+    float nb = 0.f, inv = 0.f, D = 0.f;
+    if (i >= q_lo && i < n_tok) {
+      t::row_factors(st[i], st[n_tok + i], nb, inv);
+      D = st[2 * n_tok + i];
+    }
+    rs[i] = nb;
+    rs[rows + i] = inv;
+    rs[2 * rows + i] = D;
+  }
+  t::zero_slack(rs + 3 * rows);
+  sae::cp_async_wait<0>();
+  __syncthreads();
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5;
+  for (int i = tile0 + warp; i < tile_end; i += warps)
+    cols_tile<HP>(Qs, dZs, rs, rows, S, k + base, v + base, dk + base, dv + base, ts, i * R,
+                  n_tok, d_head, causal);
+}
+
+template <int HP>
+cudaError_t launch_hp(const float* q, const float* k, const float* v, const float* dz,
+                      float* dq, float* dk, float* dv, float* stats, int batch, int n_tok,
+                      int n_heads, int d_head, int causal, int device, cudaStream_t stream) {
+  const size_t smem_rows = t::smem_bytes(n_tok, d_head, false);
+  const size_t smem_cols = t::smem_bytes(n_tok, d_head, true);
+  if (smem_rows > kMaxSmemBytes || smem_cols > kMaxSmemBytes) return cudaErrorInvalidValue;
+  auto rows_kernel = bwd_rows_tf32_kernel<HP>;
+  auto cols_kernel = bwd_cols_tf32_kernel<HP>;
+  cudaError_t err;
+  if ((err = t::prepare(rows_kernel, smem_rows)) != cudaSuccess ||
+      (err = t::prepare(cols_kernel, smem_cols)) != cudaSuccess)
+    return err;
+  const int n_tiles = (n_tok + tile_rows(HP) - 1) / tile_rows(HP);
+  const long long pairs = (long long)batch * n_heads;
+  const int vec = d_head % 4 == 0 &&
+                  ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                    reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dz)) & 15) == 0;
+  const t::Plan pr = t::plan(rows_kernel, pairs, n_tiles, smem_rows, device);
+  rows_kernel<<<dim3(pr.splits, n_heads, batch), pr.warps * 32, smem_rows, stream>>>(
+      q, k, v, dz, dq, stats, n_tok, n_heads, d_head, causal,
+      t::row_stride(n_tok, d_head, false), pr.tiles, vec);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const t::Plan pc = t::plan(cols_kernel, pairs, n_tiles, smem_cols, device);
+  cols_kernel<<<dim3(pc.splits, n_heads, batch), pc.warps * 32, smem_cols, stream>>>(
+      q, k, v, dz, stats, dk, dv, n_tok, n_heads, d_head, causal,
+      t::row_stride(n_tok, d_head, true), pc.tiles, vec);
+  return cudaGetLastError();
+}
+
+cudaError_t launch(const void* q, const void* k, const void* v, const void* dz, void* dq,
+                   void* dk, void* dv, float* stats, int batch, int n_tok, int n_heads,
+                   int d_head, int causal, int device, cudaStream_t stream) {
+  const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
+              *vf = static_cast<const float*>(v), *dzf = static_cast<const float*>(dz);
+  float *dqf = static_cast<float*>(dq), *dkf = static_cast<float*>(dk),
+        *dvf = static_cast<float*>(dv);
+  switch (t::head_pad(d_head)) {
+#define F32TC_CASE(HP)                                                                        \
+  case HP:                                                                                    \
+    return launch_hp<HP>(qf, kf, vf, dzf, dqf, dkf, dvf, stats, batch, n_tok, n_heads, d_head, \
+                         causal, device, stream);
+    F32TC_CASE(16) F32TC_CASE(32) F32TC_CASE(48) F32TC_CASE(64)
+    F32TC_CASE(80) F32TC_CASE(96) F32TC_CASE(112) F32TC_CASE(128)
+#undef F32TC_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace f32tc
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  stats: float32 scratch of 3 * batch *
 // n_heads * n_tok floats (each row's statistics, from the rows pass to the
-// columns pass: m, l and D on the FFMA route, log2-sum-exp and D on the
-// tensor cores).  bfloat16 heads up to 128 wide take the tensor-core passes,
-// everything else the FFMA ones.  Returns the launches' cudaError_t.
+// columns pass: m, l and D on the FFMA and 3xTF32 routes, log2-sum-exp and D
+// on the bfloat16 tensor cores).  Heads up to 128 wide take the tensor-core
+// passes of their dtype, wider ones the FFMA passes.  Returns the launches'
+// cudaError_t.
 extern "C" int attention_mix_tnh_bwd(const void* q, const void* k, const void* v,
                                      const void* dz, void* dq, void* dk, void* dv,
                                      void* stats, int batch, int n_tok, int n_heads,
@@ -977,6 +1281,9 @@ extern "C" int attention_mix_tnh_bwd(const void* q, const void* k, const void* v
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* st = static_cast<float*>(stats);
+  if (dtype == 0 && d_head <= mix::tf32::kMaxHead)
+    return f32tc::launch(q, k, v, dz, dq, dk, dv, st, batch, n_tok, n_heads, d_head, causal,
+                         device, s);
   if (dtype == 0)
     return launch<float>(q, k, v, dz, dq, dk, dv, st, batch, n_tok, n_heads, d_head,
                          causal, s);

@@ -9,11 +9,12 @@ the PV product, and an optional causal mask.  It is a
 (:func:`attention_mix_tnh_bwd`); on CPU tensors they run the plain versions
 :func:`attention_mix_tnh_reference` and
 :func:`attention_mix_tnh_bwd_reference`, so CPU gradients take the kernel's
-rounding points too.  The forward's device code (``csrc/attention_mix_core.cuh``,
-shared with B15) has two routes, chosen by dtype and head width: bfloat16
-heads up to 128 wide run both products on the tensor cores (mma.sync,
-bfloat16 K and V staged once per head); float32, and bfloat16 heads wider
-than 128, run FFMA on float32 copies.
+rounding points too.  The device code of both (``csrc/attention_mix_core.cuh``,
+shared with B15, and ``csrc/attention_mix_tnh_bwd.cu``) has three routes,
+chosen by dtype and head width (:func:`mix_route`): bfloat16 heads up to 128
+wide run every product on the tensor cores (mma.sync in bfloat16); float32
+heads up to 128 wide too, each float32 product as three TF32 products
+(``csrc/mix_tf32.cuh``); wider heads run FFMA on float32 copies.
 
 :func:`flash_attention_padded` is kernel B13, forward and backward: tiled
 flash attention over head-major ``[B, N, Tp, H]`` tensors for token axes too
@@ -78,6 +79,43 @@ def mix_tc_smem_bytes(T: int, H: int) -> int:
     return 2 * 2 * (-(-T // 16) * 16) * stride
 
 
+def mix_route(H: int, dtype: torch.dtype) -> str:
+    """The device code B1, B2 and B15 run for a head width and dtype:
+    ``"mma_sync"`` (bfloat16 up to :data:`MIX_TC_MAX_HEAD_DIM`: bfloat16
+    products on the tensor cores), ``"tf32x3"`` (float32 up to the same
+    width: each float32 product as three TF32 products on the tensor cores)
+    or ``"ffma"`` (wider heads, either dtype: float32 FMAs on the CUDA
+    cores)."""
+    if H > MIX_TC_MAX_HEAD_DIM:
+        return "ffma"
+    return "tf32x3" if dtype == torch.float32 else "mma_sync"
+
+
+# Must match round8(), smem_floats(), row_stride() and kSlack in
+# csrc/mix_tf32.cuh.
+_TF32_SLACK = 16
+
+
+def _tf32_floats(T: int, stride: int, stats: bool) -> int:
+    rows = -(-T // 8) * 8
+    return 2 * rows * stride + (3 * rows if stats else 0) + _TF32_SLACK
+
+
+def mix_tf32_layout(T: int, H: int, pass_: str = "fwd"):
+    """``(stride, bytes)`` of one block of the float32 tensor-core route
+    (heads up to :data:`MIX_TC_MAX_HEAD_DIM` wide) at T tokens, for ``pass_``
+    ``"fwd"`` or ``"rows"`` (B1 and B15, B2's rows pass: K and V) or
+    ``"cols"`` (B2's columns pass: Q, dZ and each row's nb, inv and D): two
+    operands staged as float32 rows of ``stride`` floats (H rounded up to 4
+    mod 8 where that fits, else to 4) in T rounded up to 8 rows, and 16
+    floats of slack.  Fits wherever :func:`mix_tnh_fits_smem` admits."""
+    stats = pass_ == "cols"
+    stride = -(-(H + 4) // 8) * 8 - 4
+    if 4 * _tf32_floats(T, stride, stats) > _MAX_SMEM_BYTES:
+        stride = -(-H // 4) * 4
+    return stride, 4 * _tf32_floats(T, stride, stats)
+
+
 # Must match rows_smem_bytes(), cols_smem_bytes() and kShapes in
 # csrc/attention_mix_tnh_bwd.cu.
 _BWD_SHAPES = ((8, 4), (4, 4), (8, 1), (4, 1), (2, 1), (1, 1))
@@ -113,9 +151,10 @@ def mix_tnh_bwd_fits_smem(T: int, H: int) -> bool:
     each pass then fits at one of its shapes (at 4 warps of one row the
     rows pass takes B1's bytes exactly), so a forward that ran B1 always
     has a backward; the tests hold the two gates equal at every H.  It
-    describes the float32 (FFMA) route in either dtype, as B1's gate does;
-    bfloat16 heads up to 128 wide take the tensor-core passes, whose shared
-    memory (:func:`mix_tnh_bwd_tc_smem_bytes`) fits wherever it admits."""
+    describes the FFMA route in either dtype, as B1's gate does; heads up
+    to 128 wide take the tensor-core passes of their dtype, whose shared
+    memory (:func:`mix_tnh_bwd_tc_smem_bytes`, :func:`mix_tf32_layout`)
+    fits wherever it admits."""
     if not mix_tnh_fits_smem(T, H):
         return False
     sizes = [mix_tnh_bwd_smem_bytes(T, H, w, r) for w, r in _BWD_SHAPES]
@@ -235,9 +274,9 @@ def _check_shapes(what, q, *others, n_heads: int):
 def attention_mix_tnh_bwd(q, k, v, dz, n_heads: int, causal: bool = False):
     """Kernel B2, the mix's VJP: ``(dq, dk, dv)`` for the cotangent ``dz``
     of ``attention_mix_tnh(q, k, v)``.  CUDA tensors launch the hand-written
-    kernel and add one to ``attention_mix_tnh_bwd.launches``: bfloat16
-    heads up to 128 wide run its products on the tensor cores, float32 (and
-    wider bfloat16 heads) on the CUDA cores; CPU tensors run the plain
+    kernel and add one to ``attention_mix_tnh_bwd.launches``: heads up to
+    128 wide run its products on the tensor cores (float32 as 3xTF32), wider
+    heads on the CUDA cores (:func:`mix_route`); CPU tensors run the plain
     version.  It takes every T and H that B1 takes; past them it raises
     ``NotImplementedError``, naming the flash kernel (B13),
     :func:`flash_attention_padded`."""
