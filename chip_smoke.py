@@ -255,6 +255,12 @@ Phases, each printing JSON lines with the card's name and power limit:
     (B13 forward 24, each backward pass 23, B14 24), images per second, peak
     memory, gradients against the einsum path, and float32 gradients
     against the CPU at 4 layers;
+25b. l14_336_f32: the same model in float32 (B13's 3xTF32 route, B14's
+    FFMA one) at full width and depth, the eleventh main path: the cached
+    forward over its 24 resid_post hooks at the store batch of 32 and the
+    ``incl_bwd`` attribution at batch 8, each with exact launches (B13 24;
+    24 forward, 23 each backward pass), images per second, and B13's share
+    of the device time of one warmed call by the 3xTF32 kernels' names;
 26. video: ViViT-B (12 x 768, 32 frames, T 3137, batch 8 clips) and V-JEPA
     huge (32 x 1280, 16 frames, T 1568, d_head 80, no class token, batch
     4) at full width in bf16: ``run_with_cache`` over the resid_post hooks
@@ -734,20 +740,24 @@ LN_REL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
 # L/14-336 at serving batch 64 and at attribution batch 32 (T = 577, padded
 # to Tp = 640), a causal stack of the same width, the attribution shape at
 # the widest head the bf16 Hopper kernels take, and a bf16 head width they
-# do not take.
-FLASH_SHAPES = [("l14_336_serve", 64, 16, 577, 64, False, (torch.bfloat16, torch.float32)),
-                ("l14_336_attrib", 32, 16, 577, 64, False, (torch.bfloat16,)),
-                ("causal", 8, 16, 577, 64, True, (torch.bfloat16, torch.float32)),
-                ("l14_336_attrib_h128", 32, 16, 577, 128, False, (torch.bfloat16,)),
+# do not take.  float32 (the 3xTF32 route, every width) at each but ViViT-B.
+F32_BF16 = (torch.bfloat16, torch.float32)
+FLASH_SHAPES = [("l14_336_serve", 64, 16, 577, 64, False, F32_BF16),
+                ("l14_336_attrib", 32, 16, 577, 64, False, F32_BF16),
+                ("causal", 8, 16, 577, 64, True, F32_BF16),
+                ("l14_336_attrib_h128", 32, 16, 577, 128, False, F32_BF16),
                 # a bf16 width routed to the mma.sync kernels
-                ("h32", 8, 16, 577, 32, False, (torch.bfloat16,)),
+                ("h32", 8, 16, 577, 32, False, F32_BF16),
                 # the video towers' forwards: ViViT-B at batch 8 (Tp 3200,
                 # the wgmma route), V-JEPA huge at batch 4 (H 80, Tp 1664,
                 # the mma.sync route)
                 ("vivit_b", 8, 12, 3137, 64, False, (torch.bfloat16,)),
-                ("vjepa_h", 4, 16, 1568, 80, False, (torch.bfloat16,))]
-# The bf16 route's kernels (wgmma), for ptxas's record.
+                ("vjepa_h", 4, 16, 1568, 80, False, F32_BF16)]
+# The Hopper kernels of the bf16 route (wgmma) and the float32 route's
+# (3xTF32 mma.sync, one instantiation a head width 16 to 128), for ptxas's
+# record: neither may spill.
 FLASH_TC_KERNELS = ("fwd_tc_kernel", "bwd_dkv_tc_kernel", "bwd_dq_tc_kernel")
+FLASH_TF32_KERNELS = ("fwd_tf32_kernel", "dkv_tf32_kernel", "dq_tf32_kernel")
 # z and each gradient within rel of max(1, its absmax): float32 differs in
 # summation order (and the online softmax's rescaling) only; bfloat16 rounds
 # p (and ds) to bf16 after float32 sums taken in other orders, as B1 and B2.
@@ -767,6 +777,12 @@ L336_BF16_REL = 2 * SLICE_BF16_REL
 # Card against CPU in float32 at batch 1 through all 24 layers (GEMM and
 # attention summation order, both ways): SLICE_F32_REL.
 L336_ATTRIB_BATCH = 32
+# l14_336_f32: the float32 cached forward at the store batch, the float32
+# attribution at a batch that leaves the gradients' memory small, each
+# timed over a few calls after a warm-up.
+L336_F32_STORE_BATCH = 32
+L336_F32_ATTRIB_BATCH = 8
+L336_F32_TIMED = 2
 L336_GRAD_F32_LAYERS = 4
 L336_GRAD_F32_BATCH = 2
 # bf16 gradients against the einsum path's: GRAD_BF16_REL over twice the
@@ -848,7 +864,7 @@ VIDEO_TIMED = 3
 # the same residual (no earlier layer's rounding carried): SLICE_BF16_REL of
 # each hook's absmax, for the attention output and the block's output.
 VIDEO_BF16_REL = SLICE_BF16_REL
-# ViViT-B cut to 2 layers in float32 at batch 1, card (B13's FFMA route)
+# ViViT-B cut to 2 layers in float32 at batch 1, card (B13's 3xTF32 route)
 # against the CPU: SLICE_F32_REL.
 VIDEO_F32_LAYERS = 2
 
@@ -1004,33 +1020,57 @@ def cuda_us(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) * 1000.0 / iters
 
 
-def device_us_by_name(fn, calls=10, warmup=2, tries=4, one_call_short=False) -> dict:
+# Idle seconds a profiler window keeps on each side of the calls it times,
+# window by window of one measurement.  The profiler drops each device event
+# that its clock places outside the window, and windows with no idle margin
+# lost the calls at one end: some (3 of 10 kernels, 1 of 12, 3 of 12), or all
+# of them (eight and four windows in a row of a few milliseconds, on two
+# hosts), more often the longer the process had run.  A window that lost
+# events is taken again with a wider margin.
+PROFILE_PADS_S = (0.0, 0.02, 0.2, 1.0)
+# "what: margin" of each measurement that needed a margin, for the summary
+PROFILE_PADDED = []
+
+
+def _device_events(fn, calls, pad=0.0):
+    """The device's events (kernels, copies) over ``calls`` calls of ``fn``
+    in one ``torch.profiler`` window: a first cycle of calls while device
+    tracing starts (a window that began cold saw 4 of 10 calls on one host),
+    then the cycle that is kept, with ``pad`` idle seconds before and after
+    its calls.  The window traces the host as well: windows that traced the
+    card alone came back with no device event more often."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for cycle in range(2):
+            if cycle and pad:
+                time.sleep(pad)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            if cycle and pad:
+                time.sleep(pad)
+            prof.step()
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep")]
+
+
+def device_us_by_name(fn, calls=10, warmup=2, one_call_short=False) -> dict:
     """Device time of ``fn`` in microseconds a call by kernel (or copy)
     name, from ``torch.profiler`` over ``calls`` calls.  The profiler now
     and then returns a window with no device events, or with some lost (a
     kernel counted fewer times than there were calls); such a window is
-    measured again, and a last one that is still short raises.  With
-    ``one_call_short`` (for a library call made through autograd's engine
-    alone) a window that lost whole calls, the same ones kernel by kernel,
-    and kept at least half of them, is taken over the calls it kept."""
-    from torch.profiler import ProfilerActivity, profile, schedule
+    measured again with the next margin of ``PROFILE_PADS_S``, and a last
+    one that is still short raises.  With ``one_call_short`` (for a library
+    call made through autograd's engine alone) a window that lost whole
+    calls, the same ones kernel by kernel, and kept at least half of them,
+    is taken over the calls it kept."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
-        # a first cycle of calls while the profiler's device tracing starts
-        # (a window that began cold saw 4 of 10 calls on one host), then the
-        # cycle that is kept
-        with profile(activities=[ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-            for _ in range(2):
-                for _ in range(calls):
-                    fn()
-                torch.cuda.synchronize()
-                prof.step()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not e.key.startswith("ProfilerStep")]
+    for pad in PROFILE_PADS_S:
+        events = _device_events(fn, calls, pad)
         # every call's kernels; for SDPA's backward through autograd's engine
         # also fewer whole calls: it lost all the device events of one call
         # of the kept cycle, the same one kernel by kernel, on two hosts, and
@@ -1038,9 +1078,20 @@ def device_us_by_name(fn, calls=10, warmup=2, tries=4, one_call_short=False) -> 
         # over the calls kept
         for kept in range(calls, calls // 2 - 1, -1) if one_call_short else (calls,):
             if events and kept > 0 and all(e.count % kept == 0 for e in events):
+                if pad:
+                    PROFILE_PADDED.append(f"{events[0].key[:60]}: {pad}")
                 return {e.key: e.device_time_total / kept for e in events}
-    raise AssertionError(f"torch.profiler lost device events in {tries} windows: "
-                         f"{[(e.key[:60], e.count) for e in events]}")
+    raise ProfilerLostEvents(f"torch.profiler lost device events in {len(PROFILE_PADS_S)} "
+                             f"windows: {[(e.key[:60], e.count) for e in events]}")
+
+
+class ProfilerLostEvents(AssertionError):
+    """No window of ``device_us_by_name`` kept every call's device events."""
+
+
+# device times that CUDA events took because every profiler window lost
+# device events; the summary line lists them
+CUDA_EVENT_FALLBACKS = []
 
 
 def device_us(fn, calls=10, warmup=2, one_call_short=False) -> float:
@@ -1048,8 +1099,16 @@ def device_us(fn, calls=10, warmup=2, one_call_short=False) -> float:
     copies') times summed by ``torch.profiler``.  A library call whose host
     side outruns its kernels (autograd's engine at small shapes; CUDA events
     then time the host, 1.6x apart between calls) is charged its device work
-    alone, as a kernel is."""
-    return sum(device_us_by_name(fn, calls, warmup, one_call_short=one_call_short).values())
+    alone, as a kernel is.  Where every window lost device events, the
+    time is taken from CUDA events instead, and the call is recorded in
+    ``CUDA_EVENT_FALLBACKS``."""
+    try:
+        return sum(device_us_by_name(fn, calls, warmup,
+                                     one_call_short=one_call_short).values())
+    except ProfilerLostEvents:
+        where = sys._getframe(1)
+        CUDA_EVENT_FALLBACKS.append(f"{where.f_code.co_name}:{where.f_lineno}")
+        return cuda_us(fn, iters=calls, warmup=warmup)
 
 
 def check_close(name, got, want, atol) -> float:
@@ -1150,35 +1209,27 @@ def ptxas(kernel: str) -> dict:
     return found
 
 
-def kernel_names(fn, calls=3):
+def kernel_names(fn, calls=3, pad=0.0):
     """Names of the device kernels ``torch.profiler`` sees in ``calls``
     calls of ``fn``, in a window opened as device_us_by_name opens its own
-    (one warm cycle, one kept; a window may lose calls)."""
-    from torch.profiler import ProfilerActivity, profile, schedule
+    (one warm cycle, one kept, ``pad`` idle seconds on each side of its
+    calls; a window may lose calls)."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        for _ in range(2):
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    return sorted({e.key for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not e.key.startswith("ProfilerStep")})
+    return sorted({e.key for e in _device_events(fn, calls, pad)})
 
 
-def profiled_kernels(what, fn, route, kinds, tries=4):
+def profiled_kernels(what, fn, route, kinds):
     """Names of the kernels ``torch.profiler`` sees in calls of ``fn`` (a
     float32 mix), raising unless the route's kernels of ``kinds`` (indices
     into MIX_TF32_KERNELS and MIX_FFMA_KERNELS: 0 the forward, 1 and 2 B2's
     passes) are among them and the other route's are not; a window that
-    missed one of them is taken again, up to ``tries`` windows."""
+    missed one of them is taken again with the next margin of
+    ``PROFILE_PADS_S``."""
     want, other = ((MIX_TF32_KERNELS, MIX_FFMA_KERNELS) if route == "tf32x3"
                    else (MIX_FFMA_KERNELS, MIX_TF32_KERNELS))
-    for _ in range(tries):
-        names = kernel_names(fn)
+    for pad in PROFILE_PADS_S:
+        names = kernel_names(fn, pad=pad)
         missing = [want[i] for i in kinds if not any(want[i] in n for n in names)]
         wrong = [n for n in names if any(k in n for k in other)]
         if wrong:
@@ -2249,14 +2300,15 @@ def phase_topk_remat(info, trainer, store, cfg):
 MIX_KERNEL_NAMES = ("mix_tc_kernel", "mix_tf32_kernel", "mix_fwd_kernel")
 
 
-def _profile(fn, share_of=(), warm=False, top=TOPK_PROFILE_TOP, calls_of=()):
+def _profile(fn, share_of=(), warm=False, top=TOPK_PROFILE_TOP, calls_of=(), pad=0.0):
     """Device time by kernel over one call of ``fn`` (synchronized), the
     device's busy total and the wall time, in milliseconds; with
     ``share_of``, also the time and calls of every kernel whose name
     contains one of those strings; with ``calls_of``, the calls of the
     kernels whose names contain each string.  ``warm``: one more call
     first, in a profiler cycle that is not kept, while device tracing
-    starts."""
+    starts.  ``pad``: idle seconds on each side of the timed call (see
+    ``PROFILE_PADS_S``)."""
     from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -2266,10 +2318,12 @@ def _profile(fn, share_of=(), warm=False, top=TOPK_PROFILE_TOP, calls_of=()):
             fn()
             torch.cuda.synchronize()
             prof.step()
+        time.sleep(pad)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = 1000.0 * (time.perf_counter() - t0)
+        time.sleep(pad)
         if warm:
             prof.step()
     # the device's own events (kernels, copies, sets), not the host ops that
@@ -2281,7 +2335,7 @@ def _profile(fn, share_of=(), warm=False, top=TOPK_PROFILE_TOP, calls_of=()):
                    and e.device_time_total > 0 and not e.key.startswith("ProfilerStep")),
                   key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    out = {"wall_ms": wall_ms, "device_busy_ms": busy,
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy, "pad_s": pad,
            "idle_share": max(0.0, 1.0 - busy / wall_ms), "kernels_total": len(rows),
            "kernels": [{"name": k[:90], "ms": ms, "calls": n}
                        for k, ms, n in rows[:top]]}
@@ -2639,10 +2693,11 @@ def _sweep_step_profile(trainer, store, cfg):
         / 1000.0 / SWEEP_PROFILE_STEPS
     # B4 and B6 launch six kernels a step (center and two GEMMs each); a
     # window that lost device events (a kernel counted other than a whole
-    # number of times a step) is profiled again, and a fourth such raises
-    for tries in range(1, 5):
+    # number of times a step) is profiled again with a wider margin, and
+    # the last such raises
+    for tries, pad in enumerate(PROFILE_PADS_S, 1):
         prof = _profile(lambda: steps(3), share_of=(SAE_TC_KERNEL, "center_kernel"),
-                        warm=True)
+                        warm=True, pad=pad)
         if (all(k["calls"] % 3 == 0 for k in prof["kernels"])
                 and prof["share_of"]["calls"] == 6 * 3):
             break
@@ -3503,7 +3558,9 @@ def phase_flash_kernels(info):
     """B13's forward and both backward passes against their plain versions
     on the card, with times, bounds, and ``scaled_dot_product_attention``'s
     forward and backward under the same mask; batch item 0 alone against
-    item 0 of the batch, to the bit; ptxas's record of the bf16 kernels."""
+    item 0 of the batch, to the bit; ptxas's record of the bf16 kernels
+    and of the float32 route's (3xTF32: no spill at any width), whose
+    records carry the kernel names the profiler saw."""
     from vit_prisma_tpu_torch.ops import attention as A
     g = torch.Generator(device="cuda").manual_seed(12)
     results = {}
@@ -3563,20 +3620,7 @@ def phase_flash_kernels(info):
             library_bwd_us = device_us(sdpa_bwd, one_call_short=True)
             library_bwd_wall_us = cuda_us(sdpa_bwd)
             del out, leaves, keep, sdpa_bwd
-            # the pairs a real row attends (causal: the keys not after it);
-            # the padding rows' outputs are thrown away, so not counted
             pairs = T * (T + 1) // 2 if causal else T * T
-            gemm = "bf16_tensor" if dtype == torch.bfloat16 else "f32_product"
-            el = q.numel() * q.element_size()
-            vec = B * N * Tp * 4
-            bounds = {"fwd": bound(4 * el + vec + B * Tp * 4,
-                                   [(gemm, 4 * B * N * pairs * H), ("fp32", 5 * B * N * pairs)]),
-                      # s, p^T dZ, dp^T, ds^T Q: four products; six tensors
-                      "bwd_dkv": bound(6 * el + 2 * vec + B * Tp * 4,
-                                       [(gemm, 8 * B * N * pairs * H), ("fp32", 6 * B * N * pairs)]),
-                      # s, dp, ds K: three products; five tensors
-                      "bwd_dq": bound(5 * el + 2 * vec + B * Tp * 4,
-                                      [(gemm, 6 * B * N * pairs * H), ("fp32", 5 * B * N * pairs)])}
             rec = {"phase": "flash_kernel", **info, "kernel": "flash_attention_padded",
                    "shape": name, "B": B, "N": N, "T": T, "Tp": Tp, "H": H, "causal": causal,
                    "dtype": str(dtype).split(".")[1], "max_abs_err": errs, "rel_tol": rel,
@@ -3584,15 +3628,75 @@ def phase_flash_kernels(info):
                    # the library's device time (profiler); the backward's event time beside
                    "library_us": {"fwd": library_fwd_us, "bwd": library_bwd_us},
                    "library_bwd_wall_us": library_bwd_wall_us,
-                   "bound": bounds,
-                   "TFLOP_s": {k_: (4 if k_ == "fwd" else 8 if k_ == "bwd_dkv" else 6)
-                               * B * N * pairs * H / (u * 1e-6) / 1e12 for k_, u in us.items()}}
+                   "bound": flash_bounds(B, N, T, Tp, H, causal, dtype),
+                   "TFLOP_s": {k_: FLASH_PRODUCTS[k_] * 2 * B * N * pairs * H / (u * 1e-6) / 1e12
+                               for k_, u in us.items()}}
             rec["route"] = A.flash_route(H, dtype)
+            if dtype == torch.float32:  # the route by the kernels' names
+                rec["profiled_kernels"] = flash_profiled(
+                    f"flash {name}", {k_: f for k_, (f, _) in timed.items()})
             results[(name, dtype)] = rec
             emit(rec)
             del q, k, v, dz, seg, z, lse, dq, dk, dv, want_z, want_dq, want_dk, want_dv
     emit({"phase": "flash_kernel_ptxas", **info, **{kern: ptxas(kern) for kern in FLASH_TC_KERNELS}})
+    tf32 = {kern: ptxas(kern) for kern in FLASH_TF32_KERNELS}
+    if any(len(recs) != 8 or any(r["spill_bytes"] or "registers" not in r for r in recs.values())
+           for recs in tf32.values()):
+        raise AssertionError(f"B13's 3xTF32 kernels: expected 8 instantiations each, no spills: "
+                             f"{tf32}")
+    emit({"phase": "flash_kernel_tf32_ptxas", **info, **tf32})
     return results
+
+
+# Products of 2 Tp^2 H-like flops a pass forms (a pair: 2 H flops each):
+# the forward s and P V; the dk/dv pass s^T, dp^T, p^T dZ, ds^T Q; the dq
+# pass s, dp, ds K.
+FLASH_PRODUCTS = {"fwd": 2, "bwd_dkv": 4, "bwd_dq": 3}
+
+
+def flash_bounds(B, N, T, Tp, H, causal, dtype) -> dict:
+    """Each pass's bound: its products over the pairs a real row attends
+    (causal: the keys not after it; the padding rows' outputs are thrown
+    away, so not counted), its softmax work, and its tensors read once and
+    written once with the [B, N, Tp] vectors and the segment ids."""
+    pairs = T * (T + 1) // 2 if causal else T * T
+    gemm = "bf16_tensor" if dtype == torch.bfloat16 else "f32_product"
+    el = B * N * Tp * H * (2 if dtype == torch.bfloat16 else 4)
+    vec = B * N * Tp * 4
+    ops = lambda k_, fp32: [(gemm, FLASH_PRODUCTS[k_] * 2 * B * N * pairs * H),
+                            ("fp32", fp32 * B * N * pairs)]
+    return {"fwd": bound(4 * el + vec + B * Tp * 4, ops("fwd", 5)),
+            # six tensors: q, k, v, dz read, dk, dv written
+            "bwd_dkv": bound(6 * el + 2 * vec + B * Tp * 4, ops("bwd_dkv", 6)),
+            # five tensors: q, k, v, dz read, dq written
+            "bwd_dq": bound(5 * el + 2 * vec + B * Tp * 4, ops("bwd_dq", 5))}
+
+
+# B13's float32 kernels by pass, and the names a float32 call must not
+# reach (the FFMA kernels the route replaced were flash_fwd_kernel and
+# flash_bwd_*_kernel instantiated for float; the bf16 mma.sync kernels keep
+# those names).
+FLASH_TF32_BY_PASS = {"fwd": "fwd_tf32_kernel", "bwd_dkv": "dkv_tf32_kernel",
+                      "bwd_dq": "dq_tf32_kernel"}
+FLASH_OTHER_ROUTES = ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel",
+                      "fwd_tc_kernel", "bwd_dkv_tc_kernel", "bwd_dq_tc_kernel")
+
+
+def flash_profiled(what, calls) -> dict:
+    """One call of each pass (pass -> function, run in turn) profiled in one
+    warmed window, as the video phase counts B13's kernels: raising unless
+    each pass's 3xTF32 kernel ran once and no kernel of another route ran.
+    A window that lost events is measured again with the next margin of
+    ``PROFILE_PADS_S``."""
+    want = {**{FLASH_TF32_BY_PASS[p]: 1 for p in calls}, **dict.fromkeys(FLASH_OTHER_ROUTES, 0)}
+    seen = []
+    for pad in PROFILE_PADS_S:
+        prof = _profile(lambda: [fn() for fn in calls.values()], warm=True,
+                        calls_of=tuple(want), pad=pad)
+        seen.append(prof["calls_of"])
+        if prof["calls_of"] == want:
+            return {"kernels": [k["name"] for k in prof["kernels"]], "windows": len(seen)}
+    raise AssertionError(f"{what}: B13's kernels by name {seen}, expected {want}")
 
 
 def phase_serve_ln_fused(info):
@@ -3844,6 +3948,81 @@ def phase_attribution_l14_336(info):
     return launches
 
 
+def phase_l14_336_f32(info):
+    """CLIP L/14-336 in float32 at full width and depth (fused LN, random
+    weights from seed 0), as a float32 harvest or attribution runs it: the
+    cached forward over the 24 resid_post hooks at the store batch and
+    ``run_with_cache(incl_bwd=True)`` at batch 8, each driven with every
+    count set to 0 just before it and read just after (B13 24; 24 forward,
+    23 each backward pass; B14 24), timed, and profiled over one warmed
+    call: B13's device time and share by the 3xTF32 kernels' names, whose
+    calls must be the launches, and no kernel of another route."""
+    counters = _sae_counters()
+    model = _l336_model("float32")
+    cfg = model.cfg
+    L = cfg.n_layers
+    paths = {
+        "cached_forward": (L336_F32_STORE_BATCH, lambda x: model.run_with_cache(
+            x, names_filter=RESID_POST, return_cache_object=False),
+            {"flash_attention_padded": L, "ln_matmul": L}),
+        "attribution": (L336_F32_ATTRIB_BATCH, lambda x: model.run_with_cache(
+            x, names_filter=RESID_POST, incl_bwd=True, loss_fn=_metric,
+            return_cache_object=False),
+            {"flash_attention_padded": L, "flash_attention_padded_bwd_dkv": L - 1,
+             "flash_attention_padded_bwd_dq": L - 1, "ln_matmul": L})}
+    names = tuple(FLASH_TF32_BY_PASS.values())
+    results = {}
+    for path, (batch, fn, expected) in paths.items():
+        x = _l336_images(batch, 50)
+        release()
+        # The main path, with every count set to 0 just before it.
+        _zero_counts(counters)
+        out, cache = fn(x)
+        torch.cuda.synchronize()
+        launches = {k: f.launches for k, f in counters.items() if f.launches}
+        if launches != expected:
+            raise AssertionError(f"l14_336_f32 {path} launches {launches}, expected {expected}")
+        if not torch.isfinite(out).all() or not all(torch.isfinite(v).all()
+                                                    for v in cache.values()):
+            raise AssertionError(f"l14_336_f32 {path}: non-finite output or cache")
+        del out, cache
+        times = []
+        for _ in range(L336_F32_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(x)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        # B13's kernels by name in one warmed window: the float32 calls of
+        # each pass, none of another route; a window that lost events is
+        # measured again with a wider margin, raising after the last
+        want = {FLASH_TF32_BY_PASS["fwd"]: expected["flash_attention_padded"],
+                FLASH_TF32_BY_PASS["bwd_dkv"]: expected.get("flash_attention_padded_bwd_dkv", 0),
+                FLASH_TF32_BY_PASS["bwd_dq"]: expected.get("flash_attention_padded_bwd_dq", 0),
+                **dict.fromkeys(FLASH_OTHER_ROUTES, 0)}
+        seen = []
+        for pad in PROFILE_PADS_S:
+            prof = _profile(lambda: fn(x), share_of=names, warm=True, calls_of=tuple(want),
+                            pad=pad)
+            seen.append(prof["calls_of"])
+            if prof["calls_of"] == want:
+                break
+        if prof["calls_of"] != want:
+            raise AssertionError(f"l14_336_f32 {path}: B13's kernels by name {seen}, "
+                                 f"expected {want}")
+        prof["windows"] = len(seen)
+        results[path] = {"batch": batch, "launches": launches,
+                         "seconds_per_call": times, "img_per_s": [batch / t for t in times],
+                         "b13_ms": prof["share_of"]["ms"],
+                         "b13_share_of_busy": prof["share_of"]["share_of_busy"],
+                         "profile_of_one_call": prof}
+        del x
+    emit({"phase": "l14_336_f32", **info, "model": L336_MODEL, "dtype": "float32",
+          "n_layers": L, "T": cfg.n_tokens, "route": "tf32x3", **results})
+    del model
+    return {path: r["launches"] for path, r in results.items()}
+
+
 def _clips(cfg, n, seed, dtype=torch.bfloat16, device="cuda"):
     g = torch.Generator(device=device).manual_seed(seed)
     return torch.randn(n, cfg.n_channels, cfg.video_num_frames, cfg.image_size,
@@ -3869,7 +4048,7 @@ def phase_video(info):
     names), each layer's attention output and block output against the
     einsum path's (``use_fused_attention=False``) from the same residual,
     clips per second, TFLOP/s and peak memory; then ViViT-B cut to
-    two layers in float32 on the card (B13's FFMA route) against the CPU."""
+    two layers in float32 on the card (B13's 3xTF32 route) against the CPU."""
     from vit_prisma_tpu_torch import HookedViT, get_model_config
     from vit_prisma_tpu_torch.models.vit import vit_forward
     from vit_prisma_tpu_torch.ops.attention import flash_route
@@ -3911,14 +4090,14 @@ def phase_video(info):
             times.append(time.perf_counter() - t0)
         peak = torch.cuda.max_memory_allocated() / 1e9
         # a window that lost device events (11 of 12 kernels in one) is
-        # measured again, as _profile_replay does, raising after four
+        # measured again with a wider margin, raising after the last
         want = {k: cfg.n_layers if k == kernel_names[route] else 0 for k in kernel_names.values()}
         seen = []
-        for _ in range(4):
+        for pad in PROFILE_PADS_S:
             prof = _profile(lambda: model.run_with_cache(clips, names_filter=RESID_POST,
                                                          return_cache_object=False),
                             share_of=(kernel_names[route],), warm=True,
-                            calls_of=tuple(kernel_names.values()))
+                            calls_of=tuple(kernel_names.values()), pad=pad)
             seen.append(prof["calls_of"])
             if prof["calls_of"] == want:
                 break
@@ -4049,11 +4228,11 @@ def _profile_replay(what, server, batch):
     replays = server.replays
     want = {SERVED_KERNEL_NAMES[k]: server.launches_per_replay[k] for k in SERVED_KERNEL_NAMES}
     # a window that lost device events (9 of 12 mix kernels in one) is
-    # measured again, as device_us_by_name does, raising after four
+    # measured again with a wider margin, raising after the last
     seen = []
-    for _ in range(4):
+    for pad in PROFILE_PADS_S:
         prof = _profile(lambda: server(batch), warm=True,
-                        calls_of=tuple(SERVED_KERNEL_NAMES.values()))
+                        calls_of=tuple(SERVED_KERNEL_NAMES.values()), pad=pad)
         seen.append(prof["calls_of"])
         if prof["calls_of"] == want:
             break
@@ -6893,6 +7072,8 @@ def main():
     release()
     l336_attrib_launches = timed(phase_attribution_l14_336, info)
     release()
+    l336_f32_launches = timed(phase_l14_336_f32, info)
+    release()
     timed(phase_video, info)
     release()
     timed(phase_serve_graph, info)
@@ -7090,9 +7271,10 @@ def main():
     # B14 at B/32's bf16 QKV shape, launches from the fused-LN serve path;
     # B13 at CLIP L/14-336's bf16 serving shape (forward, launches from its
     # serve path) and attribution shape (backward passes, launches from the
-    # attribution path).  No single library call computes one backward pass,
-    # so library_ms is null there; SDPA's whole backward at the same shape
-    # stands beside both passes as library_bwd_ms.
+    # attribution path), with its float32 figures beside.  No single library
+    # call computes one backward pass, so library_ms is null there; SDPA's
+    # whole backward at the same shape stands beside both passes as
+    # library_bwd_ms (beside the f32 figures: f32_*_library_ms).
     # B14's figures at the text phase's two shapes beside it.
     line.append({**entry("ln_matmul", LN_SOURCE, LN_REPLACES, ln_launches["ln_matmul"],
                          ln_kernels[("b32_qkv", torch.bfloat16)], "us", 1e-3),
@@ -7118,6 +7300,17 @@ def main():
                 **rec["bound"][key]}
         e = entry(name, FLASH_SOURCES[name], FLASH_REPLACES[name], launches[name], flat, "us",
                   1e-3)
+        # the float32 route (3xTF32) at each float32 shape, and its launches
+        # on the float32 paths of l14_336_f32
+        e["f32_path_launches"] = {p_: l.get(name, 0) for p_, l in l336_f32_launches.items()}
+        for (shape, dt), r in flash_kernels.items():
+            if dt == torch.float32:
+                e.update({f"f32_{shape}_ms": r["us"][key] * 1e-3,
+                          f"f32_{shape}_library_ms":
+                              r["library_us"]["fwd" if key == "fwd" else "bwd"] * 1e-3,
+                          f"f32_{shape}_bound_ms": r["bound"][key]["bound_ms"],
+                          f"f32_{shape}_max_abs_err": max(r["max_abs_err"][k] for k in grads),
+                          f"f32_{shape}_route": r["route"]})
         if key != "fwd":
             e["library_bwd_ms"] = rec["library_us"]["bwd"] * 1e-3
         else:  # the video towers' forwards beside
@@ -7149,7 +7342,8 @@ def main():
     if missing:
         raise AssertionError(f"kernels not launched on their main paths: {missing}")
     emit({"phase_seconds": PHASE_SECONDS, "total_s": time.perf_counter() - T_START,
-          "card": name_power})
+          "card": name_power, "profile_padded": PROFILE_PADDED,
+          "cuda_event_fallbacks": CUDA_EVENT_FALLBACKS})
     print(name_power)
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",

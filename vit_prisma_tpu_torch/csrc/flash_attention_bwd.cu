@@ -23,10 +23,10 @@
 // products run on the tensor cores, and the Tp x Tp tiles of p and ds stay
 // on the SM.
 //
-// Two routes, chosen by dtype and head width (never after a failure):
+// Three routes, chosen by dtype and head width (never after a failure):
 // bfloat16 heads 64 or 128 wide run the Hopper kernels (tc::, below);
-// float32, and bfloat16 at the other widths flash_fits takes, run the
-// mma.sync/FFMA kernels.
+// bfloat16 at the other widths flash_fits takes run the mma.sync kernels;
+// float32 at every width runs the 3xTF32 kernels (f32tc::, below).
 //
 // Design of the Hopper kernels (flash_wgmma.cuh; the same two-pass split):
 //  * dk/dv pass, one block per (64 keys, head, batch item): one consumer
@@ -43,7 +43,7 @@
 //    while dp runs), ds, then dq += ds K with K as the MN-major B;
 //  * the masks on the fragments; tiles a causal mask hides are skipped.
 //
-// Design of the mma.sync/FFMA kernels (FlashAttention-2's two-pass split):
+// Design of the mma.sync kernels (FlashAttention-2's two-pass split, bf16):
 //  * dk/dv pass, one block of 4 warps per (64 keys, head, batch item): the
 //    block's K and V stay in shared memory; query tiles (Q, dZ and their
 //    rows' segment ids, lse and D) stream through a two-deep cp.async ring.
@@ -52,9 +52,33 @@
 //    ds^T Q take as their A operands, with no transpose;
 //  * dq pass, one block per (64 query rows, head, batch item): Q and dZ stay,
 //    K and V tiles stream; s = Q K^T, dp = dZ V^T, ds, then dq += ds K;
-//  * both passes use flash_tile.cuh's two products (mma.sync m16n8k16 in
-//    bf16, FFMA in float32) and skip the tiles a causal mask hides.
+//  * both passes use flash_tile.cuh's two products (mma.sync m16n8k16) and
+//    skip the tiles a causal mask hides.
+//
+// Design of the float32 kernels (f32tc::; flash_tf32.cuh, tf32_mma.cuh),
+// the same two-pass split with each product as three TF32 products:
+//  * dk/dv pass, one block of kBwdWarps warps per (16 kBwdWarps keys, head,
+//    batch item), 16 keys a warp: the block's K and V rows are staged once
+//    (the A operands of s^T = K Q^T and dp^T = V dZ^T, read by ldmatrix a
+//    k-step at a time); Q and dZ tiles of kStream queries, with each
+//    query's segment id, -lse log2(e) and D, stream through a two-deep
+//    cp.async ring.  A tile is taken in chunks of 8 dkv_steps queries: s^T
+//    and dp^T (the score products in the order the forward and the dq pass
+//    form s, so
+//    each score comes out bit for bit as there), p^T = exp2(s^T log2(e) -
+//    lse log2(e)) and ds^T = p^T (dp^T - D) on the fragments, then dv +=
+//    p^T dZ and dk += ds^T Q with p^T and ds^T as A operands through the
+//    permuted k index;
+//  * dq pass, one block per (16 kBwdWarps query rows, head, batch item): Q
+//    and dZ rows staged once, K and V tiles streamed with their keys'
+//    segment ids, in chunks of 8 dq_steps keys: s = Q K^T, dp = dZ V^T, ds
+//    = p (dp - D), dq += ds K;
+//  * each chunk's gradient product is summed from zero on the tensor cores
+//    and added in FADDs: a key or query loop of 3200 tokens (ViViT-B) would
+//    otherwise take the tensor cores' truncation at every step;
+//  * chunks a causal mask hides entirely are skipped.
 
+#include "flash_tf32.cuh"
 #include "flash_tile.cuh"
 #include "flash_wgmma.cuh"
 
@@ -69,7 +93,7 @@ using namespace flash;
 constexpr int kVecBytes = 2 * kTile * 4;
 
 // dk/dv pass.  Grid (Tp / 64, N, B).  Shared: K, V, then two (Q, dZ) pairs,
-// the float32 P buffers, then [2][64] segment ids, lse and D.
+// then [2][64] segment ids, lse and D.
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -82,7 +106,6 @@ __global__ void __launch_bounds__(kThreads)
   T* Ks = reinterpret_cast<T*>(smem_raw);
   T* Vs = Ks + G::tile;
   T* QD = Vs + G::tile;  // Q0, dZ0, Q1, dZ1
-  float* pbuf = reinterpret_cast<float*>(QD + 4 * G::tile);
   int* segs = reinterpret_cast<int*>(smem_raw + smem_bytes<T, HD>(6, 0));
   float* lses = reinterpret_cast<float*>(segs + 2 * kTile);
   float* ds_ = lses + 2 * kTile;
@@ -118,7 +141,6 @@ __global__ void __launch_bounds__(kThreads)
   zero(adv);
   const T* Kw = Ks + 16 * warp * G::stride;
   const T* Vw = Vs + 16 * warp * G::stride;
-  float* pw = pbuf + warp * 16 * kPStride;
   for (int qt = first; qt < n_qt; ++qt) {
     if (qt + 1 < n_qt) {
       load_q(qt + 1);
@@ -135,7 +157,7 @@ __global__ void __launch_bounds__(kThreads)
     const float* dq_ = ds_ + (qt & 1) * kTile;
     float p[8][4], dp[8][4];
     zero(p);
-    nt<HD>(p, Kw, Qs, pw);  // s^T: rows are keys, columns query rows
+    nt<HD>(p, Kw, Qs, nullptr);  // s^T: rows are keys, columns query rows
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -144,14 +166,14 @@ __global__ void __launch_bounds__(kThreads)
         const bool ok = sq[c] == seg_k[e >> 1] && (!causal || key[e >> 1] <= qt * kTile + c);
         p[j][e] = ok ? expf(p[j][e] - lq[c]) : 0.f;
       }
-    pn<HD>(adv, p, dZs, pw);  // dv += p^T dZ
+    pn<HD>(adv, p, dZs, nullptr);  // dv += p^T dZ
     zero(dp);
-    nt<HD>(dp, Vw, dZs, pw);  // dp^T = V dZ^T
+    nt<HD>(dp, Vw, dZs, nullptr);  // dp^T = V dZ^T
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) dp[j][e] = (dp[j][e] - dq_[8 * j + 2 * t + (e & 1)]) * p[j][e];
-    pn<HD>(adk, dp, Qs, pw);  // dk += ds^T Q
+    pn<HD>(adk, dp, Qs, nullptr);  // dk += ds^T Q
     __syncthreads();  // every warp is done with this pair before it is reloaded
   }
   const float one[2] = {1.f, 1.f};
@@ -159,8 +181,8 @@ __global__ void __launch_bounds__(kThreads)
   store_rows<T, HD>(dv + (head + j0 + 16 * warp) * HD, adv, one);
 }
 
-// dq pass.  Grid (Tp / 64, N, B).  Shared: Q, dZ, then two (K, V) pairs, the
-// float32 P buffers, then [2][64] key segment ids.
+// dq pass.  Grid (Tp / 64, N, B).  Shared: Q, dZ, then two (K, V) pairs,
+// then [2][64] key segment ids.
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -172,7 +194,6 @@ __global__ void __launch_bounds__(kThreads)
   T* Qs = reinterpret_cast<T*>(smem_raw);
   T* dZs = Qs + G::tile;
   T* KV = dZs + G::tile;  // K0, V0, K1, V1
-  float* pbuf = reinterpret_cast<float*>(KV + 4 * G::tile);
   int* segs = reinterpret_cast<int*>(smem_raw + smem_bytes<T, HD>(6, 0));
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -202,7 +223,6 @@ __global__ void __launch_bounds__(kThreads)
   zero(acc);
   const T* Qw = Qs + 16 * warp * G::stride;
   const T* dZw = dZs + 16 * warp * G::stride;
-  float* pw = pbuf + warp * 16 * kPStride;
   for (int kt = 0; kt < n_kt; ++kt) {
     if (kt + 1 < n_kt) {
       load_kv(kt + 1);
@@ -216,7 +236,7 @@ __global__ void __launch_bounds__(kThreads)
     const int* sk = segs + (kt & 1) * kTile;
     float p[8][4], dp[8][4];
     zero(p);
-    nt<HD>(p, Qw, Ks, pw);
+    nt<HD>(p, Qw, Ks, nullptr);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -226,12 +246,12 @@ __global__ void __launch_bounds__(kThreads)
         p[j][e] = ok ? expf(p[j][e] - lse_r[e >> 1]) : 0.f;
       }
     zero(dp);
-    nt<HD>(dp, dZw, Ks + G::tile, pw);  // dp = dZ V^T
+    nt<HD>(dp, dZw, Ks + G::tile, nullptr);  // dp = dZ V^T
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) dp[j][e] = (dp[j][e] - d_r[e >> 1]) * p[j][e];
-    pn<HD>(acc, dp, Ks, pw);  // dq += ds K
+    pn<HD>(acc, dp, Ks, nullptr);  // dq += ds K
     __syncthreads();
   }
   const float one[2] = {1.f, 1.f};
@@ -275,15 +295,11 @@ cudaError_t launch_hd(const Args& a, int pass) {
   return cudaGetLastError();
 }
 
-template <typename T>
+// bfloat16 at the widths the Hopper kernels (tc, below) do not take.
 cudaError_t launch(const Args& a, int d_head, int pass) {
 #define VPT_CASE(HD) \
   case HD:           \
-    return launch_hd<T, HD>(a, pass);
-  // bfloat16 heads 64 and 128 wide take the Hopper kernels (tc, below)
-  if constexpr (sizeof(T) == 4) {
-    switch (d_head) { VPT_CASE(64) VPT_CASE(128) }
-  }
+    return launch_hd<__nv_bfloat16, HD>(a, pass);
   switch (d_head) {
     VPT_CASE(16) VPT_CASE(32) VPT_CASE(48) VPT_CASE(80) VPT_CASE(96) VPT_CASE(112)
     default:
@@ -520,6 +536,271 @@ cudaError_t launch_hd(const Args& a, int pass) {
 
 }  // namespace tc
 
+// ---- float32: 3xTF32 mma.sync ------------------------------------------------
+
+namespace f32tc {
+
+namespace t = mix::tf32;
+using flash::f32::kBwdWarps;
+using flash::f32::kStream;
+using flash::f32::stride;
+using fw::ex2;
+using fw::kLog2e;
+
+constexpr int kRows = t::kRows;  // keys (dk/dv) or rows (dq) of a warp
+constexpr int kBlock = kBwdWarps * kRows;
+
+// One chunk of the dk/dv pass: the 8 NJ queries from c0 of the staged tile
+// (Qs, dZs; sq, nl, Dq: each query's segment id, -lse log2(e), D; qbase:
+// the tile's first query) against the warp's 16 keys (Kw, Vw: staged rows;
+// key, seg_k: its rows g and g + 8).
+template <int HD, int NJ>
+__device__ __forceinline__ void dkv_chunk(float (&adk)[HD / 8][4], float (&adv)[HD / 8][4],
+                                          const float* Kw, const float* Vw, const float* Qs,
+                                          const float* dZs, const int* sq, const float* nl,
+                                          const float* Dq, int c0, int qbase,
+                                          const int (&key)[2], const int (&seg_k)[2],
+                                          int causal) {
+  constexpr int S = stride(HD);
+  const int tq = threadIdx.x & 3;
+  float s[NJ][4], dp[NJ][4];
+  // the keys as A, with mma3's other order: q_lo k_hi, then q_hi k_lo
+  t::nt_chunk<HD, NJ, false>(s, t::Staged{Kw, S}, Qs, S, c0);   // s^T = K Q^T
+  t::nt_chunk<HD, NJ, false>(dp, t::Staged{Vw, S}, dZs, S, c0);  // dp^T = V dZ^T
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int qc = c0 + 8 * j + 2 * tq + c, sg = sq[qc];
+      const float n2 = nl[qc], d = Dq[qc];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int e = 2 * h + c;
+        const bool ok = sg == seg_k[h] && (!causal || key[h] <= qbase + qc);
+        const float p = ok ? ex2(fmaf(s[j][e], kLog2e, n2)) : 0.f;
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - d);
+      }
+    }
+  constexpr int G = flash::f32::dkv_group(HD);
+  t::pn_chunk<HD / 8, NJ, G>(adv, s, dZs, S, c0, 0);  // dv += p^T dZ
+  t::pn_chunk<HD / 8, NJ, G>(adk, dp, Qs, S, c0, 0);  // dk += ds^T Q
+}
+
+// One chunk of the dq pass: the 8 NJ keys from c0 of the staged tile (Kt,
+// Vt; sk: their segment ids; kbase: the tile's first key) against the
+// warp's 16 rows (Qw, dZw: staged rows; row, seg_q, nl = -lse log2(e), D:
+// its rows g and g + 8).
+template <int HD, int NJ>
+__device__ __forceinline__ void dq_chunk(float (&acc)[HD / 8][4], const float* Qw,
+                                         const float* dZw, const float* Kt, const float* Vt,
+                                         const int* sk, int c0, int kbase, const int (&row)[2],
+                                         const int (&seg_q)[2], const float (&nl)[2],
+                                         const float (&D)[2], int causal) {
+  constexpr int S = stride(HD);
+  const int tq = threadIdx.x & 3;
+  float s[NJ][4], dp[NJ][4];
+  t::nt_chunk<HD, NJ, true>(s, t::Staged{Qw, S}, Kt, S, c0);   // s = Q K^T
+  t::nt_chunk<HD, NJ, true>(dp, t::Staged{dZw, S}, Vt, S, c0);  // dp = dZ V^T
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int kc = c0 + 8 * j + 2 * tq + c, sg = sk[kc];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int e = 2 * h + c;
+        const bool ok = sg == seg_q[h] && (!causal || kbase + kc <= row[h]);
+        const float p = ok ? ex2(fmaf(s[j][e], kLog2e, nl[h])) : 0.f;
+        dp[j][e] = p * (dp[j][e] - D[h]);
+      }
+    }
+  t::pn_chunk<HD / 8, NJ>(acc, dp, Kt, S, c0, 0);  // dq += ds K
+}
+
+// dk/dv pass.  Grid (Tp / kTile, N, B), 32 kBwdWarps threads,
+// dkv_smem_bytes(HD).  Shared: the block's K and V rows, two (Q, dZ) pairs
+// of staged tiles, then [2][kStream] segment ids, -lse log2(e) and D.
+template <int HD>
+__global__ void __launch_bounds__(kBwdWarps * 32, flash::f32::min_blocks(HD))
+    dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dz,
+                    const int* __restrict__ seg, const float* __restrict__ lse,
+                    const float* __restrict__ dsum, float* __restrict__ dk,
+                    float* __restrict__ dv, int n_heads, int n_tok, int causal) {
+  constexpr int S = stride(HD), TILE = kStream * S, NJ = flash::f32::dkv_steps(HD);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Ks = reinterpret_cast<float*>(smem_raw);  // [kBlock][S]
+  float* Vs = Ks + kBlock * S;                     // [kBlock][S]
+  float* QD = Vs + kBlock * S;                     // Q0, dZ0, Q1, dZ1
+  int* segs = reinterpret_cast<int*>(QD + 4 * TILE);
+  float* nls = reinterpret_cast<float*>(segs + 2 * kStream);
+  float* Ds = nls + 2 * kStream;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2;
+  const int b = blockIdx.z, j0 = blockIdx.x * kBlock, key0 = j0 + kRows * warp;
+  const long long head = (static_cast<long long>(b) * n_heads + blockIdx.y) * n_tok;
+  const float* qh = q + head * HD;
+  const float* dzh = dz + head * HD;
+  const int* sb = seg + static_cast<long long>(b) * n_tok;
+  const int key[2] = {key0 + g, key0 + g + 8};
+  const int seg_k[2] = {sb[key[0]], sb[key[1]]};
+  // a causal block's keys meet the queries from its first key on
+  const int first = causal ? j0 / kStream : 0, n_qt = n_tok / kStream;
+
+  auto load_q = [&](int qt) {
+    float* Qs = QD + 2 * (qt & 1) * TILE;
+    flash::f32::stage<HD>(Qs, qh + static_cast<long long>(qt) * kStream * HD, kStream);
+    flash::f32::stage<HD>(Qs + TILE, dzh + static_cast<long long>(qt) * kStream * HD, kStream);
+    if (threadIdx.x < kStream) {
+      const int i = qt * kStream + threadIdx.x, o = (qt & 1) * kStream + threadIdx.x;
+      segs[o] = sb[i];
+      nls[o] = -lse[head + i] * kLog2e;
+      Ds[o] = dsum[head + i];
+    }
+  };
+  flash::f32::stage<HD>(Ks, k + (head + j0) * HD, kBlock);
+  flash::f32::stage<HD>(Vs, v + (head + j0) * HD, kBlock);
+  load_q(first);
+  sae::cp_async_commit();
+
+  float adk[HD / 8][4], adv[HD / 8][4];
+  flash::zero(adk);
+  flash::zero(adv);
+  const float* Kw = Ks + kRows * warp * S;
+  const float* Vw = Vs + kRows * warp * S;
+  for (int qt = first; qt < n_qt; ++qt) {
+    if (qt + 1 < n_qt) {
+      load_q(qt + 1);
+      sae::cp_async_commit();
+      sae::cp_async_wait<1>();
+    } else {
+      sae::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int o = (qt & 1) * kStream;
+    const float* Qs = QD + 2 * (qt & 1) * TILE;
+#pragma unroll 1
+    for (int c0 = 0; c0 < kStream; c0 += 8 * NJ) {
+      // queries before every key of the warp are masked when causal
+      if (causal && qt * kStream + c0 + 8 * NJ - 1 < key0) continue;
+      dkv_chunk<HD, NJ>(adk, adv, Kw, Vw, Qs, Qs + TILE, segs + o, nls + o, Ds + o, c0,
+                        qt * kStream, key, seg_k, causal);
+    }
+    __syncthreads();  // every warp is done with this pair before it is reloaded
+  }
+  const float one[2] = {1.f, 1.f};
+  flash::store_rows<float, HD>(dk + (head + key0) * HD, adk, one);
+  flash::store_rows<float, HD>(dv + (head + key0) * HD, adv, one);
+}
+
+// dq pass.  Grid (Tp / kTile, N, B), 32 kBwdWarps threads,
+// dq_smem_bytes(HD).  Shared: the block's Q and dZ rows, two (K, V) pairs
+// of staged tiles, then [2][kStream] key segment ids.
+template <int HD>
+__global__ void __launch_bounds__(kBwdWarps * 32, flash::f32::min_blocks(HD))
+    dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ dz,
+                   const int* __restrict__ seg, const float* __restrict__ lse,
+                   const float* __restrict__ dsum, float* __restrict__ dq, int n_heads,
+                   int n_tok, int causal) {
+  constexpr int S = stride(HD), TILE = kStream * S, NJ = flash::f32::dq_steps(HD);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);  // [kBlock][S]
+  float* dZs = Qs + kBlock * S;                    // [kBlock][S]
+  float* KV = dZs + kBlock * S;                    // K0, V0, K1, V1
+  int* segs = reinterpret_cast<int*>(KV + 4 * TILE);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2;
+  const int b = blockIdx.z, i0 = blockIdx.x * kBlock, row0 = i0 + kRows * warp;
+  const long long head = (static_cast<long long>(b) * n_heads + blockIdx.y) * n_tok;
+  const float* kh = k + head * HD;
+  const float* vh = v + head * HD;
+  const int* sb = seg + static_cast<long long>(b) * n_tok;
+  const int row[2] = {row0 + g, row0 + g + 8};
+  const int seg_q[2] = {sb[row[0]], sb[row[1]]};
+  const float nl[2] = {-lse[head + row[0]] * kLog2e, -lse[head + row[1]] * kLog2e};
+  const float d_r[2] = {dsum[head + row[0]], dsum[head + row[1]]};
+  const int n_kt = (causal ? i0 + kBlock : n_tok) / kStream;
+
+  auto load_kv = [&](int kt) {
+    float* Kt = KV + 2 * (kt & 1) * TILE;
+    flash::f32::stage<HD>(Kt, kh + static_cast<long long>(kt) * kStream * HD, kStream);
+    flash::f32::stage<HD>(Kt + TILE, vh + static_cast<long long>(kt) * kStream * HD, kStream);
+    if (threadIdx.x < kStream)
+      segs[(kt & 1) * kStream + threadIdx.x] = sb[kt * kStream + threadIdx.x];
+  };
+  flash::f32::stage<HD>(Qs, q + (head + i0) * HD, kBlock);
+  flash::f32::stage<HD>(dZs, dz + (head + i0) * HD, kBlock);
+  load_kv(0);
+  sae::cp_async_commit();
+
+  float acc[HD / 8][4];
+  flash::zero(acc);
+  const float* Qw = Qs + kRows * warp * S;
+  const float* dZw = dZs + kRows * warp * S;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    if (kt + 1 < n_kt) {
+      load_kv(kt + 1);
+      sae::cp_async_commit();
+      sae::cp_async_wait<1>();
+    } else {
+      sae::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* Kt = KV + 2 * (kt & 1) * TILE;
+    const int* sk = segs + (kt & 1) * kStream;
+#pragma unroll 1
+    for (int c0 = 0; c0 < kStream; c0 += 8 * NJ) {
+      if (causal && kt * kStream + c0 > row0 + kRows - 1) break;  // keys past every row
+      dq_chunk<HD, NJ>(acc, Qw, dZw, Kt, Kt + TILE, sk, c0, kt * kStream, row, seg_q, nl, d_r,
+                       causal);
+    }
+    __syncthreads();
+  }
+  const float one[2] = {1.f, 1.f};
+  flash::store_rows<float, HD>(dq + (head + row0) * HD, acc, one);
+}
+
+template <int HD>
+cudaError_t launch_hd(const Args& a, int pass) {
+  const dim3 grid(a.n_tok / kBlock, a.n_heads, a.batch);
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const float* dz = static_cast<const float*>(a.dz);
+  cudaError_t err;
+  if (pass == 0) {
+    const int bytes = flash::f32::dkv_smem_bytes(HD);
+    if ((err = sae::allow_smem(dkv_tf32_kernel<HD>, bytes)) != cudaSuccess) return err;
+    dkv_tf32_kernel<HD><<<grid, kBwdWarps * 32, bytes, a.stream>>>(
+        q, k, v, dz, a.seg, a.lse, a.dsum, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
+        a.n_heads, a.n_tok, a.causal);
+  } else {
+    const int bytes = flash::f32::dq_smem_bytes(HD);
+    if ((err = sae::allow_smem(dq_tf32_kernel<HD>, bytes)) != cudaSuccess) return err;
+    dq_tf32_kernel<HD><<<grid, kBwdWarps * 32, bytes, a.stream>>>(
+        q, k, v, dz, a.seg, a.lse, a.dsum, static_cast<float*>(a.dq), a.n_heads, a.n_tok,
+        a.causal);
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t launch(const Args& a, int d_head, int pass) {
+  switch (d_head) {
+#define F32TC_CASE(HD) \
+  case HD:             \
+    return launch_hd<HD>(a, pass);
+    F32TC_CASE(16) F32TC_CASE(32) F32TC_CASE(48) F32TC_CASE(64)
+    F32TC_CASE(80) F32TC_CASE(96) F32TC_CASE(112) F32TC_CASE(128)
+#undef F32TC_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace f32tc
+
 }  // namespace
 
 // One pass of the backward: pass 0 writes dk and dv, pass 1 writes dq.
@@ -541,9 +822,9 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   const Args a{q, k, v, dz, static_cast<const int*>(seg), static_cast<const float*>(lse),
                static_cast<const float*>(dsum), dq, dk, dv, batch, n_heads, n_tok, causal,
                static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return launch<float>(a, d_head, pass);
+  if (dtype == 0) return f32tc::launch(a, d_head, pass);
   if (dtype == 1 && d_head == 64) return tc::launch_hd<64>(a, pass);
   if (dtype == 1 && d_head == 128) return tc::launch_hd<128>(a, pass);
-  if (dtype == 1) return launch<__nv_bfloat16>(a, d_head, pass);
+  if (dtype == 1) return launch(a, d_head, pass);
   return cudaErrorInvalidValue;
 }

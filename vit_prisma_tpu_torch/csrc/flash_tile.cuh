@@ -1,5 +1,6 @@
-// Tile products shared by the flash-attention kernels (B13:
-// flash_attention_fwd.cu, flash_attention_bwd.cu).
+// Tile products shared by the bfloat16 mma.sync kernels of B13
+// (flash_attention_fwd.cu, flash_attention_bwd.cu) and by B16
+// (attention_block.cu), whose float32 route takes the FFMA ones.
 //
 // A block has 4 warps; each warp owns 16 rows of a 64-row tile.  Tiles of
 // 64 rows by HD columns (HD = head width, a multiple of 16) sit in shared
@@ -13,8 +14,9 @@
 // with g = lane / 4, t = lane % 4.  bfloat16: mma.sync m16n8k16 with float32
 // accumulation, fed by ldmatrix (sae_gemm.cuh's helpers); nt's C fragments
 // become pn's A fragments in registers, rounded to bfloat16 on the way.
-// float32: FFMA on the CUDA cores (TF32 would round the inputs); pn parks P
-// in a per-warp shared buffer of 16 x kPStride floats first.
+// float32 (B16): FFMA on the CUDA cores (TF32 would round the inputs); pn
+// parks P in a per-warp shared buffer of 16 x kPStride floats first.  B13's
+// float32 route is 3xTF32 (flash_tf32.cuh).
 #pragma once
 
 #include "sae_gemm.cuh"

@@ -22,7 +22,9 @@ long for B1's shared memory, with segment ids masking the padding.  On CUDA
 tensors it launches ``csrc/flash_attention_fwd.cu`` and, for the gradient,
 the two passes of ``csrc/flash_attention_bwd.cu``
 (:func:`flash_attention_padded_bwd_dkv`, :func:`flash_attention_padded_bwd_dq`);
-on CPU tensors the plain versions.
+on CPU tensors the plain versions.  Its routes (:func:`flash_route`):
+bfloat16 on wgmma (H 64, 128) or mma.sync, float32 on 3xTF32 mma.sync
+(``csrc/flash_tf32.cuh``).
 
 The JAX package's two kernels without a caller on any path, ported as
 op-level entry points: :func:`attention_mix` is kernel B15, the mix over
@@ -348,20 +350,40 @@ def flash_fits(Tp: int, H: int) -> bool:
     """Whether the flash kernels take a padded token count Tp and head width
     H: Tp a multiple of their 64-row tile, H a multiple of 16 up to 128.
     bfloat16 heads 64 and 128 wide (whole 128-byte TMA boxes) run the
-    Hopper kernels (wgmma, TMA); the other widths are routed by width to
-    the mma.sync kernels, as float32 is to the FFMA ones, so no width is
-    padded."""
+    Hopper kernels (wgmma, TMA); the other bfloat16 widths are routed to
+    the mma.sync kernels, and float32 at every width to the 3xTF32 ones, so
+    no width is padded."""
     return Tp > 0 and Tp % FLASH_TILE == 0 and 0 < H <= FLASH_MAX_HEAD_DIM and H % 16 == 0
 
 
 def flash_route(H: int, dtype: torch.dtype) -> str:
-    """The forward kernel ``csrc/flash_attention_fwd.cu`` runs for a head
+    """The kernels ``csrc/flash_attention_{fwd,bwd}.cu`` run for a head
     width and dtype: ``"wgmma"`` (bfloat16 at H 64 and 128: the Hopper
-    kernel), ``"mma_sync"`` (the other bfloat16 widths) or ``"ffma"``
-    (float32)."""
+    kernels), ``"mma_sync"`` (the other bfloat16 widths) or ``"tf32x3"``
+    (float32: each float32 product as three TF32 products on the tensor
+    cores)."""
     if dtype == torch.float32:
-        return "ffma"
+        return "tf32x3"
     return "wgmma" if H in (64, 128) else "mma_sync"
+
+
+# Must match kBwdWarps (16 rows a warp), kStream, stride() and the
+# *_smem_bytes() of csrc/flash_tf32.cuh.
+_FLASH_TF32_BLOCK = 64
+_FLASH_TF32_STREAM = 32
+
+
+def flash_tf32_layout(H: int, pass_: str = "fwd"):
+    """``(stride, bytes)`` of one block of B13's float32 route at head
+    width H for ``pass_`` ``"fwd"``, ``"dkv"`` or ``"dq"``: streamed tiles
+    of 32 rows staged as float32 rows of ``stride`` = H + 4 floats, two
+    (K, V) or (Q, dZ) pairs in the ring; the backward passes also hold
+    their block's resident rows (16 a warp) of two operands; and per ring
+    stage 32 segment ids (the dk/dv pass: also -lse log2(e) and D)."""
+    stride, rows = H + 4, _FLASH_TF32_STREAM
+    ring = 4 * rows * stride + 2 * rows * (3 if pass_ == "dkv" else 1)
+    resident = 0 if pass_ == "fwd" else 2 * _FLASH_TF32_BLOCK * stride
+    return stride, 4 * (ring + resident)
 
 
 def _flash_scores(q, k, seg, causal: bool):
