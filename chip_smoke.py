@@ -28,10 +28,10 @@ Phases, each printing JSON lines with the card's name and power limit:
    with exact launches, then B15 against its plain version at B/32 (both
    dtypes) and CLIP L/14, equal to B1 on the same data transposed, B16
    against its kernel-rounding plain version at B/32 in both dtypes and
-   against the JAX reference's twin in float32 (bfloat16 also at an odd
+   against the JAX reference's twin in float32 (both dtypes also at an odd
    batch, and each image equal to the bit to itself run alone, whatever
    its slot; ptxas's registers and spills; the reckoned L2 and
-   device-memory bytes of PR 8's design and this one), gradients through both
+   device-memory bytes; float32's kernels by name, 3xTF32 only), gradients through both
    wrappers against the plain versions' autograd, beside SDPA and
    ``F.linear`` + SDPA + ``F.linear``; B3
    (``take_rows``) at the activation stores' shapes (the default SAE's in
@@ -229,11 +229,14 @@ Phases, each printing JSON lines with the card's name and power limit:
     spliced at layer 9: the clean forward kept, feature gradients against
     the CPU, exact launches;
 21. ln_gemm kernels: B14 (``ln_matmul``) against its plain version at B/32
-    serving's QKV and MLP-in shapes in both dtypes and at CLIP L/14-336's
-    MLP-in and (unfolded, as LNPre passes it) QKV in bfloat16 and at a
-    640-column edge (the bf16 kernel's narrow tile, a ragged last row),
-    with ptxas's registers and spills of the bf16 kernel, beside the
-    unfused ``F.layer_norm`` and ``torch.matmul``;
+    serving's QKV and MLP-in shapes in both dtypes, at CLIP L/14-336's
+    MLP-in and (unfolded, as LNPre passes it) QKV in bfloat16 and its
+    float32 MLP-in at the l14_336_f32 phase's two batches, and at a
+    640-column edge (the bf16 kernel's narrow tile, a ragged last row) in
+    both dtypes, with ptxas's registers and spills of both routes, the
+    float32 calls' kernels by name (3xTF32 only) and a float32 call's
+    first 128 rows alone equal to the bit to the same rows of the whole,
+    beside the unfused ``F.layer_norm`` and ``torch.matmul``;
 22. flash kernels: B13's forward and both backward passes
     (``flash_attention_padded``, ``_bwd_dkv``, ``_bwd_dq``) against their
     plain versions at CLIP L/14-336's serving and attribution shapes and
@@ -255,12 +258,13 @@ Phases, each printing JSON lines with the card's name and power limit:
     (B13 forward 24, each backward pass 23, B14 24), images per second, peak
     memory, gradients against the einsum path, and float32 gradients
     against the CPU at 4 layers;
-25b. l14_336_f32: the same model in float32 (B13's 3xTF32 route, B14's
-    FFMA one) at full width and depth, the eleventh main path: the cached
+25b. l14_336_f32: the same model in float32 (B13's and B14's 3xTF32
+    routes) at full width and depth, the eleventh main path: the cached
     forward over its 24 resid_post hooks at the store batch of 32 and the
     ``incl_bwd`` attribution at batch 8, each with exact launches (B13 24;
-    24 forward, 23 each backward pass), images per second, and B13's share
-    of the device time of one warmed call by the 3xTF32 kernels' names;
+    24 forward, 23 each backward pass; B14 24), images per second, and
+    B13's and B14's device time and share of one warmed call by the 3xTF32
+    kernels' names;
 26. video: ViViT-B (12 x 768, 32 frames, T 3137, batch 8 clips) and V-JEPA
     huge (32 x 1280, 16 frames, T 1568, d_head 80, no class token, batch
     4) at full width in bf16: ``run_with_cache`` over the resid_post hooks
@@ -720,17 +724,30 @@ FLASH_REPLACES = {"flash_attention_padded": "vit_prisma_tpu/ops/attention.py:546
 # batch 256 (R = 256 x 50), QKV and MLP-in; the B/32 text tower at the text
 # phase's batch 256 (R = 256 x 77), QKV and MLP-in; CLIP L/14-336 at batch
 # 64 (R = 64 x 577, ragged against the 128-row tile), MLP-in, and its QKV
-# with W unfolded as an LNPre model passes it.
+# with W unfolded as an LNPre model passes it; its float32 MLP-in at the
+# l14_336_f32 phase's batches (the store batch 32, R = 18,464, and the
+# attribution's 8, R = 4,616).
 LN_SHAPES = [("b32_qkv", 12_800, 3, 768, 768, (torch.bfloat16, torch.float32)),
              ("b32_mlp_in", 12_800, 1, 768, 3072, (torch.bfloat16, torch.float32)),
              ("text_qkv", 19_712, 3, 512, 512, (torch.bfloat16,)),
              ("text_mlp_in", 19_712, 1, 512, 2048, (torch.bfloat16,)),
              ("l14_336_mlp_in", 36_928, 1, 1024, 4096, (torch.bfloat16,)),
              ("l14_336_qkv_lnpre", 36_928, 3, 1024, 1024, (torch.bfloat16,)),
+             ("l14_336_f32_store", 18_464, 1, 1024, 4096, (torch.float32,)),
+             ("l14_336_f32_attrib", 4_616, 1, 1024, 4096, (torch.float32,)),
              # C a multiple of 128 but not of 256 (the bf16 kernel's narrow
              # column tile), R one row past a 128-row tile
-             ("edge", 12_801, 1, 768, 640, (torch.bfloat16,))]
-LN_TC_KERNEL = "ln_gemm_tc_kernel"  # the bf16 route, for ptxas's record
+             ("edge", 12_801, 1, 768, 640, (torch.bfloat16, torch.float32))]
+# The kernels of B14's routes by name: ptxas's records (no spill) and the
+# profiled names of each float32 call (the 3xTF32 GEMM once a launch, with
+# its W pre-pass; the FFMA kernel it replaced, ln_gemm_kernel, never).
+LN_TC_KERNEL = "ln_gemm_tc_kernel"
+LN_TF32_KERNEL = "ln_gemm_tf32_kernel"
+LN_SPLIT_KERNEL = "split_k_major_kernel"
+LN_FFMA_KERNEL = "ln_gemm_kernel"
+# The float32 shape whose first 128 rows, alone, must equal the same rows
+# of the whole call to the bit.
+LN_ROWS_SHAPE = "l14_336_f32_store"
 # Kernel against plain, relative to max(1, absmax): float32 differs by the
 # LayerNorm's and the GEMM's summation orders only; bfloat16 rounds xn and
 # the output after float32 sums taken in other orders, so an entry may land
@@ -814,6 +831,10 @@ BLOCK_BF16_ULPS = 4
 # alone (batch 1, slot 0), whatever its batch or slot
 BLOCK_ODD_BATCH = 255
 BLOCK_TC_KERNEL = "block_tc_kernel"
+# the float32 route's kernel (ptxas's record, no spill; by name once a call)
+# and the FFMA kernel it replaced (never by name)
+BLOCK_TF32_KERNEL = "block_tf32_kernel"
+BLOCK_FFMA_KERNEL = "block_f32_kernel"
 # gradients through the wrappers against autograd of the plain versions,
 # relative to max(1, |grad|max): float32 (B16's weight grads sum 12,800
 # rows), bfloat16 as GRAD_KERNEL_REL
@@ -2300,12 +2321,13 @@ def phase_topk_remat(info, trainer, store, cfg):
 MIX_KERNEL_NAMES = ("mix_tc_kernel", "mix_tf32_kernel", "mix_fwd_kernel")
 
 
-def _profile(fn, share_of=(), warm=False, top=TOPK_PROFILE_TOP, calls_of=(), pad=0.0):
+def _profile(fn, share_of=(), warm=False, top=TOPK_PROFILE_TOP, calls_of=(), pad=0.0,
+             time_of=()):
     """Device time by kernel over one call of ``fn`` (synchronized), the
     device's busy total and the wall time, in milliseconds; with
     ``share_of``, also the time and calls of every kernel whose name
-    contains one of those strings; with ``calls_of``, the calls of the
-    kernels whose names contain each string.  ``warm``: one more call
+    contains one of those strings; with ``calls_of`` (``time_of``), the
+    calls (device ms) of the kernels whose names contain each string.  ``warm``: one more call
     first, in a profiler cycle that is not kept, while device tracing
     starts.  ``pad``: idle seconds on each side of the timed call (see
     ``PROFILE_PADS_S``)."""
@@ -2346,6 +2368,8 @@ def _profile(fn, share_of=(), warm=False, top=TOPK_PROFILE_TOP, calls_of=(), pad
                            "share_of_busy": sum(r[1] for r in hit) / busy if busy else 0.0}
     if calls_of:
         out["calls_of"] = {c: sum(r[2] for r in rows if c in r[0]) for c in calls_of}
+    if time_of:
+        out["time_of"] = {c: sum(r[1] for r in rows if c in r[0]) for c in time_of}
     return out
 
 
@@ -3501,9 +3525,14 @@ def phase_sae_attribution(info):
 def phase_ln_gemm_kernels(info):
     """B14 against its plain version on the card, with both times, the
     bound, and the library's unfused pair (``F.layer_norm`` without affine,
-    then ``torch.matmul`` and the bias) on the same operands."""
+    then ``torch.matmul`` and the bias) on the same operands.  Each float32
+    call's kernels by name (the 3xTF32 GEMM once, never the FFMA kernel it
+    replaced), and at LN_ROWS_SHAPE the first 128 rows alone against the
+    same rows of the whole call, to the bit; both routes' ptxas records, no
+    spill."""
     import torch.nn.functional as F
-    from vit_prisma_tpu_torch.ops.ln_matmul import ln_matmul, ln_matmul_reference
+    from vit_prisma_tpu_torch.ops.ln_matmul import (ln_matmul, ln_matmul_reference,
+                                                     ln_matmul_route)
     g = torch.Generator(device="cuda").manual_seed(11)
     results = {}
     for name, R, S, D, C, dtypes in LN_SHAPES:
@@ -3523,6 +3552,7 @@ def phase_ln_gemm_kernels(info):
             gemm = "bf16_tensor" if dtype == torch.bfloat16 else "f32_product"
             rec = {"phase": "ln_gemm_kernel", **info, "kernel": "ln_matmul", "shape": name,
                    "R": R, "S": S, "D": D, "C": C, "dtype": str(dtype).split(".")[1],
+                   "route": ln_matmul_route(dtype),
                    "max_abs_err": err, "rel_tol": LN_REL[dtype],
                    "us": us, "plain_us": plain_us, "library_us": library_us,
                    "TFLOP_s": 2 * S * R * D * C / (us * 1e-6) / 1e12,
@@ -3533,10 +3563,36 @@ def phase_ln_gemm_kernels(info):
                            [(gemm, 2 * S * R * D * C), ("fp32", 6 * R * D)])}
             if dtype == torch.bfloat16:
                 rec["ptxas"] = ptxas(LN_TC_KERNEL)
+            else:
+                rec["ptxas"] = ptxas(LN_TF32_KERNEL)
+                if any(r["spill_bytes"] for r in rec["ptxas"].values()):
+                    raise AssertionError(f"{LN_TF32_KERNEL} spills: {rec['ptxas']}")
+                rec["profiled_kernels"] = ln_profiled(f"ln_matmul {name}",
+                                                      lambda: ln_matmul(x, W, b), 1)
+                if name == LN_ROWS_SHAPE:
+                    rec["rows_128_alone_equal"] = bool(torch.equal(ln_matmul(x[:128], W, b),
+                                                                   got[:, :128]))
+                    if not rec["rows_128_alone_equal"]:
+                        raise AssertionError(f"ln_matmul {name}: rows depend on R")
             results[(name, dtype)] = rec
             emit(rec)
             del x, W, b, got, want
     return results
+
+
+def ln_profiled(what, fn, launches) -> dict:
+    """Calls a launch of each kernel ``torch.profiler`` sees in one call of
+    ``fn`` (a float32 B14 path): the 3xTF32 GEMM and its W pre-pass exactly
+    ``launches`` times, the FFMA kernel never; a window that lost events is
+    taken again with the next margin of ``PROFILE_PADS_S``."""
+    want = {LN_TF32_KERNEL: launches, LN_SPLIT_KERNEL: launches, LN_FFMA_KERNEL: 0}
+    for pad in PROFILE_PADS_S:
+        prof = _profile(fn, warm=True, calls_of=tuple(want), pad=pad)
+        if prof["calls_of"][LN_FFMA_KERNEL]:
+            raise AssertionError(f"{what}: the FFMA kernel ran: {prof['calls_of']}")
+        if prof["calls_of"] == want:
+            return {"calls": prof["calls_of"], "pad_s": pad}
+    raise AssertionError(f"{what}: kernels by name {prof['calls_of']}, expected {want}")
 
 
 def _flash_inputs(g, B, N, T, H, dtype):
@@ -3955,8 +4011,9 @@ def phase_l14_336_f32(info):
     ``run_with_cache(incl_bwd=True)`` at batch 8, each driven with every
     count set to 0 just before it and read just after (B13 24; 24 forward,
     23 each backward pass; B14 24), timed, and profiled over one warmed
-    call: B13's device time and share by the 3xTF32 kernels' names, whose
-    calls must be the launches, and no kernel of another route."""
+    call: B13's and B14's device time and share by the 3xTF32 kernels'
+    names, whose calls must be the launches, and no kernel of another
+    route."""
     counters = _sae_counters()
     model = _l336_model("float32")
     cfg = model.cfg
@@ -3999,26 +4056,33 @@ def phase_l14_336_f32(info):
         want = {FLASH_TF32_BY_PASS["fwd"]: expected["flash_attention_padded"],
                 FLASH_TF32_BY_PASS["bwd_dkv"]: expected.get("flash_attention_padded_bwd_dkv", 0),
                 FLASH_TF32_BY_PASS["bwd_dq"]: expected.get("flash_attention_padded_bwd_dq", 0),
-                **dict.fromkeys(FLASH_OTHER_ROUTES, 0)}
+                **dict.fromkeys(FLASH_OTHER_ROUTES, 0),
+                LN_TF32_KERNEL: expected["ln_matmul"], LN_SPLIT_KERNEL: expected["ln_matmul"],
+                LN_FFMA_KERNEL: 0}
+        b14 = (LN_TF32_KERNEL, LN_SPLIT_KERNEL, "ln_stats_kernel")
         seen = []
         for pad in PROFILE_PADS_S:
             prof = _profile(lambda: fn(x), share_of=names, warm=True, calls_of=tuple(want),
-                            pad=pad)
+                            pad=pad, time_of=b14)
             seen.append(prof["calls_of"])
             if prof["calls_of"] == want:
                 break
         if prof["calls_of"] != want:
-            raise AssertionError(f"l14_336_f32 {path}: B13's kernels by name {seen}, "
+            raise AssertionError(f"l14_336_f32 {path}: B13's and B14's kernels by name {seen}, "
                                  f"expected {want}")
         prof["windows"] = len(seen)
+        b14_ms = sum(prof["time_of"].values())
         results[path] = {"batch": batch, "launches": launches,
                          "seconds_per_call": times, "img_per_s": [batch / t for t in times],
                          "b13_ms": prof["share_of"]["ms"],
                          "b13_share_of_busy": prof["share_of"]["share_of_busy"],
+                         "b14_ms": b14_ms, "b14_ms_by_kernel": prof["time_of"],
+                         "b14_share_of_busy": b14_ms / prof["device_busy_ms"],
                          "profile_of_one_call": prof}
         del x
     emit({"phase": "l14_336_f32", **info, "model": L336_MODEL, "dtype": "float32",
-          "n_layers": L, "T": cfg.n_tokens, "route": "tf32x3", **results})
+          "n_layers": L, "T": cfg.n_tokens, "route": "tf32x3", "b14_route": "tf32x3",
+          **results})
     del model
     return {path: r["launches"] for path, r in results.items()}
 
@@ -4799,6 +4863,22 @@ def block_traffic(B, T, D, N) -> dict:
     return {"l2_GB_pr8": old / 1e9, "l2_GB": new / 1e9, "dram_GB": dram / 1e9}
 
 
+def block_traffic_f32(B, T, D, N) -> dict:
+    """B16's float32 traffic a call, reckoned from its design (bytes, not
+    measured): the pre-passes (the weights read once, their split hi and
+    lo written once), then L2 reads: the split weights once per block of
+    two images, x once per 96-column QKV pass (two a head), z once per
+    128-column output pass; device-memory bytes as block_traffic counts
+    them, plus the split copies written and read once."""
+    NH, it = N * 64, 4
+    weights = (D * 3 * NH + NH * D) * it
+    x_tile = 64 * D * it  # an image's x rows, padded to 64 by TMA's zero fill
+    z = B * 64 * NH * it
+    l2 = -(-B // 2) * 2 * weights + B * (2 * N * x_tile + (D // 128) * 64 * NH * it)
+    dram = 5 * weights + B * T * D * it * 2 + z + 3 * NH * it  # weights: read, split written, read
+    return {"l2_GB": l2 / 1e9, "dram_GB": dram / 1e9}
+
+
 def phase_mix_kernels(info):
     """B15 and B16, the op-level path of the JAX package's two kernels
     without a caller: first the path itself (each entry point once at the
@@ -4897,32 +4977,50 @@ def phase_mix_kernels(info):
                "max_abs_err": err, "tol": tol,
                "tol_rule": (f"{BLOCK_F32_REL} x max(1, |out|max)" if dtype == torch.float32
                             else f"{BLOCK_BF16_ULPS} bf16 ulps at |out|max")}
+        # both routes take two images a block: an odd batch against plain,
+        # and batch independence to the bit: image 0 (slot 0) and image 1
+        # (slot 1 of the first block) each alone, and the odd batch's lone
+        # last image against the same image in the batch of 256
+        odd = [a[:BLOCK_ODD_BATCH] if a is x else a for a in args]
+        out_odd = A._launch_attn_block(*odd, N, BLOCK_INV_SCALE)
+        want_odd = A.fused_attention_block_plain(*odd, N, BLOCK_INV_SCALE)
+        rec["odd_batch"] = BLOCK_ODD_BATCH
+        rec["odd_batch_max_abs_err"] = check_close(
+            f"fused_attention_block {dtype} batch {BLOCK_ODD_BATCH}", out_odd, want_odd,
+            rel_atol(BLOCK_F32_REL, want_odd) if dtype == torch.float32
+            else _bf16_ulps(BLOCK_BF16_ULPS, want_odd))
+        alone = {i: A._launch_attn_block(x[i:i + 1], *args[1:], N, BLOCK_INV_SCALE)
+                 for i in (0, 1)}
+        same = {f"image_{i}_alone": bool(torch.equal(o, out[i:i + 1]))
+                for i, o in alone.items()}
+        last = BLOCK_ODD_BATCH - 1
+        same[f"image_{last}_lone_in_batch_{BLOCK_ODD_BATCH}"] = bool(
+            torch.equal(out_odd[last], out[last]))
+        rec["batch_independent"] = same
+        if not all(same.values()):
+            raise AssertionError(f"fused_attention_block {dtype}: batch dependence {same}")
+        rec["route"] = A.attn_block_route(dtype)
+        del odd, out_odd, want_odd, alone
         if dtype == torch.bfloat16:
-            # an odd batch against plain, and batch independence to the bit:
-            # image 0 (slot 0) and image 1 (slot 1 of the first block) each
-            # alone, and the odd batch's lone last image against the same
-            # image in the batch of 256
-            odd = [a[:BLOCK_ODD_BATCH] if a is x else a for a in args]
-            out_odd = A._launch_attn_block(*odd, N, BLOCK_INV_SCALE)
-            want_odd = A.fused_attention_block_plain(*odd, N, BLOCK_INV_SCALE)
-            rec["odd_batch"] = BLOCK_ODD_BATCH
-            rec["odd_batch_max_abs_err"] = check_close(
-                f"fused_attention_block batch {BLOCK_ODD_BATCH}", out_odd, want_odd,
-                _bf16_ulps(BLOCK_BF16_ULPS, want_odd))
-            alone = {i: A._launch_attn_block(x[i:i + 1], *args[1:], N, BLOCK_INV_SCALE)
-                     for i in (0, 1)}
-            same = {f"image_{i}_alone": bool(torch.equal(o, out[i:i + 1]))
-                    for i, o in alone.items()}
-            last = BLOCK_ODD_BATCH - 1
-            same[f"image_{last}_lone_in_batch_{BLOCK_ODD_BATCH}"] = bool(
-                torch.equal(out_odd[last], out[last]))
-            rec["batch_independent"] = same
-            if not all(same.values()):
-                raise AssertionError(f"fused_attention_block: batch dependence {same}")
             rec["ptxas"] = ptxas(BLOCK_TC_KERNEL)
             rec["traffic"] = block_traffic(B, T, D, N)
-            del odd, out_odd, want_odd, alone
         if dtype == torch.float32:
+            rec["ptxas"] = ptxas(BLOCK_TF32_KERNEL)
+            if any(r["spill_bytes"] for r in rec["ptxas"].values()):
+                raise AssertionError(f"{BLOCK_TF32_KERNEL} spills: {rec['ptxas']}")
+            # the call's kernels by name: the 3xTF32 kernel once and the two
+            # weights' pre-passes, never the FFMA kernel it replaced
+            want_calls = {BLOCK_TF32_KERNEL: 1, LN_SPLIT_KERNEL: 2, BLOCK_FFMA_KERNEL: 0}
+            for pad in PROFILE_PADS_S:
+                prof = _profile(lambda: A._launch_attn_block(*args, N, BLOCK_INV_SCALE),
+                                warm=True, calls_of=tuple(want_calls), pad=pad)
+                if prof["calls_of"][BLOCK_FFMA_KERNEL] or prof["calls_of"] == want_calls:
+                    break
+            if prof["calls_of"] != want_calls:
+                raise AssertionError(f"fused_attention_block f32: kernels by name "
+                                     f"{prof['calls_of']}, expected {want_calls}")
+            rec["profiled_kernels"] = {"calls": prof["calls_of"], "pad_s": pad}
+            rec["traffic"] = block_traffic_f32(B, T, D, N)
             ref = A.attn_block_reference(*args, N, BLOCK_INV_SCALE)
             rec["reference_max_abs_err"] = check_close(
                 "fused_attention_block vs attn_block_reference", out, ref,
@@ -7276,9 +7374,15 @@ def main():
     # whole backward at the same shape stands beside both passes as
     # library_bwd_ms (beside the f32 figures: f32_*_library_ms).
     # B14's figures at the text phase's two shapes beside it.
+    # B14's float32 route (3xTF32) at each float32 shape, and its launches
+    # on the float32 paths of l14_336_f32, beside.
     line.append({**entry("ln_matmul", LN_SOURCE, LN_REPLACES, ln_launches["ln_matmul"],
                          ln_kernels[("b32_qkv", torch.bfloat16)], "us", 1e-3),
                  "text_phase_launches": text_launches["ln_matmul"],
+                 "f32_path_launches": {p_: l.get("ln_matmul", 0)
+                                       for p_, l in l336_f32_launches.items()},
+                 **f32_figures(ln_kernels, [s_[0] for s_ in LN_SHAPES
+                                            if torch.float32 in s_[-1]]),
                  **{f"{shape}_{k}": v for shape in ("text_qkv", "text_mlp_in")
                     for k, v in (("ms", ln_kernels[(shape, torch.bfloat16)]["us"] * 1e-3),
                                  ("library_ms",
@@ -7329,6 +7433,12 @@ def main():
                    "us", 1e-3)
              for k, src, rep_ in (("attention_mix", MIX_SOURCE, MIX_REPLACES),
                                   ("fused_attention_block", BLOCK_SOURCE, BLOCK_REPLACES))]
+    # each one's float32 route at the same shape beside
+    for e in line[-2:]:
+        r = mix_kernels[(e["name"], "b32", torch.float32)]
+        e.update({f"f32_b32_{k.replace('us', 'ms')}": r[k] * (1e-3 if k.endswith("us") else 1)
+                  for k in ("us", "library_us", "bound_ms", "max_abs_err", "route")
+                  if k in r})
     # the sharded paths' launches, per rank of the world of two on gloo
     for e in line:
         per_case = {case: [r.get(e["name"], 0) for r in ranks]

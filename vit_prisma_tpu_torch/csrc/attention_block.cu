@@ -50,22 +50,50 @@
 //  on its batch or its slot.  Two-block clusters that multicast each
 //  weight tile halve the weights' L2 reads but took 1.8x the time.
 //
-// float32 (block_f32_kernel, CUDA cores: FFMA, as TF32 would round the
-// inputs).  One block of 8 warps per image, its T <= 64 token rows padded
-// to 64 (rows past T read row T - 1 of x; their keys are masked and their
-// outputs not stored); for each head a [64 x 192] GEMM over K = D through a
-// 3-stage cp.async ring of 32-deep tiles, the epilogue leaving q, k, v in
-// shared memory, warps 0-3 running the mix into the same z scratch; then
-// out = z Wo in 128-column tiles.
+// float32 (block_tf32_kernel, 3xTF32 on tf32 wgmma: hopper_gemm.cuh's
+// float32 pieces, as B14's float32 route).  At B/32 the three products are
+// 187 GFLOP of TF32 (0.378 ms at 495 TFLOP/s); float32 weights are 9.4 MB,
+// and their split hi and lo copies 18.9 MB, streamed once per block from
+// L2.  Design:
+//  * the two weights are written K-major and split into TF32 hi and lo
+//    parts by a pre-pass (split_k_major_kernel) into the wrapper's scratch
+//    beside z: Wqkv^T [2, 3 NH, D] with each head's columns in the order k,
+//    v, q, and Wo^T [2, D, NH] (each call: the weights may change);
+//  * one block of three warpgroups takes two images, as block_tc_kernel: a
+//    producer warp fills a 3-stage ring by TMA, each stage both images'
+//    [64 x 32] x (or z) tiles and one 32-deep weight tile's hi and lo (48
+//    KB), so the weights stream once per two images; each consumer
+//    warpgroup owns one image (rows past T zero-filled by TMA);
+//  * for each head, two passes of wgmma m64n96k8 over K = D (k and half of
+//    v, then the other half of v and q: 96 columns keep a pass's running
+//    total, its stage sum and the A fragments in registers), A from
+//    registers as B14's float32 route reads it (each thread's elements of
+//    the landed tile, split), each 32-deep stage summed from zero and added
+//    in FADDs; the bias in float32; k and v into the image's [64 x 68]
+//    tiles, q scaled in registers and turned into the mix's A fragments by
+//    quad shuffles;
+//  * the mix is B1's float32 device code (mix_tf32.cuh fwd_rows, 3xTF32
+//    mma.sync, exact two-pass softmax; each warp 16 query rows), z stored
+//    for the image's rows < T into the [B, 64, NH] scratch;
+//  * once the image's z is in device memory (each thread's stores fenced
+//    to the async proxy, then an mbarrier the producer waits on), out = z
+//    Wo in 128-column passes (m64n128k8, z by TMA like x), stored from the
+//    registers (rows < T).
+//  A lone image (odd batch) leaves the second slot empty: nothing is loaded
+//  into its tiles, it runs the same wgmma instructions on them, and it
+//  stores nothing (its token count taken as 0).
 //
 // Every element of out is summed by one thread in a fixed order: no
-// atomics, so the result does not depend on scheduling.  Shared memory:
-// bfloat16 220,232 bytes (4 stages of 40 KB, both images' q, k, v tiles,
-// the barriers and the swizzle's alignment), float32 172,544; one block an
-// SM either way.  The gate (vit_prisma_tpu_torch/ops/attention.py,
-// attn_block_fits_smem) takes T <= 64, H = 64, D a multiple of 128: CLIP
-// ViT-B/32 (T 50, D 768, N 12) in both dtypes; CLIP L/14 (T 257) is past it.
+// atomics, so the result does not depend on scheduling, the batch or the
+// slot.  Shared memory: bfloat16 220,232 bytes (4 stages of 40 KB, both
+// images' q, k, v tiles, the barriers and the swizzle's alignment), float32
+// 218,168 (3 stages of 48 KB, both images' k and v tiles, the barriers and
+// the alignment); one block an SM either way.  The gate
+// (vit_prisma_tpu_torch/ops/attention.py, attn_block_fits_smem) takes T <=
+// 64, H = 64, D a multiple of 128: CLIP ViT-B/32 (T 50, D 768, N 12) in
+// both dtypes; CLIP L/14 (T 257) is past it.
 
+#include "attention_mix_core.cuh"  // mix::tf32::fwd_rows, B1's float32 mix
 #include "flash_tile.cuh"
 #include "hopper_gemm.cuh"
 
@@ -77,253 +105,268 @@ using sae::to_f;
 
 constexpr int kHead = 64;   // head width
 constexpr int kRows = 64;   // token rows a block holds
-constexpr int kThreads = 256;
-constexpr int kWarpsM = 2, kWarpsN = 4;
-constexpr int kWM = kRows / kWarpsM;  // 32 rows a warp
-constexpr int kMI = kWM / 16;
-constexpr int kBK = 32;
-constexpr int kStages = 3;
 constexpr int kQkvCols = 3 * kHead;  // one head's q, k and v columns
-constexpr int kOutCols = 128;        // columns of out a tile
-constexpr int kMixWarps = 4;         // warps of the mix, 16 query rows each
 constexpr size_t kMaxSmemBytes = 232448;
-
-template <typename T, int BN>
-struct Gemm {
-  static constexpr int pad = 16 / static_cast<int>(sizeof(T));
-  static constexpr int a_stride = kBK + pad;  // A tile [kRows][kBK]
-  static constexpr int b_stride = BN + pad;   // B tile [kBK][BN]
-  static constexpr int a_elems = kRows * a_stride;
-  static constexpr int stage = a_elems + kBK * b_stride;
-  static constexpr int bytes = kStages * stage * static_cast<int>(sizeof(T));
-  static constexpr int WN = BN / kWarpsN;  // columns a warp
-  static constexpr int NI = WN / 8;
-};
-
-template <typename T>
-constexpr int smem_bytes() {
-  return Gemm<T, kQkvCols>::bytes + 3 * flash::Geo<T, kHead>::tile_bytes +
-         (sizeof(T) == 4 ? kMixWarps * 16 * flash::kPStride * 4 : 0);
-}
-static_assert(Gemm<float, kQkvCols>::bytes >= Gemm<float, kOutCols>::bytes, "staging");
-
-__device__ __forceinline__ int warp_m0() { return (threadIdx.x / 32) / kWarpsN * kWM; }
-
-// One kBK slice of products on the CUDA cores, into the mma.sync C-fragment
-// layout (A rows K-contiguous, B rows N-contiguous).
-template <int BN>
-__device__ __forceinline__ void compute_stage(float (&acc)[kMI][Gemm<float, BN>::NI][4],
-                                              const float* As, const float* Bs) {
-  typedef Gemm<float, BN> G;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int wm0 = warp_m0(), wn0 = (threadIdx.x / 32) % kWarpsN * G::WN;
-#pragma unroll 4
-  for (int k = 0; k < kBK; ++k) {
-    float a[kMI][2], b[G::NI][2];
-#pragma unroll
-    for (int mi = 0; mi < kMI; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) a[mi][h] = As[(wm0 + 16 * mi + g + 8 * h) * G::a_stride + k];
-#pragma unroll
-    for (int ni = 0; ni < G::NI; ++ni)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) b[ni][h] = Bs[k * G::b_stride + wn0 + 8 * ni + 2 * t + h];
-#pragma unroll
-    for (int mi = 0; mi < kMI; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < G::NI; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          acc[mi][ni][e] = fmaf(a[mi][e / 2], b[ni][e % 2], acc[mi][ni][e]);
-  }
-}
-
-// acc = A[0:64, 0:K] B[0:K, cols], zeroed first.  A row r at A + min(r,
-// a_rows - 1) * lda; the BN columns of B are BN/64 runs of 64, run s
-// starting at column cols[s] (row k at B + k * ldb).  Ends with every thread
-// past a barrier and no copy in flight, so the caller may reuse the staging.
-template <typename T, int BN>
-__device__ __forceinline__ void gemm(float (&acc)[kMI][Gemm<T, BN>::NI][4], const T* __restrict__ A,
-                                     long long lda, int a_rows, const T* __restrict__ B,
-                                     long long ldb, const long long (&cols)[BN / kHead], int K,
-                                     T* smem) {
-  typedef Gemm<T, BN> G;
-  constexpr int vec = 16 / static_cast<int>(sizeof(T));
-  constexpr int a_chunks = kBK / vec;  // 16-byte copies a row of the A tile
-  constexpr int b_chunks = BN / vec;
-  constexpr int run_chunks = kHead / vec;
-#pragma unroll
-  for (int mi = 0; mi < kMI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < G::NI; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-  const int ktiles = K / kBK;
-  auto load = [&](int stage, int kt) {
-    T* As = smem + stage * G::stage;
-    T* Bs = As + G::a_elems;
-    const int k0 = kt * kBK;
-    for (int i = threadIdx.x; i < kRows * a_chunks; i += kThreads) {
-      const int r = i / a_chunks, c = (i % a_chunks) * vec;
-      sae::cp_async16(As + r * G::a_stride + c, A + min(r, a_rows - 1) * lda + k0 + c);
-    }
-    for (int i = threadIdx.x; i < kBK * b_chunks; i += kThreads) {
-      const int r = i / b_chunks, cc = i % b_chunks;
-      const int s = cc / run_chunks, c = (cc % run_chunks) * vec;
-      sae::cp_async16(Bs + r * G::b_stride + s * kHead + c,
-                      B + static_cast<long long>(k0 + r) * ldb + cols[s] + c);
-    }
-  };
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < ktiles) load(s, s);
-    sae::cp_async_commit();
-  }
-  for (int kt = 0; kt < ktiles; ++kt) {
-    sae::cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int next = kt + kStages - 1;
-    if (next < ktiles) load(next % kStages, next);
-    sae::cp_async_commit();
-    const T* As = smem + (kt % kStages) * G::stage;
-    compute_stage<BN>(acc, As, As + G::a_elems);
-  }
-  sae::cp_async_wait<0>();
-  __syncthreads();
-}
 
 template <typename T>
 __device__ __forceinline__ float round_to(float v) {
   return to_f(from_f<T>(v));
 }
 
-// float32 (instantiated for T = float only).  Grid (B); kThreads threads;
-// smem_bytes<T>() of dynamic shared memory.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-block_f32_kernel(const T* __restrict__ x, const T* __restrict__ Wqkv,
-                       const T* __restrict__ bqkv, const T* __restrict__ Wo,
-                       T* __restrict__ zbuf, T* __restrict__ out, int n_tok, int D,
-                       int n_heads, float inv_scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  typedef flash::Geo<T, kHead> Geo;
-  T* staging = reinterpret_cast<T*>(smem_raw);
-  T* qkv_s = reinterpret_cast<T*>(smem_raw + Gemm<T, kQkvCols>::bytes);  // q, k, v tiles
-  float* pbuf = reinterpret_cast<float*>(smem_raw + Gemm<T, kQkvCols>::bytes +
-                                         3 * Geo::tile_bytes);
-  const int NH = n_heads * kHead;
-  const long long b = blockIdx.x;
-  const T* xb = x + b * n_tok * D;
-  T* zb = zbuf + b * kRows * NH;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int wm0 = warp_m0();
+// ---- float32: 3xTF32 on tf32 wgmma -------------------------------------------
 
-  for (int n = 0; n < n_heads; ++n) {
-    typedef Gemm<T, kQkvCols> G;
-    float acc[kMI][G::NI][4];
-    const long long cols[3] = {n * kHead, NH + n * kHead, 2LL * NH + n * kHead};
-    gemm<T, kQkvCols>(acc, xb, D, n_tok, Wqkv, 3LL * NH, cols, D, staging);
-    // bias, rounding, q's scale: the head's q, k, v tiles
-    const int wn0 = warp % kWarpsN * G::WN;
+namespace tf {
+
+constexpr int kSlots = 2;                  // images a block, one consumer warpgroup each
+constexpr int kStages = 3;
+constexpr int kBK = hg::kF32Box;           // K a stage
+constexpr int kQkvN = 96;                  // columns of a QKV pass: two passes a head
+constexpr int kOutN = 128;                 // columns of out a pass
+constexpr int kThreads = 128 * (kSlots + 1);  // + the producer's warpgroup
+constexpr int kABytes = kRows * kBK * 4;   // one image's [64 x 32] x or z tile
+constexpr int kBBytes = kOutN * kBK * 4;   // room for a weight tile's hi (or lo)
+constexpr int kStageBytes = kSlots * kABytes + 2 * kBBytes;
+constexpr int kS = 68;                     // k and v rows: H + 4 floats (mix_tf32's row_stride)
+constexpr int kTileFloats = kRows * kS;
+constexpr int kTilesOffset = kStages * kStageBytes;
+constexpr int kBarOffset = kTilesOffset + kSlots * 2 * kTileFloats * 4;
+constexpr int kBytes = kBarOffset + (2 * kStages + 1) * 8 + hg::kSwizzleAlign;
+static_assert(kBytes <= static_cast<int>(kMaxSmemBytes), "shared memory");
+static_assert(kS == mix::tf32::round8(kHead + 4) - 4, "the mix's row stride");
+
+// Wqkv^T's rows in the split copy: head n's k, v, then q columns.
+struct QkvCols {
+  int nh;
+  __device__ int operator()(int r) const {
+    const int n = r / kQkvCols, i = r % kQkvCols;
+    return i < 2 * kHead ? (1 + i / kHead) * nh + n * kHead + i % kHead : n * kHead + i - 2 * kHead;
+  }
+};
+
+// acc = A B over nk stages of the ring (it counts the stages taken): A this
+// slot's tile, B the stage's split weight tile of N rows; each stage summed
+// from zero, then added.
+template <int N>
+__device__ __forceinline__ void gemm(float (&acc)[N / 2], int nk, int& it, unsigned char* smem,
+                                     uint64_t* full, uint64_t* empty, int slot) {
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x % 128) / 32;
+  float c[N / 2];  // a stage's sum, from zero (scale_d 0)
 #pragma unroll
-    for (int mi = 0; mi < kMI; ++mi)
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < nk; ++kt, ++it) {
+    const int st = it % kStages;
+    hg::mbar_wait(&full[st], (it / kStages) & 1);
+    const unsigned char* stage = smem + st * kStageBytes;
+    float x[4][4];
+    hg::load_frags(x, reinterpret_cast<const float*>(stage + slot * kABytes), 16 * warp);
+    uint32_t hi[4][4], lo[4][4];
+    hg::split_frags(hi, lo, x);
+    hg::mma3_stage<N>(c, hi, lo, reinterpret_cast<const float*>(stage + kSlots * kABytes),
+                      reinterpret_cast<const float*>(stage + kSlots * kABytes + kBBytes));
+    hg::wgmma_wait<0>();
+    hg::fence_acc(c);
+    hg::keep_regs(hi);
+    hg::keep_regs(lo);
+    if (lane == 0) hg::mbar_arrive(&empty[st]);
 #pragma unroll
-      for (int ni = 0; ni < G::NI; ++ni)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = wm0 + 16 * mi + g + 8 * h, col = wn0 + 8 * ni + 2 * t;
-          const int s = col / kHead, c = col % kHead;
-          const T* bias = bqkv + s * NH + n * kHead + c;
-          float v0 = round_to<T>(acc[mi][ni][2 * h] + to_f(bias[0]));
-          float v1 = round_to<T>(acc[mi][ni][2 * h + 1] + to_f(bias[1]));
-          if (s == 0) {
-            v0 *= inv_scale;
-            v1 *= inv_scale;
+    for (int i = 0; i < N / 2; ++i) acc[i] += c[i];
+  }
+}
+
+// Grid (ceil(B / kSlots)); kThreads threads; kBytes of dynamic shared memory.
+// xmap: x [B, n_tok, D] in boxes [1 x 64 x 32]; wmap: Wqkv^T's split [2, 3
+// NH, D] in [1 x 96 x 32]; zmap: the z scratch [B, 64, NH], its first n_tok
+// rows, in [1 x 64 x 32]; omap: Wo^T's split [2, D, NH] in [1 x 128 x 32].
+__global__ void __launch_bounds__(kThreads, 1)
+block_tf32_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+                  const __grid_constant__ CUtensorMap zmap, const __grid_constant__ CUtensorMap omap,
+                  const float* __restrict__ bqkv, float* __restrict__ zbuf,
+                  float* __restrict__ out, int batch, int n_tok, int D, int n_heads,
+                  float inv_scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + hg::kSwizzleAlign - 1) &
+      ~static_cast<uintptr_t>(hg::kSwizzleAlign - 1));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBarOffset);
+  uint64_t* empty = full + kStages;
+  uint64_t* zready = empty + kStages;  // each slot's z rows are in device memory
+  const int NH = n_heads * kHead;
+  const int img0 = blockIdx.x * kSlots;
+  const int n_img = min(kSlots, batch - img0);
+  const int kq = D / kBK, ko = NH / kBK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      hg::mbar_init(&full[i], 1);
+      hg::mbar_init(&empty[i], 4 * kSlots);  // one arrive a consumer warp
+    }
+    hg::mbar_init(zready, kSlots);
+    hg::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == kSlots) {  // the producer: one thread issues every copy
+    hg::reg_dealloc<40>();
+    if (threadIdx.x == 128 * kSlots) {
+      int it = 0;
+      // Take the next stage of the ring for an A tile per image and a
+      // weight tile of `rows` rows (hi and lo); returns its base.
+      auto next_stage = [&](int& st, int rows) {
+        st = it % kStages;
+        const int round = it / kStages;
+        if (round > 0) hg::mbar_wait(&empty[st], (round - 1) & 1);
+        hg::mbar_expect_tx(&full[st], n_img * kABytes + 2 * rows * kBK * 4);
+        ++it;
+        return smem + st * kStageBytes;
+      };
+      auto load_weights = [&](unsigned char* stage, const CUtensorMap* map, int st, int row, int k0) {
+        hg::tma_load_3d(stage + kSlots * kABytes, map, &full[st], k0, row, 0);            // hi
+        hg::tma_load_3d(stage + kSlots * kABytes + kBBytes, map, &full[st], k0, row, 1);  // lo
+      };
+      for (int n = 0; n < n_heads; ++n)
+        for (int pass = 0; pass < 2; ++pass)
+          for (int kt = 0; kt < kq; ++kt) {
+            int st;
+            unsigned char* stage = next_stage(st, kQkvN);
+            for (int i = 0; i < n_img; ++i)
+              hg::tma_load_3d(stage + i * kABytes, &xmap, &full[st], kt * kBK, 0, img0 + i);
+            load_weights(stage, &wmap, st, n * kQkvCols + pass * kQkvN, kt * kBK);
           }
-          store2(qkv_s + s * Geo::tile + row * Geo::stride + c, v0, v1);
+      hg::mbar_wait(zready, 0);
+      for (int ct = 0; ct < D / kOutN; ++ct)
+        for (int kt = 0; kt < ko; ++kt) {
+          int st;
+          unsigned char* stage = next_stage(st, kOutN);
+          for (int i = 0; i < n_img; ++i)
+            hg::tma_load_3d(stage + i * kABytes, &zmap, &full[st], kt * kBK, 0, img0 + i);
+          load_weights(stage, &omap, st, ct * kOutN, kt * kBK);
         }
-    __syncthreads();
-    if (warp < kMixWarps) {
-      float sc[8][4];
-      flash::zero(sc);
-      float* pw = pbuf + warp * 16 * flash::kPStride;
-      flash::nt<kHead>(sc, qkv_s + warp * 16 * Geo::stride, qkv_s + Geo::tile, pw);
-      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    }
+  } else {  // consumer warpgroup wg: image img0 + wg
+    hg::reg_alloc<232>();
+    const int slot = wg;
+    const long long img = img0 + slot;
+    const int n_valid = slot < n_img ? n_tok : 0;  // an empty slot stores nothing
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t & 31, g = lane >> 2, tq = lane & 3;
+    float* Ks = reinterpret_cast<float*>(smem + kTilesOffset) + slot * 2 * kTileFloats;
+    float* Vs = Ks + kTileFloats;
+    float* zimg = zbuf + img * kRows * NH;
+    int it = 0;
+    // rows 16 warp + g + 8 h of the image; columns 8 j + 2 tq of a pass
+    auto put = [&](float* tile, int h, int col, float v0, float v1) {
+      store2(tile + (16 * warp + g + 8 * h) * kS + col, v0, v1);
+    };
+    for (int n = 0; n < n_heads; ++n) {
+      const float* bk = bqkv + NH + n * kHead;
+      const float* bv = bk + NH;
+      const float* bq = bqkv + n * kHead;
+      float acc[kQkvN / 2];
+      // pass 0: k (j < 8) and v's first 32 columns
+      gemm<kQkvN>(acc, kq, it, smem, full, empty, slot);
+      hg::named_sync(1 + slot, 128);  // every warp is past the previous head's mix
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (8 * j + 2 * t + (e & 1) >= n_tok) sc[j][e] = -INFINITY;  // padding keys
-          m[e >> 1] = fmaxf(m[e >> 1], sc[j][e]);
-        }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {  // a row's 64 scores lie in the 4 lanes of its quad
-        m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 1));
-        m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 2));
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          sc[j][e] = expf(sc[j][e] - m[e >> 1]);  // 0 where masked
-          l[e >> 1] += sc[j][e];
-        }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sc[j][e] = sc[j][e] / l[e >> 1];
-      float zc[kHead / 8][4];
-      flash::zero(zc);
-      flash::pn<kHead>(zc, sc, qkv_s + 2 * Geo::tile, pw);  // rounds p to T
-      T* zrow = zb + static_cast<long long>(warp * 16 + g) * NH + n * kHead + 2 * t;
-#pragma unroll
-      for (int j = 0; j < kHead / 8; ++j)
+      for (int j = 0; j < kQkvN / 8; ++j) {
+        const int c = 8 * (j % 8) + 2 * tq;
+        const float2 b01 = *reinterpret_cast<const float2*>((j < 8 ? bk : bv) + c);
 #pragma unroll
         for (int h = 0; h < 2; ++h)
-          store2(zrow + static_cast<long long>(8 * h) * NH + 8 * j, zc[j][2 * h], zc[j][2 * h + 1]);
-    }
-    // the next head's GEMM passes a barrier before its epilogue rewrites
-    // the q, k, v tiles, and touches only the staging before it
-  }
-  __syncthreads();  // this block's z rows are in the scratch
-
-  typedef Gemm<T, kOutCols> G;
-  const int wn0 = warp % kWarpsN * G::WN;
-  for (int n0 = 0; n0 < D; n0 += kOutCols) {
-    float acc[kMI][G::NI][4];
-    const long long cols[2] = {n0, n0 + kHead};
-    gemm<T, kOutCols>(acc, zb, NH, kRows, Wo, D, cols, NH, staging);
-#pragma unroll
-    for (int mi = 0; mi < kMI; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = wm0 + 16 * mi + g + 8 * h;
-        if (row >= n_tok) continue;
-        T* orow = out + (b * n_tok + row) * D + n0 + wn0 + 2 * t;
-#pragma unroll
-        for (int ni = 0; ni < G::NI; ++ni)
-          store2(orow + 8 * ni, acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+          put(j < 8 ? Ks : Vs, h, c, acc[4 * j + 2 * h] + b01.x, acc[4 * j + 2 * h + 1] + b01.y);
       }
+      // pass 1: v's last 32 columns (j < 4) and q
+      gemm<kQkvN>(acc, kq, it, smem, full, empty, slot);
+#pragma unroll
+      for (int j = 0; j < kQkvN / 8; ++j) {
+        const int c = j < 4 ? 32 + 8 * j + 2 * tq : 8 * (j - 4) + 2 * tq;
+        const float2 b01 = *reinterpret_cast<const float2*>((j < 4 ? bv : bq) + c);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float v0 = acc[4 * j + 2 * h] + b01.x, v1 = acc[4 * j + 2 * h + 1] + b01.y;
+          if (j < 4) {
+            put(Vs, h, c, v0, v1);
+          } else {
+            acc[4 * j + 2 * h] = v0 * inv_scale;
+            acc[4 * j + 2 * h + 1] = v1 * inv_scale;
+          }
+        }
+      }
+      hg::named_sync(1 + slot, 128);  // the image's k and v tiles are complete
+      // q's mix A fragments from the accumulator: element (row g, column
+      // 8 kk + tq) lies in lane 4 g + tq / 2, element tq % 2 of its pair
+      mix::tf32::Frag qs[kHead / 8];
+      const int src0 = (lane & ~3) | (tq >> 1), src1 = src0 + 2;
+#pragma unroll
+      for (int kk = 0; kk < kHead / 8; ++kk) {
+        const float* qv = acc + 4 * (kk + 4);
+        float a[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // e: rows g + 8 (e % 2), columns + 4 (e / 2)
+          const int src = e < 2 ? src0 : src1, r = 2 * (e & 1);
+          const float x0 = __shfl_sync(0xffffffffu, qv[r], src);
+          const float x1 = __shfl_sync(0xffffffffu, qv[r + 1], src);
+          a[e] = tq & 1 ? x1 : x0;
+        }
+        mix::tf32::split4(qs[kk], a);
+      }
+      mix::tf32::fwd_rows<kHead>(qs, Ks, Vs, kS, zimg + n * kHead, NH, 16 * warp, n_valid, kHead,
+                                 0, false);
+    }
+    hg::fence_proxy_async_global();  // this thread's z stores, before the producer's TMA reads
+    hg::named_sync(1 + slot, 128);
+    if (t == 0) hg::mbar_arrive(zready);
+
+    for (int ct = 0; ct < D / kOutN; ++ct) {
+      float acc[kOutN / 2];
+      gemm<kOutN>(acc, ko, it, smem, full, empty, slot);
+#pragma unroll
+      for (int j = 0; j < kOutN / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = 16 * warp + g + 8 * h;
+          if (row < n_valid)
+            store2(out + (img * n_tok + row) * D + ct * kOutN + 8 * j + 2 * tq, acc[4 * j + 2 * h],
+                   acc[4 * j + 2 * h + 1]);
+        }
+    }
   }
 }
 
-cudaError_t launch_f32(const void* x, const void* Wqkv, const void* bqkv, const void* Wo,
-                       void* zbuf, void* out, int batch, int n_tok, int D, int n_heads,
-                       float inv_scale, cudaStream_t stream) {
-  auto kernel = block_f32_kernel<float>;
-  cudaError_t err = sae::allow_smem(kernel, smem_bytes<float>());
+cudaError_t launch(const void* x, const void* Wqkv, const void* bqkv, const void* Wo, void* zbuf,
+                   void* out, int batch, int n_tok, int D, int n_heads, float inv_scale,
+                   cudaStream_t stream) {
+  const int NH = n_heads * kHead;
+  // the scratch: z [B, 64, NH], then Wqkv^T's split [2, 3 NH, D] and Wo^T's [2, D, NH]
+  float* z = static_cast<float*>(zbuf);
+  float* wq = z + static_cast<long long>(batch) * kRows * NH;
+  float* wo = wq + 2LL * 3 * NH * D;
+  hg::split_k_major_kernel<<<dim3(3 * NH / 32, D / 32, 1), 256, 0, stream>>>(
+      static_cast<const float*>(Wqkv), 3 * NH, 0, wq, wq + 3LL * NH * D, D, 3 * NH, QkvCols{NH});
+  hg::split_k_major_kernel<<<dim3(D / 32, NH / 32, 1), 256, 0, stream>>>(
+      static_cast<const float*>(Wo), D, 0, wo, wo + static_cast<long long>(D) * NH, NH, D,
+      hg::SameCols());
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  kernel<<<batch, kThreads, smem_bytes<float>(), stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(Wqkv),
-      static_cast<const float*>(bqkv), static_cast<const float*>(Wo), static_cast<float*>(zbuf),
-      static_cast<float*>(out), n_tok, D, n_heads, inv_scale);
+  const uint64_t nh = NH, d = D, t = n_tok, b = batch, f = 4;
+  CUtensorMap xmap, wmap, zmap, omap;
+  const uint64_t xd[3] = {d, t, b}, xs[2] = {d * f, t * d * f};
+  const uint64_t wd[3] = {d, 3 * nh, 2}, ws[2] = {d * f, 3 * nh * d * f};
+  const uint64_t zd[3] = {nh, t, b}, zs[2] = {nh * f, kRows * nh * f};
+  const uint64_t od[3] = {nh, d, 2}, os[2] = {nh * f, d * nh * f};
+  const uint32_t abox[3] = {kBK, kRows, 1}, wbox[3] = {kBK, kQkvN, 1}, obox[3] = {kBK, kOutN, 1};
+  const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  if ((err = hg::make_map(&xmap, x, 3, xd, xs, abox, f32)) != cudaSuccess ||
+      (err = hg::make_map(&wmap, wq, 3, wd, ws, wbox, f32)) != cudaSuccess ||
+      (err = hg::make_map(&zmap, z, 3, zd, zs, abox, f32)) != cudaSuccess ||
+      (err = hg::make_map(&omap, wo, 3, od, os, obox, f32)) != cudaSuccess)
+    return err;
+  if ((err = sae::allow_smem(block_tf32_kernel, kBytes)) != cudaSuccess) return err;
+  block_tf32_kernel<<<(batch + kSlots - 1) / kSlots, kThreads, kBytes, stream>>>(
+      xmap, wmap, zmap, omap, static_cast<const float*>(bqkv), z, static_cast<float*>(out), batch,
+      n_tok, D, n_heads, inv_scale);
   return cudaGetLastError();
 }
+
+}  // namespace tf
 
 // ---- bfloat16: TMA, mbarriers and wgmma -------------------------------------
 
@@ -613,22 +656,23 @@ cudaError_t launch(const void* x, const void* Wqkv, const void* bqkv, const void
 
 }  // namespace
 
-// x [batch, n_tok, D], Wqkv [D, 3*NH], bqkv [3*NH], Wo [NH, D], zbuf
-// [batch, 64, NH], out [batch, n_tok, D], NH = n_heads * 64; inv_scale
-// already rounded to the dtype (0 = float32, 1 = bfloat16).  Every pointer
-// 16-byte aligned.  Returns the launch's cudaError_t.
+// x [batch, n_tok, D], Wqkv [D, 3*NH], bqkv [3*NH], Wo [NH, D], out
+// [batch, n_tok, D], NH = n_heads * 64; zbuf: scratch of the dtype, z
+// [batch, 64, NH] and, float32 only, the weights' split K-major copies
+// (2 x 3 NH x D, then 2 x D x NH floats); inv_scale already rounded to the
+// dtype (0 = float32, 1 = bfloat16).  Every pointer 16-byte aligned.
+// Returns the launches' cudaError_t.
 extern "C" int attention_block_fwd(const void* x, const void* Wqkv, const void* bqkv,
                                    const void* Wo, void* zbuf, void* out, int batch, int n_tok,
                                    int D, int n_heads, float inv_scale, int dtype, int device,
                                    void* stream) {
-  if (batch <= 0 || n_tok <= 0 || n_tok > kRows || n_heads <= 0 || D <= 0 || D % kOutCols ||
-      static_cast<size_t>(smem_bytes<float>()) > kMaxSmemBytes)
+  if (batch <= 0 || n_tok <= 0 || n_tok > kRows || n_heads <= 0 || D <= 0 || D % 128)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_f32(x, Wqkv, bqkv, Wo, zbuf, out, batch, n_tok, D, n_heads, inv_scale, s);
+    return tf::launch(x, Wqkv, bqkv, Wo, zbuf, out, batch, n_tok, D, n_heads, inv_scale, s);
   if (dtype == 1)
     return tc::launch(x, Wqkv, bqkv, Wo, zbuf, out, batch, n_tok, D, n_heads, inv_scale, s);
   return cudaErrorInvalidValue;

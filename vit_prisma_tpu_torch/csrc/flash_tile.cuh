@@ -1,22 +1,21 @@
 // Tile products shared by the bfloat16 mma.sync kernels of B13
-// (flash_attention_fwd.cu, flash_attention_bwd.cu) and by B16
-// (attention_block.cu), whose float32 route takes the FFMA ones.
+// (flash_attention_fwd.cu, flash_attention_bwd.cu) and by B16's bfloat16
+// route (attention_block.cu).
 //
 // A block has 4 warps; each warp owns 16 rows of a 64-row tile.  Tiles of
 // 64 rows by HD columns (HD = head width, a multiple of 16) sit in shared
-// memory row-major with each row padded by 16 bytes (ldmatrix and the float32
-// reads then fall in distinct banks).  Two products:
+// memory row-major with each row padded by 16 bytes (ldmatrix then falls in
+// distinct banks).  Two products:
 //   nt:  C[16 x 64]  += A[16 x HD] B[64 x HD]^T   (A, B: shared tiles)
 //   pn:  C[16 x HD]  += P[16 x 64] B[64 x HD]     (P: a warp's nt result,
-//                                                  rounded to T; B shared)
+//                                                  rounded to bfloat16; B shared)
 // Every accumulator is in the mma.sync m16n8 C-fragment layout:
 //   c[j][e], e < 4: row g + 8 (e / 2), column 8 j + 2 t + (e % 2)
-// with g = lane / 4, t = lane % 4.  bfloat16: mma.sync m16n8k16 with float32
+// with g = lane / 4, t = lane % 4: mma.sync m16n8k16 with float32
 // accumulation, fed by ldmatrix (sae_gemm.cuh's helpers); nt's C fragments
 // become pn's A fragments in registers, rounded to bfloat16 on the way.
-// float32 (B16): FFMA on the CUDA cores (TF32 would round the inputs); pn
-// parks P in a per-warp shared buffer of 16 x kPStride floats first.  B13's
-// float32 route is 3xTF32 (flash_tf32.cuh).
+// The float32 routes of B13 and B16 are 3xTF32 (flash_tf32.cuh,
+// hopper_gemm.cuh); the last pointer argument of nt and pn is unused.
 #pragma once
 
 #include "sae_gemm.cuh"
@@ -28,7 +27,6 @@ using sae::to_f;
 
 constexpr int kTile = 64;  // rows of a query or key tile
 constexpr int kWarps = 4, kThreads = 32 * kWarps;
-constexpr int kPStride = kTile + 4;  // floats a row of the float32 P buffer
 
 template <typename T, int HD>
 struct Geo {
@@ -109,67 +107,11 @@ __device__ __forceinline__ void pn(float (&c)[HD / 8][4], const float (&p)[8][4]
   }
 }
 
-// ---- float32: CUDA cores ----------------------------------------------------
-
-template <int HD>
-__device__ __forceinline__ void nt(float (&c)[8][4], const float* Aw, const float* Bs, float*) {
-  constexpr int S = Geo<float, HD>::stride;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const float* a0 = Aw + g * S;
-  const float* a1 = Aw + (g + 8) * S;
-#pragma unroll 2
-  for (int k = 0; k < HD; k += 4) {
-    const float4 x0 = *reinterpret_cast<const float4*>(a0 + k);
-    const float4 x1 = *reinterpret_cast<const float4*>(a1 + k);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float4 y = *reinterpret_cast<const float4*>(Bs + (8 * j + 2 * t + h) * S + k);
-        float u = c[j][h], w = c[j][2 + h];
-        u = fmaf(x0.x, y.x, u); u = fmaf(x0.y, y.y, u);
-        u = fmaf(x0.z, y.z, u); u = fmaf(x0.w, y.w, u);
-        w = fmaf(x1.x, y.x, w); w = fmaf(x1.y, y.y, w);
-        w = fmaf(x1.z, y.z, w); w = fmaf(x1.w, y.w, w);
-        c[j][h] = u;
-        c[j][2 + h] = w;
-      }
-    }
-  }
-}
-
-// pbuf: this warp's 16 x kPStride floats.
-template <int HD>
-__device__ __forceinline__ void pn(float (&c)[HD / 8][4], const float (&p)[8][4],
-                                   const float* Bs, float* pbuf) {
-  constexpr int S = Geo<float, HD>::stride;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) pbuf[(g + 8 * (e >> 1)) * kPStride + 8 * j + 2 * t + (e & 1)] = p[j][e];
-  __syncwarp();
-  for (int k = 0; k < kTile; ++k) {
-    const float p0 = pbuf[g * kPStride + k], p1 = pbuf[(g + 8) * kPStride + k];
-    const float* br = Bs + k * S + 2 * t;
-#pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
-      const float2 y = *reinterpret_cast<const float2*>(br + 8 * j);
-      c[j][0] = fmaf(p0, y.x, c[j][0]);
-      c[j][1] = fmaf(p0, y.y, c[j][1]);
-      c[j][2] = fmaf(p1, y.x, c[j][2]);
-      c[j][3] = fmaf(p1, y.y, c[j][3]);
-    }
-  }
-  __syncwarp();  // pbuf is rewritten by the next call
-}
-
-// Shared memory of a kernel holding n_tiles tiles, the float32 P buffers and
-// `extra` bytes of per-tile vectors.
+// Shared memory of a kernel holding n_tiles tiles and `extra` bytes of
+// per-tile vectors.
 template <typename T, int HD>
 __host__ __device__ constexpr int smem_bytes(int n_tiles, int extra) {
-  return n_tiles * Geo<T, HD>::tile_bytes +
-         (sizeof(T) == 4 ? kWarps * 16 * kPStride * 4 : 0) + extra;
+  return n_tiles * Geo<T, HD>::tile_bytes + extra;
 }
 
 // Store a warp's c[HD/8][4] (rows row0 + g, row0 + g + 8) into out rows of HD,

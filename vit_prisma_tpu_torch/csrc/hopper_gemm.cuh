@@ -1,12 +1,15 @@
 // Hopper GEMM pieces shared by the bfloat16 routes of B14 (ln_matmul.cu),
-// B16 (attention_block.cu) and B13 (flash_attention_{fwd,bwd}.cu): TMA
-// tensor maps and loads (and 1-D bulk copies), an mbarrier ring of stages
-// fed by one producer warp, wgmma.mma_async m64nNk16 on 128-byte swizzled
-// shared memory with float32 accumulators, and setmaxnreg for the producer
-// and consumer warpgroups.  sm_90a only.  Three wgmma forms: mma_ss (A
-// K-major, B MN-major; N 128, 192, 256), mma_ss_kb (both K-major, as
-// s = Q K^T takes them; N 64) and mma_rs (A from registers, B MN-major, as
-// z += P V takes them; N 64, 128).
+// B16 (attention_block.cu) and B13 (flash_attention_{fwd,bwd}.cu), and by
+// the float32 (3xTF32) routes of B14 and B16: TMA tensor maps and loads
+// (and 1-D bulk copies), an mbarrier ring of stages fed by one producer
+// warp, wgmma.mma_async on 128-byte swizzled shared memory with float32
+// accumulators, and setmaxnreg for the producer and consumer warpgroups.
+// sm_90a only.  bf16 wgmma m64nNk16 in three forms: mma_ss (A K-major, B
+// MN-major; N 128, 192, 256), mma_ss_kb (both K-major, as s = Q K^T takes
+// them; N 64) and mma_rs (A from registers, B MN-major, as z += P V takes
+// them; N 64, 128).  tf32 wgmma m64nNk8 (the section at the end): A from
+// registers, B K-major (mma_rs_tf32; N 96, 128), the weights split ahead
+// into TF32 hi and lo K-major copies (split_k_major_kernel).
 //
 // Layouts.  Every operand tile lands by TMA with CU_TENSOR_MAP_SWIZZLE_128B
 // at a 1024-byte aligned address, in boxes 64 bf16 wide (128 bytes, the
@@ -32,6 +35,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tf32_mma.cuh"  // mix::tf32::split, the TF32 rounding
 
 namespace hg {
 
@@ -65,11 +70,13 @@ inline cudaError_t encode_fn(EncodeTiled* fn) {
   return cudaSuccess;
 }
 
-// A bf16 tensor of `rank` dimensions, dims[0] contiguous (sizes in elements,
-// innermost first), strides[i] the byte stride of dimension i + 1; boxes of
-// box[] elements, 128-byte swizzled, out-of-bounds elements read as zero.
+// A bf16 (or `type`) tensor of `rank` dimensions, dims[0] contiguous (sizes
+// in elements, innermost first), strides[i] the byte stride of dimension
+// i + 1; boxes of box[] elements, 128-byte swizzled, out-of-bounds elements
+// read as zero.
 inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int rank, const uint64_t* dims,
-                            const uint64_t* strides, const uint32_t* box) {
+                            const uint64_t* strides, const uint32_t* box,
+                            CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiled fn;
   cudaError_t err = encode_fn(&fn);
   if (err != cudaSuccess) return err;
@@ -81,7 +88,7 @@ inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int rank, const u
     e[i] = 1;
     if (i + 1 < rank) s[i] = strides[i];
   }
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), d, s,
+  const CUresult r = fn(map, type, rank, const_cast<void*>(ptr), d, s,
                         b, e, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
@@ -421,5 +428,212 @@ __device__ __forceinline__ void mma_rs<128>(float (&d)[64], const uint32_t (&a)[
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
+
+// ---- device: float32 as 3xTF32 on wgmma (B14's and B16's float32 routes) ----
+//
+// tf32 wgmma (m64nNk8, float32 accumulators) reads B from shared memory
+// K-major only (no transpose for 32-bit types), so a weight W [K, N] that
+// lies N-contiguous in device memory is first written K-major, already
+// split: split_k_major_kernel below writes its TF32 hi and lo parts as two
+// [N, K] copies (hi = W rounded to TF32, lo = (W - hi) rounded, as
+// mix::tf32::split rounds, both stored with their low 13 bits clear).  A
+// [rows x 32] float tile (32 floats: one 128-byte swizzled row) lands by
+// TMA like a bf16 [rows x 64] box; a k8 step advances the descriptor by 32
+// bytes, as a bf16 k16 step does (desc_k32).
+//
+// A comes from registers (mma_rs_tf32): each consumer thread reads its own
+// elements of the landed activation tile, transforms them (B14 normalizes),
+// splits them and holds a_hi and a_lo.  The register fragment of a k8 step
+// is the mma.sync m16n8k8 tf32 A layout for warp w's rows 16 w ..: a[0] row
+// g, k t; a[1] row g + 8, k t; a[2] row g, k t + 4; a[3] row g + 8, k t + 4
+// (g = lane / 4, t = lane % 4).  So that a thread reads whole 16-byte
+// chunks, the K order inside each 32-deep stage is permuted: k step kk,
+// position j of the split copy holds activation column k_phys(8 kk + j) =
+// 8 (j % 4) + 2 kk + j / 4; thread t's 8 columns are then 8 t .. 8 t + 7,
+// two chunks (load_frags).  A product does not depend on the order of its
+// sum's terms beyond rounding, and the permutation is fixed: one row's
+// output does not depend on anything but its own data.
+//
+// Accuracy: each product a b is a_lo b_hi + a_hi b_lo + a_hi b_hi
+// (mix::tf32's 3xTF32).  The tensor cores' float32 accumulation truncates
+// at each product, so a whole K summed in one accumulator would take a bias
+// of about half an ulp of |acc| a k-step: each 32-deep stage is summed from
+// zero (the two small products first, then the large one: mma3_stage) and
+// added to the running float32 total in FADDs, which round to nearest.
+
+constexpr int kF32Box = 32;  // floats of one 128-byte swizzled row: a stage's depth
+
+// Column k of a split K-major copy holds column k_phys(k) of the source,
+// within each 32-deep stage (k < 32 here).
+__host__ __device__ constexpr int k_phys(int k) {
+  return 8 * (k % 8 % 4) + 2 * (k / 8) + k % 8 / 4;
+}
+
+// A K-major float tile [rows x 32], 128-byte swizzled at a 1024-byte aligned
+// address, at k8 step kk (SBO 1024: eight rows).
+__device__ __forceinline__ uint64_t desc_k32(const float* tile, int kk) {
+  return desc_sw128(tile + 8 * kk, 16, 1024);
+}
+
+// d[64 x N] (+)= A[64 x 8] B[8 x N] in TF32: A from registers (the layout
+// above), B K-major from shared memory; scale_d = 0 overwrites d.
+template <int N>
+__device__ __forceinline__ void mma_rs_tf32(float (&d)[N / 2], const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void mma_rs_tf32<96>(float (&d)[48], const uint32_t (&a)[4],
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void mma_rs_tf32<128>(float (&d)[64], const uint32_t (&a)[4],
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// Keep registers live (and unmoved) up to this point: an RS wgmma reads its
+// A registers asynchronously, so they must not be reused before the
+// wgmma_wait that retires it.
+template <int N>
+__device__ __forceinline__ void keep_regs(uint32_t (&r)[4][N]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) asm volatile("" : "+r"(r[i][j]) : : "memory");
+}
+
+// Thread (warp w, lane) of a consumer warpgroup: the raw A elements of one
+// 32-deep stage for rows r0 = row0 + g and r0 + 8 of a [rows x 32] float
+// tile landed 128-byte swizzled (row r at r * 128 bytes), in fragment
+// order: x[kk][e] is fragment element e of k8 step kk (k_phys's order:
+// chunk 2t of a row holds (kk 0, t), (kk 0, t + 4), (kk 1, t), (kk 1, t + 4),
+// chunk 2t + 1 the same for kk 2 and 3).  Two 16-byte loads a row; the
+// swizzle puts the 8 rows' chunks of a quarter-warp in distinct banks.
+__device__ __forceinline__ void load_frags(float (&x)[4][4], const float* tile, int row0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const unsigned char* base = reinterpret_cast<const unsigned char*>(tile);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + g + 8 * h;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const float4 v = *reinterpret_cast<const float4*>(base + sw128(r, 2 * t + c));
+      x[2 * c][h] = v.x;
+      x[2 * c][h + 2] = v.y;
+      x[2 * c + 1][h] = v.z;
+      x[2 * c + 1][h + 2] = v.w;
+    }
+  }
+}
+
+// The raw fragments split: x = hi + lo.
+__device__ __forceinline__ void split_frags(uint32_t (&hi)[4][4], uint32_t (&lo)[4][4],
+                                            const float (&x)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mix::tf32::split(x[kk][e], hi[kk][e], lo[kk][e]);
+}
+
+// c = A B over one 32-deep stage, from zero: a_lo B_hi, a_hi B_lo, then
+// a_hi B_hi, each over the stage's four k8 steps; one commit group.  The
+// caller waits for it (wgmma_wait), keeps a_hi and a_lo live until then
+// (keep_regs), and adds c to its total.
+template <int N>
+__device__ __forceinline__ void mma3_stage(float (&c)[N / 2], const uint32_t (&hi)[4][4],
+                                           const uint32_t (&lo)[4][4], const float* Bhi,
+                                           const float* Blo) {
+  fence_acc(c);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) mma_rs_tf32<N>(c, lo[kk], desc_k32(Bhi, kk), kk);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) mma_rs_tf32<N>(c, hi[kk], desc_k32(Blo, kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) mma_rs_tf32<N>(c, hi[kk], desc_k32(Bhi, kk), 1);
+  wgmma_commit();
+}
+
+// The TF32 part of x with its low 13 bits clear, rounded as split rounds.
+__device__ __forceinline__ float tf32_round(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+}
+
+namespace {  // internal linkage: each kernel file instantiates its own
+
+// Column maps of split_k_major_kernel: the source column of output row n.
+struct SameCols {
+  __device__ int operator()(int n) const { return n; }
+};
+
+// hi[z][n][k], lo[z][n][k] (row stride K) from W[z] (row k at W + z *
+// w_stride + k * ldw), N-contiguous: hi = tf32_round(v), lo =
+// tf32_round(v - hi) of v = W[z][k0 + k_phys(k - k0)][col(n)], k0 the
+// 32-deep stage of k.  Grid (N / 32, K / 32, Z), 256 threads; a 32 x 32
+// tile through shared memory, read along n and written along k.
+template <typename ColMap>
+__global__ void __launch_bounds__(256)
+    split_k_major_kernel(const float* __restrict__ W, int ldw, long long w_stride,
+                         float* __restrict__ hi, float* __restrict__ lo, int K, int N,
+                         ColMap col) {
+  __shared__ float tile[32][33];
+  const int lane = threadIdx.x & 31, wy = threadIdx.x / 32;
+  const int n0 = blockIdx.x * 32, k0 = blockIdx.y * 32;
+  const long long z = blockIdx.z;
+  const int src = col(n0 + lane);
+  const float* Wz = W + z * w_stride;
+#pragma unroll
+  for (int i = wy; i < 32; i += 8) tile[i][lane] = Wz[static_cast<long long>(k0 + i) * ldw + src];
+  __syncthreads();
+  const int kp = k_phys(lane);
+#pragma unroll
+  for (int i = wy; i < 32; i += 8) {
+    const float v = tile[kp][i];
+    const float h = tf32_round(v);
+    const long long o = (z * N + n0 + i) * static_cast<long long>(K) + k0 + lane;
+    hi[o] = h;
+    lo[o] = tf32_round(v - h);
+  }
+}
+
+}  // namespace
 
 }  // namespace hg

@@ -691,32 +691,46 @@ attention_mix.launches = 0
 # B16: QKV projection, mix and output projection in one kernel
 # ---------------------------------------------------------------------------
 
-# Must match kHead, kRows, kOutCols, Gemm and smem_bytes() (float32) and
-# tc::kBytes (bfloat16) in csrc/attention_block.cu.
+# Must match kHead, kRows and tc::kBytes (bfloat16) and tf::kBytes (float32)
+# in csrc/attention_block.cu.
 ATTN_BLOCK_HEAD = 64
 ATTN_BLOCK_MAX_T = 64
 _ATTN_BLOCK_COL_TILE = 128
 
 
+def attn_block_route(dtype) -> str:
+    """The kernel a dtype takes: ``"wgmma"`` (bfloat16, ``block_tc_kernel``)
+    or ``"tf32x3"`` (float32, ``block_tf32_kernel``: 3xTF32 on tf32 wgmma,
+    the mix on B1's float32 device code)."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"fused_attention_block: no route for {dtype}")
+    return "tf32x3" if dtype == torch.float32 else "wgmma"
+
+
 def attn_block_smem_bytes(dtype) -> int:
-    """Shared memory of B16's block; it depends on the dtype alone.
-    bfloat16 (the wgmma kernel, two images a block): a 4-stage TMA ring of
-    40 KB stages (both images' [64 x 64] x or z tiles and one [64 x 192]
-    weight tile), both images' q, k, v [64 x 64] tiles with rows padded by
-    16 bytes, nine mbarriers and 1024 bytes to align the 128-byte swizzle.
-    float32 (the FFMA kernel): three stages of its GEMM staging (a [64 x 32]
-    x tile and a [32 x 192] weight tile, rows padded by 16 bytes), one
-    head's q, k, v tiles padded likewise and the mix's per-warp P
-    buffers."""
-    it = dtype.itemsize
-    pad = 16 // it
-    tiles = 3 * 64 * (ATTN_BLOCK_HEAD + pad) * it
-    if it == 2:
-        ring = 4 * (2 * 64 * 64 + 64 * 192) * it
+    """Shared memory of B16's block; it depends on the dtype alone.  Both
+    routes take two images a block.  bfloat16 (``block_tc_kernel``): a
+    4-stage TMA ring of 40 KB stages (both images' [64 x 64] x or z tiles
+    and one [64 x 192] weight tile), both images' q, k, v [64 x 64] tiles
+    with rows padded by 16 bytes, nine mbarriers and 1024 bytes to align
+    the 128-byte swizzle.  float32 (``block_tf32_kernel``): a 3-stage ring
+    of 48 KB stages (both images' [64 x 32] x or z tiles and room for a
+    [128 x 32] weight tile's hi and lo), both images' k and v tiles of 64
+    rows of 68 floats, seven mbarriers and the alignment."""
+    if attn_block_route(dtype) == "wgmma":
+        tiles = 3 * 64 * (ATTN_BLOCK_HEAD + 8) * 2
+        ring = 4 * (2 * 64 * 64 + 64 * 192) * 2
         return ring + 2 * tiles + 9 * 8 + 1024
-    staging = 3 * (64 * (32 + pad) + 32 * (192 + pad)) * it
-    pbufs = 4 * 16 * 68 * 4
-    return staging + tiles + pbufs
+    ring = 3 * (2 * 64 * 32 + 2 * 128 * 32) * 4
+    tiles = 2 * 64 * (ATTN_BLOCK_HEAD + 4) * 4
+    return ring + 2 * tiles + 7 * 8 + 1024
+
+
+def _attn_block_scratch(B: int, D: int, NH: int, dtype) -> int:
+    """Elements of B16's scratch: z [B, 64, NH] and, float32, the weights'
+    split K-major copies, Wqkv^T [2, 3 NH, D] and Wo^T [2, D, NH]."""
+    z = B * ATTN_BLOCK_MAX_T * NH
+    return z + (8 * NH * D if attn_block_route(dtype) == "tf32x3" else 0)
 
 
 def attn_block_fits_smem(T: int, D: int, NH: int, dtype, H: int = ATTN_BLOCK_HEAD) -> bool:
@@ -792,8 +806,9 @@ def _launch_attn_block(x, Wqkv, bqkv, Wo, n_heads: int, inv_scale: float):
     NH = Wo.shape[0]
     lib = _build.load_library()
     out = torch.empty_like(x)
-    # each image's z rows, from the mix to the output projection
-    zbuf = torch.empty(B, ATTN_BLOCK_MAX_T, NH, dtype=x.dtype, device=x.device)
+    # each image's z rows, from the mix to the output projection; float32:
+    # the weights' split copies after them
+    zbuf = torch.empty(_attn_block_scratch(B, D, NH, x.dtype), dtype=x.dtype, device=x.device)
     rc = lib.attention_block_fwd(
         x.data_ptr(), Wqkv.data_ptr(), bqkv.data_ptr(), Wo.data_ptr(), zbuf.data_ptr(),
         out.data_ptr(), B, T, D, n_heads, _scale_in(x.dtype, inv_scale),
@@ -833,8 +848,8 @@ def fused_attention_block(x, Wqkv, bqkv, Wo, n_heads: int, inv_scale: float):
     Differentiable.
 
     CUDA tensors launch the hand-written kernel (all three products by hand,
-    no library GEMM; bfloat16 through TMA and wgmma, two images a block;
-    float32 by FFMA) and add one to ``fused_attention_block.launches``; CPU
+    no library GEMM; TMA and wgmma, two images a block: bfloat16, or float32
+    as three TF32 products each, :func:`attn_block_route`) and add one to ``fused_attention_block.launches``; CPU
     tensors run :func:`fused_attention_block_plain`.  The backward is the VJP
     of :func:`attn_block_reference` on either device.  Past
     :func:`attn_block_fits_smem` it raises ``NotImplementedError`` on either

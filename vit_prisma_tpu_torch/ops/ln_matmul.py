@@ -10,11 +10,13 @@ contiguous slice.  An affine LayerNorm folds into W and b first
 (:func:`fold_ln_affine`).
 
 It is a ``torch.autograd.Function``: on CUDA tensors the forward launches
-``csrc/ln_matmul.cu``, which normalizes each x tile in shared memory as the
-GEMM stages it, so the LayerNorm's output never reaches device memory
-(bfloat16: TMA, mbarriers and wgmma through ``csrc/hopper_gemm.cuh``;
-float32: an FFMA tile loop); on CPU tensors it runs the plain version
-:func:`ln_matmul_reference`.  The backward,
+``csrc/ln_matmul.cu``, which normalizes each x tile as the GEMM stages it,
+so the LayerNorm's output never reaches device memory (TMA, mbarriers and
+wgmma through ``csrc/hopper_gemm.cuh``: bfloat16 ``ln_gemm_tc_kernel``;
+float32 ``ln_gemm_tf32_kernel``, each float32 product as three TF32
+products on the tensor cores, W split into TF32 hi and lo parts K-major
+by a pre-pass into the wrapper's scratch: :func:`ln_matmul_route`); on
+CPU tensors it runs the plain version :func:`ln_matmul_reference`.  The backward,
 on either device, is the plain version's VJP (:func:`ln_matmul_vjp`: one
 LayerNorm recomputed, then ``torch.matmul``), as the JAX package takes its
 reference's VJP.
@@ -31,6 +33,38 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # columns in tiles of 128 (bf16: 256 where C allows), K in steps of 32 (bf16
 # stages of 64 zero-fill a last half step).
 _ROW_TILE, _COL_TILE, _DEPTH_TILE = 128, 128, 32
+# Must match tc::Layout and tf::kBytes in csrc/ln_matmul.cu: four stages of
+# a [128 x 64] bf16 x tile and a [64 x BN] W tile (bf16), or of a [128 x
+# 32] float x tile and [128 x 32] W hi and lo tiles (float32); 8 mbarriers
+# and 1024 bytes to align the 128-byte swizzle.
+_STAGES, _BARRIERS, _ALIGN = 4, 8, 1024
+
+
+def ln_matmul_route(dtype) -> str:
+    """The kernel a dtype takes: ``"wgmma"`` (bfloat16, ``ln_gemm_tc_kernel``)
+    or ``"tf32x3"`` (float32, ``ln_gemm_tf32_kernel``: 3xTF32 on tf32
+    wgmma)."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"ln_matmul: no route for {dtype}")
+    return "tf32x3" if dtype == torch.float32 else "wgmma"
+
+
+def ln_matmul_smem_bytes(dtype, C: int) -> int:
+    """Shared memory of the GEMM's block for a dtype and output width C."""
+    if ln_matmul_route(dtype) == "tf32x3":
+        stage = 128 * 32 * 4 + 2 * 128 * 32 * 4
+    else:
+        stage = 128 * 64 * 2 + (256 if C % 256 == 0 else 128) * 64 * 2
+    return _STAGES * stage + _BARRIERS * 8 + _ALIGN
+
+
+def _scratch_floats(R: int, S: int, D: int, C: int, dtype) -> int:
+    """Floats of the kernel's scratch: each row's mean and scale and, float32,
+    W's split K-major copy [2, S, C, D] from a 128-byte aligned offset
+    (tf::wt_offset in csrc/ln_matmul.cu)."""
+    if ln_matmul_route(dtype) != "tf32x3":
+        return 2 * R
+    return -(-2 * R // 32) * 32 + 2 * S * C * D
 
 
 def ln_matmul_fits(R: int, S: int, D: int, C: int) -> bool:
@@ -77,9 +111,11 @@ def _launch(x, W, b, eps: float):
         raise TypeError(f"ln_matmul: x must be float32 or bfloat16, got {x.dtype}")
     lib = _build.load_library()
     out = torch.empty(S, R, C, dtype=x.dtype, device=x.device)
-    stats = torch.empty(R, 2, dtype=torch.float32, device=x.device)  # mean, scale
+    # each row's mean and scale; float32: W's split copy
+    scratch = torch.empty(_scratch_floats(R, S, D, C, x.dtype), dtype=torch.float32,
+                          device=x.device)
     rc = lib.ln_matmul_fwd(x.data_ptr(), W.data_ptr(), b.data_ptr(), out.data_ptr(),
-                           stats.data_ptr(), R, S, D, C, float(eps), _DTYPE_CODES[x.dtype],
+                           scratch.data_ptr(), R, S, D, C, float(eps), _DTYPE_CODES[x.dtype],
                            x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, rc, "ln_matmul")
     ln_matmul.launches += 1
