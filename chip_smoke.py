@@ -333,6 +333,18 @@ SAE_BWD_SOURCE = "vit_prisma_tpu_torch/csrc/sae_fused_bwd.cu"
 # the kernel's name in ptxas's record
 SAE_TC_SOURCE = "vit_prisma_tpu_torch/csrc/sae_fused_tc.cu"
 SAE_TC_KERNEL = "sae_tc_kernel"
+# B4's, B5's and B6's float32 route (sae_gemm_route "tf32x3": 3xTF32 on tf32
+# wgmma): its source, the kernel's name in ptxas's record, the names of its
+# launches (the kernel and the split pre-passes), and the float32 FFMA tiles
+# of sae_gemm.cuh that B4-B6 must no longer launch (B9's recompute keeps
+# dh_kernel's, B8's encoder_topk_kernel)
+SAE_TF32_SOURCE = "vit_prisma_tpu_torch/csrc/sae_fused_tf32.cu"
+SAE_TF32_KERNEL = "sae_tf32_kernel"
+SAE_TF32_KERNELS = (SAE_TF32_KERNEL, "split_t_kernel", "split_rows_kernel")
+SAE_FFMA_KERNELS = ("encoder_kernel", "dh_kernel", "wgrad_kernel", "decoder_kernel")
+# The route each kernel family takes in float32 at every shape the picker
+# takes: the ReLU family (B4-B6) 3xTF32, the TopK and gated families FFMA
+SAE_F32_ROUTES = {"relu": "tf32x3", "topk": "ffma", "gated": "ffma"}
 SAE_REPLACES = {"sae_fused_forward": "vit_prisma_tpu/ops/sae_step.py:148",
                 "sae_fused_backward": "vit_prisma_tpu/ops/sae_step.py:250",
                 "sae_fused_backward_stored": "vit_prisma_tpu/ops/sae_step.py:389"}
@@ -474,13 +486,17 @@ STEP_SWITCHED_MOMENT_REL = 2e-2
 STEP_EXACT = ("adam_count", "schedule_count", "step", "n_training_tokens",
               "n_frac_active_tokens")
 # B4-B6 against their plain versions: name, L, B, d_in, d_sae, dtype.  The
-# sweep's shape in bf16, the TopK slice's (bench.py:164-171) in bf16, two
-# sweep layers in f32, and two layers of a ViT-S width (d_in 384, a multiple
-# of 128 but not of 256, at expansion 16) in bf16.
+# sweep's shape and the TopK slice's (bench.py:164-171) in bf16 and in f32
+# (the float32 route, 3xTF32), and two layers of a ViT-S width (d_in 384, a
+# multiple of 128 but not of 256, at expansion 16) in bf16.
 SAE_STEP_SHAPES = [("sweep_bf16", 24, 4096, 1024, 8192, torch.bfloat16),
                    ("topk_slice_bf16", 1, 4096, 768, 12288, torch.bfloat16),
-                   ("two_layers_f32", 2, 4096, 1024, 8192, torch.float32),
+                   ("sweep_f32", 24, 4096, 1024, 8192, torch.float32),
+                   ("topk_slice_f32", 1, 4096, 768, 12288, torch.float32),
                    ("vit_s_bf16", 2, 4096, 384, 6144, torch.bfloat16)]
+# The float32 shapes at which the first 128 rows alone and layer 0 alone are
+# checked against the whole call, bit for bit.
+SAE_F32_ALONE_SHAPES = ("sweep_f32",)
 # The shapes at which B4 and B6 must take the bf16 Hopper route (wgmma/TMA,
 # csrc/sae_fused_tc.cu): the sweep's and the TopK slice's; and the one at
 # which they must keep the bf16 mma.sync tiles (csrc/sae_fused_fwd.cu,
@@ -1566,11 +1582,11 @@ def _time_refills(store):
 
 
 def _cfg_route(cfg):
-    """The route the picker gives a config's SAE kernels (its train batch,
-    widths and compute dtype)."""
-    from vit_prisma_tpu_torch.ops.sae_step import sae_gemm_route
-    return sae_gemm_route(cfg.train_batch_size, cfg.d_in, cfg.d_sae,
-                          getattr(torch, cfg.compute_dtype or cfg.dtype))
+    """The routes the picker gives a config's SAE kernels (its train batch,
+    widths and compute dtype), by wrapper: each takes its family's."""
+    from vit_prisma_tpu_torch.ops.sae_step import sae_kernel_routes
+    return sae_kernel_routes(cfg.train_batch_size, cfg.d_in, cfg.d_sae,
+                             getattr(torch, cfg.compute_dtype or cfg.dtype))
 
 
 def phase_train(info, cfg=None, phase="train", steps=TRAIN_STEPS):
@@ -1794,18 +1810,49 @@ def _routed(fn, *args, **kwargs):
     return out, taken[0]
 
 
-def _route_record(name, B, D, Sd, dtype, taken):
-    """The route a routed SAE wrapper's call took against the picker; in
-    bf16 it must be the Hopper route at SAE_TC_SHAPES and the mma.sync tiles
-    at SAE_MMA_SYNC_SHAPES."""
+def _route_record(name, B, D, Sd, dtype, taken, family="relu"):
+    """The route a routed SAE wrapper's call (of kernel ``family``) took
+    against the picker; in bf16 it must be the Hopper route at SAE_TC_SHAPES
+    and the mma.sync tiles at SAE_MMA_SYNC_SHAPES, in f32 the family's
+    SAE_F32_ROUTES route."""
     from vit_prisma_tpu_torch.ops.sae_step import sae_gemm_route
-    want = sae_gemm_route(B, D, Sd, dtype)
+    want = sae_gemm_route(B, D, Sd, dtype, family)
     rec = {"route": taken, "route_picker": want}
     must = {**dict.fromkeys(SAE_TC_SHAPES, "wgmma"),
             **dict.fromkeys(SAE_MMA_SYNC_SHAPES, "mma_sync")}
-    if taken != want or (dtype == torch.bfloat16 and must.get(name, taken) != taken):
+    if dtype == torch.float32:
+        must = dict.fromkeys([name], SAE_F32_ROUTES[family])
+    if taken != want or must.get(name, taken) != taken:
         raise AssertionError(f"{name} {dtype}: route {rec}")
     return rec
+
+
+def _tf32_ptxas():
+    """ptxas's record of the float32 route's kernel (its four modes): no
+    spills, no serialized wgmma."""
+    rec = ptxas(SAE_TF32_KERNEL)
+    if len(rec) != 4 or any(r["spill_bytes"] or r["wgmma_serialized"] for r in rec.values()):
+        raise AssertionError(f"{SAE_TF32_KERNEL}: {rec}")
+    return rec
+
+
+def _f32_profiled(what, fn, want, ffma_allowed=()):
+    """Names of the kernels torch.profiler sees in calls of ``fn`` (a
+    float32 B4, B5, B6 or B9 call), raising unless every kernel of ``want``
+    is among them and no FFMA tile of sae_gemm.cuh but ``ffma_allowed``
+    (B9's recompute) is; a window that missed one is taken again with the
+    next margin of ``PROFILE_PADS_S``."""
+    for pad in PROFILE_PADS_S:
+        names = kernel_names(fn, pad=pad)
+        missing = [k for k in want if not any(k in n for n in names)]
+        wrong = [n for n in names if any(k in n for k in SAE_FFMA_KERNELS)
+                 and not any(k in n for k in ffma_allowed)]
+        if wrong:
+            break
+        if not missing:
+            return [n[:90] for n in names]
+    raise AssertionError(f"{what}: the profiler saw {names}: {missing} missing, "
+                         f"{wrong} FFMA tiles")
 
 
 def _bitwise_repeat(name, fn):
@@ -1836,21 +1883,26 @@ def _tc_ptxas():
     return rec
 
 
-def _remat_hc(x, We, be, Wd, bd, dy, dl1):
-    """hc as B5's Hopper route recomputes it (B4's, with -0 marks): its C
-    entry called with this phase's own scratch buffers (the wrapper keeps
-    them to itself)."""
+def _remat_hc(x, We, be, Wd, bd, dy, dl1, route="wgmma"):
+    """hc as B5 recomputes it (the Hopper route: B4's, with -0 marks; the
+    float32 route: B4's): its C entry called with this phase's own scratch
+    buffers (the wrapper keeps them to itself)."""
     from vit_prisma_tpu_torch.ops import _build
+    from vit_prisma_tpu_torch.ops.sae_step import _tf32_scratch_floats
     L, B, D = x.shape
     Sd = We.shape[-1]
     new = lambda *shape, dtype=x.dtype: torch.empty(shape, dtype=dtype, device="cuda")
     xc, hc, dhc = new(L, B, D), new(L, B, Sd), new(L, B, Sd)
+    scratch = (xc, hc, dhc)
+    if route == "tf32x3":
+        scratch += (new(_tf32_scratch_floats(True, L, B, D, Sd), dtype=torch.float32),)
     dWe, dWd = new(L, D, Sd, dtype=torch.float32), new(L, Sd, D, dtype=torch.float32)
     dbe_part = new(L, B // 128, Sd, dtype=torch.float32)
     lib, stream = _build.load_library(), torch.cuda.current_stream().cuda_stream
-    rc = lib.sae_fused_bwd_remat_tc(*(t.data_ptr() for t in (
-        x, We, be, Wd, bd, dy, dl1, xc, hc, dhc, dWe, dWd, dbe_part)), L, B, D, Sd, 0, stream)
-    _build.check(lib, rc, "sae_fused_bwd_remat_tc")
+    entry = "sae_fused_bwd_remat_tc" if route == "wgmma" else "sae_fused_bwd_remat_tf32"
+    rc = getattr(lib, entry)(*(t.data_ptr() for t in (
+        x, We, be, Wd, bd, dy, dl1, *scratch, dWe, dWd, dbe_part)), L, B, D, Sd, 0, stream)
+    _build.check(lib, rc, entry)
     torch.cuda.synchronize()
     return hc
 
@@ -1861,8 +1913,16 @@ def _remat_against_stored(name, args, hc4, dW5, dW6, route):
     float32 hpre > 0 rounds to +0 in bf16; wherever it marks none its grads
     are B6's on B4's hc, to the bit, and where it marks some they are the
     plain backward's on its own mask (hc nonzero or marked) within
-    SAE_GRAD_REL.  None on the other routes."""
+    SAE_GRAD_REL.  On the float32 route B5 runs B4's encoder kernel again
+    and B6's launches: its hc is B4's and its grads B6's on B4's hc, to the
+    bit.  None on the other routes."""
     from vit_prisma_tpu_torch.ops import sae_step as S
+    if route == "tf32x3":
+        rec = {"hc_is_b4_hc": torch.equal(_remat_hc(*args, route=route), hc4),
+               "grads_equal_b6_on_b4_hc": all(torch.equal(a, b) for a, b in zip(dW5, dW6))}
+        if not all(rec.values()):
+            raise AssertionError(f"{name}: B5 against B6 on B4's hc {rec}")
+        return rec
     if route != "wgmma":
         return None
     hc5 = _remat_hc(*args).view(torch.int16)
@@ -1884,6 +1944,29 @@ def _remat_against_stored(name, args, hc4, dW5, dW6, route):
     return rec
 
 
+def _f32_alone(name, x, We, be, Wd, bd, dy, dl1, y, nact, hc, dW6):
+    """The float32 route at one shape: B4 on the first 128 rows alone gives
+    the whole call's y and hc rows to the bit, and B4 and B6 on layer 0
+    alone give layer 0's y, hc, nact, dW_enc and dW_dec to the bit (db_enc
+    and l1 are the wrappers' torch sums of the kernels' tile partials, whose
+    order torch picks by shape: recorded, not required)."""
+    from vit_prisma_tpu_torch.ops import sae_step as S
+    rows = S.sae_fused_forward(x[:, :128].contiguous(), We, be, Wd, bd, save_h=True)
+    one = lambda *ts: [t[:1].contiguous() for t in ts]
+    y0, _, n0, hc0 = S.sae_fused_forward(*one(x, We, be, Wd, bd), save_h=True)
+    g0 = S.sae_fused_backward_stored(*one(x, hc, Wd, bd, dy, dl1))
+    torch.cuda.synchronize()
+    rec = {"rows_128_y_hc": torch.equal(rows[0], y[:, :128]) and torch.equal(rows[3], hc[:, :128]),
+           "layer_0_y_hc_nact": (torch.equal(y0, y[:1]) and torch.equal(hc0, hc[:1])
+                                 and torch.equal(n0, nact[:1])),
+           "layer_0_dW_enc_dW_dec": torch.equal(g0[0], dW6[0][:1]) and torch.equal(g0[1],
+                                                                               dW6[1][:1]),
+           "layer_0_db_enc_equal": torch.equal(g0[2], dW6[2][:1])}
+    if not all(v for k, v in rec.items() if k != "layer_0_db_enc_equal"):
+        raise AssertionError(f"{name}: rows or layer 0 alone differ {rec}")
+    return rec
+
+
 def phase_sae_step_kernels(info):
     """B4, B5 and B6 against their plain versions at SAE_STEP_SHAPES (the
     sweep's, the TopK slice's, and a width that keeps the bf16 mma.sync
@@ -1894,6 +1977,7 @@ def phase_sae_step_kernels(info):
     g = torch.Generator(device="cuda").manual_seed(4)
     tc_ptxas = _tc_ptxas()
     new_ptxas = _modes_ptxas(REMAT_TOPK_TC_MODES)
+    f32_ptxas = _tf32_ptxas()
     results = {}
     for name, L, B, D, Sd, dtype in SAE_STEP_SHAPES:
         x, We, be, Wd, bd, dy, dl1 = _sae_inputs(g, L, B, D, Sd, dtype)
@@ -1940,6 +2024,16 @@ def phase_sae_step_kernels(info):
                 f"{name} B5", dW5,
                 S.sae_fused_backward_reference(x, We, be, Wd, bd, dy, dl1), switched, dtype)}
         del dW5
+        alone = profiled = None
+        if name in SAE_F32_ALONE_SHAPES:
+            alone = _f32_alone(name, x, We, be, Wd, bd, dy, dl1, y, nact, hc, dW6)
+            # B4, B6 and B5 in one profiler window (each window a process
+            # opens makes the later ones likelier to come back empty): only
+            # the float32 route's launches, by name
+            profiled = _f32_profiled(name, lambda: (
+                S.sae_fused_forward(x, We, be, Wd, bd, save_h=True),
+                S.sae_fused_backward_stored(x, hc, Wd, bd, dy, dl1),
+                S.sae_fused_backward(x, We, be, Wd, bd, dy, dl1)), SAE_TF32_KERNELS)
         flop = 2 * L * B * D * Sd
         ms = lambda fn, it: cuda_us(fn, iters=it, warmup=1) / 1000.0
         calls = {
@@ -1995,6 +2089,11 @@ def phase_sae_step_kernels(info):
             if rec["route"] == "wgmma":
                 rec["source"] = SAE_TC_SOURCE
                 rec["ptxas"] = new_ptxas if kernel == "sae_fused_backward" else tc_ptxas
+            if rec["route"] == "tf32x3":
+                rec["source"] = SAE_TF32_SOURCE
+                rec["ptxas"] = f32_ptxas
+                rec["kernels_profiled"] = profiled
+                rec["first_rows_and_layer_0_alone"] = alone
             results[(kernel, name)] = rec
             emit(rec)
         del x, We, be, Wd, bd, dy, y, hc, dW6
@@ -2144,7 +2243,8 @@ def phase_topk_kernels(info):
         (y, l1, nact, t, h), route8 = _routed(S.sae_fused_forward_topk, x, We, be, Wd, bd,
                                               TOPK_K, save_h=True)
         torch.cuda.synchronize()
-        routes = {"sae_fused_forward_topk": _route_record(name, B, D, Sd, dtype, route8)}
+        routes = {"sae_fused_forward_topk": _route_record(name, B, D, Sd, dtype, route8,
+                                                          "topk")}
         yr, l1r, nactr, tr, hr = S.sae_fused_forward_topk_reference(x, We, be, Wd, bd, TOPK_K,
                                                                      save_h=True)
         mask = h.float() > 0
@@ -2184,7 +2284,8 @@ def phase_topk_kernels(info):
         routes["sae_fused_backward_stored"] = _route_record(name, B, D, Sd, dtype, route6)
         dW9, route9 = _routed(S.sae_fused_backward_topk, x, We, be, Wd, bd, dy, dl1, t)
         torch.cuda.synchronize()
-        routes["sae_fused_backward_topk"] = _route_record(name, B, D, Sd, dtype, route9)
+        routes["sae_fused_backward_topk"] = _route_record(name, B, D, Sd, dtype, route9,
+                                                          "topk")
         # B9 takes B8's route (and so B6's, whose launches it shares): from t
         # it recomputes B8's h to the bit and gives B6's grads from that h,
         # bit for bit (the same active set and the same products)
@@ -2267,6 +2368,15 @@ def phase_topk_kernels(info):
                 rec["source"] = SAE_TC_SOURCE
                 if kernel != "sae_fused_backward_stored":
                     rec["ptxas"] = new_ptxas
+            if dtype == torch.float32 and kernel != "sae_fused_forward_topk":
+                # B6 on B8's h on the float32 route; B9 on B8's FFMA tile
+                # (dh_kernel's recompute), then B6's float32 launches: one
+                # profiler window, B9's, shows both
+                rec["source"] = SAE_TF32_SOURCE
+                if kernel == "sae_fused_backward_topk":
+                    rec["recompute_source"] = SAE_BWD_SOURCE
+                    rec["kernels_profiled"] = _f32_profiled(
+                        f"{name} {kernel}", fn, SAE_TF32_KERNELS + ("dh_kernel",), ("dh_kernel",))
             results[(kernel, name)] = rec
             emit(rec)
         del x, We, be, Wd, bd, dy, y, h, t, mask
@@ -2536,12 +2646,13 @@ def _route_counts(counters):
     return {k: dict(f.routes) for k, f in counters.items() if hasattr(f, "routes")}
 
 
-def _check_routes(what, counters, before, launches, route):
+def _check_routes(what, counters, before, launches, routes):
     """Every launch of a routed wrapper since ``before`` (``_route_counts``)
-    counted on ``route``, the picker's for the path's shape; returns the
-    tallies that moved."""
+    counted on its route in ``routes`` (``_cfg_route``: the picker's for the
+    path's shape and the wrapper's family); returns the tallies that
+    moved."""
     got = {k: {r: counters[k].routes[r] - n for r, n in by.items()} for k, by in before.items()}
-    want = {k: {r: launches[k] if r == route else 0 for r in by} for k, by in got.items()}
+    want = {k: {r: launches[k] if r == routes[k] else 0 for r in by} for k, by in got.items()}
     if got != want:
         raise AssertionError(f"{what} routes {got}, expected {want}")
     return {k: v for k, v in got.items() if any(v.values())}
@@ -2558,11 +2669,19 @@ def _check_sweep_metrics(metrics_list, layers):
             raise AssertionError(f"L0 {vals['l0']} (layers {SWEEP_L0_EXEMPT} exempt)")
 
 
-def phase_sweep(info):
-    """The slice's main path: the L/14 24-SAE sweep on the card."""
+def sweep_f32_config():
+    """The sweep at the config's default compute dtype: sweep_config() with
+    ``compute_dtype`` unset, so the SAEs compute in their float32 ``dtype``
+    (B4, B6 and B5 on the float32 route)."""
+    return sweep_config().replace(compute_dtype=None)
+
+
+def phase_sweep(info, cfg=None, phase="sweep"):
+    """The slice's main path: the L/14 24-SAE sweep on the card (with
+    ``cfg``: the same set-up and path at sweep_f32_config())."""
     from vit_prisma_tpu_torch import HookedViT, get_model_config
     from vit_prisma_tpu_torch.sae import SAESweepTrainer, VisionActivationsStore
-    cfg = sweep_config()
+    cfg = cfg or sweep_config()
     L = len(cfg.sweep_layers)
     model = HookedViT(get_model_config(SWEEP_MODEL, dtype="bfloat16"), device="cuda",
                       generator=torch.Generator().manual_seed(0))
@@ -2617,10 +2736,11 @@ def phase_sweep(info):
     # run() serves the fill's first half, then refills every K steps; each
     # cycle refills once
     if len(refills) != SWEEP_STEPS // K - 1 + SWEEP_CYCLES or launches != expected:
-        raise AssertionError(f"sweep launches {launches}, expected {expected}, "
+        raise AssertionError(f"{phase} launches {launches}, expected {expected}, "
                              f"{len(refills)} refills")
-    # B4's and B6's launches on the picker's route (the sweep in bf16: Hopper)
-    routes = _check_routes("sweep", counters, routes_before, launches, _cfg_route(cfg))
+    # B4's and B6's launches on the picker's route (the sweep in bf16: Hopper;
+    # in f32: 3xTF32)
+    routes = _check_routes(phase, counters, routes_before, launches, _cfg_route(cfg))
     host = [trainer.log_metrics(type(cycle_metrics)(*(f[j] for f in cycle_metrics)))
             for j in range(K)]
     per_layer = lambda vals, k: [vals[f"layer_{l}/{k}"] for l in cfg.sweep_layers]
@@ -2647,8 +2767,8 @@ def phase_sweep(info):
     if (remat_launches["sae_fused_backward"] != K or remat_launches["sae_fused_forward"] != K
             or remat_launches["sae_fused_backward_stored"] != 0):
         raise AssertionError(f"remat cycle launches {remat_launches}")
-    # B4's and B5's launches on the picker's route (bf16: Hopper)
-    remat_routes = _check_routes("sweep remat cycle", counters, remat_routes_before,
+    # B4's and B5's launches on the picker's route (bf16: Hopper; f32: 3xTF32)
+    remat_routes = _check_routes(f"{phase} remat cycle", counters, remat_routes_before,
                                  remat_launches, _cfg_route(cfg))
     remat_host = trainer.log_metrics(type(remat_metrics)(*(f[-1] for f in remat_metrics)))
     _check_sweep_metrics([{k: per_layer(remat_host, k)
@@ -2658,11 +2778,17 @@ def phase_sweep(info):
     block = store.next_batches(K)
     transpose_ms = cuda_us(lambda: block.transpose(1, 2).contiguous(), iters=5) / 1000.0
     # where a refill's time goes (the L/14 harvest: B1 24 a store batch)
-    refill_profile = _profile(store._refill_half, share_of=MIX_KERNEL_NAMES)
+    # (the float32 sweep's refill is the same harvest: not profiled again)
+    refill_profile = (_profile(store._refill_half, share_of=MIX_KERNEL_NAMES)
+                      if phase == "sweep" else None)
     step_profile = _sweep_step_profile(trainer, store, cfg)
     sae_tokens = steps * cfg.train_batch_size * L
     train_s = run_s + cycles_s
-    emit({"phase": "sweep", **info, "model": SWEEP_MODEL,
+    changed = {}
+    if cfg.compute_dtype is None:
+        changed["compute_dtype"] = ("unset (the SAEs compute in their float32 dtype), not "
+                                    "bfloat16: the config's default")
+    emit({"phase": phase, **info, "model": SWEEP_MODEL,
           "weights": "random, seed 0, bfloat16 (pretrained weights are not in the repository)",
           "dataset": f"{SWEEP_IMAGES} random float32 {cfg.image_size}px images, numpy seed 5, "
                      "on the card",
@@ -2672,7 +2798,8 @@ def phase_sweep(info):
                         "(phase data drives that wire)",
               "prefetch": "none: the port's prefetch stages host-fed streams only, and "
                           "the harvest runs at refill time",
-              "wandb_log_frequency": "3, not 10: per-layer metrics read every 3 steps"},
+              "wandb_log_frequency": "3, not 10: per-layer metrics read every 3 steps",
+              **changed},
           "layers": L, "d_in": cfg.d_in, "d_sae": cfg.d_sae,
           "train_batch_size": cfg.train_batch_size, "compute_dtype": cfg.compute_dtype,
           "buffer_rows": cfg.tokens_per_buffer, "steps": steps,
@@ -2715,15 +2842,25 @@ def _sweep_step_profile(trainer, store, cfg):
     steps(2)  # warm-up
     step_ms = cuda_us(lambda: steps(SWEEP_PROFILE_STEPS), iters=1, warmup=0) \
         / 1000.0 / SWEEP_PROFILE_STEPS
-    # B4 and B6 launch six kernels a step (center and two GEMMs each); a
-    # window that lost device events (a kernel counted other than a whole
-    # number of times a step) is profiled again with a wider margin, and
-    # the last such raises
+    # B4 and B6 launch six kernels a step on the Hopper route (center and two
+    # GEMMs each) and ten on the float32 route (B4: center, W_enc's and
+    # W_dec's splits, encoder, decoder; B6: W_dec's split, dh, xc's and dy's
+    # transposed splits, the weight gradients); a window that lost device
+    # events (a kernel counted other than a whole number of times a step) is
+    # profiled again with a wider margin, and the last such raises
+    f32 = _cfg_route(cfg)["sae_fused_forward"] == "tf32x3"
+    names, per_step = (((*SAE_TF32_KERNELS, "center_kernel"), 10) if f32
+                       else ((SAE_TC_KERNEL, "center_kernel"), 6))
+    # the float32 step's breakdown: B4's and B6's launches by mode, the split
+    # pre-passes, B7, cuBLAS and elementwise work
+    parts = ((*(f"{SAE_TF32_KERNEL}<{m}>" for m in range(4)), "split_t_kernel",
+              "split_rows_kernel", "center_kernel", "adam_", "gemm", "elementwise", "reduce")
+             if f32 else ())
     for tries, pad in enumerate(PROFILE_PADS_S, 1):
-        prof = _profile(lambda: steps(3), share_of=(SAE_TC_KERNEL, "center_kernel"),
-                        warm=True, pad=pad)
+        prof = _profile(lambda: steps(3), share_of=names, warm=True, pad=pad,
+                        top=24 if f32 else TOPK_PROFILE_TOP, time_of=parts, calls_of=parts)
         if (all(k["calls"] % 3 == 0 for k in prof["kernels"])
-                and prof["share_of"]["calls"] == 6 * 3):
+                and prof["share_of"]["calls"] == per_step * 3):
             break
     else:
         raise AssertionError(f"torch.profiler lost device events in {tries} windows of "
@@ -2894,7 +3031,8 @@ def phase_gated_kernels(info):
         (y, via, l1, nact, hc, hgac), route11 = _routed(S.sae_gated_fused_forward, *args,
                                                           save_h=True)
         torch.cuda.synchronize()
-        routes = {"sae_gated_fused_forward": _route_record(name, B, D, Sd, dtype, route11)}
+        routes = {"sae_gated_fused_forward": _route_record(name, B, D, Sd, dtype, route11,
+                                                           "gated")}
         yr, viar, l1r, nactr = S.sae_gated_fused_forward_reference(*args)
         gate_k, mag_k = hgac.float() > 0, hc.float() > 0
         gate_p, mag_p, hg_p = _gated_masks_plain(x, We, bg, rmag, bm, bd)
@@ -2932,7 +3070,8 @@ def phase_gated_kernels(info):
         del yr, viar, gflip, mflip, flip, flip_rows, hg_p, gate_k, mag_k
         grads, route12 = _routed(S.sae_gated_fused_backward, *args, dy, dvia, dl1)
         torch.cuda.synchronize()
-        routes["sae_gated_fused_backward"] = _route_record(name, B, D, Sd, dtype, route12)
+        routes["sae_gated_fused_backward"] = _route_record(name, B, D, Sd, dtype, route12,
+                                                           "gated")
         bwd = _grad_errs(f"{name} B12", grads,
                          S.sae_gated_fused_backward_reference(*args, dy, dvia, dl1), switched,
                          dtype, keys=("dW_enc", "dW_dec", "db_gate", "db_mag", "dr_mag"))
@@ -7146,6 +7285,10 @@ def main():
     timed(phase_sweep_eval, info, sweep, sweep_cfg)
     del sweep
     release()
+    # the same sweep at the config's default compute dtype (float32)
+    _, _, _, f32_sweep_launches, f32_remat_launches = timed(
+        phase_sweep, info, sweep_f32_config(), "sweep_f32", name="sweep_f32")
+    release()
     gated_kernels = timed(phase_gated_kernels, info)
     trainer, store, cfg, gated_launches = timed(phase_train, info, gated_config(), "gated_train",
                                               SLICE_STEPS, name="gated_train")
@@ -7250,6 +7393,15 @@ def main():
             [("fp32", sum(15 * math.prod(r["dims"]) for r in adam_sweep))]).items()}}
     sweep_rec = lambda k: sae_step_kernels[(k, "sweep_bf16")]
     topk_rec = lambda k: topk_kernels[(k, "slice_bf16")]
+    # a routed SAE kernel's float32 figures at each of ``shapes`` (3xTF32 for
+    # B4-B6, FFMA for B8; B9 its FFMA recompute and B6's float32 launches)
+    f32_sae_keys = ("route", "ms", "plain_ms", "bound_ms", "bound_by", "cublas_products_ms",
+                    "TFLOP_per_s", "max_abs_err")
+    f32_sae = lambda kernel, recs, shapes: {
+        f"f32_{shape}_{key}": recs[(kernel, shape)][key] for shape in shapes
+        for key in f32_sae_keys}
+    f32_step = lambda kernel: {**f32_sae(kernel, sae_step_kernels, ("sweep_f32", "topk_slice_f32")),
+                               "f32_source": SAE_TF32_SOURCE}
     l14 = kernels[("l14", torch.bfloat16)]
     text = kernels[("text_causal", torch.bfloat16)]
     # the float32 route's figures at each shape of a kernel phase
@@ -7302,31 +7454,45 @@ def main():
         {**entry("sae_fused_forward", SAE_TC_SOURCE, SAE_REPLACES["sae_fused_forward"],
                  sweep_launches["sae_fused_forward"], sweep_rec("sae_fused_forward")),
          **sae_tc_extra(sweep_rec("sae_fused_forward"),
-                        sae_step_kernels[("sae_fused_forward", "topk_slice_bf16")])},
+                        sae_step_kernels[("sae_fused_forward", "topk_slice_bf16")]),
+         **f32_step("sae_fused_forward"),
+         "f32_sweep_path_launches": f32_sweep_launches["sae_fused_forward"]},
         {**entry("sae_fused_backward", SAE_TC_SOURCE, SAE_REPLACES["sae_fused_backward"],
                  remat_launches["sae_fused_backward"], sweep_rec("sae_fused_backward")),
          **sae_tc_extra(sweep_rec("sae_fused_backward"),
                         sae_step_kernels[("sae_fused_backward", "topk_slice_bf16")]),
-         "b5_against_b6_on_b4_hc": sweep_rec("sae_fused_backward")["b5_against_b6_on_b4_hc"]},
+         "b5_against_b6_on_b4_hc": sweep_rec("sae_fused_backward")["b5_against_b6_on_b4_hc"],
+         **f32_step("sae_fused_backward"),
+         "f32_sweep_path_launches": f32_remat_launches["sae_fused_backward"],
+         "f32_b5_against_b6_on_b4_hc":
+             sae_step_kernels[("sae_fused_backward", "sweep_f32")]["b5_against_b6_on_b4_hc"]},
         {**entry("sae_fused_backward_stored", SAE_TC_SOURCE,
                  SAE_REPLACES["sae_fused_backward_stored"],
                  sweep_launches["sae_fused_backward_stored"]
                  + topk_launches["sae_fused_backward_stored"],
                  sweep_rec("sae_fused_backward_stored")),
          **sae_tc_extra(sweep_rec("sae_fused_backward_stored"),
-                        topk_rec("sae_fused_backward_stored"))},
+                        topk_rec("sae_fused_backward_stored")),
+         **f32_step("sae_fused_backward_stored"),
+         **{f"f32_on_topk_h_{k}": v for k, v in f32_sae(
+             "sae_fused_backward_stored", topk_kernels, ("slice_f32",)).items()},
+         "f32_sweep_path_launches": f32_sweep_launches["sae_fused_backward_stored"]},
         # at the TopK slice's bf16 shape; launches from its train path (B9:
         # from its remat steps).  Both run their Hopper route there (source:
         # its file), with the sweep's and the ViT-S width's figures beside
         {**entry("sae_fused_forward_topk", SAE_TC_SOURCE, TOPK_REPLACES["sae_fused_forward_topk"],
                  topk_launches["sae_fused_forward_topk"], topk_rec("sae_fused_forward_topk")),
-         **topk_tc_extra(topk_rec("sae_fused_forward_topk"))},
+         **topk_tc_extra(topk_rec("sae_fused_forward_topk")),
+         **f32_sae("sae_fused_forward_topk", topk_kernels, ("slice_f32",))},
         {**entry("sae_fused_backward_topk", SAE_TC_SOURCE,
                  TOPK_REPLACES["sae_fused_backward_topk"],
                  topk_remat_launches["sae_fused_backward_topk"],
                  topk_rec("sae_fused_backward_topk")),
          **topk_tc_extra(topk_rec("sae_fused_backward_topk")),
-         "b9_equals_b6_on_h": topk_rec("sae_fused_backward_topk")["B9_equals_B6_on_h"]},
+         "b9_equals_b6_on_h": topk_rec("sae_fused_backward_topk")["B9_equals_B6_on_h"],
+         **f32_sae("sae_fused_backward_topk", topk_kernels, ("slice_f32",)),
+         "f32_b9_equals_b6_on_h":
+             topk_kernels[("sae_fused_backward_topk", "slice_f32")]["B9_equals_B6_on_h"]},
         # the generic TopK step's float32 [4096, 12288], with the other
         # shapes of KTH_SHAPES beside it; launches from the generic steps and
         # encode of the TopK step check

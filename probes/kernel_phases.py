@@ -2,8 +2,10 @@
 (``take_rows``, ``kth_value``, ``grad_kernels``, ``flash_kernels``,
 ``text``, ``tools``, ``parallel``, ...: the ``phase_<name>`` functions that
 take only the card's record) in the order given; ``gated_train`` runs phase 14 alone, the gated train path and its
-step profile, and ``topk_train`` phase 9 alone (the TopK train path, its
-remat steps and its step profile).  Prints chip_smoke.py's JSON records.  Run from the
+step profile, ``topk_train`` phase 9 alone (the TopK train path, its
+remat steps and its step profile), ``sweep_check`` the bf16 sweep and the
+fused-vs-generic sweep step checks (bf16 and float32), and ``sweep_f32``
+the sweep at the config's default float32 compute dtype.  Prints chip_smoke.py's JSON records.  Run from the
 repository root on a CUDA card: ``python3 probes/kernel_phases.py take_rows
 kth_value``.  A copy of this file in another checkout's ``probes/`` runs
 that checkout's phases (how a parent and a change are compared in turns)."""
@@ -29,6 +31,13 @@ def main():
                                                             "gated_train", chip_smoke.SLICE_STEPS)
             chip_smoke.phase_step_profile(info, trainer, store, cfg, "gated_profile")
             del trainer, store
+        elif name == "sweep_check":  # the bf16 sweep, then the fused-vs-generic step checks
+            trainer, store, cfg, _, _ = chip_smoke.phase_sweep(info)
+            chip_smoke.check_sweep_steps(
+                chip_smoke.phase_sweep_step_check(info, trainer, store, cfg))
+            del trainer, store
+        elif name == "sweep_f32":
+            chip_smoke.phase_sweep(info, chip_smoke.sweep_f32_config(), "sweep_f32")
         elif name == "topk_train":
             trainer, store, cfg, _ = chip_smoke.phase_train(info, chip_smoke.topk_config(),
                                                             "topk_train", chip_smoke.SLICE_STEPS)

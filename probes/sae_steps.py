@@ -1,5 +1,7 @@
 """Train steps of the fused SAE kernels alone, without the ViT: the sweep's
-step (24 SAEs, 1024 -> 8192, batch 4096, bf16; ``chip_smoke.sweep_config``)
+step (24 SAEs, 1024 -> 8192, batch 4096, bf16; ``chip_smoke.sweep_config``),
+the same at the config's default float32 compute dtype (``compute_dtype``
+unset, float32 batches; ``--f32`` runs only it)
 and the TopK slice's (bench.py's bf16 TopK row; ``chip_smoke.topk_config``),
 each with its activations kept (``fused_store_acts`` True: B4+B6, B8+B6) and
 recomputed (False: B4+B5, B8+B9), from one random state on random batches of
@@ -43,16 +45,24 @@ def main():
     info = {"card": chip_smoke.card()}
     print(json.dumps(info), flush=True)
     g = torch.Generator(device="cuda").manual_seed(11)
-    cfg = chip_smoke.sweep_config()
-    L = len(cfg.sweep_layers)
-    state = init_sweep_state(cfg, L, device="cuda")
-    batches = [torch.randn(cfg.train_batch_size, L, cfg.d_in, generator=g,
-                           device="cuda").to(torch.bfloat16) for _ in range(3)]
-    for keep in (True, False):
-        print(json.dumps({**info, **measure("sweep", sae_sweep_train_step, state, batches,
-                                            cfg.replace(fused_store_acts=keep))}), flush=True)
-    del state, batches
-    torch.cuda.empty_cache()
+    f32_only = "--f32" in sys.argv[1:]
+    sweeps = [("sweep_f32", chip_smoke.sweep_config().replace(compute_dtype=None),
+               torch.float32)]
+    if not f32_only:
+        sweeps.insert(0, ("sweep", chip_smoke.sweep_config(), torch.bfloat16))
+    for name, cfg, row_dtype in sweeps:
+        L = len(cfg.sweep_layers)
+        state = init_sweep_state(cfg, L, device="cuda")
+        batches = [torch.randn(cfg.train_batch_size, L, cfg.d_in, generator=g,
+                               device="cuda").to(row_dtype) for _ in range(3)]
+        for keep in (True, False):
+            print(json.dumps({**info, **measure(name, sae_sweep_train_step, state, batches,
+                                                cfg.replace(fused_store_acts=keep))}),
+                  flush=True)
+        del state, batches
+        torch.cuda.empty_cache()
+    if f32_only:
+        return
     cfg = chip_smoke.topk_config()
     state = init_train_state(cfg, device="cuda")
     batches = [torch.randn(cfg.train_batch_size, cfg.d_in, generator=g, device="cuda")

@@ -212,7 +212,9 @@ def _meta(L, B, D, S, dtype):
             new(L, dt=torch.float32), new(L, B, 1, dt=torch.float32))
 
 
-# (B, d_in, d_sae, dtype): the entry point each wrapper reaches, by route
+# (B, d_in, d_sae, dtype): the entry point each wrapper reaches, by case (a
+# case is named for its shape's route when the FFMA tiles were float32's:
+# B5 takes "tf32x3" at the float32 case now, B8 and B9 keep "ffma")
 DISPATCH = {"wgmma": (256, 256, 512, torch.bfloat16), "mma_sync": (256, 128, 512, torch.bfloat16),
             "ffma": (256, 128, 512, torch.float32)}
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -239,22 +241,38 @@ ENTRIES = {"backward": ("sae_fused_bwd_remat_tc", "sae_fused_bwd", 1),
 @pytest.mark.parametrize("which", list(ENTRIES))
 def test_dispatches_by_route(monkeypatch, which, route):
     B, D, S, dtype = DISPATCH[route]
+    if which == "backward" and route == "ffma":
+        route = "tf32x3"
+    assert sae_step.sae_gemm_route(B, D, S, dtype, "relu" if which == "backward" else "topk") \
+        == route
     lib = _Lib()
     monkeypatch.setattr(sae_step, "_lib_and_stream", lambda device: (lib, 0))
     fn = getattr(sae_step, f"sae_fused_{which}")
     launches, routes = fn.launches, dict(fn.routes)
     out = _call(which, _meta(2, B, D, S, dtype))
-    (name, args), = lib.calls
     tc, other, mode = ENTRIES[which]
     n_ptrs = {"backward": 13, "forward_topk": 11, "backward_topk": 14}[which]
-    if route == "wgmma":
+    if which == "backward_topk" and route == "ffma":
+        # float32 B9: B8's h again on its FFMA tile (x, W_enc, b_enc, b_dec, t,
+        # xc, h), then B6's float32 launches (x, h, W_dec, ...) on it
+        (name, args), (name6, args6) = lib.calls
+        assert name == "sae_fused_topk_remat_h" and args[7:11] == (2, B, D, S)
+        assert name6 == "sae_fused_bwd_stored_tf32" and args6[11:15] == (2, B, D, S)
+        assert args6[1] == args[6]  # B6 reads the recomputed h
+    elif route == "tf32x3":  # B5: B4's and B6's pointers, then the split copies'
+        (name, args), = lib.calls
+        assert name == "sae_fused_bwd_remat_tf32" and args[14:18] == (2, B, D, S)
+    elif route == "wgmma":
+        (name, args), = lib.calls
         assert name == tc
         assert args[n_ptrs:n_ptrs + 4] == (2, B, D, S)
         if which == "forward_topk":
             assert args[n_ptrs + 4] == K
     elif which == "forward_topk":
+        (name, args), = lib.calls
         assert name == other and args[11:17] == (2, B, D, S, K, _CODES[dtype])
     else:  # sae_fused_bwd's mask mode, with the dtype code
+        (name, args), = lib.calls
         assert name == other and args[14:20] == (2, B, D, S, _CODES[dtype], mode)
     assert fn.launches == launches + 1
     routes[route] += 1
@@ -289,6 +307,8 @@ def test_remat_backward_takes_its_forwards_route(monkeypatch, pair, case):
     the picker's cases (the picker's own), or both refuse the shape: a remat
     backward recomputes its forward's masks with its forward's mainloop."""
     B, D, S, dtype, route = ROUTE_CASES[case]
+    if pair[0] == "forward_topk" and route == "tf32x3":
+        route = "ffma"  # float32 TopK keeps B8's FFMA tiles
     lib = _Lib()
     monkeypatch.setattr(sae_step, "_lib_and_stream", lambda device: (lib, 0))
     args = _meta(1, B, D, S, dtype)

@@ -89,15 +89,16 @@ def test_backward_stored_matches_jax_kernel(shape, dtype):
 
 
 # (B, d_in, d_sae, dtype, route): the sweep's and the TopK slice's shapes take
-# the Hopper route in bf16 and the FFMA tiles in f32; shapes whose d_in or
-# d_sae is a multiple of 128 but not of 256 keep the mma.sync tiles; shapes
-# off the 128-wide tile take no kernel.
+# the Hopper route in bf16 and, for B4-B6 (the ReLU family, the picker's
+# default), 3xTF32 on tf32 wgmma in f32; shapes whose d_in or d_sae is a
+# multiple of 128 but not of 256 keep the mma.sync tiles; shapes off the
+# 128-wide tile take no kernel.
 ROUTE_CASES = {
     "sweep_bf16": (4096, 1024, 8192, torch.bfloat16, "wgmma"),
     "topk_slice_bf16": (4096, 768, 12288, torch.bfloat16, "wgmma"),
     "odd_row_blocks_bf16": (384, 256, 512, torch.bfloat16, "wgmma"),
-    "sweep_f32": (4096, 1024, 8192, torch.float32, "ffma"),
-    "topk_slice_f32": (4096, 768, 12288, torch.float32, "ffma"),
+    "sweep_f32": (4096, 1024, 8192, torch.float32, "tf32x3"),
+    "topk_slice_f32": (4096, 768, 12288, torch.float32, "tf32x3"),
     "d_in_128_bf16": (256, 128, 512, torch.bfloat16, "mma_sync"),
     "d_sae_384_bf16": (4096, 768, 384, torch.bfloat16, "mma_sync"),
     "rows_off_tile_bf16": (4097, 1024, 8192, torch.bfloat16, None),
@@ -133,24 +134,33 @@ def _meta(L, B, D, S, dtype):
     return new(L, B, D), new(L, D, S), new(L, S), new(L, S, D), new(L, D), new(L, B, S)
 
 
-# (B, d_in, d_sae, dtype): the entry point each wrapper reaches, by route
+# (B, d_in, d_sae, dtype): the entry point each wrapper reaches, by case.
+# A case is named for the route its shape took when the FFMA tiles were
+# float32's; B4 and B6 (the ReLU family) take "tf32x3" at the float32 case
+# now (RELU_ROUTE), the TopK and gated families keep "ffma".
 DISPATCH = {"wgmma": (256, 256, 512, torch.bfloat16), "mma_sync": (256, 128, 512, torch.bfloat16),
             "ffma": (256, 128, 512, torch.float32)}
+RELU_ROUTE = {"wgmma": "wgmma", "mma_sync": "mma_sync", "ffma": "tf32x3"}
 
 
 @pytest.mark.parametrize("route", list(DISPATCH))
 def test_forward_dispatches_by_route(monkeypatch, route):
     B, D, S, dtype = DISPATCH[route]
+    route = RELU_ROUTE[route]
+    assert sae_step.sae_gemm_route(B, D, S, dtype) == route
     lib = _Lib()
     monkeypatch.setattr(sae_step, "_lib_and_stream", lambda device: (lib, 0))
     x, We, be, Wd, bd, _ = _meta(2, B, D, S, dtype)
     launches, routes = sae_step.sae_fused_forward.launches, dict(sae_step.sae_fused_forward.routes)
     y, l1, nact, hc = sae_step.sae_fused_forward(x, We, be, Wd, bd, save_h=True)
     (name, args), = lib.calls
-    assert name == ("sae_fused_fwd_tc" if route == "wgmma" else "sae_fused_fwd")
-    if route != "wgmma":
+    assert name == {"wgmma": "sae_fused_fwd_tc", "tf32x3": "sae_fused_fwd_tf32",
+                    "mma_sync": "sae_fused_fwd"}[route]
+    if route == "mma_sync":
         assert args[14] == {torch.float32: 0, torch.bfloat16: 1}[dtype]  # the dtype code
-    assert args[10:14] == (2, B, D, S)
+    # tf32x3: the split copies' scratch after the ten pointers
+    n_ptrs = 11 if route == "tf32x3" else 10
+    assert args[n_ptrs:n_ptrs + 4] == (2, B, D, S)
     assert sae_step.sae_fused_forward.launches == launches + 1
     routes[route] += 1
     assert sae_step.sae_fused_forward.routes == routes
@@ -161,6 +171,7 @@ def test_forward_dispatches_by_route(monkeypatch, route):
 @pytest.mark.parametrize("route", list(DISPATCH))
 def test_backward_stored_dispatches_by_route(monkeypatch, route):
     B, D, S, dtype = DISPATCH[route]
+    route = RELU_ROUTE[route]
     lib = _Lib()
     monkeypatch.setattr(sae_step, "_lib_and_stream", lambda device: (lib, 0))
     x, _, _, Wd, bd, hc = _meta(2, B, D, S, dtype)
@@ -171,6 +182,8 @@ def test_backward_stored_dispatches_by_route(monkeypatch, route):
     (name, args), = lib.calls
     if route == "wgmma":
         assert name == "sae_fused_bwd_stored_tc" and args[11:15] == (2, B, D, S)
+    elif route == "tf32x3":  # x, hc, W_dec, b_dec, dy, dl1, dhc, split, the grads
+        assert name == "sae_fused_bwd_stored_tf32" and args[11:15] == (2, B, D, S)
     else:  # B6's mask mode of sae_fused_bwd, with the dtype code
         assert name == "sae_fused_bwd" and args[14:20] == (2, B, D, S, int(route == "mma_sync"),
                                                           0)

@@ -1,4 +1,7 @@
-// Fused standard-ReLU SAE forward over L stacked SAEs (kernel B4).
+// Fused standard-ReLU SAE forward over L stacked SAEs (kernel B4): the bf16
+// shapes that sae_fused_tc.cu's Hopper route does not take (float32 runs
+// sae_fused_tf32.cu).  The tile GEMM below is generic in T; the entry
+// instantiates bf16 alone.
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel`, launched by `_fused_forward`
 // in vit_prisma_tpu/ops/sae_step.py.  For x [L, B, d_in], W_enc
@@ -41,7 +44,8 @@
 // 80GB HBM3 (700 W): 12.99 ms, 254 TFLOP/s, 26% of the 989 TFLOP/s dense
 // bf16 peak (the plain version: 79.7 ms).  mma.sync tiles fed by cp.async
 // reach that fraction; wgmma with TMA-fed tiles is what a later version
-// buys.  In float32 the FFMA tiles run at 37 TFLOP/s.
+// buys.  float32 runs sae_fused_tf32.cu (3xTF32 on tf32 wgmma) at every
+// shape; this file keeps the bf16 shapes the Hopper route does not take.
 
 #include "sae_gemm.cuh"
 
@@ -115,10 +119,10 @@ cudaError_t forward(const void* x, const void* We, const void* be, const void* W
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Outputs: xc [L, B, D] (scratch),
-// hc [L, B, S], y [L, B, D] in the compute type; nact_part
-// [L, B/128, S] and l1_part [L, B/128, S/128] float32.  Returns the
-// launches' cudaError_t.
+// dtype: 1 = bfloat16 (float32, 0, is sae_fused_tf32.cu's and is refused
+// here).  Outputs: xc [L, B, D] (scratch), hc [L, B, S], y [L, B, D] in
+// bf16; nact_part [L, B/128, S] and l1_part [L, B/128, S/128] float32.
+// Returns the launches' cudaError_t.
 extern "C" int sae_fused_fwd(const void* x, const void* We, const void* be, const void* Wd,
                              const void* bd, void* xc, void* hc, void* y, void* nact_part,
                              void* l1_part, int L, int B, int D, int S, int dtype, int device,
@@ -127,8 +131,6 @@ extern "C" int sae_fused_fwd(const void* x, const void* We, const void* be, cons
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return forward<float>(x, We, be, Wd, bd, xc, hc, y, nact_part, l1_part, L, B, D, S, s);
   if (dtype == 1)
     return forward<__nv_bfloat16>(x, We, be, Wd, bd, xc, hc, y, nact_part, l1_part, L, B, D,
                                   S, s);

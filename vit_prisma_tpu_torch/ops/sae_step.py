@@ -22,16 +22,22 @@ points for CPU tensors:
   ``hc``, whose mask is ``float(hc) > 0``: it equals B5's ``hpre > 0``
   except where a positive float32 pre-activation rounds to +0 in bf16.
 
-Every SAE kernel here takes one of three routes by dtype and shape
-(:func:`sae_gemm_route`): bfloat16 with d_in and d_sae multiples of 256
-runs ``csrc/sae_fused_tc.cu`` (wgmma on a TMA-fed ring, on
+Every SAE kernel here takes one of four routes by dtype, shape and kernel
+family (:func:`sae_gemm_route`): bfloat16 with d_in and d_sae multiples of
+256 runs ``csrc/sae_fused_tc.cu`` (wgmma on a TMA-fed ring, on
 ``csrc/sae_wgmma.cuh``), other bfloat16 shapes the mma.sync tiles of
-``csrc/sae_gemm.cuh`` in the files named here, float32 its FFMA tiles.
-Each wrapper counts its launches by route in ``routes``.  On the Hopper
-route B5 recomputes B4's encoder product with B4's own mainloop and carries
-its mask ``hpre > 0`` into B6's dh launch in hc's bits: hc is B4's, with
--0 (bits 0x8000, which B4 never writes) where a positive hpre rounds to +0,
-and the mask is "bits != 0".
+``csrc/sae_gemm.cuh`` in the files named here; float32 runs the ReLU
+family (B4, B5, B6) on ``csrc/sae_fused_tf32.cu`` ("tf32x3": each product
+as three TF32 products on tf32 wgmma, after pre-passes that split the B
+operands into TF32 hi and lo parts laid out K-major) and the TopK (B8, B9)
+and gated (B11, B12) families on ``csrc/sae_gemm.cuh``'s FFMA tiles.  Each
+wrapper counts its launches by route in ``routes``.  On the Hopper route
+B5 recomputes B4's encoder product with B4's own mainloop and carries its
+mask ``hpre > 0`` into B6's dh launch in hc's bits: hc is B4's, with -0
+(bits 0x8000, which B4 never writes) where a positive hpre rounds to +0,
+and the mask is "bits != 0".  On the float32 route B5 runs B4's encoder
+kernel again without its reductions (hc is B4's to the bit, and
+``relu(hpre) > 0`` iff ``hpre > 0``), then B6's launches.
 
 :func:`sae_fused_apply` wraps them in a ``torch.autograd.Function``
 returning ``(y, l1, nact)``.  Its gradient for ``x`` is zero (only the train
@@ -61,7 +67,9 @@ which equals ``max(float(hp), 0)`` entry by entry), takes t by B10's radix
 select (``csrc/radix_select.cuh``, bitwise the bitwise search's t on such
 rows) and masks the rows in place; B9 recomputes that encoder with the same
 mainloop and masks it against t, then runs B6's launches, so B9 follows
-B8's route at every shape and its active set stays B8's.
+B8's route at every shape and its active set stays B8's.  In float32 B8
+keeps its FFMA tiles and B9 recomputes h with B8's FFMA encoder tile
+(``sae_fused_topk_remat_h``), then runs B6's float32 ("tf32x3") launches.
 
 :func:`sae_fused_apply_topk` wraps them as :func:`sae_fused_apply` wraps
 B4-B6.
@@ -83,9 +91,9 @@ decoder row norms ``wdn`` (float32, plain torch, :func:`_gated_hoisted`)::
 
 B11 and B12 take the same routes (:func:`sae_gemm_route`): bfloat16 with
 d_in and d_sae multiples of 256 runs ``csrc/sae_fused_tc.cu``, the other
-shapes the files above; the route is a function of the shape and dtype
-alone, so a backward (B5, B9, B12) always recomputes its masks on its
-forward's route, to the bit.
+shapes the files above; the route is a function of the shape, dtype and
+family alone, so a backward (B5, B9, B12) always recomputes its masks on
+its forward's route, to the bit.
 
 :func:`sae_gated_fused_apply` wraps them, returning ``(y, via, l1,
 nact)``.
@@ -358,32 +366,64 @@ def _lib_and_stream(device):
 # (csrc/sae_wgmma.cuh kBN; its 128 rows are _TILE's): d_in and d_sae must
 # be multiples of it.
 _TC_BN = 256
-SAE_GEMM_ROUTES = ("wgmma", "mma_sync", "ffma")
+SAE_GEMM_ROUTES = ("wgmma", "mma_sync", "tf32x3", "ffma")
+# The kernel families, each wrapper's: a forward and its remat backward are
+# of one family, and a family takes one route at a shape and dtype.
+SAE_FAMILIES = ("relu", "topk", "gated")
+SAE_KERNEL_FAMILIES = {"sae_fused_forward": "relu", "sae_fused_backward": "relu",
+                       "sae_fused_backward_stored": "relu", "sae_fused_forward_topk": "topk",
+                       "sae_fused_backward_topk": "topk", "sae_gated_fused_forward": "gated",
+                       "sae_gated_fused_backward": "gated"}
+# Dynamic shared memory of csrc/sae_fused_tf32.cu's kernel (kBytes): four
+# 48 KB stages (a [128 x 32] float A tile, B's hi and lo [128 x 32] tiles),
+# the column partials of 8 consumer warps x 128 columns, their l1 partials,
+# 8 mbarriers and 1 KB of alignment: one block an SM.
+SAE_TF32_SMEM_BYTES = 4 * 3 * 128 * 32 * 4 + 8 * 128 * 4 + 8 * 4 + 8 * 8 + 1024
 
 
-def sae_gemm_route(B: int, d_in: int, d_sae: int, dtype: torch.dtype):
-    """The route every fused SAE kernel, B4-B6, B8, B9, B11 and B12, takes
-    on the card: ``"wgmma"`` (the bf16 Hopper kernels of
-    ``csrc/sae_fused_tc.cu``), ``"mma_sync"`` (the other bf16 shapes, on
-    ``csrc/sae_gemm.cuh``'s tensor-core tiles),
-    ``"ffma"`` (float32, its CUDA-core tiles), or None where no kernel takes
-    the shape (B, d_in or d_sae not a multiple of 128).  It reads the shape
-    and dtype alone, so a forward and its remat backward (B4 and B5, B8 and
-    B9, B11 and B12) always take the same route, and the backward's
-    recomputed masks are the forward's."""
+def sae_gemm_route(B: int, d_in: int, d_sae: int, dtype: torch.dtype, family: str = "relu"):
+    """The route a fused SAE kernel of ``family`` (``"relu"``: B4-B6;
+    ``"topk"``: B8, B9; ``"gated"``: B11, B12) takes on the card:
+    ``"wgmma"`` (the bf16 Hopper kernels of ``csrc/sae_fused_tc.cu``),
+    ``"mma_sync"`` (the other bf16 shapes, on ``csrc/sae_gemm.cuh``'s
+    tensor-core tiles), ``"tf32x3"`` (the float32 ReLU family:
+    ``csrc/sae_fused_tf32.cu``, 3xTF32 on tf32 wgmma), ``"ffma"`` (the
+    float32 TopK and gated families: ``csrc/sae_gemm.cuh``'s CUDA-core
+    tiles), or None where no kernel takes the shape (B, d_in or d_sae not a
+    multiple of 128).  It reads the shape, dtype and family alone, so a
+    forward and its remat backward (B4 and B5, B8 and B9, B11 and B12)
+    always take the same route, and the backward's recomputed masks are the
+    forward's."""
+    if family not in SAE_FAMILIES:
+        raise ValueError(f"sae_gemm_route: family {family!r} is not one of {SAE_FAMILIES}")
     if B % _TILE or d_in % _TILE or d_sae % _TILE or dtype not in _DTYPE_CODES:
         return None
     if dtype == torch.float32:
-        return "ffma"
+        return "tf32x3" if family == "relu" else "ffma"
     return "wgmma" if d_in % _TC_BN == 0 and d_sae % _TC_BN == 0 else "mma_sync"
+
+
+def sae_kernel_routes(B: int, d_in: int, d_sae: int, dtype: torch.dtype) -> dict:
+    """Each routed wrapper's route at one shape and dtype, by its family."""
+    return {k: sae_gemm_route(B, d_in, d_sae, dtype, fam)
+            for k, fam in SAE_KERNEL_FAMILIES.items()}
+
+
+def _tf32_scratch_floats(backward: bool, L: int, B: int, D: int, S: int) -> int:
+    """Floats of the "tf32x3" route's split copies (csrc/sae_fused_tf32.cu):
+    a weight's TF32 hi and lo parts K-major, 2 S D a layer (the forward's
+    W_enc, then W_dec in the same place); the backwards W_dec's, then xc's
+    and dy's transposed copies, 4 D B a layer, in the same place."""
+    return L * (max(2 * S * D, 4 * D * B) if backward else 2 * S * D)
 
 
 def sae_fused_forward(x, We, be, Wd, bd, save_h: bool = False):
     """Kernel B4: ``(y, l1, nact)`` (plus ``hc`` with ``save_h``) for the
     stacked SAEs; y and hc in x's dtype, l1 ``[L]`` and nact ``[L, d_sae]``
     float32.  CUDA tensors launch ``csrc/sae_fused_tc.cu`` (the "wgmma"
-    route of :func:`sae_gemm_route`) or ``csrc/sae_fused_fwd.cu`` and add one
-    to ``sae_fused_forward.launches`` and to the route's count in
+    route of :func:`sae_gemm_route`), ``csrc/sae_fused_tf32.cu``
+    ("tf32x3") or ``csrc/sae_fused_fwd.cu`` and add one to
+    ``sae_fused_forward.launches`` and to the route's count in
     ``sae_fused_forward.routes``; a launch that fails raises.  CPU tensors
     run the plain version."""
     L, B, D, S = _shapes(x, We, Wd)
@@ -404,6 +444,9 @@ def sae_fused_forward(x, We, be, Wd, bd, save_h: bool = False):
             l1_part.data_ptr())
     if route == "wgmma":
         rc = lib.sae_fused_fwd_tc(*ptrs, L, B, D, S, x.device.index, stream)
+    elif route == "tf32x3":
+        split = new(_tf32_scratch_floats(False, L, B, D, S), dtype=torch.float32)
+        rc = lib.sae_fused_fwd_tf32(*ptrs, split.data_ptr(), L, B, D, S, x.device.index, stream)
     else:
         rc = lib.sae_fused_fwd(*ptrs, L, B, D, S, _DTYPE_CODES[x.dtype], x.device.index,
                                stream)
@@ -449,21 +492,25 @@ def _backward_launch(name, mode, x, Wd, bd, dy, dl1, hc=None, We=None, be=None, 
     return dWe, dWd, dbe_part.sum(dim=1)
 
 
-def _tc_backward(name, entry, x, S, ins, hc_scratch):
-    """A backward's launches on the "wgmma" route (``csrc/sae_fused_tc.cu``):
-    the library's ``entry`` with the pointers of ``ins``, then of xc, the
-    recomputed hc (B5, B9: ``hc_scratch``), dhc, dW_enc, dW_dec and the
-    db_enc partials, all allocated here.  Raises if the launch fails."""
+def _tc_backward(name, entry, route, x, S, ins, hc_scratch):
+    """A backward's launches on the "wgmma" route (``csrc/sae_fused_tc.cu``)
+    or the "tf32x3" route (``csrc/sae_fused_tf32.cu``): the library's
+    ``entry`` with the pointers of ``ins``, then of xc (but in tf32x3's B6,
+    which forms no xc), the recomputed hc (B5, B9: ``hc_scratch``), dhc,
+    the split copies (tf32x3), dW_enc, dW_dec and the db_enc partials, all
+    allocated here.  Raises if the launch fails."""
     L, B, D = x.shape
     new = lambda *shape, dtype=x.dtype: torch.empty(shape, dtype=dtype, device=x.device)
-    xc, dhc = new(L, B, D), new(L, B, S)
-    scratch = (xc, new(L, B, S), dhc) if hc_scratch else (xc, dhc)
+    scratch = (new(L, B, D),) if route == "wgmma" or hc_scratch else ()
+    scratch += (new(L, B, S), new(L, B, S)) if hc_scratch else (new(L, B, S),)
+    if route == "tf32x3":
+        scratch += (new(_tf32_scratch_floats(True, L, B, D, S), dtype=torch.float32),)
     dWe, dWd = new(L, D, S, dtype=torch.float32), new(L, S, D, dtype=torch.float32)
     dbe_part = new(L, B // _TILE, S, dtype=torch.float32)
     lib, stream = _lib_and_stream(x.device)
     rc = getattr(lib, entry)(*(t.data_ptr() for t in (*ins, *scratch, dWe, dWd, dbe_part)),
                              L, B, D, S, x.device.index, stream)
-    _build.check(lib, rc, f"{name} (wgmma)")
+    _build.check(lib, rc, f"{name} ({route})")
     return dWe, dWd, dbe_part.sum(dim=1)
 
 
@@ -472,10 +519,12 @@ def sae_fused_backward(x, We, be, Wd, bd, dy, dl1):
     dW_dec [L, d_sae, d_in], db_enc [L, d_sae])`` from ``dy`` (x's dtype)
     and ``dl1`` (float32 ``[L]``).  CUDA tensors launch
     ``csrc/sae_fused_tc.cu`` (the "wgmma" route of :func:`sae_gemm_route`,
-    B4's: its mask ``hpre > 0`` carried by -0 marks in the recomputed hc) or
-    ``csrc/sae_fused_bwd.cu`` and add one to ``sae_fused_backward.launches``
-    and to the route's count in ``sae_fused_backward.routes``; a launch that
-    fails raises.  CPU tensors run the plain version."""
+    B4's: its mask ``hpre > 0`` carried by -0 marks in the recomputed hc),
+    ``csrc/sae_fused_tf32.cu`` ("tf32x3", B4's: B4's encoder again, then
+    B6's launches) or ``csrc/sae_fused_bwd.cu`` and add one to
+    ``sae_fused_backward.launches`` and to the route's count in
+    ``sae_fused_backward.routes``; a launch that fails raises.  CPU tensors
+    run the plain version."""
     L, B, D, S = _shapes(x, We, Wd)
     _check("sae_fused_backward", x.dtype, x.device, x=x, W_enc=We, b_enc=be, W_dec=Wd,
            b_dec=bd, dy=dy, dl1=dl1)
@@ -483,8 +532,9 @@ def sae_fused_backward(x, We, be, Wd, bd, dy, dl1):
         return sae_fused_backward_reference(x, We, be, Wd, bd, dy, dl1)
     _kernel_shapes_ok("sae_fused_backward", B, D, S)
     route = sae_gemm_route(B, D, S, x.dtype)
-    if route == "wgmma":
-        out = _tc_backward("sae_fused_backward", "sae_fused_bwd_remat_tc", x, S,
+    if route in ("wgmma", "tf32x3"):
+        entry = "sae_fused_bwd_remat_tc" if route == "wgmma" else "sae_fused_bwd_remat_tf32"
+        out = _tc_backward("sae_fused_backward", entry, route, x, S,
                            (x, We, be, Wd, bd, dy, dl1), hc_scratch=True)
     else:
         out = _backward_launch("sae_fused_backward", _RELU_REMAT, x, Wd, bd, dy, dl1,
@@ -501,11 +551,11 @@ sae_fused_backward.routes = dict.fromkeys(SAE_GEMM_ROUTES, 0)
 def sae_fused_backward_stored(x, hc, Wd, bd, dy, dl1):
     """Kernel B6, the VJP from the forward's stored ``hc`` ``[L, B, d_sae]``:
     the same outputs as :func:`sae_fused_backward`.  CUDA tensors launch
-    ``csrc/sae_fused_tc.cu`` (the "wgmma" route of :func:`sae_gemm_route`)
-    or ``csrc/sae_fused_bwd.cu`` and add one to
-    ``sae_fused_backward_stored.launches`` and to the route's count in
-    ``sae_fused_backward_stored.routes``; a launch that fails raises.  CPU
-    tensors run the plain version."""
+    ``csrc/sae_fused_tc.cu`` (the "wgmma" route of :func:`sae_gemm_route`),
+    ``csrc/sae_fused_tf32.cu`` ("tf32x3") or ``csrc/sae_fused_bwd.cu`` and
+    add one to ``sae_fused_backward_stored.launches`` and to the route's
+    count in ``sae_fused_backward_stored.routes``; a launch that fails
+    raises.  CPU tensors run the plain version."""
     L, B, D = x.shape
     S = hc.shape[-1]
     if tuple(hc.shape) != (L, B, S) or tuple(Wd.shape) != (L, S, D):
@@ -517,8 +567,9 @@ def sae_fused_backward_stored(x, hc, Wd, bd, dy, dl1):
         return sae_fused_backward_stored_reference(x, hc, Wd, bd, dy, dl1)
     _kernel_shapes_ok("sae_fused_backward_stored", B, D, S)
     route = sae_gemm_route(B, D, S, x.dtype)
-    if route == "wgmma":
-        out = _tc_backward("sae_fused_backward_stored", "sae_fused_bwd_stored_tc", x, S,
+    if route in ("wgmma", "tf32x3"):
+        entry = "sae_fused_bwd_stored_tc" if route == "wgmma" else "sae_fused_bwd_stored_tf32"
+        out = _tc_backward("sae_fused_backward_stored", entry, route, x, S,
                            (x, hc, Wd, bd, dy, dl1), hc_scratch=False)
     else:
         out = _backward_launch("sae_fused_backward_stored", _STORED, x, Wd, bd, dy, dl1, hc=hc)
@@ -549,7 +600,7 @@ def sae_fused_forward_topk(x, We, be, Wd, bd, k: int, save_h: bool = False):
     if x.device.type == "cpu":
         return sae_fused_forward_topk_reference(x, We, be, Wd, bd, k, save_h)
     _kernel_shapes_ok("sae_fused_forward_topk", B, D, S)
-    route = sae_gemm_route(B, D, S, x.dtype)
+    route = sae_gemm_route(B, D, S, x.dtype, "topk")
     new = lambda *shape, dtype=x.dtype: torch.empty(shape, dtype=dtype, device=x.device)
     xc, h, y = new(L, B, D), new(L, B, S), new(L, B, D)
     t = new(L, B, 1, dtype=torch.float32)
@@ -582,10 +633,12 @@ def sae_fused_backward_topk(x, We, be, Wd, bd, dy, dl1, t):
     float32: the same outputs as :func:`sae_fused_backward`.  CUDA tensors
     launch ``csrc/sae_fused_tc.cu`` (the "wgmma" route of
     :func:`sae_gemm_route`, B8's: B8's encoder mode masked against t, then
-    B6's launches) or ``csrc/sae_fused_bwd.cu`` (its TopK mask mode) and add
-    one to ``sae_fused_backward_topk.launches`` and to the route's count in
-    ``sae_fused_backward_topk.routes``; a launch that fails raises.  CPU
-    tensors run the plain version."""
+    B6's launches) or ``csrc/sae_fused_bwd.cu`` (bf16: its TopK mask mode;
+    float32, the "ffma" route, B8's: ``sae_fused_topk_remat_h`` recomputes
+    h with B8's FFMA encoder tile, then B6's "tf32x3" launches run on it)
+    and add one to ``sae_fused_backward_topk.launches`` and to the route's
+    count in ``sae_fused_backward_topk.routes``; a launch that fails raises.
+    CPU tensors run the plain version."""
     L, B, D, S = _shapes(x, We, Wd)
     _check("sae_fused_backward_topk", x.dtype, x.device, x=x, W_enc=We, b_enc=be, W_dec=Wd,
            b_dec=bd, dy=dy, dl1=dl1)
@@ -595,10 +648,21 @@ def sae_fused_backward_topk(x, We, be, Wd, bd, dy, dl1, t):
     if x.device.type == "cpu":
         return sae_fused_backward_topk_reference(x, We, be, Wd, bd, dy, dl1, t)
     _kernel_shapes_ok("sae_fused_backward_topk", B, D, S)
-    route = sae_gemm_route(B, D, S, x.dtype)
+    route = sae_gemm_route(B, D, S, x.dtype, "topk")
     if route == "wgmma":
-        out = _tc_backward("sae_fused_backward_topk", "sae_fused_bwd_topk_tc", x, S,
+        out = _tc_backward("sae_fused_backward_topk", "sae_fused_bwd_topk_tc", route, x, S,
                            (x, We, be, Wd, bd, dy, dl1, t.contiguous()), hc_scratch=True)
+    elif route == "ffma":  # float32: B8's h again on its FFMA tile, then B6's launches
+        new = lambda *shape: torch.empty(shape, dtype=x.dtype, device=x.device)
+        xc, h = new(L, B, D), new(L, B, S)
+        lib, stream = _lib_and_stream(x.device)
+        rc = lib.sae_fused_topk_remat_h(
+            *(v.data_ptr() for v in (x, We, be, bd, t.contiguous(), xc, h)), L, B, D, S,
+            x.device.index, stream)
+        _build.check(lib, rc, "sae_fused_backward_topk (ffma)")
+        del xc
+        out = _tc_backward("sae_fused_backward_topk", "sae_fused_bwd_stored_tf32", "tf32x3", x,
+                           S, (x, h, Wd, bd, dy, dl1), hc_scratch=False)
     else:
         out = _backward_launch("sae_fused_backward_topk", _TOPK_REMAT, x, Wd, bd, dy, dl1,
                                We=We, be=be, t=t.contiguous())
@@ -636,7 +700,7 @@ def sae_gated_fused_forward(x, We, bg, rmag, bm, Wd, bd, save_h: bool = False):
     if x.device.type == "cpu":
         return sae_gated_fused_forward_reference(x, We, bg, rmag, bm, Wd, bd, save_h)
     _kernel_shapes_ok("sae_gated_fused_forward", B, D, S)
-    route = sae_gemm_route(B, D, S, x.dtype)
+    route = sae_gemm_route(B, D, S, x.dtype, "gated")
     e, wdn = _gated_hoisted_card(rmag, Wd)
     new = lambda *shape, dtype=x.dtype: torch.empty(shape, dtype=dtype, device=x.device)
     # each layer's h and hga rows stacked, so are y and via: one decoder launch
@@ -678,7 +742,7 @@ def sae_gated_fused_backward(x, We, bg, rmag, bm, Wd, bd, dy, dvia, dl1):
     if x.device.type == "cpu":
         return sae_gated_fused_backward_reference(x, We, bg, rmag, bm, Wd, bd, dy, dvia, dl1)
     _kernel_shapes_ok("sae_gated_fused_backward", B, D, S)
-    route = sae_gemm_route(B, D, S, x.dtype)
+    route = sae_gemm_route(B, D, S, x.dtype, "gated")
     e, wdn = _gated_hoisted_card(rmag, Wd)
     new = lambda *shape, dtype=x.dtype: torch.empty(shape, dtype=dtype, device=x.device)
     xc, dgc = new(L, B, D), new(L, B, S)
