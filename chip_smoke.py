@@ -158,12 +158,17 @@ Phases, each printing JSON lines with the card's name and power limit:
    with a 1-batch buffer, ``run(max_steps=30)`` (one refill) through B8 and
    B6 on every step, exact launches
    and routes; then a few steps with ``fused_store_acts=False`` through B9
-   (on B8's route), and where the time goes: fused and generic steps timed
+   (on B8's route); bench.py's TopK recipe at its float32 compute dtype
+   (``topk_train_f32``: B8, B6 and B9 on 3xTF32) through the trainer on
+   the same store, its steps timed and profiled; and where the time goes:
+   fused and generic steps timed
    with CUDA events on buffered batches, and ``torch.profiler``'s device
    time by kernel over three steps of each (with the SAE kernels' share)
    and over one refill, with the device's idle share;
 10. TopK step check: three fused steps against three generic steps (B10)
-    from the trained state in float32, and ``SparseAutoencoder.encode``
+    from the trained state in float32, B10's active sets held to B8's
+    within the flip bounds and then pinned to them, so that the whole state
+    meets the unswitched bounds, and ``SparseAutoencoder.encode``
     (B10) against B8's masked h; then ``checkpoint``: the TopK row's steps
     on buffered batches, ``save_train_state`` after five, a fresh trainer
     with ``load_state``, five more, equal to ten uninterrupted steps to the
@@ -333,18 +338,28 @@ SAE_BWD_SOURCE = "vit_prisma_tpu_torch/csrc/sae_fused_bwd.cu"
 # the kernel's name in ptxas's record
 SAE_TC_SOURCE = "vit_prisma_tpu_torch/csrc/sae_fused_tc.cu"
 SAE_TC_KERNEL = "sae_tc_kernel"
-# B4's, B5's and B6's float32 route (sae_gemm_route "tf32x3": 3xTF32 on tf32
-# wgmma): its source, the kernel's name in ptxas's record, the names of its
-# launches (the kernel and the split pre-passes), and the float32 FFMA tiles
-# of sae_gemm.cuh that B4-B6 must no longer launch (B9's recompute keeps
-# dh_kernel's, B8's encoder_topk_kernel)
+# B4's, B5's, B6's, B8's and B9's float32 route (sae_gemm_route "tf32x3":
+# 3xTF32 on tf32 wgmma): its source, the kernel's name in ptxas's record and
+# its modes (0 encoder, 1 decoder, 2 dh, 3 weight gradients, 4 B8's TopK
+# encoder, 5 B9's remat encoder), the names of its launches (the kernel and
+# the split pre-passes; B8's select and counts), its C entry points for B8
+# and B9, and the FFMA tiles of sae_gemm.cuh, sae_fused_fwd_topk.cu and
+# sae_fused_bwd.cu that no float32 B4-B6, B8 or B9 call may launch
 SAE_TF32_SOURCE = "vit_prisma_tpu_torch/csrc/sae_fused_tf32.cu"
 SAE_TF32_KERNEL = "sae_tf32_kernel"
+SAE_TF32_MODES = (0, 1, 2, 3, 4, 5)
+SAE_TF32_TOPK_MODES = (4, 5)
 SAE_TF32_KERNELS = (SAE_TF32_KERNEL, "split_t_kernel", "split_rows_kernel")
-SAE_FFMA_KERNELS = ("encoder_kernel", "dh_kernel", "wgrad_kernel", "decoder_kernel")
+SAE_TF32_TOPK_FWD_KERNELS = (SAE_TF32_KERNEL, "split_t_kernel", "radix_select_kernel",
+                             "count_kernel")
+SAE_TF32_TOPK_ENTRIES = {"sae_fused_forward_topk": "sae_fused_fwd_topk_tf32",
+                         "sae_fused_backward_topk": "sae_fused_bwd_topk_tf32"}
+SAE_FFMA_KERNELS = ("encoder_kernel", "encoder_topk_kernel", "threshold_kernel", "dh_kernel",
+                    "wgrad_kernel", "decoder_kernel")
 # The route each kernel family takes in float32 at every shape the picker
-# takes: the ReLU family (B4-B6) 3xTF32, the TopK and gated families FFMA
-SAE_F32_ROUTES = {"relu": "tf32x3", "topk": "ffma", "gated": "ffma"}
+# takes: the ReLU (B4-B6) and TopK (B8, B9) families 3xTF32, the gated
+# family FFMA
+SAE_F32_ROUTES = {"relu": "tf32x3", "topk": "tf32x3", "gated": "ffma"}
 SAE_REPLACES = {"sae_fused_forward": "vit_prisma_tpu/ops/sae_step.py:148",
                 "sae_fused_backward": "vit_prisma_tpu/ops/sae_step.py:250",
                 "sae_fused_backward_stored": "vit_prisma_tpu/ops/sae_step.py:389"}
@@ -523,14 +538,17 @@ SAE_GRAD_REL = {torch.bfloat16: 2e-3, torch.float32: 1e-5}
 SAE_SWITCHED_GRAD_REL = 5e-2
 SAE_L1_REL = 1e-5
 # B8, B9 and B6 on B8's h against their plain versions: name, L, B, d_in,
-# d_sae, dtype.  The TopK slice (bench.py:164-171, k = 64) in both dtypes,
-# the all-layer sweep's shape in bfloat16 (both on the Hopper route in
-# bf16), and a ViT-S width (d_in 384, a multiple of 128 but not of 256, at
-# expansion 16) in bfloat16, which keeps the mma.sync tiles.
+# d_sae, dtype.  The TopK slice (bench.py:164-171, k = 64) and the all-layer
+# sweep's widths in both dtypes (the Hopper route in bf16, 3xTF32 in
+# float32), and a ViT-S width (d_in 384, a multiple of 128 but not of 256,
+# at expansion 16) in bfloat16, which keeps the mma.sync tiles.
 TOPK_SHAPES = [("slice_bf16", 1, 4096, 768, 12288, torch.bfloat16),
                ("slice_f32", 1, 4096, 768, 12288, torch.float32),
                ("sweep_bf16", 24, 4096, 1024, 8192, torch.bfloat16),
+               ("sweep_f32", 24, 4096, 1024, 8192, torch.float32),
                ("vit_s_bf16", 1, 4096, 384, 6144, torch.bfloat16)]
+# The float32 shape whose B8 and B9 kernels the profiler lists (one window).
+TOPK_F32_PROFILED_SHAPE = "slice_f32"
 # The kernel and the plain version round hp to c after float32 sums taken in
 # other orders, so an hp within a rounding of the row's k-th value or of 0
 # may fall on the other side of the mask in one of them.  Such entries are
@@ -555,6 +573,19 @@ TOPK_SAVE_ACTS_SHAPE = (1, 4096, 768, 12288)
 # The TopK train phase: phase 5's set-up with the TopK config of bench.py's
 # bf16 row; then REMAT_STEPS steps with fused_store_acts=False (B9).
 TOPK_REMAT_STEPS = 4
+# The float32 TopK row: bench.py's TopK recipe at its own float32 compute
+# dtype (bench.py:164-166: no compute_dtype; topk_config() with it unset),
+# trained through VisionSAETrainer from the TopK train phase's state on its
+# store, which serves these steps without a refill (no second harvest): one
+# step of run() (B8, B6), then TOPK_F32_REPEATS runs of TOPK_F32_STEPS of the
+# trainer's train_step on batches in the buffer, each timed by synchronized
+# wall time, TOPK_F32_PROFILED more under torch.profiler (device time and
+# the idle share of that window), then TOPK_F32_REMAT_STEPS with
+# fused_store_acts=False (B8, B9).
+TOPK_F32_STEPS = 30
+TOPK_F32_REPEATS = 3
+TOPK_F32_PROFILED = 6
+TOPK_F32_REMAT_STEPS = 2
 # Where a TopK step's time goes, after the train phase: TOPK_PROFILE_STEPS
 # steps timed back to back on batches already in the buffer, fused and
 # generic, then torch.profiler over three steps of each and over one refill;
@@ -571,9 +602,13 @@ TOPK_PROFILE_KERNELS = ("sae_tc_kernel", "center_kernel", "radix_select_kernel",
                         "count_kernel")
 # TopK step check: fused (B8, B6) against generic (B10) steps from the
 # trained state in float32.  Both paths mask float32 pre-activations summed
-# in other orders, so an entry within rounding of its row's k-th value may
-# switch; those features are counted and held to the switched bounds of
-# phase 6 (STEP_SWITCHED_*), every other feature to its unswitched bounds.
+# in other orders (3xTF32 against cuBLAS), so an entry within rounding of its
+# row's k-th value may switch; a TopK switch sits at the row's threshold, so
+# it would move the row's reconstruction and every co-active feature's
+# grads.  So B10's own active set is held to B8's within the kernel phase's
+# flip bounds (TOPK_FLIP_FRAC, TOPK_FLIP_ROW_FRAC), and the generic step then
+# takes B8's active set: every entry of the state is held to phase 6's
+# unswitched bounds and the counters must be equal.
 # encode's activations against B8's masked h: the same, entry by entry.
 TOPK_ENCODE_REL = 1e-5
 # The sweep: the JAX package's BASELINE config 5 (bench.py:189-214) with the
@@ -1827,26 +1862,28 @@ def _route_record(name, B, D, Sd, dtype, taken, family="relu"):
     return rec
 
 
-def _tf32_ptxas():
-    """ptxas's record of the float32 route's kernel (its four modes): no
-    spills, no serialized wgmma."""
+def _tf32_ptxas(modes):
+    """ptxas's record of the float32 route's kernel: every mode of
+    SAE_TF32_MODES built, with no spills and no serialized wgmma; the
+    records of ``modes``."""
     rec = ptxas(SAE_TF32_KERNEL)
-    if len(rec) != 4 or any(r["spill_bytes"] or r["wgmma_serialized"] for r in rec.values()):
+    if len(rec) != len(SAE_TF32_MODES) or any(r["spill_bytes"] or r["wgmma_serialized"]
+                                               for r in rec.values()):
         raise AssertionError(f"{SAE_TF32_KERNEL}: {rec}")
-    return rec
+    return {m: r for m, r in rec.items()
+            if any(f"{SAE_TF32_KERNEL}ILi{mode}E" in m for mode in modes)}
 
 
-def _f32_profiled(what, fn, want, ffma_allowed=()):
+def _f32_profiled(what, fn, want):
     """Names of the kernels torch.profiler sees in calls of ``fn`` (a
-    float32 B4, B5, B6 or B9 call), raising unless every kernel of ``want``
-    is among them and no FFMA tile of sae_gemm.cuh but ``ffma_allowed``
-    (B9's recompute) is; a window that missed one is taken again with the
-    next margin of ``PROFILE_PADS_S``."""
+    float32 B4, B5, B6, B8 or B9 call), raising unless every kernel of
+    ``want`` is among them and no FFMA tile (SAE_FFMA_KERNELS) is; a window
+    that missed one is taken again with the next margin of
+    ``PROFILE_PADS_S``."""
     for pad in PROFILE_PADS_S:
         names = kernel_names(fn, pad=pad)
         missing = [k for k in want if not any(k in n for n in names)]
-        wrong = [n for n in names if any(k in n for k in SAE_FFMA_KERNELS)
-                 and not any(k in n for k in ffma_allowed)]
+        wrong = [n for n in names if any(k in n for k in SAE_FFMA_KERNELS)]
         if wrong:
             break
         if not missing:
@@ -1977,7 +2014,7 @@ def phase_sae_step_kernels(info):
     g = torch.Generator(device="cuda").manual_seed(4)
     tc_ptxas = _tc_ptxas()
     new_ptxas = _modes_ptxas(REMAT_TOPK_TC_MODES)
-    f32_ptxas = _tf32_ptxas()
+    f32_ptxas = _tf32_ptxas((0, 1, 2, 3))
     results = {}
     for name, L, B, D, Sd, dtype in SAE_STEP_SHAPES:
         x, We, be, Wd, bd, dy, dl1 = _sae_inputs(g, L, B, D, Sd, dtype)
@@ -2229,14 +2266,18 @@ def phase_kth_value(info):
 
 def phase_topk_kernels(info):
     """B8, B9 and B6 on B8's h against their plain versions at the TopK
-    slice's and the sweep's shapes and a width that keeps the bf16 mma.sync
-    tiles: the route each took, two calls equal to the bit, B9 from t equal
-    to B6 on B8's h on the same route, and the cuBLAS time of their products
-    beside them; then B8+B6 against B8+B9."""
+    slice's and the sweep's shapes in both dtypes and a width that keeps the
+    bf16 mma.sync tiles: the route each took, two calls equal to the bit, t
+    the bitwise search on the kernel's own h, +0 and never -0 in h, B9 from
+    t equal to B6 on B8's h on the same route, and the cuBLAS time of their
+    products beside them; in float32 the kernels the profiler sees (no FFMA
+    tile) and ptxas's record of the TopK modes; then B8+B6 against
+    B8+B9."""
     from functools import partial
     from vit_prisma_tpu_torch.ops import sae_step as S
     g = torch.Generator(device="cuda").manual_seed(7)
     new_ptxas = _modes_ptxas(REMAT_TOPK_TC_MODES)
+    f32_ptxas = _tf32_ptxas(SAE_TF32_TOPK_MODES)
     results = {}
     for name, L, B, D, Sd, dtype in TOPK_SHAPES:
         x, We, be, Wd, bd, dy, dl1 = _sae_inputs(g, L, B, D, Sd, dtype)
@@ -2264,6 +2305,7 @@ def phase_topk_kernels(info):
                "nact_minus_own_mask": (nact - own_count).abs().max().item(),
                "nact_abs_diff_sum": (nact - nactr).abs().sum().item(),
                "t_is_k_th_of_own_h": bool(torch.equal(t, S._row_threshold(h, TOPK_K))),
+               "h_minus_zeros": int(torch.signbit(h.float()).sum()),
                "rows_keeping_more_than_k": int((mask.sum(dim=-1) > TOPK_K).sum()),
                "rows_keeping_fewer_than_k": int((mask.sum(dim=-1) < TOPK_K).sum()),
                "l1_abs_err": (l1 - l1r).abs().max().item(),
@@ -2271,15 +2313,22 @@ def phase_topk_kernels(info):
         if not (fwd["y_unflipped_rows"] <= fwd["y_tol"] and fwd["flip_frac"] <= TOPK_FLIP_FRAC
                 and fwd["row_flip_frac"] <= TOPK_FLIP_ROW_FRAC
                 and fwd["nact_minus_own_mask"] == 0 and fwd["t_is_k_th_of_own_h"]
+                and fwd["h_minus_zeros"] == 0
                 and bool(((l1 - l1r).abs() <= l1_bound).all())
                 and bool(((nact - nactr).abs() <= per_feature).all())):
             raise AssertionError(f"{name} TopK forward: {fwd}")
-        del yr, hr, flip, flip_rows
-        # B9 recomputes hp and masks it with B8's t; the plain B9 does the same
-        # with its own products, so a mask may differ where hp rounds apart
+        # B9 is held to its plain version from the plain forward's own t:
+        # each recomputes its forward's active set, so the two differ only in
+        # the features where the forward's masks flipped (counted and bounded
+        # above).  The kernel's t on the plain hp would not do: each row's
+        # k-th entry lies at t exactly in the kernel's numbers, so wherever
+        # the plain products round it apart (3xTF32 against cuBLAS's float32:
+        # most rows) it falls below t in half of them; recorded
+        switched9 = flip.any(dim=1)
         _, hp_plain = S._hp(x, We, be, bd)
-        switched9 = (S._topk_mask(hp_plain, t)[0] != mask).any(dim=1)
-        del hp_plain
+        fwd["rows_plain_hp_off_kernel_t"] = int(
+            (S._topk_mask(hp_plain, t)[0] != mask).any(dim=-1).sum())
+        del yr, hr, flip, flip_rows, hp_plain
         dWs, route6 = _routed(S.sae_fused_backward_stored, x, h, Wd, bd, dy, dl1)
         routes["sae_fused_backward_stored"] = _route_record(name, B, D, Sd, dtype, route6)
         dW9, route9 = _routed(S.sae_fused_backward_topk, x, We, be, Wd, bd, dy, dl1, t)
@@ -2305,17 +2354,19 @@ def phase_topk_kernels(info):
                    torch.zeros_like(switched9), dtype),
                "sae_fused_backward_topk": _grad_errs(
                    f"{name} B9", dW9,
-                   S.sae_fused_backward_topk_reference(x, We, be, Wd, bd, dy, dl1, t),
+                   S.sae_fused_backward_topk_reference(x, We, be, Wd, bd, dy, dl1, tr),
                    switched9, dtype, TOPK_SWITCHED_GRAD_REL)}
         del dWs, dW9
         flop = 2 * L * B * D * Sd
         eb = x.element_size()
         n_bits = 16 if dtype == torch.bfloat16 else 32
         gemm = "bf16_tensor" if dtype == torch.bfloat16 else "f32_product"
-        # the threshold's operations on the route taken: the radix select's two
-        # 8-bit digit passes (a key map, a prefix compare and a count a key)
-        # on the Hopper route, the bitwise search's n_bits - 1 compares else
-        select_ops = (3 * 2 if route8 == "wgmma" else n_bits - 1) * L * B * Sd
+        # the threshold's operations on the route taken: the radix select's
+        # 8-bit digit passes (a key map, a prefix compare and a count a key;
+        # two in bf16, four in float32) on the Hopper and float32 routes, the
+        # bitwise search's n_bits - 1 compares else
+        select_ops = (3 * (n_bits // 8) if route8 in ("wgmma", "tf32x3") else n_bits - 1) \
+            * L * B * Sd
         w_bytes = (2 * L * D * Sd + L * Sd + L * D) * eb
         g_bytes = (2 * L * D * Sd + L * Sd) * 4
         ms = lambda fn, it: cuda_us(fn, iters=it, warmup=1) / 1000.0
@@ -2345,6 +2396,16 @@ def phase_topk_kernels(info):
                       [(xc, We), (dy, Wd.transpose(1, 2)), (xc.transpose(1, 2), dhc),
                        (h.transpose(1, 2), dy)], 4 * flop)}
         del xc, dhc
+        # float32 B8 and B9: the kernels one profiler window over a call of
+        # each sees (no FFMA tile), at the TopK slice alone: every window
+        # opened in the process makes a later one likelier to come back
+        # empty, and the route tally shows the sweep's calls on the same C
+        # entries
+        f32_names = (_f32_profiled(
+            f"{name} B8 and B9", lambda: (calls["sae_fused_forward_topk"][0](),
+                                          calls["sae_fused_backward_topk"][0]()),
+            SAE_TF32_TOPK_FWD_KERNELS + SAE_TF32_KERNELS)
+            if name == TOPK_F32_PROFILED_SHAPE else None)
         for kernel, (fn, plain, nbytes, ops) in calls.items():
             k_ms, plain_ms = ms(fn, 5), ms(plain, 2)
             n_flop = ops[0][1]  # the products
@@ -2361,6 +2422,7 @@ def phase_topk_kernels(info):
                 rec["grad_errs"] = bwd[kernel]
                 rec["B9_equals_B6_on_h"] = b9_is_b6
                 rec["B9_compared_with"] = "B6 through its wrapper, on the same route"
+                rec["B9_plain_from"] = "the plain forward's t"
             rec.update(routes[kernel])
             rec.update(cublas[kernel])
             rec["bitwise_repeat"] = repeat[kernel]
@@ -2368,18 +2430,19 @@ def phase_topk_kernels(info):
                 rec["source"] = SAE_TC_SOURCE
                 if kernel != "sae_fused_backward_stored":
                     rec["ptxas"] = new_ptxas
-            if dtype == torch.float32 and kernel != "sae_fused_forward_topk":
-                # B6 on B8's h on the float32 route; B9 on B8's FFMA tile
-                # (dh_kernel's recompute), then B6's float32 launches: one
-                # profiler window, B9's, shows both
+            if dtype == torch.float32:
+                # B8, B9 and B6 on B8's h on the float32 route; B8's and B9's
+                # tf32 entries, ptxas's record of their two modes and the
+                # kernels the profiler saw
                 rec["source"] = SAE_TF32_SOURCE
-                if kernel == "sae_fused_backward_topk":
-                    rec["recompute_source"] = SAE_BWD_SOURCE
-                    rec["kernels_profiled"] = _f32_profiled(
-                        f"{name} {kernel}", fn, SAE_TF32_KERNELS + ("dh_kernel",), ("dh_kernel",))
+                if kernel in SAE_TF32_TOPK_ENTRIES:
+                    rec["entry"] = SAE_TF32_TOPK_ENTRIES[kernel]
+                    rec["ptxas"] = f32_ptxas
+                    if f32_names is not None:
+                        rec["kernels_profiled_with_b8_b9"] = f32_names
             results[(kernel, name)] = rec
             emit(rec)
-        del x, We, be, Wd, bd, dy, y, h, t, mask
+        del x, We, be, Wd, bd, dy, y, h, t, tr, mask
         torch.cuda.empty_cache()
     apply = partial(S.sae_fused_apply_topk, k=TOPK_K)
     for dtype in (torch.bfloat16, torch.float32):
@@ -2397,8 +2460,8 @@ def topk_config():
                            compute_dtype="bfloat16", n_batches_in_buffer=SLICE_BUFFER_BATCHES)
 
 
-def phase_topk_remat(info, trainer, store, cfg):
-    """TOPK_REMAT_STEPS steps through the same entry point with
+def phase_topk_remat(info, trainer, store, cfg, steps=TOPK_REMAT_STEPS, phase="topk_remat"):
+    """``steps`` steps through the same entry point with
     ``fused_store_acts=False``: B8 and B9 once a step, B6 never."""
     from vit_prisma_tpu_torch.sae import VisionSAETrainer
     counters = _sae_counters()
@@ -2407,24 +2470,113 @@ def phase_topk_remat(info, trainer, store, cfg):
     _zero_counts(counters)
     routes_before = _route_counts(counters)
     t0 = time.perf_counter()
-    remat.run(max_steps=TOPK_REMAT_STEPS)
+    remat.run(max_steps=steps)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {k: f.launches for k, f in counters.items()}
-    expected = {"sae_fused_forward_topk": TOPK_REMAT_STEPS,
-                "sae_fused_backward_topk": TOPK_REMAT_STEPS, "sae_fused_backward_stored": 0,
+    expected = {"sae_fused_forward_topk": steps,
+                "sae_fused_backward_topk": steps, "sae_fused_backward_stored": 0,
                 "sae_fused_forward": 0, "sae_fused_backward": 0, "kth_value": 0,
-                "adam_update": 4 * TOPK_REMAT_STEPS}
+                "adam_update": 4 * steps}
     if any(launches[k] != v for k, v in expected.items()):
         raise AssertionError(f"TopK remat steps launched {launches}, expected {expected}")
-    # B8 and B9 on the picker's route (the TopK slice in bf16: the Hopper route)
+    # B8 and B9 on the picker's route (the TopK slice: in bf16 the Hopper
+    # route, in float32 3xTF32)
     routes = _check_routes("TopK remat steps", counters, routes_before, launches,
                            _cfg_route(cfg))
     if not all(torch.isfinite(v).all() for v in remat.state.params.values()):
         raise AssertionError("non-finite SAE parameters after the remat steps")
-    emit({"phase": "topk_remat", **info, "steps": TOPK_REMAT_STEPS, "launches": launches,
+    emit({"phase": phase, **info, "steps": steps, "launches": launches,
           "expected_launches": expected, "routes": routes, "seconds": seconds})
     return launches
+
+
+def phase_topk_train_f32(info, trainer, store, cfg):
+    """bench.py's TopK recipe at its float32 compute dtype (``cfg`` with
+    ``compute_dtype`` unset) through VisionSAETrainer on the card, from the
+    TopK train phase's state on its store, which serves every step here
+    without a refill: one step of ``run`` (B8, B6 on 3xTF32), then
+    TOPK_F32_REPEATS runs of TOPK_F32_STEPS of the trainer's ``train_step``
+    on batches in the buffer, each by synchronized wall time, and
+    TOPK_F32_PROFILED more under torch.profiler (device time, idle share of
+    that window); launches counted by route.  Then phase_topk_remat's check
+    of TOPK_F32_REMAT_STEPS with ``fused_store_acts=False`` (B8, B9).
+    Returns the launches of both runs."""
+    from vit_prisma_tpu_torch.sae import VisionSAETrainer
+    c = cfg.replace(compute_dtype=None)
+    want_routes = _cfg_route(c)
+    if any(want_routes[k] != "tf32x3" for k in ("sae_fused_forward_topk",
+                                                  "sae_fused_backward_topk",
+                                                  "sae_fused_backward_stored")):
+        raise AssertionError(f"float32 TopK routes {want_routes}")
+    counters = _sae_counters()
+    refills = _time_refills(store)
+    f32 = VisionSAETrainer(c, trainer.model, store)
+    f32.load_state(trainer.state)
+    bs = c.train_batch_size
+    batches = [store.buffer[i * bs:(i + 1) * bs] for i in range(TOPK_F32_STEPS)]
+    _zero_counts(counters)
+    routes_before = _route_counts(counters)
+    f32.run(max_steps=1)  # warm-up
+    seconds = []
+    for _ in range(TOPK_F32_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            f32.train_step(b)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    steps = 1 + TOPK_F32_REPEATS * TOPK_F32_STEPS  # each profiler window adds 2 TOPK_F32_PROFILED
+    # the step's device time by part over TOPK_F32_PROFILED steps, after as
+    # many in an unkept profiler cycle (a cold window lost the first step's
+    # B8): B8's and B6's launches by mode, the split pre-passes, the select,
+    # the counts, B7, cuBLAS and elementwise work.  A window that lost device
+    # events (a launch of B8 or B6 counted other than once a step) is taken
+    # again with the next margin of PROFILE_PADS_S.
+    parts = (*(f"{SAE_TF32_KERNEL}<{m}>" for m in SAE_TF32_MODES), "split_t_kernel",
+             "split_rows_kernel", "center_kernel", "radix_select_kernel", "count_kernel",
+             "adam_", "gemm", "elementwise", "reduce")
+    per_step = {**{f"{SAE_TF32_KERNEL}<{m}>": 1 for m in (1, 2, 3, 4)}, "split_t_kernel": 4,
+                "split_rows_kernel": 1, "center_kernel": 1, "radix_select_kernel": 1,
+                "count_kernel": 1}
+    for tries, pad in enumerate(PROFILE_PADS_S, 1):
+        prof = _profile(lambda: [f32.train_step(b) for b in batches[:TOPK_F32_PROFILED]],
+                        share_of=TOPK_PROFILE_KERNELS + SAE_TF32_KERNELS, top=TOPK_PROFILE_TOP,
+                        time_of=parts, calls_of=parts, pad=pad, warm=True)
+        steps += 2 * TOPK_F32_PROFILED
+        if all(prof["calls_of"][k] == n * TOPK_F32_PROFILED for k, n in per_step.items()):
+            break
+    else:
+        raise AssertionError(f"torch.profiler lost device events in {tries} windows of the "
+                             f"float32 TopK step: {prof['calls_of']}")
+    launches = {k: f.launches for k, f in counters.items()}
+    expected = dict.fromkeys(counters, 0)
+    expected.update({"sae_fused_forward_topk": steps, "sae_fused_backward_stored": steps,
+                     "adam_update": len(f32.state.params) * steps})
+    if launches != expected:
+        raise AssertionError(f"float32 TopK steps launched {launches}, expected {expected}")
+    routes = _check_routes("float32 TopK steps", counters, routes_before, launches, want_routes)
+    if not all(torch.isfinite(v).all() for v in f32.state.params.values()):
+        raise AssertionError("non-finite SAE parameters after the float32 TopK steps")
+    ms = sorted(1000.0 * t / TOPK_F32_STEPS for t in seconds)
+    emit({"phase": "topk_train_f32", **info, "model": c.model_name,
+          "recipe": "bench.py's TopK row at its float32 compute dtype (k 64, no compute_dtype)",
+          "d_in": c.d_in, "d_sae": c.d_sae, "k": c.topk_k, "train_batch_size": bs,
+          "dtype": c.dtype, "compute_dtype": c.compute_dtype,
+          "store": "the TopK train phase's, no refill", "start_step": int(trainer.state.step),
+          "timed": f"{TOPK_F32_REPEATS} runs of {TOPK_F32_STEPS} train_step calls",
+          "seconds": seconds, "ms_per_step_wall": ms,
+          "sae_tokens_per_s": [1000.0 * bs / m for m in reversed(ms)],
+          "profiled_steps": TOPK_F32_PROFILED, "profile_windows": tries,
+          "device_busy_ms_per_step": prof["device_busy_ms"] / TOPK_F32_PROFILED,
+          "wall_ms_per_profiled_step": prof["wall_ms"] / TOPK_F32_PROFILED,
+          "idle_share_profiled": prof["idle_share"], "profile": prof,
+          "launches": launches, "expected_launches": expected, "routes": routes})
+    remat_launches = phase_topk_remat(info, f32, store, c, TOPK_F32_REMAT_STEPS,
+                                      "topk_remat_f32")
+    if refills:
+        raise AssertionError(f"the float32 TopK steps refilled the store {len(refills)} times")
+    return {k: launches[k] + remat_launches[k] for k in launches}
 
 
 # the device kernels of B1 and B15 (attention_mix_core.cuh), by name
@@ -2528,24 +2680,23 @@ def phase_step_profile(info, trainer, store, cfg, phase):
               "profile": _profile(store._refill_half, share_of=MIX_KERNEL_NAMES)})
 
 
-def _topk_masks(state, x, cfg, fused):
-    """The active set [B, d_sae] that a step from ``state`` counts: kernel
-    B8's masked h on the fused path, ``encode`` (B10) on the generic path."""
+def _b8_mask(state, x, cfg):
+    """The active set [B, d_sae] that a fused step from ``state`` counts:
+    kernel B8's masked h (two calls give the same bits)."""
     from vit_prisma_tpu_torch.ops.sae_step import sae_fused_forward_topk
-    from vit_prisma_tpu_torch.sae.sae import encode, set_decoder_norm_to_unit_norm
-    p = set_decoder_norm_to_unit_norm(state.params)
-    if fused:
-        lift = {k: v[None] for k, v in p.items()}
-        return sae_fused_forward_topk(x[None], lift["W_enc"], lift["b_enc"], lift["W_dec"],
-                                      lift["b_dec"], cfg.topk_k, save_h=True)[4][0] > 0
-    return encode(p, cfg, x)[1] > 0
+    from vit_prisma_tpu_torch.sae.sae import set_decoder_norm_to_unit_norm
+    p = {k: v[None] for k, v in set_decoder_norm_to_unit_norm(state.params).items()}
+    return sae_fused_forward_topk(x[None], p["W_enc"], p["b_enc"], p["W_dec"], p["b_dec"],
+                                  cfg.topk_k, save_h=True)[4][0] > 0
 
 
 def phase_topk_step_check(info, trainer, store, cfg):
     """From the trained TopK state, three fused steps (B8, B6) against three
-    generic steps (B10) in float32; then ``SparseAutoencoder.encode`` (B10)
+    generic steps (B10) in float32, the generic steps' active sets pinned to
+    the fused steps' (B8's masks); then ``SparseAutoencoder.encode`` (B10)
     against B8's masked h."""
     from vit_prisma_tpu_torch.ops.sae_step import sae_fused_forward_topk
+    from vit_prisma_tpu_torch.sae import sae as sae_module
     from vit_prisma_tpu_torch.sae.convert import train_state_to_numpy
     from vit_prisma_tpu_torch.sae.train import sae_train_step
     c = cfg.replace(compute_dtype=None)
@@ -2553,38 +2704,48 @@ def phase_topk_step_check(info, trainer, store, cfg):
     counters = _sae_counters()
     states = {True: [trainer.state], False: [trainer.state]}
     launches = {}
-    for fused in (False, True):  # the generic path's launches are counted alone
-        _zero_counts(counters)
+    _zero_counts(counters)
+    for b in batches:
+        states[True].append(sae_train_step(states[True][-1], b, c)[0])
+    torch.cuda.synchronize()
+    launches[True] = {k: f.launches for k, f in counters.items()}
+    pins = [_b8_mask(states[True][j], b, c) for j, b in enumerate(batches)]
+    # The generic step's activation runs B10 as always, and its own active
+    # set is held to B8's within the flip bounds; the step then goes on with
+    # B8's active set, so that both paths sum the same terms.
+    own_activation, switches = sae_module.topk_mask_activation, []
+
+    def pinned_activation(x, k):
+        pin = pins[len(switches)]
+        flip = (own_activation(x.detach(), k) > 0) != pin
+        switches.append({"entries": int(flip.sum()), "rows": int(flip.any(dim=-1).sum())})
+        return torch.where(pin, torch.relu(x), torch.zeros((), dtype=x.dtype, device=x.device))
+
+    _zero_counts(counters)
+    sae_module.topk_mask_activation = pinned_activation
+    try:
         for b in batches:
-            states[fused].append(sae_train_step(states[fused][-1], b,
-                                                c.replace(fused_sae_step=fused))[0])
+            states[False].append(sae_train_step(states[False][-1], b,
+                                                c.replace(fused_sae_step=False))[0])
         torch.cuda.synchronize()
-        launches[fused] = {k: f.launches for k, f in counters.items()}
+    finally:
+        sae_module.topk_mask_activation = own_activation
+    launches[False] = {k: f.launches for k, f in counters.items()}
     if (launches[False]["kth_value"] != STEP_CHECK_STEPS
             or launches[False]["sae_fused_forward_topk"] != 0
             or launches[True]["sae_fused_forward_topk"] != STEP_CHECK_STEPS
-            or launches[True]["kth_value"] != 0):
+            or launches[True]["kth_value"] != 0 or len(switches) != STEP_CHECK_STEPS):
         raise AssertionError(f"TopK step check launches: generic {launches[False]}, "
-                             f"fused {launches[True]}")
-    flips, switched = 0, torch.zeros(cfg.d_sae, dtype=torch.bool, device="cuda")
-    for j, b in enumerate(batches):
-        flip = _topk_masks(states[True][j], b, c, True) != _topk_masks(states[False][j], b, c,
-                                                                     False)
-        flips += int(flip.sum())
-        switched |= flip.any(dim=0)
+                             f"fused {launches[True]}, generic activations {len(switches)}")
+    if any(s["entries"] > TOPK_FLIP_FRAC * b.shape[0] * c.d_sae
+           or s["rows"] > TOPK_FLIP_ROW_FRAC * b.shape[0] for s in switches):
+        raise AssertionError(f"B10's active sets against B8's: {switches}")
     got, want = train_state_to_numpy(states[True][-1]), train_state_to_numpy(states[False][-1])
-    mask = switched.cpu().numpy()
     errs, scales = {}, {}
     for k in want:
-        d = np.abs(got[k].astype(np.float64) - want[k])
         scales[k] = float(np.abs(want[k]).max())
-        if k.endswith(("/W_enc", "/b_enc", "/W_dec")):
-            sw = mask[:, None] if k.endswith("/W_dec") else mask
-            sw = np.broadcast_to(sw, d.shape)
-            errs[k] = {"unswitched": float(d[~sw].max()) if (~sw).any() else 0.0,
-                       "switched": float(d[sw].max()) if sw.any() else 0.0}
-        else:
-            errs[k] = {"unswitched": float(d.max()), "switched": 0.0}
+        errs[k] = {"unswitched": float(np.abs(got[k].astype(np.float64) - want[k]).max()),
+                   "switched": 0.0}
 
     # encode of the trained SAE (B10) against B8's masked h, both float32
     sae = trainer.sae
@@ -2607,15 +2768,16 @@ def phase_topk_step_check(info, trainer, store, cfg):
             and enc["rows_with_flips"] <= TOPK_FLIP_ROW_FRAC * x.shape[0]):
         raise AssertionError(f"encode against B8: {enc}")
     rec = {"phase": "topk_step_check", **info, "steps": STEP_CHECK_STEPS, "dtype": "float32",
-           "start_step": int(trainer.state.step), "threshold_switches": flips,
-           "switched_features": int(switched.sum()), "launches_generic": launches[False],
+           "start_step": int(trainer.state.step), "b10_switches_against_b8": switches,
+           "launches_generic": launches[False],
            "launches_fused": launches[True], "state_max_abs_err": errs,
            "state_absmax": scales,
            "act_freq_abs_diff_sum": float(np.abs(got["act_freq_scores"]
                                                  - want["act_freq_scores"]).sum()),
            "encode_vs_B8": enc}
     emit(rec)
-    check_steps([{}], errs, scales, flips, int(switched.sum()), got, want)
+    # one active set: every entry within the unswitched bounds, counters exact
+    check_steps([{}], errs, scales, 0, 0, got, want)
     return launches[False]["kth_value"] + encode_launches
 
 
@@ -7273,6 +7435,7 @@ def main():
     trainer, store, cfg, topk_launches = timed(phase_train, info, topk_config(), "topk_train",
                                               SLICE_STEPS, name="topk_train")
     topk_remat_launches = timed(phase_topk_remat, info, trainer, store, cfg)
+    topk_f32_launches = timed(phase_topk_train_f32, info, trainer, store, cfg)
     kth_launches = timed(phase_topk_step_check, info, trainer, store, cfg)
     timed(phase_step_profile, info, trainer, store, cfg, "topk_profile", name="topk_profile")
     timed(phase_checkpoint, info, store)
@@ -7393,8 +7556,7 @@ def main():
             [("fp32", sum(15 * math.prod(r["dims"]) for r in adam_sweep))]).items()}}
     sweep_rec = lambda k: sae_step_kernels[(k, "sweep_bf16")]
     topk_rec = lambda k: topk_kernels[(k, "slice_bf16")]
-    # a routed SAE kernel's float32 figures at each of ``shapes`` (3xTF32 for
-    # B4-B6, FFMA for B8; B9 its FFMA recompute and B6's float32 launches)
+    # a routed SAE kernel's float32 figures at each of ``shapes`` (3xTF32)
     f32_sae_keys = ("route", "ms", "plain_ms", "bound_ms", "bound_by", "cublas_products_ms",
                     "TFLOP_per_s", "max_abs_err")
     f32_sae = lambda kernel, recs, shapes: {
@@ -7402,6 +7564,12 @@ def main():
         for key in f32_sae_keys}
     f32_step = lambda kernel: {**f32_sae(kernel, sae_step_kernels, ("sweep_f32", "topk_slice_f32")),
                                "f32_source": SAE_TF32_SOURCE}
+    # B8's and B9's: at the TopK slice and the sweep's widths, their tf32 C
+    # entry, and their launches on the float32 TopK train path
+    f32_topk = lambda kernel: {**f32_sae(kernel, topk_kernels, ("slice_f32", "sweep_f32")),
+                               "f32_source": SAE_TF32_SOURCE,
+                               "f32_entry": SAE_TF32_TOPK_ENTRIES[kernel],
+                               "f32_path_launches": topk_f32_launches[kernel]}
     l14 = kernels[("l14", torch.bfloat16)]
     text = kernels[("text_causal", torch.bfloat16)]
     # the float32 route's figures at each shape of a kernel phase
@@ -7475,7 +7643,8 @@ def main():
                         topk_rec("sae_fused_backward_stored")),
          **f32_step("sae_fused_backward_stored"),
          **{f"f32_on_topk_h_{k}": v for k, v in f32_sae(
-             "sae_fused_backward_stored", topk_kernels, ("slice_f32",)).items()},
+             "sae_fused_backward_stored", topk_kernels, ("slice_f32", "sweep_f32")).items()},
+         "f32_topk_path_launches": topk_f32_launches["sae_fused_backward_stored"],
          "f32_sweep_path_launches": f32_sweep_launches["sae_fused_backward_stored"]},
         # at the TopK slice's bf16 shape; launches from its train path (B9:
         # from its remat steps).  Both run their Hopper route there (source:
@@ -7483,14 +7652,14 @@ def main():
         {**entry("sae_fused_forward_topk", SAE_TC_SOURCE, TOPK_REPLACES["sae_fused_forward_topk"],
                  topk_launches["sae_fused_forward_topk"], topk_rec("sae_fused_forward_topk")),
          **topk_tc_extra(topk_rec("sae_fused_forward_topk")),
-         **f32_sae("sae_fused_forward_topk", topk_kernels, ("slice_f32",))},
+         **f32_topk("sae_fused_forward_topk")},
         {**entry("sae_fused_backward_topk", SAE_TC_SOURCE,
                  TOPK_REPLACES["sae_fused_backward_topk"],
                  topk_remat_launches["sae_fused_backward_topk"],
                  topk_rec("sae_fused_backward_topk")),
          **topk_tc_extra(topk_rec("sae_fused_backward_topk")),
          "b9_equals_b6_on_h": topk_rec("sae_fused_backward_topk")["B9_equals_B6_on_h"],
-         **f32_sae("sae_fused_backward_topk", topk_kernels, ("slice_f32",)),
+         **f32_topk("sae_fused_backward_topk"),
          "f32_b9_equals_b6_on_h":
              topk_kernels[("sae_fused_backward_topk", "slice_f32")]["B9_equals_B6_on_h"]},
         # the generic TopK step's float32 [4096, 12288], with the other

@@ -3,7 +3,8 @@
 ``text``, ``tools``, ``parallel``, ...: the ``phase_<name>`` functions that
 take only the card's record) in the order given; ``gated_train`` runs phase 14 alone, the gated train path and its
 step profile, ``topk_train`` phase 9 alone (the TopK train path, its
-remat steps and its step profile), ``sweep_check`` the bf16 sweep and the
+remat steps, its float32 steps, the fused-vs-generic step check and its
+step profile), ``sweep_check`` the bf16 sweep and the
 fused-vs-generic sweep step checks (bf16 and float32), and ``sweep_f32``
 the sweep at the config's default float32 compute dtype.  Prints chip_smoke.py's JSON records.  Run from the
 repository root on a CUDA card: ``python3 probes/kernel_phases.py take_rows
@@ -42,6 +43,8 @@ def main():
             trainer, store, cfg, _ = chip_smoke.phase_train(info, chip_smoke.topk_config(),
                                                             "topk_train", chip_smoke.SLICE_STEPS)
             chip_smoke.phase_topk_remat(info, trainer, store, cfg)
+            chip_smoke.phase_topk_train_f32(info, trainer, store, cfg)
+            chip_smoke.phase_topk_step_check(info, trainer, store, cfg)
             chip_smoke.phase_step_profile(info, trainer, store, cfg, "topk_profile")
             del trainer, store
         else:

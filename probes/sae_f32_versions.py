@@ -20,8 +20,22 @@ and the ptxas records.  ``--bf16`` instead builds each version's bf16 routes
 mma.sync tiles) and holds every version's B4, B6 and B5 outputs to the
 package's, bit for bit, at the sweep's shape (the Hopper route) and a ViT-S
 width (384 -> 6144, two layers: mma.sync), with their times in turns.
+``--only topk`` instead times B8 and B9 (the TopK forward, k 64, and its
+remat backward) as each version builds them (3xTF32 from
+``sae_fused_tf32.cu``'s ``sae_fused_fwd_topk_tf32`` and
+``sae_fused_bwd_topk_tf32`` where the version has them; else B8's FFMA tiles
+of ``sae_fused_fwd_topk.cu`` and B9's FFMA recompute
+``sae_fused_topk_remat_h`` of ``sae_fused_bwd.cu`` followed by
+``sae_fused_tf32.cu``'s B6) at the TopK slice and the sweep's widths: each
+version's errors against the plain versions (y on the rows whose mask
+agrees, mask flips, t against the bitwise search on the version's own h,
+-0 entries in h, B9 from t against B6 on h to the bit), then times in turns
+with the cuBLAS float32 products and the bound beside; ``--only topk
+--bf16`` holds every version's bf16 B8 and B9 (``sae_fused_tc.cu`` at the
+TopK slice, the mma.sync files at a ViT-S width) to the package's, bit for
+bit, with their times in turns.
 Prints JSON lines.  Run from the repository root on a CUDA card:
-``python3 probes/sae_f32_versions.py [--check | --bf16] [DIR ...]``."""
+``python3 probes/sae_f32_versions.py [--check | --bf16 | --only topk [--bf16]] [DIR ...]``."""
 
 import ctypes
 import json
@@ -121,15 +135,15 @@ class Version:
         dWe, dWd, dbe = new(L, D, S), new(L, S, D), new(L, B // 128, S)
         outs = [t.data_ptr() for t in (dWe, dWd, dbe)]
         if self.tf32:
-            split = new(_tf32_scratch_floats(True, L, B, D, S)).data_ptr()
+            split = new(_tf32_scratch_floats(True, L, B, D, S))  # held until the call returns
             if remat:
                 self._call(self.lib, "sae_fused_bwd_remat_tf32",
                            *(t.data_ptr() for t in (x, We, be, Wd, bd, dy, dl1, xc, hc, dhc)),
-                           split, *outs, L, B, D, S, 0)
+                           split.data_ptr(), *outs, L, B, D, S, 0)
             else:
                 self._call(self.lib, "sae_fused_bwd_stored_tf32",
-                           *(t.data_ptr() for t in (x, hc, Wd, bd, dy, dl1, dhc)), split, *outs,
-                           L, B, D, S, 0)
+                           *(t.data_ptr() for t in (x, hc, Wd, bd, dy, dl1, dhc)),
+                           split.data_ptr(), *outs, L, B, D, S, 0)
         else:
             w = (We, be) if remat else (hc, hc)
             self._call(self.bwd, "sae_fused_bwd",
@@ -202,6 +216,233 @@ class Bf16Version:
         return outs
 
 
+class TopkVersion(Version):
+    """One version's float32 B8 and B9 through its C entries: the 3xTF32
+    entries where the version's sae_fused_tf32.cu has them, else B8's FFMA
+    file, and B9's FFMA recompute then the 3xTF32 B6."""
+
+    def __init__(self, name, d, j):
+        self.name = name
+        self.tf32 = "sae_fused_fwd_topk_tf32" in (d / "sae_fused_tf32.cu").read_text()
+        srcs = (["sae_fused_tf32.cu"] if self.tf32
+                else ["sae_fused_tf32.cu", "sae_fused_fwd_topk.cu", "sae_fused_bwd.cu"])
+        self.tags = [f"sae_topk_{j}_{k}" for k in range(len(srcs))]
+        self.procs = [start_build(d / s, t) for s, t in zip(srcs, self.tags)]
+
+    def finish(self):
+        libs = [finish_build(p, t) for p, t in zip(self.procs, self.tags)]
+        if any(lib is None for lib in libs):
+            return False
+        self.lib = libs[0]
+        self.lib.sae_fused_bwd_stored_tf32.argtypes = [P] * 11 + [I] * 5 + [P]
+        if self.tf32:
+            self.lib.sae_fused_fwd_topk_tf32.argtypes = [P] * 12 + [I] * 6 + [P]
+            self.lib.sae_fused_bwd_topk_tf32.argtypes = [P] * 15 + [I] * 5 + [P]
+        else:
+            self.fwd, self.bwd = libs[1:]
+            self.fwd.sae_fused_fwd_topk.argtypes = [P] * 11 + [I] * 7 + [P]
+            self.bwd.sae_fused_topk_remat_h.argtypes = [P] * 7 + [I] * 5 + [P]
+        return True
+
+    def forward(self, x, We, be, Wd, bd, k):
+        """B8: (y, l1, nact, t, h)."""
+        from vit_prisma_tpu_torch.ops.sae_step import _tf32_scratch_floats
+        L, B, D = x.shape
+        S = We.shape[-1]
+        new = lambda *shape: torch.empty(shape, dtype=torch.float32, device="cuda")
+        xc, h, y, t = new(L, B, D), new(L, B, S), new(L, B, D), new(L, B, 1)
+        nact, l1 = new(L, B // 128, S), new(L, B // 128, S // 128)
+        ptrs = [v.data_ptr() for v in (x, We, be, Wd, bd, xc, h, y, t, nact, l1)]
+        if self.tf32:
+            split = new(_tf32_scratch_floats(False, L, B, D, S))
+            self._call(self.lib, "sae_fused_fwd_topk_tf32", *ptrs, split.data_ptr(), L, B, D, S,
+                       k, 0)
+        else:
+            self._call(self.fwd, "sae_fused_fwd_topk", *ptrs, L, B, D, S, k, 0, 0)
+        return y, l1.sum(dim=(1, 2)), nact.sum(dim=1), t, h
+
+    def backward(self, x, Wd, bd, dy, dl1, h=None, We=None, be=None, t=None):
+        """B6 from the stored ``h``, or B9 (``We``, ``be`` and ``t`` given)."""
+        from vit_prisma_tpu_torch.ops.sae_step import _tf32_scratch_floats
+        L, B, D = x.shape
+        S = Wd.shape[1]
+        new = lambda *shape: torch.empty(shape, dtype=torch.float32, device="cuda")
+        xc, dhc = new(L, B, D), new(L, B, S)
+        dWe, dWd, dbe = new(L, D, S), new(L, S, D), new(L, B // 128, S)
+        outs = [v.data_ptr() for v in (dWe, dWd, dbe)]
+        split = new(_tf32_scratch_floats(True, L, B, D, S))  # held until the calls return
+        if h is None and self.tf32:
+            h = new(L, B, S)
+            self._call(self.lib, "sae_fused_bwd_topk_tf32", *(v.data_ptr() for v in (
+                x, We, be, Wd, bd, dy, dl1, t, xc, h, dhc, split)), *outs, L, B, D, S, 0)
+            return dWe, dWd, dbe.sum(dim=1)
+        if h is None:  # the FFMA recompute of B8's h, then B6
+            h = new(L, B, S)
+            self._call(self.bwd, "sae_fused_topk_remat_h", *(v.data_ptr() for v in (
+                x, We, be, bd, t, xc, h)), L, B, D, S, 0)
+        self._call(self.lib, "sae_fused_bwd_stored_tf32",
+                   *(v.data_ptr() for v in (x, h, Wd, bd, dy, dl1, dhc, split)), *outs,
+                   L, B, D, S, 0)
+        return dWe, dWd, dbe.sum(dim=1)
+
+
+class Bf16TopkVersion:
+    """One version's bf16 B8 and B9 through its C entries: the Hopper
+    route's file and the mma.sync files."""
+
+    def __init__(self, name, d, j):
+        self.name = name
+        self.tags = [f"sae_topk_bf16_{j}_{k}" for k in range(3)]
+        self.procs = [start_build(d / s, t) for s, t in zip(
+            ("sae_fused_tc.cu", "sae_fused_fwd_topk.cu", "sae_fused_bwd.cu"), self.tags)]
+
+    def finish(self):
+        libs = [finish_build(p, t) for p, t in zip(self.procs, self.tags)]
+        if any(lib is None for lib in libs):
+            return False
+        self.tc, self.fwd, self.bwd = libs
+        self.tc.sae_fused_fwd_topk_tc.argtypes = [P] * 11 + [I] * 6 + [P]
+        self.tc.sae_fused_bwd_topk_tc.argtypes = [P] * 14 + [I] * 5 + [P]
+        self.fwd.sae_fused_fwd_topk.argtypes = [P] * 11 + [I] * 7 + [P]
+        self.bwd.sae_fused_bwd.argtypes = [P] * 14 + [I] * 7 + [P]
+        return True
+
+    _call = Version._call
+
+    def forward(self, x, We, be, Wd, bd, k, tc):
+        """B8: (y, h, t, nact_part, l1_part)."""
+        L, B, D = x.shape
+        S = We.shape[-1]
+        new = lambda *shape, dt=torch.bfloat16: torch.empty(shape, dtype=dt, device="cuda")
+        xc, h, y = new(L, B, D), new(L, B, S), new(L, B, D)
+        t = new(L, B, 1, dt=torch.float32)
+        nact, l1 = new(L, B // 128, S, dt=torch.float32), new(L, B // 128, S // 128,
+                                                              dt=torch.float32)
+        ptrs = [v.data_ptr() for v in (x, We, be, Wd, bd, xc, h, y, t, nact, l1)]
+        if tc:
+            self._call(self.tc, "sae_fused_fwd_topk_tc", *ptrs, L, B, D, S, k, 0)
+        else:
+            self._call(self.fwd, "sae_fused_fwd_topk", *ptrs, L, B, D, S, k, 1, 0)
+        return y, h, t, nact, l1
+
+    def backward(self, x, We, be, Wd, bd, dy, dl1, t, tc):
+        """B9 from t: (dW_enc, dW_dec, db_enc partials)."""
+        L, B, D = x.shape
+        S = We.shape[-1]
+        new = lambda *shape, dt=torch.bfloat16: torch.empty(shape, dtype=dt, device="cuda")
+        xc, h, dhc = new(L, B, D), new(L, B, S), new(L, B, S)
+        outs = [new(L, D, S, dt=torch.float32), new(L, S, D, dt=torch.float32),
+                new(L, B // 128, S, dt=torch.float32)]
+        o = [v.data_ptr() for v in outs]
+        if tc:
+            self._call(self.tc, "sae_fused_bwd_topk_tc", *(v.data_ptr() for v in (
+                x, We, be, Wd, bd, dy, dl1, t, xc, h, dhc)), *o, L, B, D, S, 0)
+        else:
+            self._call(self.bwd, "sae_fused_bwd", *(v.data_ptr() for v in (
+                x, We, be, Wd, bd, dy, dl1, t, h, xc, dhc)), *o, L, B, D, S, 1, 2, 0)
+        return outs
+
+
+def topk_bf16_main(dirs):
+    """Every version's bf16 B8 and B9 against the package's, bit for bit,
+    and their times in turns."""
+    versions = {n: Bf16TopkVersion(n, d, j) for j, (n, d) in enumerate(dirs.items())}
+    for n in list(versions):
+        ok = versions[n].finish()
+        print(json.dumps({"version": n, "built": ok}), flush=True)
+        if not ok:
+            del versions[n]
+    print(json.dumps({"card": card(), "versions": list(versions)}), flush=True)
+    names = list(versions)
+    k = chip_smoke.TOPK_K
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for shape, (L, B, D, Sd), tc in (("topk_slice_bf16", SHAPES["topk_slice"], True),
+                                     ("vit_s_bf16", (1, 4096, 384, 6144), False)):
+        x, We, be, Wd, bd, dy, dl1 = chip_smoke._sae_inputs(g, L, B, D, Sd, torch.bfloat16)
+        t = versions["package"].forward(x, We, be, Wd, bd, k, tc)[2]
+        calls = {"B8": lambda v: v.forward(x, We, be, Wd, bd, k, tc),
+                 "B9": lambda v: v.backward(x, We, be, Wd, bd, dy, dl1, t, tc)}
+        rec = {"shape": shape, "L": L, "B": B, "d_in": D, "d_sae": Sd, "k": k,
+               "route": "wgmma" if tc else "mma_sync", "equal_to_package": {}, "ms": {}}
+        for kernel, fn in calls.items():
+            want = fn(versions["package"])
+            rec["equal_to_package"][kernel] = {
+                n: all(torch.equal(a, b) for a, b in zip(fn(v), want)) for n, v in versions.items()}
+            del want
+            tt = {n: [] for n in names}
+            for n in names + names[::-1]:
+                tt[n].append(ms(lambda: fn(versions[n]), iters=10, warmup=1))
+            rec["ms"][kernel] = tt
+        print(json.dumps(rec), flush=True)
+        del x, We, be, Wd, bd, dy, dl1, t
+        torch.cuda.empty_cache()
+    return 0
+
+
+def topk_main(dirs):
+    """Every version's float32 B8 and B9 against the plain versions, and
+    their times in turns, at the TopK slice and the sweep's widths."""
+    from vit_prisma_tpu_torch.ops import sae_step as S
+    versions = {n: TopkVersion(n, d, j) for j, (n, d) in enumerate(dirs.items())}
+    for n in list(versions):
+        ok = versions[n].finish()
+        print(json.dumps({"version": n, "built": ok, "tf32": versions[n].tf32,
+                          "ptxas": versions[n].ptxas() if ok else None}), flush=True)
+        if not ok:
+            del versions[n]
+    print(json.dumps({"card": card(), "versions": list(versions)}), flush=True)
+    names = list(versions)
+    k = chip_smoke.TOPK_K
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for shape, (L, B, D, Sd) in (("topk_slice", SHAPES["topk_slice"]), ("sweep", SHAPES["sweep"])):
+        x, We, be, Wd, bd, dy, dl1 = chip_smoke._sae_inputs(g, L, B, D, Sd, torch.float32)
+        yr, _, _, _, hr = S.sae_fused_forward_topk_reference(x, We, be, Wd, bd, k, save_h=True)
+        rec = {"shape": shape, "L": L, "B": B, "d_in": D, "d_sae": Sd, "k": k, "errors": {}}
+        for n, v in versions.items():
+            y, l1, nact, t, h = v.forward(x, We, be, Wd, bd, k)
+            flip_rows = ((h > 0) != (hr > 0)).any(dim=-1)
+            g6 = v.backward(x, Wd, bd, dy, dl1, h=h)
+            g9 = v.backward(x, Wd, bd, dy, dl1, We=We, be=be, t=t)
+            rec["errors"][n] = {
+                "y_unflipped_rows": ((y - yr).abs()[~flip_rows].max().item()
+                                     / max(1.0, yr.abs().max().item())),
+                "mask_flips": int(((h > 0) != (hr > 0)).sum()),
+                "rows_with_flips": int(flip_rows.sum()),
+                "t_is_k_th_of_own_h": torch.equal(t, S._row_threshold(h, k)),
+                "h_minus_zeros": int(torch.signbit(h).sum()),
+                "nact_is_own_mask": torch.equal(nact, (h > 0).sum(dim=1, dtype=torch.float32)),
+                "b9_equals_b6_on_h": all(torch.equal(a, b) for a, b in zip(g9, g6))}
+            del y, l1, nact, h, g6, g9
+        _, _, _, t, h = versions["package"].forward(x, We, be, Wd, bd, k)
+        flop = 2 * L * B * D * Sd
+        xc = x - bd[:, None]
+        dhc = torch.where(h > 0, S._mm(dy, Wd.transpose(1, 2)) + dl1[:, None, None], 0.0)
+        calls = {"B8": (lambda v: v.forward(x, We, be, Wd, bd, k), [(xc, We), (h, Wd)], 2),
+                 "B9": (lambda v: v.backward(x, Wd, bd, dy, dl1, We=We, be=be, t=t),
+                        [(xc, We), (dy, Wd.transpose(1, 2)), (xc.transpose(1, 2), dhc),
+                         (h.transpose(1, 2), dy)], 4)}
+        iters = 3 if L > 2 else 10
+        times = {}
+        for kernel, (fn, products, n_products) in calls.items():
+            tt = {n: [] for n in names}
+            for n in names + names[::-1]:
+                tt[n].append(ms(lambda: fn(versions[n]), iters=iters, warmup=1))
+            n_flop = n_products * flop
+            times[kernel] = {"ms": tt, "TFLOP_per_s": {n: n_flop / min(v) / 1e9
+                                                       for n, v in tt.items()},
+                             "bound": chip_smoke.bound(0, [("f32_product", n_flop)]),
+                             "cublas_products_ms": ms(
+                                 lambda: [torch.matmul(a, b) for a, b in products], iters=iters,
+                                 warmup=1),
+                             "kernels": [kn[:70] for kn in chip_smoke.kernel_names(
+                                 lambda: fn(versions["package"]))]}
+        rec["times"] = times
+        print(json.dumps(rec), flush=True)
+        del x, We, be, Wd, bd, dy, dl1, yr, hr, t, h, xc, dhc
+        torch.cuda.empty_cache()
+    return 0
+
+
 def bf16_main(dirs):
     """Every version's bf16 B4, B6, B5 against the package's, bit for bit,
     and their times in turns."""
@@ -272,9 +513,17 @@ def main():
     from vit_prisma_tpu_torch.ops import sae_step as S
     torch.backends.cuda.matmul.allow_tf32 = False
     args = sys.argv[1:]
+    only = None
+    if "--only" in args:  # --only topk
+        i = args.index("--only")
+        only, args = args[i + 1], args[:i] + args[i + 2:]
+        if only != "topk":
+            raise SystemExit(f"--only {only}: the one choice is topk")
     check = "--check" in args
     dirs = {"package": PACKAGE, **{f"{i}:{Path(a).name}": Path(a) for i, a in enumerate(
         x for x in args if not x.startswith("--"))}}
+    if only == "topk":
+        return topk_bf16_main(dirs) if "--bf16" in args else topk_main(dirs)
     if "--bf16" in args:
         return bf16_main(dirs)
     versions = {n: Version(n, d, j) for j, (n, d) in enumerate(dirs.items())}

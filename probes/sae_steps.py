@@ -1,10 +1,12 @@
 """Train steps of the fused SAE kernels alone, without the ViT: the sweep's
 step (24 SAEs, 1024 -> 8192, batch 4096, bf16; ``chip_smoke.sweep_config``),
 the same at the config's default float32 compute dtype (``compute_dtype``
-unset, float32 batches; ``--f32`` runs only it)
-and the TopK slice's (bench.py's bf16 TopK row; ``chip_smoke.topk_config``),
-each with its activations kept (``fused_store_acts`` True: B4+B6, B8+B6) and
-recomputed (False: B4+B5, B8+B9), from one random state on random batches of
+unset, float32 batches), the TopK slice's (bench.py's bf16 TopK row;
+``chip_smoke.topk_config``) and the same at its float32 compute dtype
+(bench.py's TopK recipe as it stands: no ``compute_dtype``); ``--f32`` runs
+only the two float32 steps.  Each with its activations kept
+(``fused_store_acts`` True: B4+B6, B8+B6) and recomputed (False: B4+B5,
+B8+B9), from one random state on random batches of
 the store's row dtype: ms a step by CUDA events over STEPS steps after two
 warm-up steps, and ``torch.profiler``'s device time by kernel over three.
 Prints JSON lines.  Run from the repository root on a CUDA card:
@@ -61,15 +63,17 @@ def main():
                   flush=True)
         del state, batches
         torch.cuda.empty_cache()
-    if f32_only:
-        return
-    cfg = chip_smoke.topk_config()
-    state = init_train_state(cfg, device="cuda")
-    batches = [torch.randn(cfg.train_batch_size, cfg.d_in, generator=g, device="cuda")
-               for _ in range(3)]
-    for keep in (True, False):
-        print(json.dumps({**info, **measure("topk", sae_train_step, state, batches,
-                                            cfg.replace(fused_store_acts=keep))}), flush=True)
+    topks = [("topk_f32", chip_smoke.topk_config().replace(compute_dtype=None))]
+    if not f32_only:
+        topks.insert(0, ("topk", chip_smoke.topk_config()))
+    for name, cfg in topks:
+        state = init_train_state(cfg, device="cuda")
+        batches = [torch.randn(cfg.train_batch_size, cfg.d_in, generator=g, device="cuda")
+                   for _ in range(3)]
+        for keep in (True, False):
+            print(json.dumps({**info, **measure(name, sae_train_step, state, batches,
+                                                cfg.replace(fused_store_acts=keep))}),
+                  flush=True)
 
 
 if __name__ == "__main__":

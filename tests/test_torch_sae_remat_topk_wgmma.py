@@ -214,7 +214,7 @@ def _meta(L, B, D, S, dtype):
 
 # (B, d_in, d_sae, dtype): the entry point each wrapper reaches, by case (a
 # case is named for its shape's route when the FFMA tiles were float32's:
-# B5 takes "tf32x3" at the float32 case now, B8 and B9 keep "ffma")
+# B5, B8 and B9 take "tf32x3" at the float32 case now)
 DISPATCH = {"wgmma": (256, 256, 512, torch.bfloat16), "mma_sync": (256, 128, 512, torch.bfloat16),
             "ffma": (256, 128, 512, torch.float32)}
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -241,7 +241,7 @@ ENTRIES = {"backward": ("sae_fused_bwd_remat_tc", "sae_fused_bwd", 1),
 @pytest.mark.parametrize("which", list(ENTRIES))
 def test_dispatches_by_route(monkeypatch, which, route):
     B, D, S, dtype = DISPATCH[route]
-    if which == "backward" and route == "ffma":
+    if route == "ffma":
         route = "tf32x3"
     assert sae_step.sae_gemm_route(B, D, S, dtype, "relu" if which == "backward" else "topk") \
         == route
@@ -252,16 +252,14 @@ def test_dispatches_by_route(monkeypatch, which, route):
     out = _call(which, _meta(2, B, D, S, dtype))
     tc, other, mode = ENTRIES[which]
     n_ptrs = {"backward": 13, "forward_topk": 11, "backward_topk": 14}[which]
-    if which == "backward_topk" and route == "ffma":
-        # float32 B9: B8's h again on its FFMA tile (x, W_enc, b_enc, b_dec, t,
-        # xc, h), then B6's float32 launches (x, h, W_dec, ...) on it
-        (name, args), (name6, args6) = lib.calls
-        assert name == "sae_fused_topk_remat_h" and args[7:11] == (2, B, D, S)
-        assert name6 == "sae_fused_bwd_stored_tf32" and args6[11:15] == (2, B, D, S)
-        assert args6[1] == args[6]  # B6 reads the recomputed h
-    elif route == "tf32x3":  # B5: B4's and B6's pointers, then the split copies'
+    if route == "tf32x3":  # B5, B8, B9: their pointers, then the split copies'
         (name, args), = lib.calls
-        assert name == "sae_fused_bwd_remat_tf32" and args[14:18] == (2, B, D, S)
+        tf32 = {"backward": ("sae_fused_bwd_remat_tf32", 14),
+                "forward_topk": ("sae_fused_fwd_topk_tf32", 12),
+                "backward_topk": ("sae_fused_bwd_topk_tf32", 15)}[which]
+        assert name == tf32[0] and args[tf32[1]:tf32[1] + 4] == (2, B, D, S)
+        if which == "forward_topk":
+            assert args[tf32[1] + 4] == K
     elif route == "wgmma":
         (name, args), = lib.calls
         assert name == tc
@@ -307,8 +305,6 @@ def test_remat_backward_takes_its_forwards_route(monkeypatch, pair, case):
     the picker's cases (the picker's own), or both refuse the shape: a remat
     backward recomputes its forward's masks with its forward's mainloop."""
     B, D, S, dtype, route = ROUTE_CASES[case]
-    if pair[0] == "forward_topk" and route == "tf32x3":
-        route = "ffma"  # float32 TopK keeps B8's FFMA tiles
     lib = _Lib()
     monkeypatch.setattr(sae_step, "_lib_and_stream", lambda device: (lib, 0))
     args = _meta(1, B, D, S, dtype)

@@ -1,6 +1,7 @@
 """The float32 route of B4, B5 and B6 (``csrc/sae_fused_tf32.cu``'s
 ``sae_tf32_kernel`` on the float32 pieces of ``csrc/hopper_gemm.cuh``) and
-B9's launches after its recompute, on the CPU: the route map per kernel
+B9's launches after its recompute, on the CPU (B8's and B9's TopK encoder
+modes are tests/test_torch_sae_topk_tf32.py's): the route map per kernel
 family and dtype, the fused step's gate, the kernel's shared memory and
 scratch, the K orders its pre-passes write and the banks its weight-gradient
 loader reads, and its arithmetic, emulated with bit operations on the same
@@ -28,6 +29,7 @@ from vit_prisma_tpu_torch.ops import sae_step
 
 MAX_SMEM = 232448  # a block's
 TOL = 1e-5         # SAE_REL (of max(1, absmax)) and SAE_GRAD_REL (of absmax), float32
+SWITCHED_TOL = 0.25  # TOPK_SWITCHED_GRAD_REL (of absmax): grads of a feature whose mask flipped
 STAGE = 32         # K a stage: one 128-byte swizzled row of floats
 
 
@@ -54,13 +56,13 @@ ORDERS = {"k": torch.tensor([k_phys(k) for k in range(STAGE)]),
 # ---------------------------------------------------------------------------
 
 def test_route_map_per_family_and_dtype():
-    """float32: the ReLU family (B4, B5, B6) on 3xTF32, the TopK (B8, B9)
-    and gated (B11, B12) families on their FFMA tiles; bfloat16 as before,
-    one route for every family; nothing else has a route."""
+    """float32: the ReLU (B4, B5, B6) and TopK (B8, B9) families on 3xTF32,
+    the gated family (B11, B12) on its FFMA tiles; bfloat16 as before, one
+    route for every family; nothing else has a route."""
     for B, D, S in ((4096, 1024, 8192), (4096, 768, 12288), (4096, 384, 6144), (256, 128, 512)):
         r = lambda dtype, fam: sae_step.sae_gemm_route(B, D, S, dtype, fam)
         assert r(torch.float32, "relu") == "tf32x3"
-        assert r(torch.float32, "topk") == r(torch.float32, "gated") == "ffma"
+        assert r(torch.float32, "topk") == "tf32x3" and r(torch.float32, "gated") == "ffma"
         bf16 = "wgmma" if D % 256 == 0 and S % 256 == 0 else "mma_sync"
         assert {r(torch.bfloat16, f) for f in sae_step.SAE_FAMILIES} == {bf16}
         assert sae_step.sae_gemm_route(B, D, S, torch.float32) == "tf32x3"  # the default: ReLU
@@ -72,12 +74,12 @@ def test_route_map_per_family_and_dtype():
 
 
 def test_kernel_routes_by_wrapper():
-    """Each routed wrapper's route at the sweep's shape: in float32 B4, B5
-    and B6 on tf32x3, B8, B9, B11, B12 on ffma; in bf16 all on wgmma."""
+    """Each routed wrapper's route at the sweep's shape: in float32 B4, B5,
+    B6, B8 and B9 on tf32x3, B11 and B12 on ffma; in bf16 all on wgmma."""
     f32 = sae_step.sae_kernel_routes(4096, 1024, 8192, torch.float32)
     assert f32 == {"sae_fused_forward": "tf32x3", "sae_fused_backward": "tf32x3",
-                   "sae_fused_backward_stored": "tf32x3", "sae_fused_forward_topk": "ffma",
-                   "sae_fused_backward_topk": "ffma", "sae_gated_fused_forward": "ffma",
+                   "sae_fused_backward_stored": "tf32x3", "sae_fused_forward_topk": "tf32x3",
+                   "sae_fused_backward_topk": "tf32x3", "sae_gated_fused_forward": "ffma",
                    "sae_gated_fused_backward": "ffma"}
     assert set(sae_step.sae_kernel_routes(4096, 1024, 8192, torch.bfloat16).values()) == {"wgmma"}
     assert set(sae_step.SAE_KERNEL_FAMILIES) == {
@@ -332,21 +334,29 @@ def test_b5_equals_b6_on_b4_hc_to_the_bit():
 
 
 def test_b9_equals_b6_on_b8_h_to_the_bit():
-    """float32 B9 recomputes B8's h (the plain version stands for B8's FFMA
-    tile, which both launch) masked against B8's t, then runs B6's launches:
-    its grads are B6's on B8's h, to the bit, and within tolerance of B9's
-    plain version."""
+    """float32 B9 recomputes B8's h (B8's TopK encoder, emulated, on the same
+    tiles) masked against B8's t, then runs B6's launches: its grads are
+    B6's on B8's h, to the bit, and within tolerance of B9's plain version
+    from the plain forward's t: TOL outside the features whose mask flipped
+    between the two forwards, SWITCHED_TOL in them."""
     L, B, D, S = SHAPES["d_in_128"]
     x, We, be, Wd, bd, dy, dl1 = _torch(_inputs(L, B, D, S, seed=22))
-    _, _, _, t, h8 = sae_step.sae_fused_forward_topk_reference(x, We, be, Wd, bd, 16, save_h=True)
-    _, hp = sae_step._hp(x, We, be, bd)
-    h9 = sae_step._topk_mask(hp, t)[1]
+    hp = _encoder(x, We, be, bd)
+    t = sae_step._row_threshold(hp, 16)
+    h8 = sae_step._topk_mask(hp, t)[1]  # the select's mask on B8's rows
+    h9 = torch.where((hp > 0) & (hp >= t), hp, 0.0)  # the remat encoder's
     got = emulated_backward_stored(x, h9, Wd, bd, dy, dl1)
     assert all(torch.equal(a, b) for a, b in
                zip(got, emulated_backward_stored(x, h8, Wd, bd, dy, dl1)))
-    want = sae_step.sae_fused_backward_topk_reference(x, We, be, Wd, bd, dy, dl1, t)
-    for a, b in zip(got, want):
-        assert (a - b).abs().max().item() <= TOL * b.abs().max().item()
+    *_, t_plain, h_plain = sae_step.sae_fused_forward_topk_reference(x, We, be, Wd, bd, 16,
+                                                                     save_h=True)
+    want = sae_step.sae_fused_backward_topk_reference(x, We, be, Wd, bd, dy, dl1, t_plain)
+    flipped = ((h_plain > 0) != (h8 > 0)).any(dim=1)  # [L, S]
+    for sw, a, b in zip((flipped[:, None, :], flipped[:, :, None], flipped), got, want):
+        d, scale = (a - b).abs(), b.abs().max().item()
+        sw = sw.expand_as(d)
+        assert d[~sw].max().item() <= TOL * scale
+        assert not sw.any() or d[sw].max().item() <= SWITCHED_TOL * scale
 
 
 def test_rows_and_layers_do_not_depend_on_the_batch():

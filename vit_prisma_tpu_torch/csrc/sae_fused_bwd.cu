@@ -1,8 +1,7 @@
 // Fused SAE backward over L stacked SAEs: the standard-ReLU remat VJP
 // (kernel B5), the stored-activations VJP (kernel B6) and the TopK remat
 // VJP (kernel B9), three mask modes of one kernel set, at the bf16 shapes
-// that sae_fused_tc.cu's Hopper route does not take; and float32 B9's
-// recompute of its h (sae_fused_topk_remat_h).
+// that sae_fused_tc.cu's Hopper route does not take.
 //
 // Replaces the Pallas TPU kernels `_bwd_kernel` (launched by
 // `_fused_backward`), `_bwd_kernel_stored` (launched by
@@ -57,10 +56,8 @@
 // keeps hc (B6) unless it is asked to recompute it (B5).  In bf16 at d_in
 // and d_sae multiples of 256 (the wrapper's `sae_gemm_route`) B5, B6 and
 // B9 all run sae_fused_tc.cu's wgmma/TMA route instead of this file; in
-// float32 B5 and B6 run sae_fused_tf32.cu (3xTF32), and B9 recomputes its h
-// here (sae_fused_topk_remat_h: B8's FFMA encoder tile, masked against t)
-// and then runs sae_fused_tf32.cu's B6 on it.  This file keeps the other
-// bf16 shapes and that recompute.
+// float32 all three run sae_fused_tf32.cu (3xTF32).  This file keeps the
+// other bf16 shapes.
 
 #include "sae_gemm.cuh"
 
@@ -72,9 +69,9 @@ using namespace sae;
 constexpr int kStored = 0, kReluRemat = 1, kTopkRemat = 2;
 
 // dh tile, B6 (kStored: stored hc), B5 (kReluRemat) or B9 (kTopkRemat):
-// the remat modes recompute the pre-activations and write hc; without DH
-// (float32 B9) the tile stops there.  Grid (S/BN, B/BM, L).
-template <typename T, int MODE, bool DH = true>
+// the remat modes recompute the pre-activations and write hc.  Grid (S/BN,
+// B/BM, L).
+template <typename T, int MODE>
 __global__ void __launch_bounds__(kThreads)
 dh_kernel(const T* __restrict__ xc, const T* __restrict__ We, const T* __restrict__ be,
           const T* __restrict__ Wd, const T* __restrict__ dy, const float* __restrict__ dl1,
@@ -120,7 +117,6 @@ dh_kernel(const T* __restrict__ xc, const T* __restrict__ We, const T* __restric
         }
     }
   }
-  if constexpr (!DH) return;
   zero(acc);
   // dy W_dec^T: B(k = d, n = s) = W_dec[s, d], K contiguous
   mainloop<T, true, true>(acc, dy + l * BD, D, Wd + l * DS, D, D, m0, n0, smem);
@@ -225,30 +221,4 @@ extern "C" int sae_fused_bwd(const void* x, const void* We, const void* be, cons
     return backward<__nv_bfloat16>(x, We, be, Wd, bd, dy, dl1, t, hc, xc, dhc, dWe, dWd,
                                    dbe_part, L, B, D, S, mode, s);
   return cudaErrorInvalidValue;
-}
-
-// B9's recompute in float32: xc = x - b_dec (scratch) and h [L, B, S], B8's
-// h again (sae_fused_fwd_topk.cu's FFMA encoder tile and mainloop, so hp is
-// B8's to the bit, masked against B8's thresholds t [L, B]), all float32.
-// The wrapper then runs sae_fused_tf32.cu's B6 on h.  Returns the launches'
-// cudaError_t.
-extern "C" int sae_fused_topk_remat_h(const void* x, const void* We, const void* be,
-                                      const void* bd, const void* t, void* xc, void* h, int L,
-                                      int B, int D, int S, int device, void* stream) {
-  if (!sae::shapes_ok(L, B, D, S) || t == nullptr) return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* tx = static_cast<const float*>(x);
-  float* txc = static_cast<float*>(xc);
-  if ((err = sae::center<float>(tx, static_cast<const float*>(bd), txc, L, B, D, s)) !=
-      cudaSuccess)
-    return err;
-  auto kernel = dh_kernel<float, kTopkRemat, false>;
-  constexpr int smem = sae::Smem<float, true, false>::bytes;
-  if ((err = sae::allow_smem(kernel, smem)) != cudaSuccess) return err;
-  kernel<<<dim3(S / sae::BN, B / sae::BM, L), sae::kThreads, smem, s>>>(
-      txc, static_cast<const float*>(We), static_cast<const float*>(be), nullptr, nullptr,
-      nullptr, static_cast<const float*>(t), static_cast<float*>(h), nullptr, nullptr, B, D, S);
-  return cudaGetLastError();
 }

@@ -1,12 +1,13 @@
-// Fused TopK SAE forward over L stacked SAEs (kernel B8): its float32 route
-// and the bf16 shapes that sae_fused_tc.cu's wgmma/TMA route does not take
-// (d_in or d_sae not a multiple of 256; the wrapper's `sae_gemm_route`).
+// Fused TopK SAE forward over L stacked SAEs (kernel B8) at the bf16 shapes
+// that sae_fused_tc.cu's wgmma/TMA route does not take (d_in or d_sae not a
+// multiple of 256; the wrapper's `sae_gemm_route`).  Float32 runs
+// sae_fused_tf32.cu (3xTF32 on tf32 wgmma).
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel_topk` (with its threshold
 // search `_row_kth_threshold`), launched by `_fused_forward_topk` in
 // vit_prisma_tpu/ops/sae_step.py.  For x [L, B, d_in], W_enc [L, d_in, d_sae],
 // b_enc [L, d_sae], W_dec [L, d_sae, d_in], b_dec [L, d_in], all in the
-// compute type c (float32 or bfloat16), and k:
+// compute type c (bfloat16), and k:
 //     xc        = x - b_dec                                   (in c)
 //     hp        = (xc W_enc + b_enc) rounded to c   (float32 accumulation;
 //                 rounded before anything compares it, so the mask matches
@@ -28,8 +29,8 @@
 //   2. encoder: the tile GEMM of sae_gemm.cuh; its epilogue adds b_enc and
 //      writes hp in c;
 //   3. threshold: one block per row (topk_search.cuh), the row staged in
-//      shared memory where it fits; 31 passes from bit 30 in float32, 15 in
-//      bfloat16 (non-negative patterns order as integers, so the sign bit is
+//      shared memory where it fits; 15 passes from bit 14 of the bfloat16
+//      pattern (non-negative patterns order as integers, so the sign bit is
 //      never searched).  It writes t and zeroes the inactive entries of hp in
 //      place, which leaves h;
 //   4. counts (sae_gemm.cuh's active_counts, which the Hopper route shares):
@@ -141,7 +142,8 @@ cudaError_t forward(const void* x, const void* We, const void* be, const void* W
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; 1 <= k <= S.  Outputs: xc [L, B, D]
+// dtype: 1 = bfloat16 (float32, 0, is refused: sae_fused_tf32.cu's);
+// 1 <= k <= S.  Outputs: xc [L, B, D]
 // (scratch), h [L, B, S] (the masked activations), y [L, B, D] in the
 // compute type; t [L, B], nact_part [L, B/128, S] and l1_part
 // [L, B/128, S/128] float32.  Returns the launches' cudaError_t.
@@ -155,8 +157,6 @@ extern "C" int sae_fused_fwd_topk(const void* x, const void* We, const void* be,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return forward<float>(x, We, be, Wd, bd, xc, h, y, t, nact_part, l1_part, L, B, D, S, k, s);
   if (dtype == 1)
     return forward<__nv_bfloat16>(x, We, be, Wd, bd, xc, h, y, t, nact_part, l1_part, L, B, D,
                                   S, k, s);

@@ -1,24 +1,34 @@
 // The float32 route of the fused standard-ReLU SAE forward (kernel B4), its
-// stored-activations backward (B6) and its remat backward (B5), over L
-// stacked SAEs: each float32 product as three TF32 products (3xTF32) on tf32
-// wgmma, on hopper_gemm.cuh's float32 pieces.  The TopK remat backward (B9)
-// recomputes its h with B8's FFMA encoder tile (sae_fused_bwd.cu's
-// sae_fused_topk_remat_h) and then runs this file's B6 on it.  sm_90a only.
+// stored-activations backward (B6) and its remat backward (B5), and of the
+// fused TopK SAE forward (B8) and its remat backward (B9), over L stacked
+// SAEs: each float32 product as three TF32 products (3xTF32) on tf32 wgmma,
+// on hopper_gemm.cuh's float32 pieces.  sm_90a only.
 //
 // Replaces, for float32, the Pallas TPU kernels `_fwd_kernel` (launched by
 // `_fused_forward`, vit_prisma_tpu/ops/sae_step.py:148), `_bwd_kernel_stored`
-// (`_fused_backward_stored`, :389) and `_bwd_kernel` (`_fused_backward`,
-// :250).  The functions and cast points are those of sae_fused_fwd.cu and
-// sae_fused_bwd.cu and of the plain versions `sae_fused_forward_reference`,
-// `sae_fused_backward_stored_reference` and `sae_fused_backward_reference`
-// (vit_prisma_tpu_torch/ops/sae_step.py), float32 throughout:
+// (`_fused_backward_stored`, :389), `_bwd_kernel` (`_fused_backward`, :250),
+// `_fwd_kernel_topk` (`_fused_forward_topk`, :656, with its threshold
+// search `_row_kth_threshold`) and `_bwd_kernel_topk` (`_fused_backward_topk`,
+// :763).  The functions and cast points are those of the plain versions
+// `sae_fused_forward_reference`, `sae_fused_backward_stored_reference`,
+// `sae_fused_backward_reference`, `sae_fused_forward_topk_reference` and
+// `sae_fused_backward_topk_reference` (vit_prisma_tpu_torch/ops/sae_step.py),
+// float32 throughout:
 //   B4: xc = x - b_dec; hpre = xc W_enc + b_enc; hc = relu(hpre);
 //       y = b_dec + hc W_dec; l1[l] = sum of hc; nact[l, j] = rows with hpre > 0;
 //   B6: dh = hc > 0 ? dy W_dec^T + dl1 : 0 (dhc = dh); dW_enc = xc^T dhc,
 //       dW_dec = hc^T dy; db_enc = column sums of dh;
 //   B5: B4's encoder again, the same kernel on the same tiles with no
 //       reductions, so hc is B4's to the bit; relu(hpre) > 0 iff hpre > 0
-//       in float32, so B6 on it is B5 (its grads are B6's on B4's hc).
+//       in float32, so B6 on it is B5 (its grads are B6's on B4's hc);
+//   B8: the TopK encoder stores max(hpre, 0) (+0 where hpre <= 0, never -0);
+//       radix_select.cuh's select (B10's kernel) takes each row's k-th
+//       largest t, bitwise the bitwise search's on such rows, and masks the
+//       row in place: h = (hp > 0 && hp >= t) ? hp : +0 (ties keep >= k);
+//       nact and l1 from h (sae_gemm.cuh's active_counts); y = b_dec + h W_dec;
+//   B9: the remat encoder, B8's TopK encoder on the same tiles masked against
+//       the stored t, so h is B8's to the bit; then B6 on it (h > 0 exactly
+//       on the active set), so its grads are B6's on B8's h.
 // Every partial sum is taken in a fixed order without atomics (the wrapper
 // sums the per-tile partials), so two calls give the same bits.
 //
@@ -57,10 +67,10 @@
 // does not depend on the order of its terms beyond rounding, and the order
 // is fixed: one row's output depends on its own data alone.
 //
-// Scratch (the wrapper's, `_tf32_scratch_floats`): the forward L * 2 S D
-// floats (W_enc's split copy, then W_dec's in the same place); the
-// backwards L * max(2 S D, 4 D B) (W_dec's, then xc's and dy's transposed
-// copies).  At the sweep's shape (24 x 4096 rows, 1024 -> 8192) 1.6 GB,
+// Scratch (the wrapper's, `_tf32_scratch_floats`): the forwards (B4, B8)
+// L * 2 S D floats (W_enc's split copy, then W_dec's in the same place); the
+// backwards (B5, B6, B9) L * max(2 S D, 4 D B) (W_dec's, then xc's and dy's
+// transposed copies).  At the sweep's shape (24 x 4096 rows, 1024 -> 8192) 1.6 GB,
 // rewritten every call: the weights change every step.
 //
 // Design: ln_matmul.cu's float32 kernel (B14), generalized to the SAE's
@@ -75,6 +85,8 @@
 // products interleave on the tensor cores.  Epilogues from the registers:
 //   encoder: b_enc, ReLU, hc stored; nact column counts from ballots and the
 //     l1 sum of the tile, in a fixed order (B4; none in B5);
+//   TopK encoder (B8) and remat encoder (B9): b_enc, max(hpre, 0) stored,
+//     B9's masked against its row's t; no reductions;
 //   decoder: b_dec, y stored;
 //   dh: the stored hc read at the same places, the mask, dl1, dhc stored;
 //     db_enc column partials of the tile in a fixed order;
@@ -88,10 +100,15 @@
 // ~130 ms).  B14's kernel of the same design reached 66-71% of its 3xTF32
 // bound.  Measured times are in PERF.md.
 //
+// B8 adds to its two products the select (4 digit passes over each 48 KB
+// row at the TopK slice, staged in shared memory: one read of h and one
+// write) and the counts pass (one more read of h).
+//
 // Shapes: B, d_in and d_sae multiples of 128 (every shape the fused step's
 // gate admits); every pointer 16-byte aligned.
 
 #include "hopper_gemm.cuh"
+#include "radix_select.cuh"
 #include "sae_gemm.cuh"
 
 namespace {
@@ -114,7 +131,7 @@ constexpr int kBarOffset = kL1Offset + 4 * kConsumers * 4;
 constexpr int kBytes = kBarOffset + 2 * kStages * 8 + hg::kSwizzleAlign;
 static_assert(kBytes <= 232448, "shared memory");
 
-enum Mode { kEncoder = 0, kDecoder = 1, kDh = 2, kWgrad = 3 };
+enum Mode { kEncoder = 0, kDecoder = 1, kDh = 2, kWgrad = 3, kTopkEncoder = 4, kTopkRemat = 5 };
 enum Order { kOrderK = 0, kOrderMn = 1 };  // the split copies' K order
 
 // Position j of a 32-deep stage of a weight-gradient split copy holds
@@ -127,8 +144,9 @@ struct Params {
   int m_fast;            // consecutive blocks walk M tiles first
   const float* bias;     // b_enc (encoder), b_dec (decoder) [L, N]
   const float* hc;       // the stored hc [L, M, N] (dh's mask)
+  const float* t;        // B8's thresholds [L, M] (the remat encoder's mask)
   const float* dl1;      // [L] (dh)
-  float* out;            // hc, y, dhc [L, M, N]; wgrad: dW_enc [L, N, M]
+  float* out;            // hc (h), y, dhc [L, M, N]; wgrad: dW_enc [L, N, M]
   float* out2;           // wgrad: dW_dec [L, M, N]
   float* part;           // [L, M / 128, N]: nact (encoder; null in B5), db_enc (dh)
   float* l1_part;        // [L, M / 128, N / 128] (encoder; null in B5)
@@ -317,6 +335,27 @@ __global__ void __launch_bounds__(kThreads, 1)
         p.l1_part[prow * p.tn + nt] = s;
       }
     }
+  } else if constexpr (MODE == kTopkEncoder || MODE == kTopkRemat) {
+    // B8: max(hpre, 0), +0 where hpre <= 0 (the select's rows); B9: that
+    // value where it is at least the row's t, else +0 (B8's h, to the bit)
+    const float* bias = p.bias + static_cast<long long>(l) * p.N + n0;
+    float* out = p.out + row * p.N + n0;
+    float tr[2] = {0.f, 0.f};
+    if constexpr (MODE == kTopkRemat) {
+      tr[0] = p.t[row];
+      tr[1] = p.t[row + 8];
+    }
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      const int col = 8 * j + 2 * tq;
+      const float2 b = *reinterpret_cast<const float2*>(bias + col);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float p0 = acc[4 * j + 2 * h] + b.x, p1 = acc[4 * j + 2 * h + 1] + b.y;
+        sae::store2(out + static_cast<long long>(8 * h) * p.N + col,
+                    p0 > 0.f && p0 >= tr[h] ? p0 : 0.f, p1 > 0.f && p1 >= tr[h] ? p1 : 0.f);
+      }
+    }
   } else if constexpr (MODE == kDh) {  // the mask from the stored hc, dl1, dhc
     const float gl = p.dl1[l];
     const float* hc = p.hc + row * p.N + n0;
@@ -470,19 +509,35 @@ cudaError_t product(const void* A, const float* split, Params p, cudaStream_t s)
   return launch<MODE>(m, p, s);
 }
 
-// hc [L, B, S] = relu(xc W_enc + b_enc); with nact_part and l1_part (B4)
-// the counts and l1 partials, without (B5) none.
-cudaError_t encoder(const void* xc, const void* We, const void* be, void* hc, void* nact_part,
-                    void* l1_part, float* split, int L, int B, int D, int S, cudaStream_t s) {
+// hc [L, B, S] = relu(xc W_enc + b_enc) (MODE kEncoder: with nact_part and
+// l1_part, B4, the counts and l1 partials; without, B5, none), B8's
+// max(hpre, 0) (kTopkEncoder) or B8's h from its thresholds t (kTopkRemat).
+template <int MODE>
+cudaError_t encoder(const void* xc, const void* We, const void* be, const void* t, void* hc,
+                    void* nact_part, void* l1_part, float* split, int L, int B, int D, int S,
+                    cudaStream_t s) {
   cudaError_t err = split_t<kOrderK>(We, nullptr, split, L, D, S, s);
   if (err != cudaSuccess) return err;
   Params p = {};
   p.L = L, p.M = B, p.N = S, p.K = D;
   p.bias = static_cast<const float*>(be);
+  p.t = static_cast<const float*>(t);
   p.out = static_cast<float*>(hc);
   p.part = static_cast<float*>(nact_part);
   p.l1_part = static_cast<float*>(l1_part);
-  return product<kEncoder>(xc, split, p, s);
+  return product<MODE>(xc, split, p, s);
+}
+
+// y [L, B, D] = b_dec + hc W_dec: W_dec split K-major, then the decoder.
+cudaError_t decoder(const void* hc, const void* Wd, const void* bd, void* y, float* split, int L,
+                    int B, int D, int S, cudaStream_t s) {
+  cudaError_t err = split_t<kOrderK>(Wd, nullptr, split, L, S, D, s);
+  if (err != cudaSuccess) return err;
+  Params p = {};
+  p.L = L, p.M = B, p.N = D, p.K = S;
+  p.bias = static_cast<const float*>(bd);
+  p.out = static_cast<float*>(y);
+  return product<kDecoder>(hc, split, p, s);
 }
 
 // B6's launches from x and the stored hc: W_dec split in its own layout,
@@ -527,6 +582,22 @@ cudaError_t backward_stored(const void* x, const void* hc, const void* Wd, const
   return launch<kWgrad>(m, p, s);
 }
 
+// A remat backward (B5: MODE kEncoder, t null; B9: kTopkRemat): center, the
+// forward's encoder again without reductions, then B6's launches on its hc.
+template <int MODE>
+cudaError_t remat(const void* x, const void* We, const void* be, const void* Wd, const void* bd,
+                  const void* dy, const void* dl1, const void* t, void* xc, void* hc, void* dhc,
+                  float* split, void* dWe, void* dWd, void* dbe_part, int L, int B, int D, int S,
+                  cudaStream_t s) {
+  cudaError_t err;
+  if ((err = sae::center<float>(static_cast<const float*>(x), static_cast<const float*>(bd),
+                                static_cast<float*>(xc), L, B, D, s)) != cudaSuccess ||
+      (err = encoder<MODE>(xc, We, be, t, hc, nullptr, nullptr, split, L, B, D, S, s)) !=
+          cudaSuccess)
+    return err;
+  return backward_stored(x, hc, Wd, bd, dy, dl1, dhc, dWe, dWd, dbe_part, split, L, B, D, S, s);
+}
+
 bool fits(int L, int B, int D, int S) {
   return L > 0 && B > 0 && D > 0 && S > 0 && B % kBM == 0 && D % kBM == 0 && S % kBM == 0 &&
          2LL * L <= 65535 && B / 32 <= 65535 && S / 32 <= 65535;
@@ -551,21 +622,17 @@ extern "C" int sae_fused_fwd_tf32(const void* x, const void* We, const void* be,
   float* sp = static_cast<float*>(split);
   if ((err = sae::center<float>(static_cast<const float*>(x), static_cast<const float*>(bd),
                                 static_cast<float*>(xc), L, B, D, s)) != cudaSuccess ||
-      (err = st::encoder(xc, We, be, hc, nact_part, l1_part, sp, L, B, D, S, s)) != cudaSuccess ||
-      (err = st::split_t<st::kOrderK>(Wd, nullptr, sp, L, S, D, s)) != cudaSuccess)
+      (err = st::encoder<st::kEncoder>(xc, We, be, nullptr, hc, nact_part, l1_part, sp, L, B, D,
+                                       S, s)) != cudaSuccess)
     return err;
-  st::Params p = {};
-  p.L = L, p.M = B, p.N = D, p.K = S;
-  p.bias = static_cast<const float*>(bd);
-  p.out = static_cast<float*>(y);
-  return st::product<st::kDecoder>(hc, sp, p, s);
+  return st::decoder(hc, Wd, bd, y, sp, L, B, D, S, s);
 }
 
-// B6, float32 (and B9's launches after its recompute): x, hc (the stored
-// activations), W_dec, b_dec, dy, dl1 [L], dhc (scratch), dWe [L, D, S],
-// dWd [L, S, D], dbe_part [L, B/128, S]; split (scratch, L * max(2 S D, 4 D
-// B) floats).  Launches: W_dec's split, dh, x - b_dec's and dy's transposed
-// splits, the weight gradients.  Returns the launches' cudaError_t.
+// B6, float32: x, hc (the stored activations), W_dec, b_dec, dy, dl1 [L],
+// dhc (scratch), dWe [L, D, S], dWd [L, S, D], dbe_part [L, B/128, S]; split
+// (scratch, L * max(2 S D, 4 D B) floats).  Launches: W_dec's split, dh,
+// x - b_dec's and dy's transposed splits, the weight gradients.  Returns the
+// launches' cudaError_t.
 extern "C" int sae_fused_bwd_stored_tf32(const void* x, const void* hc, const void* Wd,
                                          const void* bd, const void* dy, const void* dl1,
                                          void* dhc, void* split, void* dWe, void* dWd,
@@ -591,12 +658,56 @@ extern "C" int sae_fused_bwd_remat_tf32(const void* x, const void* We, const voi
   if (!st::fits(L, B, D, S)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  return st::remat<st::kEncoder>(x, We, be, Wd, bd, dy, dl1, nullptr, xc, hc, dhc,
+                                 static_cast<float*>(split), dWe, dWd, dbe_part, L, B, D, S,
+                                 static_cast<cudaStream_t>(stream));
+}
+
+// B8, float32: x, the weights, xc (scratch), h (the masked activations), y;
+// t [L, B], nact_part [L, B/128, S], l1_part [L, B/128, S/128]; split
+// (scratch, L * 2 S D floats); 1 <= k <= S.  Launches: center, W_enc's
+// split, the TopK encoder (max(hpre, 0) into h), the select on each row of h
+// (t, and the row masked in place), the counts, W_dec's split, the decoder
+// over h.  Returns the launches' cudaError_t.
+extern "C" int sae_fused_fwd_topk_tf32(const void* x, const void* We, const void* be,
+                                       const void* Wd, const void* bd, void* xc, void* h, void* y,
+                                       void* t, void* nact_part, void* l1_part, void* split, int L,
+                                       int B, int D, int S, int k, int device, void* stream) {
+  if (!st::fits(L, B, D, S) || k < 1 || k > S || static_cast<long long>(L) * B > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* sp = static_cast<float*>(split);
+  float* hf = static_cast<float*>(h);
   if ((err = sae::center<float>(static_cast<const float*>(x), static_cast<const float*>(bd),
                                 static_cast<float*>(xc), L, B, D, s)) != cudaSuccess ||
-      (err = st::encoder(xc, We, be, hc, nullptr, nullptr, sp, L, B, D, S, s)) != cudaSuccess)
+      (err = st::encoder<st::kTopkEncoder>(xc, We, be, nullptr, h, nullptr, nullptr, sp, L, B, D,
+                                           S, s)) != cudaSuccess ||
+      (err = rsel::select_rows<float, true>(hf, static_cast<float*>(t), hf,
+                                            static_cast<long long>(L) * B, S, k, s)) !=
+          cudaSuccess ||
+      (err = sae::active_counts<float>(hf, static_cast<float*>(nact_part),
+                                       static_cast<float*>(l1_part), L, B, S, s)) != cudaSuccess)
     return err;
-  return st::backward_stored(x, hc, Wd, bd, dy, dl1, dhc, dWe, dWd, dbe_part, sp, L, B, D, S,
-                             s);
+  return st::decoder(h, Wd, bd, y, sp, L, B, D, S, s);
+}
+
+// B9, float32: x, the weights, dy, dl1 [L], B8's thresholds t [L, B], xc
+// (scratch), h (scratch: B8's h again), dhc (scratch), split (scratch, as
+// B6's), dWe, dWd, dbe_part.  Launches: center, W_enc's split, the remat
+// encoder (B8's TopK encoder masked against t), then B6's launches on h.
+// Returns the launches' cudaError_t.
+extern "C" int sae_fused_bwd_topk_tf32(const void* x, const void* We, const void* be,
+                                       const void* Wd, const void* bd, const void* dy,
+                                       const void* dl1, const void* t, void* xc, void* h,
+                                       void* dhc, void* split, void* dWe, void* dWd,
+                                       void* dbe_part, int L, int B, int D, int S, int device,
+                                       void* stream) {
+  if (!st::fits(L, B, D, S) || t == nullptr) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  return st::remat<st::kTopkRemat>(x, We, be, Wd, bd, dy, dl1, t, xc, h, dhc,
+                                   static_cast<float*>(split), dWe, dWd, dbe_part, L, B, D, S,
+                                   static_cast<cudaStream_t>(stream));
 }

@@ -144,8 +144,10 @@ def load_library() -> ctypes.CDLL:
     lib.sae_fused_bwd_stored_tf32.restype = i
     lib.sae_fused_bwd_remat_tf32.argtypes = [p] * 14 + [i] * 5 + [p]
     lib.sae_fused_bwd_remat_tf32.restype = i
-    lib.sae_fused_topk_remat_h.argtypes = [p] * 7 + [i] * 5 + [p]
-    lib.sae_fused_topk_remat_h.restype = i
+    lib.sae_fused_fwd_topk_tf32.argtypes = [p] * 12 + [i] * 6 + [p]
+    lib.sae_fused_fwd_topk_tf32.restype = i
+    lib.sae_fused_bwd_topk_tf32.argtypes = [p] * 15 + [i] * 5 + [p]
+    lib.sae_fused_bwd_topk_tf32.restype = i
     lib.sae_fused_fwd_topk.argtypes = [p] * 11 + [i] * 7 + [p]
     lib.sae_fused_fwd_topk.restype = i
     lib.sae_fused_fwd_gated.argtypes = [p] * 13 + [i] * 6 + [p]

@@ -27,10 +27,11 @@ family (:func:`sae_gemm_route`): bfloat16 with d_in and d_sae multiples of
 256 runs ``csrc/sae_fused_tc.cu`` (wgmma on a TMA-fed ring, on
 ``csrc/sae_wgmma.cuh``), other bfloat16 shapes the mma.sync tiles of
 ``csrc/sae_gemm.cuh`` in the files named here; float32 runs the ReLU
-family (B4, B5, B6) on ``csrc/sae_fused_tf32.cu`` ("tf32x3": each product
-as three TF32 products on tf32 wgmma, after pre-passes that split the B
-operands into TF32 hi and lo parts laid out K-major) and the TopK (B8, B9)
-and gated (B11, B12) families on ``csrc/sae_gemm.cuh``'s FFMA tiles.  Each
+family (B4, B5, B6) and the TopK family (B8, B9) on
+``csrc/sae_fused_tf32.cu`` ("tf32x3": each product as three TF32 products
+on tf32 wgmma, after pre-passes that split the B operands into TF32 hi and
+lo parts laid out K-major) and the gated family (B11, B12) on
+``csrc/sae_gemm.cuh``'s FFMA tiles.  Each
 wrapper counts its launches by route in ``routes``.  On the Hopper route
 B5 recomputes B4's encoder product with B4's own mainloop and carries its
 mask ``hpre > 0`` into B6's dh launch in hc's bits: hc is B4's, with -0
@@ -62,14 +63,13 @@ TopK (keep each row's k largest pre-activations) has three more::
 * the stored-acts backward needs no kernel of its own: B8's masked h is
   positive exactly on the active set, so B6 applies to it unchanged.
 
-On the Hopper route B8 stores ``c(max(hpre, 0))`` (+0 where hpre <= 0,
-which equals ``max(float(hp), 0)`` entry by entry), takes t by B10's radix
-select (``csrc/radix_select.cuh``, bitwise the bitwise search's t on such
-rows) and masks the rows in place; B9 recomputes that encoder with the same
-mainloop and masks it against t, then runs B6's launches, so B9 follows
-B8's route at every shape and its active set stays B8's.  In float32 B8
-keeps its FFMA tiles and B9 recomputes h with B8's FFMA encoder tile
-(``sae_fused_topk_remat_h``), then runs B6's float32 ("tf32x3") launches.
+On the Hopper route and the float32 route B8 stores ``c(max(hpre, 0))``
+(+0 where hpre <= 0, which equals ``max(float(hp), 0)`` entry by entry),
+takes t by B10's radix select (``csrc/radix_select.cuh``, bitwise the
+bitwise search's t on such rows) and masks the rows in place; B9
+recomputes that encoder with the same mainloop and masks it against t, then
+runs B6's launches, so B9 follows B8's route at every shape and its active
+set stays B8's.
 
 :func:`sae_fused_apply_topk` wraps them as :func:`sae_fused_apply` wraps
 B4-B6.
@@ -386,11 +386,11 @@ def sae_gemm_route(B: int, d_in: int, d_sae: int, dtype: torch.dtype, family: st
     ``"topk"``: B8, B9; ``"gated"``: B11, B12) takes on the card:
     ``"wgmma"`` (the bf16 Hopper kernels of ``csrc/sae_fused_tc.cu``),
     ``"mma_sync"`` (the other bf16 shapes, on ``csrc/sae_gemm.cuh``'s
-    tensor-core tiles), ``"tf32x3"`` (the float32 ReLU family:
+    tensor-core tiles), ``"tf32x3"`` (the float32 ReLU and TopK families:
     ``csrc/sae_fused_tf32.cu``, 3xTF32 on tf32 wgmma), ``"ffma"`` (the
-    float32 TopK and gated families: ``csrc/sae_gemm.cuh``'s CUDA-core
-    tiles), or None where no kernel takes the shape (B, d_in or d_sae not a
-    multiple of 128).  It reads the shape, dtype and family alone, so a
+    float32 gated family: ``csrc/sae_gemm.cuh``'s CUDA-core tiles), or
+    None where no kernel takes the shape (B, d_in or d_sae not a multiple of
+    128).  It reads the shape, dtype and family alone, so a
     forward and its remat backward (B4 and B5, B8 and B9, B11 and B12)
     always take the same route, and the backward's recomputed masks are the
     forward's."""
@@ -399,7 +399,7 @@ def sae_gemm_route(B: int, d_in: int, d_sae: int, dtype: torch.dtype, family: st
     if B % _TILE or d_in % _TILE or d_sae % _TILE or dtype not in _DTYPE_CODES:
         return None
     if dtype == torch.float32:
-        return "tf32x3" if family == "relu" else "ffma"
+        return "ffma" if family == "gated" else "tf32x3"
     return "wgmma" if d_in % _TC_BN == 0 and d_sae % _TC_BN == 0 else "mma_sync"
 
 
@@ -411,7 +411,7 @@ def sae_kernel_routes(B: int, d_in: int, d_sae: int, dtype: torch.dtype) -> dict
 
 def _tf32_scratch_floats(backward: bool, L: int, B: int, D: int, S: int) -> int:
     """Floats of the "tf32x3" route's split copies (csrc/sae_fused_tf32.cu):
-    a weight's TF32 hi and lo parts K-major, 2 S D a layer (the forward's
+    a weight's TF32 hi and lo parts K-major, 2 S D a layer (the forwards'
     W_enc, then W_dec in the same place); the backwards W_dec's, then xc's
     and dy's transposed copies, 4 D B a layer, in the same place."""
     return L * (max(2 * S * D, 4 * D * B) if backward else 2 * S * D)
@@ -587,8 +587,9 @@ def sae_fused_forward_topk(x, We, be, Wd, bd, k: int, save_h: bool = False):
     ``save_h``) for the stacked TopK SAEs; y and h in x's dtype, l1 ``[L]``,
     nact ``[L, d_sae]`` and the per-row thresholds t ``[L, B, 1]`` float32.
     CUDA tensors launch ``csrc/sae_fused_tc.cu`` (the "wgmma" route of
-    :func:`sae_gemm_route`: B10's radix select on the rows of
-    ``c(max(hpre, 0))``) or ``csrc/sae_fused_fwd_topk.cu`` and add one to
+    :func:`sae_gemm_route`) or ``csrc/sae_fused_tf32.cu`` ("tf32x3"), both
+    B10's radix select on the rows of ``c(max(hpre, 0))``, or
+    ``csrc/sae_fused_fwd_topk.cu`` and add one to
     ``sae_fused_forward_topk.launches`` and to the route's count in
     ``sae_fused_forward_topk.routes``; a launch that fails raises.  CPU
     tensors run the plain version."""
@@ -614,6 +615,10 @@ def sae_fused_forward_topk(x, We, be, Wd, bd, k: int, save_h: bool = False):
             l1_part.data_ptr())
     if route == "wgmma":
         rc = lib.sae_fused_fwd_topk_tc(*ptrs, L, B, D, S, k, x.device.index, stream)
+    elif route == "tf32x3":
+        split = new(_tf32_scratch_floats(False, L, B, D, S), dtype=torch.float32)
+        rc = lib.sae_fused_fwd_topk_tf32(*ptrs, split.data_ptr(), L, B, D, S, k,
+                                         x.device.index, stream)
     else:
         rc = lib.sae_fused_fwd_topk(*ptrs, L, B, D, S, k, _DTYPE_CODES[x.dtype],
                                     x.device.index, stream)
@@ -632,12 +637,11 @@ def sae_fused_backward_topk(x, We, be, Wd, bd, dy, dl1, t):
     """Kernel B9, the TopK remat VJP from B8's thresholds ``t`` ``[L, B, 1]``
     float32: the same outputs as :func:`sae_fused_backward`.  CUDA tensors
     launch ``csrc/sae_fused_tc.cu`` (the "wgmma" route of
-    :func:`sae_gemm_route`, B8's: B8's encoder mode masked against t, then
-    B6's launches) or ``csrc/sae_fused_bwd.cu`` (bf16: its TopK mask mode;
-    float32, the "ffma" route, B8's: ``sae_fused_topk_remat_h`` recomputes
-    h with B8's FFMA encoder tile, then B6's "tf32x3" launches run on it)
-    and add one to ``sae_fused_backward_topk.launches`` and to the route's
-    count in ``sae_fused_backward_topk.routes``; a launch that fails raises.
+    :func:`sae_gemm_route`) or ``csrc/sae_fused_tf32.cu`` ("tf32x3"), both
+    B8's: B8's encoder mode masked against t, then B6's launches, or
+    ``csrc/sae_fused_bwd.cu`` (its TopK mask mode) and add one to
+    ``sae_fused_backward_topk.launches`` and to the route's count in
+    ``sae_fused_backward_topk.routes``; a launch that fails raises.
     CPU tensors run the plain version."""
     L, B, D, S = _shapes(x, We, Wd)
     _check("sae_fused_backward_topk", x.dtype, x.device, x=x, W_enc=We, b_enc=be, W_dec=Wd,
@@ -649,20 +653,10 @@ def sae_fused_backward_topk(x, We, be, Wd, bd, dy, dl1, t):
         return sae_fused_backward_topk_reference(x, We, be, Wd, bd, dy, dl1, t)
     _kernel_shapes_ok("sae_fused_backward_topk", B, D, S)
     route = sae_gemm_route(B, D, S, x.dtype, "topk")
-    if route == "wgmma":
-        out = _tc_backward("sae_fused_backward_topk", "sae_fused_bwd_topk_tc", route, x, S,
+    if route in ("wgmma", "tf32x3"):
+        entry = "sae_fused_bwd_topk_tc" if route == "wgmma" else "sae_fused_bwd_topk_tf32"
+        out = _tc_backward("sae_fused_backward_topk", entry, route, x, S,
                            (x, We, be, Wd, bd, dy, dl1, t.contiguous()), hc_scratch=True)
-    elif route == "ffma":  # float32: B8's h again on its FFMA tile, then B6's launches
-        new = lambda *shape: torch.empty(shape, dtype=x.dtype, device=x.device)
-        xc, h = new(L, B, D), new(L, B, S)
-        lib, stream = _lib_and_stream(x.device)
-        rc = lib.sae_fused_topk_remat_h(
-            *(v.data_ptr() for v in (x, We, be, bd, t.contiguous(), xc, h)), L, B, D, S,
-            x.device.index, stream)
-        _build.check(lib, rc, "sae_fused_backward_topk (ffma)")
-        del xc
-        out = _tc_backward("sae_fused_backward_topk", "sae_fused_bwd_stored_tf32", "tf32x3", x,
-                           S, (x, h, Wd, bd, dy, dl1), hc_scratch=False)
     else:
         out = _backward_launch("sae_fused_backward_topk", _TOPK_REMAT, x, Wd, bd, dy, dl1,
                                We=We, be=be, t=t.contiguous())
