@@ -338,28 +338,33 @@ SAE_BWD_SOURCE = "vit_prisma_tpu_torch/csrc/sae_fused_bwd.cu"
 # the kernel's name in ptxas's record
 SAE_TC_SOURCE = "vit_prisma_tpu_torch/csrc/sae_fused_tc.cu"
 SAE_TC_KERNEL = "sae_tc_kernel"
-# B4's, B5's, B6's, B8's and B9's float32 route (sae_gemm_route "tf32x3":
+# The float32 route of every SAE kernel family (sae_gemm_route "tf32x3":
 # 3xTF32 on tf32 wgmma): its source, the kernel's name in ptxas's record and
 # its modes (0 encoder, 1 decoder, 2 dh, 3 weight gradients, 4 B8's TopK
-# encoder, 5 B9's remat encoder), the names of its launches (the kernel and
-# the split pre-passes; B8's select and counts), its C entry points for B8
-# and B9, and the FFMA tiles of sae_gemm.cuh, sae_fused_fwd_topk.cu and
-# sae_fused_bwd.cu that no float32 B4-B6, B8 or B9 call may launch
+# encoder, 5 B9's remat encoder, 6 B11's gated encoder, 7 B12's gated remat
+# encoder, 8 B12's dg passes, 9 B12's weight gradients), the names of its
+# launches (the kernel and the split pre-passes; B8's select and counts),
+# its C entry points for B8, B9, B11 and B12, and the mma.sync tiles of
+# sae_gemm.cuh, sae_fused_fwd_topk.cu and sae_fused_bwd.cu that no float32
+# call may launch
 SAE_TF32_SOURCE = "vit_prisma_tpu_torch/csrc/sae_fused_tf32.cu"
 SAE_TF32_KERNEL = "sae_tf32_kernel"
-SAE_TF32_MODES = (0, 1, 2, 3, 4, 5)
+SAE_TF32_MODES = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9)
 SAE_TF32_TOPK_MODES = (4, 5)
+SAE_TF32_GATED_MODES = (6, 7, 8, 9)
 SAE_TF32_KERNELS = (SAE_TF32_KERNEL, "split_t_kernel", "split_rows_kernel")
 SAE_TF32_TOPK_FWD_KERNELS = (SAE_TF32_KERNEL, "split_t_kernel", "radix_select_kernel",
                              "count_kernel")
 SAE_TF32_TOPK_ENTRIES = {"sae_fused_forward_topk": "sae_fused_fwd_topk_tf32",
                          "sae_fused_backward_topk": "sae_fused_bwd_topk_tf32"}
+SAE_TF32_GATED_ENTRIES = {"sae_gated_fused_forward": "sae_gated_fwd_tf32",
+                          "sae_gated_fused_backward": "sae_gated_bwd_tf32"}
 SAE_FFMA_KERNELS = ("encoder_kernel", "encoder_topk_kernel", "threshold_kernel", "dh_kernel",
                     "wgrad_kernel", "decoder_kernel")
 # The route each kernel family takes in float32 at every shape the picker
-# takes: the ReLU (B4-B6) and TopK (B8, B9) families 3xTF32, the gated
-# family FFMA
-SAE_F32_ROUTES = {"relu": "tf32x3", "topk": "tf32x3", "gated": "ffma"}
+# takes: 3xTF32 in every family (ReLU B4-B6, TopK B8 and B9, gated B11 and
+# B12)
+SAE_F32_ROUTES = {"relu": "tf32x3", "topk": "tf32x3", "gated": "tf32x3"}
 SAE_REPLACES = {"sae_fused_forward": "vit_prisma_tpu/ops/sae_step.py:148",
                 "sae_fused_backward": "vit_prisma_tpu/ops/sae_step.py:250",
                 "sae_fused_backward_stored": "vit_prisma_tpu/ops/sae_step.py:389"}
@@ -586,6 +591,8 @@ TOPK_F32_STEPS = 30
 TOPK_F32_REPEATS = 3
 TOPK_F32_PROFILED = 6
 TOPK_F32_REMAT_STEPS = 2
+# The float32 gated row (gated_train_f32) takes the float32 TopK row's
+# steps, repeats and profiled window.
 # Where a TopK step's time goes, after the train phase: TOPK_PROFILE_STEPS
 # steps timed back to back on batches already in the buffer, fused and
 # generic, then torch.profiler over three steps of each and over one refill;
@@ -648,15 +655,16 @@ SWEEP_CHECK_TOL = {
     torch.float32: {"param_max": 2e-5, "param_p999": 2e-5, "step1_metric_rel": 2e-4},
     torch.bfloat16: {"param_max": 6e-3, "param_p999": 5e-5, "step1_metric_rel": 5e-3}}
 # B11 and B12 against their plain versions: name, L, B, d_in, d_sae, dtype.
-# The gated slice (bench.py:177-180) in both dtypes, two layers at the
-# sweep's widths in bfloat16, and one at a ViT-S width (d_in 384, a multiple
-# of 128 but not of 256, at expansion 16) in bfloat16.  In bf16 the first
-# two take the Hopper route (wgmma/TMA, csrc/sae_fused_tc.cu) and the last
-# the mma.sync tiles (SAE_TC_SHAPES and SAE_MMA_SYNC_SHAPES hold their
-# names); float32 takes the FFMA tiles.
+# The gated slice (bench.py:177-180) and two layers at the sweep's widths in
+# both dtypes, and one at a ViT-S width (d_in 384, a multiple of 128 but not
+# of 256, at expansion 16) in bfloat16.  In bf16 the first two take the
+# Hopper route (wgmma/TMA, csrc/sae_fused_tc.cu) and the last the mma.sync
+# tiles (SAE_TC_SHAPES and SAE_MMA_SYNC_SHAPES hold their names); float32
+# takes 3xTF32 (csrc/sae_fused_tf32.cu).
 GATED_SHAPES = [("slice_bf16", 1, 4096, 768, 12288, torch.bfloat16),
                 ("slice_f32", 1, 4096, 768, 12288, torch.float32),
                 ("sweep_bf16", 2, 4096, 1024, 8192, torch.bfloat16),
+                ("sweep_f32", 2, 4096, 1024, 8192, torch.float32),
                 ("vit_s_bf16", 1, 4096, 384, 6144, torch.bfloat16)]
 # The instantiations of sae_tc_kernel (by Mode in csrc/sae_fused_tc.cu) that
 # B11 and B12 add: the gated encoder, its remat twin, dg, the gated wgrad and
@@ -700,6 +708,9 @@ GRAD_TC_KERNELS = ("bwd_rows_tc_kernel", "bwd_cols_tc_kernel")
 # and B15's forward, B2's two passes.  Each has one instantiation a padded
 # head width (16 to 128) and none may spill; the profiler must see them, and
 # the FFMA kernels only past 128.
+# The modules whose wrappers a kernel-name check calls by name.
+ATTENTION = "vit_prisma_tpu_torch.ops.attention"
+SAE_STEP = "vit_prisma_tpu_torch.ops.sae_step"
 MIX_TF32_KERNELS = ("mix_tf32_kernel", "bwd_rows_tf32_kernel", "bwd_cols_tf32_kernel")
 MIX_FFMA_KERNELS = ("mix_fwd_kernel", "mix_tnh_bwd_rows_kernel", "mix_tnh_bwd_cols_kernel")
 # Each gradient within rel * max(1, its absmax) of the plain version's.
@@ -1291,25 +1302,119 @@ def kernel_names(fn, calls=3, pad=0.0):
     return sorted({e.key for e in _device_events(fn, calls, pad)})
 
 
-def profiled_kernels(what, fn, route, kinds):
-    """Names of the kernels ``torch.profiler`` sees in calls of ``fn`` (a
-    float32 mix), raising unless the route's kernels of ``kinds`` (indices
-    into MIX_TF32_KERNELS and MIX_FFMA_KERNELS: 0 the forward, 1 and 2 B2's
-    passes) are among them and the other route's are not; a window that
-    missed one of them is taken again with the next margin of
-    ``PROFILE_PADS_S``."""
-    want, other = ((MIX_TF32_KERNELS, MIX_FFMA_KERNELS) if route == "tf32x3"
-                   else (MIX_FFMA_KERNELS, MIX_TF32_KERNELS))
+# Where a kernel-name check retaken in a process of its own finds its calls'
+# inputs (gitignored), and how long that process may take.
+NAMES_OUT = "smoke_out/names"
+NAMES_CHILD_TIMEOUT_S = 300
+# the kernel-name checks that were retaken in a process of their own; the
+# summary line lists them
+NAMES_RETAKEN = []
+
+
+def _calls_fn(calls):
+    """One function making each call of ``calls``: ("module:attribute",
+    args, kwargs) each."""
+    import importlib
+    fns = [(getattr(importlib.import_module(op.split(":")[0]), op.split(":")[1]), args, kw)
+           for op, args, kw in calls]
+    return lambda: [f(*args, **kw) for f, args, kw in fns]
+
+
+def _names_windows(calls, want, other):
+    """(names, missing, wrong) of the first profiler window over ``calls``
+    that saw every kernel of ``want`` or one of ``other``, taking the
+    margins of ``PROFILE_PADS_S`` in turn, else of the last window."""
+    fn = _calls_fn(calls)
     for pad in PROFILE_PADS_S:
         names = kernel_names(fn, pad=pad)
-        missing = [want[i] for i in kinds if not any(want[i] in n for n in names)]
+        missing = [k for k in want if not any(k in n for n in names)]
         wrong = [n for n in names if any(k in n for k in other)]
-        if wrong:
+        if wrong or not missing:
             break
-        if not missing:
-            return [n[:90] for n in names]
-    raise AssertionError(f"{what}: the profiler saw {names}: {missing} missing, "
-                         f"{wrong} of the other route")
+    return names, missing, wrong
+
+
+def _names_child(path, want, other, q):
+    """``_names_windows`` in a process of its own over the calls saved at
+    ``path``, their tensors moved to the card; puts (True, its result) or
+    (False, the error) on ``q``."""
+    try:
+        calls = [(op, [a.cuda() if torch.is_tensor(a) else a for a in args], kw)
+                 for op, args, kw in torch.load(path, weights_only=False)]
+        q.put((True, _names_windows(calls, want, other)))
+    except BaseException as e:
+        q.put((False, f"{type(e).__name__}: {e}"))
+
+
+def _names_fresh(what, calls, want, other):
+    """``_names_windows`` over ``calls`` in a new process, which starts
+    with no profiler window opened."""
+    import queue
+
+    import torch.multiprocessing as mp
+    os.makedirs(NAMES_OUT, exist_ok=True)
+    path = os.path.join(NAMES_OUT, f"calls_{os.getpid()}.pt")
+    torch.save([(op, [a.cpu() if torch.is_tensor(a) else a for a in args], kw)
+                for op, args, kw in calls], path)
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    proc = ctx.Process(target=_names_child, args=(path, want, other, q))
+    proc.start()
+    deadline = time.monotonic() + NAMES_CHILD_TIMEOUT_S
+    ok, value = False, f"no answer within {NAMES_CHILD_TIMEOUT_S} s"
+    try:
+        while time.monotonic() < deadline:
+            try:
+                ok, value = q.get(timeout=1.0)
+                break
+            except queue.Empty:
+                if not proc.is_alive():
+                    try:
+                        ok, value = q.get(timeout=1.0)
+                    except queue.Empty:
+                        value = f"the process exited with code {proc.exitcode}, no answer"
+                    break
+    finally:
+        proc.join(timeout=30)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+        os.remove(path)
+    if not ok:
+        raise AssertionError(f"{what}: the kernel-name check in a process of its own failed: "
+                             f"{value}")
+    NAMES_RETAKEN.append(what)
+    return value
+
+
+def names_seen(what, calls, want, other):
+    """Names of the kernels ``torch.profiler`` sees in ``calls``
+    (("module:attribute", args, kwargs) each), raising unless every kernel
+    of ``want`` is among them and none of ``other`` is.  A window that
+    missed one of ``want`` is taken again with the next margin of
+    ``PROFILE_PADS_S``.  The windows a process opens come back empty more
+    often the more it has opened (four in a row late in whole runs, where
+    the same check had passed at other shapes), so where every window
+    missed one, the windows are taken again in a new process over the same
+    inputs."""
+    names, missing, wrong = _names_windows(calls, want, other)
+    if missing and not wrong:
+        names, missing, wrong = _names_fresh(what, calls, want, other)
+    if missing or wrong:
+        raise AssertionError(f"{what}: the profiler saw {names}: {missing} missing, "
+                             f"{wrong} of the other route")
+    return [n[:90] for n in names]
+
+
+def profiled_kernels(what, calls, route, kinds):
+    """Names of the kernels ``torch.profiler`` sees in ``calls`` (a float32
+    mix; see ``names_seen``), raising unless the route's kernels of
+    ``kinds`` (indices into MIX_TF32_KERNELS and MIX_FFMA_KERNELS: 0 the
+    forward, 1 and 2 B2's passes) are among them and the other route's are
+    not."""
+    want, other = ((MIX_TF32_KERNELS, MIX_FFMA_KERNELS) if route == "tf32x3"
+                   else (MIX_FFMA_KERNELS, MIX_TF32_KERNELS))
+    return names_seen(what, calls, [want[i] for i in kinds], other)
 
 
 def phase_kernels(info):
@@ -1353,8 +1458,8 @@ def phase_kernels(info):
                            [(gemm, 4 * B * N * pairs * H), ("fp32", 5 * B * N * pairs)])}
             if dtype == torch.float32:
                 rec["profiled_kernels"] = profiled_kernels(
-                    f"B1 {name}", lambda: attention_mix_tnh(q, k, v, N, causal), rec["route"],
-                    (0,))
+                    f"B1 {name}", [(f"{ATTENTION}:attention_mix_tnh", (q, k, v, N, causal), {})],
+                    rec["route"], (0,))
             results[(name, dtype)] = rec
             emit(rec)
             del q, k, v, z, want, qh, kh, vh, alone
@@ -1874,22 +1979,12 @@ def _tf32_ptxas(modes):
             if any(f"{SAE_TF32_KERNEL}ILi{mode}E" in m for mode in modes)}
 
 
-def _f32_profiled(what, fn, want):
-    """Names of the kernels torch.profiler sees in calls of ``fn`` (a
-    float32 B4, B5, B6, B8 or B9 call), raising unless every kernel of
-    ``want`` is among them and no FFMA tile (SAE_FFMA_KERNELS) is; a window
-    that missed one is taken again with the next margin of
-    ``PROFILE_PADS_S``."""
-    for pad in PROFILE_PADS_S:
-        names = kernel_names(fn, pad=pad)
-        missing = [k for k in want if not any(k in n for n in names)]
-        wrong = [n for n in names if any(k in n for k in SAE_FFMA_KERNELS)]
-        if wrong:
-            break
-        if not missing:
-            return [n[:90] for n in names]
-    raise AssertionError(f"{what}: the profiler saw {names}: {missing} missing, "
-                         f"{wrong} FFMA tiles")
+def _f32_profiled(what, calls, want):
+    """Names of the kernels torch.profiler sees in ``calls`` (float32 B4,
+    B5, B6, B8 or B9 calls; see ``names_seen``), raising unless every
+    kernel of ``want`` is among them and no FFMA tile (SAE_FFMA_KERNELS)
+    is."""
+    return names_seen(what, calls, want, SAE_FFMA_KERNELS)
 
 
 def _bitwise_repeat(name, fn):
@@ -2067,10 +2162,11 @@ def phase_sae_step_kernels(info):
             # B4, B6 and B5 in one profiler window (each window a process
             # opens makes the later ones likelier to come back empty): only
             # the float32 route's launches, by name
-            profiled = _f32_profiled(name, lambda: (
-                S.sae_fused_forward(x, We, be, Wd, bd, save_h=True),
-                S.sae_fused_backward_stored(x, hc, Wd, bd, dy, dl1),
-                S.sae_fused_backward(x, We, be, Wd, bd, dy, dl1)), SAE_TF32_KERNELS)
+            profiled = _f32_profiled(name, [
+                (f"{SAE_STEP}:sae_fused_forward", (x, We, be, Wd, bd), {"save_h": True}),
+                (f"{SAE_STEP}:sae_fused_backward_stored", (x, hc, Wd, bd, dy, dl1), {}),
+                (f"{SAE_STEP}:sae_fused_backward", (x, We, be, Wd, bd, dy, dl1), {})],
+                SAE_TF32_KERNELS)
         flop = 2 * L * B * D * Sd
         ms = lambda fn, it: cuda_us(fn, iters=it, warmup=1) / 1000.0
         calls = {
@@ -2402,8 +2498,9 @@ def phase_topk_kernels(info):
         # empty, and the route tally shows the sweep's calls on the same C
         # entries
         f32_names = (_f32_profiled(
-            f"{name} B8 and B9", lambda: (calls["sae_fused_forward_topk"][0](),
-                                          calls["sae_fused_backward_topk"][0]()),
+            f"{name} B8 and B9",
+            [(f"{SAE_STEP}:sae_fused_forward_topk", (x, We, be, Wd, bd, TOPK_K), {"save_h": True}),
+             (f"{SAE_STEP}:sae_fused_backward_topk", (x, We, be, Wd, bd, dy, dl1, t), {})],
             SAE_TF32_TOPK_FWD_KERNELS + SAE_TF32_KERNELS)
             if name == TOPK_F32_PROFILED_SHAPE else None)
         for kernel, (fn, plain, nbytes, ops) in calls.items():
@@ -3146,7 +3243,7 @@ def _modes_ptxas(modes):
 def _gated_backward_acts(args, dy, dvia, dl1, route):
     """c(h) and c(hga) as B12 recomputes them: its C entry on ``route``
     called with this phase's own scratch buffers (the wrapper keeps them to
-    itself)."""
+    itself), held until the call has returned."""
     from vit_prisma_tpu_torch.ops import _build
     from vit_prisma_tpu_torch.ops import sae_step as S
     x, We, bg, rmag, bm, Wd, bd = args
@@ -3161,10 +3258,15 @@ def _gated_backward_acts(args, dy, dvia, dl1, route):
     ins = [t.data_ptr() for t in (x, We, bg, e, bm, Wd, bd, wdn, dy, dvia, dl1, xc)]
     outs = [t.data_ptr() for t in (dgc, part, sums, dWe, dWd)]
     lib, stream = _build.load_library(), torch.cuda.current_stream().cuda_stream
-    if route == "wgmma":
+    if route in ("wgmma", "tf32x3"):
         h, gf = new(L, 2 * B, Sd), new(L, B, Sd, dtype=f32)
-        rc = lib.sae_gated_bwd_tc(*ins, h.data_ptr(), gf.data_ptr(), *outs, L, B, D, Sd, 0,
-                                  stream)
+        if route == "wgmma":
+            rc = lib.sae_gated_bwd_tc(*ins, h.data_ptr(), gf.data_ptr(), *outs, L, B, D, Sd, 0,
+                                      stream)
+        else:
+            split = new(S._tf32_scratch_floats(True, L, B, D, Sd, "gated"), dtype=f32)
+            rc = lib.sae_gated_bwd_tf32(*ins, h.data_ptr(), gf.data_ptr(), *outs,
+                                        split.data_ptr(), L, B, D, Sd, 0, stream)
         hc, hgac = h[:, :B], h[:, B:]
     else:
         hc, hgac = new(L, B, Sd), new(L, B, Sd)
@@ -3177,13 +3279,19 @@ def _gated_backward_acts(args, dy, dvia, dl1, route):
 
 def phase_gated_kernels(info):
     """B11 and B12 against their plain versions at GATED_SHAPES (the gated
-    slice's, two layers of the sweep's widths, and a width that keeps the
-    bf16 mma.sync tiles): the route each took, two calls equal to the bit,
-    B12's recomputed activations equal to B11's, and the cuBLAS time of
-    their products beside them."""
+    slice's and two layers of the sweep's widths in both dtypes, and a width
+    that keeps the bf16 mma.sync tiles): the route each took, two calls
+    equal to the bit, B12's recomputed activations equal to B11's, and the
+    cuBLAS time of their products beside them; ptxas's record of the Hopper
+    route's gated modes and of the float32 route's (at most 168 registers,
+    no spill, no serialized wgmma)."""
     from vit_prisma_tpu_torch.ops import sae_step as S
     g = torch.Generator(device="cuda").manual_seed(8)
     gated_ptxas = _modes_ptxas(GATED_TC_MODES)
+    f32_ptxas = _tf32_ptxas(SAE_TF32_GATED_MODES)
+    if len(f32_ptxas) != len(SAE_TF32_GATED_MODES) or any(
+            r["registers"] > 168 for r in f32_ptxas.values()):
+        raise AssertionError(f"{SAE_TF32_KERNEL} gated modes: {f32_ptxas}")
     results = {}
     for name, L, B, D, Sd, dtype in GATED_SHAPES:
         x, We, bg, Wd, bd, dy, dl1 = _sae_inputs(g, L, B, D, Sd, dtype)
@@ -3294,11 +3402,105 @@ def phase_gated_kernels(info):
             if rec["route"] == "wgmma":
                 rec["source"] = SAE_TC_SOURCE
                 rec["ptxas"] = gated_ptxas
+            elif rec["route"] == "tf32x3":
+                rec.update(source=SAE_TF32_SOURCE, entry=SAE_TF32_GATED_ENTRIES[kernel],
+                           ptxas=f32_ptxas)
             results[(kernel, name)] = rec
             emit(rec)
         del x, We, bg, rmag, bm, Wd, bd, dy, dvia, y, via, hc, hgac, args
         torch.cuda.empty_cache()
     return results
+
+
+def phase_gated_train_f32(info, trainer, store, cfg):
+    """bench.py's gated recipe at its float32 compute dtype (``cfg`` with
+    ``compute_dtype`` unset, SAERunnerConfig's default) through
+    VisionSAETrainer on the card, from the gated train phase's state on its
+    store, which serves every step here without a refill: one step of
+    ``run`` (B11, B12 on 3xTF32), then TOPK_F32_REPEATS runs of
+    TOPK_F32_STEPS of the trainer's ``train_step`` on batches in the buffer,
+    each by synchronized wall time, and TOPK_F32_PROFILED more under
+    torch.profiler (device time, idle share, B11's and B12's launches by
+    mode); launches counted by route.  Returns the launches."""
+    from vit_prisma_tpu_torch.sae import VisionSAETrainer
+    c = cfg.replace(compute_dtype=None)
+    want_routes = _cfg_route(c)
+    if any(want_routes[k] != "tf32x3" for k in SAE_TF32_GATED_ENTRIES):
+        raise AssertionError(f"float32 gated routes {want_routes}")
+    counters = _sae_counters()
+    refills = _time_refills(store)
+    f32 = VisionSAETrainer(c, trainer.model, store)
+    f32.load_state(trainer.state)
+    bs = c.train_batch_size
+    batches = [store.buffer[i * bs:(i + 1) * bs] for i in range(TOPK_F32_STEPS)]
+    _zero_counts(counters)
+    routes_before = _route_counts(counters)
+    f32.run(max_steps=1)  # warm-up
+    seconds = []
+    for _ in range(TOPK_F32_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            f32.train_step(b)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    steps = 1 + TOPK_F32_REPEATS * TOPK_F32_STEPS
+    # the step's device time by part over TOPK_F32_PROFILED steps, after as
+    # many in an unkept profiler cycle: B11's (center, W_enc's and W_dec's
+    # splits, mode 6, the decoder) and B12's launches (center, four splits,
+    # mode 7, W_dec's row split, mode 8 twice, the partial sums, mode 9), B7,
+    # cuBLAS and elementwise work.  A window that lost device events is
+    # taken again with the next margin of PROFILE_PADS_S.
+    parts = (*(f"{SAE_TF32_KERNEL}<{m}>" for m in SAE_TF32_MODES), "split_t_kernel",
+             "split_rows_kernel", "center_kernel", "partial_sums_kernel", "adam_", "gemm",
+             "elementwise", "reduce")
+    per_step = {f"{SAE_TF32_KERNEL}<1>": 1, f"{SAE_TF32_KERNEL}<6>": 1,
+                f"{SAE_TF32_KERNEL}<7>": 1, f"{SAE_TF32_KERNEL}<8>": 2,
+                f"{SAE_TF32_KERNEL}<9>": 1, "split_t_kernel": 6, "split_rows_kernel": 1,
+                "center_kernel": 2, "partial_sums_kernel": 1}
+    for tries, pad in enumerate(PROFILE_PADS_S, 1):
+        prof = _profile(lambda: [f32.train_step(b) for b in batches[:TOPK_F32_PROFILED]],
+                        share_of=SAE_TF32_KERNELS + ("center_kernel", "partial_sums_kernel"),
+                        top=GATED_PROFILE_TOP, time_of=parts, calls_of=parts, pad=pad,
+                        warm=True)
+        steps += 2 * TOPK_F32_PROFILED
+        if all(prof["calls_of"][k] == n * TOPK_F32_PROFILED for k, n in per_step.items()):
+            break
+    else:
+        raise AssertionError(f"torch.profiler lost device events in {tries} windows of the "
+                             f"float32 gated step: {prof['calls_of']}")
+    launches = {k: f.launches for k, f in counters.items()}
+    expected = dict.fromkeys(counters, 0)
+    expected.update({"sae_gated_fused_forward": steps, "sae_gated_fused_backward": steps,
+                     "adam_update": len(f32.state.params) * steps})
+    if launches != expected:
+        raise AssertionError(f"float32 gated steps launched {launches}, expected {expected}")
+    routes = _check_routes("float32 gated steps", counters, routes_before, launches, want_routes)
+    if not all(torch.isfinite(v).all() for v in f32.state.params.values()):
+        raise AssertionError("non-finite SAE parameters after the float32 gated steps")
+    if refills:
+        raise AssertionError(f"the float32 gated steps refilled the store {len(refills)} times")
+    ms = sorted(1000.0 * t / TOPK_F32_STEPS for t in seconds)
+    by_mode = lambda modes: {m: prof["time_of"][f"{SAE_TF32_KERNEL}<{m}>"] / TOPK_F32_PROFILED
+                             for m in modes}
+    emit({"phase": "gated_train_f32", **info, "model": c.model_name,
+          "recipe": "bench.py's gated row at its float32 compute dtype (no compute_dtype)",
+          "d_in": c.d_in, "d_sae": c.d_sae, "train_batch_size": bs, "dtype": c.dtype,
+          "compute_dtype": c.compute_dtype, "store": "the gated train phase's, no refill",
+          "start_step": int(trainer.state.step),
+          "timed": f"{TOPK_F32_REPEATS} runs of {TOPK_F32_STEPS} train_step calls",
+          "seconds": seconds, "ms_per_step_wall": ms,
+          "sae_tokens_per_s": [1000.0 * bs / m for m in reversed(ms)],
+          "profiled_steps": TOPK_F32_PROFILED, "profile_windows": tries,
+          "device_busy_ms_per_step": prof["device_busy_ms"] / TOPK_F32_PROFILED,
+          "wall_ms_per_profiled_step": prof["wall_ms"] / TOPK_F32_PROFILED,
+          "idle_share_profiled": prof["idle_share"],
+          "b11_device_ms_by_mode": by_mode((6, 1)), "b12_device_ms_by_mode": by_mode((7, 8, 9)),
+          "splits_ms_per_step": (prof["time_of"]["split_t_kernel"]
+                                 + prof["time_of"]["split_rows_kernel"]) / TOPK_F32_PROFILED,
+          "profile": prof, "launches": launches, "expected_launches": expected,
+          "routes": routes})
+    return launches
 
 
 def gated_config():
@@ -3418,6 +3620,12 @@ def phase_grad_kernels(info):
             us = cuda_us(lambda: attention_mix_tnh_bwd(q, k, v, dz, N, causal))
             plain_us = cuda_us(lambda: attention_mix_tnh_bwd_reference(q, k, v, dz, N, causal),
                                iters=5)
+            # the kernels the profiler sees (float32), before the library's
+            # windows through autograd's engine open
+            profiled = (profiled_kernels(
+                f"B2 {name}", [(f"{ATTENTION}:attention_mix_tnh_bwd", (q, k, v, dz, N, causal),
+                                {})], mix_route(H, dtype), (1, 2))
+                if dtype == torch.float32 else None)
             # the library: SDPA's backward alone, on head-major copies made
             # beforehand, through a graph kept for every call
             qh, kh, vh, dzh = (a.reshape(B, T, N, H).transpose(1, 2).contiguous()
@@ -3446,10 +3654,8 @@ def phase_grad_kernels(info):
                    # five products of 2 B N T^2 H flops (the pairs this mask keeps)
                    **bound(7 * q.numel() * q.element_size(),
                            [(gemm, flops), ("fp32", 8 * B * N * pairs)])}
-            if dtype == torch.float32:
-                rec["profiled_kernels"] = profiled_kernels(
-                    f"B2 {name}", lambda: attention_mix_tnh_bwd(q, k, v, dz, N, causal),
-                    rec["route"], (1, 2))
+            if profiled is not None:
+                rec["profiled_kernels"] = profiled
             results[(name, dtype)] = rec
             emit(rec)
             del q, k, v, dz, got, want, alone, qh, kh, vh, dzh
@@ -5239,7 +5445,8 @@ def phase_mix_kernels(info):
             rec["route"] = A.mix_route(Hm, dtype)
             if dtype == torch.float32:
                 rec["profiled_kernels"] = profiled_kernels(
-                    f"B15 {name}", lambda: A._launch_mix(q, k, v), rec["route"], (0,))
+                    f"B15 {name}", [(f"{ATTENTION}:_launch_mix", (q, k, v), {})],
+                    rec["route"], (0,))
             del z1
             if name == "b32":
                 dz = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
@@ -7455,6 +7662,7 @@ def main():
     gated_kernels = timed(phase_gated_kernels, info)
     trainer, store, cfg, gated_launches = timed(phase_train, info, gated_config(), "gated_train",
                                               SLICE_STEPS, name="gated_train")
+    gated_f32_launches = timed(phase_gated_train_f32, info, trainer, store, cfg)
     timed(phase_step_profile, info, trainer, store, cfg, "gated_profile", name="gated_profile")
     timed(phase_gated_step_check, info, trainer, store, cfg)
     del trainer, store
@@ -7671,7 +7879,9 @@ def main():
     # at the gated slice's bf16 shape; launches from its train path.  B11
     # and B12 run their Hopper route there (source: its file), with the
     # cuBLAS time of their products, and the sweep widths' and the ViT-S
-    # width's (mma.sync route) figures beside
+    # width's (mma.sync route) figures beside; their float32 route (3xTF32,
+    # f32_source) at the slice and the sweep's widths, with its launches on
+    # the float32 gated train path
     gated_keys = ("route", "TFLOP_per_s", "cublas_products_ms", "ms", "bound_ms",
                   "max_abs_err", "bitwise_repeat")
     for k in GATED_SOURCES:
@@ -7684,7 +7894,12 @@ def main():
                      "b12_recomputes_b11_acts_bitwise": rec["b12_recomputes_b11_acts_bitwise"],
                      "other_routes_source": GATED_SOURCES[k],
                      **{f"{shape}_{key}": gated_kernels[(k, shape)][key]
-                        for shape in ("sweep_bf16", "vit_s_bf16") for key in gated_keys}})
+                        for shape in ("sweep_bf16", "vit_s_bf16") for key in gated_keys},
+                     **f32_sae(k, gated_kernels, ("slice_f32", "sweep_f32")),
+                     "f32_source": SAE_TF32_SOURCE, "f32_entry": SAE_TF32_GATED_ENTRIES[k],
+                     "f32_path_launches": gated_f32_launches[k],
+                     "f32_b12_recomputes_b11_acts_bitwise":
+                         gated_kernels[(k, "slice_f32")]["b12_recomputes_b11_acts_bitwise"]})
     # at the B/32 grad paths' bf16 shape, with its CLIP L/14 figures beside;
     # launches from the vit_train path
     l14_bwd = grad_kernels[("l14", torch.bfloat16)]
@@ -7788,7 +8003,7 @@ def main():
         raise AssertionError(f"kernels not launched on their main paths: {missing}")
     emit({"phase_seconds": PHASE_SECONDS, "total_s": time.perf_counter() - T_START,
           "card": name_power, "profile_padded": PROFILE_PADDED,
-          "cuda_event_fallbacks": CUDA_EVENT_FALLBACKS})
+          "cuda_event_fallbacks": CUDA_EVENT_FALLBACKS, "names_retaken": NAMES_RETAKEN})
     print(name_power)
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",

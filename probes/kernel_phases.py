@@ -1,8 +1,9 @@
 """chip_smoke.py's kernel phases alone, after the build: each named phase
 (``take_rows``, ``kth_value``, ``grad_kernels``, ``flash_kernels``,
 ``text``, ``tools``, ``parallel``, ...: the ``phase_<name>`` functions that
-take only the card's record) in the order given; ``gated_train`` runs phase 14 alone, the gated train path and its
-step profile, ``topk_train`` phase 9 alone (the TopK train path, its
+take only the card's record) in the order given; ``gated_train`` runs phase 14 alone (the
+gated train path, its float32 steps, its step profile and the
+fused-vs-generic float32 step check), ``topk_train`` phase 9 alone (the TopK train path, its
 remat steps, its float32 steps, the fused-vs-generic step check and its
 step profile), ``sweep_check`` the bf16 sweep and the
 fused-vs-generic sweep step checks (bf16 and float32), and ``sweep_f32``
@@ -30,7 +31,9 @@ def main():
         if name == "gated_train":
             trainer, store, cfg, _ = chip_smoke.phase_train(info, chip_smoke.gated_config(),
                                                             "gated_train", chip_smoke.SLICE_STEPS)
+            chip_smoke.phase_gated_train_f32(info, trainer, store, cfg)
             chip_smoke.phase_step_profile(info, trainer, store, cfg, "gated_profile")
+            chip_smoke.phase_gated_step_check(info, trainer, store, cfg)
             del trainer, store
         elif name == "sweep_check":  # the bf16 sweep, then the fused-vs-generic step checks
             trainer, store, cfg, _, _ = chip_smoke.phase_sweep(info)

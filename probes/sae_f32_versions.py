@@ -33,9 +33,21 @@ agrees, mask flips, t against the bitwise search on the version's own h,
 with the cuBLAS float32 products and the bound beside; ``--only topk
 --bf16`` holds every version's bf16 B8 and B9 (``sae_fused_tc.cu`` at the
 TopK slice, the mma.sync files at a ViT-S width) to the package's, bit for
-bit, with their times in turns.
+bit, with their times in turns.  ``--only gated`` does the same for B11
+and B12 (the gated forward and its remat backward: 3xTF32 from
+``sae_gated_fwd_tf32`` and ``sae_gated_bwd_tf32`` where the version's
+``sae_fused_tf32.cu`` has them, else the FFMA tiles of
+``sae_fused_fwd_gated.cu`` and ``sae_fused_bwd_gated.cu``) at the gated
+slice (4096, 768 -> 12,288) and two layers of the sweep's widths: errors
+against the plain versions (y and via on the rows whose masks agree, gate
+and magnitude flips, nact against the version's own mask, the grads outside
+the flipped features), B12's h and hga against B11's and two calls, to the
+bit, then times in turns with the cuBLAS float32 products and the bound
+beside (``--check``: the errors and ptxas only); ``--only gated --bf16``
+holds every version's bf16 B11 and B12 (``sae_fused_tc.cu`` at the gated
+slice, the mma.sync files at a ViT-S width) to the package's, bit for bit.
 Prints JSON lines.  Run from the repository root on a CUDA card:
-``python3 probes/sae_f32_versions.py [--check | --bf16 | --only topk [--bf16]] [DIR ...]``."""
+``python3 probes/sae_f32_versions.py [--check | --bf16 | --only topk|gated [--bf16]] [DIR ...]``."""
 
 import ctypes
 import json
@@ -343,6 +355,259 @@ class Bf16TopkVersion:
         return outs
 
 
+class GatedVersion(Version):
+    """One version's float32 B11 and B12 through its C entries: the 3xTF32
+    entries where the version's sae_fused_tf32.cu has them, else the FFMA
+    files (dtype 0)."""
+
+    def __init__(self, name, d, j):
+        self.name = name
+        self.tf32 = "sae_gated_fwd_tf32" in (d / "sae_fused_tf32.cu").read_text()
+        srcs = (["sae_fused_tf32.cu"] if self.tf32
+                else ["sae_fused_fwd_gated.cu", "sae_fused_bwd_gated.cu"])
+        self.tags = [f"sae_gated_{j}_{k}" for k in range(len(srcs))]
+        self.procs = [start_build(d / s, t) for s, t in zip(srcs, self.tags)]
+
+    def finish(self):
+        libs = [finish_build(p, t) for p, t in zip(self.procs, self.tags)]
+        if any(lib is None for lib in libs):
+            return False
+        if self.tf32:
+            self.fwd = self.bwd = libs[0]
+            self.fwd.sae_gated_fwd_tf32.argtypes = [P] * 14 + [I] * 5 + [P]
+            self.bwd.sae_gated_bwd_tf32.argtypes = [P] * 20 + [I] * 5 + [P]
+        else:
+            self.fwd, self.bwd = libs
+            self.fwd.sae_fused_fwd_gated.argtypes = [P] * 13 + [I] * 6 + [P]
+            self.bwd.sae_fused_bwd_gated.argtypes = [P] * 19 + [I] * 6 + [P]
+        return True
+
+    def forward(self, x, We, bg, rmag, bm, Wd, bd):
+        """B11: (y, via, l1, nact, h, hga)."""
+        from vit_prisma_tpu_torch.ops import sae_step as S
+        L, B, D = x.shape
+        Sd = We.shape[-1]
+        e, wdn = S._gated_hoisted_card(rmag, Wd)
+        new = lambda *shape: torch.empty(shape, dtype=torch.float32, device="cuda")
+        xc, h, y = new(L, B, D), new(L, 2 * B, Sd), new(L, 2 * B, D)
+        nact, l1 = new(L, B // 128, Sd), new(L, B // 128, Sd // 128)
+        ptrs = [v.data_ptr() for v in (x, We, bg, e, bm, Wd, bd, wdn, xc, h, y, nact, l1)]
+        if self.tf32:
+            split = new(S._tf32_scratch_floats(False, L, B, D, Sd, "gated"))
+            self._call(self.fwd, "sae_gated_fwd_tf32", *ptrs, split.data_ptr(), L, B, D, Sd, 0)
+        else:
+            self._call(self.fwd, "sae_fused_fwd_gated", *ptrs, L, B, D, Sd, 0, 0)
+        return y[:, :B], y[:, B:], l1.sum(dim=(1, 2)), nact.sum(dim=1), h[:, :B], h[:, B:]
+
+    def backward(self, x, We, bg, rmag, bm, Wd, bd, dy, dvia, dl1):
+        """B12: the five grads, then h and hga as it recomputed them."""
+        from vit_prisma_tpu_torch.ops import sae_step as S
+        L, B, D = x.shape
+        Sd = We.shape[-1]
+        e, wdn = S._gated_hoisted_card(rmag, Wd)
+        new = lambda *shape: torch.empty(shape, dtype=torch.float32, device="cuda")
+        xc, dg = new(L, B, D), new(L, B, Sd)
+        part, sums = new(4, L, B // 128, Sd), new(4, L, Sd)
+        dWe, dWd = new(L, D, Sd), new(L, Sd, D)
+        ins = [v.data_ptr() for v in (x, We, bg, e, bm, Wd, bd, wdn, dy, dvia, dl1, xc)]
+        outs = [v.data_ptr() for v in (dg, part, sums, dWe, dWd)]
+        if self.tf32:
+            h, g = new(L, 2 * B, Sd), new(L, B, Sd)
+            split = new(S._tf32_scratch_floats(True, L, B, D, Sd, "gated"))  # held to the end
+            self._call(self.bwd, "sae_gated_bwd_tf32", *ins, h.data_ptr(), g.data_ptr(), *outs,
+                       split.data_ptr(), L, B, D, Sd, 0)
+            hc, hga = h[:, :B], h[:, B:]
+        else:
+            hc, hga = new(L, B, Sd), new(L, B, Sd)
+            self._call(self.bwd, "sae_fused_bwd_gated", *ins, hc.data_ptr(), hga.data_ptr(),
+                       *outs, L, B, D, Sd, 0, 0)
+        return (dWe, dWd, sums[1], sums[2], sums[3] * e), (hc, hga)
+
+
+class Bf16GatedVersion:
+    """One version's bf16 B11 and B12 through its C entries: the Hopper
+    route's file and the mma.sync files."""
+
+    def __init__(self, name, d, j):
+        self.name = name
+        self.tags = [f"sae_gated_bf16_{j}_{k}" for k in range(3)]
+        self.procs = [start_build(d / s, t) for s, t in zip(
+            ("sae_fused_tc.cu", "sae_fused_fwd_gated.cu", "sae_fused_bwd_gated.cu"), self.tags)]
+
+    def finish(self):
+        libs = [finish_build(p, t) for p, t in zip(self.procs, self.tags)]
+        if any(lib is None for lib in libs):
+            return False
+        self.tc, self.fwd, self.bwd = libs
+        self.tc.sae_gated_fwd_tc.argtypes = [P] * 13 + [I] * 5 + [P]
+        self.tc.sae_gated_bwd_tc.argtypes = [P] * 19 + [I] * 5 + [P]
+        self.fwd.sae_fused_fwd_gated.argtypes = [P] * 13 + [I] * 6 + [P]
+        self.bwd.sae_fused_bwd_gated.argtypes = [P] * 19 + [I] * 6 + [P]
+        return True
+
+    _call = Version._call
+
+    def forward(self, x, We, bg, e, bm, Wd, bd, wdn, tc):
+        """B11: (y and via stacked, h and hga stacked, nact_part, l1_part)."""
+        L, B, D = x.shape
+        Sd = We.shape[-1]
+        new = lambda *shape, dt=torch.bfloat16: torch.empty(shape, dtype=dt, device="cuda")
+        xc, h, y = new(L, B, D), new(L, 2 * B, Sd), new(L, 2 * B, D)
+        nact = new(L, B // 128, Sd, dt=torch.float32)
+        l1 = new(L, B // 128, Sd // (256 if tc else 128), dt=torch.float32)
+        ptrs = [v.data_ptr() for v in (x, We, bg, e, bm, Wd, bd, wdn, xc, h, y, nact, l1)]
+        if tc:
+            self._call(self.tc, "sae_gated_fwd_tc", *ptrs, L, B, D, Sd, 0)
+        else:
+            self._call(self.fwd, "sae_fused_fwd_gated", *ptrs, L, B, D, Sd, 1, 0)
+        return y, h, nact, l1
+
+    def backward(self, x, We, bg, e, bm, Wd, bd, wdn, dy, dvia, dl1, tc):
+        """B12: dW_enc, dW_dec, the sums and the recomputed activations."""
+        L, B, D = x.shape
+        Sd = We.shape[-1]
+        new = lambda *shape, dt=torch.bfloat16: torch.empty(shape, dtype=dt, device="cuda")
+        f32 = torch.float32
+        xc, dgc = new(L, B, D), new(L, B, Sd)
+        part, sums = new(4, L, B // 128, Sd, dt=f32), new(4, L, Sd, dt=f32)
+        dWe, dWd = new(L, D, Sd, dt=f32), new(L, Sd, D, dt=f32)
+        ins = [v.data_ptr() for v in (x, We, bg, e, bm, Wd, bd, wdn, dy, dvia, dl1, xc)]
+        outs = [v.data_ptr() for v in (dgc, part, sums, dWe, dWd)]
+        if tc:
+            h, g = new(L, 2 * B, Sd), new(L, B, Sd, dt=f32)
+            self._call(self.tc, "sae_gated_bwd_tc", *ins, h.data_ptr(), g.data_ptr(), *outs,
+                       L, B, D, Sd, 0)
+            acts = (h,)
+        else:
+            hc, hga = new(L, B, Sd), new(L, B, Sd)
+            self._call(self.bwd, "sae_fused_bwd_gated", *ins, hc.data_ptr(), hga.data_ptr(),
+                       *outs, L, B, D, Sd, 1, 0)
+            acts = (hc, hga)
+        return (dWe, dWd, sums, dgc, *acts)
+
+
+def _gated_inputs(g, L, B, D, Sd, dtype):
+    """chip_smoke.py's gated kernel phase inputs: _sae_inputs, then r_mag,
+    b_mag and dvia."""
+    x, We, bg, Wd, bd, dy, dl1 = chip_smoke._sae_inputs(g, L, B, D, Sd, dtype)
+    r = lambda *shape, sc: (torch.randn(*shape, generator=g, device="cuda") * sc).to(dtype)
+    rmag, bm, dvia = r(L, Sd, sc=0.1), r(L, Sd, sc=0.01), r(L, B, D, sc=1e-3)
+    return (x, We, bg, rmag, bm, Wd, bd), (dy, dvia, dl1)
+
+
+GATED_SHAPES = {"gated_slice": (1, 4096, 768, 12288), "sweep_widths": (2, 4096, 1024, 8192)}
+
+
+def gated_bf16_main(dirs):
+    """Every version's bf16 B11 and B12 against the package's, bit for bit,
+    and their times in turns."""
+    from vit_prisma_tpu_torch.ops import sae_step as S
+    versions = {n: Bf16GatedVersion(n, d, j) for j, (n, d) in enumerate(dirs.items())}
+    for n in list(versions):
+        ok = versions[n].finish()
+        print(json.dumps({"version": n, "built": ok}), flush=True)
+        if not ok:
+            del versions[n]
+    print(json.dumps({"card": card(), "versions": list(versions)}), flush=True)
+    names = list(versions)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for shape, (L, B, D, Sd), tc in (("gated_slice_bf16", GATED_SHAPES["gated_slice"], True),
+                                     ("vit_s_bf16", (1, 4096, 384, 6144), False)):
+        args, (dy, dvia, dl1) = _gated_inputs(g, L, B, D, Sd, torch.bfloat16)
+        x, We, bg, rmag, bm, Wd, bd = args
+        e, wdn = S._gated_hoisted_card(rmag, Wd)
+        calls = {"B11": lambda v: v.forward(x, We, bg, e, bm, Wd, bd, wdn, tc),
+                 "B12": lambda v: v.backward(x, We, bg, e, bm, Wd, bd, wdn, dy, dvia, dl1, tc)}
+        rec = {"shape": shape, "L": L, "B": B, "d_in": D, "d_sae": Sd,
+               "route": "wgmma" if tc else "mma_sync", "equal_to_package": {}, "ms": {}}
+        for kernel, fn in calls.items():
+            want = fn(versions["package"])
+            rec["equal_to_package"][kernel] = {
+                n: all(torch.equal(a, b) for a, b in zip(fn(v), want)) for n, v in versions.items()}
+            del want
+            tt = {n: [] for n in names}
+            for n in names + names[::-1]:
+                tt[n].append(ms(lambda: fn(versions[n]), iters=10, warmup=1))
+            rec["ms"][kernel] = tt
+        print(json.dumps(rec), flush=True)
+        del x, We, bg, rmag, bm, Wd, bd, dy, dvia, dl1, e, wdn, args
+        torch.cuda.empty_cache()
+    return 0
+
+
+def gated_main(dirs, check):
+    """Every version's float32 B11 and B12 against the plain versions, and
+    their times in turns, at the gated slice and the sweep's widths."""
+    from vit_prisma_tpu_torch.ops import sae_step as S
+    versions = {n: GatedVersion(n, d, j) for j, (n, d) in enumerate(dirs.items())}
+    for n in list(versions):
+        ok = versions[n].finish()
+        print(json.dumps({"version": n, "built": ok, "tf32": versions[n].tf32,
+                          "ptxas": versions[n].ptxas() if ok else None}), flush=True)
+        if not ok:
+            del versions[n]
+    print(json.dumps({"card": card(), "versions": list(versions)}), flush=True)
+    names = list(versions)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for shape, (L, B, D, Sd) in GATED_SHAPES.items():
+        args, (dy, dvia, dl1) = _gated_inputs(g, L, B, D, Sd, torch.float32)
+        x, We, bg, rmag, bm, Wd, bd = args
+        yr, viar, l1r, nactr, hr, hgar = S.sae_gated_fused_forward_reference(*args, save_h=True)
+        want = S.sae_gated_fused_backward_reference(*args, dy, dvia, dl1)
+        rec = {"shape": shape, "L": L, "B": B, "d_in": D, "d_sae": Sd, "errors": {},
+               "tol": {"y_via": chip_smoke.SAE_REL[torch.float32],
+                       "grads": chip_smoke.SAE_GRAD_REL[torch.float32]}}
+        for n, v in versions.items():
+            y, via, l1, nact, h, hga = v.forward(*args)
+            gflip, mflip = (hga > 0) != (hgar > 0), (h > 0) != (hr > 0)
+            rows = (gflip | mflip).any(dim=-1)
+            clean = ~(gflip | mflip).any(dim=1)  # [L, S]
+            keep = {0: clean[:, None, :], 1: clean[:, :, None]}
+            grads, (h12, hga12) = v.backward(*args, dy, dvia, dl1)
+            grads2, _ = v.backward(*args, dy, dvia, dl1)
+            out = lambda a, b: (a - b).abs()[~rows].max().item() / max(1.0, b.abs().max().item())
+            rec["errors"][n] = {
+                "y_unflipped_rows": out(y, yr), "via_unflipped_rows": out(via, viar),
+                "gate_flips": int(gflip.sum()), "magnitude_flips": int(mflip.sum()),
+                "rows_with_flips": int(rows.sum()),
+                "l1_rel": ((l1 - l1r).abs() / l1r.abs()).max().item(),
+                "nact_is_own_mask": torch.equal(nact, (h > 0).sum(dim=1, dtype=torch.float32)),
+                "grads_unflipped": [((a - b).abs() * keep.get(i, clean)).max().item()
+                                    / b.abs().max().item()
+                                    for i, (a, b) in enumerate(zip(grads, want))],
+                "b12_acts_equal_b11": torch.equal(h12, h) and torch.equal(hga12, hga),
+                "b12_two_calls_equal": all(torch.equal(a, b) for a, b in zip(grads, grads2))}
+            del y, via, l1, nact, h, hga, grads, grads2, h12, hga12
+        if not check:
+            flop = 2 * L * B * D * Sd
+            xc, WdT = x - bd[:, None], Wd.transpose(1, 2)
+            calls = {"B11": (lambda v: v.forward(*args), [(xc, We), (hr, Wd), (hgar, Wd)], 3),
+                     "B12": (lambda v: v.backward(*args, dy, dvia, dl1),
+                             [(xc, We), (dy, WdT), (dvia, WdT), (xc.transpose(1, 2), hgar),
+                              (hr.transpose(1, 2), dy), (hgar.transpose(1, 2), dvia)], 6)}
+            iters = 10 if L == 1 else 5
+            times = {}
+            for kernel, (fn, products, n_products) in calls.items():
+                tt = {n: [] for n in names}
+                for n in names + names[::-1]:
+                    tt[n].append(ms(lambda: fn(versions[n]), iters=iters, warmup=1))
+                n_flop = n_products * flop
+                times[kernel] = {"ms": tt, "TFLOP_per_s": {n: n_flop / min(v) / 1e9
+                                                           for n, v in tt.items()},
+                                 "bound": chip_smoke.bound(0, [("f32_product", n_flop)]),
+                                 "cublas_products_ms": ms(
+                                     lambda: [torch.matmul(a, b) for a, b in products],
+                                     iters=iters, warmup=1),
+                                 "kernels": [kn[:70] for kn in chip_smoke.kernel_names(
+                                     lambda: fn(versions["package"]))]}
+            rec["times"] = times
+            del xc, WdT
+        print(json.dumps(rec), flush=True)
+        del x, We, bg, rmag, bm, Wd, bd, dy, dvia, dl1, args, yr, viar, hr, hgar, want
+        torch.cuda.empty_cache()
+    return 0
+
+
 def topk_bf16_main(dirs):
     """Every version's bf16 B8 and B9 against the package's, bit for bit,
     and their times in turns."""
@@ -514,16 +779,18 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     args = sys.argv[1:]
     only = None
-    if "--only" in args:  # --only topk
+    if "--only" in args:  # --only topk|gated
         i = args.index("--only")
         only, args = args[i + 1], args[:i] + args[i + 2:]
-        if only != "topk":
-            raise SystemExit(f"--only {only}: the one choice is topk")
+        if only not in ("topk", "gated"):
+            raise SystemExit(f"--only {only}: the choices are topk and gated")
     check = "--check" in args
     dirs = {"package": PACKAGE, **{f"{i}:{Path(a).name}": Path(a) for i, a in enumerate(
         x for x in args if not x.startswith("--"))}}
     if only == "topk":
         return topk_bf16_main(dirs) if "--bf16" in args else topk_main(dirs)
+    if only == "gated":
+        return gated_bf16_main(dirs) if "--bf16" in args else gated_main(dirs, check)
     if "--bf16" in args:
         return bf16_main(dirs)
     versions = {n: Version(n, d, j) for j, (n, d) in enumerate(dirs.items())}

@@ -111,15 +111,24 @@ def _meta(L, B, D, S, dtype):
              new(L, D)), (new(L, B, D), new(L, B, D), new(L, dt=torch.float32)))
 
 
-# (B, d_in, d_sae, dtype): the entry point each wrapper reaches, by route
+# (B, d_in, d_sae, dtype): the entry point each wrapper reaches, by case.  A
+# case is named for the route its shape took when the FFMA tiles were
+# float32's; float32 B11 and B12 take "tf32x3" there now (ROUTE).
 DISPATCH = {"wgmma": (256, 256, 512, torch.bfloat16), "mma_sync": (256, 128, 512, torch.bfloat16),
             "ffma": (256, 128, 512, torch.float32)}
+ROUTE = {"wgmma": "wgmma", "mma_sync": "mma_sync", "ffma": "tf32x3"}
+ENTRY = {"forward": {"wgmma": "sae_gated_fwd_tc", "tf32x3": "sae_gated_fwd_tf32",
+                     "mma_sync": "sae_fused_fwd_gated"},
+         "backward": {"wgmma": "sae_gated_bwd_tc", "tf32x3": "sae_gated_bwd_tf32",
+                      "mma_sync": "sae_fused_bwd_gated"}}
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 @pytest.mark.parametrize("route", list(DISPATCH))
 def test_gated_forward_dispatches_by_route(monkeypatch, route):
     B, D, S, dtype = DISPATCH[route]
+    route = ROUTE[route]
+    assert sae_step.sae_gemm_route(B, D, S, dtype, "gated") == route
     lib = _Lib()
     monkeypatch.setattr(sae_step, "_lib_and_stream", lambda device: (lib, 0))
     args, _ = _meta(2, B, D, S, dtype)
@@ -127,9 +136,11 @@ def test_gated_forward_dispatches_by_route(monkeypatch, route):
     launches, routes = fn.launches, dict(fn.routes)
     y, via, l1, nact, h, hga = fn(*args, save_h=True)
     (name, cargs), = lib.calls
-    assert name == ("sae_gated_fwd_tc" if route == "wgmma" else "sae_fused_fwd_gated")
-    assert cargs[13:17] == (2, B, D, S)
-    if route != "wgmma":
+    assert name == ENTRY["forward"][route]
+    # tf32x3: the split copies' scratch after the thirteen pointers
+    n_ptrs = 14 if route == "tf32x3" else 13
+    assert cargs[n_ptrs:n_ptrs + 4] == (2, B, D, S)
+    if route == "mma_sync":
         assert cargs[17] == _CODES[dtype]
     assert fn.launches == launches + 1
     routes[route] += 1
@@ -142,6 +153,7 @@ def test_gated_forward_dispatches_by_route(monkeypatch, route):
 @pytest.mark.parametrize("route", list(DISPATCH))
 def test_gated_backward_dispatches_by_route(monkeypatch, route):
     B, D, S, dtype = DISPATCH[route]
+    route = ROUTE[route]
     lib = _Lib()
     monkeypatch.setattr(sae_step, "_lib_and_stream", lambda device: (lib, 0))
     args, cot = _meta(2, B, D, S, dtype)
@@ -149,9 +161,11 @@ def test_gated_backward_dispatches_by_route(monkeypatch, route):
     launches, routes = fn.launches, dict(fn.routes)
     grads = fn(*args, *cot)
     (name, cargs), = lib.calls
-    assert name == ("sae_gated_bwd_tc" if route == "wgmma" else "sae_fused_bwd_gated")
-    assert cargs[19:23] == (2, B, D, S)
-    if route != "wgmma":
+    assert name == ENTRY["backward"][route]
+    # tf32x3: x .. xc, h, g, dg, the partials, sums, the grads, then the split
+    n_ptrs = 20 if route == "tf32x3" else 19
+    assert cargs[n_ptrs:n_ptrs + 4] == (2, B, D, S)
+    if route == "mma_sync":
         assert cargs[23] == _CODES[dtype]
     assert fn.launches == launches + 1
     routes[route] += 1
@@ -178,11 +192,9 @@ def test_gated_failed_launch_raises_without_fallback(monkeypatch, which):
 @pytest.mark.parametrize("case", list(ROUTE_CASES))
 def test_gated_forward_and_backward_take_one_route(monkeypatch, case):
     """B11 and B12 count their launch on the same route at every shape of
-    the picker's cases (the picker's own, where float32 keeps the gated
-    family's FFMA tiles), or both refuse the shape."""
+    the picker's cases (the picker's own: float32 takes 3xTF32 in every
+    family), or both refuse the shape."""
     B, D, S, dtype, route = ROUTE_CASES[case]
-    if route == "tf32x3":
-        route = "ffma"
     lib = _Lib()
     monkeypatch.setattr(sae_step, "_lib_and_stream", lambda device: (lib, 0))
     args, cot = _meta(1, B, D, S, dtype)

@@ -56,13 +56,13 @@ ORDERS = {"k": torch.tensor([k_phys(k) for k in range(STAGE)]),
 # ---------------------------------------------------------------------------
 
 def test_route_map_per_family_and_dtype():
-    """float32: the ReLU (B4, B5, B6) and TopK (B8, B9) families on 3xTF32,
-    the gated family (B11, B12) on its FFMA tiles; bfloat16 as before, one
-    route for every family; nothing else has a route."""
+    """float32: every family, ReLU (B4, B5, B6), TopK (B8, B9) and gated
+    (B11, B12), on 3xTF32; bfloat16 as before, one route for every family;
+    nothing else has a route."""
     for B, D, S in ((4096, 1024, 8192), (4096, 768, 12288), (4096, 384, 6144), (256, 128, 512)):
         r = lambda dtype, fam: sae_step.sae_gemm_route(B, D, S, dtype, fam)
         assert r(torch.float32, "relu") == "tf32x3"
-        assert r(torch.float32, "topk") == "tf32x3" and r(torch.float32, "gated") == "ffma"
+        assert r(torch.float32, "topk") == "tf32x3" and r(torch.float32, "gated") == "tf32x3"
         bf16 = "wgmma" if D % 256 == 0 and S % 256 == 0 else "mma_sync"
         assert {r(torch.bfloat16, f) for f in sae_step.SAE_FAMILIES} == {bf16}
         assert sae_step.sae_gemm_route(B, D, S, torch.float32) == "tf32x3"  # the default: ReLU
@@ -70,17 +70,17 @@ def test_route_map_per_family_and_dtype():
     assert sae_step.sae_gemm_route(4097, 1024, 8192, torch.float32) is None
     with pytest.raises(ValueError):
         sae_step.sae_gemm_route(4096, 1024, 8192, torch.float32, "standard")
-    assert sae_step.SAE_GEMM_ROUTES == ("wgmma", "mma_sync", "tf32x3", "ffma")
+    assert sae_step.SAE_GEMM_ROUTES == ("wgmma", "mma_sync", "tf32x3")
 
 
 def test_kernel_routes_by_wrapper():
-    """Each routed wrapper's route at the sweep's shape: in float32 B4, B5,
-    B6, B8 and B9 on tf32x3, B11 and B12 on ffma; in bf16 all on wgmma."""
+    """Each routed wrapper's route at the sweep's shape: in float32 all on
+    tf32x3 (B4, B5, B6, B8, B9, B11 and B12); in bf16 all on wgmma."""
     f32 = sae_step.sae_kernel_routes(4096, 1024, 8192, torch.float32)
     assert f32 == {"sae_fused_forward": "tf32x3", "sae_fused_backward": "tf32x3",
                    "sae_fused_backward_stored": "tf32x3", "sae_fused_forward_topk": "tf32x3",
-                   "sae_fused_backward_topk": "tf32x3", "sae_gated_fused_forward": "ffma",
-                   "sae_gated_fused_backward": "ffma"}
+                   "sae_fused_backward_topk": "tf32x3", "sae_gated_fused_forward": "tf32x3",
+                   "sae_gated_fused_backward": "tf32x3"}
     assert set(sae_step.sae_kernel_routes(4096, 1024, 8192, torch.bfloat16).values()) == {"wgmma"}
     assert set(sae_step.SAE_KERNEL_FAMILIES) == {
         k for k, f in vars(sae_step).items() if callable(f) and hasattr(f, "routes")}

@@ -38,11 +38,12 @@ FLIP_FRAC, FLIP_ROW_FRAC = 1e-4, 1e-2  # chip_smoke.py's TOPK_FLIP_FRAC, TOPK_FL
 @pytest.mark.parametrize("B,D,S", [(4096, 768, 12288), (4096, 1024, 8192), (4096, 384, 6144),
                                    (256, 128, 512)])
 def test_float32_topk_takes_tf32x3_and_gated_keeps_ffma(B, D, S):
-    """float32 B8 and B9 take 3xTF32 at every shape the picker takes, the
-    gated family keeps its FFMA tiles, and bf16 TopK is unchanged."""
+    """float32 B8 and B9 take 3xTF32 at every shape the picker takes, as
+    the gated family does since its FFMA tiles went, and bf16 TopK is
+    unchanged."""
     r = lambda dtype, fam: sae_step.sae_gemm_route(B, D, S, dtype, fam)
     assert r(torch.float32, "topk") == "tf32x3"
-    assert r(torch.float32, "gated") == "ffma"
+    assert r(torch.float32, "gated") == "tf32x3"
     assert r(torch.bfloat16, "topk") == ("wgmma" if D % 256 == 0 and S % 256 == 0
                                          else "mma_sync")
     routes = sae_step.sae_kernel_routes(B, D, S, torch.float32)

@@ -137,7 +137,7 @@ def _meta(L, B, D, S, dtype):
 # (B, d_in, d_sae, dtype): the entry point each wrapper reaches, by case.
 # A case is named for the route its shape took when the FFMA tiles were
 # float32's; B4 and B6 (the ReLU family) take "tf32x3" at the float32 case
-# now (RELU_ROUTE), as the TopK family does, and the gated family keeps "ffma".
+# now (RELU_ROUTE), as the TopK and gated families do.
 DISPATCH = {"wgmma": (256, 256, 512, torch.bfloat16), "mma_sync": (256, 128, 512, torch.bfloat16),
             "ffma": (256, 128, 512, torch.float32)}
 RELU_ROUTE = {"wgmma": "wgmma", "mma_sync": "mma_sync", "ffma": "tf32x3"}

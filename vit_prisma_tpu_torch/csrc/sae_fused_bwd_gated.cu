@@ -1,4 +1,7 @@
-// Fused gated-SAE backward over L stacked SAEs: the remat VJP (kernel B12).
+// Fused gated-SAE backward over L stacked SAEs: the remat VJP (kernel B12),
+// bfloat16 at the shapes that sae_fused_tc.cu's Hopper route does not take
+// (d_in or d_sae not a multiple of 256).  Float32 runs sae_fused_tf32.cu
+// (3xTF32 on tf32 wgmma) at every shape.
 //
 // Replaces the Pallas TPU kernel `_bwd_kernel_gated` (with `_gated_pre`),
 // launched by `_fused_backward_gated` in vit_prisma_tpu/ops/sae_step.py.
@@ -40,7 +43,7 @@
 //      parked tile takes 64 KB of shared memory instead, in a per-thread
 //      layout (element i of thread t at i * 256 + t, so a warp's accesses
 //      are consecutive words and never conflict), beside the copy ring:
-//      128 KB a block in bf16, 176 KB in float32.  Each thread reads and
+//      128 KB a block.  Each thread reads and
 //      writes only its own slots, so the parked tile needs no barrier.
 //   3. the partial column sums summed in a fixed order (no atomics), so the
 //      result does not change from run to run;
@@ -54,14 +57,13 @@
 //
 // What bounds it on an H100.  Six products, 6 x 2 L B d_in d_sae: at the
 // slice shape 463.9 GFLOP against well under 0.5 GB of traffic, so it is
-// bound by operations: 0.469 ms at the 989 TFLOP/s dense bf16 peak, 6.92 ms
-// in float32.  Measured on an NVIDIA H100 80GB HBM3 (700 W): 2.78 ms in
-// bf16, 167 TFLOP/s (the plain version: 13.75 ms): the dg kernel 1.61 ms
-// (144 TFLOP/s at one block an SM), the dW_dec GEMM 0.66, dW_enc 0.34;
-// 12.59 ms in float32.  ptxas gives the dg kernel 184 registers in bf16 and
-// 222 in float32 and spills none, so the 128-wide tile stays; without the
-// second argument of __launch_bounds__ it held bf16 to 128 registers and
-// spilled 8 bytes.
+// bound by operations: 0.469 ms at the 989 TFLOP/s dense bf16 peak.
+// Measured on an NVIDIA H100 80GB HBM3 (700 W): 2.78 ms in bf16, 167
+// TFLOP/s (the plain version: 13.75 ms): the dg kernel 1.61 ms (144 TFLOP/s
+// at one block an SM), the dW_dec GEMM 0.66, dW_enc 0.34.  ptxas gives the
+// dg kernel 184 registers and spills none, so the 128-wide tile stays;
+// without the second argument of __launch_bounds__ it held bf16 to 128
+// registers and spilled 8 bytes.
 
 #include "sae_gemm.cuh"
 
@@ -292,7 +294,8 @@ cudaError_t backward(const void* x, const void* We, const void* bg, const void* 
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  x, W_enc, b_gate, b_mag, W_dec, b_dec,
+// dtype: 1 = bfloat16 (float32, 0, is refused: sae_fused_tf32.cu's).  x,
+// W_enc, b_gate, b_mag, W_dec, b_dec,
 // dy, dvia, xc (scratch), hc, hgac and dgc (scratch, [L, B, S]) in the
 // compute type; e and wdn [L, S], dl1 [L], part (scratch, [4, L, B/128, S]),
 // sums [4, L, S] (colsum(max(hg, 0)), db_gate, db_mag, sum(dhm g)), dWe
@@ -308,9 +311,6 @@ extern "C" int sae_fused_bwd_gated(const void* x, const void* We, const void* bg
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return backward<float>(x, We, bg, e, bm, Wd, bd, wdn, dy, dvia, dl1, xc, hc, hgac, dgc,
-                           part, sums, dWe, dWd, L, B, D, S, s);
   if (dtype == 1)
     return backward<__nv_bfloat16>(x, We, bg, e, bm, Wd, bd, wdn, dy, dvia, dl1, xc, hc, hgac,
                                    dgc, part, sums, dWe, dWd, L, B, D, S, s);

@@ -1,10 +1,13 @@
-// Fused gated-SAE forward over L stacked SAEs (kernel B11).
+// Fused gated-SAE forward over L stacked SAEs (kernel B11), bfloat16 at the
+// shapes that sae_fused_tc.cu's Hopper route does not take (d_in or d_sae
+// not a multiple of 256; the wrapper's `sae_gemm_route`).  Float32 runs
+// sae_fused_tf32.cu (3xTF32 on tf32 wgmma) at every shape.
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel_gated` (with `_gated_pre`),
 // launched by `_fused_forward_gated` in vit_prisma_tpu/ops/sae_step.py.
 // For x [L, B, d_in], W_enc [L, d_in, d_sae], b_gate, b_mag [L, d_sae],
 // W_dec [L, d_sae, d_in], b_dec [L, d_in], all in the compute type c
-// (float32 or bfloat16), and the float32 e = exp(r_mag) and decoder row
+// (bfloat16 here), and the float32 e = exp(r_mag) and decoder row
 // norms wdn [L, d_sae] (hoisted out of the kernel, as the JAX package
 // hoists them):
 //     xc        = x - b_dec                             (in c)
@@ -43,13 +46,12 @@
 //
 // What bounds it on an H100.  Three products, 3 x 2 L B d_in d_sae: at the
 // slice shape 231.9 GFLOP against about 57 MB of inputs and outputs, so it
-// is bound by operations: 0.234 ms at the 989 TFLOP/s dense bf16 peak,
-// 3.46 ms in float32 (FFMA tiles, 67 TFLOP/s).  Measured on an NVIDIA H100
-// 80GB HBM3 (700 W): 1.40 ms in bf16, 165 TFLOP/s (the plain version: 7.70
-// ms), of which the encoder takes 0.57 ms (its two outputs and heavier
-// epilogue against B8's 0.36) and the stacked decoder 0.64; 6.41 ms in
-// float32.  wgmma with TMA-fed tiles, and h kept on chip, are what a later
-// version buys.
+// is bound by operations: 0.234 ms at the 989 TFLOP/s dense bf16 peak.
+// Measured on an NVIDIA H100 80GB HBM3 (700 W): 1.40 ms in bf16, 165
+// TFLOP/s (the plain version: 7.70 ms), of which the encoder takes 0.57 ms
+// (its two outputs and heavier epilogue against B8's 0.36) and the stacked
+// decoder 0.64.  wgmma with TMA-fed tiles, and h kept on chip, are what a
+// later version buys.
 
 #include "sae_gemm.cuh"
 
@@ -145,7 +147,8 @@ cudaError_t forward(const void* x, const void* We, const void* bg, const void* e
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  x, W_enc, b_gate, b_mag, W_dec, b_dec,
+// dtype: 1 = bfloat16 (float32, 0, is refused: sae_fused_tf32.cu's).  x,
+// W_enc, b_gate, b_mag, W_dec, b_dec,
 // xc (scratch), h ([L, 2B, S]: c(h), then c(hga) in each layer) and y
 // ([L, 2B, D]: y, then via) in the compute type; e and wdn [L, S],
 // nact_part [L, B/128, S] and l1_part [L, B/128, S/128] float32.  Returns
@@ -159,9 +162,6 @@ extern "C" int sae_fused_fwd_gated(const void* x, const void* We, const void* bg
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return forward<float>(x, We, bg, e, bm, Wd, bd, wdn, xc, h, y, nact_part, l1_part, L, B,
-                          D, S, s);
   if (dtype == 1)
     return forward<__nv_bfloat16>(x, We, bg, e, bm, Wd, bd, wdn, xc, h, y, nact_part, l1_part,
                                   L, B, D, S, s);

@@ -14,11 +14,10 @@
 // The tiles are copied into shared memory as they lie (16-byte cp.async,
 // a kStages-deep ring), so every layout costs the same copy.
 //
-// bfloat16: warp-level tensor-core products, mma.sync m16n8k16 with float32
+// bfloat16 only (float32 runs sae_fused_tf32.cu, 3xTF32 on tf32 wgmma):
+// warp-level tensor-core products, mma.sync m16n8k16 with float32
 // accumulation, fed by ldmatrix (.trans where the contiguous axis is not K).
-// float32: the same loop on CUDA cores (FFMA), so float32 stays float32
-// (TF32 would round the inputs).  Both keep the accumulator in the mma
-// C-fragment layout, so one epilogue serves both:
+// The accumulator is in the mma C-fragment layout:
 //   acc[mi][ni][e], mi < MI, ni < NI, e < 4, holds
 //   row = wm0 + 16 mi + g + 8 (e / 2),  col = wn0 + 8 ni + 2 t + (e % 2)
 // within the block tile, with g = lane / 4, t = lane % 4 and (wm0, wn0)
@@ -49,8 +48,8 @@ struct Pad {
 };
 
 // Shared-memory tile geometry for one operand: R rows of C elements, the
-// contiguous axis last, each row padded by 16 bytes (ldmatrix and the FFMA
-// reads then hit distinct banks).
+// contiguous axis last, each row padded by 16 bytes (ldmatrix's reads then
+// hit distinct banks).
 template <typename T, bool KC, int MN>
 struct Tile {
   static constexpr int rows = KC ? MN : BK;
@@ -167,45 +166,6 @@ __device__ __forceinline__ void compute_stage(Acc& acc, const __nv_bfloat16* As,
     for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
       for (int ni = 0; ni < NI; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
-  }
-}
-
-// The same on CUDA cores, in float32, element by element.
-template <bool A_KC, bool B_KC>
-__device__ __forceinline__ void compute_stage(Acc& acc, const float* As, const float* Bs) {
-  typedef Tile<float, A_KC, BM> TA;
-  typedef Tile<float, B_KC, BN> TB;
-  int rows[MI][2], cols[NI][2];
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi) {
-    rows[mi][0] = acc_row(mi, 0);
-    rows[mi][1] = acc_row(mi, 2);
-  }
-#pragma unroll
-  for (int ni = 0; ni < NI; ++ni) {
-    cols[ni][0] = acc_col(ni, 0);
-    cols[ni][1] = acc_col(ni, 1);
-  }
-#pragma unroll 4
-  for (int k = 0; k < BK; ++k) {
-    float a[MI][2], b[NI][2];
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        a[mi][h] = A_KC ? As[rows[mi][h] * TA::stride + k] : As[k * TA::stride + rows[mi][h]];
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        b[ni][h] = B_KC ? Bs[cols[ni][h] * TB::stride + k] : Bs[k * TB::stride + cols[ni][h]];
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          acc[mi][ni][e] = fmaf(a[mi][e / 2], b[ni][e % 2], acc[mi][ni][e]);
   }
 }
 

@@ -158,6 +158,10 @@ def load_library() -> ctypes.CDLL:
     lib.sae_gated_fwd_tc.restype = i
     lib.sae_gated_bwd_tc.argtypes = [p] * 19 + [i] * 5 + [p]
     lib.sae_gated_bwd_tc.restype = i
+    lib.sae_gated_fwd_tf32.argtypes = [p] * 14 + [i] * 5 + [p]
+    lib.sae_gated_fwd_tf32.restype = i
+    lib.sae_gated_bwd_tf32.argtypes = [p] * 20 + [i] * 5 + [p]
+    lib.sae_gated_bwd_tf32.restype = i
     lib.kth_value.argtypes = [p, p, ll, i, i, i, i, p]
     lib.kth_value.restype = i
     lib.kth_value_plan.argtypes = [i, i, p]

@@ -22,16 +22,14 @@ points for CPU tensors:
   ``hc``, whose mask is ``float(hc) > 0``: it equals B5's ``hpre > 0``
   except where a positive float32 pre-activation rounds to +0 in bf16.
 
-Every SAE kernel here takes one of four routes by dtype, shape and kernel
+Every SAE kernel here takes one of three routes by dtype, shape and kernel
 family (:func:`sae_gemm_route`): bfloat16 with d_in and d_sae multiples of
 256 runs ``csrc/sae_fused_tc.cu`` (wgmma on a TMA-fed ring, on
 ``csrc/sae_wgmma.cuh``), other bfloat16 shapes the mma.sync tiles of
-``csrc/sae_gemm.cuh`` in the files named here; float32 runs the ReLU
-family (B4, B5, B6) and the TopK family (B8, B9) on
-``csrc/sae_fused_tf32.cu`` ("tf32x3": each product as three TF32 products
-on tf32 wgmma, after pre-passes that split the B operands into TF32 hi and
-lo parts laid out K-major) and the gated family (B11, B12) on
-``csrc/sae_gemm.cuh``'s FFMA tiles.  Each
+``csrc/sae_gemm.cuh`` in the files named here; float32 runs every family
+(B4, B5, B6; B8, B9; B11, B12) on ``csrc/sae_fused_tf32.cu`` ("tf32x3":
+each product as three TF32 products on tf32 wgmma, after pre-passes that
+split the B operands into TF32 hi and lo parts laid out K-major).  Each
 wrapper counts its launches by route in ``routes``.  On the Hopper route
 B5 recomputes B4's encoder product with B4's own mainloop and carries its
 mask ``hpre > 0`` into B6's dh launch in hc's bits: hc is B4's, with -0
@@ -91,9 +89,10 @@ decoder row norms ``wdn`` (float32, plain torch, :func:`_gated_hoisted`)::
 
 B11 and B12 take the same routes (:func:`sae_gemm_route`): bfloat16 with
 d_in and d_sae multiples of 256 runs ``csrc/sae_fused_tc.cu``, the other
-shapes the files above; the route is a function of the shape, dtype and
-family alone, so a backward (B5, B9, B12) always recomputes its masks on
-its forward's route, to the bit.
+bfloat16 shapes the files above, float32 ``csrc/sae_fused_tf32.cu`` (B12's
+dg in two launches, dy's then dvia's, through a float32 dg tile); the route
+is a function of the shape, dtype and family alone, so a backward (B5, B9,
+B12) always recomputes its masks on its forward's route, to the bit.
 
 :func:`sae_gated_fused_apply` wraps them, returning ``(y, via, l1,
 nact)``.
@@ -366,7 +365,7 @@ def _lib_and_stream(device):
 # (csrc/sae_wgmma.cuh kBN; its 128 rows are _TILE's): d_in and d_sae must
 # be multiples of it.
 _TC_BN = 256
-SAE_GEMM_ROUTES = ("wgmma", "mma_sync", "tf32x3", "ffma")
+SAE_GEMM_ROUTES = ("wgmma", "mma_sync", "tf32x3")
 # The kernel families, each wrapper's: a forward and its remat backward are
 # of one family, and a family takes one route at a shape and dtype.
 SAE_FAMILIES = ("relu", "topk", "gated")
@@ -386,20 +385,18 @@ def sae_gemm_route(B: int, d_in: int, d_sae: int, dtype: torch.dtype, family: st
     ``"topk"``: B8, B9; ``"gated"``: B11, B12) takes on the card:
     ``"wgmma"`` (the bf16 Hopper kernels of ``csrc/sae_fused_tc.cu``),
     ``"mma_sync"`` (the other bf16 shapes, on ``csrc/sae_gemm.cuh``'s
-    tensor-core tiles), ``"tf32x3"`` (the float32 ReLU and TopK families:
-    ``csrc/sae_fused_tf32.cu``, 3xTF32 on tf32 wgmma), ``"ffma"`` (the
-    float32 gated family: ``csrc/sae_gemm.cuh``'s CUDA-core tiles), or
-    None where no kernel takes the shape (B, d_in or d_sae not a multiple of
-    128).  It reads the shape, dtype and family alone, so a
-    forward and its remat backward (B4 and B5, B8 and B9, B11 and B12)
-    always take the same route, and the backward's recomputed masks are the
-    forward's."""
+    tensor-core tiles), ``"tf32x3"`` (float32, every family:
+    ``csrc/sae_fused_tf32.cu``, 3xTF32 on tf32 wgmma), or None where no
+    kernel takes the shape (B, d_in or d_sae not a multiple of 128).  It
+    reads the shape, dtype and family alone, so a forward and its remat
+    backward (B4 and B5, B8 and B9, B11 and B12) always take the same route,
+    and the backward's recomputed masks are the forward's."""
     if family not in SAE_FAMILIES:
         raise ValueError(f"sae_gemm_route: family {family!r} is not one of {SAE_FAMILIES}")
     if B % _TILE or d_in % _TILE or d_sae % _TILE or dtype not in _DTYPE_CODES:
         return None
     if dtype == torch.float32:
-        return "ffma" if family == "gated" else "tf32x3"
+        return "tf32x3"
     return "wgmma" if d_in % _TC_BN == 0 and d_sae % _TC_BN == 0 else "mma_sync"
 
 
@@ -409,12 +406,16 @@ def sae_kernel_routes(B: int, d_in: int, d_sae: int, dtype: torch.dtype) -> dict
             for k, fam in SAE_KERNEL_FAMILIES.items()}
 
 
-def _tf32_scratch_floats(backward: bool, L: int, B: int, D: int, S: int) -> int:
+def _tf32_scratch_floats(backward: bool, L: int, B: int, D: int, S: int,
+                         family: str = "relu") -> int:
     """Floats of the "tf32x3" route's split copies (csrc/sae_fused_tf32.cu):
     a weight's TF32 hi and lo parts K-major, 2 S D a layer (the forwards'
     W_enc, then W_dec in the same place); the backwards W_dec's, then xc's
-    and dy's transposed copies, 4 D B a layer, in the same place."""
-    return L * (max(2 * S * D, 4 * D * B) if backward else 2 * S * D)
+    and dy's transposed copies, 4 D B a layer, in the same place (the gated
+    backward: xc's and [dy; dvia]'s, 6 D B)."""
+    if not backward:
+        return L * 2 * S * D
+    return L * max(2 * S * D, (6 if family == "gated" else 4) * D * B)
 
 
 def sae_fused_forward(x, We, be, Wd, bd, save_h: bool = False):
@@ -685,8 +686,8 @@ def sae_gated_fused_forward(x, We, bg, rmag, bm, Wd, bd, save_h: bool = False):
     float32; with ``save_h`` also the activations h and hga in x's dtype
     ``[L, B, d_sae]``, which hold the kernel's masks (for checks: the
     backward recomputes them).  CUDA tensors launch ``csrc/sae_fused_tc.cu``
-    (the "wgmma" route of :func:`sae_gemm_route`) or
-    ``csrc/sae_fused_fwd_gated.cu`` and add one to
+    (the "wgmma" route of :func:`sae_gemm_route`), ``csrc/sae_fused_tf32.cu``
+    ("tf32x3") or ``csrc/sae_fused_fwd_gated.cu`` and add one to
     ``sae_gated_fused_forward.launches`` and to the route's count in
     ``sae_gated_fused_forward.routes``; a launch that fails raises.  CPU
     tensors run the plain version."""
@@ -708,6 +709,9 @@ def sae_gated_fused_forward(x, We, bg, rmag, bm, Wd, bd, save_h: bool = False):
             y.data_ptr(), nact_part.data_ptr(), l1_part.data_ptr())
     if route == "wgmma":
         rc = lib.sae_gated_fwd_tc(*ptrs, L, B, D, S, x.device.index, stream)
+    elif route == "tf32x3":
+        split = new(_tf32_scratch_floats(False, L, B, D, S, "gated"), dtype=torch.float32)
+        rc = lib.sae_gated_fwd_tf32(*ptrs, split.data_ptr(), L, B, D, S, x.device.index, stream)
     else:
         rc = lib.sae_fused_fwd_gated(*ptrs, L, B, D, S, _DTYPE_CODES[x.dtype], x.device.index,
                                      stream)
@@ -727,8 +731,9 @@ def sae_gated_fused_backward(x, We, bg, rmag, bm, Wd, bd, dy, dvia, dl1):
     and ``dl1`` (float32 ``[L]``): float32 ``(dW_enc [L, d_in, d_sae],
     dW_dec [L, d_sae, d_in], db_gate, db_mag, dr_mag [L, d_sae])``.  CUDA
     tensors launch ``csrc/sae_fused_tc.cu`` (the "wgmma" route of
-    :func:`sae_gemm_route`, B11's) or ``csrc/sae_fused_bwd_gated.cu`` and add
-    one to ``sae_gated_fused_backward.launches`` and to the route's count in
+    :func:`sae_gemm_route`, B11's), ``csrc/sae_fused_tf32.cu`` ("tf32x3",
+    B11's) or ``csrc/sae_fused_bwd_gated.cu`` and add one to
+    ``sae_gated_fused_backward.launches`` and to the route's count in
     ``sae_gated_fused_backward.routes``; a launch that fails raises.  CPU
     tensors run the plain version."""
     L, B, D, S = _gated_check("sae_gated_fused_backward", x, We, bg, rmag, bm, Wd, bd,
@@ -748,11 +753,16 @@ def sae_gated_fused_backward(x, We, bg, rmag, bm, Wd, bd, dy, dvia, dl1):
            Wd.data_ptr(), bd.data_ptr(), wdn.data_ptr(), dy.data_ptr(), dvia.data_ptr(),
            dl1.data_ptr(), xc.data_ptr())
     outs = (dgc.data_ptr(), part.data_ptr(), sums.data_ptr(), dWe.data_ptr(), dWd.data_ptr())
-    if route == "wgmma":
+    if route in ("wgmma", "tf32x3"):
         # c(h) and c(hga) stacked as B11 writes them, and the float32 g
         h, g = new(L, 2 * B, S), new(L, B, S, dtype=torch.float32)
-        rc = lib.sae_gated_bwd_tc(*ins, h.data_ptr(), g.data_ptr(), *outs, L, B, D, S,
-                                  x.device.index, stream)
+        if route == "wgmma":
+            rc = lib.sae_gated_bwd_tc(*ins, h.data_ptr(), g.data_ptr(), *outs, L, B, D, S,
+                                      x.device.index, stream)
+        else:
+            split = new(_tf32_scratch_floats(True, L, B, D, S, "gated"), dtype=torch.float32)
+            rc = lib.sae_gated_bwd_tf32(*ins, h.data_ptr(), g.data_ptr(), *outs,
+                                        split.data_ptr(), L, B, D, S, x.device.index, stream)
     else:
         hc, hgac = new(L, B, S), new(L, B, S)
         rc = lib.sae_fused_bwd_gated(*ins, hc.data_ptr(), hgac.data_ptr(), *outs, L, B, D, S,
